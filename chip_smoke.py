@@ -11,18 +11,23 @@ lines each:
 2. build: the CUDA kernels from dsm_tpu_torch/csrc, with nvcc;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    shapes both serving paths give it (the STT rings, C=768; the TTS rings,
-   C = window = 1024, past their wrap; the TTS voice source), run three
-   times with identical results; commits bit-exact, attention within 2e-2
-   on inputs whose outputs are O(1), where a dropped row, a padding row
-   read or a wrong mask would fail the bar (checked on the plain version);
+   C = window = 1024, past their wrap; the TTS voice source; the duplex
+   rings, (24,20,3072,128), through the split pipeline: ring_commit_q, then
+   decode_attend unsplit and at its chosen split; the duplex codec's bf16
+   rings at B=24), run three times with
+   identical results; commits bit-exact, attention within 2e-2 on inputs
+   whose outputs are O(1), where a dropped row, a padding row read, the
+   committed row let in or a wrong mask would fail the bar (checked on the
+   plain version);
 4. serve: the BatchedAsr engine from configs/config-stt.toml (stt-1b,
    d=2048, 16 layers, 32 codebooks, B=64, int8 KV, int8 weights + W8A8,
    bf16 codec, seeded random weights) serves 8 sessions, then 4 more in
    reused slots; every frame gets its step event, every marker arrives,
    VAD probabilities are finite, and the kernels launched exactly
    16 scale_commit + 16 decode_attend_commit + 8 ring_commit per step;
-5. times: engine step with all 64 slots active, and each kernel against
-   its plain version, with CUDA events;
+5. times: engine step with all 64 slots active, and each kernel, its plain
+   version and its library call as device time (CUDA events around calls
+   queued behind a spin kernel, so the wrapper's host time stays out);
 6. tts: the batched TTS engine from configs/config-tts-tpu-serving.toml
    (tts-1.6b-en_fr, d=2048, 16 layers, DepFormer 32 slices x 4 layers,
    B=64, int8 voice store, int8 KV, int8 weights + W8A8, bf16 codec, the
@@ -34,7 +39,28 @@ lines each:
    step, the DepFormer and the Mimi decode step are timed at 64 active
    slots, with a kernel profile, and the LM step with the voice store and
    the Mimi decode step from that state are held against the same steps
-   through the kernels' plain versions (``[tts-path]``).
+   through the kernels' plain versions (``[tts-path]``);
+7. duplex: the batched full-duplex dialogue engine from
+   configs/config-duplex-tpu-serving.toml (s2s-2b: d=2560, 24 layers, 20
+   heads x 128, context 3000, 16 + 16 codebooks, DepFormer 16 slices x 6
+   layers, B=24, int8 KV, int8 weights + W8A8, bf16 codec; pipeline_depth
+   set to 1, the path the port serves) serves 12 dialogues, two of them
+   text-only (ASR delay), then 4 more in reused slots: every pushed frame
+   is stepped, audio starts after the acoustic delay, every audio frame is
+   1,920 finite samples, every dialogue ends, and the kernels launched
+   exactly PER_TICK_DUPLEX per tick (the split ring pipeline; no fused
+   commit); then the LM step, the Mimi encode step and the Mimi decode
+   step through the kernels against the same steps through their plain
+   versions (``[duplex-path]``), and the tick, Mimi
+   encode, the LM step, the DepFormer and Mimi decode timed at 24 active
+   slots with a kernel profile, the tick once more over full rings.
+
+Each kernel's JSON entry carries its bound: the larger of the bytes the
+case must move at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside
+the tensor cores), counted from the rows this run's mask lets in; and, for
+the commits, the time of the in-place slice assignments that compute the
+same function (``library_ms``; no single PyTorch call computes the
+attention kernels' function).
 
 The last three lines: the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Any failed check raises.
@@ -56,12 +82,16 @@ SOURCES = {
     "decode_attend_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "ring_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "ca_decode_attend": "dsm_tpu_torch/csrc/ca_attn.cu",
+    "ring_commit_q": "dsm_tpu_torch/csrc/ring_attn.cu",
+    "decode_attend": "dsm_tpu_torch/csrc/decode_attn.cu",
 }
 REPLACES = {
     "scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
     "decode_attend_commit": "dsm_tpu/ops/decode_attn.py:545",
     "ring_commit": "dsm_tpu/ops/ring_kernels.py:120",
     "ca_decode_attend": "dsm_tpu/ops/decode_attn.py:960",
+    "ring_commit_q": "dsm_tpu/ops/ring_kernels.py:66",
+    "decode_attend": "dsm_tpu/ops/decode_attn.py:215",
 }
 # Launches per engine step of the STT path: each of the LM's 16 layers
 # commits its int8 scales and attends over its int8 ring with the fused
@@ -73,13 +103,27 @@ PER_STEP = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8}
 # DepFormer's dense slice cache and the conv stacks run no kernel.
 PER_TICK_TTS = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
                 "ca_decode_attend": 16}
+# Launches per engine tick of the duplex path: s2s-2b's 20 heads over a
+# 3072-row ring are not a shape of the fused commit, so each of the LM's 24
+# layers commits its int8 rows and scales with ring_commit_q and attends
+# with decode_attend; the Mimi encoder's and decoder's 8 layers each commit
+# their 2 bf16 rows.
+PER_TICK_DUPLEX = {"ring_commit_q": 24, "decode_attend": 24, "ring_commit": 16,
+                   "scale_commit": 0, "decode_attend_commit": 0}
+# The bf16 K/V ring of each Mimi transformer layer in the duplex engine
+# (B=24, 8 heads, context 250 + T=2 rows rounded up to 256, Dh=64).
+DUPLEX_MIMI_RING = (24, 8, 256, 64)
 ATOL = RTOL = 2e-2
 REPEATS = 3  # kernel runs per case in the kernel phase
 PATH_RTOL = 2e-2  # the TTS path through the kernels against its plain versions
 # The case whose times stand in the kernels' JSON line: the full STT
 # rings, and the TTS serving voice source.
 HEADLINE = {"scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 valid=1.0",
-            "ring_commit": "w=254", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128"}
+            "ring_commit": "w=254", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
+            "ring_commit_q": "duplex w=3071",
+            "decode_attend": "duplex pos=10000 valid=1.0 split=3"}
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
 
 def check(cond, msg: str) -> None:
@@ -94,13 +138,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def device_time_ms(fn, iters: int = 20, head_start_cycles: int = 40_000_000) -> float:
+    """Device time of one call.  A spin kernel of about 20 ms goes first, so
+    the host has queued all ``iters`` calls before the first one starts, and
+    the events around them see the device run them back to back: the
+    wrapper's host time, which exceeds a short kernel's own, stays out."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(head_start_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -136,6 +185,35 @@ def _exact(got, want) -> float:
     return 0.0
 
 
+def _bound(info):
+    """The least time the card could take for a case -> ``(ms, bound_by)``."""
+    t_bytes = info["bytes"] / MEM_BYTES_PER_S * 1e3
+    t_ops = info["flops"] / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _commit_info(rings, news, w):
+    """A commit reads its new rows once and writes them once; the library
+    call beside it is the in-place slice assignment of each ring."""
+    t = news[0].shape[2]
+
+    def library():
+        for ring, new in zip(rings, news):
+            ring[:, :, w:w + t] = new
+
+    return {"bytes": 2 * sum(x.numel() * x.element_size() for x in news), "flops": 0,
+            "library": library}
+
+
+def _attend_info(n_rows, b, h, c, dh):
+    """Decode attention over ``n_rows`` attended (b, row) pairs: each row's
+    int8 K and V and its two f32 scales for every head, the validity bitmap,
+    q, the fresh K/V rows and the output in bf16; 2 multiply-adds a byte."""
+    rows = n_rows * h
+    return {"bytes": rows * (2 * dh + 8) + b * c + 4 * b * h * dh * 2,
+            "flops": rows * 4 * dh, "library": None}
+
+
 def _commit_case(name, label, kern, plain, k0, v0, kn, vn, w):
     rk, rv, pk, pv = k0.clone(), v0.clone(), k0.clone(), v0.clone()
 
@@ -147,7 +225,16 @@ def _commit_case(name, label, kern, plain, k0, v0, kn, vn, w):
         plain(pk, pv, kn, vn, w)
         return pk, pv
 
-    return name, label, run_k, run_p, _exact
+    return name, label, run_k, run_p, _exact, _commit_info((rk, rv), (kn, vn), w)
+
+
+def _true_mask(valid, pos, c, window):
+    """The ring rows ``(B, C)`` a decode step at ``pos`` attends."""
+    import torch
+
+    j = torch.arange(c, device=valid.device)
+    dist = torch.remainder(pos % c - j, c)
+    return ((dist != 0) & (dist <= pos) & (dist < window))[None, :] & valid
 
 
 def _sharp_scales(g, dev, *shape):
@@ -210,8 +297,165 @@ def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions):
                       "decode_attend_commit: the bar does not see a wrong mask")
             return err
 
+        n_rows = int(_true_mask(valid, pos, c, window).sum())
         cases.append(("decode_attend_commit", f"{tag} pos={pos} valid={frac}",
-                      run_k, run_p, cmp))
+                      run_k, run_p, cmp, _attend_info(n_rows, b, h, c, dh)))
+    return cases
+
+
+def _split_inputs(dev, g, b, h, c, dh, pos, window, frac):
+    """A committed int8 ring with O(1) outputs on which a wrong mask shows:
+    the oldest attended row matches the query best (score 14 against a
+    spread of about 3.7), and ring row w (this step's committed row, which
+    the mask excludes) would match it better still (score 26) with values
+    of 127 at scale 1.  Returns the operands and the oldest attended row's
+    ring index (None when no row is attended)."""
+    import math
+
+    import torch
+
+    q, k_new, v_new = ((torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).bfloat16()
+                       for _ in range(3))
+    kc, vc = (torch.randint(-127, 128, (b, h, c, dh), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = _sharp_scales(g, dev, b, h, c)
+    valid = torch.rand(b, c, generator=g, device=dev) < frac
+    w = pos % c
+    qf = q[:, :, 0].float()
+    aligned = torch.where(qf >= 0, 127, -127).to(torch.int8)
+    per_scale = 127.0 * qf.abs().sum(-1) / math.sqrt(dh)  # score per unit k_scale
+    kc[:, :, w] = aligned
+    ks[:, :, w] = 26.0 / per_scale
+    vc[:, :, w] = 127
+    vs[:, :, w] = 1.0
+    valid[:, w] = True
+    d_max = min(pos, window - 1, c - 1)
+    oldest = None
+    if d_max >= 1:
+        oldest = (w - d_max) % c
+        kc[:, :, oldest] = aligned
+        ks[:, :, oldest] = 14.0 / per_scale
+        valid[:, oldest] = True
+    return (q, kc, vc, ks, vs, k_new, v_new, valid), oldest
+
+
+def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok):
+    """Decode attention over the ring rows ``ok (B, C)`` lets in plus the
+    fresh row, written independently of the port's plain version (one
+    softmax, no bf16 rounding): what a kernel with that mask would give."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    qf = q[:, :, 0].float()
+    s = torch.einsum("bhd,bhcd->bhc", qf, kc.float()) * ks * scale
+    s = torch.where(ok[:, None, :], s, float("-inf"))
+    s_new = (qf * k_new[:, :, 0].float()).sum(-1, keepdim=True) * scale
+    p = torch.softmax(torch.cat([s, s_new], dim=-1), dim=-1)
+    out = torch.einsum("bhc,bhcd->bhd", p[..., :-1] * vs, vc.float())
+    return out + p[..., -1:] * v_new[:, :, 0].float()
+
+
+def _split_cases(dev, g, tag, b, h, c, dh, window, positions):
+    """decode_attend over one committed int8 ring at ``positions`` ((pos,
+    valid share) pairs), unsplit and at the split the wrapper picks.  The
+    bar must see a wrong mask: the oldest attended row dropped, the
+    committed row w let in, every ring row let in (each through the
+    independent masked attention, held against the plain version)."""
+    import torch
+
+    from dsm_tpu_torch.ops import attention as A
+    from dsm_tpu_torch.ops import decode_attn as DA
+
+    cases = []
+    for pos, frac in positions:
+        args, oldest = _split_inputs(dev, g, b, h, c, dh, pos, window, frac)
+        valid = args[7]
+        plan = A.global_ring_plan(pos, c, 1, device=dev)
+        rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
+        n_rows = int(_true_mask(valid, pos, c, window).sum())
+        for n_split in sorted({1, DA.pick_split(b * h, c)}):
+
+            def run_k(args=args, plan=plan, valid=valid, n_split=n_split):
+                return (DA.decode_attend(*args[:7], plan, valid, window=window,
+                                         n_split=n_split)[:, :, 0],)
+
+            def run_p(args=args, rows=rows, valid=valid, pos=pos, n_split=n_split):
+                return (DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid,
+                                               pos, pos % c, window, n_split),)
+
+            def cmp(got, want, args=args, valid=valid, pos=pos, oldest=oldest):
+                err = _close("decode_attend", got[0], want[0])
+                ok = _true_mask(valid, pos, c, window)
+                check(_within(_attend_with_mask(*args[:7], ok), want[0]),
+                      "decode_attend: the plain version is outside the bar of an "
+                      "independent masked attention")
+                wrong = {"the committed row w let in": ok.clone(),
+                         "every ring row let in": torch.ones_like(ok)}
+                wrong["the committed row w let in"][:, pos % c] = True
+                if oldest is None:  # only the fresh row attends: garbage ignored
+                    check(_within(got[0], args[6][:, :, 0]),
+                          "decode_attend: an empty ring's output is not the fresh row")
+                else:
+                    wrong["the oldest attended row dropped"] = ok.clone()
+                    wrong["the oldest attended row dropped"][:, oldest] = False
+                for what, mask in wrong.items():
+                    check(not _within(_attend_with_mask(*args[:7], mask), want[0]),
+                          f"decode_attend: the bar does not see {what}")
+                return err
+
+            cases.append(("decode_attend", f"{tag} pos={pos} valid={frac} split={n_split}",
+                          run_k, run_p, cmp, _attend_info(n_rows, b, h, c, dh)))
+    return cases
+
+
+def _commit_q_cases(dev, g, tag, b, h, c, dh, ws):
+    """ring_commit_q at rows ``ws`` of one set of four rings: the kernel's
+    set and the plain version's set bit for bit, and every row but the
+    written ones as it was."""
+    import torch
+
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    def ring(dtype_int8):
+        if dtype_int8:
+            return torch.randint(-127, 128, (b, h, c, dh), generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.rand(b, h, c, generator=g, device=dev)
+
+    orig = [ring(True), ring(True), ring(False), ring(False)]
+    kern = [x.clone() for x in orig]
+    plain = [x.clone() for x in orig]
+    written = []
+    cases = []
+    for w in ws:
+        kn, vn = (torch.randint(-127, 128, (b, h, 1, dh), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ksn, vsn = (torch.rand(b, h, 1, generator=g, device=dev) for _ in range(2))
+        news = (kn, vn, ksn, vsn)
+
+        def run_k(news=news, w=w):
+            RK.ring_commit(kern[0], kern[1], news[0], news[1], w, kern[2], kern[3],
+                           news[2], news[3])
+            return tuple(kern)
+
+        def run_p(news=news, w=w):
+            RK.ring_commit_q_plain(*plain, *news, w)
+            return tuple(plain)
+
+        def cmp(got, want, news=news, w=w):
+            _exact(got, want)
+            written.append(w)
+            keep = torch.ones(c, dtype=torch.bool, device=dev)
+            keep[written] = False
+            for ring_k, ring_0, new in zip(got, orig, news):
+                check(torch.equal(ring_k[:, :, w], new[:, :, 0]),
+                      "ring_commit_q: the row at w is not the new row")
+                check(torch.equal(ring_k[:, :, keep], ring_0[:, :, keep]),
+                      "ring_commit_q touched a row it was not given")
+            return 0.0
+
+        cases.append(("ring_commit_q", f"{tag} w={w}", run_k, run_p, cmp,
+                      _commit_info(kern, news, w)))
     return cases
 
 
@@ -241,6 +485,14 @@ def kernel_cases(dev):
     for w in (0, 40, 254):
         cases.append(_commit_case("ring_commit", f"w={w}", RK.ring_commit,
                                   RK.ring_commit_plain, kc, vc, kn, vn, w))
+    # Duplex: the same codec rings at B=24, in the encoder and the decoder
+    # (phase_duplex checks the engine's rings have this shape).
+    kc, vc, kn, vn = (torch.randn(*DUPLEX_MIMI_RING[:2], rows, DUPLEX_MIMI_RING[3],
+                                  generator=g, device=dev).bfloat16()
+                      for rows in (DUPLEX_MIMI_RING[2],) * 2 + (2, 2))
+    for w in (0, 254):
+        cases.append(_commit_case("ring_commit", f"duplex B=24 w={w}", RK.ring_commit,
+                                  RK.ring_commit_plain, kc, vc, kn, vn, w))
     cases += _attend_cases(dev, g, "stt", 64, 16, 768, 128, 750, False,
                            ((0, 1.0), (40, 0.9), (767, 0.6), (3000, 1.0)))
 
@@ -253,7 +505,18 @@ def kernel_cases(dev):
                                   RK.scale_commit_plain, ks, vs, ksn, vsn, w))
     cases += _attend_cases(dev, g, "tts", 64, 16, 1024, 128, 1024, True,
                            ((1023, 1.0), (2048, 0.7), (5000, 0.7)))
-    return cases + _ca_cases(dev, g)
+    cases += _ca_cases(dev, g)
+
+    # Duplex: s2s-2b's rings (20 heads x 3072 rows of 128: the split
+    # pipeline), a ring that holds garbage at pos 0, fills, and wraps; and
+    # the other shape family of the split, Dh = 64 with window = C.
+    cases += _commit_q_cases(dev, g, "duplex", 24, 20, 3072, 128, (0, 1500, 3071))
+    cases += _commit_q_cases(dev, g, "B=64 H=32 C=384 Dh=64", 64, 32, 384, 64, (100,))
+    cases += _split_cases(dev, g, "duplex", 24, 20, 3072, 128, 3000,
+                          ((0, 1.0), (40, 0.7), (3071, 1.0), (5000, 0.7), (10000, 1.0)))
+    cases += _split_cases(dev, g, "B=2 H=32 C=4096 Dh=64", 2, 32, 4096, 64, 4096,
+                          ((4200, 0.9),))
+    return cases
 
 
 def _ca_inputs(g, dev, b, h, s_pad, s_len, dh):
@@ -308,8 +571,10 @@ def _ca_cases(dev, g):
                           f"ca_decode_attend: the bar does not see {what}")
             return err
 
+        info = {"bytes": b * h * s_len * (2 * dh + 8) + 2 * b * h * dh * 2,
+                "flops": b * h * s_len * 4 * dh, "library": None}
         cases.append(("ca_decode_attend", f"B={b} H={h} S={s_len}/{s_pad} Dh={dh}",
-                      run_k, run_p, cmp))
+                      run_k, run_p, cmp, info))
     return cases
 
 
@@ -320,7 +585,7 @@ def phase_kernels(dev):
     import torch
 
     errs = {}
-    for name, label, run_k, run_p, cmp in kernel_cases(dev):
+    for name, label, run_k, run_p, cmp, _info in kernel_cases(dev):
         runs = [tuple(t.clone() for t in run_k()) for _ in range(REPEATS)]
         want = run_p()
         torch.cuda.synchronize()
@@ -540,13 +805,28 @@ def phase_times(engine, dev, card):
         print(f"[times] {name}, 64 slots: median {statistics.median(ts)!r} ms over 20 "
               f"after 5 warm-up; card {card}", flush=True)
 
+    return kernel_times(dev, card)
+
+
+def kernel_times(dev, card):
+    """Each kernel case: the kernel, its plain version and, where one
+    exists, the library call as device time (:func:`device_time_ms`), and
+    its bound from this run's inputs.  Returns the headline cases' numbers
+    by kernel name."""
     ms = {}
-    for name, label, run_k, run_p, _cmp in kernel_cases(dev):
-        k_ms, p_ms = cuda_time_ms(run_k), cuda_time_ms(run_p)
-        print(f"[times] {name} {label}: kernel {k_ms!r} ms, plain {p_ms!r} ms; "
+    for name, label, run_k, run_p, _cmp, info in kernel_cases(dev):
+        k_ms, p_ms = device_time_ms(run_k), device_time_ms(run_p)
+        check(k_ms > 0, f"{name} {label}: no device time measured")
+        lib_ms = device_time_ms(info["library"]) if info["library"] else None
+        bound_ms, bound_by = _bound(info)
+        print(f"[times] {name} {label}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
+              f"{bound_ms!r} ms by {bound_by} ({info['bytes']} bytes, {info['flops']} "
+              f"operations; {100 * bound_ms / k_ms:.1f} % of it reached), library call "
+              f"{lib_ms!r} ms (device time, 20 calls queued behind a spin kernel); "
               f"card {card}", flush=True)
         if HEADLINE[name] == label:
-            ms[name] = (k_ms, p_ms)
+            ms[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms}
     check(set(ms) == set(HEADLINE), "a headline kernel case is missing")
     return ms
 
@@ -727,13 +1007,17 @@ def plain_seams():
     from dsm_tpu_torch.ops import decode_attn as DA
     from dsm_tpu_torch.ops import ring_kernels as RK
 
-    saved = RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch
+    saved = (RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch,
+             DA._attend_launch)
+    # ring_commit_plain also takes the scale rings (the split pipeline's commit).
     RK.scale_commit, RK.ring_commit = RK.scale_commit_plain, RK.ring_commit_plain
     DA._launch, DA._ca_launch = DA.decode_attend_commit_plain, DA.ca_decode_attend_plain
+    DA._attend_launch = DA.decode_attend_plain
     try:
         yield
     finally:
-        RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch = saved
+        (RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch,
+         DA._attend_launch) = saved
 
 
 def _clone(tree):
@@ -885,6 +1169,388 @@ def phase_tts_times(engine, dev, card):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the batched full-duplex dialogue path
+# ---------------------------------------------------------------------------
+
+
+def _duplex_counters():
+    from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    return {"ring_commit_q": RK.ring_commit_q, "decode_attend": DA.decode_attend,
+            "ring_commit": RK.ring_commit, "scale_commit": RK.scale_commit,
+            "decode_attend_commit": DA.decode_attend_commit}
+
+
+def _duplex_open(engine, sid, seconds, sessions, asr_delay=0):
+    events = []
+    drv = engine.open_session(events.append, asr_delay_in_tokens=asr_delay)
+    check(drv is not None, "no free duplex slot")
+    frame = engine.mimi_cfg.frame_size
+    pcm = _pcm(sid, seconds, frame)
+    drv.push_pcm(pcm)
+    drv.end_input()
+    sessions[sid] = {"drv": drv, "events": events, "frames": len(pcm) // frame,
+                     "asr_delay": asr_delay}
+    return drv
+
+
+def _duplex_drive(engine, sessions, limit_s=300.0):
+    from dsm_tpu_torch.server.duplex_batched import DuplexDoneEvent
+
+    deadline = time.monotonic() + limit_s
+    while not all(s["events"] and isinstance(s["events"][-1], DuplexDoneEvent)
+                  for s in sessions.values()):
+        check(time.monotonic() < deadline, "duplex dialogues did not finish")
+        engine.tick()
+
+
+def _duplex_verify(engine, sessions, sids):
+    import numpy as np
+
+    from dsm_tpu_torch.server.duplex_batched import (DuplexAudioEvent, DuplexDoneEvent,
+                                                     DuplexTextEvent)
+
+    frame = engine.mimi_cfg.frame_size
+    n_audio = n_text = 0
+    for sid in sids:
+        s = sessions[sid]
+        evs = s["events"]
+        check(isinstance(evs[-1], DuplexDoneEvent)
+              and sum(isinstance(e, DuplexDoneEvent) for e in evs) == 1,
+              f"dialogue {sid}: does not end in one Done")
+        # Every pushed frame stepped, and from step 0: a reused slot's
+        # counter restarted.
+        check(s["drv"].steps == s["frames"],
+              f"dialogue {sid}: {s['drv'].steps} steps for {s['frames']} frames")
+        audio = [e.pcm for e in evs if isinstance(e, DuplexAudioEvent)]
+        texts = [e.text for e in evs if isinstance(e, DuplexTextEvent)]
+        for pcm in audio:
+            check(pcm.shape == (frame,) and pcm.dtype == np.float32
+                  and bool(np.isfinite(pcm).all()), f"dialogue {sid}: bad frame {pcm.shape}")
+        if s["asr_delay"] > 0:
+            check(not audio, f"dialogue {sid}: a text-only dialogue got audio")
+            check(len(texts) > 0, f"dialogue {sid}: a text-only dialogue got no text")
+        else:
+            # The first frame completes once the acoustic delay has passed.
+            check(len(audio) == s["frames"] - engine.cfg.acoustic_delay,
+                  f"dialogue {sid}: {len(audio)} audio frames for {s['frames']} steps")
+            first_audio = next(i for i, e in enumerate(evs) if isinstance(e, DuplexAudioEvent))
+            check(all(isinstance(e, DuplexTextEvent) for e in evs[:first_audio]),
+                  f"dialogue {sid}: audio order")
+        n_audio += len(audio)
+        n_text += len(texts)
+    return n_audio, n_text
+
+
+def phase_duplex(dev, card):
+    import torch
+
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import config as CFG
+
+    counters = _duplex_counters()
+    path = os.path.join(ROOT, "configs", "config-duplex-tpu-serving.toml")
+    mod = CFG.Config.load(path).modules["duplex"]
+    print(f"[duplex] {os.path.relpath(path, ROOT)}: pipeline_depth "
+          f"{mod.raw['pipeline_depth']} -> 1 (a cut: the port serves no dispatch-ahead); "
+          f"every other key as in the file", flush=True)
+    mod.raw["pipeline_depth"] = 1
+    t0 = time.perf_counter()
+    engine = builder.build_duplex(mod, dev)
+    lm = engine.cfg.lm
+    tcfg, dcfg = lm.transformer, lm.depformer.transformer
+    check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, tcfg.context,
+           lm.audio_codebooks, lm.depformer.num_slices, dcfg.d_model, dcfg.num_layers,
+           dcfg.num_heads, engine.batch_size, engine.cfg.generated_audio_codebooks,
+           engine.cfg.input_audio_codebooks)
+          == (2560, 24, 20, 128, 3000, 32, 16, 1024, 6, 16, 24, 16, 16),
+          "not the s2s-2b B=24 config")
+    ring = engine.state["lm"]["t"]["layers"][0]
+    check(engine.kv_quant and ring["k"].dtype == torch.int8
+          and tuple(ring["k"].shape) == (24, 20, 3072, 128)
+          and tuple(ring["ks"].shape) == (24, 20, 3072), "not the int8 ring of s2s-2b")
+    check(isinstance(engine.params["lm"]["transformer"][0]["in_proj_w"], dict)
+          and isinstance(engine.params["lm"]["depformer"]["transformer"][0][0]["in_proj_w"],
+                         dict), "LM weights not int8")
+    check(engine.mimi_cfg.n_q == 16 and engine.mimi_cfg.transformer.num_layers == 8
+          and engine._mimi_dtype == torch.bfloat16, "not the 16-codebook bf16 codec")
+    for rings in (engine.enc_state["enc_t"]["layers"], engine.dec_state["dec_t"]["layers"]):
+        check(all(tuple(r[kv].shape) == DUPLEX_MIMI_RING and r[kv].dtype == torch.bfloat16
+                  for r in rings for kv in ("k", "v")),
+              "the codec's rings are not the shape the ring_commit cases hold")
+    check(PER_TICK_DUPLEX["decode_attend"] == tcfg.num_layers
+          and PER_TICK_DUPLEX["ring_commit"] == 2 * engine.mimi_cfg.transformer.num_layers,
+          "PER_TICK_DUPLEX does not follow the config")
+    torch.cuda.synchronize()
+    print(f"[duplex] engine built in {time.perf_counter() - t0:.3f} s (s2s-2b d=2560 L=24 "
+          f"h=20x128 ctx 3000, 16+16 codebooks, DepFormer 16x6 d=1024 h=16, B=24, int8 "
+          f"rings {tuple(ring['k'].shape)}, int8 weights + W8A8, bf16 codec, seeded random "
+          f"weights); memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    print(f"[duplex] warmup {time.perf_counter() - t0:.3f} s", flush=True)
+
+    for fn in counters.values():
+        fn.launches = 0
+    ticks0 = engine.step_count
+    sessions = {}
+    t0 = time.perf_counter()
+    for sid in range(12):
+        _duplex_open(engine, sid, 2.0 + (sid % 5) / 4.0, sessions,
+                     asr_delay=6 if sid in (3, 7) else 0)
+    # Idle connections fill the other slots, so the next dialogues can only
+    # land in slots freed by closed ones: the reset path.
+    idle = [engine.open_session(lambda ev: None)
+            for _ in range(engine.batch_size - engine.used_slots())]
+    check(engine.used_slots() == engine.batch_size and engine.open_session(print) is None,
+          "duplex slots left free")
+    _duplex_drive(engine, sessions)
+    n_audio, n_text = _duplex_verify(engine, sessions, range(12))
+    freed = {sessions[sid]["drv"].slot for sid in range(4)}
+    for sid in range(4):
+        engine.close_session(sessions[sid]["drv"])
+    second = {}
+    for sid in range(12, 16):
+        drv = _duplex_open(engine, sid, 2.0, second, asr_delay=5 if sid == 13 else 0)
+        check(drv.slot in freed, f"dialogue {sid} did not reuse a freed slot")
+    _duplex_drive(engine, second)
+    a2, t2 = _duplex_verify(engine, second, range(12, 16))
+    serve_s = time.perf_counter() - t0
+    ticks = engine.step_count - ticks0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        check(n == PER_TICK_DUPLEX[name] * ticks,
+              f"{name}: {n} launches over {ticks} ticks, want {PER_TICK_DUPLEX[name]} "
+              f"per tick")
+        check(n > 0 or PER_TICK_DUPLEX[name] == 0,
+              f"{name} never launched on the duplex path")
+    frames = sum(s["frames"] for s in list(sessions.values()) + list(second.values()))
+    print(f"[duplex] 16 dialogues (12 + 4 in reused slots; 3 text-only with an ASR delay), "
+          f"all done; {frames} frames pushed and stepped, {n_audio + a2} audio frames of "
+          f"{engine.mimi_cfg.frame_size} finite samples (none before the acoustic delay, "
+          f"none for text-only dialogues), {n_text + t2} text events, {ticks} ticks in "
+          f"{serve_s:.3f} s with 24 slots open; launches {launches} = per tick "
+          f"{PER_TICK_DUPLEX}", flush=True)
+    for s in [sessions[sid] for sid in range(4, 12)] + list(second.values()):
+        engine.close_session(s["drv"])
+    for drv in idle:
+        engine.close_session(drv)
+    check(engine.used_slots() == 0, "duplex slots still open")
+    return engine, launches
+
+
+def phase_duplex_path(engine, dev):
+    """The duplex steps on the card: from clones of the engine's state,
+    once through the kernels and once through their plain versions.  The LM
+    step (the split ring pipeline): hidden state and text logits must agree
+    within PATH_RTOL (relative L2); with the ring's history masked out (an
+    empty validity bitmap) they must not: the bar sees the attention.  The
+    Mimi encode and decode steps (``ring_commit`` at T=2, whose rows are bit
+    for bit the plain version's): codes, pcm and every ring equal."""
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.models import mimi as MIMI
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    cfg, n = engine.cfg, engine.batch_size
+    g = torch.Generator(device=dev).manual_seed(17)
+    text = torch.randint(4, 200, (n,), generator=g, device=dev, dtype=torch.int32)
+    audio = torch.randint(0, 2048, (n, cfg.lm.audio_codebooks), generator=g, device=dev,
+                          dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    pos = engine.state["lm"]["t"]["pos"]
+    seen = int(engine.state["lm"]["t"]["valid"].sum(dim=1).min())
+
+    def run(forget=False):
+        state = _clone(engine.state["lm"])
+        if forget:
+            state["t"]["valid"].zero_()
+        with torch.inference_mode():
+            logits, hidden, _ = LM.step(cfg.lm, engine.params["lm"], state, text, audio, mask)
+        return {"hidden": hidden, "text_logits": logits}
+
+    got = run()
+    with plain_seams():
+        want = run()
+        empty = run(forget=True)
+    rel = {k: _rel(got[k], want[k]) for k in got}
+    history = _rel(empty["hidden"], want["hidden"])
+    for k, r in rel.items():
+        check(bool(torch.isfinite(got[k]).all()), f"duplex path check: {k} not finite")
+        check(r <= PATH_RTOL,
+              f"duplex path check: {k} through the kernels {r!r} from the plain path")
+    check(history > PATH_RTOL,
+          f"duplex path check: the ring's history moves the hidden state only {history!r}")
+    print(f"[duplex-path] {n} active rows at tick {pos} (every slot with at least {seen} "
+          f"valid ring rows), LM step through ring_commit_q + decode_attend against their "
+          f"plain versions from one state: relative L2 hidden {rel['hidden']!r}, text "
+          f"logits {rel['text_logits']!r} (bar {PATH_RTOL}); with the ring's history masked "
+          f"the hidden state moves {history!r}", flush=True)
+
+    pcm = (torch.randn(n, 1, engine.mimi_cfg.frame_size, generator=g, device=dev)
+           * 0.1).to(engine._mimi_dtype)
+    codes = torch.randint(0, 2048, (n, engine.mimi_cfg.n_q, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run_mimi():
+        with torch.inference_mode():
+            enc, s_enc = MIMI.encode_step(engine.mimi_cfg, engine.mimi_params,
+                                          _clone(engine.enc_state), pcm, mask)
+            out, s_dec = MIMI.decode_step(engine.mimi_cfg, engine.mimi_params,
+                                          _clone(engine.dec_state), codes, mask)
+        rings = [r[kv] for r in s_enc["enc_t"]["layers"] + s_dec["dec_t"]["layers"]
+                 for kv in ("k", "v")]
+        return enc, out, rings
+
+    before = RK.ring_commit.launches
+    enc, out, rings = run_mimi()
+    launched = RK.ring_commit.launches - before
+    with plain_seams():
+        enc_p, out_p, rings_p = run_mimi()
+    check(launched == PER_TICK_DUPLEX["ring_commit"],
+          f"duplex path check: {launched} ring_commit launches in the two Mimi steps")
+    check(bool(torch.isfinite(out).all()) and float(out.float().abs().max()) > 0,
+          "duplex path check: Mimi pcm not finite or all zero")
+    check(torch.equal(enc, enc_p), "duplex path check: Mimi codes differ from the plain path")
+    check(torch.equal(out, out_p), "duplex path check: Mimi pcm differs from the plain path")
+    check(all(torch.equal(a, b) for a, b in zip(rings, rings_p)) and len(rings) == 32,
+          "duplex path check: a codec ring differs from the plain path")
+    print(f"[duplex-path] Mimi encode_step and decode_step at {n} rows, rings "
+          f"{DUPLEX_MIMI_RING} at tick {engine.enc_state['enc_t']['pos']}: {launched} "
+          f"ring_commit launches (T=2) against the plain versions from one state: codes "
+          f"{tuple(enc.shape)} equal, pcm {tuple(out.shape)} equal, 32 rings bit for bit",
+          flush=True)
+
+
+def _duplex_ticks(engine, n, warm):
+    """``n`` ticks after ``warm`` with every slot fed a frame -> their ms."""
+    frame = engine.mimi_cfg.frame_size
+    ticks = []
+    for i in range(n + warm):
+        for drv in engine.slots:
+            drv.push_pcm(_pcm(i, 0.08, frame))
+        t0 = time.perf_counter()
+        check(engine.tick(), "duplex tick with 24 slots stepped nothing")
+        if i >= warm:
+            ticks.append((time.perf_counter() - t0) * 1e3)
+    return ticks
+
+
+def _profile_ticks(engine, n, tag, what, card):
+    import torch
+
+    frame = engine.mimi_cfg.frame_size
+    for drv in engine.slots:
+        drv.push_pcm(_pcm(99, 0.08 * n, frame))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine.tick()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    total = sum(t for _, t, _ in rows)
+    launches = sum(c for _, _, c in rows)
+    print(f"[{tag}] {what}: kernels {total / n / 1e3!r} ms/tick of {wall_us / n / 1e3!r} "
+          f"ms/tick wall (profiled): device busy {total / wall_us!r}, {launches / n:.0f} "
+          f"device launches/tick, {len(rows)} kernel names; card {card}", flush=True)
+    for key, t, c in rows[:14]:
+        print(f"[{tag}] {t / n / 1e3:9.4f} ms/tick {100 * t / max(total, 1):5.1f}% "
+              f"{c / n:6.0f}/tick  {key[:90]}", flush=True)
+
+
+def phase_duplex_times(engine, dev, card):
+    """The tick with every slot active, where its time goes, its four parts
+    alone, and the tick again over full rings."""
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.models import mimi as MIMI
+    from dsm_tpu_torch.ops import sampling as S
+
+    b = engine.batch_size
+    opened = [engine.open_session(lambda ev: None) for _ in range(b)]
+    check(all(d is not None for d in opened), "no free duplex slot for the timing")
+    torch.cuda.reset_peak_memory_stats()
+    ticks = _duplex_ticks(engine, 30, 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[duplex-times] engine tick, 24 slots active: median {statistics.median(ticks)!r} "
+          f"ms, min {min(ticks)!r}, max {max(ticks)!r} over 30 after 5 warm-up (host clock, "
+          f"each tick ends in its device-to-host fetch; rings hold "
+          f"{engine.state['lm']['t']['pos']} rows); peak memory {peak_gb:.2f} GB; "
+          f"card {card}", flush=True)
+    _profile_ticks(engine, 3, "duplex-profile", "24 slots, short rings", card)
+    phase_duplex_path(engine, dev)
+
+    # The tick's four parts alone, at 24 rows.
+    cfg, params = engine.cfg, engine.params["lm"]
+    g = torch.Generator(device=dev).manual_seed(9)
+    text = torch.randint(4, 200, (b,), generator=g, device=dev, dtype=torch.int32)
+    audio = torch.randint(0, 2048, (b, cfg.lm.audio_codebooks), generator=g, device=dev,
+                          dtype=torch.int32)
+    mask = torch.ones(b, dtype=torch.bool, device=dev)
+    hidden = torch.randn(b, cfg.lm.d_model, generator=g, device=dev).bfloat16()
+    forced = torch.full((b, cfg.generated_audio_codebooks), -1, dtype=torch.int32, device=dev)
+    codes = torch.randint(0, 2048, (b, engine.mimi_cfg.n_q, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+    pcm = (torch.randn(b, 1, engine.mimi_cfg.frame_size, generator=g, device=dev)
+           * 0.1).bfloat16()
+    key = S.prng_key(3, device=dev)
+    lm_state = engine.state["lm"]
+
+    def lm_step():
+        nonlocal lm_state
+        lm_state = LM.step(cfg.lm, params, lm_state, text, audio, mask)[2]
+
+    parts = {
+        "mimi_encode_step": lambda: MIMI.encode_step(
+            engine.mimi_cfg, engine.mimi_params, engine.enc_state, pcm, mask),
+        "lm_step": lm_step,
+        "depformer_sample": lambda: LM.depformer_sample(
+            cfg.lm, params, hidden, text, forced, key,
+            S.SamplingConfig(cfg.audio_temperature, cfg.audio_top_k)),
+        "mimi_decode_step": lambda: MIMI.decode_step(
+            engine.mimi_cfg, engine.mimi_params, engine.dec_state, codes, mask),
+    }
+    for name, fn in parts.items():
+        with torch.inference_mode():
+            med, lo, hi = _median_ms(fn)
+        print(f"[duplex-times] {name}, 24 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
+              f"over 20 after 3 warm-up (host clock with synchronize); card {card}",
+              flush=True)
+    engine.state["lm"] = lm_state
+
+    # Full rings: a dialogue past 3000 frames (4 minutes).  The tick counter
+    # is moved there, every row marked valid and every row's scales set, so
+    # each decode_attend reads the K and V of its whole window (a row whose
+    # probability times v_scale rounds to 0 is skipped; the int8 rows hold
+    # what the short run left: zeros mostly).
+    engine.state["lm"]["t"]["pos"] = 5000
+    with torch.inference_mode():  # the bitmap was made inside the step
+        engine.state["lm"]["t"]["valid"].fill_(True)
+        for layer in engine.state["lm"]["t"]["layers"]:
+            layer["ks"].fill_(0.01)
+            layer["vs"].fill_(0.01)
+    full = _duplex_ticks(engine, 10, 2)
+    print(f"[duplex-times] engine tick, 24 slots active, full rings (tick counter set to "
+          f"5000, every row valid, scales 0.01): median {statistics.median(full)!r} ms, min "
+          f"{min(full)!r}, max {max(full)!r} over 10 after 2 warm-up; card {card}",
+          flush=True)
+    _profile_ticks(engine, 3, "duplex-profile", "24 slots, full rings", card)
+    for drv in opened:
+        engine.close_session(drv)
+
+
 def main() -> int:
     import torch
 
@@ -918,13 +1584,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     tts_engine, tts_launches = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
-    # ``launches``: both main paths' runs; each path's count beside it.
+    del tts_engine
+    torch.cuda.empty_cache()
+    duplex_engine, duplex_launches = phase_duplex(dev, card)
+    phase_duplex_times(duplex_engine, dev, card)
+    # ``launches``: the three main paths' runs; each path's count beside it.
+    per_path = {"stt": launches, "tts": tts_launches, "duplex": duplex_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
-                "launches": launches.get(name, 0) + tts_launches[name],
-                "launches_stt": launches.get(name, 0), "launches_tts": tts_launches[name],
-                "max_abs_err": errs[name], "ms": ms[name][0], "plain_ms": ms[name][1]}
+                "launches": sum(p.get(name, 0) for p in per_path.values()),
+                **{f"launches_{path}": p.get(name, 0) for path, p in per_path.items()},
+                "max_abs_err": errs[name], **ms[name]}
                for name in SOURCES]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched on no main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) kernels of the streaming STT serving step.
+// Hopper (sm_90a) kernels of the KV rings: the commits and the fused
+// commit + attention of the short-ring serving steps.
 //
-// Three kernels, each the counterpart of one Pallas TPU kernel:
+// Four kernels, each the counterpart of one Pallas TPU kernel:
 //   dsm_ring_commit           <- dsm_tpu/ops/ring_kernels.py:_ring_commit
+//   dsm_ring_commit_q         <- dsm_tpu/ops/ring_kernels.py:_ring_commit_q
 //   dsm_scale_commit          <- dsm_tpu/ops/ring_kernels.py:_scale_commit
 //   dsm_decode_attend_commit  <- dsm_tpu/ops/decode_attn.py:_decode_attend_commit_q_4d
 //
@@ -63,6 +65,48 @@ __global__ void scale_commit_kernel(float* __restrict__ ks_cache,
     ks_cache[dst] = ks_new[i];
   } else {
     vs_cache[dst] = vs_new[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Quantised ring commit: T new int8 rows (B, H, T, Dh) of K and of V into the
+// int8 rings (B, H, C, Dh), and their T per-row f32 scales (B, H, T) into
+// the scale rings (B, H, C), all at row w, in one launch.  blockIdx.y picks
+// the K rows (0), the V rows (1) or both scale rings (2).  The int8 rows move
+// as 32-bit words (Dh is a multiple of 4 and the rings are word-aligned), the
+// copy is bit for bit.  A few tens of KB at most: bound by the launch, not
+// by bandwidth.  The TPU kernel streams the aligned row block through VMEM
+// and selects the T rows, because Mosaic cannot write a partial tile; a GPU
+// store of one word needs no such block.
+// ---------------------------------------------------------------------------
+__global__ void ring_commit_q_kernel(uint32_t* __restrict__ k_cache,
+                                     uint32_t* __restrict__ v_cache,
+                                     float* __restrict__ ks_cache,
+                                     float* __restrict__ vs_cache,
+                                     const uint32_t* __restrict__ k_new,
+                                     const uint32_t* __restrict__ v_new,
+                                     const float* __restrict__ ks_new,
+                                     const float* __restrict__ vs_new,
+                                     int64_t n_words, int64_t n_scales, int t,
+                                     int c, int dw, int w) {
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (blockIdx.y == 2) {
+    if (i >= n_scales) return;
+    const int ti = (int)(i % t);
+    const int64_t dst = (i / t) * c + w + ti;
+    ks_cache[dst] = ks_new[i];
+    vs_cache[dst] = vs_new[i];
+    return;
+  }
+  if (i >= n_words) return;
+  const int d = (int)(i % dw);  // dw = Dh / 4 words per row
+  const int64_t row = i / dw;
+  const int ti = (int)(row % t);
+  const int64_t dst = ((row / t) * c + w + ti) * dw + d;
+  if (blockIdx.y == 0) {
+    k_cache[dst] = k_new[i];
+  } else {
+    v_cache[dst] = v_new[i];
   }
 }
 
@@ -255,6 +299,24 @@ int dsm_ring_commit(void* k_cache, void* v_cache, const void* k_new,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// int8 rings and rows, f32 scale rings and rows; dh a multiple of 4.
+int dsm_ring_commit_q(void* k_cache, void* v_cache, void* ks_cache,
+                      void* vs_cache, const void* k_new, const void* v_new,
+                      const void* ks_new, const void* vs_new, long long b,
+                      int h, int t, int c, int dh, int w, void* stream) {
+  if (dh % 4) return (int)cudaErrorInvalidValue;
+  const int64_t n_scales = (int64_t)b * h * t;
+  const int64_t n_words = n_scales * (dh / 4);
+  if (n_scales == 0) return (int)cudaSuccess;
+  const dim3 grid(grid_for(n_words > n_scales ? n_words : n_scales), 3);
+  ring_commit_q_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)k_cache, (uint32_t*)v_cache, (float*)ks_cache,
+      (float*)vs_cache, (const uint32_t*)k_new, (const uint32_t*)v_new,
+      (const float*)ks_new, (const float*)vs_new, n_words, n_scales, t, c,
+      dh / 4, w);
   return (int)cudaGetLastError();
 }
 

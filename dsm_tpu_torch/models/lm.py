@@ -76,6 +76,35 @@ def stt_1b_en_fr() -> LmConfig:
     )
 
 
+def _depformer(num_slices: int, d: int = 1024, heads: int = 16, layers: int = 6
+               ) -> DepFormerConfig:
+    """The DepFormer defaults of the JAX package: one slice per generated
+    codebook, no positional embedding, context = the slice count."""
+    return DepFormerConfig(
+        transformer=T.TransformerConfig(
+            d_model=d, num_heads=heads, num_layers=layers, dim_feedforward=4 * d,
+            context=num_slices, positional_embedding="none",
+        ),
+        num_slices=num_slices,
+    )
+
+
+def s2s_2b_16rvq_202501() -> LmConfig:
+    """The full-duplex dialogue model (configs/config-duplex-tpu-serving.toml):
+    32 audio codebooks in (16 generated + 16 of the user), 16 slices out."""
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=2560, num_heads=20, num_layers=24, dim_feedforward=10240,
+            context=3000, max_period=100_000.0,
+        ),
+        depformer=_depformer(16),
+        text_in_vocab_size=48001,
+        text_out_vocab_size=48000,
+        audio_vocab_size=2049,
+        audio_codebooks=32,
+    )
+
+
 def _emb_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(dtype)
 

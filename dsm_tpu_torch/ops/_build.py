@@ -37,6 +37,9 @@ _SIGNATURES = {
     "dsm_error_string": ([_I], ctypes.c_char_p),
     # k_cache, v_cache, k_new, v_new, elem_bytes, b, h, t, c, dh, w, stream
     "dsm_ring_commit": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P], _I),
+    # k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new, vs_new,
+    # b, h, t, c, dh, w, stream
+    "dsm_ring_commit_q": ([_P] * 8 + [_LL, _I, _I, _I, _I, _I, _P], _I),
     # ks_cache, vs_cache, ks_new, vs_new, b, h, t, c, w, stream
     "dsm_scale_commit": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     "dsm_decode_attend_smem_bytes": ([_I, _I], _LL),
@@ -44,6 +47,13 @@ _SIGNATURES = {
     # valid, out, b, h, c, dh, pos, w, window, scale, stream
     "dsm_decode_attend_commit": (
         [_P] * 11 + [_LL, _I, _I, _I, _LL, _I, _I, ctypes.c_float, _P], _I
+    ),
+    "dsm_decode_attend_split_smem_bytes": ([_I, _I], _LL),
+    # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, part, out,
+    # b, h, c, dh, n_split, k/v strides (b, h), scale strides (b, h), pos,
+    # w, window, scale, stream
+    "dsm_decode_attend": (
+        [_P] * 10 + [_LL, _I, _I, _I, _I] + [_LL] * 5 + [_I, _I, ctypes.c_float, _P], _I
     ),
     "dsm_ca_decode_attend_smem_bytes": ([_I, _I], _LL),
     # q, k_src, v_src, k_scale, v_scale, out, b, h, s_len, dh, q strides

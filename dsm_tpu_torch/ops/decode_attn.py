@@ -1,5 +1,8 @@
-"""Fused decode attention + ring commit (counterpart of
-``dsm_tpu/ops/decode_attn.py:decode_attend_commit``).
+"""Decode attention over the int8 KV ring (counterpart of
+``dsm_tpu/ops/decode_attn.py``): the fused ``decode_attend_commit`` of the
+short rings, ``decode_attend`` of the split pipeline (further down, with
+the shape rule that picks between them), and the voice cross-attention
+``ca_decode_attend``.
 
 ``decode_attend_commit`` replaces the Pallas kernel
 ``dsm_tpu/ops/decode_attn.py:_decode_attend_commit_q_4d``: T=1 decode
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -136,6 +140,203 @@ def decode_attend_commit(q, k_cache, v_cache, ks_committed, vs_committed,
 
 
 decode_attend_commit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The split pipeline's attention (counterpart of decode_attn.decode_attend)
+# ---------------------------------------------------------------------------
+#
+# ``decode_attend`` replaces the Pallas kernel
+# ``dsm_tpu/ops/decode_attn.py:_decode_attend_q_flash``: T=1 attention of
+# bf16 queries over the COMMITTED int8 ring (``ring_kernels.ring_commit``
+# with the scale rings has written this step's row, which is masked from the
+# ring read), the fresh bf16 row joining the softmax exactly.  The kernel is
+# CUDA C++ in ``csrc/decode_attn.cu``: the ring is split over ``n_split``
+# blocks per (b, h), each reducing its span to a partial (acc, m, l), and a
+# second small kernel folds the partials; what bounds it and what the design
+# does about that is written there.  Shapes it launches for: any B and H, Dh
+# in {64, 128}, bf16 queries and fresh rows, int8 rings whose rows are
+# contiguous and 16-byte aligned (addressed through (b, h) strides), f32
+# scales, spans of up to 11,264 rows; anything else raises.
+
+_TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the 132 SMs
+_MIN_SPAN = 256        # ring rows a block should at least have to reduce
+
+
+def _mono_ok(h: int, c: int, dh: int) -> bool:
+    """The JAX package's whole-ring-per-block shapes (``h % 8 == 0`` and an
+    int8 ring of at most 2.5 MB per slot): a pure shape predicate, kept
+    because the dispatch between the fused and the split pipeline follows
+    it."""
+    return h % 8 == 0 and h * c * dh <= 2_500_000
+
+
+def _legacy_4d(h: int, dh: int) -> bool:
+    """The shapes the JAX package serves with its 4-D kernel bodies."""
+    return dh == 128 and h % 8 == 0 and h <= 16
+
+
+def fused_commit_supported(q, k_cache, plan) -> bool:
+    """The shape rule of ``dsm_tpu.ops.decode_attn.fused_commit_supported``
+    without its tiling terms: T=1 over an int8 ring that ``_mono_ok`` and
+    ``_legacy_4d`` take goes to ``scale_commit`` + ``decode_attend_commit``;
+    every other int8 ring to ``ring_commit`` with the scales, then
+    :func:`decode_attend`."""
+    if q.dim() != 4 or q.shape[2] != 1 or k_cache.dtype != torch.int8:
+        return False
+    if len(plan["w"]) != 1:
+        return False
+    h, dh = q.shape[1], q.shape[3]
+    return _mono_ok(h, k_cache.shape[2], dh) and _legacy_4d(h, dh)
+
+
+def _reject_int4(k_cache) -> None:
+    if k_cache.dtype == torch.uint8:
+        raise NotImplementedError(
+            "packed-int4 KV rings (kv_bits = 4) are not ported yet; see ROADMAP.md "
+            "queue 2, kernels 11 and 12")
+
+
+def supported(q, k_cache, plan) -> bool:
+    """T=1 decode over an int8 ring with a head width the kernel takes
+    (``dsm_tpu.ops.decode_attn.supported`` without its tiling terms: ring
+    length and head count are free here).  A pure shape predicate: nothing
+    routes on it, :func:`decode_attend` on the card launches or raises.
+    Packed-int4 rings are not ported."""
+    _reject_int4(k_cache)
+    if q.dim() != 4 or q.shape[2] != 1 or k_cache.dtype != torch.int8:
+        return False
+    return q.shape[3] in (64, 128) and len(plan["w"]) == 1
+
+
+def pick_split(bh: int, c: int) -> int:
+    """Blocks per (b, h): enough that B*H*n_split fills the card's 132 SMs
+    with a few blocks each, while a block keeps at least ``_MIN_SPAN`` ring
+    rows to reduce.  s2s-2b at B=24 (480 pairs, C=3072): 3 spans of 1024."""
+    return max(1, min(-(-_TARGET_BLOCKS // max(bh, 1)), c // _MIN_SPAN))
+
+
+def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                        valid, pos: int, w: int, window: int,
+                        n_split: int = 1) -> torch.Tensor:
+    """Plain PyTorch version (any device) over 3-D rows: ``q, k_new, v_new
+    (B, H, Dh)``, committed rings ``(B, H, C, Dh)`` int8, scales ``(B, H,
+    C)`` f32, ``valid (B, C)`` bool -> ``(B, H, Dh)`` in ``q.dtype``.
+
+    The kernel's order of operations, its split included: each of the
+    ``n_split`` spans takes its own maximum ``m_i``, rounds the unnormalised
+    ``exp(s - m_i) * v_scale`` to bf16 before the V dot, and the spans and
+    the fresh row are folded with ``exp(m_i - m)``; the division comes last.
+    A span with no attended row contributes nothing."""
+    c, dh = k_cache.shape[2], k_cache.shape[3]
+    scale = 1.0 / math.sqrt(dh)
+    j = torch.arange(c, dtype=torch.int64, device=k_cache.device)
+    dist = torch.remainder(w - j, c)
+    ok = (dist != 0) & (dist <= pos) & (dist < window)
+    ok = (ok[None, :] & valid)[:, None, :]  # (B, 1, C)
+    qf = q.float()
+    s_new = (qf * k_new.float()).sum(-1) * scale  # (B, H)
+    span = -(-c // n_split)
+    parts = []
+    for s0 in range(0, c, span):
+        sl = slice(s0, min(c, s0 + span))
+        sc = torch.einsum("bhd,bhcd->bhc", qf, k_cache[:, :, sl].float())
+        sc = sc * (k_scale[:, :, sl] * scale)
+        sc = torch.where(ok[:, :, sl], sc, float("-inf"))
+        m_i = sc.amax(-1)
+        m_safe = torch.where(torch.isinf(m_i), 0.0, m_i)
+        e = torch.exp(sc - m_safe[..., None])  # 0 at masked rows
+        p = torch.where(e > 0, e * v_scale[:, :, sl], 0.0).to(torch.bfloat16).float()
+        acc = torch.einsum("bhc,bhcd->bhd", p, v_cache[:, :, sl].float())
+        parts.append((m_i, e.sum(-1), acc))
+    m = s_new
+    for m_i, _, _ in parts:
+        m = torch.maximum(m, m_i)
+    e_new = torch.exp(s_new - m)
+    denom = e_new
+    out = e_new[..., None] * v_new.float()
+    for m_i, l_i, acc in parts:
+        corr = torch.exp(m_i - m)  # 0 for a span with no attended row
+        denom = denom + l_i * corr
+        out = out + acc * corr[..., None]
+    return (out / denom[..., None]).to(q.dtype)
+
+
+def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
+                   pos: int, w: int, window: int, n_split: int) -> torch.Tensor:
+    b, h, c, dh = k_cache.shape
+    if dh not in (64, 128):
+        raise ValueError(f"decode_attend kernel takes Dh 64 or 128, got {dh}")
+    if not 0 <= w < c:
+        raise ValueError(f"decode_attend: w={w} outside ring of {c}")
+    if not 1 <= n_split <= c:
+        raise ValueError(f"decode_attend: n_split={n_split} for a ring of {c}")
+    want = {
+        "q": ((b, h, dh), torch.bfloat16), "k_new": ((b, h, dh), torch.bfloat16),
+        "v_new": ((b, h, dh), torch.bfloat16), "k_cache": ((b, h, c, dh), torch.int8),
+        "v_cache": ((b, h, c, dh), torch.int8), "k_scale": ((b, h, c), torch.float32),
+        "v_scale": ((b, h, c), torch.float32), "valid": ((b, c), torch.bool),
+    }
+    args = {"q": q, "k_new": k_new, "v_new": v_new, "k_cache": k_cache,
+            "v_cache": v_cache, "k_scale": k_scale, "v_scale": v_scale, "valid": valid}
+    for name, x in args.items():
+        shape, dtype = want[name]
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"decode_attend: {name} is {tuple(x.shape)} {x.dtype}, "
+                             f"kernel takes {shape} {dtype}")
+        if not x.is_cuda:
+            raise ValueError(f"decode_attend: {name} is on {x.device}, not CUDA")
+    for name in ("q", "k_new", "v_new", "valid"):
+        if not args[name].is_contiguous():
+            raise ValueError(f"decode_attend: {name} must be contiguous")
+    if k_cache.stride() != v_cache.stride() or k_scale.stride() != v_scale.stride():
+        raise ValueError("decode_attend: K and V (or their scales) differ in layout")
+    if k_cache.stride(3) != 1 or k_cache.stride(2) != dh or k_scale.stride(2) != 1:
+        raise ValueError("decode_attend: ring rows of one (b, h) must be contiguous")
+    if (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
+            or k_cache.stride(0) % 16 or k_cache.stride(1) % 16):
+        raise ValueError("decode_attend: ring rows must be 16-byte aligned")
+    lib = _build.lib()
+    span = -(-c // n_split)
+    if lib.dsm_decode_attend_split_smem_bytes(span, dh) > _MAX_SMEM:
+        raise ValueError(f"decode_attend: spans of {span} rows exceed shared memory")
+    part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
+    err = lib.dsm_decode_attend(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
+        part.data_ptr(), out.data_ptr(), b, h, c, dh, n_split, k_cache.stride(0),
+        k_cache.stride(1), k_scale.stride(0), k_scale.stride(1), pos, w, window,
+        1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
+    )
+    _build.check(err, "decode_attend")
+    decode_attend.launches += 1
+    return out
+
+
+def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
+                  valid_old, *, window: int, n_split: Optional[int] = None):
+    """Attend ``q (B, H, 1, Dh)`` over the committed int8 ring and this
+    step's fresh bf16 row ``k_new/v_new (B, H, 1, Dh)`` -> ``(B, H, 1,
+    Dh)``: ``attention.attend_global_split_q`` at T=1 in the kernel's order.
+    ``n_split`` (default :func:`pick_split`) is the number of spans the ring
+    is reduced in.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (counted in ``decode_attend.launches``) or raise."""
+    _reject_int4(k_cache)
+    if q.shape[2] != 1:
+        raise ValueError("decode_attend takes T=1 steps")
+    b, h, c, _ = k_cache.shape
+    pos, w = int(plan["q_pos"][0]), int(plan["w"][0])
+    if n_split is None:
+        n_split = pick_split(b * h, c)
+    q3, kn3, vn3 = (x[:, :, 0, :].contiguous() for x in (q, k_new, v_new))
+    fn = decode_attend_plain if k_cache.device.type == "cpu" else _attend_launch
+    y = fn(q3, k_cache, v_cache, k_scale, v_scale, kn3, vn3, valid_old, pos, w,
+           window, n_split)
+    return y[:, :, None, :]
+
+
+decode_attend.launches = 0
 
 
 # ---------------------------------------------------------------------------

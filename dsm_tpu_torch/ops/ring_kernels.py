@@ -1,6 +1,6 @@
 """In-place KV ring commits (counterpart of ``dsm_tpu/ops/ring_kernels.py``).
 
-Two kernels, CUDA C++ in ``csrc/ring_attn.cu``:
+Three kernels, CUDA C++ in ``csrc/ring_attn.cu``:
 
 ``ring_commit`` replaces ``dsm_tpu/ops/ring_kernels.py:_ring_commit``: it
 writes T new K/V rows ``(B, H, T, Dh)`` into the bf16 or f32 rings
@@ -10,6 +10,11 @@ codec transformer's 2 rows per step, ``(64, 8, 2, 64)`` into
 ``scale_commit`` replaces ``_scale_commit``: it writes T fresh per-row KV
 scales ``(B, H, T)`` f32 into the scale rings ``(B, H, C)``; at stt-1b B=64
 that is 2 x 4 KB, once per LM layer.
+``ring_commit_q`` replaces ``_ring_commit_q``, the commit of the split ring
+pipeline: the fresh int8 K and V rows ``(B, H, T, Dh)`` and their f32 scales
+``(B, H, T)`` go into the two int8 rings and the two scale rings in one
+launch; at s2s-2b B=24 that is 2 x 61 KB of rows and 2 x 1.9 KB of scales,
+once per LM layer.  :func:`ring_commit` with the scale rings goes there.
 
 What bounds them on the H100: a few hundred KB moved at most, so each is
 bound by its launch and the latency of one round of stores, not by
@@ -17,7 +22,9 @@ bandwidth.  The design does nothing clever about it: one thread per
 element copied, offsets computed from ``w`` and the shape, K and V in one
 launch (``blockIdx.y``), no synchronisation.  The TPU kernel streamed the
 aligned row block through VMEM to avoid partial-tile DMAs; a GPU store of
-one element needs no such block.
+one element needs no such block, so none of the TPU kernels' tiling
+conditions (batch blocks, row blocks, 128-slot scale blocks) is kept: any
+B, H, C and T that meet the contract below are served.
 
 Contract, as in the JAX package: ``w % T == 0`` and ``w + T <= C`` (the
 ring capacity is a multiple of T, so a fixed-cadence append never wraps);
@@ -58,16 +65,29 @@ def _check_cuda(name: str, tensors: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def ring_commit_plain(k_cache, v_cache, k_new, v_new, w: int) -> None:
-    """Plain PyTorch version of :func:`ring_commit` (any device)."""
+def ring_commit_plain(k_cache, v_cache, k_new, v_new, w: int, ks_cache=None,
+                      vs_cache=None, ks_new=None, vs_new=None) -> None:
+    """Plain PyTorch version of :func:`ring_commit` (any device), with or
+    without the scale rings."""
+    if ks_cache is not None:
+        ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
+                            ks_new, vs_new, w)
+        return
     _check_rows(w, k_new.shape[2], k_cache.shape[2])
     ring_write_global(k_cache, v_cache, k_new, v_new, w)
 
 
 def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                k_new: torch.Tensor, v_new: torch.Tensor, w: int) -> None:
+                k_new: torch.Tensor, v_new: torch.Tensor, w: int,
+                ks_cache=None, vs_cache=None, ks_new=None, vs_new=None) -> None:
     """Write ``k_new/v_new (B, H, T, Dh)`` into the rings ``(B, H, C, Dh)``
-    at row ``w``, in place."""
+    at row ``w``, in place.  With the scale rings ``ks_cache/vs_cache (B, H,
+    C)`` and the fresh scales ``ks_new/vs_new (B, H, T)`` all four rings are
+    written by one launch of :func:`ring_commit_q`."""
+    if ks_cache is not None:
+        ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
+                      ks_new, vs_new, w)
+        return
     b, h, t, dh = k_new.shape
     c = k_cache.shape[2]
     _check_rows(w, t, c)
@@ -97,6 +117,75 @@ def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 ring_commit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ring_commit_q
+# ---------------------------------------------------------------------------
+
+
+def ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
+                        ks_new, vs_new, w: int) -> None:
+    """Plain PyTorch version of :func:`ring_commit_q` (any device): four
+    slice assignments."""
+    t = k_new.shape[2]
+    _check_rows(w, t, k_cache.shape[2])
+    k_cache[:, :, w:w + t] = k_new.to(k_cache.dtype)
+    v_cache[:, :, w:w + t] = v_new.to(v_cache.dtype)
+    ks_cache[:, :, w:w + t] = ks_new.to(ks_cache.dtype)
+    vs_cache[:, :, w:w + t] = vs_new.to(vs_cache.dtype)
+
+
+def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
+                  vs_new, w: int) -> None:
+    """Write the quantised rows ``k_new/v_new (B, H, T, Dh)`` int8 into the
+    int8 rings ``(B, H, C, Dh)`` and their scales ``ks_new/vs_new (B, H,
+    T)`` into the f32 scale rings ``(B, H, C)``, all at row ``w``, in place,
+    in one launch."""
+    b, h, t, dh = k_new.shape
+    c = k_cache.shape[2]
+    _check_rows(w, t, c)
+    if k_cache.device.type == "cpu":
+        ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
+                            ks_new, vs_new, w)
+        return
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise ValueError(f"ring_commit_q takes int8 rings, got {k_cache.dtype}")
+    if ks_cache.dtype != torch.float32 or vs_cache.dtype != torch.float32:
+        raise ValueError("ring_commit_q takes f32 scale rings")
+    if (k_cache.shape != (b, h, c, dh) or v_cache.shape != k_cache.shape
+            or v_new.shape != k_new.shape or ks_cache.shape != (b, h, c)
+            or vs_cache.shape != ks_cache.shape or ks_new.shape != (b, h, t)
+            or vs_new.shape != ks_new.shape):
+        raise ValueError(
+            f"ring_commit_q: rows {tuple(k_new.shape)} / scales "
+            f"{tuple(ks_new.shape)} do not fit rings {tuple(k_cache.shape)} / "
+            f"{tuple(ks_cache.shape)}"
+        )
+    if dh % 4:
+        raise ValueError(f"ring_commit_q kernel takes Dh a multiple of 4, got {dh}")
+    k_new = k_new.to(torch.int8).contiguous()
+    v_new = v_new.to(torch.int8).contiguous()
+    ks_new = ks_new.float().contiguous()
+    vs_new = vs_new.float().contiguous()
+    tensors = {"k_cache": k_cache, "v_cache": v_cache, "ks_cache": ks_cache,
+               "vs_cache": vs_cache, "k_new": k_new, "v_new": v_new,
+               "ks_new": ks_new, "vs_new": vs_new}
+    _check_cuda("ring_commit_q", tensors)
+    for label, x in tensors.items():
+        if x.data_ptr() % 4:
+            raise ValueError(f"ring_commit_q: {label} is not 4-byte aligned")
+    err = _build.lib().dsm_ring_commit_q(
+        k_cache.data_ptr(), v_cache.data_ptr(), ks_cache.data_ptr(),
+        vs_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        ks_new.data_ptr(), vs_new.data_ptr(), b, h, t, c, dh, w,
+        ctypes.c_void_p(_build.stream_ptr()),
+    )
+    _build.check(err, "ring_commit_q")
+    ring_commit_q.launches += 1
+
+
+ring_commit_q.launches = 0
 
 
 # ---------------------------------------------------------------------------

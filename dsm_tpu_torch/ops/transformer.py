@@ -317,9 +317,14 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
     """One streaming step: ``x (B, T, D)`` -> ``(y (B, T, D), state')``.
 
     The kernel seams sit where the JAX step has them:
-      * int8 rings (T=1): quantise the fresh K/V rows, ``scale_commit``, then
-        ``decode_attend_commit`` over the pre-commit ring (it commits the
-        int8 row itself);
+      * int8 rings (T=1): quantise the fresh K/V rows, then by the JAX
+        package's shape rule (``decode_attn.fused_commit_supported``: Dh=128,
+        ``h % 8 == 0``, ``h <= 16`` and a ring of at most 2.5 MB per slot)
+        the fused pipeline, ``scale_commit`` then ``decode_attend_commit``
+        over the pre-commit ring (it commits the int8 row itself); for every
+        other int8 ring the split pipeline, ``ring_commit`` with the scale
+        rings then ``decode_attend`` over the committed ring (on the card a
+        head width its kernel does not take raises);
       * bf16/f32 rings: ``ring_commit``, then ``attend_global_split`` over
         the committed ring (this step's rows are masked from the ring read);
       * ``ca_kv``: the stacked per-layer source of :func:`precompute_ca_kv`
@@ -350,11 +355,17 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
             k = attn.apply_rope(k, *rope)
         if kv_quant:
             kq, vq, ks_new, vs_new = attn.quantize_kv_rows(k, v)
-            rkern.scale_commit(st["ks"], st["vs"], ks_new, vs_new, plan["w"][0])
-            y, _, _ = dattn.decode_attend_commit(
-                q, st["k"], st["v"], st["ks"], st["vs"], kq, vq, k, v, plan,
-                valid_old, window=cfg.context,
-            )
+            if dattn.fused_commit_supported(q, st["k"], plan):
+                rkern.scale_commit(st["ks"], st["vs"], ks_new, vs_new, plan["w"][0])
+                y, _, _ = dattn.decode_attend_commit(
+                    q, st["k"], st["v"], st["ks"], st["vs"], kq, vq, k, v, plan,
+                    valid_old, window=cfg.context,
+                )
+            else:
+                rkern.ring_commit(st["k"], st["v"], kq, vq, plan["w"][0],
+                                  st["ks"], st["vs"], ks_new, vs_new)
+                y = dattn.decode_attend(q, st["k"], st["v"], st["ks"], st["vs"], k, v,
+                                        plan, valid_old, window=cfg.context)
         else:
             rkern.ring_commit(st["k"], st["v"], k, v, plan["w"][0])
             y = attn.attend_global_split(

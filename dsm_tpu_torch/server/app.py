@@ -5,6 +5,7 @@
   POST /api/asr             one-shot transcription (WAV or JSON pcm)
   GET  /api/tts_streaming   words in (text frames), msgpack audio out
   POST /api/tts             offline synthesis -> WAV or JSON
+  GET  /api/chat            full-duplex dialogue, byte-tag WS (pcm wire)
   GET  /api/status          capacity and uptime JSON
   GET  /api/health          200 ok
   GET  /api/build_info      build metadata
@@ -13,9 +14,11 @@
 Close codes, auth and message schemas are the JAX package's.  Word events
 are checked against the port's own classes (``sessions.asr`` and
 ``server.tts_module``) and ASR words are decoded with the engine's
-tokenizer.  Left out (ROADMAP.md): duplex and Mimi-room routes,
-``/metrics``, static files, and the single-session ``TtsSession`` route
-(the port serves TTS through ``BatchedTtsEngine``).  aiohttp and msgpack
+tokenizer.  The duplex route serves ``?format=pcm`` (raw f32 AUDIO frames)
+and answers 501 to ``?format=opus``: the Opus wire is not ported.  Left
+out (ROADMAP.md): the Mimi-room routes, ``/metrics``, static files, and the
+single-session ``TtsSession`` route (the port serves TTS through
+``BatchedTtsEngine``).  aiohttp and msgpack
 are needed here only: the rest of the port imports neither.
 """
 
@@ -37,6 +40,8 @@ from ..utils.audio import decode_wav_bytes, wav_bytes
 from . import auth as auth_mod
 from . import protocol as proto
 from .batched_asr import BatchedAsrEngine, Events
+from .duplex import DuplexSession, audio_frame, parse_frame, text_frame
+from .duplex_batched import DuplexAudioEvent, DuplexDoneEvent, DuplexTextEvent
 from .tts_batched import BatchedTtsEngine, DoneEvent
 from .tts_module import AudioEvent
 from .tts_module import WordEvent as TtsWordEvent
@@ -104,9 +109,13 @@ class App:
                  auth_ctx: Optional[auth_mod.AuthContext] = None,
                  instance_name: str = "dsm-tpu", asr_path: str = "/api/asr-streaming",
                  tts_path: str = "/api/tts", tts_streaming_path: str = "/api/tts_streaming",
-                 rate_limit_per_minute: Optional[int] = None):
+                 rate_limit_per_minute: Optional[int] = None,
+                 duplex_engine=None, duplex_path: str = "/api/chat"):
+        """``duplex_engine``: a ``BatchedDuplexEngine`` or a single-dialogue
+        ``DuplexEngine``."""
         self.asr_engine = asr_engine
         self.tts_engine = tts_engine
+        self.duplex_engine = duplex_engine
         self.auth = auth_ctx or auth_mod.AuthContext(enabled=False)
         self.instance_name = instance_name
         self.rate_limit = rate_limit_per_minute  # new connections per peer
@@ -120,6 +129,8 @@ class App:
         if tts_engine is not None:
             r.add_post(tts_path, self.handle_tts_post)
             r.add_get(tts_streaming_path, self.handle_tts_ws)
+        if duplex_engine is not None:
+            r.add_get(duplex_path, self.handle_duplex_ws)
         r.add_get("/api/status", self.handle_status)
         r.add_get("/api/health", self.handle_health)
         r.add_get("/api/build_info", self.handle_build_info)
@@ -196,6 +207,9 @@ class App:
             mods.append({"type": "BatchedAsr", "batch_size": self.asr_engine.batch_size})
         if self.tts_engine is not None:
             mods.append({"type": "Tts"})
+        if self.duplex_engine is not None:
+            mods.append({"type": "Lm",
+                         "batch_size": getattr(self.duplex_engine, "batch_size", 1)})
         return mods
 
     async def handle_modules_info(self, request):
@@ -434,6 +448,93 @@ class App:
             send_task.cancel()
         finally:
             self.tts_engine.close_session(slot)
+            if not ws.closed:
+                await ws.close()
+        return ws
+
+    # -- duplex dialogue (byte-tag protocol) --
+
+    async def handle_duplex_ws(self, request):
+        """One dialogue: AUDIO frames of f32 pcm in, AUDIO and TEXT frames
+        out, after a HANDSHAKE frame.  ``?asr_delay_in_tokens=N`` makes it a
+        text-only session."""
+        err = self._check_auth(request)
+        if err is not None:
+            return err
+        fmt = request.query.get("format", "")
+        if fmt == "opus":
+            return web.json_response({"error": "opus codec unavailable"}, status=501)
+        asr_delay = _parse_seed(request.query.get("asr_delay_in_tokens")) or 0
+        batched = hasattr(self.duplex_engine, "open_session")
+
+        ws = web.WebSocketResponse(heartbeat=PING_INTERVAL_S)
+        await ws.prepare(request)
+        # Handshake payload: protocol version u32 (0) + model version u32.
+        await ws.send_bytes(bytes([proto.MsgType.HANDSHAKE]) + b"\x00" * 8)
+
+        loop = asyncio.get_running_loop()
+        out_q: asyncio.Queue = asyncio.Queue()
+        pump = self._pump(loop)
+
+        def on_audio(pcm):
+            pump.post(out_q, audio_frame(pcm))
+
+        def on_text(text):
+            pump.post(out_q, text_frame(text))
+
+        run_task = session = slot = None
+        if batched:
+            # The shared engine loop steps all dialogues; this handler feeds
+            # the slot's mailbox and relays its events.
+            def deliver(ev):
+                if isinstance(ev, DuplexAudioEvent):
+                    on_audio(ev.pcm)
+                elif isinstance(ev, DuplexTextEvent):
+                    on_text(ev.text)
+                elif isinstance(ev, DuplexDoneEvent):
+                    pump.post(out_q, None)
+
+            slot = self.duplex_engine.open_session(deliver, asr_delay_in_tokens=asr_delay)
+            if slot is None:
+                return await self._close_ws(request, proto.CloseCode.SERVER_AT_CAPACITY, ws)
+            push_pcm = slot.push_pcm
+        else:
+            session = DuplexSession(self.duplex_engine, asr_delay_in_tokens=asr_delay)
+
+            def run_session():
+                try:
+                    session.run(on_audio, on_text)
+                finally:
+                    pump.post(out_q, None)
+
+            run_task = loop.run_in_executor(None, run_session)
+            push_pcm = session.push_pcm
+
+        async def sender():
+            while True:
+                frame = await out_q.get()
+                if frame is None:
+                    return
+                await ws.send_bytes(frame)
+
+        send_task = asyncio.create_task(sender())
+        try:
+            async for msg in ws:
+                if msg.type != WSMsgType.BINARY:
+                    continue
+                tag, payload = parse_frame(msg.data)
+                if tag == proto.MsgType.AUDIO:
+                    push_pcm(np.frombuffer(payload, "<f4"))
+                elif tag == proto.MsgType.PING:
+                    await ws.send_bytes(bytes([proto.MsgType.PING]))
+        finally:
+            if batched:
+                self.duplex_engine.close_session(slot)
+                out_q.put_nowait(None)
+            else:
+                session.close()
+                await run_task
+            await send_task
             if not ws.closed:
                 await ws.close()
         return ws

@@ -1,6 +1,6 @@
 """Build a serving module from a TOML config (counterpart of
-``dsm_tpu/server/builder.py``: ``build_batched_asr``, and ``build_tts``
-for ``batch_size > 1``).
+``dsm_tpu/server/builder.py``: ``build_batched_asr``, ``build_tts`` for
+``batch_size > 1``, and ``build_duplex``).
 
 No checkpoint loading yet: with its weights absent the module runs at its
 configured width with random weights from a seeded ``torch.Generator``,
@@ -22,10 +22,13 @@ from ..models import lm as LM
 from ..models import mimi as MIMI
 from ..ops import transformer as T
 from ..sessions import asr as ASR
+from ..sessions import lm_gen
 from ..sessions import tts as TTS
 from ..utils.tokenizer import load_tokenizer
 from . import config as CFG
 from .batched_asr import BatchedAsrEngine
+from .duplex import DuplexEngine
+from .duplex_batched import BatchedDuplexEngine
 from .tts_batched import BatchedTtsEngine
 from .voices import VoiceResolver
 
@@ -71,7 +74,7 @@ def build_batched_asr(mod: CFG.ModuleConfig, device) -> BatchedAsrEngine:
         kv_quant=on_accel and bool(mod.raw.get("kv_quant", True)),
         mimi_dtype="bfloat16" if on_accel else "float32",
     )
-    dtype = torch.bfloat16 if on_accel else torch.float32
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
     _random_init_warning("LM weights", mod.lm_model_file)
     gen = torch.Generator(device=device)
@@ -155,7 +158,7 @@ def build_batched_tts(mod: CFG.ModuleConfig, device) -> BatchedTtsEngine:
         lm=mod.lm, kv_quant=on_accel and bool(raw.get("kv_quant", True)),
         **{k: gen_cfg[k] for k in keys if k in gen_cfg})
     mimi_cfg = MIMI.v0_1(mod.lm.generated_codebooks)
-    dtype = torch.bfloat16 if on_accel else torch.float32
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
     _random_init_warning("LM weights", mod.lm_model_file)
     gen = torch.Generator(device=device)
@@ -192,3 +195,65 @@ def build_batched_tts(mod: CFG.ModuleConfig, device) -> BatchedTtsEngine:
                     name, c["possible_values"][-1])
                 break
     return engine
+
+
+def build_duplex(mod: CFG.ModuleConfig, device):
+    """The engine for an ``Lm`` (full-duplex dialogue) module on ``device``:
+    :class:`BatchedDuplexEngine` for ``batch_size > 1``, else the
+    single-dialogue :class:`DuplexEngine`.
+
+    The TOML's ``kv_quant`` selects the serving profile (int8 KV rings, int8
+    LM weights with W8A8 matmuls, quantised here once); without the key it
+    is off.  On CUDA the weights and the codec are bf16, on the CPU f32."""
+    device = torch.device(device)
+    raw = mod.raw
+    if mod.type != "Lm":
+        raise ValueError(f"module {mod.name}: not an Lm module")
+    for key, what in _TTS_UNPORTED.items():
+        if raw.get(key):
+            raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
+    if int(raw.get("pipeline_depth", 1)) != 1:
+        raise NotImplementedError("pipeline_depth > 1 is not ported yet; see ROADMAP.md")
+    if int(raw.get("kv_bits", 8)) != 8:
+        raise NotImplementedError(
+            "packed-int4 KV rings (kv_bits = 4) are not ported yet; see ROADMAP.md")
+    lm_cfg = mod.lm or LM.s2s_2b_16rvq_202501()
+    if lm_cfg.depformer is None:
+        raise ValueError(f"module {mod.name}: a dialogue model needs a DepFormer")
+    gen_cfg = mod.generation or {}
+    cfg = lm_gen.DuplexConfig(
+        lm=lm_cfg,
+        generated_audio_codebooks=gen_cfg.get("generated_audio_codebooks",
+                                              lm_cfg.generated_codebooks or 8),
+        input_audio_codebooks=gen_cfg.get("input_audio_codebooks", 8),
+        acoustic_delay=gen_cfg.get("acoustic_delay", 2),
+        text_start_token=lm_cfg.text_start_token,
+    )
+    mimi_cfg = MIMI.v0_1(cfg.input_audio_codebooks)
+    kv_quant = bool(raw.get("kv_quant", False))
+    if kv_quant and not raw.get("weight_quant", True):
+        raise NotImplementedError(
+            "weight_quant = false with int8 KV rings is not a profile of the "
+            "dialogue engine")
+    if kv_quant and not raw.get("w8a8", True):
+        raise NotImplementedError(
+            "w8a8 = false (weight-only dequant matmuls) is not ported yet; "
+            "see ROADMAP.md")
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+
+    _random_init_warning("LM weights", mod.lm_model_file)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lm_params = LM.init(lm_cfg, gen, dtype)
+    _random_init_warning("Mimi weights", mod.audio_tokenizer_file)
+    gen.manual_seed(1)
+    mimi_params = MIMI.init(mimi_cfg, gen, dtype)
+    if kv_quant:  # before the engine allocates its rings beside the dense copy
+        lm_params = T.quantize_weights(lm_params)
+    batch = int(raw.get("batch_size", 1))
+    if batch > 1:
+        return BatchedDuplexEngine(
+            cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
+            batch_size=batch, kv_quant=kv_quant, device=device)
+    return DuplexEngine(cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
+                        kv_quant=kv_quant, device=device)

@@ -3,9 +3,12 @@
 
 Reads the top-level keys and one ``[modules.<name>]`` table per module with
 its ``model`` / ``model.transformer`` / ``model.depformer`` /
-``model.extra_heads`` tables.  The port serves ``BatchedAsr`` and ``Tts``
-modules (a ``Tts`` LM gets the voice cross-attention, with a LayerNorm
-``norm_cross``); the LM config of other module types is not read.
+``model.extra_heads`` tables.  The port serves ``BatchedAsr``, ``Tts`` and
+``Lm`` (full-duplex dialogue) modules (a ``Tts`` LM gets the voice
+cross-attention, with a LayerNorm ``norm_cross``; an ``Lm`` module's
+``generation`` table holds its codebook counts and ``acoustic_delay``, its
+``kv_quant``, ``kv_bits`` and ``pipeline_depth`` stay in ``raw`` for the
+builder); the LM config of other module types is not read.
 Artifact references: a plain path is used when the file exists; ``hf://``
 and ``hf-snapshot://`` references resolve to absent, since the port loads
 no checkpoint yet (ROADMAP.md).
@@ -127,7 +130,7 @@ class Config:
         for name, m in raw.get("modules", {}).items():
             typ = m["type"]
             lm_cfg = None
-            if "model" in m and typ in ("Asr", "BatchedAsr", "Tts"):
+            if "model" in m and typ in ("Asr", "BatchedAsr", "Tts", "Lm"):
                 lm_cfg = lm_from_toml(m["model"], cross_attention=typ == "Tts")
             modules[name] = ModuleConfig(
                 name=name,

@@ -1,6 +1,8 @@
 """Wire protocols: WS close codes, byte-tag message types, msgpack messages.
 
-A copy of ``dsm_tpu/server/protocol.py`` (msgpack only).
+A copy of ``dsm_tpu/server/protocol.py`` (msgpack only).  msgpack is
+imported where a message is packed, so that the byte-tag types load on a
+machine without it.
 
 Wire-compatible with the reference so its Rust clients work unmodified:
   * close codes + retryable classification: moshi-server/src/protocol.rs
@@ -14,8 +16,6 @@ from __future__ import annotations
 
 import enum
 from typing import Any, Dict, List, Optional
-
-import msgpack
 
 
 class CloseCode(enum.IntEnum):
@@ -84,10 +84,14 @@ class MsgType(enum.IntEnum):
 def pack(msg: Dict[str, Any], single_float: bool = False) -> bytes:
     # Timestamps are f64 like the reference structs; pcm payloads are f32
     # (Vec<f32>) so Audio messages pack with single-precision floats.
+    import msgpack
+
     return msgpack.packb(msg, use_single_float=single_float)
 
 
 def unpack(data: bytes) -> Dict[str, Any]:
+    import msgpack
+
     return msgpack.unpackb(data, raw=False)
 
 

@@ -21,6 +21,7 @@ import torch
 from dsm_tpu_torch.ops import attention as A
 from dsm_tpu_torch.ops import decode_attn as DA
 from dsm_tpu_torch.ops import ring_kernels as RK
+from dsm_tpu_torch.ops import transformer as T
 
 torch.set_num_threads(2)
 
@@ -98,7 +99,8 @@ def test_ca_check_inputs_see_a_dropped_row_and_a_padding_read():
 
 def _launches():
     return (RK.ring_commit.launches, RK.scale_commit.launches,
-            DA.decode_attend_commit.launches, DA.ca_decode_attend.launches)
+            DA.decode_attend_commit.launches, DA.ca_decode_attend.launches,
+            RK.ring_commit_q.launches, DA.decode_attend.launches)
 
 
 def test_wrappers_raise_for_non_cuda_devices():
@@ -118,6 +120,11 @@ def test_wrappers_raise_for_non_cuda_devices():
                                 A.global_ring_plan(0, 256, 1), valid, window=250)
     with pytest.raises(ValueError):
         DA.ca_decode_attend(q, kc, vc, ks, vs, 200)
+    with pytest.raises(ValueError):
+        RK.ring_commit(kc, vc, kq, vq, 0, ks, vs, ks[:, :, :1], vs[:, :, :1])
+    with pytest.raises(ValueError):
+        DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, A.global_ring_plan(0, 256, 1),
+                         valid, window=250)
     assert _launches() == before
 
 
@@ -126,6 +133,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     z = torch.zeros(1, 2, 32, 8)
     RK.ring_commit(z, z.clone(), torch.ones(1, 2, 2, 8), torch.ones(1, 2, 2, 8), 30)
     assert z[:, :, 30:].eq(1).all() and z[:, :, :30].eq(0).all()
+    q, k_new, v_new, kc, vc, ks, vs, valid = _attn_inputs(
+        torch.device("cpu"), 1, 4, 256, 64, 1.0, 0)
+    kq, vq, ksn, vsn = A.quantize_kv_rows(k_new, v_new)
+    RK.ring_commit(kc, vc, kq, vq, 7, ks, vs, ksn, vsn)
+    assert torch.equal(kc[:, :, 7], kq[:, :, 0]) and torch.equal(vs[:, :, 7], vsn[:, :, 0])
+    y = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, A.global_ring_plan(7, 256, 1),
+                         valid, window=250)
+    assert y.shape == q.shape and y.dtype == torch.bfloat16
     assert _launches() == before
 
 
@@ -238,3 +253,208 @@ def test_ca_decode_attend_kernel_raises_on_unsupported(cuda_device):
     with pytest.raises(ValueError):
         DA.ca_decode_attend(q[..., :64].float(), k[..., :64], k[..., :64], s, s, 100)
     assert DA.ca_decode_attend.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The split ring pipeline: ring_commit_q and decode_attend
+# ---------------------------------------------------------------------------
+
+
+def _split_inputs(dev, b, h, c, dh, pos, window, valid_frac, seed):
+    """A committed int8 ring with O(1) outputs on which a wrong mask shows:
+    the oldest attended row matches the query best (score 14 against a
+    spread of about 3.7), and ring row ``w`` (this step's committed row,
+    which the mask excludes) would match it better still (score 26) with
+    values of 127 at scale 1.  Returns the kernel's operands and the ring
+    index of the oldest attended row (None when no row is attended)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k_new, v_new = ((torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).bfloat16()
+                       for _ in range(3))
+    kc, vc = (torch.randint(-127, 128, (b, h, c, dh), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = _sharp_scales(g, dev, b, h, c)
+    valid = torch.rand(b, c, generator=g, device=dev) < valid_frac
+    w = pos % c
+    qf = q[:, :, 0].float()
+    aligned = torch.where(qf >= 0, 127, -127).to(torch.int8)
+    per_scale = 127.0 * qf.abs().sum(-1) / dh ** 0.5  # score per unit k_scale
+    kc[:, :, w] = aligned
+    ks[:, :, w] = 26.0 / per_scale
+    vc[:, :, w] = 127
+    vs[:, :, w] = 1.0
+    valid[:, w] = True
+    d_max = min(pos, window - 1, c - 1)
+    oldest = None
+    if d_max >= 1:
+        oldest = (w - d_max) % c
+        kc[:, :, oldest] = aligned
+        ks[:, :, oldest] = 14.0 / per_scale
+        valid[:, oldest] = True
+    return (q, kc, vc, ks, vs, k_new, v_new, valid), oldest
+
+
+def _true_mask(valid, pos, c, window):
+    j = torch.arange(c, device=valid.device)
+    dist = torch.remainder(pos % c - j, c)
+    return ((dist != 0) & (dist <= pos) & (dist < window))[None, :] & valid
+
+
+def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok):
+    """Decode attention over the ring rows ``ok (B, C)`` lets in plus the
+    fresh row, written independently of the port's plain version."""
+    scale = q.shape[-1] ** -0.5
+    qf = q[:, :, 0].float()
+    s = torch.einsum("bhd,bhcd->bhc", qf, kc.float()) * ks * scale
+    s = torch.where(ok[:, None, :], s, float("-inf"))
+    s_new = (qf * k_new[:, :, 0].float()).sum(-1, keepdim=True) * scale
+    p = torch.softmax(torch.cat([s, s_new], dim=-1), dim=-1)
+    out = torch.einsum("bhc,bhcd->bhd", p[..., :-1] * vs, vc.float())
+    return out + p[..., -1:] * v_new[:, :, 0].float()
+
+
+SPLIT_CASES = [
+    # B, H, C, Dh, pos, window, valid share
+    (24, 20, 3072, 128, 0, 3000, 1.0),      # first step: the ring holds garbage
+    (24, 20, 3072, 128, 40, 3000, 0.7),
+    (24, 20, 3072, 128, 3071, 3000, 1.0),   # full ring
+    (24, 20, 3072, 128, 5000, 3000, 0.7),   # wrapped
+    (24, 20, 3072, 128, 10000, 3000, 1.0),
+    (2, 32, 4096, 64, 4200, 4096, 0.9),     # tts_v0_1: h=32, Dh=64, window = C
+    (2, 20, 256, 128, 1000, 250, 0.6),
+]
+
+
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac", [
+    (2, 20, 256, 128, 40, 250, 0.7), (2, 20, 256, 128, 1000, 250, 0.6),
+    (1, 8, 512, 64, 511, 512, 1.0), (2, 4, 256, 64, 0, 250, 1.0)])
+def test_split_check_inputs_see_a_wrong_mask(B, H, C, Dh, pos, window, frac):
+    """On the card cases' inputs the 2e-2 bar fails a result that dropped
+    the oldest attended row, let ring row w in, or let every ring row in
+    (plain version against an independent masked attention, CPU)."""
+    dev = torch.device("cpu")
+    args, oldest = _split_inputs(dev, B, H, C, Dh, pos, window, frac, seed=pos + C)
+    q, kc, vc, ks, vs, k_new, v_new, valid = args
+    plan = A.global_ring_plan(pos, C, 1)
+    want = DA.decode_attend(*args[:7], plan, valid, window=window, n_split=1)[:, :, 0]
+    ok = _true_mask(valid, pos, C, window)
+    assert _within(_attend_with_mask(*args[:7], ok), want)
+    for n_split in (2, 3):
+        assert _within(DA.decode_attend(*args[:7], plan, valid, window=window,
+                                        n_split=n_split)[:, :, 0], want)
+    wrong = {"row w let in": ok.clone(), "every row let in": torch.ones_like(ok)}
+    wrong["row w let in"][:, pos % C] = True
+    if oldest is not None:
+        assert want.float().abs().max() > 0.3
+        wrong["oldest row dropped"] = ok.clone()
+        wrong["oldest row dropped"][:, oldest] = False
+    for what, mask in wrong.items():
+        assert not _within(_attend_with_mask(*args[:7], mask), want), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh,w", [
+    (24, 20, 3072, 128, 0), (24, 20, 3072, 128, 1500), (24, 20, 3072, 128, 3071),
+    (64, 32, 384, 64, 100), (3, 5, 40, 12, 39)])
+def test_ring_commit_q_kernel_matches_plain(cuda_device, B, H, C, Dh, w):
+    g = torch.Generator(device=cuda_device).manual_seed(w)
+    kc, vc, kn, vn = (torch.randint(-127, 128, shape, generator=g, device=cuda_device,
+                                    dtype=torch.int8)
+                      for shape in ((B, H, C, Dh),) * 2 + ((B, H, 1, Dh),) * 2)
+    ks, vs, ksn, vsn = (torch.rand(*shape, generator=g, device=cuda_device)
+                        for shape in ((B, H, C),) * 2 + ((B, H, 1),) * 2)
+    plain = [x.clone() for x in (kc, vc, ks, vs)]
+    before = RK.ring_commit_q.launches, RK.ring_commit.launches
+    RK.ring_commit(kc, vc, kn, vn, w, ks, vs, ksn, vsn)
+    RK.ring_commit_plain(plain[0], plain[1], kn, vn, w, plain[2], plain[3], ksn, vsn)
+    torch.cuda.synchronize()
+    assert (RK.ring_commit_q.launches, RK.ring_commit.launches) == (before[0] + 1, before[1])
+    for got, want in zip((kc, vc, ks, vs), plain):
+        assert torch.equal(got, want)
+    assert torch.equal(kc[:, :, w], kn[:, :, 0]) and torch.equal(vs[:, :, w], vsn[:, :, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, None, 5])
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac", SPLIT_CASES)
+def test_decode_attend_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, window, frac,
+                                            n_split):
+    args, oldest = _split_inputs(cuda_device, B, H, C, Dh, pos, window, frac, seed=pos + C)
+    plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
+    valid = args[7]
+    assert DA.supported(args[0], args[1], plan)
+    assert not DA.fused_commit_supported(args[0], args[1], plan)
+    before = DA.decode_attend.launches
+    runs = [DA.decode_attend(*args[:7], plan, valid, window=window, n_split=n_split)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert DA.decode_attend.launches == before + 3
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    y = runs[0]
+    assert y.shape == (B, H, 1, Dh) and y.dtype == torch.bfloat16
+    split = DA.pick_split(B * H, C) if n_split is None else n_split
+    rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
+    for n in {split, 1}:  # the plain version in the kernel's split, and unsplit
+        yp = DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid, pos,
+                                    plan["w"][0], window, n)
+        np.testing.assert_allclose(y[:, :, 0].float().cpu().numpy(),
+                                   yp.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+    if oldest is None:  # only the fresh row attends: the garbage ring is ignored
+        np.testing.assert_allclose(y.float().cpu().numpy(), args[6].float().cpu().numpy(),
+                                   atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_decode_attend_kernel_takes_head_major_strides(cuda_device):
+    """A (B*H, C, Dh) ring addressed as (1, B*H, C, Dh): the same kernel."""
+    args, _ = _split_inputs(cuda_device, 2, 32, 384, 64, 1000, 375, 0.9, seed=5)
+    q, kc, vc, ks, vs, k_new, v_new, valid = args
+    plan = A.global_ring_plan(1000, 384, 1, device=cuda_device)
+    want = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, plan, valid, window=375)
+    k_t, v_t = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (kc, vc))
+    ks_t, vs_t = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (ks, vs))
+    assert not k_t.is_contiguous()
+    got = DA.decode_attend(q, k_t, v_t, ks_t, vs_t, k_new, v_new, plan, valid, window=375)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_split_kernels_raise_on_unsupported(cuda_device):
+    before = _launches()
+    q = torch.zeros(2, 8, 1, 96, dtype=torch.bfloat16, device=cuda_device)
+    k = torch.zeros(2, 8, 256, 96, dtype=torch.int8, device=cuda_device)
+    s = torch.ones(2, 8, 256, device=cuda_device)
+    valid = torch.ones(2, 256, dtype=torch.bool, device=cuda_device)
+    plan = A.global_ring_plan(3, 256, 1, device=cuda_device)
+    assert not DA.supported(q, k, plan)
+    with pytest.raises(ValueError):  # Dh = 96
+        DA.decode_attend(q, k, k, s, s, q, q, plan, valid, window=250)
+    with pytest.raises(ValueError):  # f32 queries
+        DA.decode_attend(q[..., :64].float(), k[..., :64], k[..., :64], s, s,
+                         q[..., :64], q[..., :64], plan, valid, window=250)
+    with pytest.raises(ValueError):  # bf16 rings go to ring_commit without scales
+        RK.ring_commit(k.bfloat16(), k.bfloat16(), k[:, :, :1], k[:, :, :1], 0,
+                       s, s, s[:, :, :1], s[:, :, :1])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DA.supported(q, k.to(torch.uint8), plan)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DA.decode_attend(q, k.to(torch.uint8), k.to(torch.uint8), s, s, q, q, plan, valid,
+                         window=250)
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+def test_step_raises_where_no_attention_kernel_serves(cuda_device):
+    """``transformer.step`` puts no gate before ``decode_attend``: an int8
+    ring with a head width the kernel does not take raises on the card
+    rather than attending through plain PyTorch."""
+    cfg = T.TransformerConfig(d_model=384, num_heads=4, num_layers=1, dim_feedforward=256,
+                              context=250, head_dim=96)
+    params = T.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                    dtype=torch.bfloat16)
+    state = T.init_state(cfg, 2, kv_quant=True, device=cuda_device)
+    x = torch.zeros(2, 1, 384, dtype=torch.bfloat16, device=cuda_device)
+    before = DA.decode_attend.launches
+    with pytest.raises(ValueError, match="Dh 64 or 128"):
+        T.step(cfg, params, state, x)
+    assert DA.decode_attend.launches == before

@@ -24,7 +24,8 @@ def test_every_module_imports_without_jax():
     for mod in ("server.batched_asr", "ops.decode_attn", "server.tts_batched",
                 "server.app", "server.protocol", "server.auth", "server.voices",
                 "server.tts_module", "server.tts_preprocess", "sessions.tts",
-                "models.conditioner", "utils.tokenizer", "utils.audio"):
+                "models.conditioner", "utils.tokenizer", "utils.audio",
+                "sessions.lm_gen", "server.duplex", "server.duplex_batched"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -35,6 +36,27 @@ def test_every_module_imports_without_jax():
                         if m == "dsm_tpu" or m.startswith("dsm_tpu."))
         assert not leaked, leaked
         print("ok", len({names!r}))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_engines_import_without_the_web_packages():
+    """The builder and the three engines load where aiohttp and msgpack are
+    absent (only ``server.app`` needs them), so a machine with a card and
+    neither package can build and drive every path."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("jax", "aiohttp", "msgpack"):
+            sys.modules[name] = None
+        for name in ("server.builder", "server.duplex", "server.duplex_batched",
+                     "server.protocol", "sessions.lm_gen"):
+            importlib.import_module("dsm_tpu_torch." + name)
+        from dsm_tpu_torch.server import duplex
+        assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")
+        print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=False)

@@ -155,3 +155,171 @@ def test_decode_attend_commit_first_step_is_fresh_row():
         t["v_new"], tattn.global_ring_plan(0, C, 1), torch.zeros(B, C, dtype=torch.bool),
         window=250)
     np.testing.assert_array_equal(as_np(y), as_np(t["v_new"]))
+
+
+# ---------------------------------------------------------------------------
+# The split ring pipeline: ring_commit_q, then decode_attend
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,C,Dh,w", [(2, 20, 256, 128, 0), (2, 20, 256, 128, 133),
+                                        (2, 20, 256, 128, 255), (1, 32, 384, 64, 100)])
+def test_ring_commit_q_plain_matches_pallas(B, H, C, Dh, w):
+    """All four rings bit for bit against ``_ring_commit_q`` (interpret)."""
+    rng = np.random.default_rng(w + C)
+    kc, vc = (pair(rng.integers(-127, 128, (B, H, C, Dh)), "int8") for _ in range(2))
+    kn, vn = (pair(rng.integers(-127, 128, (B, H, 1, Dh)), "int8") for _ in range(2))
+    ks, vs = (pair(rng.uniform(size=(B, H, C)), "float32") for _ in range(2))
+    ksn, vsn = (pair(rng.uniform(size=(B, H, 1)), "float32") for _ in range(2))
+    assert jrk.supported(kc[0], kn[0], True)
+    want = jrk.ring_commit(kc[0], vc[0], kn[0], vn[0], w, ks[0], vs[0], ksn[0], vsn[0],
+                           interpret=True)
+    trk.ring_commit(kc[1], vc[1], kn[1], vn[1], w, ks[1], vs[1], ksn[1], vsn[1])
+    for got, ref in zip((kc[1], vc[1], ks[1], vs[1]), want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert trk.ring_commit_q.launches == 0  # CPU tensors: the plain version
+
+
+def test_ring_commit_q_keeps_the_semantic_conditions_only():
+    """Any B (the JAX kernel's batch block refuses 24), no tiling terms; a
+    row past the ring's end is refused."""
+    kc = torch.zeros(24, 3, 40, 12, dtype=torch.int8)
+    ks = torch.zeros(24, 3, 40)
+    kn = torch.ones(24, 3, 1, 12, dtype=torch.int8)
+    trk.ring_commit(kc, kc.clone(), kn, kn, 39, ks, ks.clone(), ks[:, :, :1] + 2,
+                    ks[:, :, :1] + 2)
+    assert kc[:, :, 39].eq(1).all() and not kc[:, :, :39].any() and ks[:, :, 39].eq(2).all()
+    with pytest.raises(ValueError):
+        trk.ring_commit(kc, kc.clone(), kn, kn, 40, ks, ks.clone(), ks[:, :, :1],
+                        ks[:, :, :1])
+    big = jnp.zeros((24, 20, 256, 128), jnp.int8)
+    assert not jrk.supported(big, big[:, :, :1], True)  # b % 16: Mosaic tiling
+
+
+SPLIT_GRID = [
+    (2, 20, 256, 128, 40, 250, 1.0),      # h % 8 != 0, one chunk on the TPU
+    (2, 20, 1024, 128, 5000, 900, 0.9),   # h % 8 != 0, several chunks, deep wrap
+    (1, 20, 3072, 128, 3100, 3000, 0.9),  # s2s-2b serving shape
+    (1, 32, 4096, 64, 4200, 4096, 0.9),   # tts_v0_1 shape
+]
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,valid_frac", SPLIT_GRID)
+def test_decode_attend_plain_matches_pallas_flash_and_xla(B, H, C, Dh, pos, window,
+                                                          valid_frac, n_split):
+    """``decode_attend_plain`` (the kernel's order of operations, with and
+    without its split) within 2e-2 of ``_decode_attend_q_flash`` in interpret
+    mode and of both packages' ``attend_global_split_q``: the bar of
+    tests/test_decode_attn.py (other summation orders, probabilities rounded
+    to bf16 relative to each span's own maximum)."""
+    p = _to_pairs(_attn_inputs(B, H, C, Dh, valid_frac, seed=pos + B + H))
+    j = {k: v[0] for k, v in p.items()}
+    t = {k: v[1] for k, v in p.items()}
+    jplan = jattn.global_ring_plan(jnp.int32(pos), C, 1)
+    tplan = tattn.global_ring_plan(pos, C, 1)
+    assert jda.supported(j["q"], j["kc"], jplan) and not jda._mono_ok(H, C, Dh, False)
+    assert tda.supported(t["q"], t["kc"], tplan)
+    assert not tda.fused_commit_supported(t["q"], t["kc"], tplan)
+
+    y_xla = jattn.attend_global_split_q(j["q"], j["kc"], j["vc"], j["ks"], j["vs"],
+                                        j["k_new"], j["v_new"], jplan, j["valid"],
+                                        window=window)
+    y_port_xla = tattn.attend_global_split_q(t["q"], t["kc"], t["vc"], t["ks"], t["vs"],
+                                             t["k_new"], t["v_new"], tplan, t["valid"],
+                                             window=window)
+    kq, vq, ksn, vsn = jattn.quantize_kv_rows(j["k_new"], j["v_new"])
+    kc2, vc2, ks2, vs2 = jrk.ring_commit(j["kc"], j["vc"], kq, vq, jplan["w"][0], j["ks"],
+                                         j["vs"], ksn, vsn, interpret=True)
+    y_flash = jda.decode_attend(j["q"], kc2, vc2, ks2, vs2, j["k_new"], j["v_new"], jplan,
+                                j["valid"], window=window, interpret=True)
+
+    kqt, vqt, ksnt, vsnt = tattn.quantize_kv_rows(t["k_new"], t["v_new"])
+    trk.ring_commit(t["kc"], t["vc"], kqt, vqt, tplan["w"][0], t["ks"], t["vs"], ksnt, vsnt)
+    np.testing.assert_array_equal(t["kc"].numpy(), np.asarray(kc2))
+    np.testing.assert_array_equal(t["vs"].numpy(), np.asarray(vs2))
+    y = tda.decode_attend(t["q"], t["kc"], t["vc"], t["ks"], t["vs"], t["k_new"],
+                          t["v_new"], tplan, t["valid"], window=window, n_split=n_split)
+    assert y.shape == (B, H, 1, Dh) and y.dtype == torch.bfloat16
+    for ref in (y_flash, y_xla, y_port_xla):
+        np.testing.assert_allclose(as_np(y), as_np(ref), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("n_split", [1, 4])
+def test_decode_attend_first_step_ignores_garbage_ring(n_split):
+    """At pos 0 with an empty bitmap no span has an attended row: the output
+    is the fresh row, as for ``_decode_attend_q_flash``."""
+    B, H, C, Dh = 2, 20, 1024, 128
+    p = _to_pairs(_attn_inputs(B, H, C, Dh, 1.0, 11))
+    j = {k: v[0] for k, v in p.items()}
+    t = {k: v[1] for k, v in p.items()}
+    none_j, none_t = jnp.zeros((B, C), bool), torch.zeros(B, C, dtype=torch.bool)
+    jplan = jattn.global_ring_plan(jnp.int32(0), C, 1)
+    kq, vq, ksn, vsn = jattn.quantize_kv_rows(j["k_new"], j["v_new"])
+    kc2, vc2, ks2, vs2 = jrk.ring_commit(j["kc"], j["vc"], kq, vq, jplan["w"][0], j["ks"],
+                                         j["vs"], ksn, vsn, interpret=True)
+    yj = jda.decode_attend(j["q"], kc2, vc2, ks2, vs2, j["k_new"], j["v_new"], jplan,
+                           none_j, window=1000, interpret=True)
+    y = tda.decode_attend(t["q"], bridge.to_tensor(np.asarray(kc2)),
+                          bridge.to_tensor(np.asarray(vc2)), bridge.to_tensor(np.asarray(ks2)),
+                          bridge.to_tensor(np.asarray(vs2)), t["k_new"], t["v_new"],
+                          tattn.global_ring_plan(0, C, 1), none_t, window=1000,
+                          n_split=n_split)
+    np.testing.assert_array_equal(as_np(y), as_np(t["v_new"]))
+    np.testing.assert_allclose(as_np(y), as_np(yj), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("pos", [0, 7, 300, 1000])
+def test_decode_attend_masks_the_committed_row(pos):
+    """The split pipeline attends after the commit, so ring row w holds this
+    step's row; a huge value there must not move the output, which equals
+    the fused pipeline's over the pre-commit ring."""
+    B, H, C, Dh, window = 2, 20, 256, 128, 250
+    t = {k: v[1] for k, v in _to_pairs(_attn_inputs(B, H, C, Dh, 0.8, pos)).items()}
+    plan = tattn.global_ring_plan(pos, C, 1)
+    w = plan["w"][0]
+    kq, vq, ksn, vsn = tattn.quantize_kv_rows(t["k_new"], t["v_new"])
+    pre = {k: t[k].clone() for k in ("kc", "vc", "ks", "vs")}
+    trk.scale_commit(pre["ks"], pre["vs"], ksn, vsn, w)
+    y_fused, _, _ = tda.decode_attend_commit(
+        t["q"], pre["kc"], pre["vc"], pre["ks"], pre["vs"], kq, vq, t["k_new"], t["v_new"],
+        plan, t["valid"], window=window)
+    t["kc"][:, :, w] = 127
+    t["vc"][:, :, w] = 127
+    t["ks"][:, :, w] = 1e4
+    t["vs"][:, :, w] = 1e4
+    valid = t["valid"].clone()
+    valid[:, w] = True
+    for n_split in (1, 2, 5):
+        y = tda.decode_attend(t["q"], t["kc"], t["vc"], t["ks"], t["vs"], t["k_new"],
+                              t["v_new"], plan, valid, window=window, n_split=n_split)
+        np.testing.assert_allclose(as_np(y), as_np(y_fused), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("H,C,Dh", [(16, 768, 128), (16, 1024, 128), (8, 256, 128),
+                                    (20, 3072, 128), (16, 3072, 128), (32, 384, 64),
+                                    (32, 4096, 64), (4, 640, 128), (24, 256, 128)])
+def test_shape_rule_matches_jax(H, C, Dh, monkeypatch):
+    """Fused iff the JAX package's shape terms hold (``_mono_ok`` and
+    ``_legacy_4d``); the port's ``supported`` has no tiling term."""
+    monkeypatch.delenv("DSM_FUSED_ATTN", raising=False)
+    q = jnp.zeros((2, H, 1, Dh), jnp.bfloat16)
+    kc = jnp.zeros((2, H, C, Dh), jnp.int8)
+    jplan = jattn.global_ring_plan(jnp.int32(5), C, 1)
+    tq, tk = torch.zeros(2, H, 1, Dh, dtype=torch.bfloat16), torch.zeros(2, H, C, Dh,
+                                                                        dtype=torch.int8)
+    tplan = tattn.global_ring_plan(5, C, 1)
+    assert tda._mono_ok(H, C, Dh) == jda._mono_ok(H, C, Dh, False)
+    assert tda.fused_commit_supported(tq, tk, tplan) == jda.fused_commit_supported(q, kc, jplan)
+    assert tda.supported(tq, tk, tplan)
+    assert not tda.fused_commit_supported(tq.float()[:, :, :0], tk, tplan)  # T = 0 rows
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tda.supported(tq, tk.to(torch.uint8), tplan)
+
+
+def test_pick_split_fills_the_card_and_keeps_spans():
+    assert tda.pick_split(24 * 20, 3072) == 3   # s2s-2b serving: 1,440 blocks
+    assert tda.pick_split(64 * 16, 768) == 2
+    assert tda.pick_split(2 * 32, 4096) == 16
+    assert tda.pick_split(4096, 3072) == 1
+    assert tda.pick_split(1, 128) == 1
