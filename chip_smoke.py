@@ -14,20 +14,34 @@ lines each:
    C = window = 1024, past their wrap; the TTS voice source; the duplex
    rings, (24,20,3072,128), through the split pipeline: ring_commit_q, then
    decode_attend unsplit and at its chosen split; the duplex codec's bf16
-   rings at B=24), run three times with
-   identical results; commits bit-exact, attention within 2e-2 on inputs
-   whose outputs are O(1), where a dropped row, a padding row read, the
-   committed row let in or a wrong mask would fail the bar (checked on the
-   plain version);
+   rings at B=24; the stt-2.6b rings, (64,32,384,64), through decode_attend
+   in one span and through the fused decode_attend_commit; the stt-1b rings,
+   (64,16,768,128), through decode_attend; the weight-only matmul qmm at the
+   stt-2.6b matmul shapes, M = 64, and at M = 1 and 24), run three times
+   with identical results; commits bit-exact, attention within 2e-2 on
+   inputs whose outputs are O(1), where a dropped row, a padding row read,
+   the committed row let in or a wrong mask would fail the bar (checked on
+   the plain version); qmm within one bf16 step (or 1e-2) of its plain
+   version and 2e-3 in relative L2, where a dropped scale or a dropped piece
+   of K would fail;
 4. serve: the BatchedAsr engine from configs/config-stt.toml (stt-1b,
    d=2048, 16 layers, 32 codebooks, B=64, int8 KV, int8 weights + W8A8,
    bf16 codec, seeded random weights) serves 8 sessions, then 4 more in
    reused slots; every frame gets its step event, every marker arrives,
    VAD probabilities are finite, and the kernels launched exactly
    16 scale_commit + 16 decode_attend_commit + 8 ring_commit per step;
-5. times: engine step with all 64 slots active, and each kernel, its plain
-   version and its library call as device time (CUDA events around calls
-   queued behind a spin kernel, so the wrapper's host time stays out);
+5. times: engine step with all 64 slots active; then ``[stt1b-split]``: the
+   stt-1b LM step at 4 layers with the fused setting off (ring_commit_q +
+   decode_attend at the stt-1b rings) against the fused route from one
+   state; then the stt-2.6b path: ``[stt26]`` the BatchedAsr engine from
+   configs/config-stt-en.toml as shipped (d=2048, 48 layers, 32 heads x 64,
+   context 375, B=64, int8 KV, weight-only int8 weights (w8a8 = false), no
+   VAD heads) serves 8 + 4 sessions through the 32-token delay with exactly
+   PER_STEP_STT26 launches per step and no int8 library GEMM,
+   ``[stt26-times]``/``[stt26-profile]`` as for stt-1b, and ``[stt26-path]``:
+   one LM step through the kernels against the same step through the plain
+   versions, and with the fused setting on (scale_commit +
+   decode_attend_commit at h=32, Dh=64) against the split route;
 6. tts: the batched TTS engine from configs/config-tts-tpu-serving.toml
    (tts-1.6b-en_fr, d=2048, 16 layers, DepFormer 32 slices x 4 layers,
    B=64, int8 voice store, int8 KV, int8 weights + W8A8, bf16 codec, the
@@ -55,12 +69,18 @@ lines each:
    encode, the LM step, the DepFormer and Mimi decode timed at 24 active
    slots with a kernel profile, the tick once more over full rings.
 
-Each kernel's JSON entry carries its bound: the larger of the bytes the
-case must move at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside
-the tensor cores), counted from the rows this run's mask lets in; and, for
-the commits, the time of the in-place slice assignments that compute the
-same function (``library_ms``; no single PyTorch call computes the
-attention kernels' function).
+After the three earlier paths each kernel case is timed: the kernel, its
+plain version and its library call as device time (CUDA events around calls
+queued behind a spin kernel, so the wrapper's host time stays out).  Each
+kernel's JSON entry carries its bound: the larger of the bytes the case must
+move at 3.35 TB/s and its operations at the card's peak for their type (67
+TFLOP/s f32 outside the tensor cores; 989 TFLOP/s bf16 on them for qmm),
+counted from the rows this run's mask lets in; and the library call's time
+(``library_ms``): for the commits the in-place slice assignments that
+compute the same function, for qmm the pair ``wq.to(bf16)`` + matmul + scale
+(no single PyTorch call computes the attention kernels' function).  The
+entries named ``wrapper[rings]`` are the TPU kernels that the port serves
+with an earlier kernel at other shapes: their numbers are that shape's.
 
 The last three lines: the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Any failed check raises.
@@ -84,6 +104,7 @@ SOURCES = {
     "ca_decode_attend": "dsm_tpu_torch/csrc/ca_attn.cu",
     "ring_commit_q": "dsm_tpu_torch/csrc/ring_attn.cu",
     "decode_attend": "dsm_tpu_torch/csrc/decode_attn.cu",
+    "qmm": "dsm_tpu_torch/csrc/qmm.cu",
 }
 REPLACES = {
     "scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
@@ -92,6 +113,17 @@ REPLACES = {
     "ca_decode_attend": "dsm_tpu/ops/decode_attn.py:960",
     "ring_commit_q": "dsm_tpu/ops/ring_kernels.py:66",
     "decode_attend": "dsm_tpu/ops/decode_attn.py:215",
+    "qmm": "dsm_tpu/ops/qmm.py:42",
+}
+# TPU kernels that the port serves with one of the kernels above at other
+# shapes: JSON name -> (wrapper, TPU kernel, the path that launches it there).
+ROUTES = {
+    "decode_attend[stt-1b rings]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:384",
+                                    "stt1b_split"),
+    "decode_attend[stt-2.6b rings]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:59",
+                                      "stt26"),
+    "decode_attend_commit[stt-2.6b rings]": ("decode_attend_commit",
+                                             "dsm_tpu/ops/decode_attn.py:661", "stt26_fused"),
 }
 # Launches per engine step of the STT path: each of the LM's 16 layers
 # commits its int8 scales and attends over its int8 ring with the fused
@@ -108,6 +140,12 @@ PER_TICK_TTS = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8
 # layers commits its int8 rows and scales with ring_commit_q and attends
 # with decode_attend; the Mimi encoder's and decoder's 8 layers each commit
 # their 2 bf16 rows.
+# Launches per engine step of the stt-2.6b path: 32 heads x 64 are not a
+# shape of the fused rule, so each of the LM's 48 layers commits its int8 rows
+# and scales with ring_commit_q and attends with decode_attend (one span);
+# its 4 matmuls and the text head are weight-only: qmm; Mimi as above.
+PER_STEP_STT26 = {"ring_commit_q": 48, "decode_attend": 48, "ring_commit": 8, "qmm": 193,
+                  "scale_commit": 0, "decode_attend_commit": 0}
 PER_TICK_DUPLEX = {"ring_commit_q": 24, "decode_attend": 24, "ring_commit": 16,
                    "scale_commit": 0, "decode_attend_commit": 0}
 # The bf16 K/V ring of each Mimi transformer layer in the duplex engine
@@ -116,14 +154,25 @@ DUPLEX_MIMI_RING = (24, 8, 256, 64)
 ATOL = RTOL = 2e-2
 REPEATS = 3  # kernel runs per case in the kernel phase
 PATH_RTOL = 2e-2  # the TTS path through the kernels against its plain versions
+ROW_RTOL = 5e-2  # a freshly quantised ring row of one route against the other's
 # The case whose times stand in the kernels' JSON line: the full STT
 # rings, and the TTS serving voice source.
 HEADLINE = {"scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 valid=1.0",
             "ring_commit": "w=254", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
             "ring_commit_q": "duplex w=3071",
-            "decode_attend": "duplex pos=10000 valid=1.0 split=3"}
+            "decode_attend": "duplex pos=10000 valid=1.0 split=3",
+            "qmm": "M=64 O=11264 I=2048",
+            "decode_attend[stt-1b rings]": "stt1b pos=3000 valid=1.0 split=1",
+            "decode_attend[stt-2.6b rings]": "stt26 pos=3000 valid=1.0 split=1",
+            "decode_attend_commit[stt-2.6b rings]": "stt26 pos=3000 valid=1.0"}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+QMM_REL_L2 = 2e-3  # qmm against its plain version
+# The stt-2.6b matmuls at B=64 (in_proj, out_proj, the gated MLP's two, the
+# text head), then a single row and the duplex batch.
+QMM_SHAPES = ((64, 6144, 2048), (64, 2048, 2048), (64, 11264, 2048), (64, 2048, 5632),
+              (64, 4000, 2048), (1, 2048, 2048), (24, 2048, 2048))
 
 
 def check(cond, msg: str) -> None:
@@ -188,7 +237,7 @@ def _exact(got, want) -> float:
 def _bound(info):
     """The least time the card could take for a case -> ``(ms, bound_by)``."""
     t_bytes = info["bytes"] / MEM_BYTES_PER_S * 1e3
-    t_ops = info["flops"] / F32_FLOPS * 1e3
+    t_ops = info["flops"] / info.get("peak", F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -516,6 +565,76 @@ def kernel_cases(dev):
                           ((0, 1.0), (40, 0.7), (3071, 1.0), (5000, 0.7), (10000, 1.0)))
     cases += _split_cases(dev, g, "B=2 H=32 C=4096 Dh=64", 2, 32, 4096, 64, 4096,
                           ((4200, 0.9),))
+
+    # stt-2.6b: 32 heads x 64 over a 384-row ring, window 375: an empty, a
+    # part-filled, a full and a wrapped ring, through decode_attend (one
+    # span) and through the fused commit; then decode_attend at the stt-1b
+    # rings, the split route of the shapes the fused kernel serves.
+    stt26_pos = ((0, 1.0), (40, 0.7), (383, 1.0), (3000, 1.0))
+    cases += _split_cases(dev, g, "stt26", 64, 32, 384, 64, 375, stt26_pos)
+    cases += _attend_cases(dev, g, "stt26", 64, 32, 384, 64, 375, True, stt26_pos)
+    cases += _split_cases(dev, g, "stt1b", 64, 16, 768, 128, 750, ((40, 0.9), (3000, 1.0)))
+    cases += _qmm_cases(dev, g)
+    return cases
+
+
+def _qmm_within(a, p) -> bool:
+    """Every element within one bf16 step of the plain result or 1e-2, and
+    QMM_REL_L2 overall: kernel and plain version sum the same exact products
+    in f32 in other orders and round once."""
+    import torch
+
+    a, p = a.float(), p.float()
+    step = torch.exp2(torch.floor(torch.log2(p.abs().clamp_min(1e-30))) - 7)
+    near = (a - p).abs() <= step.clamp_min(1e-2)
+    return bool(near.all()) and float((a - p).norm() / p.norm()) <= QMM_REL_L2
+
+
+def _qmm_cases(dev, g):
+    """qmm at QMM_SHAPES, K split as the wrapper picks (its time with K
+    unsplit is printed beside it): activations of unit spread, int8 weights,
+    scales that make the outputs O(1).  The bar must see one output channel's scale
+    dropped and one 64-wide piece of K dropped (plain version)."""
+    import torch
+
+    from dsm_tpu_torch.ops import qmm as QM
+
+    cases = []
+    for m, o, i in QMM_SHAPES:
+        x = torch.randn(m, i, generator=g, device=dev).bfloat16()
+        wq = torch.randint(-127, 128, (o, i), generator=g, device=dev, dtype=torch.int8)
+        sc = (torch.rand(o, generator=g, device=dev) + 0.5) / (73.3 * i ** 0.5)
+
+        def run_k(x=x, wq=wq, sc=sc):
+            return (QM.qmm(x, wq, sc),)
+
+        def run_p(x=x, wq=wq, sc=sc):
+            return (QM.qmm_plain(x, wq, sc),)
+
+        def cmp(got, want, x=x, wq=wq, sc=sc, o=o, i=i):
+            check(bool(torch.isfinite(got[0]).all()), "qmm output not finite")
+            check(_qmm_within(got[0], want[0]), "qmm outside one bf16 step of its plain version")
+            s_bad, x_bad = sc.clone(), x.clone()
+            s_bad[o // 3] = 1.0
+            x_bad[:, i - 128:i - 64] = 0
+            check(not _qmm_within(QM.qmm_plain(x, wq, s_bad), want[0]),
+                  "qmm: the bar does not see a dropped scale")
+            check(not _qmm_within(QM.qmm_plain(x_bad, wq, sc), want[0]),
+                  "qmm: the bar does not see a dropped piece of K")
+            return float((got[0].float() - want[0].float()).abs().max())
+
+        def library(x=x, wq=wq, sc=sc):
+            return (x @ wq.to(torch.bfloat16).T) * sc.to(torch.bfloat16)
+
+        def unsplit(x=x, wq=wq, sc=sc):
+            return QM.qmm(x, wq, sc, ksplit=1)
+
+        ksplit = QM.pick_ksplit(m, o, i)[0]
+        info = {"bytes": o * i + 2 * m * i + 4 * o + 2 * m * o, "flops": 2 * m * o * i,
+                "peak": BF16_TENSOR_FLOPS, "library": library,
+                "bar": f"one bf16 step or 1e-2 per element, relative L2 {QMM_REL_L2}",
+                "also": {"K unsplit (ksplit=1)": unsplit} if ksplit > 1 else {}}
+        cases.append(("qmm", f"M={m} O={o} I={i}", run_k, run_p, cmp, info))
     return cases
 
 
@@ -581,11 +700,12 @@ def _ca_cases(dev, g):
 def phase_kernels(dev):
     """Each case: the kernel REPEATS times (its results bit-identical: the
     kernels have no atomics and a fixed summation order), then its plain
-    version; outputs within the bar, rings bit for bit."""
+    version; outputs within the bar, rings bit for bit.  Returns each
+    case's max error by (kernel, label)."""
     import torch
 
     errs = {}
-    for name, label, run_k, run_p, cmp, _info in kernel_cases(dev):
+    for name, label, run_k, run_p, cmp, info in kernel_cases(dev):
         runs = [tuple(t.clone() for t in run_k()) for _ in range(REPEATS)]
         want = run_p()
         torch.cuda.synchronize()
@@ -593,10 +713,11 @@ def phase_kernels(dev):
             check(all(torch.equal(a, b) for a, b in zip(runs[0], again)),
                   f"{name} {label}: repeated kernel runs differ")
         err = cmp(runs[0], want)
-        errs[name] = max(errs.get(name, 0.0), err)
+        errs[(name, label)] = err
+        bar = info.get("bar", f"rings exact, outputs atol=rtol={ATOL}")
         print(f"[kernels] {name} {label}: max_abs_err {err!r}, max |plain| "
               f"{float(want[0].float().abs().max())!r}, {REPEATS} kernel runs identical "
-              f"(bar: rings exact, outputs atol=rtol={ATOL})", flush=True)
+              f"(bar: {bar})", flush=True)
     return errs
 
 
@@ -654,6 +775,9 @@ def _verify(sessions, sids, n_vad):
         markers = [m for e in evs for m in e.markers]
         check(markers == [1000 + sid], f"session {sid}: markers {markers}")
         for e in evs:
+            if n_vad == 0:  # a model without semantic-VAD heads delivers none
+                check(e.prs is None, f"session {sid}: prs from a model without VAD heads")
+                continue
             check(e.prs is not None and e.prs.shape == (n_vad,)
                   and bool(np.isfinite(e.prs).all()), f"session {sid}: bad prs")
 
@@ -686,10 +810,19 @@ def phase_serve(dev):
     engine.warmup()
     print(f"[serve] warmup {time.perf_counter() - t0:.3f} s", flush=True)
 
+    launches = _serve_asr(engine, counters, PER_STEP, "serve")
+    return engine, launches
+
+
+def _serve_asr(engine, counters, per_step, tag):
+    """8 sessions, then 4 more in reused slots, through a BatchedAsr engine;
+    every frame answered, every marker delivered after the ASR delay, and
+    exactly ``per_step`` launches of each kernel per engine step.  Returns
+    the launches."""
     for fn in counters.values():
         fn.launches = 0
     steps0 = engine.step_count
-    n_vad = engine.cfg.lm.extra_heads[0]
+    n_vad = engine.cfg.lm.extra_heads[0] if engine.cfg.lm.extra_heads else 0
     sessions = {}
     for sid in range(8):
         _open(engine, sid, 3.0 + sid / 8.0, sessions)
@@ -714,13 +847,14 @@ def phase_serve(dev):
     steps = engine.step_count - steps0
     launches = {name: fn.launches for name, fn in counters.items()}
     for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
-        check(n == PER_STEP[name] * steps,
-              f"{name}: {n} launches over {steps} steps, want {PER_STEP[name]} per step")
+        check(n > 0 or per_step[name] == 0, f"{name} never launched on the main path")
+        check(n == per_step[name] * steps,
+              f"{name}: {n} launches over {steps} steps, want {per_step[name]} per step")
     frames = sum(s["frames"] for s in sessions.values())
-    print(f"[serve] 12 sessions, {frames} frames, 12 markers delivered, {steps} "
-          f"engine steps; launches {launches} = per step {PER_STEP}", flush=True)
-    return engine, launches
+    print(f"[{tag}] 12 sessions, {frames} frames, 12 markers delivered after the "
+          f"{engine.cfg.asr_delay_in_tokens}-token delay, {steps} engine steps; launches "
+          f"{launches} = per step {per_step}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -728,7 +862,10 @@ def phase_serve(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_times(engine, dev, card):
+def phase_times(engine, dev, card, tag=""):
+    """The engine step with every slot active (host clock), a kernel profile
+    of 5 steps, and the step's two halves alone; lines tagged ``[<tag>times]``
+    and ``[<tag>profile]``."""
     import numpy as np
     import torch
 
@@ -749,9 +886,10 @@ def phase_times(engine, dev, card):
             if i >= 5:
                 times.append((time.perf_counter() - t0) * 1e3)
     check(bool(torch.isfinite(out["prs"]).all()), "prs not finite at B=64")
+    check(int(out["step_idx"].min()) == 56, "a slot did not step every time")
     step_ms = statistics.median(times)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[times] engine step, 64 slots active: median {step_ms!r} ms, "
+    print(f"[{tag}times] engine step, {b} slots active: median {step_ms!r} ms, "
           f"min {min(times)!r}, max {max(times)!r} over 50 after 5 warm-up; "
           f"peak memory {peak_gb:.2f} GB; card {card}", flush=True)
 
@@ -767,16 +905,17 @@ def phase_times(engine, dev, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == cuda and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
-    total = sum(t for _, t in rows)
-    print(f"[profile] kernels {total / 5e3!r} ms/step of {wall_us / 5e3!r} ms/step wall "
-          f"(profiled): device busy {total / wall_us!r}, {len(rows)} kernel names; "
-          f"card {card}", flush=True)
-    for key, t in rows[:12]:
-        print(f"[profile] {t / 5e3:9.4f} ms/step {100 * t / max(total, 1):5.1f}%  {key[:100]}",
-              flush=True)
+    total = sum(t for _, t, _ in rows)
+    check(total > 0, "the profiler saw no device time")
+    print(f"[{tag}profile] kernels {total / 5e3!r} ms/step of {wall_us / 5e3!r} ms/step wall "
+          f"(profiled): device busy {total / wall_us!r}, {sum(n for _, _, n in rows) / 5:.0f} "
+          f"device launches/step, {len(rows)} kernel names; card {card}", flush=True)
+    for key, t, n in rows[:12]:
+        print(f"[{tag}profile] {t / 5e3:9.4f} ms/step {100 * t / max(total, 1):5.1f}% "
+              f"{n / 5:6.0f}/step  {key[:90]}", flush=True)
 
     # The step's two halves alone: Mimi encode and the LM step.
     from dsm_tpu_torch.models import lm as LM
@@ -802,18 +941,18 @@ def phase_times(engine, dev, card):
                 torch.cuda.synchronize()
                 if i >= 5:
                     ts.append((time.perf_counter() - t0) * 1e3)
-        print(f"[times] {name}, 64 slots: median {statistics.median(ts)!r} ms over 20 "
-              f"after 5 warm-up; card {card}", flush=True)
-
-    return kernel_times(dev, card)
+        print(f"[{tag}times] {name}, {b} slots: median {statistics.median(ts)!r} ms, min "
+              f"{min(ts)!r}, max {max(ts)!r} over 20 after 5 warm-up; card {card}", flush=True)
 
 
 def kernel_times(dev, card):
     """Each kernel case: the kernel, its plain version and, where one
     exists, the library call as device time (:func:`device_time_ms`), and
     its bound from this run's inputs.  Returns the headline cases' numbers
-    by kernel name."""
+    by the name of their JSON entry."""
     ms = {}
+    wrapper_of = {**{name: name for name in SOURCES},
+                  **{name: route[0] for name, route in ROUTES.items()}}
     for name, label, run_k, run_p, _cmp, info in kernel_cases(dev):
         k_ms, p_ms = device_time_ms(run_k), device_time_ms(run_p)
         check(k_ms > 0, f"{name} {label}: no device time measured")
@@ -824,11 +963,275 @@ def kernel_times(dev, card):
               f"operations; {100 * bound_ms / k_ms:.1f} % of it reached), library call "
               f"{lib_ms!r} ms (device time, 20 calls queued behind a spin kernel); "
               f"card {card}", flush=True)
-        if HEADLINE[name] == label:
-            ms[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms}
+        for what, fn in info.get("also", {}).items():
+            print(f"[times] {name} {label}, {what}: kernel {device_time_ms(fn)!r} ms; "
+                  f"card {card}", flush=True)
+        for entry, head in HEADLINE.items():
+            if wrapper_of[entry] == name and head == label:
+                ms[entry] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": lib_ms}
     check(set(ms) == set(HEADLINE), "a headline kernel case is missing")
     return ms
+
+
+# ---------------------------------------------------------------------------
+# Phase 5, continued: the split route at stt-1b rings, and the stt-2.6b path
+# ---------------------------------------------------------------------------
+
+
+def _lm_counters():
+    from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.ops import qmm as QM
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    return {"ring_commit_q": RK.ring_commit_q, "decode_attend": DA.decode_attend,
+            "ring_commit": RK.ring_commit, "qmm": QM.qmm, "scale_commit": RK.scale_commit,
+            "decode_attend_commit": DA.decode_attend_commit}
+
+
+def _with_fused(lm_cfg, fused_attn):
+    import dataclasses
+
+    return dataclasses.replace(
+        lm_cfg, transformer=dataclasses.replace(lm_cfg.transformer, fused_attn=fused_attn))
+
+
+def _lm_step_counted(lm_cfg, params, state, text, audio, mask):
+    """One LM step from a clone of ``state`` -> (outputs, rings of every
+    layer, launches of each kernel in that step)."""
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+
+    counters = _lm_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    with torch.inference_mode():
+        logits, hidden, st = LM.step(lm_cfg, params, _clone(state), text, audio, mask)
+    torch.cuda.synchronize()
+    launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+    rings = [{key: layer[key] for key in ("k", "v", "ks", "vs")} for layer in st["t"]["layers"]]
+    return {"hidden": hidden, "text_logits": logits}, rings, launched
+
+
+def _compare_routes(tag, what, a, b, w):
+    """Two routes of one LM step from one state: outputs within PATH_RTOL
+    (relative L2, the bar of the other path checks: after several layers a
+    rounding step of one attention output moves single elements by more);
+    layer 0, whose input is the same in both, wrote the same four rings bit
+    for bit; in every layer every ring row but ``w`` is untouched and equal.
+    Deeper layers' row ``w`` is quantised from inputs that differ by the two
+    attention kernels' summation orders and then rounded to int8 again (and
+    to int8 activations before, under W8A8): its dequantised K and V are held
+    to ROW_RTOL (relative L2); the layers where it is equal, the worst
+    relative L2 and the worst int8 difference are reported."""
+    import torch
+
+    out_a, rings_a, _ = a
+    out_b, rings_b, _ = b
+    for key in out_a:
+        check(bool(torch.isfinite(out_a[key]).all()), f"{tag}: {key} not finite")
+        check(_rel(out_a[key], out_b[key]) <= PATH_RTOL,
+              f"{tag}: {key} of {what} {_rel(out_a[key], out_b[key])!r} from the other route")
+    for key in ("k", "v", "ks", "vs"):
+        check(torch.equal(rings_a[0][key], rings_b[0][key]),
+              f"{tag}: layer 0 ring {key} of {what} differs")
+    same = 0
+    worst = 0
+    worst_rel = 0.0
+    for ra, rb in zip(rings_a, rings_b):
+        keep = torch.ones(ra["k"].shape[2], dtype=torch.bool, device=ra["k"].device)
+        keep[w] = False
+        for key in ("k", "v", "ks", "vs"):
+            check(torch.equal(ra[key][:, :, keep], rb[key][:, :, keep]),
+                  f"{tag}: {what} touched a ring row other than w")
+        same += all(torch.equal(ra[key][:, :, w], rb[key][:, :, w]) for key in ra)
+        for kv, sc in (("k", "ks"), ("v", "vs")):
+            row_a = ra[kv][:, :, w].float() * ra[sc][:, :, w, None]
+            row_b = rb[kv][:, :, w].float() * rb[sc][:, :, w, None]
+            worst_rel = max(worst_rel, _rel(row_a, row_b))
+            worst = max(worst, int((ra[kv][:, :, w].int() - rb[kv][:, :, w].int()).abs().max()))
+    check(worst_rel <= ROW_RTOL,
+          f"{tag}: row w of {what} is {worst_rel!r} from the other route's")
+    err = {key: _rel(out_a[key], out_b[key]) for key in out_a}
+    return same, f"{worst} int8 steps, {worst_rel!r} relative L2 dequantised", err
+
+
+def phase_stt1b_split(dev):
+    """Kernel 5's route on a path: the stt-1b LM (full width, 4 of its 16
+    layers, B=64, int8 KV, W8A8) steps 24 frames, then one more from that
+    state with the fused setting off (ring_commit_q + decode_attend over the
+    (64,16,768,128) rings) and one by the shape rule (scale_commit +
+    decode_attend_commit)."""
+    import dataclasses
+
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.ops import transformer as T
+
+    depth = 4
+    preset = LM.stt_1b_en_fr()
+    lm_cfg = dataclasses.replace(
+        preset, transformer=dataclasses.replace(preset.transformer, num_layers=depth))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = T.quantize_weights(LM.init(lm_cfg, gen, torch.bfloat16))
+    b = 64
+    state = LM.init_state(lm_cfg, b, torch.bfloat16, kv_quant=True, device=dev)
+    ring = state["t"]["layers"][0]["k"]
+    check(tuple(ring.shape) == (64, 16, 768, 128) and ring.dtype == torch.int8,
+          "not the stt-1b int8 ring")
+    mask = torch.ones(b, dtype=torch.bool, device=dev)
+
+    def tokens():
+        return (torch.randint(4, 200, (b,), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 2048, (b, lm_cfg.audio_codebooks), generator=gen, device=dev,
+                              dtype=torch.int32))
+
+    with torch.inference_mode():
+        for _ in range(24):
+            state = LM.step(lm_cfg, params, state, *tokens(), mask)[2]
+    text, audio = tokens()
+    w = state["t"]["pos"] % ring.shape[2]
+    fused = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
+    split = _lm_step_counted(_with_fused(lm_cfg, False), params, state, text, audio, mask)
+    want_split = {"ring_commit_q": depth, "decode_attend": depth, "ring_commit": 0, "qmm": 0,
+                  "scale_commit": 0, "decode_attend_commit": 0}
+    want_fused = {**want_split, "ring_commit_q": 0, "decode_attend": 0,
+                  "scale_commit": depth, "decode_attend_commit": depth}
+    check(split[2] == want_split, f"stt1b-split: launches {split[2]}, want {want_split}")
+    check(fused[2] == want_fused, f"stt1b-split: fused launches {fused[2]}")
+    same, worst, err = _compare_routes("stt1b-split", "the split route", split, fused, w)
+    print(f"[stt1b-split] stt-1b LM step, {depth} layers (a cut: 16 in the model), B=64, rings "
+          f"{tuple(ring.shape)} holding {state['t']['pos']} rows: fused setting off launches "
+          f"{ {k: v for k, v in split[2].items() if v} }, the shape rule "
+          f"{ {k: v for k, v in fused[2].items() if v} }; outputs relative L2 {err} (bar "
+          f"{PATH_RTOL}); layer 0's four rings bit for bit, every row but w={w} of every layer "
+          f"equal, row w equal in {same} of {depth} layers (worst {worst}, bar {ROW_RTOL})",
+          flush=True)
+    return split[2]
+
+
+def phase_stt26(dev):
+    """The stt-2.6b engine from its TOML as shipped, serving 12 sessions."""
+    import torch
+
+    from dsm_tpu_torch.ops import transformer as T
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import config as CFG
+
+    path = os.path.join(ROOT, "configs", "config-stt-en.toml")
+    mod = CFG.Config.load(path).modules["asr"]
+    print(f"[stt26] {os.path.relpath(path, ROOT)}: every key as in the file (w8a8 = "
+          f"{mod.raw['w8a8']}, batch_size = {mod.batch_size}, asr_delay_in_tokens = "
+          f"{mod.asr_delay_in_tokens})", flush=True)
+    t0 = time.perf_counter()
+    engine = builder.build_batched_asr(mod, dev)
+    lm = engine.cfg.lm
+    tcfg = lm.transformer
+    check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, tcfg.context,
+           lm.audio_codebooks, lm.text_out_vocab_size, lm.extra_heads, engine.batch_size,
+           engine.cfg.asr_delay_in_tokens) == (2048, 48, 32, 64, 375, 32, 4000, None, 64, 32),
+          "not the stt-2.6b B=64 config")
+    check(engine.cfg.kv_quant and engine.cfg.mimi_dtype == "bfloat16", "not the serving profile")
+    ring = engine.state["lm"]["t"]["layers"][0]
+    check(tuple(ring["k"].shape) == (64, 32, 384, 64) and ring["k"].dtype == torch.int8
+          and tuple(ring["ks"].shape) == (64, 32, 384), "not the int8 ring of stt-2.6b")
+    layer = engine.params["lm"]["transformer"][0]
+    leaves = [layer["in_proj_w"], layer["out_proj_w"], layer["mlp"]["linear_in"],
+              layer["mlp"]["linear_out"], engine.params["lm"]["text_linear"]]
+    for leaf in leaves:
+        check(isinstance(leaf, dict) and leaf["q"].dtype == torch.int8
+              and leaf.get("w8a8", True) is False and not T.w8a8_at(leaf, "in_proj"),
+              "an LM weight is not int8 with the weight-only profile")
+    check([tuple(leaf["q"].shape) for leaf in leaves] == [(o, i) for _, o, i in QMM_SHAPES[:5]],
+          "the LM's matmuls are not the shapes the qmm cases hold")
+    check(PER_STEP_STT26["qmm"] == 4 * tcfg.num_layers + 1
+          and PER_STEP_STT26["decode_attend"] == tcfg.num_layers,
+          "PER_STEP_STT26 does not follow the config")
+    torch.cuda.synchronize()
+    print(f"[stt26] engine built in {time.perf_counter() - t0:.3f} s (stt-2.6b d=2048 L=48 "
+          f"h=32x64 ctx 375 K=32 B=64, int8 rings {tuple(ring['k'].shape)}, weight-only int8 "
+          f"weights, no VAD heads, bf16 codec, seeded random weights); memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak while building "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    t0 = time.perf_counter()
+    engine.warmup()
+    print(f"[stt26] warmup {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # No W8A8 anywhere on this path: the library's int8 GEMM must not run.
+    int_mm, calls = torch._int_mm, []
+
+    def counted_int_mm(*a, **kw):
+        calls.append(1)
+        return int_mm(*a, **kw)
+
+    torch._int_mm = counted_int_mm
+    try:
+        launches = _serve_asr(engine, _lm_counters(), PER_STEP_STT26, "stt26")
+    finally:
+        torch._int_mm = int_mm
+    check(not calls, f"torch._int_mm ran {len(calls)} times on the weight-only path")
+    print("[stt26] torch._int_mm calls while serving: 0", flush=True)
+    return engine, launches
+
+
+def phase_stt26_path(engine, dev):
+    """One LM step of the stt-2.6b engine from its state after the timed
+    steps (every slot active): through the kernels against the same step
+    through their plain versions (relative L2, PATH_RTOL), and with the
+    fused setting on (48 scale_commit + 48 decode_attend_commit at h=32,
+    Dh=64) against the split route."""
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+
+    lm_cfg, params, state = engine.cfg.lm, engine.params["lm"], engine.state["lm"]
+    n = engine.batch_size
+    g = torch.Generator(device=dev).manual_seed(19)
+    text = torch.randint(4, 200, (n,), generator=g, device=dev, dtype=torch.int32)
+    audio = torch.randint(0, 2048, (n, lm_cfg.audio_codebooks), generator=g, device=dev,
+                          dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    pos = state["t"]["pos"]
+    w = pos % state["t"]["layers"][0]["k"].shape[2]
+    seen = int(state["t"]["valid"].sum(dim=1).min())
+
+    split = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
+    layers = lm_cfg.transformer.num_layers
+    want = {"ring_commit_q": layers, "decode_attend": layers, "ring_commit": 0,
+            "qmm": 4 * layers + 1, "scale_commit": 0, "decode_attend_commit": 0}
+    check(split[2] == want, f"stt26-path: launches {split[2]}, want {want}")
+    with plain_seams(), torch.inference_mode():
+        plain = LM.step(lm_cfg, params, _clone(state), text, audio, mask)
+        forgot = _clone(state)
+        forgot["t"]["valid"].zero_()
+        empty = LM.step(lm_cfg, params, forgot, text, audio, mask)
+    rel = {"hidden": _rel(split[0]["hidden"], plain[1]),
+           "text_logits": _rel(split[0]["text_logits"], plain[0])}
+    history = _rel(empty[1], plain[1])
+    del plain, empty, forgot
+    for key, r in rel.items():
+        check(r <= PATH_RTOL, f"stt26-path: {key} through the kernels {r!r} from the plain path")
+    check(history > PATH_RTOL,
+          f"stt26-path: the ring's history moves the hidden state only {history!r}")
+    print(f"[stt26-path] {n} active rows at tick {pos} (every slot with at least {seen} valid "
+          f"ring rows), LM step through ring_commit_q + decode_attend + qmm ({split[2]}) "
+          f"against their plain versions from one state: relative L2 hidden "
+          f"{rel['hidden']!r}, text logits {rel['text_logits']!r} (bar {PATH_RTOL}); with the "
+          f"ring's history masked the hidden state moves {history!r}", flush=True)
+
+    fused = _lm_step_counted(_with_fused(lm_cfg, True), params, state, text, audio, mask)
+    want_fused = {**want, "ring_commit_q": 0, "decode_attend": 0, "scale_commit": layers,
+                  "decode_attend_commit": layers}
+    check(fused[2] == want_fused, f"stt26-path: fused launches {fused[2]}, want {want_fused}")
+    same, worst, err = _compare_routes("stt26-path", "the fused route", fused, split, w)
+    print(f"[stt26-path] the same step with the fused setting on: launches "
+          f"{ {k: v for k, v in fused[2].items() if v} }; outputs relative L2 from the split "
+          f"route {err} (bar {PATH_RTOL}); layer 0's four rings bit for bit, every row but w={w} "
+          f"of every layer equal, row w equal in {same} of {layers} layers (worst {worst}, "
+          f"bar {ROW_RTOL}: deeper layers quantise inputs that differ by the attention "
+          f"kernels' summation order)", flush=True)
+    return fused[2]
 
 
 # ---------------------------------------------------------------------------
@@ -1005,19 +1408,21 @@ def plain_seams():
     """Every kernel seam of the port takes its plain version, on CUDA tensors
     too: the reference that the path check holds the kernels' path to."""
     from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.ops import qmm as QM
     from dsm_tpu_torch.ops import ring_kernels as RK
 
     saved = (RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch,
-             DA._attend_launch)
+             DA._attend_launch, QM._launch)
     # ring_commit_plain also takes the scale rings (the split pipeline's commit).
     RK.scale_commit, RK.ring_commit = RK.scale_commit_plain, RK.ring_commit_plain
     DA._launch, DA._ca_launch = DA.decode_attend_commit_plain, DA.ca_decode_attend_plain
     DA._attend_launch = DA.decode_attend_plain
+    QM._launch = lambda x2, wq, s, ksplit: QM.qmm_plain(x2, wq, s)
     try:
         yield
     finally:
         (RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch,
-         DA._attend_launch) = saved
+         DA._attend_launch, QM._launch) = saved
 
 
 def _clone(tree):
@@ -1579,8 +1984,16 @@ def main() -> int:
 
     errs = phase_kernels(dev)
     engine, launches = phase_serve(dev)
-    ms = phase_times(engine, dev, card)
+    phase_times(engine, dev, card)
     del engine
+    torch.cuda.empty_cache()
+    split_launches = phase_stt1b_split(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stt26_engine, stt26_launches = phase_stt26(dev)
+    phase_times(stt26_engine, dev, card, tag="stt26-")
+    fused_launches = phase_stt26_path(stt26_engine, dev)
+    del stt26_engine
     torch.cuda.empty_cache()
     tts_engine, tts_launches = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
@@ -1588,14 +2001,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     duplex_engine, duplex_launches = phase_duplex(dev, card)
     phase_duplex_times(duplex_engine, dev, card)
-    # ``launches``: the three main paths' runs; each path's count beside it.
-    per_path = {"stt": launches, "tts": tts_launches, "duplex": duplex_launches}
+    del duplex_engine
+    torch.cuda.empty_cache()
+    ms = kernel_times(dev, card)
+    # ``launches``: the main paths' runs (each counted from 0 to its end) and
+    # the two single-step legs; each path's count beside it.  A route's entry
+    # counts the path that launches its wrapper at that shape.
+    per_path = {"stt": launches, "tts": tts_launches, "duplex": duplex_launches,
+                "stt26": stt26_launches, "stt26_fused": fused_launches,
+                "stt1b_split": split_launches}
+
+    def max_err(name, tag=""):
+        return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": sum(p.get(name, 0) for p in per_path.values()),
                 **{f"launches_{path}": p.get(name, 0) for path, p in per_path.items()},
-                "max_abs_err": errs[name], **ms[name]}
+                "max_abs_err": max_err(name), **ms[name]}
                for name in SOURCES]
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[wrapper], "replaces": tpu,
+                 "launches": per_path[path].get(wrapper, 0), "path": path,
+                 "case": HEADLINE[name],
+                 "max_abs_err": max_err(wrapper, HEADLINE[name].split()[0] + " "), **ms[name]}
+                for name, (wrapper, tpu, path) in ROUTES.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched on no main path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,9 @@ condition is added), run through the streaming temporal transformer (with
 the voice cross-attention for TTS), normalised, and projected to text
 logits; the semantic-VAD extra heads read the same hidden vector.  The
 DepFormer then samples the frame's audio codebooks, one slice per codebook
-(:func:`depformer_sample`, the JAX package's lean path).  Presets other
-than stt-1b come from the TOML (``server/config.py``).
+(:func:`depformer_sample`, the JAX package's lean path).  Presets: the STT
+models and s2s-2b; the serving configurations come from the TOML
+(``server/config.py``).
 
 Layout: a transformer is a list of per-layer dicts; the DepFormer's
 per-slice transformers are a list (slices) of such lists, while its other
@@ -73,6 +74,47 @@ def stt_1b_en_fr() -> LmConfig:
         audio_vocab_size=2049,
         audio_codebooks=32,
         extra_heads=(4, 6),  # semantic VAD
+    )
+
+
+def stt_2_6b_en() -> LmConfig:
+    """kyutai/stt-2.6b-en (configs/config-stt-en.toml): 32 heads x 64, no
+    semantic-VAD heads."""
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=2048, num_heads=32, num_layers=48, dim_feedforward=8192,
+            context=375, max_period=100_000.0,
+        ),
+        text_in_vocab_size=4001,
+        text_out_vocab_size=4000,
+        audio_vocab_size=2049,
+        audio_codebooks=32,
+    )
+
+
+def asr_300m_202501() -> LmConfig:
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=1024, num_heads=8, num_layers=16, dim_feedforward=4096,
+            context=750, max_period=100_000.0,
+        ),
+        text_in_vocab_size=48001,
+        text_out_vocab_size=48000,
+        audio_vocab_size=2049,
+        audio_codebooks=32,
+    )
+
+
+def asr_v0_1_1b() -> LmConfig:
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=2048, num_heads=16, num_layers=16, dim_feedforward=8192,
+            context=750, max_period=100_000.0,
+        ),
+        text_in_vocab_size=48001,
+        text_out_vocab_size=48000,
+        audio_vocab_size=2049,
+        audio_codebooks=8,
     )
 
 
@@ -191,7 +233,7 @@ def step(cfg: LmConfig, params: dict, state: dict, text_ids: torch.Tensor,
                          emb, mask, ca_kv=ca_kv)
     ys = norm_mod.apply_norm(cfg.transformer.norm, params["out_norm"], ys)
     hidden = ys[:, 0, :]
-    text_logits = T.mm(hidden, params["text_linear"])
+    text_logits = T.mm(hidden, params["text_linear"], site="text_linear")
     return text_logits, hidden, {"t": t_state}
 
 
@@ -211,7 +253,7 @@ def extra_heads_probs(cfg: LmConfig, params: dict, hidden: torch.Tensor) -> torc
 def _slice_w(w, i: int):
     """Slice ``i`` of a weight stacked on its leading axis (dense or int8)."""
     if isinstance(w, dict):
-        return {"q": w["q"][i], "s": w["s"][i]}
+        return {**w, "q": w["q"][i], "s": w["s"][i]}  # the profile rides along
     return w[i]
 
 
@@ -228,7 +270,7 @@ def _mm_all_slices(hidden: torch.Tensor, w) -> torch.Tensor:
 def _dep_embed(table: torch.Tensor, token: torch.Tensor, low_rank_w) -> torch.Tensor:
     emb = table[token.long()]
     if low_rank_w is not None:
-        emb = T.mm(emb, low_rank_w)
+        emb = T.mm(emb, low_rank_w, site="low_rank")
     return emb
 
 
@@ -298,7 +340,7 @@ def depformer_sample(cfg: LmConfig, params: dict, hidden: torch.Tensor,
         lr = _slice_w(low_rank, i) if low_rank is not None else None
         x = x_base[i] + _dep_embed(table, last, lr).to(hidden.dtype)
         h, kv = T.micro_step(dcfg, dp["transformer"][i], kv, x, i)
-        logits = T.mm(h, _slice_w(dp["linear_out"], i))
+        logits = T.mm(h, _slice_w(dp["linear_out"], i), site="dep_out")
         tok = combine_and_sample(logits, i)
         toks.append(tok)
         last = torch.where(forced_next[:, i] >= 0, forced_next[:, i], tok)

@@ -61,6 +61,9 @@ _SIGNATURES = {
     "dsm_ca_decode_attend": (
         [_P] * 6 + [_LL, _I, _I, _I] + [_LL] * 6 + [ctypes.c_float, _P], _I
     ),
+    # x, wq, s, part, out, m, o, i, weight row stride, ksplit,
+    # chunks_per_split, stream
+    "dsm_qmm": ([_P] * 5 + [_LL, _I, _I, _LL, _I, _I, _P], _I),
 }
 
 

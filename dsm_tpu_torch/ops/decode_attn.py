@@ -176,18 +176,25 @@ def _legacy_4d(h: int, dh: int) -> bool:
     return dh == 128 and h % 8 == 0 and h <= 16
 
 
-def fused_commit_supported(q, k_cache, plan) -> bool:
+def fused_commit_supported(q, k_cache, plan, fused_attn: Optional[bool] = None) -> bool:
     """The shape rule of ``dsm_tpu.ops.decode_attn.fused_commit_supported``
     without its tiling terms: T=1 over an int8 ring that ``_mono_ok`` and
     ``_legacy_4d`` take goes to ``scale_commit`` + ``decode_attend_commit``;
     every other int8 ring to ``ring_commit`` with the scales, then
-    :func:`decode_attend`."""
+    :func:`decode_attend`.
+
+    ``fused_attn`` (``TransformerConfig.fused_attn``) is the explicit form of
+    the JAX package's ``DSM_FUSED_ATTN`` switch: True takes the fused
+    pipeline at every ``_mono_ok`` int8 ring, the head-major shapes (h = 32,
+    Dh = 64) included; False takes the split pipeline everywhere."""
     if q.dim() != 4 or q.shape[2] != 1 or k_cache.dtype != torch.int8:
         return False
-    if len(plan["w"]) != 1:
+    if len(plan["w"]) != 1 or fused_attn is False:
         return False
     h, dh = q.shape[1], q.shape[3]
-    return _mono_ok(h, k_cache.shape[2], dh) and _legacy_4d(h, dh)
+    if not _mono_ok(h, k_cache.shape[2], dh):
+        return False
+    return fused_attn is True or _legacy_4d(h, dh)
 
 
 def _reject_int4(k_cache) -> None:

@@ -45,8 +45,8 @@ def apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     from .transformer import mm  # transformer imports this module
 
     if "linear_in" in params:
-        y = mm(x, params["linear_in"])
+        y = mm(x, params["linear_in"], site="mlp_in")
         a, b = torch.chunk(y, 2, dim=-1)
-        return mm(F.silu(a) * b, params["linear_out"])
-    y = F.gelu(mm(x, params["linear1"]), approximate="none")
-    return mm(y, params["linear2"])
+        return mm(F.silu(a) * b, params["linear_out"], site="mlp_out")
+    y = F.gelu(mm(x, params["linear1"], site="mlp_in"), approximate="none")
+    return mm(y, params["linear2"], site="mlp_out")

@@ -1,6 +1,6 @@
 """Streaming decoder transformer (counterpart of ``dsm_tpu/ops/transformer.py``).
 
-Pre-norm blocks with RoPE or no positional embedding, sliding-window
+Pre-norm blocks with RoPE, a sinusoidal or no positional embedding, sliding-window
 self-attention over a fixed ring KV cache per layer, optional gated
 cross-attention over a static source (the TTS voice), gated (SiLU GLU) or
 GELU MLP, optional layer scale.  :func:`micro_step` is the DepFormer's lean
@@ -9,7 +9,7 @@ step over a small dense cache.
 Parameters are a list of per-layer dicts (the JAX package stacks them on a
 leading axis for ``lax.scan``; ``bridge.py`` splits that axis).  The step
 updates the layer rings in place; the returned state dict holds the same
-ring tensors.  The sinusoidal embedding raises (ROADMAP.md).
+ring tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from . import decode_attn as dattn
 from . import mlp as mlp_mod
 from . import norm as norm_mod
 from . import ring_kernels as rkern
-from .qmm import mm_w8a8
+from . import qmm as qmm_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +46,10 @@ class TransformerConfig:
     ca_gating: str = "normal"  # "normal" | "constant_*" | "conditional_*"
     ca_dim: Optional[int] = None  # source dim of the cross-attention KV
     ca_norm: Optional[str] = None  # norm_cross kind; None -> same as `norm`
+    # int8 rings at T=1: None = the shape rule picks the fused or the split
+    # pipeline; True = fused at every ring one block can hold; False = split
+    # everywhere (``decode_attn.fused_commit_supported``).
+    fused_attn: Optional[bool] = None
 
     @property
     def hd(self) -> int:
@@ -57,10 +61,8 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.positional_embedding not in ("rope", "none"):
-        raise NotImplementedError(
-            f"positional embedding {cfg.positional_embedding!r} is not ported "
-            "yet; see ROADMAP.md")
+    if cfg.positional_embedding not in ("rope", "sin", "none"):
+        raise ValueError(f"unknown positional embedding {cfg.positional_embedding!r}")
 
 
 def init(cfg: TransformerConfig, gen: torch.Generator, dtype=torch.float32) -> list:
@@ -148,17 +150,36 @@ def reset_state(state: dict, reset_mask: torch.Tensor) -> dict:
     return state
 
 
-def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w.T``; ``w`` dense or int8 ``{"q": (O, I), "s": (O,)}``, which
-    runs as W8A8 (the serving profile's matmul) at every matmul: the port
-    has no W8A8 site filter (the builders refuse ``w8a8_sites``)."""
+def w8a8_at(w: dict, site: Optional[str] = None) -> bool:
+    """Whether the int8 weight ``w`` multiplies as W8A8 at matmul ``site``.
+    The profile travels with the weight (:func:`quantize_weights` writes it):
+    no ``"w8a8"`` key or True = W8A8 everywhere, False = weight-only
+    everywhere, a frozenset of site names = W8A8 at those sites (and where
+    the caller names no site), weight-only at the others."""
+    prof = w.get("w8a8", True)
+    if isinstance(prof, bool):
+        return prof
+    return site is None or site in prof
+
+
+def mm(x: torch.Tensor, w, site: Optional[str] = None) -> torch.Tensor:
+    """``x @ w.T``; ``w`` dense or int8 ``{"q": (O, I), "s": (O,)}`` with
+    per-output-channel scales.  An int8 weight multiplies as W8A8
+    (``qmm.mm_w8a8``) where its profile says so at ``site`` (:func:`w8a8_at`;
+    ``site`` is the matmul's name: "in_proj", "out_proj", "ca_q", "ca_out",
+    "mlp_in", "mlp_out", "text_linear", "dep_out", "low_rank"), else as the
+    weight-only product ``qmm.qmm``: its kernel on CUDA tensors, its plain
+    version, in the same order, on CPU tensors."""
     if isinstance(w, dict):
-        return mm_w8a8(x, w["q"], w["s"])
+        if w8a8_at(w, site):
+            return qmm_mod.mm_w8a8(x, w["q"], w["s"])
+        return qmm_mod.qmm(x, w["q"], w["s"])
     return x @ w.to(x.dtype).T
 
 
 def mm_dequant(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w.T`` through the dequantised weight, never W8A8: the
+    """``x @ w.T`` through the dequantised weight (the product rounded, then
+    scaled in the activation's type), whatever the weight's profile: the
     once-per-voice cross-attention projection, as the JAX package runs it."""
     if isinstance(w, dict):
         return (x @ w["q"].to(x.dtype).T) * w["s"].to(x.dtype)
@@ -169,15 +190,27 @@ def _is_q(x) -> bool:
     return isinstance(x, dict) and "q" in x and "s" in x
 
 
-def quantize_weights(tree, min_size: int = 1 << 16):
+def quantize_weights(tree, min_size: int = 1 << 16, w8a8=True):
     """Weight-only int8 quantisation of the matmul weights of a param tree,
     bit for bit as the JAX package's numpy version: matrix leaves with at
     least ``min_size`` elements become ``{"q": int8, "s": f32 per output
     channel}``; norms, embeddings, layer scales and small leaves stay.
+    Leaves that are int8 already keep their tensors.
+
+    ``w8a8``: the profile every int8 leaf of the result carries
+    (:func:`w8a8_at`): True (W8A8 everywhere; the leaf gets no key), False
+    (weight-only everywhere) or an iterable of site names.  The JAX package
+    keeps the profile in process globals; here two trees of different
+    profiles can be live at once.
 
     The JAX package sees a transformer's layers stacked, so a layer leaf's
     size counts once per layer there; lists under a ``*transformer`` key
     are counted the same way here."""
+    if not isinstance(w8a8, bool):
+        w8a8 = frozenset(w8a8)
+
+    def tagged(q, s):
+        return {"q": q, "s": s} if w8a8 is True else {"q": q, "s": s, "w8a8": w8a8}
 
     def quant(name, leaf, mult):
         if (leaf.ndim < 2 or leaf.numel() * mult < min_size or "emb" in name
@@ -187,11 +220,11 @@ def quantize_weights(tree, min_size: int = 1 << 16):
         s = w.abs().amax(dim=-1, keepdim=True) / 127.0
         s = torch.clamp(s, min=1e-12)
         q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
-        return {"q": q, "s": s[..., 0]}
+        return tagged(q, s[..., 0])
 
     def walk(name, node, mult):
         if _is_q(node):
-            return node
+            return tagged(node["q"], node["s"])
         if isinstance(node, dict):
             return {k: walk(k, v, mult) for k, v in node.items()}
         if isinstance(node, list):
@@ -205,7 +238,7 @@ def quantize_weights(tree, min_size: int = 1 << 16):
 def _qkv(cfg, lp, x):
     b, t, _ = x.shape
     h, hd = cfg.num_heads, cfg.hd
-    qkv = mm(x, lp["in_proj_w"])
+    qkv = mm(x, lp["in_proj_w"], site="in_proj")
     if "in_proj_b" in lp:
         qkv = qkv + lp["in_proj_b"].to(x.dtype)
     qkv = qkv.reshape(b, t, 3, h, hd)
@@ -214,7 +247,7 @@ def _qkv(cfg, lp, x):
 
 def _proj_out(cfg, lp, y, b, t):
     y = y.transpose(1, 2).reshape(b, t, cfg.num_heads * cfg.hd)
-    y = mm(y, lp["out_proj_w"])
+    y = mm(y, lp["out_proj_w"], site="out_proj")
     if "out_proj_b" in lp:
         y = y + lp["out_proj_b"].to(y.dtype)
     return y
@@ -254,7 +287,7 @@ def _cross_block(cfg, lp, x, ca_k=None, ca_v=None, ca_q=None):
     plain version on CPU tensors), elsewhere through ``cross_attend_q``."""
     b, t, _ = x.shape
     xn = norm_mod.apply_norm(cfg.ca_norm or cfg.norm_kind, lp["norm_cross"], x)
-    q = mm(xn, lp["ca_q_w"])
+    q = mm(xn, lp["ca_q_w"], site="ca_q")
     q = q.reshape(b, t, cfg.num_heads, cfg.hd).transpose(1, 2)
     if ca_q is not None:
         args = (q, ca_q["k"], ca_q["v"], ca_q["ks"], ca_q["vs"], ca_q["s_len"])
@@ -265,7 +298,7 @@ def _cross_block(cfg, lp, x, ca_k=None, ca_v=None, ca_q=None):
     else:
         y = attn.cross_attend(q, ca_k, ca_v)
     y = y.transpose(1, 2).reshape(b, t, cfg.num_heads * cfg.hd)
-    y = mm(y, lp["ca_out_w"])
+    y = mm(y, lp["ca_out_w"], site="ca_out")
     return x + _ca_gate(cfg, lp, xn, y)
 
 
@@ -305,6 +338,18 @@ def quantize_ca_kv(ca_kv, s_len: Optional[int] = None) -> dict:
     return {"k": kq, "v": vq, "ks": ks, "vs": vs, "s_len": s_len}
 
 
+def _pos_embed_sin(cfg: TransformerConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """``x (B, T, D)`` plus the sinusoidal embedding of ``positions (B, T)``:
+    ``concat(cos, sin)`` of ``position / max_period ** (i / (D/2 - 1))``."""
+    half = x.shape[-1] // 2
+    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    inv_freq = 1.0 / (cfg.max_period ** (idx / (half - 1)))
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([torch.cos(freqs), torch.sin(freqs)], dim=-1)
+    return x + emb.to(x.dtype)
+
+
 def _ca_layer(ca_kv, l: int) -> dict:
     if isinstance(ca_kv, dict):
         return {"ca_q": {"k": ca_kv["k"][l], "v": ca_kv["v"][l], "ks": ca_kv["ks"][l],
@@ -324,7 +369,10 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
         over the pre-commit ring (it commits the int8 row itself); for every
         other int8 ring the split pipeline, ``ring_commit`` with the scale
         rings then ``decode_attend`` over the committed ring (on the card a
-        head width its kernel does not take raises);
+        head width its kernel does not take raises).  ``cfg.fused_attn``
+        overrides the rule: True takes the fused pipeline at every ring of
+        at most 2.5 MB per slot with ``h % 8 == 0``, False the split
+        pipeline everywhere;
       * bf16/f32 rings: ``ring_commit``, then ``attend_global_split`` over
         the committed ring (this step's rows are masked from the ring read);
       * ``ca_kv``: the stacked per-layer source of :func:`precompute_ca_kv`
@@ -339,10 +387,12 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
     valid = attn.update_valid_bitmap(valid_old, plan["w"], mask)
 
     rope = None
+    positions = (torch.arange(t, dtype=torch.int64, device=x.device)
+                 + plan["q_pos"][0])[None, :]
     if cfg.positional_embedding == "rope":
-        positions = torch.arange(t, dtype=torch.int64, device=x.device)
-        rope = attn.rope_cos_sin((positions + plan["q_pos"][0])[None, :],
-                                 cfg.hd, cfg.max_period)
+        rope = attn.rope_cos_sin(positions, cfg.hd, cfg.max_period)
+    elif cfg.positional_embedding == "sin":
+        x = _pos_embed_sin(cfg, x, positions.expand(b, t))
 
     kv_quant = "ks" in state["layers"][0]
     if kv_quant and t != 1:
@@ -355,7 +405,7 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
             k = attn.apply_rope(k, *rope)
         if kv_quant:
             kq, vq, ks_new, vs_new = attn.quantize_kv_rows(k, v)
-            if dattn.fused_commit_supported(q, st["k"], plan):
+            if dattn.fused_commit_supported(q, st["k"], plan, cfg.fused_attn):
                 rkern.scale_commit(st["ks"], st["vs"], ks_new, vs_new, plan["w"][0])
                 y, _, _ = dattn.decode_attend_commit(
                     q, st["k"], st["v"], st["ks"], st["vs"], kq, vq, k, v, plan,

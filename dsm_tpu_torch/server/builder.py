@@ -26,6 +26,7 @@ from ..sessions import lm_gen
 from ..sessions import tts as TTS
 from ..utils.tokenizer import load_tokenizer
 from . import config as CFG
+from .autoconfig import auto_batch_size, device_memory_bytes
 from .batched_asr import BatchedAsrEngine
 from .duplex import DuplexEngine
 from .duplex_batched import BatchedDuplexEngine
@@ -38,7 +39,6 @@ log = logging.getLogger("dsm.torch.builder")
 _UNPORTED = {
     "mesh": "multi-device serving",
     "pcm_wire": "the int16 pcm upload wire of the ASR engine",
-    "w8a8_sites": "the mixed W8A8 profile",
 }
 
 
@@ -54,8 +54,12 @@ def build_batched_asr(mod: CFG.ModuleConfig, device) -> BatchedAsrEngine:
     """The engine for a ``BatchedAsr`` module on ``device``.
 
     On CUDA it takes the JAX builder's accelerator profile: int8 KV rings,
-    int8 LM weights with W8A8 matmuls, bf16 codec and bf16 LM activations.
-    On the CPU: f32 throughout, no quantisation."""
+    int8 LM weights, bf16 codec and bf16 LM activations.  The matmuls are
+    W8A8, or weight-only (``qmm.qmm``) with ``w8a8 = false``, or W8A8 at the
+    sites of ``w8a8_sites`` (a list or a comma string) and weight-only at the
+    others; the profile is written into the weights.  ``batch_size`` is
+    clamped to the card's memory (``autoconfig.auto_batch_size``).  On the
+    CPU: f32 throughout, no quantisation."""
     device = torch.device(device)
     if mod.type != "BatchedAsr" or mod.lm is None:
         raise ValueError(f"module {mod.name}: not a BatchedAsr module with a model")
@@ -83,11 +87,12 @@ def build_batched_asr(mod: CFG.ModuleConfig, device) -> BatchedAsrEngine:
     _random_init_warning("Mimi weights", mod.audio_tokenizer_file)
     gen.manual_seed(1)
     mimi_params = MIMI.init(mimi_cfg, gen, dtype)
-    if on_accel:
-        lm_params = _quantize_lm(mod, lm_params)
+    if on_accel:  # the dense copy is freed before the engine allocates its rings
+        lm_params = _quantize_lm(mod, lm_params, _w8a8_sites(mod))
+    batch = auto_batch_size(int(mod.batch_size), mod.lm, device_memory_bytes(device))
     engine = BatchedAsrEngine(
         asr_cfg, {"mimi": mimi_params, "lm": lm_params},
-        batch_size=int(mod.batch_size), device=device,
+        batch_size=batch, device=device,
         fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)),
     )
     engine.tokenizer = _tokenizer(mod)
@@ -99,15 +104,25 @@ def _tokenizer(mod: CFG.ModuleConfig):
     return load_tokenizer(CFG.resolve_path(spec) if spec else None)
 
 
-def _quantize_lm(mod: CFG.ModuleConfig, lm_params: dict) -> dict:
-    """The accelerator profile's LM weights: int8 with W8A8 matmuls."""
+def _w8a8_sites(mod: CFG.ModuleConfig):
+    """TOML ``w8a8_sites``: a list or a comma string of matmul sites that
+    keep W8A8; None without the key."""
+    sites = mod.raw.get("w8a8_sites")
+    if isinstance(sites, str):
+        sites = [s.strip() for s in sites.split(",") if s.strip()]
+    return sites
+
+
+def _quantize_lm(mod: CFG.ModuleConfig, lm_params: dict, sites=None) -> dict:
+    """The accelerator profile's LM weights: int8, carrying the profile of
+    their matmuls: W8A8, weight-only with ``w8a8 = false``, or W8A8 at
+    ``sites`` only."""
     if not mod.raw.get("weight_quant", True):
         return lm_params
-    if not mod.raw.get("w8a8", True):
-        raise NotImplementedError(
-            "w8a8 = false (weight-only dequant matmuls) is not ported yet; "
-            "see ROADMAP.md")
-    return T.quantize_weights(lm_params)
+    w8a8 = bool(mod.raw.get("w8a8", True))
+    if w8a8 and sites is not None:
+        w8a8 = frozenset(sites)
+    return T.quantize_weights(lm_params, w8a8=w8a8)
 
 
 # TOML keys of the JAX TTS builder that select paths the port has not ported.
@@ -122,8 +137,9 @@ def build_batched_tts(mod: CFG.ModuleConfig, device) -> BatchedTtsEngine:
     ``batch_size > 1`` on ``device``.
 
     On CUDA it takes the JAX builder's accelerator profile: bf16, int8 LM
-    KV rings, int8 LM weights with W8A8 matmuls (the DepFormer's included),
-    bf16 codec, and the int8 voice store when the TOML sets ``ca_int8``.
+    KV rings, int8 LM weights with W8A8 matmuls (the DepFormer's included;
+    weight-only with ``w8a8 = false``), bf16 codec, and the int8 voice store
+    when the TOML sets ``ca_int8``.
     On the CPU: f32 throughout, no quantisation.  The ``[...conditioners]``
     table builds its provider and the default ``description`` condition, as
     the JAX builder does; the batched step does not add it (nor does the
@@ -203,8 +219,8 @@ def build_duplex(mod: CFG.ModuleConfig, device):
     single-dialogue :class:`DuplexEngine`.
 
     The TOML's ``kv_quant`` selects the serving profile (int8 KV rings, int8
-    LM weights with W8A8 matmuls, quantised here once); without the key it
-    is off.  On CUDA the weights and the codec are bf16, on the CPU f32."""
+    LM weights, quantised here once, with W8A8 matmuls or, with ``w8a8 =
+    false``, weight-only ones); without the key it is off.  On CUDA the weights and the codec are bf16, on the CPU f32."""
     device = torch.device(device)
     raw = mod.raw
     if mod.type != "Lm":
@@ -235,10 +251,6 @@ def build_duplex(mod: CFG.ModuleConfig, device):
         raise NotImplementedError(
             "weight_quant = false with int8 KV rings is not a profile of the "
             "dialogue engine")
-    if kv_quant and not raw.get("w8a8", True):
-        raise NotImplementedError(
-            "w8a8 = false (weight-only dequant matmuls) is not ported yet; "
-            "see ROADMAP.md")
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
     _random_init_warning("LM weights", mod.lm_model_file)
@@ -249,7 +261,7 @@ def build_duplex(mod: CFG.ModuleConfig, device):
     gen.manual_seed(1)
     mimi_params = MIMI.init(mimi_cfg, gen, dtype)
     if kv_quant:  # before the engine allocates its rings beside the dense copy
-        lm_params = T.quantize_weights(lm_params)
+        lm_params = T.quantize_weights(lm_params, w8a8=bool(raw.get("w8a8", True)))
     batch = int(raw.get("batch_size", 1))
     if batch > 1:
         return BatchedDuplexEngine(

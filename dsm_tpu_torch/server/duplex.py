@@ -33,7 +33,7 @@ class DuplexEngine:
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, kv_quant: bool = False, *, device):
         """``kv_quant``: int8 KV rings; ``params`` run as given (int8 weights
-        from ``quantize_weights`` multiply as W8A8)."""
+        from ``quantize_weights`` multiply by the profile they carry)."""
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
         self.mimi_params = mimi_params

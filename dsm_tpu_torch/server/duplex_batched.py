@@ -15,7 +15,8 @@ fetch per tick.
 
 The serving profile is chosen by arguments, not by the device: ``kv_quant``
 gives the LM int8 KV rings, and the weights run as they are given (the
-builder hands over int8 weights, which the port multiplies as W8A8).
+builder hands over int8 weights, which multiply by the profile they carry:
+W8A8, or weight-only with ``w8a8 = false``).
 
 Left out (ROADMAP.md): dispatch-ahead (``pipeline_depth > 1``), packed-int4
 rings (``kv_bits = 4``), the device mesh and prometheus metrics.  The

@@ -20,6 +20,7 @@ import torch
 
 from dsm_tpu_torch.ops import attention as A
 from dsm_tpu_torch.ops import decode_attn as DA
+from dsm_tpu_torch.ops import qmm as QM
 from dsm_tpu_torch.ops import ring_kernels as RK
 from dsm_tpu_torch.ops import transformer as T
 
@@ -100,7 +101,7 @@ def test_ca_check_inputs_see_a_dropped_row_and_a_padding_read():
 def _launches():
     return (RK.ring_commit.launches, RK.scale_commit.launches,
             DA.decode_attend_commit.launches, DA.ca_decode_attend.launches,
-            RK.ring_commit_q.launches, DA.decode_attend.launches)
+            RK.ring_commit_q.launches, DA.decode_attend.launches, QM.qmm.launches)
 
 
 def test_wrappers_raise_for_non_cuda_devices():
@@ -125,11 +126,18 @@ def test_wrappers_raise_for_non_cuda_devices():
     with pytest.raises(ValueError):
         DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, A.global_ring_plan(0, 256, 1),
                          valid, window=250)
+    with pytest.raises(ValueError):
+        QM.qmm(torch.empty(4, 64, dtype=torch.bfloat16, device=m),
+               torch.empty(32, 64, dtype=torch.int8, device=m), torch.empty(32, device=m))
     assert _launches() == before
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     before = _launches()
+    x, wq, sc = _qmm_inputs(torch.device("cpu"), 3, 40, 48, seed=0, dtype=torch.float32)
+    y = QM.qmm(x, wq, sc)
+    np.testing.assert_allclose(y.numpy(), (x @ wq.float().T * sc).numpy(), atol=1e-5,
+                               rtol=1e-5)
     z = torch.zeros(1, 2, 32, 8)
     RK.ring_commit(z, z.clone(), torch.ones(1, 2, 2, 8), torch.ones(1, 2, 2, 8), 30)
     assert z[:, :, 30:].eq(1).all() and z[:, :, :30].eq(0).all()
@@ -458,3 +466,193 @@ def test_step_raises_where_no_attention_kernel_serves(cuda_device):
     with pytest.raises(ValueError, match="Dh 64 or 128"):
         T.step(cfg, params, state, x)
     assert DA.decode_attend.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The weight-only int8 matmul (csrc/qmm.cu) and the fused commit at h=32, Dh=64
+# ---------------------------------------------------------------------------
+
+
+def _qmm_inputs(dev, m, o, i, seed, dtype=torch.bfloat16, lead=()):
+    """Activations of unit spread, int8 weights, scales that make the
+    outputs O(1): a dropped 64-wide piece of K moves an output by about
+    ``sqrt(64 / I)``, a dropped scale by far more."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*lead, m, i, generator=g, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (o, i), generator=g, device=dev, dtype=torch.int8)
+    sc = (torch.rand(o, generator=g, device=dev) + 0.5) / (73.3 * i ** 0.5)
+    return x, wq, sc
+
+
+def _qmm_within(a, p):
+    """Relative L2 <= 2e-3 and every element within one bf16 step of the
+    plain result or 1e-2 absolute: the two sum f32 products in other orders
+    and round once."""
+    a, p = a.float(), p.float()
+    ulp = torch.exp2(torch.floor(torch.log2(p.abs().clamp_min(1e-30))) - 7)
+    rel = float((a - p).norm() / p.norm())
+    return rel <= 2e-3 and bool(((a - p).abs() <= torch.maximum(ulp, torch.tensor(
+        1e-2, device=p.device))).all())
+
+
+def test_qmm_check_inputs_see_a_dropped_scale_and_a_dropped_chunk():
+    """The bar of the card's qmm cases, on their inputs, fails a result that
+    dropped one output channel's scale or one 64-wide piece of K (plain
+    version, CPU)."""
+    x, wq, sc = _qmm_inputs(torch.device("cpu"), 8, 96, 512, seed=1)
+    want = QM.qmm_plain(x, wq, sc)
+    assert 0.5 < float(want.float().std()) < 2.0
+    assert _qmm_within(want, want)
+    s_bad = sc.clone()
+    s_bad[17] = 1.0
+    assert not _qmm_within(QM.qmm_plain(x, wq, s_bad), want)
+    x_bad = x.clone()
+    x_bad[:, 128:192] = 0
+    assert not _qmm_within(QM.qmm_plain(x_bad, wq, sc), want)
+
+
+QMM_SHAPES = [  # (M, O, I): the stt-2.6b serving shapes, then tails and small M
+    (64, 6144, 2048), (64, 2048, 2048), (64, 11264, 2048), (64, 2048, 5632),
+    (64, 4000, 2048), (1, 2048, 2048), (24, 2048, 2048), (24, 2048, 1024),
+    (7, 100, 48), (33, 72, 272), (130, 200, 528), (64, 2048, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,o,i", QMM_SHAPES, ids=lambda v: str(v))
+def test_qmm_kernel_matches_plain(cuda_device, m, o, i):
+    x, wq, sc = _qmm_inputs(cuda_device, m, o, i, seed=m + o + i)
+    before = QM.qmm.launches
+    n_chunks = -(-i // 256)
+    for ksplit in sorted({None, 1, min(3, n_chunks)}, key=str):
+        runs = [QM.qmm(x, wq, sc, ksplit=ksplit) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+        y = runs[0]
+        assert y.shape == (m, o) and y.dtype == torch.bfloat16
+        assert _qmm_within(y, QM.qmm_plain(x, wq, sc)), (ksplit, float(
+            (y.float() - QM.qmm_plain(x, wq, sc).float()).abs().max()))
+    assert QM.qmm.launches == before + 3 * len({None, 1, min(3, n_chunks)})
+
+
+@pytest.mark.cuda
+def test_qmm_kernel_takes_leading_dims_and_stacked_slices(cuda_device):
+    """``x (B, T, I)`` and a weight that is slice 1 of an ``(S, O, I)``
+    stack (the DepFormer's layout): the slice's rows keep their stride."""
+    x, _, _ = _qmm_inputs(cuda_device, 5, 8, 256, seed=2, lead=(3,))
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    stack = torch.randint(-127, 128, (4, 200, 256), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+    sc = torch.rand(4, 200, generator=g, device=cuda_device) / 1000
+    y = QM.qmm(x, stack[1], sc[1])
+    assert y.shape == (3, 5, 200)
+    assert _qmm_within(y, QM.qmm_plain(x, stack[1], sc[1]))
+    wide = torch.randint(-127, 128, (200, 512), generator=g, device=cuda_device,
+                         dtype=torch.int8)
+    view = wide[:, :256]  # rows 512 apart: contiguous rows, a row stride
+    assert _qmm_within(QM.qmm(x, view, sc[0]), QM.qmm_plain(x, view, sc[0]))
+
+
+@pytest.mark.cuda
+def test_qmm_kernel_raises_on_unsupported(cuda_device):
+    x, wq, sc = _qmm_inputs(cuda_device, 4, 32, 64, seed=4)
+    before = _launches()
+    with pytest.raises(ValueError):  # f32 activations
+        QM.qmm(x.float(), wq, sc)
+    with pytest.raises(ValueError):  # a weight that is not int8
+        QM.qmm(x, wq.to(torch.int16), sc)
+    with pytest.raises(ValueError):  # I not a multiple of 16
+        QM.qmm(x[:, :40].contiguous(), wq[:, :40].contiguous(), sc)
+    with pytest.raises(ValueError):  # weight rows that are not contiguous
+        QM.qmm(x[:, :32].contiguous(), wq[:, ::2], sc)
+    with pytest.raises(ValueError):  # weight on the CPU
+        QM.qmm(x, wq.cpu(), sc)
+    with pytest.raises(ValueError):  # widths that differ
+        QM.qmm(x, wq[:, :48].contiguous(), sc)
+    with pytest.raises(ValueError):  # a split with no chunk to take
+        QM.qmm(x, wq, sc, ksplit=2)
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+def test_mm_routes_by_the_weights_profile(cuda_device):
+    """One weight, three profiles, live at once: W8A8 through the library's
+    int8 product (no qmm launch), weight-only through the kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    w = torch.randn(128, 256, generator=g, device=cuda_device) * 0.05
+    x = torch.randn(24, 256, generator=g, device=cuda_device).bfloat16()
+    tree = {"w": w}
+    a8 = T.quantize_weights(tree, min_size=1)["w"]
+    a16 = T.quantize_weights(tree, min_size=1, w8a8=False)["w"]
+    mixed = T.quantize_weights(tree, min_size=1, w8a8=["in_proj"])["w"]
+    before = QM.qmm.launches
+    y8 = T.mm(x, a8, site="mlp_in")
+    assert QM.qmm.launches == before
+    y16 = T.mm(x, a16, site="mlp_in")
+    assert QM.qmm.launches == before + 1
+    assert torch.equal(T.mm(x, mixed, site="in_proj"), y8)
+    assert torch.equal(T.mm(x, mixed, site="mlp_in"), y16)
+    assert QM.qmm.launches == before + 2
+    want = x.float() @ w.T
+    for y in (y8, y16):
+        assert float((y.float() - want).norm() / want.norm()) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,frac", [(0, 1.0), (40, 0.8), (383, 1.0), (1000, 0.7)])
+def test_decode_attend_commit_kernel_at_head_major_shapes(cuda_device, pos, frac):
+    """h = 32, Dh = 64, C = 384 (stt-2.6b's ring): the fused commit the
+    explicit ``fused_attn = True`` setting routes there."""
+    b, h, c, dh, window = 4, 32, 384, 64, 375
+    q, k_new, v_new, kc, vc, ks, vs, valid = _attn_inputs(cuda_device, b, h, c, dh, frac,
+                                                          seed=pos, sharp=True)
+    plan = A.global_ring_plan(pos, c, 1, device=cuda_device)
+    assert not DA.fused_commit_supported(q, kc, plan)
+    assert DA.fused_commit_supported(q, kc, plan, True)
+    assert not DA.fused_commit_supported(q, kc, plan, False)
+    kq, vq, _, _ = A.quantize_kv_rows(k_new, v_new)
+    pk, pv = kc.clone(), vc.clone()
+    rows = [x[:, :, 0].contiguous() for x in (q, kq, vq, k_new, v_new)]
+    want = DA.decode_attend_commit_plain(rows[0], pk, pv, ks, vs, *rows[1:], valid, pos,
+                                         plan["w"][0], window)
+    before = DA.decode_attend_commit.launches
+    y, rk, rv = DA.decode_attend_commit(q, kc, vc, ks, vs, kq, vq, k_new, v_new, plan,
+                                        valid, window=window)
+    torch.cuda.synchronize()
+    assert DA.decode_attend_commit.launches == before + 1
+    assert torch.equal(rk, pk) and torch.equal(rv, pv)
+    assert _within(y[:, :, 0], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_attn,want", [
+    (None, {"ring_commit_q": 2, "decode_attend": 2}),
+    (True, {"scale_commit": 2, "decode_attend_commit": 2}),
+    (False, {"ring_commit_q": 2, "decode_attend": 2})])
+def test_step_routes_head_major_rings_by_the_setting(cuda_device, fused_attn, want):
+    """``transformer.step`` at h = 8, Dh = 64 with weight-only int8 weights:
+    the launches follow ``fused_attn``, every matmul goes through qmm, and
+    the three settings agree."""
+    cfg = T.TransformerConfig(d_model=512, num_heads=8, num_layers=2, dim_feedforward=2048,
+                              context=250, fused_attn=fused_attn)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.quantize_weights(T.init(cfg, gen, dtype=torch.bfloat16), min_size=1,
+                                w8a8=False)
+    state = T.init_state(cfg, 3, kv_quant=True, device=cuda_device)
+    ref_cfg = T.TransformerConfig(d_model=512, num_heads=8, num_layers=2,
+                                  dim_feedforward=2048, context=250)
+    ref_state = T.init_state(ref_cfg, 3, kv_quant=True, device=cuda_device)
+    counters = {"ring_commit_q": RK.ring_commit_q, "decode_attend": DA.decode_attend,
+                "scale_commit": RK.scale_commit,
+                "decode_attend_commit": DA.decode_attend_commit, "qmm": QM.qmm}
+    for step in range(3):
+        x = (torch.randn(3, 1, 512, generator=gen, device=cuda_device) * 0.3).bfloat16()
+        y_ref, ref_state = T.step(ref_cfg, params, ref_state, x)
+        before = {k: f.launches for k, f in counters.items()}
+        y, state = T.step(cfg, params, state, x)
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        assert got.pop("qmm") == 8  # 4 matmuls a layer
+        assert {k: v for k, v in got.items() if v} == want
+        assert _within(y, y_ref)
+    for key in ("k", "v", "ks", "vs"):
+        assert torch.equal(state["layers"][0][key], ref_state["layers"][0][key])

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
                 "server.app", "server.protocol", "server.auth", "server.voices",
                 "server.tts_module", "server.tts_preprocess", "sessions.tts",
                 "models.conditioner", "utils.tokenizer", "utils.audio",
-                "sessions.lm_gen", "server.duplex", "server.duplex_batched"):
+                "sessions.lm_gen", "server.duplex", "server.duplex_batched",
+                "ops.qmm", "server.autoconfig"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -52,7 +53,7 @@ def test_engines_import_without_the_web_packages():
         for name in ("jax", "aiohttp", "msgpack"):
             sys.modules[name] = None
         for name in ("server.builder", "server.duplex", "server.duplex_batched",
-                     "server.protocol", "sessions.lm_gen"):
+                     "server.protocol", "sessions.lm_gen", "server.autoconfig", "ops.qmm"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex
         assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")
