@@ -69,7 +69,27 @@ lines each:
    encode, the LM step, the DepFormer and Mimi decode timed at 24 active
    slots with a kernel profile, the tick once more over full rings.
 
-After the three earlier paths each kernel case is timed: the kernel, its
+8. The later paths, each at full width and depth: ``[stt1b-kv4]`` the stt-1b
+   engine built with ``AsrConfig(kv_bits=4)`` (packed-int4 rings, uint8
+   (64,16,768,64): ring_commit_q with uint8 rows + decode_attend over the
+   packed ring, never the fused commit), 12 sessions, its step time and peak
+   memory beside the int8 engine's; ``[stt26-kv4]`` the stt-2.6b LM step over
+   uint8 (64,32,384,32) rings against the plain path, after 40 steps and over
+   full, wrapped rings of real quantised rows, timed beside the int8 rings;
+   ``[duplex-kv4]`` the dialogue engine with ``kv_bits = 4`` (uint8
+   (24,20,3072,64)), 8 dialogues, its tick over short and full rings and its
+   peak memory.  Every path check counts the launches of both sides (the
+   kernels' step launches them, the plain step none), and over full rings
+   (``[duplex-full-path]``, ``[duplex-kv4-full-path]``, ``[stt26-kv4]``) a
+   bit-identical pair fails; ``[tts202501]`` the TTS engine with the 48-layer tts_202501
+   preset in place of the TOML's model (32 heads x 64, context 500, DepFormer
+   32 slices x 6 layers; head-major voice cross-attention), 12 sessions, with
+   ``[tts202501-times]`` and ``[tts202501-path]``; ``[tune]`` the
+   decode-attention tuning tool (dsm_tpu_torch.tools.attn_kernel_tune) in
+   process at --batch 64, each row held to a share of the reference's largest
+   output.
+
+After the paths each kernel case is timed: the kernel, its
 plain version and its library call as device time (CUDA events around calls
 queued behind a spin kernel, so the wrapper's host time stays out).  Each
 kernel's JSON entry carries its bound: the larger of the bytes the case must
@@ -80,7 +100,8 @@ counted from the rows this run's mask lets in; and the library call's time
 compute the same function, for qmm the pair ``wq.to(bf16)`` + matmul + scale
 (no single PyTorch call computes the attention kernels' function).  The
 entries named ``wrapper[rings]`` are the TPU kernels that the port serves
-with an earlier kernel at other shapes: their numbers are that shape's.
+with another entry's kernel at other shapes or through another load path
+(the packed-int4 rings): their numbers are that shape's.
 
 The last three lines: the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Any failed check raises.
@@ -105,6 +126,7 @@ SOURCES = {
     "ring_commit_q": "dsm_tpu_torch/csrc/ring_attn.cu",
     "decode_attend": "dsm_tpu_torch/csrc/decode_attn.cu",
     "qmm": "dsm_tpu_torch/csrc/qmm.cu",
+    "attn_tune": "dsm_tpu_torch/csrc/attn_tune.cu",
 }
 REPLACES = {
     "scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
@@ -114,6 +136,7 @@ REPLACES = {
     "ring_commit_q": "dsm_tpu/ops/ring_kernels.py:66",
     "decode_attend": "dsm_tpu/ops/decode_attn.py:215",
     "qmm": "dsm_tpu/ops/qmm.py:42",
+    "attn_tune": "tools/attn_kernel_tune.py:42",
 }
 # TPU kernels that the port serves with one of the kernels above at other
 # shapes: JSON name -> (wrapper, TPU kernel, the path that launches it there).
@@ -124,6 +147,12 @@ ROUTES = {
                                       "stt26"),
     "decode_attend_commit[stt-2.6b rings]": ("decode_attend_commit",
                                              "dsm_tpu/ops/decode_attn.py:661", "stt26_fused"),
+    "decode_attend[(64,16,768,64) int4]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:461",
+                                           "stt1b_kv4"),
+    "decode_attend[(64,32,384,32) int4]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:135",
+                                           "stt26_kv4"),
+    "ca_decode_attend[(64,32,640,64)]": ("ca_decode_attend", "dsm_tpu/ops/decode_attn.py:898",
+                                         "tts202501"),
 }
 # Launches per engine step of the STT path: each of the LM's 16 layers
 # commits its int8 scales and attends over its int8 ring with the fused
@@ -148,12 +177,31 @@ PER_STEP_STT26 = {"ring_commit_q": 48, "decode_attend": 48, "ring_commit": 8, "q
                   "scale_commit": 0, "decode_attend_commit": 0}
 PER_TICK_DUPLEX = {"ring_commit_q": 24, "decode_attend": 24, "ring_commit": 16,
                    "scale_commit": 0, "decode_attend_commit": 0}
+# stt-1b with packed-int4 rings: an int4 ring never takes the fused commit, so
+# each of the 16 layers commits its uint8 rows and scales with ring_commit_q
+# and attends with decode_attend over the packed ring.
+PER_STEP_STT1B_KV4 = {"ring_commit_q": 16, "decode_attend": 16, "ring_commit": 8,
+                      "scale_commit": 0, "decode_attend_commit": 0}
+# tts_202501: 48 layers of 32 heads x 64 (not a shape of the fused rule): the
+# split pipeline over (64,32,512,64) int8 rings plus the voice cross-attention
+# in every layer; the Mimi decoder's 8 layers commit their 2 bf16 rows.
+PER_TICK_TTS202501 = {"ring_commit_q": 48, "decode_attend": 48, "ca_decode_attend": 48,
+                      "ring_commit": 8, "scale_commit": 0, "decode_attend_commit": 0}
 # The bf16 K/V ring of each Mimi transformer layer in the duplex engine
 # (B=24, 8 heads, context 250 + T=2 rows rounded up to 256, Dh=64).
 DUPLEX_MIMI_RING = (24, 8, 256, 64)
 ATOL = RTOL = 2e-2
 REPEATS = 3  # kernel runs per case in the kernel phase
 PATH_RTOL = 2e-2  # the TTS path through the kernels against its plain versions
+# A path over full rings: every layer's attention sums hundreds to thousands
+# of rows, more output elements differ by a rounding step between two orders
+# of summation, and the layers after (int8 activations, 24 to 48 of them,
+# random weights) amplify them: the stt-2.6b step reads 0.034 with qmm alone
+# through its kernel, int8 and int4 rings alike.  The sharp check there is
+# SEAM_RTOL: each decode_attend launch against its plain version on the same
+# operands (a dropped row of 3,072 equal ones would move it by 0.018).
+FULL_RING_RTOL = 5e-2
+SEAM_RTOL = 1e-3
 ROW_RTOL = 5e-2  # a freshly quantised ring row of one route against the other's
 # The case whose times stand in the kernels' JSON line: the full STT
 # rings, and the TTS serving voice source.
@@ -164,11 +212,21 @@ HEADLINE = {"scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 v
             "qmm": "M=64 O=11264 I=2048",
             "decode_attend[stt-1b rings]": "stt1b pos=3000 valid=1.0 split=1",
             "decode_attend[stt-2.6b rings]": "stt26 pos=3000 valid=1.0 split=1",
-            "decode_attend_commit[stt-2.6b rings]": "stt26 pos=3000 valid=1.0"}
+            "decode_attend_commit[stt-2.6b rings]": "stt26 pos=3000 valid=1.0",
+            "decode_attend[(64,16,768,64) int4]": "stt1b-kv4 pos=3000 valid=1.0 split=2",
+            "decode_attend[(64,32,384,32) int4]": "stt26-kv4 pos=3000 valid=1.0 split=1",
+            "ca_decode_attend[(64,32,640,64)]": "B=64 H=32 S=625/640 Dh=64",
+            "attn_tune": "pos=3000 valid=0.9 bb=1"}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 QMM_REL_L2 = 2e-3  # qmm against its plain version
+# The tuning tool's rows against attend_global_split_q on its random rings, as
+# a share of the reference's largest output: the bf16 variants, i8s, i8sp.
+TUNE_REL_BARS = {"": 2e-2, "i8s": 3e-2, "i8sp": 8e-2}
+TUNE_VARIANTS = {"bb=1": {"bb": 1}, "bb=4": {"bb": 4}, "bb=4 i8s": {"bb": 4, "i8s": True},
+                 "bb=4 i8sp": {"bb": 4, "i8s": True, "i8p": True},
+                 "bb=2 i8p": {"bb": 2, "i8p": True}}
 # The stt-2.6b matmuls at B=64 (in_proj, out_proj, the gated MLP's two, the
 # text head), then a single row and the duplex batch.
 QMM_SHAPES = ((64, 6144, 2048), (64, 2048, 2048), (64, 11264, 2048), (64, 2048, 5632),
@@ -187,24 +245,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_time_ms(fn, iters: int = 20, head_start_cycles: int = 40_000_000) -> float:
-    """Device time of one call.  A spin kernel of about 20 ms goes first, so
-    the host has queued all ``iters`` calls before the first one starts, and
-    the events around them see the device run them back to back: the
-    wrapper's host time, which exceeds a short kernel's own, stays out."""
-    import torch
+_CLOCK = {"start": None, "last": None}
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(head_start_cycles)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+def elapsed(phase: str) -> None:
+    """Print the wall time of the phase that just ended and of the run so
+    far: where the script's time limit goes."""
+    now = time.perf_counter()
+    if _CLOCK["start"] is None:
+        _CLOCK["start"] = _CLOCK["last"] = now
+    print(f"[elapsed] {phase}: {now - _CLOCK['last']:.1f} s, {now - _CLOCK['start']:.1f} s "
+          f"since the start", flush=True)
+    _CLOCK["last"] = now
 
 
 # ---------------------------------------------------------------------------
@@ -254,12 +306,13 @@ def _commit_info(rings, news, w):
             "library": library}
 
 
-def _attend_info(n_rows, b, h, c, dh):
+def _attend_info(n_rows, b, h, c, dh, row_bytes=None):
     """Decode attention over ``n_rows`` attended (b, row) pairs: each row's
-    int8 K and V and its two f32 scales for every head, the validity bitmap,
-    q, the fresh K/V rows and the output in bf16; 2 multiply-adds a byte."""
+    int8 K and V (``row_bytes`` each: Dh, or Dh/2 packed) and its two f32
+    scales for every head, the validity bitmap, q, the fresh K/V rows and
+    the output in bf16; 2 multiply-adds a value."""
     rows = n_rows * h
-    return {"bytes": rows * (2 * dh + 8) + b * c + 4 * b * h * dh * 2,
+    return {"bytes": rows * (2 * (row_bytes or dh) + 8) + b * c + 4 * b * h * dh * 2,
             "flops": rows * 4 * dh, "library": None}
 
 
@@ -388,10 +441,11 @@ def _split_inputs(dev, g, b, h, c, dh, pos, window, frac):
     return (q, kc, vc, ks, vs, k_new, v_new, valid), oldest
 
 
-def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok):
+def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok, fresh=True):
     """Decode attention over the ring rows ``ok (B, C)`` lets in plus the
-    fresh row, written independently of the port's plain version (one
-    softmax, no bf16 rounding): what a kernel with that mask would give."""
+    fresh row (unless ``fresh`` is off), written independently of the port's
+    plain version (one softmax, no bf16 rounding): what a kernel with that
+    mask would give."""
     import torch
 
     scale = q.shape[-1] ** -0.5
@@ -399,6 +453,8 @@ def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok):
     s = torch.einsum("bhd,bhcd->bhc", qf, kc.float()) * ks * scale
     s = torch.where(ok[:, None, :], s, float("-inf"))
     s_new = (qf * k_new[:, :, 0].float()).sum(-1, keepdim=True) * scale
+    if not fresh:
+        s_new = torch.full_like(s_new, float("-inf"))
     p = torch.softmax(torch.cat([s, s_new], dim=-1), dim=-1)
     out = torch.einsum("bhc,bhcd->bhd", p[..., :-1] * vs, vc.float())
     return out + p[..., -1:] * v_new[:, :, 0].float()
@@ -457,18 +513,222 @@ def _split_cases(dev, g, tag, b, h, c, dh, window, positions):
     return cases
 
 
-def _commit_q_cases(dev, g, tag, b, h, c, dh, ws):
+def _split_inputs_q4(dev, g, b, h, c, dh, pos, window, frac):
+    """:func:`_split_inputs` for a packed-int4 ring: values in [-7, 7], packed
+    here apart from the port's ``pack4`` (byte d = (x[d] + 8) + 16 (x[d + Dh/2]
+    + 8)), scales 18 times the int8 ones (the same score spread, O(1)
+    outputs).  Returns the operands, the unpacked K and V values (what an
+    independent attention reads) and the oldest attended row."""
+    import math
+
+    import torch
+
+    q, k_new, v_new = ((torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).bfloat16()
+                       for _ in range(3))
+    kv, vv = (torch.randint(-7, 8, (b, h, c, dh), generator=g, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    ks, vs = (18.0 * x for x in _sharp_scales(g, dev, b, h, c))
+    valid = torch.rand(b, c, generator=g, device=dev) < frac
+    w = pos % c
+    qf = q[:, :, 0].float()
+    aligned = torch.where(qf >= 0, 7, -7).to(torch.int32)
+    per_scale = 7.0 * qf.abs().sum(-1) / math.sqrt(dh)  # score per unit k_scale
+    kv[:, :, w] = aligned
+    ks[:, :, w] = 26.0 / per_scale
+    vv[:, :, w] = 7
+    vs[:, :, w] = 18.0
+    valid[:, w] = True
+    d_max = min(pos, window - 1, c - 1)
+    oldest = None
+    if d_max >= 1:
+        oldest = (w - d_max) % c
+        kv[:, :, oldest] = aligned
+        ks[:, :, oldest] = 14.0 / per_scale
+        valid[:, oldest] = True
+
+    def pack(x):
+        return ((x[..., :dh // 2] + 8) + 16 * (x[..., dh // 2:] + 8)).to(torch.uint8)
+
+    return (q, pack(kv), pack(vv), ks, vs, k_new, v_new, valid), (kv, vv), oldest
+
+
+def _split_cases_q4(dev, g, tag, b, h, c, dh, window, positions):
+    """decode_attend over one committed packed-int4 ring (uint8, Dh/2 bytes a
+    row) at ``positions``, unsplit and at the split the wrapper picks.  The
+    bar must see a wrong mask, as in :func:`_split_cases`, and the nibble
+    halves read the other way round (of K and of V, through the plain
+    version on a ring with its nibbles swapped)."""
+    import torch
+
+    from dsm_tpu_torch.ops import attention as A
+    from dsm_tpu_torch.ops import decode_attn as DA
+
+    cases = []
+    for pos, frac in positions:
+        args, vals, oldest = _split_inputs_q4(dev, g, b, h, c, dh, pos, window, frac)
+        valid = args[7]
+        check(args[1].dtype == torch.uint8 and tuple(args[1].shape) == (b, h, c, dh // 2),
+              "not a packed-int4 ring")
+        plan = A.global_ring_plan(pos, c, 1, device=dev)
+        rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
+        n_rows = int(_true_mask(valid, pos, c, window).sum())
+        for n_split in sorted({1, DA.pick_split(b * h, c)}):
+
+            def run_k(args=args, plan=plan, valid=valid, n_split=n_split):
+                return (DA.decode_attend(*args[:7], plan, valid, window=window,
+                                         n_split=n_split)[:, :, 0],)
+
+            def plain(args, rows=rows, valid=valid, pos=pos, n_split=n_split):
+                return DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid,
+                                              pos, pos % c, window, n_split)
+
+            def run_p(args=args, plain=plain):
+                return (plain(args),)
+
+            def cmp(got, want, args=args, vals=vals, valid=valid, pos=pos, oldest=oldest,
+                    plain=plain):
+                err = _close("decode_attend (int4)", got[0], want[0])
+                ok = _true_mask(valid, pos, c, window)
+                ref = (args[0], *vals, *args[3:7])
+                check(_within(_attend_with_mask(*ref, ok), want[0]),
+                      "decode_attend (int4): the plain version is outside the bar of an "
+                      "independent masked attention over the unpacked values")
+                wrong = {"the committed row w let in": ok.clone(),
+                         "every ring row let in": torch.ones_like(ok)}
+                wrong["the committed row w let in"][:, pos % c] = True
+                if oldest is None:  # only the fresh row attends: zero bytes (-8) ignored
+                    check(_within(got[0], args[6][:, :, 0]),
+                          "decode_attend (int4): an empty ring's output is not the fresh row")
+                else:
+                    wrong["the oldest attended row dropped"] = ok.clone()
+                    wrong["the oldest attended row dropped"][:, oldest] = False
+                    for which, what in ((1, "K"), (2, "V")):
+                        swapped = list(args)
+                        swapped[which] = (args[which] >> 4) | ((args[which] & 15) << 4)
+                        check(not _within(plain(swapped), want[0]),
+                              f"decode_attend (int4): the bar does not see swapped nibble "
+                              f"halves of {what}")
+                for what, mask in wrong.items():
+                    check(not _within(_attend_with_mask(*ref, mask), want[0]),
+                          f"decode_attend (int4): the bar does not see {what}")
+                return err
+
+            cases.append(("decode_attend", f"{tag} pos={pos} valid={frac} split={n_split}",
+                          run_k, run_p, cmp, _attend_info(n_rows, b, h, c, dh, dh // 2)))
+    return cases
+
+
+def _tune_inputs(dev, g, b, h, c, dh, pos, window, frac):
+    """:func:`_split_inputs` for attn_tune, with a fresh row that matters as
+    well: k_new lies along q (score 13, beside the oldest attended row's 14)
+    and v_new is of spread 1.5, so a result without the fresh row fails the
+    bar too.  Returns the 4-D operands and the oldest attended row."""
+    import math
+
+    import torch
+
+    args, oldest = _split_inputs(dev, g, b, h, c, dh, pos, window, frac)
+    qf = args[0].float()
+    k_new = (qf * (13.0 * math.sqrt(dh) / (qf * qf).sum(-1, keepdim=True))).bfloat16()
+    v_new = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 1.5).bfloat16()
+    return (*args[:5], k_new, v_new, args[7]), oldest
+
+
+def _tune_cases(dev, g):
+    """attn_tune at the stt-1b rings, (64,16,768,128), at a short, a full and
+    a wrapped ring position, on inputs whose outputs are O(1): each variant
+    against its plain version; the ``bb`` variants bit-identical to each
+    other; the int8-dot variants within ``attn_tune.I8_FROM_BF16`` of the bf16
+    result (as a share of its largest output); ``bb=1`` against ``decode_attend`` on the
+    same ring.  The bar must see a wrong mask in every variant: the committed
+    row w let in, the oldest attended row dropped, every ring row let in and
+    the fresh row dropped (each through the independent masked attention,
+    held against the variant's plain version)."""
+    import torch
+
+    from dsm_tpu_torch.ops import attention as A
+    from dsm_tpu_torch.ops import attn_tune as AT
+    from dsm_tpu_torch.ops import decode_attn as DA
+
+    b, h, c, dh, window = 64, 16, 768, 128, 750
+    i8_bar = AT.I8_FROM_BF16
+    cases = []
+    for pos, frac in ((40, 0.9), (767, 1.0), (3000, 0.9)):
+        args4, oldest = _tune_inputs(dev, g, b, h, c, dh, pos, window, frac)
+        valid = args4[7]
+        args = (*(x[:, :, 0].contiguous() for x in args4[:1]), *args4[1:5],
+                *(x[:, :, 0].contiguous() for x in args4[5:7]), valid, pos, window)
+        ok = _true_mask(valid, pos, c, window)
+        n_rows = int(ok.sum())
+        seen = {}
+        for label, kw in TUNE_VARIANTS.items():
+
+            def run_k(args=args, kw=kw):
+                return (AT.attn_tune(*args, **kw),)
+
+            def run_p(args=args, kw=kw):
+                return (AT.attn_tune_plain(*args, **kw),)
+
+            def cmp(got, want, label=label, kw=kw, args=args, args4=args4, ok=ok, pos=pos,
+                    oldest=oldest, seen=seen):
+                err = _close(f"attn_tune {label}", got[0], want[0])
+                seen[label] = got[0]
+                base = seen["bb=1"]
+                top = float(base.float().abs().max())
+                check(top > 0.3, f"attn_tune {label}: outputs of at most {top!r} are not O(1)")
+                if not (kw.get("i8s") or kw.get("i8p")):
+                    check(torch.equal(got[0], base), f"attn_tune {label} differs from bb=1")
+                far = float((got[0].float() - base.float()).abs().max())
+                check(far <= i8_bar * top,
+                      f"attn_tune {label} is {far!r} from the bf16 variant")
+                wrong = {"the committed row w let in": (ok.clone(), True),
+                         "the oldest attended row dropped": (ok.clone(), True),
+                         "every ring row let in": (torch.ones_like(ok), True),
+                         "the fresh row dropped": (ok, False)}
+                wrong["the committed row w let in"][0][:, pos % c] = True
+                wrong["the oldest attended row dropped"][0][:, oldest] = False
+                for what, (mask, fresh) in wrong.items():
+                    check(not _within(_attend_with_mask(*args4[:7], mask, fresh), want[0]),
+                          f"attn_tune {label}: the bar does not see {what}")
+                if label == "bb=1":
+                    check(_within(_attend_with_mask(*args4[:7], ok), want[0]),
+                          "attn_tune: the plain version is outside the bar of an "
+                          "independent masked attention")
+                    plan = A.global_ring_plan(pos, c, 1, device=dev)
+                    split = DA.decode_attend(*args4[:7], plan, args4[7], window=window)
+                    check(_within(got[0], split[:, :, 0]), "attn_tune bb=1 outside the bar "
+                          "of decode_attend on the same ring")
+                return err
+
+            info = dict(_attend_info(n_rows, b, h, c, dh),
+                        bar=f"atol=rtol={ATOL} of its plain version; bb variants identical; "
+                            f"int8 dots within {i8_bar} of the bf16 variant")
+            cases.append(("attn_tune", f"pos={pos} valid={frac} {label}", run_k, run_p, cmp,
+                          info))
+    return cases
+
+
+def _commit_q_cases(dev, g, tag, b, h, c, dh, ws, packed4=False):
     """ring_commit_q at rows ``ws`` of one set of four rings: the kernel's
     set and the plain version's set bit for bit, and every row but the
-    written ones as it was."""
+    written ones as it was.  ``packed4``: uint8 rings and rows of Dh/2
+    bytes."""
     import torch
 
     from dsm_tpu_torch.ops import ring_kernels as RK
 
+    row_bytes = dh // 2 if packed4 else dh
+
+    def rows(n):
+        if packed4:
+            return torch.randint(0, 256, (b, h, n, row_bytes), generator=g, device=dev,
+                                 dtype=torch.uint8)
+        return torch.randint(-127, 128, (b, h, n, row_bytes), generator=g, device=dev,
+                             dtype=torch.int8)
+
     def ring(dtype_int8):
         if dtype_int8:
-            return torch.randint(-127, 128, (b, h, c, dh), generator=g, device=dev,
-                                 dtype=torch.int8)
+            return rows(c)
         return torch.rand(b, h, c, generator=g, device=dev)
 
     orig = [ring(True), ring(True), ring(False), ring(False)]
@@ -477,8 +737,7 @@ def _commit_q_cases(dev, g, tag, b, h, c, dh, ws):
     written = []
     cases = []
     for w in ws:
-        kn, vn = (torch.randint(-127, 128, (b, h, 1, dh), generator=g, device=dev,
-                                dtype=torch.int8) for _ in range(2))
+        kn, vn = rows(1), rows(1)
         ksn, vsn = (torch.rand(b, h, 1, generator=g, device=dev) for _ in range(2))
         news = (kn, vn, ksn, vsn)
 
@@ -575,6 +834,20 @@ def kernel_cases(dev):
     cases += _attend_cases(dev, g, "stt26", 64, 32, 384, 64, 375, True, stt26_pos)
     cases += _split_cases(dev, g, "stt1b", 64, 16, 768, 128, 750, ((40, 0.9), (3000, 1.0)))
     cases += _qmm_cases(dev, g)
+
+    # Packed-int4 rings (kv_bits = 4): the stt-1b, stt-2.6b and s2s-2b rings at
+    # half their bytes, at a short, a full and a wrapped ring position; the
+    # commit of uint8 rows; then the tuning tool's kernel.
+    cases += _commit_q_cases(dev, g, "stt1b-kv4 uint8", 64, 16, 768, 128, (0, 767), True)
+    cases += _commit_q_cases(dev, g, "stt26-kv4 uint8", 64, 32, 384, 64, (100,), True)
+    cases += _commit_q_cases(dev, g, "duplex-kv4 uint8", 24, 20, 3072, 128, (1500,), True)
+    cases += _split_cases_q4(dev, g, "stt1b-kv4", 64, 16, 768, 128, 750,
+                             ((40, 0.9), (767, 1.0), (3000, 1.0)))
+    cases += _split_cases_q4(dev, g, "stt26-kv4", 64, 32, 384, 64, 375,
+                             ((0, 1.0), (383, 1.0), (3000, 1.0)))
+    cases += _split_cases_q4(dev, g, "duplex-kv4", 24, 20, 3072, 128, 3000,
+                             ((40, 0.7), (3071, 1.0), (10000, 1.0)))
+    cases += _tune_cases(dev, g)
     return cases
 
 
@@ -864,8 +1137,9 @@ def _serve_asr(engine, counters, per_step, tag):
 
 def phase_times(engine, dev, card, tag=""):
     """The engine step with every slot active (host clock), a kernel profile
-    of 5 steps, and the step's two halves alone; lines tagged ``[<tag>times]``
-    and ``[<tag>profile]``."""
+    of 2 steps, and the step's two halves alone; lines tagged ``[<tag>times]``
+    and ``[<tag>profile]``.  Returns the step's median ms, the peak memory in
+    GB and the profiled kernel ms per step."""
     import numpy as np
     import torch
 
@@ -893,29 +1167,11 @@ def phase_times(engine, dev, card, tag=""):
           f"min {min(times)!r}, max {max(times)!r} over 50 after 5 warm-up; "
           f"peak memory {peak_gb:.2f} GB; card {card}", flush=True)
 
-    # Where the device time goes: kernel time by name over 5 steps, and the
+    # Where the device time goes: kernel time by name over 2 steps, and the
     # device's busy share of the host's wall time for those steps.
-    with torch.inference_mode(), torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            engine._invoke_step(pcm, on, off)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == cuda and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    total = sum(t for _, t, _ in rows)
-    check(total > 0, "the profiler saw no device time")
-    print(f"[{tag}profile] kernels {total / 5e3!r} ms/step of {wall_us / 5e3!r} ms/step wall "
-          f"(profiled): device busy {total / wall_us!r}, {sum(n for _, _, n in rows) / 5:.0f} "
-          f"device launches/step, {len(rows)} kernel names; card {card}", flush=True)
-    for key, t, n in rows[:12]:
-        print(f"[{tag}profile] {t / 5e3:9.4f} ms/step {100 * t / max(total, 1):5.1f}% "
-              f"{n / 5:6.0f}/step  {key[:90]}", flush=True)
+    with torch.inference_mode():
+        rows, wall_us = _profile(lambda: engine._invoke_step(pcm, on, off), 2)
+    total = _print_profile(f"{tag}profile", "", rows, wall_us, 2, "step", card, 12)
 
     # The step's two halves alone: Mimi encode and the LM step.
     from dsm_tpu_torch.models import lm as LM
@@ -943,13 +1199,17 @@ def phase_times(engine, dev, card, tag=""):
                     ts.append((time.perf_counter() - t0) * 1e3)
         print(f"[{tag}times] {name}, {b} slots: median {statistics.median(ts)!r} ms, min "
               f"{min(ts)!r}, max {max(ts)!r} over 20 after 5 warm-up; card {card}", flush=True)
+    return step_ms, peak_gb, total
 
 
 def kernel_times(dev, card):
     """Each kernel case: the kernel, its plain version and, where one
-    exists, the library call as device time (:func:`device_time_ms`), and
+    exists, the library call as device time (the tuning tool's
+    ``device_time_ms``: CUDA events around calls queued behind a spin kernel), and
     its bound from this run's inputs.  Returns the headline cases' numbers
     by the name of their JSON entry."""
+    from dsm_tpu_torch.tools.attn_kernel_tune import device_time_ms
+
     ms = {}
     wrapper_of = {**{name: name for name in SOURCES},
                   **{name: route[0] for name, route in ROUTES.items()}}
@@ -1235,6 +1495,215 @@ def phase_stt26_path(engine, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8 (STT): packed-int4 rings on the stt-1b engine and the stt-2.6b LM step
+# ---------------------------------------------------------------------------
+
+
+def phase_stt1b_kv4(dev, card, int8_numbers):
+    """The stt-1b engine of configs/config-stt.toml with ``AsrConfig(kv_bits=4)``
+    handed to ``BatchedAsrEngine`` (the ASR builder reads no ``kv_bits`` key):
+    12 sessions, exact launches, then the step's time and peak memory beside
+    the int8 engine's of this run."""
+    import dataclasses
+
+    import torch
+
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+
+    mod = CFG.Config.load(os.path.join(ROOT, "configs", "config-stt.toml")).modules["asr"]
+    built = builder.build_batched_asr(mod, dev)
+    cfg = dataclasses.replace(built.cfg, kv_bits=4)
+    params, batch, tokenizer = built.params, built.batch_size, built.tokenizer
+    del built  # its int8 rings go before the int4 engine allocates its own
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = BatchedAsrEngine(cfg, params, batch_size=batch, device=dev,
+                              fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)))
+    engine.tokenizer = tokenizer
+    tcfg = engine.cfg.lm.transformer
+    ring = engine.state["lm"]["t"]["layers"][0]
+    check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, engine.batch_size)
+          == (2048, 16, 16, 64), "not the stt-1b B=64 config")
+    check(ring["k"].dtype == torch.uint8 and tuple(ring["k"].shape) == (64, 16, 768, 64)
+          and tuple(ring["ks"].shape) == (64, 16, 768), "not the packed-int4 ring of stt-1b")
+    check(PER_STEP_STT1B_KV4["decode_attend"] == tcfg.num_layers,
+          "PER_STEP_STT1B_KV4 does not follow the config")
+    engine.warmup()
+    print(f"[stt1b-kv4] engine from configs/config-stt.toml with AsrConfig(kv_bits=4): rings "
+          f"uint8 {tuple(ring['k'].shape)}, scales f32 {tuple(ring['ks'].shape)}, B=64, "
+          f"int8 weights + W8A8, bf16 codec, seeded random weights", flush=True)
+    launches = _serve_asr(engine, _duplex_counters(), PER_STEP_STT1B_KV4, "stt1b-kv4")
+    step_ms, peak_gb, kernel_ms = phase_times(engine, dev, card, tag="stt1b-kv4-")
+    print(f"[stt1b-kv4] int4 rings beside int8 rings (this run, the same card): engine step "
+          f"median {step_ms!r} ms against {int8_numbers[0]!r}; kernels {kernel_ms!r} ms a step "
+          f"against {int8_numbers[2]!r}; peak memory {peak_gb:.2f} GB against "
+          f"{int8_numbers[1]:.2f} GB; card {card}", flush=True)
+    return launches
+
+
+def phase_stt26_kv4(engine, dev, card):
+    """The stt-2.6b LM (48 layers, weight-only int8 weights, the engine's own)
+    over packed-int4 rings uint8 (64,32,384,32), the int8 rings built the same
+    way beside them.  One step through the kernels against the same step
+    through their plain versions (relative L2 of the hidden state and the
+    text logits), each side's launches counted, from three states: after 40
+    steps of random tokens; over full, wrapped rings of real quantised rows
+    (:func:`_fill_rings`), where a bit-identical pair fails and the LM step is
+    timed; and, held to no bar since no engine reaches it, the 40 rows with
+    every never-written row marked valid at a scale of 1e-3 (a packed ring
+    reads its zero bytes as -8).  From each state the step also runs with
+    the ring kernels alone (ring_commit_q + decode_attend, qmm plain) and
+    with qmm alone through its kernel: which kernel's summation order moves
+    the outputs, and how far (over full rings qmm alone passes PATH_RTOL, so
+    steps that launch it are held to FULL_RING_RTOL there); and every
+    decode_attend launch of the all-kernels step is held to its plain version
+    on the same operands (SEAM_RTOL)."""
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.ops import qmm as QM
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    lm_cfg, params, n = engine.cfg.lm, engine.params["lm"], engine.batch_size
+    layers = lm_cfg.transformer.num_layers
+    g = torch.Generator(device=dev).manual_seed(23)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def tokens():
+        return (torch.randint(4, 200, (n,), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 2048, (n, lm_cfg.audio_codebooks), generator=g, device=dev,
+                              dtype=torch.int32))
+
+    history = [tokens() for _ in range(40)]
+    text, audio = tokens()
+    ring_launches = {"ring_commit_q": layers, "decode_attend": layers}
+    want_launches = {**ring_launches, "ring_commit": 0, "qmm": 4 * layers + 1,
+                     "scale_commit": 0, "decode_attend_commit": 0}
+    counters = _lm_counters()
+    ring_seams, qmm_seam = (RK.ring_commit, DA._attend_launch), QM._launch
+
+    def step(state, ring_kernels, qmm_kernel, seam=None):
+        """One step from a clone of ``state`` -> (text logits, hidden state),
+        the ring kernels and qmm each through the kernel or the plain version;
+        ``seam`` collects :func:`attend_seam_errors`."""
+        before = {name: fn.launches for name, fn in counters.items()}
+        with plain_seams(), torch.inference_mode(), contextlib.ExitStack() as stack:
+            if ring_kernels:
+                RK.ring_commit = ring_seams[0]
+                stack.enter_context(attend_seam_errors(seam, ring_seams[1]))
+            if qmm_kernel:
+                QM._launch = qmm_seam
+            out = LM.step(lm_cfg, params, _clone(state), text, audio, mask)[:2]
+        torch.cuda.synchronize()
+        launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+        want = {**dict.fromkeys(counters, 0), **(ring_launches if ring_kernels else {}),
+                "qmm": want_launches["qmm"] if qmm_kernel else 0}
+        check(launched == want, f"stt26-kv4: launches {launched}, want {want}")
+        return out
+
+    def compare(state):
+        """Relative L2 (hidden state, text logits) from the plain step of the
+        step through all kernels, the ring kernels alone and qmm alone; under
+        "seam" the worst decode_attend launch of the first from its plain
+        version on the same operands; and how far the ring's history moves
+        the plain hidden state."""
+        plain = step(state, False, False)
+        rel, seam = {}, []
+        for which, (ring_kernels, qmm_kernel) in (("all", (True, True)), ("rings", (True, False)),
+                                                  ("qmm", (False, True))):
+            got = step(state, ring_kernels, qmm_kernel, seam if which == "all" else [])
+            check(all(bool(torch.isfinite(x).all()) for x in got), "stt26-kv4: not finite")
+            rel[which] = (_rel(got[1], plain[1]), _rel(got[0], plain[0]))
+        check(len(seam) == layers, f"stt26-kv4: {len(seam)} decode_attend launches compared")
+        rel["seam"] = max(seam, default=float("inf"))
+        forgot = _clone(state)
+        forgot["t"]["valid"].zero_()
+        return rel, _rel(step(forgot, False, False)[1], plain[1])
+
+    rel, moved, medians, kernels = {}, {}, {}, {}
+    for bits in (4, 8):
+        state = LM.init_state(lm_cfg, n, torch.bfloat16, kv_quant=True, device=dev,
+                              kv_bits=bits)
+        ring = state["t"]["layers"][0]
+        if bits == 4:
+            check(ring["k"].dtype == torch.uint8
+                  and tuple(ring["k"].shape) == (64, 32, 384, 32)
+                  and tuple(ring["ks"].shape) == (64, 32, 384),
+                  "not the packed-int4 ring of stt-2.6b")
+        with torch.inference_mode():
+            for tok in history:
+                state = LM.step(lm_cfg, params, state, *tok, mask)[2]
+        got = _lm_step_counted(lm_cfg, params, state, text, audio, mask)  # no seam touched
+        check(got[2] == want_launches, f"stt26-kv4: kv_bits {bits} launches {got[2]}")
+        del got
+        rel[bits, "40 rows"], moved[bits, "40 rows"] = compare(state)
+
+        unwritten = _clone(state)
+        with torch.inference_mode():
+            unwritten["t"]["pos"] = 3000
+            unwritten["t"]["valid"].fill_(True)
+            for layer in unwritten["t"]["layers"]:
+                layer["ks"].clamp_(min=1e-3)
+                layer["vs"].clamp_(min=1e-3)
+        rel[bits, "unwritten"], moved[bits, "unwritten"] = compare(unwritten)
+        del unwritten
+
+        _fill_rings(state["t"], torch.Generator(device=dev).manual_seed(31), 3000)
+        rel[bits, "full"], moved[bits, "full"] = compare(state)
+        with torch.inference_mode():
+
+            def lm_step(state=state):
+                return LM.step(lm_cfg, params, state, text, audio, mask)  # row w again
+
+            medians[bits] = _median_ms(lm_step)
+            total, by_name = _kernel_ms(lm_step)
+            kernels[bits] = (total, sum(ms for name, ms in by_name.items()
+                                        if "decode_attend_partial" in name))
+        del state
+        torch.cuda.empty_cache()
+    states = {"40 rows": "holding 40 rows",
+              "full": "full and wrapped (tick 3000, 384 real quantised rows)",
+              "unwritten": "holding 40 rows, the 344 never-written rows marked valid at scale "
+                           "1e-3 (tick 3000; no engine reaches this state: no bar)"}
+    for where, what in states.items():
+        for bits in (4, 8):
+            r = rel[bits, where]
+            print(f"[stt26-kv4] stt-2.6b LM step, {layers} layers, B={n}, kv_bits = {bits}, rings "
+                  f"{what}: relative L2 (hidden state, text logits) from the plain step, both "
+                  f"sides' launches counted: all kernels {r['all']!r}, ring_commit_q + "
+                  f"decode_attend alone {r['rings']!r}, qmm alone {r['qmm']!r} (bar "
+                  f"{PATH_RTOL}; over full rings {FULL_RING_RTOL} where qmm is a kernel); each "
+                  f"layer's decode_attend from its plain version on the same operands at most "
+                  f"{r['seam']!r} (bar {SEAM_RTOL}); with the ring's history masked the hidden "
+                  f"state moves {moved[bits, where]!r}", flush=True)
+    for bits in (4, 8):
+        med, lo, hi = medians[bits]
+        print(f"[stt26-kv4] LM step alone over the full rings, "
+              f"kv_bits = {bits}: median {med!r} ms, min {lo!r}, max {hi!r} over 10 after 3 "
+              f"warm-up (host clock with synchronize); kernels {kernels[bits][0]!r} ms a step, "
+              f"of them decode_attend's {layers} calls {kernels[bits][1]!r} ms (profiler, 2 "
+              f"steps); card {card}", flush=True)
+    for bits in (4, 8):
+        for where in ("40 rows", "full"):
+            for which in ("all", "rings", "qmm"):
+                r = rel[bits, where][which]
+                bar = FULL_RING_RTOL if where == "full" and which != "rings" else PATH_RTOL
+                check(max(r) <= bar, f"stt26-kv4: kv_bits {bits}, rings {where}, {which} "
+                      f"kernels: {r!r} from the plain path (bar {bar})")
+            check(rel[bits, where]["seam"] <= SEAM_RTOL, f"stt26-kv4: kv_bits {bits}, rings "
+                  f"{where}: decode_attend {rel[bits, where]['seam']!r} from its plain version")
+            check(moved[bits, where] > PATH_RTOL, f"stt26-kv4: kv_bits {bits}, {where}: the "
+                  f"ring's history moves the hidden state only {moved[bits, where]!r}")
+        check(min(rel[bits, "full"]["rings"]) > 0,
+              f"stt26-kv4: kv_bits {bits}: ring kernels and plain versions bit-identical over "
+              f"full rings")
+    return want_launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the batched TTS path
 # ---------------------------------------------------------------------------
 
@@ -1244,13 +1713,17 @@ TTS_TEXTS = ["hello there friend", "the quick brown fox", "one two three four",
              "voices on the card", "short one", "last of the batch"]
 
 
-def _tts_open(engine, sid, voice, sessions, words=True):
+# Shorter texts for the 48-layer model, whose tick takes three times as long.
+TTS_SHORT_TEXTS = ["hello there", "quick fox", "one two", "good morning", "fine day", "see you"]
+
+
+def _tts_open(engine, sid, voice, sessions, words=True, texts=TTS_TEXTS):
     events = []
     ca = engine.voice_kv(voice) if voice else None
     drv = engine.open_session(events.append, voice_ca=ca, seed=100 + sid,
                               text_temperature=0.6, audio_temperature=0.8)
     check(drv is not None, "no free TTS slot")
-    text = TTS_TEXTS[sid % len(TTS_TEXTS)] if words else ""
+    text = texts[sid % len(texts)] if words else ""
     if words:
         enc, _ = engine.encode_words(text, inserted_bos=False)
         drv.feed_words(enc)
@@ -1292,7 +1765,53 @@ def _tts_verify(sessions, sids, frame):
     return n_frames
 
 
-def _median_ms(fn, n: int = 20, warmup: int = 3):
+def _profile(fn, n: int):
+    """``n`` calls of ``fn`` under the profiler -> the kernels as ``(name,
+    device us, launches)`` by falling device time, and the calls' wall time
+    in us.  Device activity only: with the host's operator events as well
+    (several for each launch) the profiler takes tens of seconds to hand over
+    a tick's 20,000 launches."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    check(bool(rows), "the profiler saw no device time")
+    return rows, wall_us
+
+
+def _print_profile(tag, what, rows, wall_us, n, unit, card, top):
+    """The profile's summary line and its ``top`` kernels -> kernel ms a call."""
+    total = sum(t for _, t, _ in rows)
+    print(f"[{tag}] {what}kernels {total / n / 1e3!r} ms/{unit} of {wall_us / n / 1e3!r} "
+          f"ms/{unit} wall (profiled over {n}): device busy {total / wall_us!r}, "
+          f"{sum(c for _, _, c in rows) / n:.0f} device launches/{unit}, {len(rows)} kernel "
+          f"names; card {card}", flush=True)
+    for key, t, c in rows[:top]:
+        print(f"[{tag}] {t / n / 1e3:9.4f} ms/{unit} {100 * t / total:5.1f}% "
+              f"{c / n:6.0f}/{unit}  {key[:90]}", flush=True)
+    return total / n / 1e3
+
+
+def _kernel_ms(fn, n: int = 2):
+    """Device time of ``fn``'s kernels by name, ms per call, summed by the
+    profiler over ``n`` calls after one unprofiled -> ``(total, {kernel
+    name: ms})``."""
+    fn()
+    rows, _ = _profile(fn, n)
+    by_name = {key: t / n / 1e3 for key, t, _ in rows}
+    return sum(by_name.values()), by_name
+
+
+def _median_ms(fn, n: int = 10, warmup: int = 3):
     import torch
 
     ts = []
@@ -1306,7 +1825,12 @@ def _median_ms(fn, n: int = 20, warmup: int = 3):
     return statistics.median(ts), min(ts), max(ts)
 
 
-def phase_tts(dev, card):
+def phase_tts(dev, card, preset=None):
+    """The batched TTS engine from configs/config-tts-tpu-serving.toml;
+    ``preset = "tts_202501"`` puts that model in place of the TOML's (no TOML
+    of it is in the repository) and tags the lines ``[tts202501]``."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1316,23 +1840,45 @@ def phase_tts(dev, card):
     from dsm_tpu_torch.server import config as CFG
     from dsm_tpu_torch.server.voices import VoiceResolver
 
-    counters = {"scale_commit": RK.scale_commit,
-                "decode_attend_commit": DA.decode_attend_commit,
-                "ring_commit": RK.ring_commit, "ca_decode_attend": DA.ca_decode_attend}
+    from dsm_tpu_torch.models import lm as LM
+
+    tag = "tts202501" if preset else "tts"
+    per_tick = PER_TICK_TTS202501 if preset else PER_TICK_TTS
+    counters = {**_duplex_counters(), "ca_decode_attend": DA.ca_decode_attend}
+    counters = {name: counters[name] for name in per_tick}
     path = os.path.join(ROOT, "configs", "config-tts-tpu-serving.toml")
     mod = CFG.Config.load(path).modules["tts"]
-    print(f"[tts] {os.path.relpath(path, ROOT)}: fuse_ticks {mod.raw['fuse_ticks']} -> 1, "
+    model = f"its lm replaced by the preset LM.{preset}()" if preset else "its own model"
+    print(f"[{tag}] {os.path.relpath(path, ROOT)} with {model}: fuse_ticks "
+          f"{mod.raw['fuse_ticks']} -> 1, "
           f"pipeline_depth {mod.raw['pipeline_depth']} -> 1 (the single-tick path the "
           f"port serves); every other key as in the file", flush=True)
     mod.raw["fuse_ticks"] = 1
     mod.raw["pipeline_depth"] = 1
+    if preset:
+        mod = dataclasses.replace(mod, lm=getattr(LM, preset)())
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     engine = builder.build_batched_tts(mod, dev)
     lm = engine.cfg.lm
     tcfg, dcfg = lm.transformer, lm.depformer.transformer
-    check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, lm.depformer.num_slices,
-           dcfg.d_model, dcfg.num_layers, dcfg.num_heads, engine.batch_size)
-          == (2048, 16, 16, 128, 32, 1024, 4, 16, 64), "not the tts-1.6b B=64 config")
+    shape = (tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, tcfg.context,
+             lm.depformer.num_slices, dcfg.d_model, dcfg.num_layers, dcfg.num_heads,
+             lm.depformer.low_rank_embeddings, engine.batch_size)
+    if preset:
+        check(shape == (2048, 48, 32, 64, 500, 32, 1024, 6, 16, None, 64),
+              f"not the tts_202501 B=64 config: {shape}")
+        ring = engine.state["lm"]["t"]["layers"][0]["k"]
+        check(ring.dtype == torch.int8 and tuple(ring.shape) == (64, 32, 512, 64),
+              "not the int8 ring of tts_202501")
+        check(tuple(engine._ca["k"].shape) == (48, 64, 32, 640, 64)
+              and engine._ca["k"].dtype == torch.int8,
+              "the voice store is not (48, 64, 32, 640, 64) int8")
+        check("low_rank" not in engine.params["lm"]["depformer"],
+              "tts_202501's DepFormer has no low-rank embeddings")
+    else:
+        check(shape[:4] + shape[5:9] + shape[10:] == (2048, 16, 16, 128, 32, 1024, 4, 16, 64),
+              "not the tts-1.6b B=64 config")
     check(engine.ca_quant and engine.cfg.kv_quant and engine._pcm_wire_i16,
           "not the serving profile (int8 voice store, int8 KV, int16 wire)")
     check(isinstance(engine.params["lm"]["transformer"][0]["in_proj_w"], dict)
@@ -1340,9 +1886,9 @@ def phase_tts(dev, card):
                          dict), "LM weights not int8")
     check(engine.default_condition is not None, "no description condition")
     check(engine.mimi_cfg.transformer.num_layers == 8, "not the 8-layer Mimi decoder")
-    check(PER_TICK_TTS["ca_decode_attend"] == tcfg.num_layers
-          and PER_TICK_TTS["ring_commit"] == engine.mimi_cfg.transformer.num_layers,
-          "PER_TICK_TTS does not follow the config")
+    check(per_tick["ca_decode_attend"] == tcfg.num_layers
+          and per_tick["ring_commit"] == engine.mimi_cfg.transformer.num_layers,
+          "the launches per tick do not follow the config")
     # Seeded random voices: 5 speakers x 125 frames of the conditioning width.
     rng = np.random.default_rng(5)
     n_rows = 125 * engine.cfg.speaker_cond_n_speakers
@@ -1350,20 +1896,26 @@ def phase_tts(dev, card):
         f"spk{i}": rng.standard_normal((n_rows, engine.cfg.speaker_cond_dim)).astype(np.float32)
         for i in range(8)})
     torch.cuda.synchronize()
-    print(f"[tts] engine built in {time.perf_counter() - t0:.3f} s (tts-1.6b d=2048 L=16, "
-          f"DepFormer 32x4 d=1024 h=16, B=64, voice store int8 {tuple(engine._ca['k'].shape)}, "
-          f"int8 KV + W8A8, bf16 codec, int16 wire, seeded random weights)", flush=True)
+    print(f"[{tag}] engine built in {time.perf_counter() - t0:.3f} s (d={tcfg.d_model} "
+          f"L={tcfg.num_layers} h={tcfg.num_heads}x{tcfg.hd} ctx {tcfg.context}, DepFormer "
+          f"{lm.depformer.num_slices}x{dcfg.num_layers} d={dcfg.d_model} h={dcfg.num_heads}, "
+          f"B=64, voice store int8 {tuple(engine._ca['k'].shape)}, int8 KV rings "
+          f"{tuple(engine.state['lm']['t']['layers'][0]['k'].shape)} + W8A8, bf16 codec, int16 "
+          f"wire, seeded random weights); memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak while building "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
-    print(f"[tts] warmup {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"[{tag}] warmup {time.perf_counter() - t0:.3f} s", flush=True)
 
     for fn in counters.values():
         fn.launches = 0
     ticks0 = engine.step_count
     sessions = {}
+    texts = TTS_SHORT_TEXTS if preset else TTS_TEXTS
     for sid in range(12):
-        _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions)
+        _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions, texts=texts)
     # Wordless sessions fill the other slots (pad or end-of-word each tick),
     # so the last 4 sessions can only land in slots freed by closed ones.
     idle = {}
@@ -1380,7 +1932,7 @@ def phase_tts(dev, card):
         engine.close_session(sessions[sid]["drv"])
     second = {}
     for sid in range(12, 16):
-        drv = _tts_open(engine, sid, f"spk{sid - 12}", second)
+        drv = _tts_open(engine, sid, f"spk{sid - 12}", second, texts=texts)
         check(drv.slot in freed, f"tts session {sid} did not reuse a freed slot")
     _tts_drive(engine, second)
     n_frames += _tts_verify(second, range(12, 16), frame)
@@ -1388,14 +1940,14 @@ def phase_tts(dev, card):
     ticks = engine.step_count - ticks0
     launches = {name: fn.launches for name, fn in counters.items()}
     for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the TTS path")
-        check(n == PER_TICK_TTS[name] * ticks,
-              f"{name}: {n} launches over {ticks} ticks, want {PER_TICK_TTS[name]} per tick")
-    print(f"[tts] 16 sessions (8 + 4 reused slots with voices, 4 without), all done; "
+        check(n > 0 or per_tick[name] == 0, f"{name} never launched on the TTS path")
+        check(n == per_tick[name] * ticks,
+              f"{name}: {n} launches over {ticks} ticks, want {per_tick[name]} per tick")
+    print(f"[{tag}] 16 sessions (8 + 4 reused slots with voices, 4 without), all done; "
           f"{sum(len(s['text'].split()) for s in list(sessions.values()) + list(second.values()))} "
           f"words returned, {n_frames} frames of {frame} finite samples, {ticks} ticks in "
           f"{serve_s:.3f} s with 64 slots open; launches {launches} = per tick "
-          f"{PER_TICK_TTS}", flush=True)
+          f"{per_tick}", flush=True)
     for s in [sessions[sid] for sid in range(4, 12)] + list(second.values()) \
             + list(idle.values()):
         engine.close_session(s["drv"])
@@ -1425,6 +1977,29 @@ def plain_seams():
          DA._attend_launch, QM._launch) = saved
 
 
+@contextlib.contextmanager
+def attend_seam_errors(errs, launch=None):
+    """Every ``decode_attend`` launch (through ``launch``, by default the
+    seam as it stands) also runs the plain version on the same operands:
+    ``errs`` collects each call's relative L2 of the kernel's output from it.
+    The kernel's output goes on, so no layer's difference reaches the next."""
+    from dsm_tpu_torch.ops import decode_attn as DA
+
+    saved = DA._attend_launch
+    launch = launch or saved
+
+    def both(*args):
+        y = launch(*args)
+        errs.append(_rel(y, DA.decode_attend_plain(*args)))
+        return y
+
+    DA._attend_launch = both
+    try:
+        yield
+    finally:
+        DA._attend_launch = saved
+
+
 def _clone(tree):
     import torch
 
@@ -1441,7 +2016,29 @@ def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def phase_tts_path(engine, dev):
+def _fill_rings(t_state, g, pos):
+    """A transformer state whose rings are full and wrapped: every layer's K
+    and V rows are random bf16 rows of unit spread through the port's own
+    quantiser (``quantize_kv_rows``; ``quantize_kv_rows_packed4`` for uint8
+    rings), every row valid, the tick counter at ``pos``."""
+    import torch
+
+    from dsm_tpu_torch.ops import attention as A
+
+    with torch.inference_mode():
+        for layer in t_state["layers"]:
+            b, h, c, row_bytes = layer["k"].shape
+            packed4 = layer["k"].dtype == torch.uint8
+            quantize = A.quantize_kv_rows_packed4 if packed4 else A.quantize_kv_rows
+            rows = [torch.randn(b, h, c, 2 * row_bytes if packed4 else row_bytes, generator=g,
+                                device=layer["k"].device).bfloat16() for _ in range(2)]
+            for key, x in zip(("k", "v", "ks", "vs"), quantize(*rows)):
+                layer[key].copy_(x)
+        t_state["valid"].fill_(True)
+    t_state["pos"] = pos
+
+
+def phase_tts_path(engine, dev, tag="tts"):
     """The TTS path itself on the card: from clones of the engine's state
     (every slot active, voices in the store), the LM step with the voice
     cross-attention and the Mimi decode step run once through the kernels
@@ -1481,13 +2078,13 @@ def phase_tts_path(engine, dev):
         check(bool(torch.isfinite(got[k]).all()), f"path check: {k} not finite")
         check(r <= PATH_RTOL, f"path check: {k} through the kernels {r!r} from the plain path")
     check(voice > PATH_RTOL, f"path check: the voice moves the hidden state only {voice!r}")
-    print(f"[tts-path] {n} active rows, kernels against plain versions from one state: "
+    print(f"[{tag}-path] {n} active rows, kernels against plain versions from one state: "
           f"relative L2 hidden {rel['hidden']!r}, text logits {rel['text_logits']!r}, "
           f"Mimi pcm {rel['pcm']!r} (bar {PATH_RTOL}); without the voice store the hidden "
           f"state moves {voice!r}", flush=True)
 
 
-def phase_tts_times(engine, dev, card):
+def phase_tts_times(engine, dev, card, tag="tts"):
     """The tick with every slot active, where its time goes, and its three
     parts alone."""
     import torch
@@ -1507,38 +2104,21 @@ def phase_tts_times(engine, dev, card):
         drivers.append(drv)
     torch.cuda.reset_peak_memory_stats()
     ticks = []
-    for i in range(35):
+    n_ticks = 15
+    for i in range(n_ticks + 5):
         t0 = time.perf_counter()
         check(engine.tick(), "TTS tick with 64 slots stepped nothing")
         if i >= 5:
             ticks.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[tts-times] engine tick, 64 slots active: median {statistics.median(ticks)!r} ms, "
-          f"min {min(ticks)!r}, max {max(ticks)!r} over 30 after 5 warm-up (host clock, "
+    print(f"[{tag}-times] engine tick, 64 slots active: median {statistics.median(ticks)!r} ms, "
+          f"min {min(ticks)!r}, max {max(ticks)!r} over {n_ticks} after 5 warm-up (host clock, "
           f"each tick ends in its device-to-host fetch); peak memory {peak_gb:.2f} GB; "
           f"card {card}", flush=True)
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            engine.tick()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == cuda and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    total = sum(t for _, t, _ in rows)
-    launches = sum(n for _, _, n in rows)
-    print(f"[tts-profile] kernels {total / 3e3!r} ms/tick of {wall_us / 3e3!r} ms/tick wall "
-          f"(profiled): device busy {total / wall_us!r}, {launches / 3:.0f} device "
-          f"launches/tick, {len(rows)} kernel names; card {card}", flush=True)
-    for key, t, n in rows[:15]:
-        print(f"[tts-profile] {t / 3e3:9.4f} ms/tick {100 * t / max(total, 1):5.1f}% "
-              f"{n / 3:6.0f}/tick  {key[:90]}", flush=True)
-    phase_tts_path(engine, dev)
+    rows, wall_us = _profile(engine.tick, 1)
+    _print_profile(f"{tag}-profile", "", rows, wall_us, 1, "tick", card, 15)
+    phase_tts_path(engine, dev, tag)
     for drv in drivers:
         engine.close_session(drv)
 
@@ -1569,8 +2149,8 @@ def phase_tts_times(engine, dev, card):
     for name, fn in parts.items():
         with torch.inference_mode():
             med, lo, hi = _median_ms(fn)
-        print(f"[tts-times] {name}, 64 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
-              f"over 20 after 3 warm-up (host clock with synchronize); card {card}",
+        print(f"[{tag}-times] {name}, 64 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
+              f"over 10 after 3 warm-up (host clock with synchronize); card {card}",
               flush=True)
 
 
@@ -1649,19 +2229,26 @@ def _duplex_verify(engine, sessions, sids):
     return n_audio, n_text
 
 
-def phase_duplex(dev, card):
+def phase_duplex(dev, card, kv_bits=8):
+    """The dialogue engine from configs/config-duplex-tpu-serving.toml;
+    ``kv_bits = 4`` changes the file's 8 (packed-int4 rings), serves half as
+    many dialogues and tags the lines ``[duplex-kv4]``."""
     import torch
 
     from dsm_tpu_torch.server import builder
     from dsm_tpu_torch.server import config as CFG
 
+    tag = "duplex" if kv_bits == 8 else "duplex-kv4"
+    n_first, n_second = (12, 4) if kv_bits == 8 else (6, 2)
     counters = _duplex_counters()
     path = os.path.join(ROOT, "configs", "config-duplex-tpu-serving.toml")
     mod = CFG.Config.load(path).modules["duplex"]
-    print(f"[duplex] {os.path.relpath(path, ROOT)}: pipeline_depth "
-          f"{mod.raw['pipeline_depth']} -> 1 (a cut: the port serves no dispatch-ahead); "
-          f"every other key as in the file", flush=True)
+    print(f"[{tag}] {os.path.relpath(path, ROOT)}: pipeline_depth "
+          f"{mod.raw['pipeline_depth']} -> 1 (a cut: the port serves no dispatch-ahead), "
+          f"kv_bits {mod.raw['kv_bits']} -> {kv_bits}; every other key as in the file",
+          flush=True)
     mod.raw["pipeline_depth"] = 1
+    mod.raw["kv_bits"] = kv_bits
     t0 = time.perf_counter()
     engine = builder.build_duplex(mod, dev)
     lm = engine.cfg.lm
@@ -1673,9 +2260,12 @@ def phase_duplex(dev, card):
           == (2560, 24, 20, 128, 3000, 32, 16, 1024, 6, 16, 24, 16, 16),
           "not the s2s-2b B=24 config")
     ring = engine.state["lm"]["t"]["layers"][0]
-    check(engine.kv_quant and ring["k"].dtype == torch.int8
-          and tuple(ring["k"].shape) == (24, 20, 3072, 128)
-          and tuple(ring["ks"].shape) == (24, 20, 3072), "not the int8 ring of s2s-2b")
+    want_ring = (torch.int8, (24, 20, 3072, 128)) if kv_bits == 8 else \
+        (torch.uint8, (24, 20, 3072, 64))
+    check(engine.kv_quant and engine.kv_bits == kv_bits
+          and (ring["k"].dtype, tuple(ring["k"].shape)) == want_ring
+          and tuple(ring["ks"].shape) == (24, 20, 3072),
+          f"not the {want_ring[0]} ring of s2s-2b")
     check(isinstance(engine.params["lm"]["transformer"][0]["in_proj_w"], dict)
           and isinstance(engine.params["lm"]["depformer"]["transformer"][0][0]["in_proj_w"],
                          dict), "LM weights not int8")
@@ -1689,23 +2279,24 @@ def phase_duplex(dev, card):
           and PER_TICK_DUPLEX["ring_commit"] == 2 * engine.mimi_cfg.transformer.num_layers,
           "PER_TICK_DUPLEX does not follow the config")
     torch.cuda.synchronize()
-    print(f"[duplex] engine built in {time.perf_counter() - t0:.3f} s (s2s-2b d=2560 L=24 "
-          f"h=20x128 ctx 3000, 16+16 codebooks, DepFormer 16x6 d=1024 h=16, B=24, int8 "
-          f"rings {tuple(ring['k'].shape)}, int8 weights + W8A8, bf16 codec, seeded random "
-          f"weights); memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB",
-          flush=True)
+    print(f"[{tag}] engine built in {time.perf_counter() - t0:.3f} s (s2s-2b d=2560 L=24 "
+          f"h=20x128 ctx 3000, 16+16 codebooks, DepFormer 16x6 d=1024 h=16, B=24, "
+          f"{ring['k'].dtype} rings {tuple(ring['k'].shape)}, int8 weights + W8A8, bf16 codec, "
+          f"seeded random weights); memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
-    print(f"[duplex] warmup {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"[{tag}] warmup {time.perf_counter() - t0:.3f} s", flush=True)
 
     for fn in counters.values():
         fn.launches = 0
     ticks0 = engine.step_count
     sessions = {}
     t0 = time.perf_counter()
-    for sid in range(12):
-        _duplex_open(engine, sid, 2.0 + (sid % 5) / 4.0, sessions,
+    base_s = 2.0 if kv_bits == 8 else 1.5  # shorter dialogues in the int4 leg
+    for sid in range(n_first):
+        _duplex_open(engine, sid, base_s + (sid % 5) / 4.0, sessions,
                      asr_delay=6 if sid in (3, 7) else 0)
     # Idle connections fill the other slots, so the next dialogues can only
     # land in slots freed by closed ones: the reset path.
@@ -1714,16 +2305,17 @@ def phase_duplex(dev, card):
     check(engine.used_slots() == engine.batch_size and engine.open_session(print) is None,
           "duplex slots left free")
     _duplex_drive(engine, sessions)
-    n_audio, n_text = _duplex_verify(engine, sessions, range(12))
-    freed = {sessions[sid]["drv"].slot for sid in range(4)}
-    for sid in range(4):
+    n_audio, n_text = _duplex_verify(engine, sessions, range(n_first))
+    freed = {sessions[sid]["drv"].slot for sid in range(n_second)}
+    for sid in range(n_second):
         engine.close_session(sessions[sid]["drv"])
     second = {}
-    for sid in range(12, 16):
-        drv = _duplex_open(engine, sid, 2.0, second, asr_delay=5 if sid == 13 else 0)
+    for sid in range(n_first, n_first + n_second):
+        drv = _duplex_open(engine, sid, base_s, second,
+                           asr_delay=5 if sid == n_first + 1 else 0)
         check(drv.slot in freed, f"dialogue {sid} did not reuse a freed slot")
     _duplex_drive(engine, second)
-    a2, t2 = _duplex_verify(engine, second, range(12, 16))
+    a2, t2 = _duplex_verify(engine, second, range(n_first, n_first + n_second))
     serve_s = time.perf_counter() - t0
     ticks = engine.step_count - ticks0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1734,13 +2326,15 @@ def phase_duplex(dev, card):
         check(n > 0 or PER_TICK_DUPLEX[name] == 0,
               f"{name} never launched on the duplex path")
     frames = sum(s["frames"] for s in list(sessions.values()) + list(second.values()))
-    print(f"[duplex] 16 dialogues (12 + 4 in reused slots; 3 text-only with an ASR delay), "
+    text_only = sum(s["asr_delay"] > 0 for s in list(sessions.values()) + list(second.values()))
+    print(f"[{tag}] {n_first + n_second} dialogues ({n_first} + {n_second} in reused slots; "
+          f"{text_only} text-only with an ASR delay), "
           f"all done; {frames} frames pushed and stepped, {n_audio + a2} audio frames of "
           f"{engine.mimi_cfg.frame_size} finite samples (none before the acoustic delay, "
           f"none for text-only dialogues), {n_text + t2} text events, {ticks} ticks in "
           f"{serve_s:.3f} s with 24 slots open; launches {launches} = per tick "
           f"{PER_TICK_DUPLEX}", flush=True)
-    for s in [sessions[sid] for sid in range(4, 12)] + list(second.values()):
+    for s in [sessions[sid] for sid in range(n_second, n_first)] + list(second.values()):
         engine.close_session(s["drv"])
     for drv in idle:
         engine.close_session(drv)
@@ -1748,14 +2342,19 @@ def phase_duplex(dev, card):
     return engine, launches
 
 
-def phase_duplex_path(engine, dev):
+def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     """The duplex steps on the card: from clones of the engine's state,
     once through the kernels and once through their plain versions.  The LM
     step (the split ring pipeline): hidden state and text logits must agree
     within PATH_RTOL (relative L2); with the ring's history masked out (an
     empty validity bitmap) they must not: the bar sees the attention.  The
     Mimi encode and decode steps (``ring_commit`` at T=2, whose rows are bit
-    for bit the plain version's): codes, pcm and every ring equal."""
+    for bit the plain version's): codes, pcm and every ring equal.  Each side's
+    launches are counted: 24 + 24 through the kernels, none through the plain
+    versions; and each ``decode_attend`` launch is held to its plain version
+    on the same operands (SEAM_RTOL).  ``full``: the engine's rings are full
+    (see :func:`_fill_rings`), the outputs' bar is FULL_RING_RTOL, and a
+    bit-identical pair fails."""
     import torch
 
     from dsm_tpu_torch.models import lm as LM
@@ -1771,32 +2370,55 @@ def phase_duplex_path(engine, dev):
     pos = engine.state["lm"]["t"]["pos"]
     seen = int(engine.state["lm"]["t"]["valid"].sum(dim=1).min())
 
+    counters = _duplex_counters()  # the kernels' wrappers, not the seams' plain versions
+
     def run(forget=False):
         state = _clone(engine.state["lm"])
         if forget:
             state["t"]["valid"].zero_()
+        before = {name: fn.launches for name, fn in counters.items()}
         with torch.inference_mode():
             logits, hidden, _ = LM.step(cfg.lm, engine.params["lm"], state, text, audio, mask)
-        return {"hidden": hidden, "text_logits": logits}
+        launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+        return {"hidden": hidden, "text_logits": logits}, launched
 
-    got = run()
+    seam = []
+    with attend_seam_errors(seam):
+        got, launched = run()
     with plain_seams():
-        want = run()
-        empty = run(forget=True)
+        want, launched_plain = run()
+        empty = run(forget=True)[0]
+    layers = cfg.lm.transformer.num_layers
+    check(len(seam) == layers and max(seam) <= SEAM_RTOL,
+          f"duplex path check: decode_attend is {seam!r} from its plain version on the "
+          f"layers' own operands")
+    check(launched == {**dict.fromkeys(counters, 0), "ring_commit_q": layers,
+                       "decode_attend": layers},
+          f"duplex path check: the kernels' step launched {launched}")
+    check(not any(launched_plain.values()),
+          f"duplex path check: the plain step launched {launched_plain}")
     rel = {k: _rel(got[k], want[k]) for k in got}
     history = _rel(empty["hidden"], want["hidden"])
+    bar = FULL_RING_RTOL if full else PATH_RTOL
     for k, r in rel.items():
         check(bool(torch.isfinite(got[k]).all()), f"duplex path check: {k} not finite")
-        check(r <= PATH_RTOL,
-              f"duplex path check: {k} through the kernels {r!r} from the plain path")
+        check(r <= bar, f"duplex path check: {k} through the kernels {r!r} from the plain path")
     check(history > PATH_RTOL,
           f"duplex path check: the ring's history moves the hidden state only {history!r}")
-    print(f"[duplex-path] {n} active rows at tick {pos} (every slot with at least {seen} "
-          f"valid ring rows), LM step through ring_commit_q + decode_attend against their "
+    # Two sums of thousands of rows in different orders do not round alike:
+    # over full rings an identical pair means both sides ran the same code.
+    check(not full or min(rel.values()) > 0,
+          "duplex path check: kernels and plain versions bit-identical over full rings")
+    print(f"[{tag}-path] {n} active rows at tick {pos} (every slot with at least {seen} "
+          f"valid ring rows), LM step through ring_commit_q + decode_attend ({layers} "
+          f"launches each; none in the plain step) against their "
           f"plain versions from one state: relative L2 hidden {rel['hidden']!r}, text "
-          f"logits {rel['text_logits']!r} (bar {PATH_RTOL}); with the ring's history masked "
-          f"the hidden state moves {history!r}", flush=True)
+          f"logits {rel['text_logits']!r} (bar {bar}); each layer's decode_attend from its "
+          f"plain version on the same operands at most {max(seam)!r} (bar {SEAM_RTOL}); with "
+          f"the ring's history masked the hidden state moves {history!r}", flush=True)
 
+    if not mimi:  # the codec does not depend on the LM's rings
+        return
     pcm = (torch.randn(n, 1, engine.mimi_cfg.frame_size, generator=g, device=dev)
            * 0.1).to(engine._mimi_dtype)
     codes = torch.randint(0, 2048, (n, engine.mimi_cfg.n_q, 1), generator=g, device=dev,
@@ -1847,36 +2469,18 @@ def _duplex_ticks(engine, n, warm):
 
 
 def _profile_ticks(engine, n, tag, what, card):
-    import torch
-
     frame = engine.mimi_cfg.frame_size
     for drv in engine.slots:
         drv.push_pcm(_pcm(99, 0.08 * n, frame))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            engine.tick()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == cuda and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    total = sum(t for _, t, _ in rows)
-    launches = sum(c for _, _, c in rows)
-    print(f"[{tag}] {what}: kernels {total / n / 1e3!r} ms/tick of {wall_us / n / 1e3!r} "
-          f"ms/tick wall (profiled): device busy {total / wall_us!r}, {launches / n:.0f} "
-          f"device launches/tick, {len(rows)} kernel names; card {card}", flush=True)
-    for key, t, c in rows[:14]:
-        print(f"[{tag}] {t / n / 1e3:9.4f} ms/tick {100 * t / max(total, 1):5.1f}% "
-              f"{c / n:6.0f}/tick  {key[:90]}", flush=True)
+    rows, wall_us = _profile(engine.tick, n)
+    _print_profile(tag, f"{what}: ", rows, wall_us, n, "tick", card, 14)
 
 
-def phase_duplex_times(engine, dev, card):
+def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
     """The tick with every slot active, where its time goes, its four parts
-    alone, and the tick again over full rings."""
+    alone, and the tick again over full rings.  ``brief``: fewer ticks, the
+    LM step alone of the parts, no codec path check.  Returns the full-ring
+    tick's median ms and the peak memory of the first ticks in GB."""
     import torch
 
     from dsm_tpu_torch.models import lm as LM
@@ -1886,16 +2490,17 @@ def phase_duplex_times(engine, dev, card):
     b = engine.batch_size
     opened = [engine.open_session(lambda ev: None) for _ in range(b)]
     check(all(d is not None for d in opened), "no free duplex slot for the timing")
+    n_ticks = 10 if brief else 15
     torch.cuda.reset_peak_memory_stats()
-    ticks = _duplex_ticks(engine, 30, 5)
+    ticks = _duplex_ticks(engine, n_ticks, 5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[duplex-times] engine tick, 24 slots active: median {statistics.median(ticks)!r} "
-          f"ms, min {min(ticks)!r}, max {max(ticks)!r} over 30 after 5 warm-up (host clock, "
-          f"each tick ends in its device-to-host fetch; rings hold "
+    print(f"[{tag}-times] engine tick, 24 slots active: median {statistics.median(ticks)!r} "
+          f"ms, min {min(ticks)!r}, max {max(ticks)!r} over {n_ticks} after 5 warm-up (host "
+          f"clock, each tick ends in its device-to-host fetch; rings hold "
           f"{engine.state['lm']['t']['pos']} rows); peak memory {peak_gb:.2f} GB; "
           f"card {card}", flush=True)
-    _profile_ticks(engine, 3, "duplex-profile", "24 slots, short rings", card)
-    phase_duplex_path(engine, dev)
+    _profile_ticks(engine, 1, f"{tag}-profile", "24 slots, short rings", card)
+    phase_duplex_path(engine, dev, tag, mimi=not brief)
 
     # The tick's four parts alone, at 24 rows.
     cfg, params = engine.cfg, engine.params["lm"]
@@ -1927,11 +2532,13 @@ def phase_duplex_times(engine, dev, card):
         "mimi_decode_step": lambda: MIMI.decode_step(
             engine.mimi_cfg, engine.mimi_params, engine.dec_state, codes, mask),
     }
+    if brief:
+        parts = {"lm_step": lm_step}
     for name, fn in parts.items():
         with torch.inference_mode():
             med, lo, hi = _median_ms(fn)
-        print(f"[duplex-times] {name}, 24 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
-              f"over 20 after 3 warm-up (host clock with synchronize); card {card}",
+        print(f"[{tag}-times] {name}, 24 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
+              f"over 10 after 3 warm-up (host clock with synchronize); card {card}",
               flush=True)
     engine.state["lm"] = lm_state
 
@@ -1947,13 +2554,53 @@ def phase_duplex_times(engine, dev, card):
             layer["ks"].fill_(0.01)
             layer["vs"].fill_(0.01)
     full = _duplex_ticks(engine, 10, 2)
-    print(f"[duplex-times] engine tick, 24 slots active, full rings (tick counter set to "
+    print(f"[{tag}-times] engine tick, 24 slots active, full rings (tick counter set to "
           f"5000, every row valid, scales 0.01): median {statistics.median(full)!r} ms, min "
           f"{min(full)!r}, max {max(full)!r} over 10 after 2 warm-up; card {card}",
           flush=True)
-    _profile_ticks(engine, 3, "duplex-profile", "24 slots, full rings", card)
+    _profile_ticks(engine, 1, f"{tag}-profile", "24 slots, full rings", card)
+    # The path check once more over full, wrapped rings of real quantised rows.
+    _fill_rings(engine.state["lm"]["t"], torch.Generator(device=dev).manual_seed(29),
+                engine.state["lm"]["t"]["pos"])
+    phase_duplex_path(engine, dev, f"{tag}-full", mimi=False, full=True)
     for drv in opened:
         engine.close_session(drv)
+    return statistics.median(full), peak_gb
+
+
+def phase_tune(dev):
+    """Path C: the tuning tool in process, as ``python -m
+    dsm_tpu_torch.tools.attn_kernel_tune --batch 64`` runs it: every variant a
+    row with its device ms, GB/s and max error against
+    ``attend_global_split_q``, held to TUNE_REL_BARS as a share of that
+    reference's largest output; a variant that fails to build or launch
+    fails the run.  Returns the launches of attn_tune and decode_attend."""
+    from dsm_tpu_torch.ops import attn_tune as AT
+    from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.tools import attn_kernel_tune as TOOL
+
+    variants = TOOL.DEFAULT_VARIANTS.split(",")
+    AT.attn_tune.launches = 0
+    DA.decode_attend.launches = 0
+    summary = TOOL.run(64, variants, dev)
+    launches = {"attn_tune": AT.attn_tune.launches, "decode_attend": DA.decode_attend.launches}
+    for row in summary["results"]:
+        print(f"[tune] {json.dumps(row)}", flush=True)
+        check("error" not in row, f"tune: variant {row['variant']} failed: {row.get('error')}")
+        bar = TUNE_REL_BARS[row["variant"].partition("_")[2]]
+        check(row["ms"] > 0 and row["rel_err"] <= bar,
+              f"tune: variant {row['variant']} is {row['rel_err']!r} of the largest output "
+              f"from attend_global_split_q (bar {bar})")
+    bb = {r["variant"]: r["max_err"] for r in summary["results"]
+          if r["variant"].startswith("bb") and "_" not in r["variant"]}
+    check(len(set(bb.values())) == 1, f"tune: the bb variants' errors differ: {bb}")
+    check(summary["ref_max"] > 0.1, f"tune: a reference of at most {summary['ref_max']!r}")
+    print(f"[tune] {json.dumps({k: v for k, v in summary.items() if k != 'results'})}; "
+          f"launches {launches} (each variant once to check it, 21 times to time it)",
+          flush=True)
+    check(launches["attn_tune"] == 22 * (len(variants) - 1) and launches["decode_attend"] == 22,
+          f"tune: launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1966,6 +2613,7 @@ def main() -> int:
     from dsm_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
+    elapsed("start")
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1981,38 +2629,72 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
+    elapsed("build")
 
     errs = phase_kernels(dev)
+    elapsed("kernels")
     engine, launches = phase_serve(dev)
-    phase_times(engine, dev, card)
+    stt1b_numbers = phase_times(engine, dev, card)
+    elapsed("serve + times")
     del engine
     torch.cuda.empty_cache()
+    kv4_launches = phase_stt1b_kv4(dev, card, stt1b_numbers)
+    elapsed("stt1b-kv4")
+    torch.cuda.empty_cache()
     split_launches = phase_stt1b_split(dev)
+    elapsed("stt1b-split")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     stt26_engine, stt26_launches = phase_stt26(dev)
     phase_times(stt26_engine, dev, card, tag="stt26-")
     fused_launches = phase_stt26_path(stt26_engine, dev)
+    elapsed("stt26")
+    stt26_kv4_launches = phase_stt26_kv4(stt26_engine, dev, card)
+    elapsed("stt26-kv4")
     del stt26_engine
     torch.cuda.empty_cache()
     tts_engine, tts_launches = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
+    elapsed("tts")
     del tts_engine
     torch.cuda.empty_cache()
+    tts202501_engine, tts202501_launches = phase_tts(dev, card, preset="tts_202501")
+    phase_tts_times(tts202501_engine, dev, card, tag="tts202501")
+    elapsed("tts202501")
+    del tts202501_engine
+    torch.cuda.empty_cache()
     duplex_engine, duplex_launches = phase_duplex(dev, card)
-    phase_duplex_times(duplex_engine, dev, card)
+    int8_full, int8_peak = phase_duplex_times(duplex_engine, dev, card)
+    elapsed("duplex")
     del duplex_engine
     torch.cuda.empty_cache()
+    duplex_engine, duplex_kv4_launches = phase_duplex(dev, card, kv_bits=4)
+    int4_full, int4_peak = phase_duplex_times(duplex_engine, dev, card, tag="duplex-kv4",
+                                              brief=True)
+    del duplex_engine
+    torch.cuda.empty_cache()
+    print(f"[duplex-kv4] int4 rings beside int8 rings (this run, the same card): tick over "
+          f"full rings median {int4_full!r} ms against {int8_full!r}; peak memory "
+          f"{int4_peak:.2f} GB against {int8_peak:.2f} GB; card {card}", flush=True)
+    elapsed("duplex-kv4")
+    tune_launches = phase_tune(dev)
+    elapsed("tune")
     ms = kernel_times(dev, card)
+    elapsed("times")
     # ``launches``: the main paths' runs (each counted from 0 to its end) and
     # the two single-step legs; each path's count beside it.  A route's entry
     # counts the path that launches its wrapper at that shape.
     per_path = {"stt": launches, "tts": tts_launches, "duplex": duplex_launches,
                 "stt26": stt26_launches, "stt26_fused": fused_launches,
-                "stt1b_split": split_launches}
+                "stt1b_split": split_launches, "stt1b_kv4": kv4_launches,
+                "stt26_kv4": stt26_kv4_launches, "duplex_kv4": duplex_kv4_launches,
+                "tts202501": tts202501_launches, "tune": tune_launches}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
+
+    def route_tag(label):  # a ring's cases share their first word; a voice source is one case
+        return label if label.startswith("B=") else label.split()[0] + " "
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -2023,7 +2705,7 @@ def main() -> int:
     kernels += [{"name": name, "route": "cuda", "source": SOURCES[wrapper], "replaces": tpu,
                  "launches": per_path[path].get(wrapper, 0), "path": path,
                  "case": HEADLINE[name],
-                 "max_abs_err": max_err(wrapper, HEADLINE[name].split()[0] + " "), **ms[name]}
+                 "max_abs_err": max_err(wrapper, route_tag(HEADLINE[name])), **ms[name]}
                 for name, (wrapper, tpu, path) in ROUTES.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched on no main path")

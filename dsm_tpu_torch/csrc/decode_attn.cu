@@ -1,6 +1,8 @@
 // Hopper (sm_90a) kernel of the split ring pipeline's decode attention.
 //
 //   dsm_decode_attend  <- dsm_tpu/ops/decode_attn.py:_decode_attend_q_flash
+//     with packed4 = 1  <- dsm_tpu/ops/decode_attn.py:_decode_attend_q4_4d
+//                          and :_decode_attend_q4 (the head-major layout)
 //
 // T=1 decode attention of bf16 queries over the COMMITTED int8 K/V ring with
 // per-row f32 scales (ring_commit_q has already written this step's row at
@@ -41,6 +43,21 @@
 // strides; the Dh values of a row and the C scales of one (b, h) are
 // contiguous, rows 16-byte aligned.
 //
+// Packed-int4 rings (packed4 = 1): a ring row is Dh/2 bytes, byte d holding
+// dims d (low nibble) and d + Dh/2 (high nibble), each stored excess-8
+// (dsm_tpu/ops/attention.py:pack4).  The body is the same; only the load
+// differs.  A lane's 16-byte load now holds 32 values of one row: 16
+// neighbouring dims of the first half of the feature dim in the low nibbles
+// and the 16 dims Dh/2 further on in the high nibbles, so the lane keeps
+// those 32 entries of q (and 32 output sums) and a row takes Dh/32 lanes: a
+// warp reads 8 rows per step at Dh=128 and 16 at Dh=64.  The values are
+// (nibble - 8) as f32: the products with bf16 q and the bf16-rounded probs
+// are the Pallas kernels' bf16 x bf16 -> f32 dots.  A never-written row is all
+// zero bytes, which unpack to -8: it is masked by the bitmap and never read.
+// What bounds it: half the int8 ring's bytes for the same count of values, so
+// the operations per value weigh twice as much: the unpack is a shift, one
+// logic operation and one f32 subtraction a value (unpack_load, attn_common.cuh).
+//
 // Plain C interface, loaded with ctypes (dsm_tpu_torch/ops/_build.py): the
 // entry point launches both kernels on the caller's stream, does not
 // synchronise, allocates nothing (the caller passes the partials' scratch)
@@ -51,50 +68,43 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_common.cuh"
+
 namespace {
 
-constexpr int kDaThreads = 256;
-constexpr int kDaWarps = kDaThreads / 32;
+using namespace dsm_attn;
 
-__device__ __forceinline__ float da_warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+constexpr int kDaThreads = kAttnThreads;
+constexpr int kDaWarps = kAttnWarps;
+
+// The feature dim of value e of the lane that holds bytes [16 sub, 16 sub + 16)
+// of a row.
+template <int DH, bool P4>
+__device__ __forceinline__ int da_dim(int sub, int e) {
+  if constexpr (P4) return (e < 16 ? 0 : DH / 2 - 16) + sub * 16 + e;
+  return sub * 16 + e;
 }
 
-__device__ __forceinline__ float da_warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// 16 int8 values of one 16-byte load as floats, in memory order.
-__device__ __forceinline__ void da_unpack16(const int4 v, float* out) {
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned u = (unsigned)w[i];
-    out[4 * i + 0] = (float)((int)(u << 24) >> 24);
-    out[4 * i + 1] = (float)((int)(u << 16) >> 24);
-    out[4 * i + 2] = (float)((int)(u << 8) >> 24);
-    out[4 * i + 3] = (float)((int)u >> 24);
-  }
-}
-
-// One block per (b, h, span).  Strides are in elements: k/v (b, h) ->
-// base + b*kv_sb + h*kv_sh, then row j at j*DH; scales (b, h) -> base +
+// One block per (b, h, span).  Strides are in elements (bytes for the
+// rings): k/v (b, h) -> base + b*kv_sb + h*kv_sh, then row j at j*RB with RB
+// the row's bytes (DH, or DH/2 packed); scales (b, h) -> base +
 // b*s_sb + h*s_sh, then row j at j.  q is contiguous (B*H, DH); part is
 // (B*H, n_split, DH + 2): acc[DH], then m, then l.
-template <int DH>
-__global__ void __launch_bounds__(kDaThreads) decode_attend_partial_kernel(
+// The int8 load path is held to 40 registers, six blocks a multiprocessor: the
+// kernel waits on memory, and with five blocks (48 registers) it measured 13 to
+// 24 % slower.  The packed load path keeps 32 values and 32 sums a lane: four.
+template <int DH, bool P4>
+__global__ void __launch_bounds__(kDaThreads, P4 ? 4 : 6) decode_attend_partial_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_cache,
     const int8_t* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const uint8_t* __restrict__ valid,
     float* __restrict__ part, int h, int c, int n_split, int span,
     long long kv_sb, long long kv_sh, long long s_sb, long long s_sh,
     long long pos, int w, int window, float scale) {
-  constexpr int LPR = DH / 16;   // lanes per ring row
-  constexpr int RPW = 32 / LPR;  // ring rows per warp and step
+  constexpr int RB = P4 ? DH / 2 : DH;  // bytes of a ring row
+  constexpr int LPR = RB / 16;          // lanes per ring row
+  constexpr int RPW = 32 / LPR;         // ring rows per warp and step
+  constexpr int VPL = P4 ? 32 : 16;     // values a lane holds of its row
   extern __shared__ float smem[];
   float* probs = smem;        // span floats: scores, then bf16-rounded probs
   float* red = smem + span;   // kDaWarps * DH floats: per-warp partial outputs
@@ -119,26 +129,22 @@ __global__ void __launch_bounds__(kDaThreads) decode_attend_partial_kernel(
   const uint8_t* va = valid + (int64_t)b * c;
   float* out = part + ((int64_t)bh * n_split + sp) * (DH + 2);
 
-  float qf[16];
+  float qf[VPL];
 #pragma unroll
-  for (int e = 0; e < 16; ++e) qf[e] = __bfloat162float(q[(int64_t)bh * DH + sub * 16 + e]);
+  for (int e = 0; e < VPL; ++e)
+    qf[e] = __bfloat162float(q[(int64_t)bh * DH + da_dim<DH, P4>(sub, e)]);
 
   // Phase 1: scores of the span's attended rows; masked rows are not read.
   float local_max = -INFINITY;
   for (int j0 = s0 + warp * RPW; j0 < s1; j0 += kDaWarps * RPW) {
     const int j = j0 + rsub;
-    bool ok = false;
-    if (j < s1) {
-      int dist = w - j;  // (w - j) mod C: C truncates, so add C back
-      if (dist < 0) dist += c;
-      ok = dist != 0 && (long long)dist <= pos && dist < window && va[j] != 0;
-    }
+    const bool ok = j < s1 && ring_row_attended(j, w, c, pos, window, va);
     float acc = 0.f;
     if (ok) {
-      float kv[16];
-      da_unpack16(*reinterpret_cast<const int4*>(kc + (int64_t)j * DH + sub * 16), kv);
+      float kv[VPL];
+      unpack_load<P4>(*reinterpret_cast<const int4*>(kc + (int64_t)j * RB + sub * 16), kv);
 #pragma unroll
-      for (int e = 0; e < 16; ++e) acc += qf[e] * kv[e];
+      for (int e = 0; e < VPL; ++e) acc += qf[e] * kv[e];
     }
 #pragma unroll
     for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -146,12 +152,7 @@ __global__ void __launch_bounds__(kDaThreads) decode_attend_partial_kernel(
     if (sub == 0 && j < s1) probs[j - s0] = s;
     local_max = fmaxf(local_max, s);
   }
-  local_max = da_warp_max(local_max);
-  if (lane == 0) warp_red[warp] = local_max;
-  __syncthreads();
-  float m = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < kDaWarps; ++i) m = fmaxf(m, warp_red[i]);
+  const float m = block_max(local_max, warp_red);
   if (m == -INFINITY) {  // no attended row in this span (uniform over the block)
     if (tid < DH) out[tid] = 0.f;
     if (tid == 0) {
@@ -160,7 +161,6 @@ __global__ void __launch_bounds__(kDaThreads) decode_attend_partial_kernel(
     }
     return;
   }
-  __syncthreads();  // warp_red is reused below
 
   // Phase 2: exp, denominator, bf16-rounded probs (in place).
   const int n = s1 - s0;
@@ -175,36 +175,31 @@ __global__ void __launch_bounds__(kDaThreads) decode_attend_partial_kernel(
     }
     probs[i] = p;
   }
-  local_sum = da_warp_sum(local_sum);
-  if (lane == 0) warp_red[warp] = local_sum;
-  __syncthreads();
-  float denom = 0.f;
-#pragma unroll
-  for (int i = 0; i < kDaWarps; ++i) denom += warp_red[i];
+  const float denom = block_sum(local_sum, warp_red);  // the probs are all written
 
   // Phase 3: probs times V; rows whose prob is 0 add nothing and are not read.
-  float acc[16];
+  float acc[VPL];
 #pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  for (int e = 0; e < VPL; ++e) acc[e] = 0.f;
   for (int j0 = s0 + warp * RPW; j0 < s1; j0 += kDaWarps * RPW) {
     const int j = j0 + rsub;
     if (j >= s1) continue;
     const float p = probs[j - s0];
     if (p == 0.f) continue;
-    float vv[16];
-    da_unpack16(*reinterpret_cast<const int4*>(vc + (int64_t)j * DH + sub * 16), vv);
+    float vv[VPL];
+    unpack_load<P4>(*reinterpret_cast<const int4*>(vc + (int64_t)j * RB + sub * 16), vv);
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[e] += p * vv[e];
+    for (int e = 0; e < VPL; ++e) acc[e] += p * vv[e];
   }
   // Fold the warp's RPW row groups (lanes with the same sub).
 #pragma unroll
   for (int o = LPR; o < 32; o <<= 1) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    for (int e = 0; e < VPL; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
   }
   if (rsub == 0) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e) red[warp * DH + sub * 16 + e] = acc[e];
+    for (int e = 0; e < VPL; ++e) red[warp * DH + da_dim<DH, P4>(sub, e)] = acc[e];
   }
   __syncthreads();
 
@@ -241,7 +236,7 @@ __global__ void __launch_bounds__(DH) decode_attend_combine_kernel(
     a += __bfloat162float(q[row + lane * EPL + e]) *
          __bfloat162float(k_new[row + lane * EPL + e]);
   }
-  const float s_new = da_warp_sum(a) * scale;
+  const float s_new = warp_sum(a) * scale;
 
   const float* p = part + (int64_t)bh * n_split * (DH + 2);
   float m = s_new;
@@ -268,12 +263,13 @@ long long dsm_decode_attend_split_smem_bytes(int span, int dh) {
   return (long long)(span + kDaWarps * dh) * (long long)sizeof(float);
 }
 
-// part: f32 scratch of b * h * n_split * (dh + 2) values.  Returns a
-// cudaError_t.
+// part: f32 scratch of b * h * n_split * (dh + 2) values.  packed4: the
+// rings are nibble-packed int4 rows of dh / 2 bytes (else int8 rows of dh).
+// Returns a cudaError_t.
 int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
                       const void* k_scale, const void* v_scale, const void* k_new,
                       const void* v_new, const void* valid, void* part, void* out,
-                      long long b, int h, int c, int dh, int n_split,
+                      long long b, int h, int c, int dh, int packed4, int n_split,
                       long long kv_sb, long long kv_sh, long long s_sb,
                       long long s_sh, long long pos, int w, int window,
                       float scale, void* stream) {
@@ -283,8 +279,8 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
   const int span = (c + n_split - 1) / n_split;
   const size_t smem = (size_t)dsm_decode_attend_split_smem_bytes(span, dh);
   cudaStream_t s = (cudaStream_t)stream;
-#define DSM_DA_LAUNCH(DH)                                                        \
-  decode_attend_partial_kernel<DH><<<(unsigned)(bh * n_split), kDaThreads, smem, s>>>( \
+#define DSM_DA_LAUNCH(DH, P4)                                                    \
+  decode_attend_partial_kernel<DH, P4><<<(unsigned)(bh * n_split), kDaThreads, smem, s>>>( \
       (const __nv_bfloat16*)q, (const int8_t*)k_cache, (const int8_t*)v_cache,   \
       (const float*)k_scale, (const float*)v_scale, (const uint8_t*)valid,       \
       (float*)part, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos, w,       \
@@ -293,10 +289,14 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,                      \
       (const __nv_bfloat16*)v_new, (const float*)part, (__nv_bfloat16*)out,      \
       n_split, scale)
-  if (dh == 128) {
-    DSM_DA_LAUNCH(128);
+  if (dh == 128 && packed4) {
+    DSM_DA_LAUNCH(128, true);
+  } else if (dh == 64 && packed4) {
+    DSM_DA_LAUNCH(64, true);
+  } else if (dh == 128) {
+    DSM_DA_LAUNCH(128, false);
   } else if (dh == 64) {
-    DSM_DA_LAUNCH(64);
+    DSM_DA_LAUNCH(64, false);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -74,7 +74,8 @@ __global__ void scale_commit_kernel(float* __restrict__ ks_cache,
 // the scale rings (B, H, C), all at row w, in one launch.  blockIdx.y picks
 // the K rows (0), the V rows (1) or both scale rings (2).  The int8 rows move
 // as 32-bit words (Dh is a multiple of 4 and the rings are word-aligned), the
-// copy is bit for bit.  A few tens of KB at most: bound by the launch, not
+// copy is bit for bit; nibble-packed int4 rows (uint8, Dh / 2 bytes) are the
+// same copy at half the row width.  A few tens of KB at most: bound by the launch, not
 // by bandwidth.  The TPU kernel streams the aligned row block through VMEM
 // and selects the T rows, because Mosaic cannot write a partial tile; a GPU
 // store of one word needs no such block.
@@ -302,7 +303,8 @@ int dsm_ring_commit(void* k_cache, void* v_cache, const void* k_new,
   return (int)cudaGetLastError();
 }
 
-// int8 rings and rows, f32 scale rings and rows; dh a multiple of 4.
+// int8 (or packed-int4 uint8) rings and rows, f32 scale rings and rows; dh
+// is the row width in bytes (Dh, or Dh / 2 packed), a multiple of 4.
 int dsm_ring_commit_q(void* k_cache, void* v_cache, void* ks_cache,
                       void* vs_cache, const void* k_new, const void* v_new,
                       const void* ks_new, const void* vs_new, long long b,

@@ -7,8 +7,8 @@ the voice cross-attention for TTS), normalised, and projected to text
 logits; the semantic-VAD extra heads read the same hidden vector.  The
 DepFormer then samples the frame's audio codebooks, one slice per codebook
 (:func:`depformer_sample`, the JAX package's lean path).  Presets: the STT
-models and s2s-2b; the serving configurations come from the TOML
-(``server/config.py``).
+models, s2s-2b and the 48-layer TTS model tts_202501; the serving
+configurations come from the TOML (``server/config.py``).
 
 Layout: a transformer is a list of per-layer dicts; the DepFormer's
 per-slice transformers are a list (slices) of such lists, while its other
@@ -147,6 +147,24 @@ def s2s_2b_16rvq_202501() -> LmConfig:
     )
 
 
+def tts_202501() -> LmConfig:
+    """The 48-layer TTS model: 32 heads x 64, context 500, the voice
+    cross-attention with a LayerNorm ``norm_cross`` (head-major in the JAX
+    package's kernels), DepFormer 32 slices x 6 layers without low-rank
+    embeddings; ``max_period`` is the default 10,000."""
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=2048, num_heads=32, num_layers=48, dim_feedforward=8192,
+            context=500, cross_attention=True, ca_norm="layer_norm",
+        ),
+        depformer=_depformer(32),
+        text_in_vocab_size=8001,
+        text_out_vocab_size=8000,
+        audio_vocab_size=2049,
+        audio_codebooks=32,
+    )
+
+
 def _emb_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(dtype)
 
@@ -190,9 +208,9 @@ def depformer_init(cfg: LmConfig, gen: torch.Generator, dtype=torch.float32) -> 
 
 
 def init_state(cfg: LmConfig, batch: int, cache_dtype=torch.bfloat16,
-               kv_quant: bool = False, device=None) -> dict:
+               kv_quant: bool = False, device=None, kv_bits: int = 8) -> dict:
     return {"t": T.init_state(cfg.transformer, batch, cache_dtype,
-                              kv_quant=kv_quant, device=device)}
+                              kv_quant=kv_quant, device=device, kv_bits=kv_bits)}
 
 
 def reset_state(state: dict, reset_mask: torch.Tensor) -> dict:

@@ -50,16 +50,22 @@ _SIGNATURES = {
     ),
     "dsm_decode_attend_split_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, part, out,
-    # b, h, c, dh, n_split, k/v strides (b, h), scale strides (b, h), pos,
-    # w, window, scale, stream
+    # b, h, c, dh, packed4, n_split, k/v strides (b, h) in bytes, scale
+    # strides (b, h), pos, w, window, scale, stream
     "dsm_decode_attend": (
-        [_P] * 10 + [_LL, _I, _I, _I, _I] + [_LL] * 5 + [_I, _I, ctypes.c_float, _P], _I
+        [_P] * 10 + [_LL, _I, _I, _I, _I, _I] + [_LL] * 5 + [_I, _I, ctypes.c_float, _P], _I
     ),
     "dsm_ca_decode_attend_smem_bytes": ([_I, _I], _LL),
     # q, k_src, v_src, k_scale, v_scale, out, b, h, s_len, dh, q strides
     # (b, h), k/v strides (b, h), scale strides (b, h), scale, stream
     "dsm_ca_decode_attend": (
         [_P] * 6 + [_LL, _I, _I, _I] + [_LL] * 6 + [ctypes.c_float, _P], _I
+    ),
+    "dsm_attn_tune_smem_bytes": ([_I, _I], _LL),
+    # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, out, b, h,
+    # c, dh, bb, i8s, i8p, pos, window, scale, stream
+    "dsm_attn_tune": (
+        [_P] * 9 + [_LL, _I, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _P], _I
     ),
     # x, wq, s, part, out, m, o, i, weight row stride, ksplit,
     # chunks_per_split, stream

@@ -117,6 +117,39 @@ def quantize_kv_rows(k_new: torch.Tensor, v_new: torch.Tensor):
     return kq, vq, ks, vs
 
 
+def pack4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values in [-7, 7] (last dim even) -> uint8 nibbles, excess-8
+    (stored = q + 8).  The layout is DEINTERLEAVED: byte ``d`` holds dims
+    ``(d, d + Dh/2)``, the low nibble the first half of the feature dim."""
+    d = q.shape[-1]
+    u = q.to(torch.int32) + 8
+    return (u[..., : d // 2] | (u[..., d // 2:] << 4)).to(torch.uint8)
+
+
+def unpack4(p: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack4`: uint8 nibbles -> values, ``[low nibbles,
+    high nibbles]`` along the last dim."""
+    pi = p.to(torch.int32)
+    return torch.cat([(pi & 15) - 8, (pi >> 4) - 8], dim=-1).to(dtype)
+
+
+def quantize_kv_rows_packed4(k_new: torch.Tensor, v_new: torch.Tensor):
+    """Per-row symmetric int4 quantisation of fresh K/V rows, nibble-packed
+    (:func:`pack4`): ``(kq, vq (B, H, T, Dh/2) uint8, ks, vs (B, H, T) f32)``,
+    half the int8 ring's bytes.  Bit-exact with the JAX version (f32
+    division, both round half to even)."""
+
+    def one(x):
+        xf = x.float()
+        scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 7.0
+        q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7)
+        return pack4(q), scale
+
+    kq, ks = one(k_new)
+    vq, vs = one(v_new)
+    return kq, vq, ks, vs
+
+
 # ---------------------------------------------------------------------------
 # Split attention: old ring + this step's fresh rows
 # ---------------------------------------------------------------------------
@@ -162,6 +195,16 @@ def attend_global_split_q(q, k_cache_old, v_cache_old, k_scale, v_scale,
     out = out + torch.einsum(
         "bhts,bhsd->bhtd", ps.to(v_new.dtype).float(), v_new.float())
     return out.to(q.dtype)
+
+
+def attend_global_split_q4(q, k_cache_old, v_cache_old, k_scale, v_scale,
+                           k_new, v_new, plan, valid_old, window: int):
+    """:func:`attend_global_split_q` over a nibble-packed int4 ring ``(B, H,
+    C, Dh/2)`` uint8: unpack (the halves concatenate in feature order), then
+    the same math, at any T."""
+    return attend_global_split_q(
+        q, unpack4(k_cache_old, torch.bfloat16), unpack4(v_cache_old, torch.bfloat16),
+        k_scale, v_scale, k_new, v_new, plan, valid_old, window)
 
 
 def attend_global_split(q, k_cache_old, v_cache_old, k_new, v_new, plan,

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import NEG_INF
+from .attention import NEG_INF, unpack4
 
 _MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
 
@@ -158,6 +158,13 @@ decode_attend_commit.launches = 0
 # in {64, 128}, bf16 queries and fresh rows, int8 rings whose rows are
 # contiguous and 16-byte aligned (addressed through (b, h) strides), f32
 # scales, spans of up to 11,264 rows; anything else raises.
+#
+# The same wrapper serves the packed-int4 rings (``kv_bits = 4``): uint8 rings
+# ``(B, H, C, Dh/2)``, byte d holding dims (d, d + Dh/2) excess-8
+# (``attention.pack4``).  There it replaces the Pallas kernels
+# ``_decode_attend_q4_4d`` (4-D blocks) and ``_decode_attend_q4`` (head-major):
+# one kernel body with a packed load path, addressed through (b, h) strides,
+# so both layouts are the same launch.
 
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the 132 SMs
 _MIN_SPAN = 256        # ring rows a block should at least have to reduce
@@ -197,23 +204,26 @@ def fused_commit_supported(q, k_cache, plan, fused_attn: Optional[bool] = None) 
     return fused_attn is True or _legacy_4d(h, dh)
 
 
-def _reject_int4(k_cache) -> None:
-    if k_cache.dtype == torch.uint8:
-        raise NotImplementedError(
-            "packed-int4 KV rings (kv_bits = 4) are not ported yet; see ROADMAP.md "
-            "queue 2, kernels 11 and 12")
-
-
 def supported(q, k_cache, plan) -> bool:
-    """T=1 decode over an int8 ring with a head width the kernel takes
+    """T=1 decode over an int8 ring, or a packed-int4 uint8 ring of ``Dh/2``
+    bytes a row, with a head width the kernel takes
     (``dsm_tpu.ops.decode_attn.supported`` without its tiling terms: ring
-    length and head count are free here).  A pure shape predicate: nothing
-    routes on it, :func:`decode_attend` on the card launches or raises.
-    Packed-int4 rings are not ported."""
-    _reject_int4(k_cache)
-    if q.dim() != 4 or q.shape[2] != 1 or k_cache.dtype != torch.int8:
+    length and head count are free here, for both ring types).  A pure shape
+    predicate: nothing routes on it, :func:`decode_attend` on the card
+    launches or raises."""
+    if q.dim() != 4 or q.shape[2] != 1:
+        return False
+    if k_cache.dtype == torch.uint8:
+        if 2 * k_cache.shape[3] != q.shape[3]:
+            return False
+    elif k_cache.dtype != torch.int8:
         return False
     return q.shape[3] in (64, 128) and len(plan["w"]) == 1
+
+
+def _ring_values(ring: torch.Tensor) -> torch.Tensor:
+    """Ring rows as f32 values: int8 as they are, packed-int4 unpacked."""
+    return unpack4(ring) if ring.dtype == torch.uint8 else ring.float()
 
 
 def pick_split(bh: int, c: int) -> int:
@@ -227,15 +237,18 @@ def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                         valid, pos: int, w: int, window: int,
                         n_split: int = 1) -> torch.Tensor:
     """Plain PyTorch version (any device) over 3-D rows: ``q, k_new, v_new
-    (B, H, Dh)``, committed rings ``(B, H, C, Dh)`` int8, scales ``(B, H,
-    C)`` f32, ``valid (B, C)`` bool -> ``(B, H, Dh)`` in ``q.dtype``.
+    (B, H, Dh)``, committed rings ``(B, H, C, Dh)`` int8 or ``(B, H, C,
+    Dh/2)`` packed-int4 uint8, scales ``(B, H, C)`` f32, ``valid (B, C)``
+    bool -> ``(B, H, Dh)`` in ``q.dtype``.
 
     The kernel's order of operations, its split included: each of the
     ``n_split`` spans takes its own maximum ``m_i``, rounds the unnormalised
     ``exp(s - m_i) * v_scale`` to bf16 before the V dot, and the spans and
     the fresh row are folded with ``exp(m_i - m)``; the division comes last.
-    A span with no attended row contributes nothing."""
-    c, dh = k_cache.shape[2], k_cache.shape[3]
+    A span with no attended row contributes nothing.  Over a packed-int4
+    ring the ring scores take q rounded to bf16, as the Pallas bodies do (on
+    the card q is bf16 already); the fresh row's score takes q as it is."""
+    c, dh = k_cache.shape[2], q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     j = torch.arange(c, dtype=torch.int64, device=k_cache.device)
     dist = torch.remainder(w - j, c)
@@ -243,18 +256,20 @@ def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
     ok = (ok[None, :] & valid)[:, None, :]  # (B, 1, C)
     qf = q.float()
     s_new = (qf * k_new.float()).sum(-1) * scale  # (B, H)
+    if k_cache.dtype == torch.uint8:
+        qf = q.to(torch.bfloat16).float()
     span = -(-c // n_split)
     parts = []
     for s0 in range(0, c, span):
         sl = slice(s0, min(c, s0 + span))
-        sc = torch.einsum("bhd,bhcd->bhc", qf, k_cache[:, :, sl].float())
+        sc = torch.einsum("bhd,bhcd->bhc", qf, _ring_values(k_cache[:, :, sl]))
         sc = sc * (k_scale[:, :, sl] * scale)
         sc = torch.where(ok[:, :, sl], sc, float("-inf"))
         m_i = sc.amax(-1)
         m_safe = torch.where(torch.isinf(m_i), 0.0, m_i)
         e = torch.exp(sc - m_safe[..., None])  # 0 at masked rows
         p = torch.where(e > 0, e * v_scale[:, :, sl], 0.0).to(torch.bfloat16).float()
-        acc = torch.einsum("bhc,bhcd->bhd", p, v_cache[:, :, sl].float())
+        acc = torch.einsum("bhc,bhcd->bhd", p, _ring_values(v_cache[:, :, sl]))
         parts.append((m_i, e.sum(-1), acc))
     m = s_new
     for m_i, _, _ in parts:
@@ -271,17 +286,23 @@ def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
 
 def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
                    pos: int, w: int, window: int, n_split: int) -> torch.Tensor:
-    b, h, c, dh = k_cache.shape
+    b, h, c, row_bytes = k_cache.shape
+    dh = q.shape[-1]
+    packed4 = k_cache.dtype == torch.uint8
     if dh not in (64, 128):
         raise ValueError(f"decode_attend kernel takes Dh 64 or 128, got {dh}")
+    if row_bytes != (dh // 2 if packed4 else dh):
+        raise ValueError(f"decode_attend: ring rows of {row_bytes} bytes for Dh {dh} "
+                         f"({k_cache.dtype})")
+    ring_dtype = torch.uint8 if packed4 else torch.int8
     if not 0 <= w < c:
         raise ValueError(f"decode_attend: w={w} outside ring of {c}")
     if not 1 <= n_split <= c:
         raise ValueError(f"decode_attend: n_split={n_split} for a ring of {c}")
     want = {
         "q": ((b, h, dh), torch.bfloat16), "k_new": ((b, h, dh), torch.bfloat16),
-        "v_new": ((b, h, dh), torch.bfloat16), "k_cache": ((b, h, c, dh), torch.int8),
-        "v_cache": ((b, h, c, dh), torch.int8), "k_scale": ((b, h, c), torch.float32),
+        "v_new": ((b, h, dh), torch.bfloat16), "k_cache": ((b, h, c, row_bytes), ring_dtype),
+        "v_cache": ((b, h, c, row_bytes), ring_dtype), "k_scale": ((b, h, c), torch.float32),
         "v_scale": ((b, h, c), torch.float32), "valid": ((b, c), torch.bool),
     }
     args = {"q": q, "k_new": k_new, "v_new": v_new, "k_cache": k_cache,
@@ -298,7 +319,7 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
             raise ValueError(f"decode_attend: {name} must be contiguous")
     if k_cache.stride() != v_cache.stride() or k_scale.stride() != v_scale.stride():
         raise ValueError("decode_attend: K and V (or their scales) differ in layout")
-    if k_cache.stride(3) != 1 or k_cache.stride(2) != dh or k_scale.stride(2) != 1:
+    if k_cache.stride(3) != 1 or k_cache.stride(2) != row_bytes or k_scale.stride(2) != 1:
         raise ValueError("decode_attend: ring rows of one (b, h) must be contiguous")
     if (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
             or k_cache.stride(0) % 16 or k_cache.stride(1) % 16):
@@ -312,7 +333,7 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
     err = lib.dsm_decode_attend(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
-        part.data_ptr(), out.data_ptr(), b, h, c, dh, n_split, k_cache.stride(0),
+        part.data_ptr(), out.data_ptr(), b, h, c, dh, int(packed4), n_split, k_cache.stride(0),
         k_cache.stride(1), k_scale.stride(0), k_scale.stride(1), pos, w, window,
         1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
     )
@@ -323,13 +344,13 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
 
 def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
                   valid_old, *, window: int, n_split: Optional[int] = None):
-    """Attend ``q (B, H, 1, Dh)`` over the committed int8 ring and this
-    step's fresh bf16 row ``k_new/v_new (B, H, 1, Dh)`` -> ``(B, H, 1,
-    Dh)``: ``attention.attend_global_split_q`` at T=1 in the kernel's order.
+    """Attend ``q (B, H, 1, Dh)`` over the committed int8 (or packed-int4
+    uint8) ring and this step's fresh bf16 row ``k_new/v_new (B, H, 1, Dh)``
+    -> ``(B, H, 1, Dh)``: ``attention.attend_global_split_q`` (``_q4``) at
+    T=1 in the kernel's order.
     ``n_split`` (default :func:`pick_split`) is the number of spans the ring
     is reduced in.  CPU tensors take the plain version; CUDA tensors launch
     the kernel (counted in ``decode_attend.launches``) or raise."""
-    _reject_int4(k_cache)
     if q.shape[2] != 1:
         raise ValueError("decode_attend takes T=1 steps")
     b, h, c, _ = k_cache.shape

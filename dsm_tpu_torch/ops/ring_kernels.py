@@ -14,7 +14,9 @@ that is 2 x 4 KB, once per LM layer.
 pipeline: the fresh int8 K and V rows ``(B, H, T, Dh)`` and their f32 scales
 ``(B, H, T)`` go into the two int8 rings and the two scale rings in one
 launch; at s2s-2b B=24 that is 2 x 61 KB of rows and 2 x 1.9 KB of scales,
-once per LM layer.  :func:`ring_commit` with the scale rings goes there.
+once per LM layer.  The packed-int4 rings (uint8, rows of ``Dh/2`` bytes)
+take the same launch: the kernel copies bytes and is given the row width
+in bytes.  :func:`ring_commit` with the scale rings goes there.
 
 What bounds them on the H100: a few hundred KB moved at most, so each is
 bound by its launch and the latency of one round of stores, not by
@@ -141,19 +143,24 @@ def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
     """Write the quantised rows ``k_new/v_new (B, H, T, Dh)`` int8 into the
     int8 rings ``(B, H, C, Dh)`` and their scales ``ks_new/vs_new (B, H,
     T)`` into the f32 scale rings ``(B, H, C)``, all at row ``w``, in place,
-    in one launch."""
-    b, h, t, dh = k_new.shape
+    in one launch.  Packed-int4 rows and rings are uint8 with ``Dh/2`` bytes
+    a row in place of ``Dh``."""
+    b, h, t, row_bytes = k_new.shape
     c = k_cache.shape[2]
     _check_rows(w, t, c)
     if k_cache.device.type == "cpu":
         ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
                             ks_new, vs_new, w)
         return
-    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
-        raise ValueError(f"ring_commit_q takes int8 rings, got {k_cache.dtype}")
+    if k_cache.dtype not in (torch.int8, torch.uint8) or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"ring_commit_q takes int8 or packed uint8 rings, got "
+                         f"{k_cache.dtype} / {v_cache.dtype}")
+    if k_new.dtype != k_cache.dtype or v_new.dtype != k_cache.dtype:
+        raise ValueError(f"ring_commit_q: rows are {k_new.dtype} / {v_new.dtype}, "
+                         f"rings {k_cache.dtype}")
     if ks_cache.dtype != torch.float32 or vs_cache.dtype != torch.float32:
         raise ValueError("ring_commit_q takes f32 scale rings")
-    if (k_cache.shape != (b, h, c, dh) or v_cache.shape != k_cache.shape
+    if (k_cache.shape != (b, h, c, row_bytes) or v_cache.shape != k_cache.shape
             or v_new.shape != k_new.shape or ks_cache.shape != (b, h, c)
             or vs_cache.shape != ks_cache.shape or ks_new.shape != (b, h, t)
             or vs_new.shape != ks_new.shape):
@@ -162,10 +169,11 @@ def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
             f"{tuple(ks_new.shape)} do not fit rings {tuple(k_cache.shape)} / "
             f"{tuple(ks_cache.shape)}"
         )
-    if dh % 4:
-        raise ValueError(f"ring_commit_q kernel takes Dh a multiple of 4, got {dh}")
-    k_new = k_new.to(torch.int8).contiguous()
-    v_new = v_new.to(torch.int8).contiguous()
+    if row_bytes % 4:
+        raise ValueError(f"ring_commit_q kernel takes rows of a multiple of 4 bytes, "
+                         f"got {row_bytes}")
+    k_new = k_new.contiguous()
+    v_new = v_new.contiguous()
     ks_new = ks_new.float().contiguous()
     vs_new = vs_new.float().contiguous()
     tensors = {"k_cache": k_cache, "v_cache": v_cache, "ks_cache": ks_cache,
@@ -178,7 +186,7 @@ def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
     err = _build.lib().dsm_ring_commit_q(
         k_cache.data_ptr(), v_cache.data_ptr(), ks_cache.data_ptr(),
         vs_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        ks_new.data_ptr(), vs_new.data_ptr(), b, h, t, c, dh, w,
+        ks_new.data_ptr(), vs_new.data_ptr(), b, h, t, c, row_bytes, w,
         ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "ring_commit_q")

@@ -115,19 +115,26 @@ def capacity(cfg: TransformerConfig, step_t: int = 1, kv_quant: bool = False) ->
 
 
 def init_state(cfg: TransformerConfig, batch: int, cache_dtype=torch.bfloat16,
-               step_t: int = 1, kv_quant: bool = False, device=None) -> dict:
+               step_t: int = 1, kv_quant: bool = False, device=None,
+               kv_bits: int = 8) -> dict:
     """Per-layer K/V rings, the shared tick ``pos`` (a host int) and the
     ``(B, C)`` validity bitmap.  ``kv_quant``: int8 rings with per-row f32
-    scale rings ``ks``/``vs``."""
+    scale rings ``ks``/``vs``; with ``kv_bits = 4`` the rings hold int4
+    values nibble-packed into uint8 rows of ``Dh/2`` bytes
+    (``attention.pack4``), same capacity."""
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
     h, hd = cfg.num_heads, cfg.hd
     cap = capacity(cfg, step_t, kv_quant)
     shape = (batch, h, cap, hd)
+    q_shape = shape if kv_bits == 8 else (batch, h, cap, hd // 2)
+    q_dtype = torch.int8 if kv_bits == 8 else torch.uint8
     layers = []
     for _ in range(cfg.num_layers):
         if kv_quant:
             layers.append({
-                "k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k": torch.zeros(q_shape, dtype=q_dtype, device=device),
+                "v": torch.zeros(q_shape, dtype=q_dtype, device=device),
                 "ks": torch.zeros((batch, h, cap), dtype=torch.float32, device=device),
                 "vs": torch.zeros((batch, h, cap), dtype=torch.float32, device=device),
             })
@@ -373,6 +380,9 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
         overrides the rule: True takes the fused pipeline at every ring of
         at most 2.5 MB per slot with ``h % 8 == 0``, False the split
         pipeline everywhere;
+      * packed-int4 rings (uint8, ``init_state(kv_bits=4)``; T=1): the fresh
+        rows are quantised and packed by ``quantize_kv_rows_packed4`` and
+        always take the split pipeline, whatever ``cfg.fused_attn`` says;
       * bf16/f32 rings: ``ring_commit``, then ``attend_global_split`` over
         the committed ring (this step's rows are masked from the ring read);
       * ``ca_kv``: the stacked per-layer source of :func:`precompute_ca_kv`
@@ -396,7 +406,7 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
 
     kv_quant = "ks" in state["layers"][0]
     if kv_quant and t != 1:
-        raise ValueError("int8 KV rings take T=1 steps")
+        raise ValueError("int8 and packed-int4 KV rings take T=1 steps")
     for li, (lp, st) in enumerate(zip(params, state["layers"])):
         xn = norm_mod.apply_norm(cfg.norm_kind, lp["norm1"], x)
         q, k, v = _qkv(cfg, lp, xn)
@@ -404,7 +414,10 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
             q = attn.apply_rope(q, *rope)
             k = attn.apply_rope(k, *rope)
         if kv_quant:
-            kq, vq, ks_new, vs_new = attn.quantize_kv_rows(k, v)
+            packed4 = st["k"].dtype == torch.uint8
+            quantize = attn.quantize_kv_rows_packed4 if packed4 else attn.quantize_kv_rows
+            kq, vq, ks_new, vs_new = quantize(k, v)
+            # fused_commit_supported holds for int8 rings only: never for packed4.
             if dattn.fused_commit_supported(q, st["k"], plan, cfg.fused_attn):
                 rkern.scale_commit(st["ks"], st["vs"], ks_new, vs_new, plan["w"][0])
                 y, _, _ = dattn.decode_attend_commit(

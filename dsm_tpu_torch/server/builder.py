@@ -220,7 +220,9 @@ def build_duplex(mod: CFG.ModuleConfig, device):
 
     The TOML's ``kv_quant`` selects the serving profile (int8 KV rings, int8
     LM weights, quantised here once, with W8A8 matmuls or, with ``w8a8 =
-    false``, weight-only ones); without the key it is off.  On CUDA the weights and the codec are bf16, on the CPU f32."""
+    false``, weight-only ones); without the key it is off.  ``kv_bits = 4``
+    packs the batched engine's rings as int4 (8 is the default; anything else
+    raises).  On CUDA the weights and the codec are bf16, on the CPU f32."""
     device = torch.device(device)
     raw = mod.raw
     if mod.type != "Lm":
@@ -230,9 +232,9 @@ def build_duplex(mod: CFG.ModuleConfig, device):
             raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
     if int(raw.get("pipeline_depth", 1)) != 1:
         raise NotImplementedError("pipeline_depth > 1 is not ported yet; see ROADMAP.md")
-    if int(raw.get("kv_bits", 8)) != 8:
-        raise NotImplementedError(
-            "packed-int4 KV rings (kv_bits = 4) are not ported yet; see ROADMAP.md")
+    kv_bits = int(raw.get("kv_bits", 8))
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
     lm_cfg = mod.lm or LM.s2s_2b_16rvq_202501()
     if lm_cfg.depformer is None:
         raise ValueError(f"module {mod.name}: a dialogue model needs a DepFormer")
@@ -266,6 +268,6 @@ def build_duplex(mod: CFG.ModuleConfig, device):
     if batch > 1:
         return BatchedDuplexEngine(
             cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
-            batch_size=batch, kv_quant=kv_quant, device=device)
+            batch_size=batch, kv_quant=kv_quant, kv_bits=kv_bits, device=device)
     return DuplexEngine(cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
                         kv_quant=kv_quant, device=device)

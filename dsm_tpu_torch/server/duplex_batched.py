@@ -13,14 +13,16 @@ tick's host-bound outputs are packed into one int32 tensor (text tokens,
 step counters, the decode mask, the pcm's f32 bits): one device-to-host
 fetch per tick.
 
-The serving profile is chosen by arguments, not by the device: ``kv_quant``
-gives the LM int8 KV rings, and the weights run as they are given (the
+The serving profile is chosen by arguments, not by the device or the
+environment: ``kv_quant`` gives the LM int8 KV rings, ``kv_bits = 4`` with it
+nibble-packed int4 rings (half the ring's bytes: room for larger batches),
+and the weights run as they are given (the
 builder hands over int8 weights, which multiply by the profile they carry:
 W8A8, or weight-only with ``w8a8 = false``).
 
-Left out (ROADMAP.md): dispatch-ahead (``pipeline_depth > 1``), packed-int4
-rings (``kv_bits = 4``), the device mesh and prometheus metrics.  The
-builder refuses the options that select them.
+Left out (ROADMAP.md): dispatch-ahead (``pipeline_depth > 1``), the device
+mesh and prometheus metrics.  ``server/builder.py`` refuses the options that
+select them.
 """
 
 from __future__ import annotations
@@ -107,10 +109,12 @@ class BatchedDuplexEngine:
 
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, batch_size: int = 8,
-                 tick_sleep: float = 0.002, kv_quant: bool = False, *, device):
+                 tick_sleep: float = 0.002, kv_quant: bool = False, kv_bits: int = 8,
+                 *, device):
         """``params``: ``{"lm": ...}``, dense or int8 (``quantize_weights``),
         used as given; ``mimi_params``: both halves of the codec;
-        ``kv_quant``: int8 KV rings; ``device``: where everything lives."""
+        ``kv_quant``: int8 KV rings, packed int4 with ``kv_bits = 4``;
+        ``device``: where everything lives."""
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
         self.tokenizer = tokenizer
@@ -118,6 +122,7 @@ class BatchedDuplexEngine:
         self.tick_sleep = tick_sleep
         self.device = torch.device(device)
         self.kv_quant = bool(kv_quant)
+        self.kv_bits = kv_bits if self.kv_quant else 8
         self.cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.params = params
         self.mimi_params = mimi_params
@@ -125,7 +130,8 @@ class BatchedDuplexEngine:
         self._mimi_dtype = mimi_params["quantizer"]["rvq_first"]["embed"].dtype
 
         self.state = lm_gen.init_state(cfg, batch_size, self.cache_dtype,
-                                       kv_quant=self.kv_quant, device=dev)
+                                       kv_quant=self.kv_quant, device=dev,
+                                       kv_bits=self.kv_bits)
         self.enc_state = MIMI.init_encode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
         self.dec_state = MIMI.init_decode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
         self.rng = S.prng_key(0, device=dev)

@@ -36,6 +36,7 @@ class AsrConfig:
     frame_rate: float = 12.5
     mimi_dtype: str = "float32"  # codec compute dtype; RVQ distances stay f32
     kv_quant: bool = False  # int8 LM KV rings with per-row f32 scales
+    kv_bits: int = 8  # 4: the rings hold nibble-packed int4 (with kv_quant)
 
 
 def init_state(cfg: AsrConfig, batch: int, cache_dtype=torch.bfloat16,
@@ -44,7 +45,7 @@ def init_state(cfg: AsrConfig, batch: int, cache_dtype=torch.bfloat16,
     return {
         "mimi_enc": MIMI.init_encode_state(cfg.mimi, batch, mimi_dt, device),
         "lm": LM.init_state(cfg.lm, batch, cache_dtype, kv_quant=cfg.kv_quant,
-                            device=device),
+                            device=device, kv_bits=cfg.kv_bits),
         # Audio tokens of the previous frame: the 1-frame audio delay.
         "next_codebooks": torch.full((batch, cfg.lm.audio_codebooks),
                                      cfg.lm.audio_pad_token, dtype=torch.int32,

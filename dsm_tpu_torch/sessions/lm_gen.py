@@ -56,14 +56,15 @@ class DuplexConfig:
 
 
 def init_state(cfg: DuplexConfig, batch: int = 1, cache_dtype=torch.bfloat16,
-               kv_quant: bool = False, device=None) -> dict:
+               kv_quant: bool = False, device=None, kv_bits: int = 8) -> dict:
     cap = cfg.max_steps + cfg.acoustic_delay
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.int32, device=device)
 
     return {
-        "lm": LM.init_state(cfg.lm, batch, cache_dtype, kv_quant=kv_quant, device=device),
+        "lm": LM.init_state(cfg.lm, batch, cache_dtype, kv_quant=kv_quant, device=device,
+                            kv_bits=kv_bits),
         "audio_tokens": full((batch, cap, cfg.total_codebooks), UNGENERATED),
         "text_tokens": full((batch, cap), UNGENERATED),
         "prev_text": full((batch,), cfg.text_start_token),

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from dsm_tpu_torch.ops import attention as A
+from dsm_tpu_torch.ops import attn_tune as AT
 from dsm_tpu_torch.ops import decode_attn as DA
 from dsm_tpu_torch.ops import qmm as QM
 from dsm_tpu_torch.ops import ring_kernels as RK
@@ -101,7 +102,8 @@ def test_ca_check_inputs_see_a_dropped_row_and_a_padding_read():
 def _launches():
     return (RK.ring_commit.launches, RK.scale_commit.launches,
             DA.decode_attend_commit.launches, DA.ca_decode_attend.launches,
-            RK.ring_commit_q.launches, DA.decode_attend.launches, QM.qmm.launches)
+            RK.ring_commit_q.launches, DA.decode_attend.launches, QM.qmm.launches,
+            AT.attn_tune.launches)
 
 
 def test_wrappers_raise_for_non_cuda_devices():
@@ -126,6 +128,12 @@ def test_wrappers_raise_for_non_cuda_devices():
     with pytest.raises(ValueError):
         DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, A.global_ring_plan(0, 256, 1),
                          valid, window=250)
+    with pytest.raises(ValueError):  # packed-int4 rings go to the kernel or raise as well
+        DA.decode_attend(q, kc[..., :32].to(torch.uint8), vc[..., :32].to(torch.uint8), ks, vs,
+                         k_new, v_new, A.global_ring_plan(0, 256, 1), valid, window=250)
+    with pytest.raises(ValueError):
+        AT.attn_tune(q[:, :, 0], kc, vc, ks, vs, k_new[:, :, 0], v_new[:, :, 0], valid, 300,
+                     250, bb=1)
     with pytest.raises(ValueError):
         QM.qmm(torch.empty(4, 64, dtype=torch.bfloat16, device=m),
                torch.empty(32, 64, dtype=torch.int8, device=m), torch.empty(32, device=m))
@@ -307,14 +315,17 @@ def _true_mask(valid, pos, c, window):
     return ((dist != 0) & (dist <= pos) & (dist < window))[None, :] & valid
 
 
-def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok):
+def _attend_with_mask(q, kc, vc, ks, vs, k_new, v_new, ok, fresh=True):
     """Decode attention over the ring rows ``ok (B, C)`` lets in plus the
-    fresh row, written independently of the port's plain version."""
+    fresh row (unless ``fresh`` is off), written independently of the port's
+    plain version."""
     scale = q.shape[-1] ** -0.5
     qf = q[:, :, 0].float()
     s = torch.einsum("bhd,bhcd->bhc", qf, kc.float()) * ks * scale
     s = torch.where(ok[:, None, :], s, float("-inf"))
     s_new = (qf * k_new[:, :, 0].float()).sum(-1, keepdim=True) * scale
+    if not fresh:
+        s_new = torch.full_like(s_new, float("-inf"))
     p = torch.softmax(torch.cat([s, s_new], dim=-1), dim=-1)
     out = torch.einsum("bhc,bhcd->bhd", p[..., :-1] * vs, vc.float())
     return out + p[..., -1:] * v_new[:, :, 0].float()
@@ -443,11 +454,15 @@ def test_split_kernels_raise_on_unsupported(cuda_device):
     with pytest.raises(ValueError):  # bf16 rings go to ring_commit without scales
         RK.ring_commit(k.bfloat16(), k.bfloat16(), k[:, :, :1], k[:, :, :1], 0,
                        s, s, s[:, :, :1], s[:, :, :1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DA.supported(q, k.to(torch.uint8), plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DA.decode_attend(q, k.to(torch.uint8), k.to(torch.uint8), s, s, q, q, plan, valid,
-                         window=250)
+    # A uint8 ring is a packed-int4 ring of Dh/2 bytes a row, nothing else.
+    packed = torch.zeros(2, 8, 256, 64, dtype=torch.uint8, device=cuda_device)
+    assert not DA.supported(q[..., :64], packed, plan)
+    with pytest.raises(ValueError):  # 64 bytes a row are Dh = 128, not 64
+        DA.decode_attend(q[..., :64], packed, packed, s, s, q[..., :64], q[..., :64], plan,
+                         valid, window=250)
+    with pytest.raises(ValueError):  # int8 rows into a packed ring
+        RK.ring_commit(packed, packed, k[:, :, :1, :64], k[:, :, :1, :64], 0,
+                       s, s, s[:, :, :1], s[:, :, :1])
     assert _launches() == before
 
 
@@ -656,3 +671,318 @@ def test_step_routes_head_major_rings_by_the_setting(cuda_device, fused_attn, wa
         assert _within(y, y_ref)
     for key in ("k", "v", "ks", "vs"):
         assert torch.equal(state["layers"][0][key], ref_state["layers"][0][key])
+
+
+# ---------------------------------------------------------------------------
+# Packed-int4 rings (kv_bits = 4): kernels 11 and 12, and the uint8 commit
+# ---------------------------------------------------------------------------
+
+
+def _pack4_independent(vals):
+    """int4 values (B, H, C, Dh) -> packed bytes, written apart from the
+    port's ``pack4``: byte d = (vals[d] + 8) + 16 * (vals[d + Dh/2] + 8)."""
+    half = vals.shape[-1] // 2
+    return ((vals[..., :half] + 8) + 16 * (vals[..., half:] + 8)).to(torch.uint8)
+
+
+def _split_inputs_q4(dev, b, h, c, dh, pos, window, valid_frac, seed):
+    """:func:`_split_inputs` for a packed-int4 ring: values in [-7, 7], scales
+    18 times the int8 ones (the same score spread and O(1) outputs).  Returns
+    the kernel's operands, the unpacked K and V values, and the oldest
+    attended row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k_new, v_new = ((torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).bfloat16()
+                       for _ in range(3))
+    kv, vv = (torch.randint(-7, 8, (b, h, c, dh), generator=g, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    ks, vs = (18.0 * x for x in _sharp_scales(g, dev, b, h, c))
+    valid = torch.rand(b, c, generator=g, device=dev) < valid_frac
+    w = pos % c
+    qf = q[:, :, 0].float()
+    aligned = torch.where(qf >= 0, 7, -7).to(torch.int32)
+    per_scale = 7.0 * qf.abs().sum(-1) / dh ** 0.5  # score per unit k_scale
+    kv[:, :, w] = aligned
+    ks[:, :, w] = 26.0 / per_scale
+    vv[:, :, w] = 7
+    vs[:, :, w] = 18.0
+    valid[:, w] = True
+    d_max = min(pos, window - 1, c - 1)
+    oldest = None
+    if d_max >= 1:
+        oldest = (w - d_max) % c
+        kv[:, :, oldest] = aligned
+        ks[:, :, oldest] = 14.0 / per_scale
+        valid[:, oldest] = True
+    args = (q, _pack4_independent(kv), _pack4_independent(vv), ks, vs, k_new, v_new, valid)
+    return args, (kv, vv), oldest
+
+
+def _swap_nibbles(p):
+    return (p >> 4) | ((p & 15) << 4)
+
+
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac", [
+    (2, 16, 256, 128, 40, 250, 0.7), (2, 8, 256, 64, 1000, 250, 0.6),
+    (1, 8, 512, 64, 511, 512, 1.0), (2, 4, 256, 128, 0, 250, 1.0)])
+def test_int4_check_inputs_see_a_wrong_mask_and_swapped_nibbles(B, H, C, Dh, pos, window, frac):
+    """On the card cases' int4 inputs the 2e-2 bar fails a result that
+    dropped the oldest attended row, let ring row w in, let every ring row
+    in, or read the nibble halves the other way round (plain version against
+    an independent masked attention over the unpacked values, CPU)."""
+    dev = torch.device("cpu")
+    args, (kv, vv), oldest = _split_inputs_q4(dev, B, H, C, Dh, pos, window, frac, pos + C)
+    valid = args[7]
+    assert torch.equal(A.unpack4(args[1]), kv.float()) and torch.equal(A.pack4(vv), args[2])
+    plan = A.global_ring_plan(pos, C, 1)
+    want = DA.decode_attend(*args[:7], plan, valid, window=window, n_split=1)[:, :, 0]
+    ok = _true_mask(valid, pos, C, window)
+    ref = (args[0], kv, vv, *args[3:7])
+    assert _within(_attend_with_mask(*ref, ok), want)
+    for n_split in (2, 3):
+        assert _within(DA.decode_attend(*args[:7], plan, valid, window=window,
+                                        n_split=n_split)[:, :, 0], want)
+    wrong = {"row w let in": ok.clone(), "every row let in": torch.ones_like(ok)}
+    wrong["row w let in"][:, pos % C] = True
+    if oldest is not None:
+        assert want.float().abs().max() > 0.3
+        wrong["oldest row dropped"] = ok.clone()
+        wrong["oldest row dropped"][:, oldest] = False
+        for which in (1, 2):
+            swapped = list(args[:7])
+            swapped[which] = _swap_nibbles(swapped[which])
+            bad = DA.decode_attend(*swapped, plan, valid, window=window, n_split=1)[:, :, 0]
+            assert not _within(bad, want), f"swapped nibbles of operand {which}"
+    for what, mask in wrong.items():
+        assert not _within(_attend_with_mask(*ref, mask), want), what
+
+
+INT4_CASES = [
+    # B, H, C, Dh, pos, window, valid share
+    (64, 16, 768, 128, 40, 750, 0.9),       # stt-1b rings, 4-D (kernel 11): short
+    (64, 16, 768, 128, 767, 750, 1.0),      # full
+    (64, 16, 768, 128, 3000, 750, 0.8),     # wrapped
+    (64, 32, 384, 64, 0, 375, 1.0),         # stt-2.6b rings (kernel 12): garbage ring
+    (64, 32, 384, 64, 383, 375, 1.0),
+    (64, 32, 384, 64, 3000, 375, 0.7),
+    (24, 20, 3072, 128, 40, 3000, 0.7),     # s2s-2b rings: no JAX kernel serves them
+    (24, 20, 3072, 128, 10000, 3000, 1.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, None])
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac", INT4_CASES)
+def test_decode_attend_int4_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, window, frac,
+                                                 n_split):
+    args, (kv, vv), oldest = _split_inputs_q4(cuda_device, B, H, C, Dh, pos, window, frac,
+                                              seed=pos + C)
+    plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
+    valid = args[7]
+    assert args[1].dtype == torch.uint8 and args[1].shape == (B, H, C, Dh // 2)
+    assert DA.supported(args[0], args[1], plan)
+    before = DA.decode_attend.launches
+    runs = [DA.decode_attend(*args[:7], plan, valid, window=window, n_split=n_split)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert DA.decode_attend.launches == before + 3
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    y = runs[0][:, :, 0]
+    split = DA.pick_split(B * H, C) if n_split is None else n_split
+    rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
+    yp = DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid, pos,
+                                plan["w"][0], window, split)
+    np.testing.assert_allclose(y.float().cpu().numpy(), yp.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    ref = _attend_with_mask(args[0], kv, vv, *args[3:7], _true_mask(valid, pos, C, window))
+    assert _within(ref, y)
+    if oldest is None:  # only the fresh row attends: the zero bytes (-8) are never read
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   args[6][:, :, 0].float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+    else:
+        swapped = DA.decode_attend(args[0], _swap_nibbles(args[1]), *args[2:7], plan, valid,
+                                   window=window, n_split=n_split)[:, :, 0]
+        assert not _within(swapped, yp)
+
+
+@pytest.mark.cuda
+def test_decode_attend_int4_kernel_takes_head_major_strides(cuda_device):
+    """A (B*H, C, Dh/2) packed ring addressed as (1, B*H, C, Dh/2): the
+    layout of the JAX package's head-major kernel, the same launch."""
+    args, _, _ = _split_inputs_q4(cuda_device, 2, 32, 384, 64, 1000, 375, 0.9, seed=5)
+    q, kc, vc, ks, vs, k_new, v_new, valid = args
+    plan = A.global_ring_plan(1000, 384, 1, device=cuda_device)
+    want = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, plan, valid, window=375)
+    k_t, v_t = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (kc, vc))
+    ks_t, vs_t = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (ks, vs))
+    assert not k_t.is_contiguous()
+    got = DA.decode_attend(q, k_t, v_t, ks_t, vs_t, k_new, v_new, plan, valid, window=375)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh,w", [
+    (64, 16, 768, 128, 0), (64, 16, 768, 128, 767), (64, 32, 384, 64, 100),
+    (24, 20, 3072, 128, 1500)])
+def test_ring_commit_q_kernel_takes_uint8_rows(cuda_device, B, H, C, Dh, w):
+    g = torch.Generator(device=cuda_device).manual_seed(w)
+    kc, vc, kn, vn = (torch.randint(0, 256, shape, generator=g, device=cuda_device,
+                                    dtype=torch.uint8)
+                      for shape in ((B, H, C, Dh // 2),) * 2 + ((B, H, 1, Dh // 2),) * 2)
+    ks, vs, ksn, vsn = (torch.rand(*shape, generator=g, device=cuda_device)
+                        for shape in ((B, H, C),) * 2 + ((B, H, 1),) * 2)
+    orig = kc.clone()
+    plain = [x.clone() for x in (kc, vc, ks, vs)]
+    before = RK.ring_commit_q.launches
+    RK.ring_commit(kc, vc, kn, vn, w, ks, vs, ksn, vsn)
+    RK.ring_commit_plain(plain[0], plain[1], kn, vn, w, plain[2], plain[3], ksn, vsn)
+    torch.cuda.synchronize()
+    assert RK.ring_commit_q.launches == before + 1
+    for got, want in zip((kc, vc, ks, vs), plain):
+        assert torch.equal(got, want)
+    keep = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    keep[w] = False
+    assert torch.equal(kc[:, :, w], kn[:, :, 0]) and torch.equal(kc[:, :, keep], orig[:, :, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,head_dim,fused_attn", [(8, 128, None), (8, 64, True)])
+def test_step_with_int4_rings_on_the_card(cuda_device, monkeypatch, heads, head_dim,
+                                          fused_attn):
+    """``transformer.step`` over packed rings: ring_commit_q + decode_attend
+    in every layer, never the fused pipeline; against the same steps through
+    the plain versions on the card."""
+    cfg = T.TransformerConfig(d_model=heads * head_dim, num_heads=heads, num_layers=2,
+                              dim_feedforward=256, context=250, fused_attn=fused_attn)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init(cfg, gen, torch.bfloat16)
+    st = T.init_state(cfg, 4, kv_quant=True, device=cuda_device, kv_bits=4)
+    ref = T.init_state(cfg, 4, kv_quant=True, device=cuda_device, kv_bits=4)
+    xs = [(torch.randn(4, 1, cfg.d_model, generator=gen, device=cuda_device) * 0.3).bfloat16()
+          for _ in range(5)]
+    before = _launches()
+    ys = []
+    for x in xs:
+        y, st = T.step(cfg, params, st, x)
+        ys.append(y)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert after[4] - before[4] == 10 and after[5] - before[5] == 10  # commit_q, decode_attend
+    assert after[1] == before[1] and after[2] == before[2]  # no fused pipeline
+    monkeypatch.setattr(DA, "_attend_launch", DA.decode_attend_plain)
+    monkeypatch.setattr(RK, "ring_commit", RK.ring_commit_plain)
+    for x, y in zip(xs, ys):
+        yr, ref = T.step(cfg, params, ref, x)
+        np.testing.assert_allclose(y.float().cpu().numpy(), yr.float().cpu().numpy(),
+                                   atol=5e-2, rtol=5e-2)
+    assert RK.ring_commit_q.launches == after[4]  # the reference launched nothing
+    assert st["layers"][0]["k"].dtype == torch.uint8
+    for key in ("k", "v", "ks", "vs"):  # layer 0 sees the same input on both routes
+        assert torch.equal(st["layers"][0][key], ref["layers"][0][key])
+
+
+# ---------------------------------------------------------------------------
+# The tuning tool's kernel (kernel 14)
+# ---------------------------------------------------------------------------
+
+TUNE_VARIANTS = [dict(bb=1), dict(bb=4), dict(bb=1, i8s=True), dict(bb=4, i8s=True, i8p=True),
+                 dict(bb=2, i8p=True)]
+# Each variant against its own plain version: the bf16 variants as every
+# attention kernel; the s32 dots are exact, so the int8-dot variants differ
+# from theirs by summation order and a quantisation step where x / scale
+# lands on a rounding boundary.
+TUNE_BAR = 2e-2
+I8_FROM_BF16 = AT.I8_FROM_BF16  # the int8-dot variants against the bf16 result
+
+
+def _tune_inputs(dev, b, h, c, dh, pos, window, valid_frac, seed):
+    """:func:`_split_inputs` with a fresh row that matters as well: k_new lies
+    along q (score 13, beside the oldest attended row's 14) and v_new is of
+    spread 1.5.  Returns attn_tune's operands (3-D rows), the 4-D operands of
+    the independent attention, and the oldest attended row."""
+    args4, oldest = _split_inputs(dev, b, h, c, dh, pos, window, valid_frac, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    qf = args4[0].float()
+    k_new = (qf * (13.0 * dh ** 0.5 / (qf * qf).sum(-1, keepdim=True))).bfloat16()
+    v_new = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 1.5).bfloat16()
+    args4 = (*args4[:5], k_new, v_new, args4[7])
+    rows = [x[:, :, 0].contiguous() for x in (args4[0], k_new, v_new)]
+    return (rows[0], *args4[1:5], rows[1], rows[2], args4[7]), args4, oldest
+
+
+def _tune_wrong_masks(valid, pos, c, window, oldest):
+    """(mask, fresh row kept) of results a kernel with a wrong mask would give."""
+    ok = _true_mask(valid, pos, c, window)
+    wrong = {"row w let in": (ok.clone(), True), "oldest row dropped": (ok.clone(), True),
+             "every row let in": (torch.ones_like(ok), True), "fresh row dropped": (ok, False)}
+    wrong["row w let in"][0][:, pos % c] = True
+    wrong["oldest row dropped"][0][:, oldest] = False
+    return wrong
+
+
+@pytest.mark.parametrize("kw", TUNE_VARIANTS, ids=str)
+def test_attn_tune_plain_variants_are_near_the_bf16_result(kw):
+    """Also: on the card cases' inputs the outputs are O(1) and the bar fails
+    every wrong mask against each variant's plain version."""
+    args, args4, oldest = _tune_inputs(torch.device("cpu"), 4, 8, 256, 128, 300, 250, 0.9, seed=1)
+    base = AT.attn_tune(*args, 300, 250)
+    got = AT.attn_tune(*args, 300, 250, **kw)
+    assert got.shape == (4, 8, 128) and got.dtype == torch.bfloat16
+    assert float(base.float().abs().max()) > 0.3
+    if not (kw.get("i8s") or kw.get("i8p")):
+        assert torch.equal(got, base)
+    err = float((got.float() - base.float()).abs().max())
+    assert err <= I8_FROM_BF16 * float(base.float().abs().max()), err
+    assert _within(_attend_with_mask(*args4[:7], _true_mask(args[7], 300, 256, 250)), base)
+    for what, (mask, fresh) in _tune_wrong_masks(args[7], 300, 256, 250, oldest).items():
+        assert not _within(_attend_with_mask(*args4[:7], mask, fresh), got), what
+    plan = A.global_ring_plan(300, 256, 1)
+    split = DA.decode_attend(*args4[:7], plan, args[7], window=250, n_split=1)
+    np.testing.assert_allclose(base.float().numpy(), split[:, :, 0].float().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="bb"):
+        AT.attn_tune(*args, 300, 250, bb=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [5, 767, 3000])
+@pytest.mark.parametrize("B,H,C,Dh", [(64, 16, 768, 128), (8, 8, 256, 64)])
+def test_attn_tune_kernel_matches_plain(cuda_device, B, H, C, Dh, pos):
+    window = C - 18
+    args, args4, oldest = _tune_inputs(cuda_device, B, H, C, Dh, pos, window, 0.9, seed=pos)
+    outs = {}
+    before = AT.attn_tune.launches
+    for kw in TUNE_VARIANTS:
+        runs = [AT.attn_tune(*args, pos, window, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+        want = AT.attn_tune_plain(*args, pos, window, **kw)
+        np.testing.assert_allclose(runs[0].float().cpu().numpy(), want.float().cpu().numpy(),
+                                   atol=TUNE_BAR, rtol=TUNE_BAR)
+        for what, (mask, fresh) in _tune_wrong_masks(args[7], pos, C, window, oldest).items():
+            assert not _within(_attend_with_mask(*args4[:7], mask, fresh), runs[0]), (kw, what)
+        outs[str(kw)] = runs[0]
+    assert AT.attn_tune.launches == before + 3 * len(TUNE_VARIANTS)
+    base = outs[str(dict(bb=1))]
+    assert torch.equal(outs[str(dict(bb=4))], base)  # bb changes no number
+    scale = float(base.float().abs().max())
+    assert scale > 0.3
+    for key, y in outs.items():
+        assert float((y.float() - base.float()).abs().max()) <= I8_FROM_BF16 * scale, key
+    plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
+    split = DA.decode_attend(*args4[:7], plan, args[7], window=window)
+    np.testing.assert_allclose(base.float().cpu().numpy(), split[:, :, 0].float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_attn_tune_kernel_raises_on_unsupported(cuda_device):
+    args = _tune_inputs(cuda_device, 4, 8, 256, 128, 300, 250, 0.9, seed=0)[0]
+    before = AT.attn_tune.launches
+    with pytest.raises(ValueError, match="bb"):
+        AT.attn_tune(*args, 300, 250, bb=3)
+    with pytest.raises(ValueError):  # f32 queries
+        AT.attn_tune(args[0].float(), *args[1:], 300, 250)
+    with pytest.raises(ValueError):  # a packed ring is not this kernel's
+        AT.attn_tune(args[0], args[1].to(torch.uint8), *args[2:], 300, 250)
+    assert AT.attn_tune.launches == before

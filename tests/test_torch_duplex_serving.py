@@ -73,9 +73,14 @@ def _small_duplex_module(**over):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("pipeline_depth", 2, "pipeline_depth"), ("kv_bits", 4, "int4"),
+    ("pipeline_depth", 2, "pipeline_depth"), ("kv_bits", 4, None),
     ("mesh", {"dp": 2}, "mesh"), ("w8a8_sites", ["mlp"], "w8a8_sites")])
 def test_build_duplex_refuses_unported_options(key, value, match):
+    """``match`` None: an option that was refused once and is served now."""
+    if match is None:
+        eng = tbuilder.build_duplex(_small_duplex_module(kv_quant=True, **{key: value}), "cpu")
+        assert eng.kv_bits == 4 and eng.state["lm"]["t"]["layers"][0]["k"].dtype == torch.uint8
+        return
     with pytest.raises(NotImplementedError, match=match):
         tbuilder.build_duplex(_small_duplex_module(**{key: value}), "cpu")
 

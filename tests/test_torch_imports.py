@@ -26,7 +26,7 @@ def test_every_module_imports_without_jax():
                 "server.tts_module", "server.tts_preprocess", "sessions.tts",
                 "models.conditioner", "utils.tokenizer", "utils.audio",
                 "sessions.lm_gen", "server.duplex", "server.duplex_batched",
-                "ops.qmm", "server.autoconfig"):
+                "ops.qmm", "server.autoconfig", "ops.attn_tune", "tools.attn_kernel_tune"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -53,7 +53,8 @@ def test_engines_import_without_the_web_packages():
         for name in ("jax", "aiohttp", "msgpack"):
             sys.modules[name] = None
         for name in ("server.builder", "server.duplex", "server.duplex_batched",
-                     "server.protocol", "sessions.lm_gen", "server.autoconfig", "ops.qmm"):
+                     "server.protocol", "sessions.lm_gen", "server.autoconfig", "ops.qmm",
+                     "ops.attn_tune", "tools.attn_kernel_tune"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex
         assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")
@@ -75,3 +76,33 @@ def test_chip_smoke_imports_nothing_of_jax():
             assert "jax" not in stripped
             assert not stripped.split()[1].startswith("dsm_tpu.")
             assert stripped.split()[1] != "dsm_tpu"
+
+
+def test_no_file_of_the_port_names_jax_or_reads_the_environment_for_routing():
+    """No ``import jax`` / ``from jax`` / ``dsm_tpu`` import in any file of
+    the port, and no environment variable read in the modules that route
+    (ops, models, sessions, tools, the engines and ``server/builder.py``)."""
+    pkg = os.path.dirname(dsm_tpu_torch.__file__)
+    seen = 0
+    for folder, _dirs, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            seen += 1
+            path = os.path.join(folder, name)
+            with open(path) as f:
+                src = f.read()
+            for line in src.splitlines():
+                stripped = line.strip()
+                if stripped.startswith(("import ", "from ")):
+                    target = stripped.split()[1]
+                    assert target != "jax" and not target.startswith("jax."), (path, line)
+                    assert target != "dsm_tpu" and not target.startswith("dsm_tpu."), (path, line)
+            rel = os.path.relpath(path, pkg)
+            if rel.split(os.sep)[0] in ("ops", "models", "sessions", "tools") or rel in (
+                    "server/builder.py", "server/duplex_batched.py", "server/batched_asr.py",
+                    "server/tts_batched.py"):
+                if rel == os.path.join("ops", "_build.py"):
+                    continue  # looks for nvcc on the PATH
+                assert "os.environ" not in src and "getenv" not in src, path
+    assert seen >= 35

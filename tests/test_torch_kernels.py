@@ -313,8 +313,11 @@ def test_shape_rule_matches_jax(H, C, Dh, monkeypatch):
     assert tda.fused_commit_supported(tq, tk, tplan) == jda.fused_commit_supported(q, kc, jplan)
     assert tda.supported(tq, tk, tplan)
     assert not tda.fused_commit_supported(tq.float()[:, :, :0], tk, tplan)  # T = 0 rows
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tda.supported(tq, tk.to(torch.uint8), tplan)
+    # A uint8 ring is a packed-int4 ring: Dh/2 bytes a row, as in the JAX package.
+    assert not tda.supported(tq, tk.to(torch.uint8), tplan)
+    assert not jda.supported(q, kc.astype(jnp.uint8), jplan)
+    assert tda.supported(tq, tk[..., :Dh // 2].to(torch.uint8), tplan)
+    assert not tda.fused_commit_supported(tq, tk[..., :Dh // 2].to(torch.uint8), tplan, True)
 
 
 def test_pick_split_fills_the_card_and_keeps_spans():
