@@ -18,7 +18,9 @@ lines each:
    in one span and through the fused decode_attend_commit; the stt-1b rings,
    (64,16,768,128), through decode_attend; the weight-only matmul qmm at the
    stt-2.6b matmul shapes, M = 64, and at M = 1 and 24), run three times
-   with identical results; commits bit-exact, attention within 2e-2 on
+   with identical results; the fused decode_attend_commit against its
+   plain version in its own span order and within the bar of the
+   whole-ring order too; commits bit-exact, attention within 2e-2 on
    inputs whose outputs are O(1), where a dropped row, a padding row read,
    the committed row let in or a wrong mask would fail the bar (checked on
    the plain version); qmm within one bf16 step (or 1e-2) of its plain
@@ -30,7 +32,8 @@ lines each:
    reused slots; every frame gets its step event, every marker arrives,
    VAD probabilities are finite, and the kernels launched exactly
    16 scale_commit + 16 decode_attend_commit + 8 ring_commit per step;
-5. times: engine step with all 64 slots active; then ``[stt1b-split]``: the
+5. times: engine step with all 64 slots active, its kernel profile over
+   the served rings and over full, wrapped rings; then ``[stt1b-split]``: the
    stt-1b LM step at 4 layers with the fused setting off (ring_commit_q +
    decode_attend at the stt-1b rings) against the fused route from one
    state; then the stt-2.6b path: ``[stt26]`` the BatchedAsr engine from
@@ -91,7 +94,9 @@ lines each:
 
 After the paths each kernel case is timed: the kernel, its
 plain version and its library call as device time (CUDA events around calls
-queued behind a spin kernel, so the wrapper's host time stays out).  Each
+queued behind a spin kernel, so the wrapper's host time stays out); beside
+decode_attend_commit at the stt-1b, stt-2.6b and tts-1.6b rings, on the same
+inputs, the split pipeline's ring_commit_q + decode_attend (``also``).  Each
 kernel's JSON entry carries its bound: the larger of the bytes the case must
 move at 3.35 TB/s and its operations at the card's peak for their type (67
 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s bf16 on them for qmm),
@@ -120,7 +125,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
     "scale_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
-    "decode_attend_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
+    "decode_attend_commit": "dsm_tpu_torch/csrc/decode_attn.cu",
     "ring_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "ca_decode_attend": "dsm_tpu_torch/csrc/ca_attn.cu",
     "ring_commit_q": "dsm_tpu_torch/csrc/ring_attn.cu",
@@ -164,17 +169,17 @@ PER_STEP = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8}
 # DepFormer's dense slice cache and the conv stacks run no kernel.
 PER_TICK_TTS = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
                 "ca_decode_attend": 16}
-# Launches per engine tick of the duplex path: s2s-2b's 20 heads over a
-# 3072-row ring are not a shape of the fused commit, so each of the LM's 24
-# layers commits its int8 rows and scales with ring_commit_q and attends
-# with decode_attend; the Mimi encoder's and decoder's 8 layers each commit
-# their 2 bf16 rows.
 # Launches per engine step of the stt-2.6b path: 32 heads x 64 are not a
 # shape of the fused rule, so each of the LM's 48 layers commits its int8 rows
 # and scales with ring_commit_q and attends with decode_attend (one span);
 # its 4 matmuls and the text head are weight-only: qmm; Mimi as above.
 PER_STEP_STT26 = {"ring_commit_q": 48, "decode_attend": 48, "ring_commit": 8, "qmm": 193,
                   "scale_commit": 0, "decode_attend_commit": 0}
+# Launches per engine tick of the duplex path: s2s-2b's 20 heads over a
+# 3072-row ring are not a shape of the fused commit, so each of the LM's 24
+# layers commits its int8 rows and scales with ring_commit_q and attends
+# with decode_attend; the Mimi encoder's and decoder's 8 layers each commit
+# their 2 bf16 rows.
 PER_TICK_DUPLEX = {"ring_commit_q": 24, "decode_attend": 24, "ring_commit": 16,
                    "scale_commit": 0, "decode_attend_commit": 0}
 # stt-1b with packed-int4 rings: an int4 ring never takes the fused commit, so
@@ -350,14 +355,19 @@ def _sharp_scales(g, dev, *shape):
     return ks, vs
 
 
-def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions):
+def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions, timed=()):
     """decode_attend_commit over one int8 ring at ``positions`` ((pos,
-    valid share) pairs).  With ``sharp`` scales a partial mask must also be
-    seen by the bar: every row valid instead has to fail it."""
+    valid share) pairs), held to its plain version in the kernel's span
+    order (its own n_split) and to the whole-ring order.  With ``sharp``
+    scales a partial mask must also be seen by the bar: every row valid
+    instead has to fail it.  At the positions in ``timed`` the timing phase
+    also runs, on the same inputs, the split pipeline's pair (ring_commit_q
+    + decode_attend over the committed ring)."""
     import torch
 
     from dsm_tpu_torch.ops import attention as A
     from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.ops import ring_kernels as RK
 
     q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).bfloat16()
     k_new = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).bfloat16()
@@ -369,8 +379,9 @@ def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions):
     else:
         kscale = torch.rand(b, h, c, generator=g, device=dev) * 0.019 + 0.001
         vscale = torch.rand(b, h, c, generator=g, device=dev) * 0.019 + 0.001
-    kq, vq, _, _ = A.quantize_kv_rows(k_new, v_new)
+    kq, vq, ksn, vsn = A.quantize_kv_rows(k_new, v_new)
     rows = [x[:, :, 0].contiguous() for x in (q, kq, vq, k_new, v_new)]
+    n_split = DA.pick_split(b * h, c)
     cases = []
     for pos, frac in positions:
         valid = torch.rand(b, c, generator=g, device=dev) < frac
@@ -385,12 +396,16 @@ def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions):
 
         def run_p(pk=pk, pv=pv, valid=valid, pos=pos, w=w):
             y = DA.decode_attend_commit_plain(rows[0], pk, pv, kscale, vscale, *rows[1:],
-                                              valid, pos, w, window)
+                                              valid, pos, w, window, n_split)
             return y, pk, pv
 
         def cmp(got, want, valid=valid, pos=pos, w=w, frac=frac):
             _exact(got[1:], want[1:])
             err = _close("decode_attend_commit", got[0], want[0])
+            whole = DA.decode_attend_commit_plain(rows[0], kring.clone(), vring.clone(), kscale,
+                                                  vscale, *rows[1:], valid, pos, w, window)
+            check(_within(got[0], whole), "decode_attend_commit: output outside the bar of "
+                  "the whole-ring order")
             if sharp and frac < 1.0:
                 alt = DA.decode_attend_commit_plain(
                     rows[0], kring.clone(), vring.clone(), kscale, vscale, *rows[1:],
@@ -400,8 +415,18 @@ def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions):
             return err
 
         n_rows = int(_true_mask(valid, pos, c, window).sum())
+        info = _attend_info(n_rows, b, h, c, dh)
+        if pos in timed:
+            sk, sv, sks, svs = kring.clone(), vring.clone(), kscale.clone(), vscale.clone()
+
+            def split_pair(sk=sk, sv=sv, sks=sks, svs=svs, plan=plan, valid=valid, w=w):
+                RK.ring_commit(sk, sv, kq, vq, w, sks, svs, ksn, vsn)
+                DA.decode_attend(q, sk, sv, sks, svs, k_new, v_new, plan, valid,
+                                 window=window)
+
+            info["also"] = {"ring_commit_q + decode_attend": split_pair}
         cases.append(("decode_attend_commit", f"{tag} pos={pos} valid={frac}",
-                      run_k, run_p, cmp, _attend_info(n_rows, b, h, c, dh)))
+                      run_k, run_p, cmp, info))
     return cases
 
 
@@ -802,7 +827,7 @@ def kernel_cases(dev):
         cases.append(_commit_case("ring_commit", f"duplex B=24 w={w}", RK.ring_commit,
                                   RK.ring_commit_plain, kc, vc, kn, vn, w))
     cases += _attend_cases(dev, g, "stt", 64, 16, 768, 128, 750, False,
-                           ((0, 1.0), (40, 0.9), (767, 0.6), (3000, 1.0)))
+                           ((0, 1.0), (40, 0.9), (767, 0.6), (3000, 1.0)), timed=(3000,))
 
     # TTS: the LM's rings hold C = window = context = 1024 rows; the Mimi
     # decoder's bf16 ring is the encoder's shape above.
@@ -812,7 +837,7 @@ def kernel_cases(dev):
         cases.append(_commit_case("scale_commit", f"tts w={w}", RK.scale_commit,
                                   RK.scale_commit_plain, ks, vs, ksn, vsn, w))
     cases += _attend_cases(dev, g, "tts", 64, 16, 1024, 128, 1024, True,
-                           ((1023, 1.0), (2048, 0.7), (5000, 0.7)))
+                           ((1023, 1.0), (2048, 0.7), (5000, 0.7)), timed=(5000,))
     cases += _ca_cases(dev, g)
 
     # Duplex: s2s-2b's rings (20 heads x 3072 rows of 128: the split
@@ -831,7 +856,8 @@ def kernel_cases(dev):
     # rings, the split route of the shapes the fused kernel serves.
     stt26_pos = ((0, 1.0), (40, 0.7), (383, 1.0), (3000, 1.0))
     cases += _split_cases(dev, g, "stt26", 64, 32, 384, 64, 375, stt26_pos)
-    cases += _attend_cases(dev, g, "stt26", 64, 32, 384, 64, 375, True, stt26_pos)
+    cases += _attend_cases(dev, g, "stt26", 64, 32, 384, 64, 375, True, stt26_pos,
+                           timed=(3000,))
     cases += _split_cases(dev, g, "stt1b", 64, 16, 768, 128, 750, ((40, 0.9), (3000, 1.0)))
     cases += _qmm_cases(dev, g)
 
@@ -1135,11 +1161,13 @@ def _serve_asr(engine, counters, per_step, tag):
 # ---------------------------------------------------------------------------
 
 
-def phase_times(engine, dev, card, tag=""):
+def phase_times(engine, dev, card, tag="", full_rings=False):
     """The engine step with every slot active (host clock), a kernel profile
     of 2 steps, and the step's two halves alone; lines tagged ``[<tag>times]``
-    and ``[<tag>profile]``.  Returns the step's median ms, the peak memory in
-    GB and the profiled kernel ms per step."""
+    and ``[<tag>profile]``; with ``full_rings`` last a kernel profile of 2
+    steps over the LM's rings made full and wrapped (:func:`_fill_rings`).
+    Returns the step's median ms, the peak memory in GB and the profiled
+    kernel ms per step (served rings)."""
     import numpy as np
     import torch
 
@@ -1199,6 +1227,12 @@ def phase_times(engine, dev, card, tag=""):
                     ts.append((time.perf_counter() - t0) * 1e3)
         print(f"[{tag}times] {name}, {b} slots: median {statistics.median(ts)!r} ms, min "
               f"{min(ts)!r}, max {max(ts)!r} over 20 after 5 warm-up; card {card}", flush=True)
+    if full_rings:  # where the ring attention reads most: every row of every ring
+        _fill_rings(st["lm"]["t"], torch.Generator(device=dev).manual_seed(37), 3000)
+        with torch.inference_mode():
+            engine._invoke_step(pcm, on, off)
+            rows, wall_us = _profile(lambda: engine._invoke_step(pcm, on, off), 2)
+        _print_profile(f"{tag}profile", "over full rings: ", rows, wall_us, 2, "step", card, 12)
     return step_ms, peak_gb, total
 
 
@@ -1224,8 +1258,9 @@ def kernel_times(dev, card):
               f"{lib_ms!r} ms (device time, 20 calls queued behind a spin kernel); "
               f"card {card}", flush=True)
         for what, fn in info.get("also", {}).items():
-            print(f"[times] {name} {label}, {what}: kernel {device_time_ms(fn)!r} ms; "
-                  f"card {card}", flush=True)
+            also_ms = device_time_ms(fn)
+            print(f"[times] {name} {label}, {what}: kernel {also_ms!r} ms "
+                  f"({100 * bound_ms / also_ms:.1f} % of the bound); card {card}", flush=True)
         for entry, head in HEADLINE.items():
             if wrapper_of[entry] == name and head == label:
                 ms[entry] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
@@ -1788,16 +1823,24 @@ def _profile(fn, n: int):
     return rows, wall_us
 
 
+# Name stems of the port's kernels (dsm_tpu_torch/csrc/, each in an anonymous
+# namespace): a profile lists these wherever they rank.
+PORT_KERNELS = ("ring_commit", "scale_commit", "decode_attend", "ca_decode_attend", "qmm",
+                "attn_tune")
+
+
 def _print_profile(tag, what, rows, wall_us, n, unit, card, top):
-    """The profile's summary line and its ``top`` kernels -> kernel ms a call."""
+    """The profile's summary line, its ``top`` kernels and then the port's own
+    kernels wherever they rank -> kernel ms a call."""
     total = sum(t for _, t, _ in rows)
     print(f"[{tag}] {what}kernels {total / n / 1e3!r} ms/{unit} of {wall_us / n / 1e3!r} "
           f"ms/{unit} wall (profiled over {n}): device busy {total / wall_us!r}, "
           f"{sum(c for _, _, c in rows) / n:.0f} device launches/{unit}, {len(rows)} kernel "
           f"names; card {card}", flush=True)
-    for key, t, c in rows[:top]:
-        print(f"[{tag}] {t / n / 1e3:9.4f} ms/{unit} {100 * t / total:5.1f}% "
-              f"{c / n:6.0f}/{unit}  {key[:90]}", flush=True)
+    for i, (key, t, c) in enumerate(rows):
+        if i < top or any(f"(anonymous namespace)::{k}" in key for k in PORT_KERNELS):
+            print(f"[{tag}] {t / n / 1e3:9.4f} ms/{unit} {100 * t / total:5.1f}% "
+                  f"{c / n:6.0f}/{unit}  {key[:90]}", flush=True)
     return total / n / 1e3
 
 
@@ -2634,7 +2677,7 @@ def main() -> int:
     errs = phase_kernels(dev)
     elapsed("kernels")
     engine, launches = phase_serve(dev)
-    stt1b_numbers = phase_times(engine, dev, card)
+    stt1b_numbers = phase_times(engine, dev, card, full_rings=True)
     elapsed("serve + times")
     del engine
     torch.cuda.empty_cache()

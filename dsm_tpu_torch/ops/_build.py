@@ -42,11 +42,11 @@ _SIGNATURES = {
     "dsm_ring_commit_q": ([_P] * 8 + [_LL, _I, _I, _I, _I, _I, _P], _I),
     # ks_cache, vs_cache, ks_new, vs_new, b, h, t, c, w, stream
     "dsm_scale_commit": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
-    "dsm_decode_attend_smem_bytes": ([_I, _I], _LL),
+    "dsm_decode_attend_commit_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
-    # valid, out, b, h, c, dh, pos, w, window, scale, stream
+    # valid, part, out, b, h, c, dh, n_split, pos, w, window, scale, stream
     "dsm_decode_attend_commit": (
-        [_P] * 11 + [_LL, _I, _I, _I, _LL, _I, _I, ctypes.c_float, _P], _I
+        [_P] * 12 + [_LL, _I, _I, _I, _I, _LL, _I, _I, ctypes.c_float, _P], _I
     ),
     "dsm_decode_attend_split_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, part, out,

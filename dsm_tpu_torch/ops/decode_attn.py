@@ -4,30 +4,32 @@ short rings, ``decode_attend`` of the split pipeline (further down, with
 the shape rule that picks between them), and the voice cross-attention
 ``ca_decode_attend``.
 
-``decode_attend_commit`` replaces the Pallas kernel
-``dsm_tpu/ops/decode_attn.py:_decode_attend_commit_q_4d``: T=1 decode
-attention of bf16 queries over the PRE-commit int8 K/V ring with per-row
-f32 scales, with this step's fresh bf16 K/V row joining the softmax
-exactly, followed by the write of the fresh int8 row into ring row ``w``.
-The kernel is CUDA C++ in ``csrc/ring_attn.cu``; the scale rings are
+``decode_attend_commit`` replaces the Pallas kernels
+``dsm_tpu/ops/decode_attn.py:_decode_attend_commit_q_4d`` and, at h = 32
+and Dh = 64, ``_decode_attend_commit_q``: T=1 decode attention of bf16
+queries over the PRE-commit int8 K/V ring with per-row f32 scales, with
+this step's fresh bf16 K/V row joining the softmax exactly, followed by the
+write of the fresh int8 row into ring row ``w``.  The scale rings are
 committed beforehand (``ring_kernels.scale_commit``).
 
-What bounds it on the H100: bytes.  At stt-1b B=64 one call reads the
-int8 K and V rings, 2 x 64 x 16 x 768 x 128 B = 201 MB, about 60 us at
-3.35 TB/s, so about 1 ms per step over 16 layers; its arithmetic is two
-multiply-adds per byte.  What the design does about it: one block per
-(b, h) reads each ring row once, as one 128-byte load per warp at Dh=128,
-keeps the row scores in shared memory (C floats), and skips the rows the
-mask excludes in both passes, so a ring that is not yet full is not read
-past its valid rows.  The output is written once, bf16.  No tensor cores:
-a query of one row against C rows is a matrix-vector product.
+The kernel is CUDA C++ in ``csrc/decode_attn.cu``, beside the split
+pipeline's: the ring is reduced in ``n_split`` spans (:func:`pick_split`),
+each by a block whose producer warp brings the span's K and V tiles into
+shared memory with TMA bulk copies while four warps compute on the tiles
+already there; a second small kernel folds the spans' partials and the
+fresh row in a fixed order and writes the committed row ``w``.  One wrapper
+call, two launches.  What bounds it is bytes (the int8 rings, about 60 us a
+call at stt-1b B=64 at 3.35 TB/s; two multiply-adds a byte); the note at
+the top of the source says what the design does about that.  Its order of
+operations is :func:`decode_attend_plain`'s at the same ``n_split``.
 
-The wrapper runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors, counting the launch in ``decode_attend_commit
-.launches``.  Shapes it launches for: any B and H, Dh in {64, 128}, bf16
-queries and fresh rows, int8 rings, and C up to 11,264 rows (the scores
-and partial outputs fit the 48 KB of shared memory a block gets without
-an opt-in); anything else raises.
+The wrapper runs the plain version for CPU tensors, in the whole-ring order
+the CPU route has always had (``n_split`` None), and launches the kernel
+for CUDA tensors, counting the call in ``decode_attend_commit.launches``.
+Shapes it launches for: any B and H, Dh in {64, 128}, bf16 queries and
+fresh rows, contiguous int8 rings of a multiple of 4 rows, 16-byte
+aligned, f32 scales, and spans whose scores fit the shared memory a block
+may opt in to (some 50,000 rows); anything else raises.
 """
 
 from __future__ import annotations
@@ -42,15 +44,26 @@ from . import _build
 from .attention import NEG_INF, unpack4
 
 _MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
+_MAX_SMEM_OPT_IN = 232448  # an H100 block's shared memory with the opt-in
 
 
 def decode_attend_commit_plain(q, k_cache, v_cache, k_scale, v_scale, kq_new,
                                vq_new, k_new, v_new, valid, pos: int, w: int,
-                               window: int) -> torch.Tensor:
+                               window: int, n_split: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version (any device) over 3-D rows: ``q, k_new, v_new,
     kq_new, vq_new (B, H, Dh)``, rings ``(B, H, C, Dh)`` int8, scales
     ``(B, H, C)`` f32, ``valid (B, C)`` bool.  Returns ``(B, H, Dh)`` in
-    ``q.dtype`` and writes ring row ``w`` in place."""
+    ``q.dtype`` and writes ring row ``w`` in place.
+
+    ``n_split`` None: one softmax over the whole ring (masked rows -1e9), the
+    CPU route's order.  An integer: the kernel's order at that split, which
+    is :func:`decode_attend_plain` over the committed ring (row ``w`` is
+    masked there, so it reads the same rows)."""
+    if n_split is not None:
+        k_cache[:, :, w] = kq_new
+        v_cache[:, :, w] = vq_new
+        return decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                                   valid, pos, w, window, n_split)
     c, dh = k_cache.shape[2], k_cache.shape[3]
     scale = 1.0 / math.sqrt(dh)
     j = torch.arange(c, dtype=torch.int64, device=k_cache.device)
@@ -73,13 +86,18 @@ def decode_attend_commit_plain(q, k_cache, v_cache, k_scale, v_scale, kq_new,
     return res.to(q.dtype)
 
 
-def _launch(q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new,
-            v_new, valid, pos: int, w: int, window: int) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
+            valid, pos: int, w: int, window: int, n_split: int) -> torch.Tensor:
+    """The kernel at ``n_split`` spans."""
     b, h, c, dh = k_cache.shape
     if dh not in (64, 128):
         raise ValueError(f"decode_attend_commit kernel takes Dh 64 or 128, got {dh}")
     if not 0 <= w < c:
         raise ValueError(f"decode_attend_commit: w={w} outside ring of {c}")
+    if c % 4:
+        raise ValueError(f"decode_attend_commit: a ring of {c} rows, not a multiple of 4")
+    if not 1 <= n_split <= c:
+        raise ValueError(f"decode_attend_commit: n_split={n_split} for a ring of {c}")
     want = {
         "q": ((b, h, dh), torch.bfloat16), "k_new": ((b, h, dh), torch.bfloat16),
         "v_new": ((b, h, dh), torch.bfloat16), "kq_new": ((b, h, dh), torch.int8),
@@ -99,15 +117,20 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new,
             )
         if not x.is_cuda or not x.is_contiguous():
             raise ValueError(f"decode_attend_commit: {name} must be a contiguous CUDA tensor")
+    for name in ("k_cache", "v_cache", "k_scale", "v_scale"):
+        if args[name].data_ptr() % 16:
+            raise ValueError(f"decode_attend_commit: {name} must be 16-byte aligned")
     lib = _build.lib()
-    if lib.dsm_decode_attend_smem_bytes(c, dh) > _MAX_SMEM:
-        raise ValueError(f"decode_attend_commit: ring of {c} rows exceeds shared memory")
+    span = span_rows(c, n_split)
+    if lib.dsm_decode_attend_commit_smem_bytes(span, dh) > _MAX_SMEM_OPT_IN:
+        raise ValueError(f"decode_attend_commit: spans of {span} rows exceed shared memory")
+    part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
     err = lib.dsm_decode_attend_commit(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), kq_new.data_ptr(), vq_new.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        b, h, c, dh, pos, w, window, 1.0 / math.sqrt(dh),
+        k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(), part.data_ptr(),
+        out.data_ptr(), b, h, c, dh, n_split, pos, w, window, 1.0 / math.sqrt(dh),
         ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "decode_attend_commit")
@@ -123,7 +146,8 @@ def decode_attend_commit(q, k_cache, v_cache, ks_committed, vs_committed,
     (B, H, 1, Dh)`` into ring row ``plan["w"][0]`` in place.  The scale
     rings must already hold this step's scales.  Returns
     ``(y (B, H, 1, Dh), k_cache, v_cache)``, the rings being the inputs,
-    updated."""
+    updated.  On the card the ring is reduced in :func:`pick_split`'s
+    spans; on the CPU in the whole-ring order."""
     if q.shape[2] != 1:
         raise ValueError("decode_attend_commit takes T=1 steps")
     pos, w = int(plan["q_pos"][0]), int(plan["w"][0])
@@ -134,8 +158,9 @@ def decode_attend_commit(q, k_cache, v_cache, ks_committed, vs_committed,
             q3, k_cache, v_cache, ks_committed, vs_committed, kq3, vq3, kn3,
             vn3, valid_old, pos, w, window)
     else:
+        b, h, c, _ = k_cache.shape
         y = _launch(q3, k_cache, v_cache, ks_committed, vs_committed, kq3, vq3,
-                    kn3, vn3, valid_old, pos, w, window)
+                    kn3, vn3, valid_old, pos, w, window, pick_split(b * h, c))
     return y[:, :, None, :], k_cache, v_cache
 
 
@@ -226,6 +251,14 @@ def _ring_values(ring: torch.Tensor) -> torch.Tensor:
     return unpack4(ring) if ring.dtype == torch.uint8 else ring.float()
 
 
+def span_rows(c: int, n_split: int) -> int:
+    """Ring rows of each of the ``n_split`` spans: ``ceil(c / n_split)``
+    rounded up to a multiple of 4, so that a span's first row and first
+    scale lie on 16 bytes (the trailing spans may be short or empty).  The
+    kernels of both pipelines cut the ring so."""
+    return -(-(-(-c // n_split)) // 4) * 4
+
+
 def pick_split(bh: int, c: int) -> int:
     """Blocks per (b, h): enough that B*H*n_split fills the card's 132 SMs
     with a few blocks each, while a block keeps at least ``_MIN_SPAN`` ring
@@ -258,7 +291,7 @@ def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
     s_new = (qf * k_new.float()).sum(-1) * scale  # (B, H)
     if k_cache.dtype == torch.uint8:
         qf = q.to(torch.bfloat16).float()
-    span = -(-c // n_split)
+    span = span_rows(c, n_split)
     parts = []
     for s0 in range(0, c, span):
         sl = slice(s0, min(c, s0 + span))
@@ -325,7 +358,7 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
             or k_cache.stride(0) % 16 or k_cache.stride(1) % 16):
         raise ValueError("decode_attend: ring rows must be 16-byte aligned")
     lib = _build.lib()
-    span = -(-c // n_split)
+    span = span_rows(c, n_split)
     if lib.dsm_decode_attend_split_smem_bytes(span, dh) > _MAX_SMEM:
         raise ValueError(f"decode_attend: spans of {span} rows exceed shared memory")
     part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)

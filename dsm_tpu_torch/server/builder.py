@@ -38,7 +38,6 @@ log = logging.getLogger("dsm.torch.builder")
 # TOML keys of the JAX builder that select paths the port has not ported.
 _UNPORTED = {
     "mesh": "multi-device serving",
-    "pcm_wire": "the int16 pcm upload wire of the ASR engine",
 }
 
 
@@ -66,6 +65,13 @@ def build_batched_asr(mod: CFG.ModuleConfig, device) -> BatchedAsrEngine:
     for key, what in _UNPORTED.items():
         if mod.raw.get(key):
             raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
+    wire = str(mod.raw.get("pcm_wire", "")).lower()
+    if wire == "int16":
+        raise NotImplementedError(
+            "pcm_wire: the int16 pcm upload wire of the ASR engine is not ported "
+            "yet; see ROADMAP.md")
+    if wire not in ("", "f32", "float32"):  # f32 is the wire the engine serves
+        raise ValueError(f"unknown pcm_wire {wire!r}")
     if int(mod.raw.get("pipeline_depth", 1)) != 1:
         raise NotImplementedError("pipeline_depth > 1 is not ported yet; see ROADMAP.md")
     on_accel = device.type == "cuda"
@@ -220,7 +226,8 @@ def build_duplex(mod: CFG.ModuleConfig, device):
 
     The TOML's ``kv_quant`` selects the serving profile (int8 KV rings, int8
     LM weights, quantised here once, with W8A8 matmuls or, with ``w8a8 =
-    false``, weight-only ones); without the key it is off.  ``kv_bits = 4``
+    false``, weight-only ones); without the key it follows the device: on
+    CUDA, off on the CPU, as in the JAX builder.  ``kv_bits = 4``
     packs the batched engine's rings as int4 (8 is the default; anything else
     raises).  On CUDA the weights and the codec are bf16, on the CPU f32."""
     device = torch.device(device)
@@ -248,7 +255,10 @@ def build_duplex(mod: CFG.ModuleConfig, device):
         text_start_token=lm_cfg.text_start_token,
     )
     mimi_cfg = MIMI.v0_1(cfg.input_audio_codebooks)
-    kv_quant = bool(raw.get("kv_quant", False))
+    # Without the key the rings follow the device, as in the JAX builder:
+    # int8 (or int4 with kv_bits = 4) on CUDA, bf16/f32 on the CPU.
+    kv_quant = raw.get("kv_quant")
+    kv_quant = device.type == "cuda" if kv_quant is None else bool(kv_quant)
     if kv_quant and not raw.get("weight_quant", True):
         raise NotImplementedError(
             "weight_quant = false with int8 KV rings is not a profile of the "

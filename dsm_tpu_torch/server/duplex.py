@@ -31,8 +31,9 @@ from .protocol import MsgType
 
 class DuplexEngine:
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
-                 mimi_params: dict, tokenizer, kv_quant: bool = False, *, device):
-        """``kv_quant``: int8 KV rings; ``params`` run as given (int8 weights
+                 mimi_params: dict, tokenizer, kv_quant: Optional[bool] = None, *,
+                 device):
+        """``kv_quant``: int8 KV rings (None: on CUDA, not on the CPU); ``params`` run as given (int8 weights
         from ``quantize_weights`` multiply by the profile they carry)."""
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
@@ -40,7 +41,7 @@ class DuplexEngine:
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.kv_quant = bool(kv_quant)
+        self.kv_quant = self.device.type == "cuda" if kv_quant is None else bool(kv_quant)
         self.params = params
         self.mimi_dtype = mimi_params["quantizer"]["rvq_first"]["embed"].dtype
         self.lock = threading.Lock()  # one dialogue at a time per engine

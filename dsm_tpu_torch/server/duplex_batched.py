@@ -13,8 +13,9 @@ tick's host-bound outputs are packed into one int32 tensor (text tokens,
 step counters, the decode mask, the pcm's f32 bits): one device-to-host
 fetch per tick.
 
-The serving profile is chosen by arguments, not by the device or the
-environment: ``kv_quant`` gives the LM int8 KV rings, ``kv_bits = 4`` with it
+The serving profile is chosen by arguments, not by the environment:
+``kv_quant`` gives the LM int8 KV rings (by default on CUDA and not on the
+CPU, as in the JAX engine), ``kv_bits = 4`` with it
 nibble-packed int4 rings (half the ring's bytes: room for larger batches),
 and the weights run as they are given (the
 builder hands over int8 weights, which multiply by the profile they carry:
@@ -109,11 +110,12 @@ class BatchedDuplexEngine:
 
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, batch_size: int = 8,
-                 tick_sleep: float = 0.002, kv_quant: bool = False, kv_bits: int = 8,
+                 tick_sleep: float = 0.002, kv_quant: Optional[bool] = None, kv_bits: int = 8,
                  *, device):
         """``params``: ``{"lm": ...}``, dense or int8 (``quantize_weights``),
         used as given; ``mimi_params``: both halves of the codec;
-        ``kv_quant``: int8 KV rings, packed int4 with ``kv_bits = 4``;
+        ``kv_quant``: int8 KV rings, packed int4 with ``kv_bits = 4``; None
+        (the default) takes them on CUDA and not on the CPU;
         ``device``: where everything lives."""
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
@@ -121,7 +123,7 @@ class BatchedDuplexEngine:
         self.batch_size = batch_size
         self.tick_sleep = tick_sleep
         self.device = torch.device(device)
-        self.kv_quant = bool(kv_quant)
+        self.kv_quant = self.device.type == "cuda" if kv_quant is None else bool(kv_quant)
         self.kv_bits = kv_bits if self.kv_quant else 8
         self.cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.params = params

@@ -639,6 +639,176 @@ def test_decode_attend_commit_kernel_at_head_major_shapes(cuda_device, pos, frac
     assert _within(y[:, :, 0], want)
 
 
+# ---------------------------------------------------------------------------
+# The fused pipeline's kernel in its own span order (TPU kernels 2 and 7)
+# ---------------------------------------------------------------------------
+
+
+def _commit_inputs(dev, b, h, c, dh, pos, window, frac, seed):
+    """:func:`_split_inputs` as a pre-commit ring (row ``w`` holds a stale row
+    that would dominate if it were let in), with a fresh key aligned to the
+    query (score about 12 against the oldest attended row's 14), so that
+    dropping the fresh row moves the output past the bar as well.  Returns
+    the operands, the quantised fresh rows and the oldest attended row."""
+    args, oldest = _split_inputs(dev, b, h, c, dh, pos, window, frac, seed)
+    q = args[0]
+    qf = q[:, :, 0].float()
+    k_new = (qf * (12.0 * dh ** 0.5 / (qf * qf).sum(-1, keepdim=True)))[:, :, None].bfloat16()
+    args = (*args[:5], k_new, *args[6:])
+    kq, vq, _, _ = A.quantize_kv_rows(k_new, args[6])
+    return args, (kq, vq), oldest
+
+
+def _commit_wrong_masks(valid, pos, c, window, oldest):
+    """Masks a faulty kernel could apply -> (mask, fresh row in)."""
+    ok = _true_mask(valid, pos, c, window)
+    wrong = {"row w let in": (ok.clone(), True), "the fresh row dropped": (ok, False)}
+    wrong["row w let in"][0][:, pos % c] = True
+    if oldest is not None:
+        wrong["the oldest row dropped"] = (ok.clone(), True)
+        wrong["the oldest row dropped"][0][:, oldest] = False
+    return ok, wrong
+
+
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac,n_split", [
+    (2, 8, 256, 128, 1000, 250, 0.6, 3), (2, 4, 768, 128, 40, 750, 0.9, 2),
+    (1, 8, 384, 64, 3000, 375, 1.0, 1), (2, 4, 256, 64, 0, 250, 1.0, 2)])
+def test_commit_check_inputs_see_a_wrong_mask(B, H, C, Dh, pos, window, frac, n_split):
+    """On the card cases' inputs the 2e-2 bar fails a result that let row w
+    in, dropped the oldest attended row or dropped the fresh row (the
+    span-order plain version against an independent masked attention, CPU)."""
+    args, (kq, vq), oldest = _commit_inputs(torch.device("cpu"), B, H, C, Dh, pos, window,
+                                            frac, seed=pos + C)
+    q, kc, vc, ks, vs, k_new, v_new, valid = args
+    rows = [x[:, :, 0].contiguous() for x in (q, kq, vq, k_new, v_new)]
+    want = DA.decode_attend_commit_plain(rows[0], kc.clone(), vc.clone(), ks, vs, *rows[1:],
+                                         valid, pos, pos % C, window, n_split)
+    ok, wrong = _commit_wrong_masks(valid, pos, C, window, oldest)
+    assert _within(_attend_with_mask(*args[:7], ok), want)
+    for what, (mask, fresh) in wrong.items():
+        assert not _within(_attend_with_mask(*args[:7], mask, fresh), want), what
+
+
+COMMIT_CASES = [
+    # B, H, C, Dh, pos, window, valid share, n_split (None: pick_split's)
+    (64, 16, 768, 128, 3000, 750, 1.0, None),   # stt-1b, full: 2 spans, w in span 1
+    (64, 16, 768, 128, 40, 750, 0.9, None),     # every attended row in span 0
+    (64, 16, 768, 128, 1152, 750, 0.8, None),   # w = 384: span 1's first row
+    (64, 32, 384, 64, 3000, 375, 1.0, None),    # stt-2.6b (fused_attn = True): 1 span
+    (64, 32, 384, 64, 40, 375, 0.7, None),
+    (64, 16, 1024, 128, 1023, 1024, 1.0, None),  # tts-1.6b: the first full ring
+    (64, 16, 1024, 128, 5000, 1024, 0.7, None),  # ... wrapped, partial mask
+    (2, 8, 256, 128, 1000, 250, 0.6, 3),        # spans of 88, 88 and 80 rows
+    (4, 8, 256, 64, 0, 250, 1.0, 2),            # first step: the ring holds garbage
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac,n_split", COMMIT_CASES)
+def test_decode_attend_commit_kernel_in_span_order(cuda_device, B, H, C, Dh, pos, window,
+                                                   frac, n_split):
+    """Three runs bit-identical, rings bit for bit, the output within 2e-2 of
+    the plain version in the kernel's span order and in the whole-ring order,
+    and the bar blind to none of the wrong masks."""
+    args, (kq, vq), oldest = _commit_inputs(cuda_device, B, H, C, Dh, pos, window, frac,
+                                            seed=pos + C)
+    q, kc, vc, ks, vs, k_new, v_new, valid = args
+    k0, v0 = kc.clone(), vc.clone()
+    plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
+    split = DA.pick_split(B * H, C) if n_split is None else n_split
+    rows = [x[:, :, 0].contiguous() for x in (q, kq, vq, k_new, v_new)]
+    before = DA.decode_attend_commit.launches
+    runs = [DA._launch(rows[0], kc, vc, ks, vs, *rows[1:], valid, pos, pos % C, window,
+                       split) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert DA.decode_attend_commit.launches == before + 3
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    pk, pv, wk, wv = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    want = DA.decode_attend_commit_plain(rows[0], pk, pv, ks, vs, *rows[1:], valid, pos,
+                                         pos % C, window, split)
+    whole = DA.decode_attend_commit_plain(rows[0], wk, wv, ks, vs, *rows[1:], valid, pos,
+                                          pos % C, window)
+    assert torch.equal(kc, pk) and torch.equal(vc, pv) and torch.equal(kc, wk)
+    assert _within(runs[0], want) and _within(runs[0], whole)
+    _, wrong = _commit_wrong_masks(valid, pos, C, window, oldest)
+    for what, (mask, fresh) in wrong.items():
+        assert not _within(_attend_with_mask(q, k0, v0, ks, vs, k_new, v_new, mask, fresh),
+                           want), what
+    if n_split is None:  # the wrapper launches the same kernel at pick_split's split
+        y, _, _ = DA.decode_attend_commit(q, k0, v0, ks, vs, kq, vq, k_new, v_new, plan,
+                                          valid, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(y[:, :, 0], runs[0]) and torch.equal(k0, pk)
+
+
+@pytest.mark.cuda
+def test_decode_attend_commit_takes_long_spans_and_raises_on_unsupported(cuda_device):
+    before = _launches()
+    q, k_new, v_new, kc, vc, ks, vs, valid = _attn_inputs(cuda_device, 2, 8, 256, 64, 1.0, 0)
+    kq, vq, _, _ = A.quantize_kv_rows(k_new, v_new)
+    plan = A.global_ring_plan(7, 256, 1, device=cuda_device)
+    with pytest.raises(ValueError):  # a ring of 254 rows: not a multiple of 4
+        kc2, vc2, ks2, vs2, valid2 = (x[..., :254].contiguous() if x.dim() < 4 else
+                                      x[:, :, :254].contiguous()
+                                      for x in (kc, vc, ks, vs, valid))
+        DA.decode_attend_commit(q, kc2, vc2, ks2, vs2, kq, vq, k_new, v_new,
+                                A.global_ring_plan(7, 254, 1), valid2, window=250)
+    with pytest.raises(ValueError):  # Dh = 96
+        z = torch.zeros(2, 8, 1, 96, dtype=torch.bfloat16, device=cuda_device)
+        r = torch.zeros(2, 8, 256, 96, dtype=torch.int8, device=cuda_device)
+        DA.decode_attend_commit(z, r, r.clone(), ks, vs, r[:, :, :1], r[:, :, :1], z, z, plan,
+                                valid, window=250)
+    with pytest.raises(ValueError):  # a ring that is not contiguous
+        DA.decode_attend_commit(q, kc.transpose(0, 1).contiguous().transpose(0, 1), vc, ks,
+                                vs, kq, vq, k_new, v_new, plan, valid, window=250)
+    rows = [x[:1, :1, 0] for x in (q, kq, vq, k_new, v_new)]
+    for c, raises in ((16384, False), (60000, True)):  # a span's scores in shared memory
+        ring = torch.zeros(1, 1, c, 64, dtype=torch.int8, device=cuda_device)
+        sc = torch.ones(1, 1, c, device=cuda_device)
+        args = (rows[0], ring, ring.clone(), sc, sc.clone(), *rows[1:],
+                torch.ones(1, c, dtype=torch.bool, device=cuda_device), c + 5, 5, c - 4, 1)
+        if raises:
+            with pytest.raises(ValueError):  # beyond the opt-in limit of a block
+                DA._launch(*args)
+        else:  # beyond the 48 KB a block gets without the opt-in
+            y = DA._launch(*args)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(y).all())
+    assert _launches()[:2] == before[:2] and _launches()[3:] == before[3:]
+    assert DA.decode_attend_commit.launches == before[2] + 1
+
+
+@pytest.mark.cuda
+def test_build_duplex_takes_int8_rings_on_the_card_by_default(cuda_device):
+    """Without ``kv_quant`` in the TOML the dialogue engine on CUDA gets int8
+    rings and int8 weights, as the JAX builder's engine does on an
+    accelerator; ``kv_quant = false`` still turns them off."""
+    import tomllib
+
+    from dsm_tpu_torch.server import builder as B
+    from dsm_tpu_torch.server import config as CFG
+
+    with open("configs/config-duplex-tpu-serving.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = raw["modules"]["duplex"]
+    mod.update(batch_size=2, pipeline_depth=1)
+    del mod["kv_quant"]
+    mod["model"].update(audio_codebooks=8, text_in_vocab_size=301, text_out_vocab_size=300)
+    mod["model"]["transformer"].update(d_model=128, num_heads=4, num_layers=2,
+                                       dim_feedforward=512, context=40)
+    mod["model"]["depformer"].update(num_slices=4)
+    mod["model"]["depformer"]["transformer"].update(d_model=32, num_heads=2, num_layers=2,
+                                                    dim_feedforward=64, context=4)
+    mod["generation"].update(generated_audio_codebooks=4, input_audio_codebooks=4)
+    eng = B.build_duplex(CFG.Config.from_dict(raw).modules["duplex"], cuda_device)
+    assert eng.kv_quant and eng.state["lm"]["t"]["layers"][0]["k"].dtype == torch.int8
+    assert isinstance(eng.params["lm"]["transformer"][0]["in_proj_w"], dict)
+    mod["kv_quant"] = False
+    eng = B.build_duplex(CFG.Config.from_dict(raw).modules["duplex"], cuda_device)
+    assert not eng.kv_quant
+    assert eng.state["lm"]["t"]["layers"][0]["k"].dtype == torch.bfloat16
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused_attn,want", [
     (None, {"ring_commit_q": 2, "decode_attend": 2}),

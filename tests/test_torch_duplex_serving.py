@@ -117,6 +117,32 @@ def test_build_duplex_builds_both_profiles_on_the_cpu(kv_quant):
                                    for a in audio)
 
 
+@pytest.mark.parametrize("kv_quant", [None, True, False])
+def test_build_duplex_kv_quant_follows_the_device_unless_set(kv_quant):
+    """Without ``kv_quant`` the rings and weights follow the device, as in
+    the JAX builder and engine: on the CPU bf16/f32 rings and dense weights
+    (on CUDA int8: tests/test_torch_cuda.py).  An explicit value wins, and
+    ``kv_bits = 4`` takes effect with it."""
+    mod = _small_duplex_module()
+    if kv_quant is None:
+        del mod.raw["kv_quant"]
+    else:
+        mod.raw["kv_quant"] = kv_quant
+    eng = tbuilder.build_duplex(mod, "cpu")
+    want = bool(kv_quant)
+    ring = eng.state["lm"]["t"]["layers"][0]["k"]
+    assert eng.kv_quant is want and ring.dtype == (torch.int8 if want else torch.float32)
+    assert isinstance(eng.params["lm"]["transformer"][0]["in_proj_w"], dict) == want
+    mod.raw["kv_bits"] = 4
+    packed = tbuilder.build_duplex(mod, "cpu").state["lm"]["t"]["layers"][0]["k"]
+    assert packed.dtype == (torch.uint8 if want else torch.float32)
+    single = tbuilder.build_duplex(_small_duplex_module(batch_size=1), "cpu")
+    args = (single.cfg, single.params, single.mimi_cfg, single.mimi_params,
+            FallbackTokenizer())
+    for cls in (tDB.BatchedDuplexEngine, tDX.DuplexEngine):
+        assert not cls(*args, device="cpu").kv_quant  # the engines' default too
+
+
 def test_build_duplex_single_dialogue_engine():
     eng = tbuilder.build_duplex(_small_duplex_module(batch_size=1), "cpu")
     assert isinstance(eng, tDX.DuplexEngine) and not eng.kv_quant

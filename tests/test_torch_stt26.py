@@ -453,6 +453,25 @@ def test_builder_accepts_the_weight_only_profile(over):
             tbuilder.build_batched_asr(bad, "cpu")
 
 
+@pytest.mark.parametrize("wire", ["f32", "FLOAT32", ""])
+def test_builder_serves_the_f32_pcm_wire(wire):
+    """``pcm_wire = "f32"`` / ``"float32"`` (any case) or empty name the wire the
+    engine serves; the JAX builder maps them to its default too."""
+    mod, _ = _small_stt26_module(pcm_wire=wire)
+    eng = tbuilder.build_batched_asr(mod, "cpu")
+    assert eng.batch_size == 3 and not eng.cfg.kv_quant
+
+
+@pytest.mark.parametrize("wire,err", [("int16", NotImplementedError),
+                                      ("Int16", NotImplementedError), ("bogus", ValueError)])
+def test_builder_refuses_other_pcm_wires(wire, err):
+    """The int16 upload is not ported yet; any other value is refused,
+    where the JAX builder would fall back to f32 without a word."""
+    mod, _ = _small_stt26_module(pcm_wire=wire)
+    with pytest.raises(err, match="pcm_wire"):
+        tbuilder.build_batched_asr(mod, "cpu")
+
+
 # ---------------------------------------------------------------------------
 # (f) a small stt-2.6b-shaped engine against the JAX engine
 # ---------------------------------------------------------------------------
