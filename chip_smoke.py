@@ -102,9 +102,14 @@ move at 3.35 TB/s and its operations at the card's peak for their type (67
 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s bf16 on them for qmm),
 counted from the rows this run's mask lets in; and the library call's time
 (``library_ms``): for the commits the in-place slice assignments that
-compute the same function, for qmm the pair ``wq.to(bf16)`` + matmul + scale
-(no single PyTorch call computes the attention kernels' function).  The
-entries named ``wrapper[rings]`` are the TPU kernels that the port serves
+compute the same function, for qmm ``torch._weight_int8pack_mm`` (no single
+PyTorch call computes the attention kernels' function).  qmm is timed as the
+serving step meets it: each call on another of 128 MiB of weight copies (the
+weight cold in the 50 MB L2) and behind a kernel that writes x (in the step a
+norm, the attention or the gate runs before every qmm), that kernel's own
+time taken off; its warm time and its cold time back to back beside it; its
+library call is timed the same way, and the pair ``wq.to(bf16)`` + matmul +
+scale is an ``also`` line.  The entries named ``wrapper[rings]`` are the TPU kernels that the port serves
 with another entry's kernel at other shapes or through another load path
 (the packed-int4 rings): their numbers are that shape's.
 
@@ -890,10 +895,11 @@ def _qmm_within(a, p) -> bool:
 
 
 def _qmm_cases(dev, g):
-    """qmm at QMM_SHAPES, K split as the wrapper picks (its time with K
-    unsplit is printed beside it): activations of unit spread, int8 weights,
-    scales that make the outputs O(1).  The bar must see one output channel's scale
-    dropped and one 64-wide piece of K dropped (plain version)."""
+    """qmm at QMM_SHAPES, tiled as the wrapper picks: activations of unit
+    spread, int8 weights, scales that make the outputs O(1).  The bar must
+    see one output channel's scale dropped and one 64-wide piece of K dropped
+    (plain version).  ``cold``: the inputs that ``_qmm_times`` times over
+    copies of the weight."""
     import torch
 
     from dsm_tpu_torch.ops import qmm as QM
@@ -922,17 +928,9 @@ def _qmm_cases(dev, g):
                   "qmm: the bar does not see a dropped piece of K")
             return float((got[0].float() - want[0].float()).abs().max())
 
-        def library(x=x, wq=wq, sc=sc):
-            return (x @ wq.to(torch.bfloat16).T) * sc.to(torch.bfloat16)
-
-        def unsplit(x=x, wq=wq, sc=sc):
-            return QM.qmm(x, wq, sc, ksplit=1)
-
-        ksplit = QM.pick_ksplit(m, o, i)[0]
         info = {"bytes": o * i + 2 * m * i + 4 * o + 2 * m * o, "flops": 2 * m * o * i,
-                "peak": BF16_TENSOR_FLOPS, "library": library,
-                "bar": f"one bf16 step or 1e-2 per element, relative L2 {QMM_REL_L2}",
-                "also": {"K unsplit (ksplit=1)": unsplit} if ksplit > 1 else {}}
+                "peak": BF16_TENSOR_FLOPS, "library": None, "cold": (x, wq, sc),
+                "bar": f"one bf16 step or 1e-2 per element, relative L2 {QMM_REL_L2}"}
         cases.append(("qmm", f"M={m} O={o} I={i}", run_k, run_p, cmp, info))
     return cases
 
@@ -1248,15 +1246,18 @@ def kernel_times(dev, card):
     wrapper_of = {**{name: name for name in SOURCES},
                   **{name: route[0] for name, route in ROUTES.items()}}
     for name, label, run_k, run_p, _cmp, info in kernel_cases(dev):
-        k_ms, p_ms = device_time_ms(run_k), device_time_ms(run_p)
-        check(k_ms > 0, f"{name} {label}: no device time measured")
-        lib_ms = device_time_ms(info["library"]) if info["library"] else None
         bound_ms, bound_by = _bound(info)
-        print(f"[times] {name} {label}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
-              f"{bound_ms!r} ms by {bound_by} ({info['bytes']} bytes, {info['flops']} "
-              f"operations; {100 * bound_ms / k_ms:.1f} % of it reached), library call "
-              f"{lib_ms!r} ms (device time, 20 calls queued behind a spin kernel); "
-              f"card {card}", flush=True)
+        if "cold" in info:
+            k_ms, p_ms, lib_ms = _qmm_times(name, label, info, bound_ms, card)
+        else:
+            k_ms, p_ms = device_time_ms(run_k), device_time_ms(run_p)
+            check(k_ms > 0, f"{name} {label}: no device time measured")
+            lib_ms = device_time_ms(info["library"]) if info["library"] else None
+            print(f"[times] {name} {label}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
+                  f"{bound_ms!r} ms by {bound_by} ({info['bytes']} bytes, {info['flops']} "
+                  f"operations; {100 * bound_ms / k_ms:.1f} % of it reached), library call "
+                  f"{lib_ms!r} ms (device time, 20 calls queued behind a spin kernel); "
+                  f"card {card}", flush=True)
         for what, fn in info.get("also", {}).items():
             also_ms = device_time_ms(fn)
             print(f"[times] {name} {label}, {what}: kernel {also_ms!r} ms "
@@ -1267,6 +1268,59 @@ def kernel_times(dev, card):
                              "bound_by": bound_by, "library_ms": lib_ms}
     check(set(ms) == set(HEADLINE), "a headline kernel case is missing")
     return ms
+
+
+def _qmm_times(name, label, info, bound_ms, card):
+    """A qmm case timed as the serving step meets it: every call on another
+    copy of the weight, 128 MiB of them (``qmm_variants.COLD_BYTES``: over
+    twice the 50 MB L2), the weight cold, and behind a kernel that writes x
+    (``qmm_variants.cold_ms``); the warm time (one weight, 20 calls) and the
+    cold time back to back beside it, and the tiling with the clusters the
+    card holds.  The
+    library call is ``torch._weight_int8pack_mm`` (bf16 scales: a yardstick
+    of time only, not held to the bar), timed cold the same way, or none
+    with its error printed; the pair ``wq.to(bf16)`` + matmul + scale is an
+    ``also`` line.  -> cold kernel ms, cold plain ms, cold library ms or
+    None."""
+    import torch
+
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops import qmm as QM
+    from dsm_tpu_torch.tools import qmm_variants as QV
+
+    x, wq, sc = info["cold"]
+    (m, i), o = x.shape, wq.shape[0]
+    tiling = QM.qmm_tiling(m, o, i, QM.resident_clusters(x.device.index or 0))
+    resident = _build.lib().dsm_qmm_max_clusters(m, o, tiling.ksplit)
+    blocks = tiling.grid[0] * tiling.grid[1] * tiling.grid[2]
+    print(f"[times] {name} {label}: tiling {QM.TILE_O} channels a block, K split over "
+          f"clusters of {tiling.ksplit}, grid {tiling.grid} = {blocks} blocks; the card holds "
+          f"{resident} such clusters ({resident * tiling.ksplit} blocks) at once", flush=True)
+    copies = QV.weight_copies(wq)
+    s16 = sc.to(torch.bfloat16)
+    k_ms = QV.cold_ms(QM.qmm, x, copies, sc)
+    warm = QV.warm_ms(QM.qmm, x, wq, sc)
+    b2b = QV.cold_ms(QM.qmm, x, copies, sc, behind=False)
+    check(k_ms > 0 and warm > 0, f"{name} {label}: no device time measured")
+    p_ms = QV.cold_ms(QM.qmm_plain, x, copies, sc)
+    try:
+        lib_ms = QV.cold_ms(lambda a, w, _s: torch._weight_int8pack_mm(a, w, s16), x,
+                            copies, sc)
+        lib = f"{lib_ms!r} ms"
+    except Exception as e:  # the yardstick is missing on this torch: reported, no figure
+        lib_ms, lib = None, f"none ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+    pair_ms = QV.cold_ms(lambda a, w, _s: (a @ w.to(torch.bfloat16).T) * s16, x, copies, sc)
+    print(f"[times] {name} {label}: kernel cold {k_ms!r} ms ({100 * bound_ms / k_ms:.1f} % of "
+          f"the bound), warm {warm!r} ms ({100 * bound_ms / warm:.1f} %), cold back to back "
+          f"{b2b!r} ms; plain cold {p_ms!r} ms; bound {bound_ms!r} ms by bytes "
+          f"({info['bytes']} bytes); library call torch._weight_int8pack_mm cold {lib}; cold "
+          f"over {len(copies)} weight copies, {len(copies) * wq.numel() / 2**20:.0f} MiB, each "
+          f"call behind a kernel that writes x, whose own time is taken off (device time, "
+          f"calls queued behind a spin kernel); card {card}", flush=True)
+    print(f"[times] {name} {label}, also wq.to(bf16) + matmul + scale (three calls): cold "
+          f"{pair_ms!r} ms; card {card}", flush=True)
+    del copies
+    return k_ms, p_ms, lib_ms
 
 
 # ---------------------------------------------------------------------------

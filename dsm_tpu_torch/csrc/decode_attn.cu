@@ -114,10 +114,12 @@
 #include <stdint.h>
 
 #include "attn_common.cuh"
+#include "tma_common.cuh"
 
 namespace {
 
 using namespace dsm_attn;
+using namespace dsm_tma;
 
 constexpr int kDaThreads = kAttnThreads;
 constexpr int kDaWarps = kAttnWarps;
@@ -292,7 +294,7 @@ __global__ void __launch_bounds__(DH) decode_attend_combine_kernel(
   // (the fused pipeline), this block may have started while that kernel still
   // runs: wait here for all of it, its partials and its reads of the ring.
   // Launched the usual way (dsm_decode_attend), there is nothing to wait for.
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+  wait_prior_grid();
 
   const float* p = part + (int64_t)bh * n_split * (DH + 2);
   float m = s_new;
@@ -318,7 +320,8 @@ __global__ void __launch_bounds__(DH) decode_attend_combine_kernel(
 
 // ---------------------------------------------------------------------------
 // The fused pipeline's partial kernel: a span's K and V tiles brought into
-// shared memory by TMA bulk copies (see the note at the top).
+// shared memory by TMA bulk copies (see the note at the top; the copy and
+// barrier helpers are tma_common.cuh's).
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;          // shared-memory stages of the copy ring
@@ -326,53 +329,6 @@ constexpr int kTileBytes = 8192;    // ring rows of one stage: 64 at Dh=128, 128
 constexpr int kConsumerWarps = 4;   // warps that compute; one more warp copies
 constexpr int kStagedThreads = 32 * (kConsumerWarps + 1);
 constexpr int kMaxDynSmem = 232448;  // an H100 block's shared memory with the opt-in
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Arrive and add `bytes` to the transfers the current phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A copy that never
-// lands traps after some seconds (a launch error the wrapper raises) rather
-// than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into this block's shared memory; completes on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // The 16 int8 values of a 16-byte read as floats, without an int-to-float
 // conversion (16 a clock on an SM, where the ring's 3.35 TB/s asks some 13
@@ -433,7 +389,7 @@ __global__ void __launch_bounds__(kStagedThreads) decode_attend_staged_kernel(
 
   // The fold kernel may launch once every block has started; it waits for
   // this whole grid before it reads a partial.
-  asm volatile("griddepcontrol.launch_dependents;");
+  launch_dependents();
   const int bh = blockIdx.x / n_split;
   const int sp = blockIdx.x - bh * n_split;
   const int b = bh / h;

@@ -67,9 +67,10 @@ _SIGNATURES = {
     "dsm_attn_tune": (
         [_P] * 9 + [_LL, _I, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _P], _I
     ),
-    # x, wq, s, part, out, m, o, i, weight row stride, ksplit,
-    # chunks_per_split, stream
-    "dsm_qmm": ([_P] * 5 + [_LL, _I, _I, _LL, _I, _I, _P], _I),
+    # x, wq, s, out, m, o, i, weight row stride, ksplit, stream
+    "dsm_qmm": ([_P] * 4 + [_LL, _I, _I, _LL, _I, _P], _I),
+    # m, o, ksplit
+    "dsm_qmm_max_clusters": ([_LL, _I, _I], _I),
 }
 
 

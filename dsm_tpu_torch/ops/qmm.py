@@ -6,11 +6,13 @@ weight-only W8A16 product :func:`qmm` and the W8A8 product :func:`mm_w8a8`.
 @ wq (O, I).T * s (O,)`` with the int8 weight made the activation's type
 exactly, the products accumulated in f32 over the whole of I, the sum scaled
 in f32 and rounded once to the activation's type.  The kernel is CUDA C++ in
-``csrc/qmm.cu`` (bf16 ``mma.sync`` with the int8 -> bf16 step in registers;
-what bounds it and what its design does about that is written there).  The
-wrapper runs :func:`qmm_plain` for CPU tensors and launches the kernel for
-CUDA tensors, counting the launch in ``qmm.launches``.  Shapes it launches
-for: any M >= 1 and any O (channels past a tile are guarded), bf16
+``csrc/qmm.cu`` (a copy warp feeding TMA stages, bf16 ``wgmma`` with the
+int8 -> bf16 step in registers, K split over a thread-block cluster and
+summed through its shared memory: one launch a call, no scratch; what bounds
+it and what its design does about that is written there).  The wrapper runs
+:func:`qmm_plain` for CPU tensors and launches the kernel for CUDA tensors,
+tiled by :func:`qmm_tiling`, counting the launch in ``qmm.launches``.  Shapes
+it launches for: any M >= 1 and any O (channels past a tile are guarded), bf16
 activations, an int8 weight whose rows are contiguous and 16-byte aligned
 (``I % 16 == 0``; a row stride, so a slice of a stacked weight is taken as it
 is), f32 scales; anything else raises.  Of the TPU kernel's ``supported``
@@ -28,7 +30,8 @@ unchanged.  A K or N that is not a multiple of 8 raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,10 +39,25 @@ from . import _build
 
 _MIN_ROWS = 17
 
-_TILE_O = 64      # output channels a block of the kernel owns
-_CHUNK_K = 256    # k values the kernel stages per step
-_TARGET_BLOCKS = 132  # one block for each of the card's SMs
-_MAX_KSPLIT = 8
+TILE_O = 128     # output channels a block of the kernel owns
+_CHUNK_K = 128   # k values the kernel stages per step
+_MAX_SPLIT = 8   # blocks of a cluster (the portable cluster size)
+# What a wave of blocks costs beyond its bytes (setting a block up and its
+# first stage's round trip, some 2 us), and what the exchange of a cluster's
+# partials costs (some 1.3 us), each counted as the weight bytes an SM's
+# share of 3.35 TB/s (25 GB/s) streams meanwhile (NVIDIA H100 80GB HBM3 at
+# 700 W, the timeline of dsm_tpu_torch/tools/qmm_variants.py).
+_WAVE_BYTES = 48 * 1024
+_SPLIT_BYTES = 32 * 1024
+
+
+class QmmTiling(NamedTuple):
+    """What the kernel launches: K split over the ``ksplit`` blocks of a
+    cluster, and the grid (tiles of ``TILE_O`` channels, ``ksplit``, row
+    tiles)."""
+
+    ksplit: int
+    grid: Tuple[int, int, int]
 
 
 def mm_w8a8(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -80,18 +98,54 @@ def qmm_plain(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tenso
     return (acc * s.float()[None, :]).to(x.dtype).reshape(*lead, wq.shape[0])
 
 
-def pick_ksplit(m: int, o: int, i: int) -> Tuple[int, int]:
-    """``(ksplit, chunks_per_split)`` for the kernel: K is split across
-    blocks only while the grid stays within ``_TARGET_BLOCKS`` blocks (a
-    split costs a second pass over the partials), every split keeps at least
-    two of the ``ceil(I / 256)`` chunks (one to compute while the next is on
-    its way) and no split is empty.  O = 2048, I = 2048 at M = 64: 32
-    channel tiles x 4 splits of 2 chunks; O = 6144 or more: no split."""
-    tiles = -(-o // _TILE_O) * -(-m // 64)
+def _rows_tile(m: int) -> int:
+    """Rows of x a block takes: 8, 16, 32 or 64."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def qmm_grid(m: int, o: int, ksplit: int) -> Tuple[int, int, int]:
+    """The kernel's grid: (channel tiles, ``ksplit``, row tiles)."""
+    return (-(-o // TILE_O), ksplit, -(-m // _rows_tile(m)))
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_tiling(m: int, o: int, i: int, resident: Tuple[int, ...]) -> QmmTiling:
+    """The kernel's tiling for an ``(m, i) x (o, i)`` product: of the cluster
+    K splits the kernel takes (rank r of a cluster of KS takes the chunks of
+    128 k [r * n / KS, (r + 1) * n / KS) of the n = ceil(I / 128), at least
+    one, so no split is empty), the one whose longest block has the fewest
+    weight bytes to stream, counted over waves of the clusters the card
+    holds at once (``resident[k - 1]``: clusters of k blocks, as
+    :func:`resident_clusters` reads them) with ``_WAVE_BYTES`` more a wave
+    and ``_SPLIT_BYTES`` more for a split; then fewer waves, more blocks
+    (more SMs pulling bytes), a smaller cluster.  At M = 64 on the H100:
+    (6144, 2048) 2 splits, 96 blocks; (2048, 2048) 6, 96; (11264, 2048) 1,
+    88; (2048, 5632) 6, 96; (4000, 2048) 3, 96: one wave each.  Cached: the
+    wrapper asks at every call."""
     n_chunks = -(-i // _CHUNK_K)
-    want = max(1, min(_TARGET_BLOCKS // max(tiles, 1), n_chunks // 2, _MAX_KSPLIT))
-    per = -(-n_chunks // want)
-    return -(-n_chunks // per), per
+    best = None
+    for ksplit in range(1, min(_MAX_SPLIT, n_chunks) + 1):
+        grid = qmm_grid(m, o, ksplit)
+        clusters = grid[0] * grid[2]
+        waves = -(-clusters // resident[ksplit - 1])
+        longest = -(-n_chunks // ksplit) * _CHUNK_K * TILE_O
+        cost = waves * (longest + _WAVE_BYTES) + (ksplit > 1) * _SPLIT_BYTES
+        key = (cost, waves, -clusters * ksplit, ksplit)
+        if best is None or key < best[0]:
+            best = (key, QmmTiling(ksplit, grid))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(device_index: int) -> Tuple[int, ...]:
+    """Clusters of 1, 2, ..., 8 blocks of the kernel that the card holds at
+    once, as the card reports them (a cluster's blocks share one GPC)."""
+    lib = _build.lib()
+    with torch.cuda.device(device_index):
+        got = tuple(lib.dsm_qmm_max_clusters(64, 2048, k) for k in range(1, _MAX_SPLIT + 1))
+    if min(got) < 1:
+        raise RuntimeError(f"qmm: the card holds no cluster of some size: {got}")
+    return got
 
 
 def _launch(x2: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
@@ -112,22 +166,18 @@ def _launch(x2: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
         raise ValueError("qmm: weight rows must be contiguous and 16-byte aligned")
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         raise ValueError("qmm: x rows must be contiguous and 16-byte aligned")
-    n_chunks = -(-i // _CHUNK_K)
     if ksplit is None:
-        ksplit, per = pick_ksplit(m, o, i)
-    else:
-        if not 1 <= ksplit <= n_chunks:
-            raise ValueError(f"qmm: ksplit={ksplit} for {n_chunks} chunks of K")
-        per = -(-n_chunks // ksplit)
-        ksplit = -(-n_chunks // per)
+        ksplit = qmm_tiling(m, o, i, resident_clusters(x2.device.index or 0)).ksplit
+    n_chunks = -(-i // _CHUNK_K)
+    if not 1 <= ksplit <= min(_MAX_SPLIT, n_chunks):
+        raise ValueError(f"qmm: ksplit={ksplit} for {n_chunks} chunks of 128 k "
+                         f"(a cluster holds at most {_MAX_SPLIT} blocks)")
     out = torch.empty((m, o), dtype=torch.bfloat16, device=x2.device)
     if m == 0 or o == 0:
         return out
-    part = (torch.empty((ksplit, m, o), dtype=torch.float32, device=x2.device)
-            if ksplit > 1 else out)
     err = _build.lib().dsm_qmm(
-        x2.data_ptr(), wq.data_ptr(), s.data_ptr(), part.data_ptr(), out.data_ptr(),
-        m, o, i, wq.stride(0), ksplit, per, ctypes.c_void_p(_build.stream_ptr()))
+        x2.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr(), m, o, i, wq.stride(0),
+        ksplit, ctypes.c_void_p(_build.stream_ptr()))
     _build.check(err, "qmm")
     qmm.launches += 1
     return out
@@ -137,9 +187,9 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor, *,
         ksplit: Optional[int] = None) -> torch.Tensor:
     """``x (..., I) @ wq (O, I).T * s (O,)`` -> ``(..., O)`` in ``x.dtype``,
     the weight dequantised on the way (W8A16).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (counted in ``qmm.launches``) or
-    raise.  ``ksplit`` (default :func:`pick_ksplit`): the number of blocks K
-    is split across."""
+    version; CUDA tensors launch the kernel once (counted in
+    ``qmm.launches``) or raise.  ``ksplit`` (the blocks of a cluster that
+    split K) defaults to :func:`qmm_tiling`'s."""
     if not supported(x, wq):
         raise ValueError(f"qmm: x {tuple(x.shape)} {x.dtype} against weight "
                          f"{tuple(wq.shape)} {wq.dtype}")

@@ -95,12 +95,14 @@ class Channel:
 
 
 class BatchedAsrEngine:
-    """Slot pool and model loop for one ASR module on one device."""
+    """Slot pool and model loop for one ASR module on one device: the card
+    unless ``device`` names another, as the JAX engine lands on the
+    accelerator."""
 
     tick_sleep = 0.002  # idle wait of the model loop, seconds
 
     def __init__(self, cfg: ASR.AsrConfig, params: dict, batch_size: int,
-                 device="cpu", fill_gate_frac: float = 0.2):
+                 device="cuda", fill_gate_frac: float = 0.2):
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size

@@ -108,14 +108,16 @@ class TtsSlot:
 
 
 class BatchedTtsEngine:
-    """Slot pool and model loop for one TTS module on one device."""
+    """Slot pool and model loop for one TTS module on one device: the card
+    unless ``device`` names another, as the JAX engine lands on the
+    accelerator."""
 
     voices = None  # optional server.voices.VoiceResolver
 
     def __init__(self, cfg: TTS.TtsConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, batch_size: int = 8,
                  ca_len: Optional[int] = None, tick_sleep: float = 0.002,
-                 cfg_enabled: bool = False, ca_quant: bool = False, device="cpu",
+                 cfg_enabled: bool = False, ca_quant: bool = False, device="cuda",
                  pcm_wire_int16: bool = False):
         if cfg.cfg_alpha is not None:
             raise ValueError("set cfg_enabled=True for batched guidance (per-request "

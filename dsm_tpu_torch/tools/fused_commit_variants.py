@@ -114,7 +114,8 @@ def build(names) -> dict:
         d = root / name.replace("=", "_")
         d.mkdir(parents=True, exist_ok=True)
         (d / "decode_attn.cu").write_text(variant_source(name))
-        shutil.copy(_build.CSRC / "attn_common.cuh", d)
+        for header in ("attn_common.cuh", "tma_common.cuh"):
+            shutil.copy(_build.CSRC / header, d)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
                str(d / "decode_attn.cu")]
         procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,

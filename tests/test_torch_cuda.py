@@ -536,18 +536,50 @@ QMM_SHAPES = [  # (M, O, I): the stt-2.6b serving shapes, then tails and small M
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,o,i", QMM_SHAPES, ids=lambda v: str(v))
 def test_qmm_kernel_matches_plain(cuda_device, m, o, i):
+    """Every cluster split the kernel takes at the shape (every one the
+    tiling function can pick), the default first: three runs bit-identical
+    and within the bar of the plain version."""
     x, wq, sc = _qmm_inputs(cuda_device, m, o, i, seed=m + o + i)
+    want = QM.qmm_plain(x, wq, sc)
     before = QM.qmm.launches
-    n_chunks = -(-i // 256)
-    for ksplit in sorted({None, 1, min(3, n_chunks)}, key=str):
+    n_chunks = -(-i // 128)
+    splits = [None] + list(range(1, min(8, n_chunks) + 1))
+    for ksplit in splits:
         runs = [QM.qmm(x, wq, sc, ksplit=ksplit) for _ in range(3)]
         torch.cuda.synchronize()
-        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2]), ksplit
         y = runs[0]
         assert y.shape == (m, o) and y.dtype == torch.bfloat16
-        assert _qmm_within(y, QM.qmm_plain(x, wq, sc)), (ksplit, float(
-            (y.float() - QM.qmm_plain(x, wq, sc).float()).abs().max()))
-    assert QM.qmm.launches == before + 3 * len({None, 1, min(3, n_chunks)})
+        assert _qmm_within(y, want), (ksplit, float((y.float() - want.float()).abs().max()))
+    assert QM.qmm.launches == before + 3 * len(splits)
+
+
+@pytest.mark.cuda
+def test_qmm_is_one_launch_and_allocates_only_its_output(cuda_device):
+    """At a shape whose K is split over a cluster: one kernel on the device
+    a call (no second pass over partials), and no memory but the output, at
+    the peak too (no scratch)."""
+    x, wq, sc = _qmm_inputs(cuda_device, 64, 2048, 2048, seed=9)
+    assert QM.qmm_tiling(64, 2048, 2048, QM.resident_clusters(cuda_device.index or 0)).ksplit > 1
+    QM.qmm(x, wq, sc)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = QM.qmm(x, wq, sc)
+    torch.cuda.synchronize()
+    out_bytes = -(-y.numel() * y.element_size() // 512) * 512  # the allocator's blocks
+    assert torch.cuda.memory_allocated() - base == out_bytes
+    assert torch.cuda.max_memory_allocated() - base == out_bytes
+    del y
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            QM.qmm(x, wq, sc)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and "qmm_kernel" in next(iter(kernels)), kernels
+    assert sum(kernels.values()) == 3
 
 
 @pytest.mark.cuda
@@ -586,6 +618,9 @@ def test_qmm_kernel_raises_on_unsupported(cuda_device):
         QM.qmm(x, wq[:, :48].contiguous(), sc)
     with pytest.raises(ValueError):  # a split with no chunk to take
         QM.qmm(x, wq, sc, ksplit=2)
+    x16, wq16, sc16 = _qmm_inputs(cuda_device, 4, 32, 2048, seed=5)
+    with pytest.raises(ValueError):  # a cluster larger than the portable 8
+        QM.qmm(x16, wq16, sc16, ksplit=9)
     assert _launches() == before
 
 
@@ -776,6 +811,63 @@ def test_decode_attend_commit_takes_long_spans_and_raises_on_unsupported(cuda_de
             assert bool(torch.isfinite(y).all())
     assert _launches()[:2] == before[:2] and _launches()[3:] == before[3:]
     assert DA.decode_attend_commit.launches == before[2] + 1
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def test_engines_default_to_the_card():
+    """The STT and TTS engines, like the duplex engines and the JAX engines,
+    land on the accelerator unless the caller names the CPU."""
+    import inspect
+
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.server.tts_batched import BatchedTtsEngine
+
+    for cls in (BatchedAsrEngine, BatchedTtsEngine):
+        assert inspect.signature(cls.__init__).parameters["device"].default == "cuda"
+
+
+@pytest.mark.cuda
+def test_engines_built_without_a_device_land_on_the_card(cuda_device):
+    """An STT and a TTS engine built with no ``device`` hold their state on
+    CUDA (small models: the smoke TOML, the TTS serving TOML narrowed)."""
+    import tomllib
+
+    from dsm_tpu_torch.server import builder as B
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.server.tts_batched import BatchedTtsEngine
+
+    built = B.build_batched_asr(CFG.Config.load("configs/config-smoke.toml").modules["asr"],
+                                cuda_device)
+    eng = BatchedAsrEngine(built.cfg, built.params, batch_size=built.batch_size)
+    assert eng.device.type == "cuda"
+    assert all(t.is_cuda for t in _tensors(eng.state))
+    del built, eng
+    with open("configs/config-tts-tpu-serving.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = raw["modules"]["tts"]
+    mod.update(batch_size=2, fuse_ticks=1, pipeline_depth=1)
+    mod["model"]["transformer"].update(d_model=64, num_heads=8, num_layers=2,
+                                       dim_feedforward=128, context=64)
+    mod["model"]["depformer"].update(num_slices=8)
+    mod["model"]["depformer"]["transformer"].update(d_model=32, num_heads=2, num_layers=2,
+                                                    dim_feedforward=64, context=8)
+    mod["model"].update(audio_codebooks=8)
+    mod["generation"].update(speaker_cond_dim=16, speaker_cond_n_speakers=1)
+    built = B.build_batched_tts(CFG.Config.from_dict(raw).modules["tts"], cuda_device)
+    eng = BatchedTtsEngine(built.cfg, built.params, built.mimi_cfg, built.mimi_params,
+                           built.tokenizer, batch_size=2)
+    assert eng.device.type == "cuda"
+    assert all(t.is_cuda for t in _tensors(eng.state))
 
 
 @pytest.mark.cuda

@@ -129,15 +129,46 @@ def test_qmm_refuses_what_is_not_an_int8_matrix_of_the_same_width():
         tqmm.qmm(x, torch.zeros(2, 8, 32, dtype=torch.int8), torch.ones(8))  # a stack
 
 
+# Clusters of 1, 2, ..., 8 blocks of the qmm kernel that an NVIDIA H100 80GB
+# HBM3 holds at once (cudaOccupancyMaxActiveClusters at one block an SM, as
+# ``qmm.resident_clusters`` read it on that card): a cluster's blocks share a
+# GPC, and the GPCs' SM counts leave SMs over.
+RESIDENT_H100 = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
 @pytest.mark.parametrize("m,o,i,want", [
-    (64, 2048, 2048, (4, 2)), (64, 6144, 2048, (1, 8)), (64, 11264, 2048, (1, 8)),
-    (64, 2048, 5632, (4, 6)), (64, 4000, 2048, (2, 4)), (1, 1024, 128, (1, 1)),
-    (24, 2048, 1024, (2, 2)), (200, 2048, 4096, (1, 16))])
-def test_pick_ksplit_covers_k_with_no_empty_split(m, o, i, want):
-    ksplit, per = tqmm.pick_ksplit(m, o, i)
-    assert (ksplit, per) == want
-    n_chunks = -(-i // 256)
-    assert ksplit * per >= n_chunks > (ksplit - 1) * per
+    (64, 6144, 2048, 2), (64, 2048, 2048, 6), (64, 11264, 2048, 1), (64, 2048, 5632, 6),
+    (64, 4000, 2048, 3), (1, 2048, 2048, 6), (24, 2048, 2048, 6), (200, 2048, 4096, 2),
+    (1, 1024, 128, 1), (33, 72, 272, 3)])
+def test_qmm_tiling_covers_k_and_fills_the_card(m, o, i, want):
+    """The tiling the kernel launches (the H100's cluster residency): a
+    cluster of at most 8 blocks whose K ranges cover the chunks of K with
+    none empty, and at the five stt-2.6b serving shapes (M = 64) a grid of
+    one wave of the clusters the card holds at once."""
+    tiling = tqmm.qmm_tiling(m, o, i, RESIDENT_H100)
+    assert tiling.ksplit == want
+    rows = 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+    assert tiling.grid == (-(-o // tqmm.TILE_O), tiling.ksplit, -(-m // rows))
+    n_chunks = -(-i // 128)
+    ranges = [((r * n_chunks) // tiling.ksplit, ((r + 1) * n_chunks) // tiling.ksplit)
+              for r in range(tiling.ksplit)]  # the kernel's split of the chunks
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_chunks
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert 1 <= tiling.ksplit <= 8
+    if m == 64 and (o, i) in ((6144, 2048), (2048, 2048), (11264, 2048), (2048, 5632),
+                              (4000, 2048)):
+        clusters = tiling.grid[0] * tiling.grid[2]
+        assert clusters <= RESIDENT_H100[tiling.ksplit - 1]  # one wave
+        assert clusters * tiling.ksplit >= 88  # two thirds of the card or more
+
+
+def test_qmm_tiling_follows_the_cards_cluster_residency():
+    """A card that holds more clusters of 8 gets the split a wave of them
+    allows: the tiling reads the residency it is given."""
+    roomy = tuple(132 // k for k in range(1, 9))
+    assert tqmm.qmm_tiling(64, 2048, 2048, roomy).ksplit == 8
+    assert tqmm.qmm_tiling(64, 2048, 2048, RESIDENT_H100).ksplit == 6
 
 
 # ---------------------------------------------------------------------------

@@ -211,7 +211,8 @@ def test_small_tts_202501_engine_matches_the_jax_engine(jax_kernels):
                    jTOK.SentencePieceModel.from_bytes(spm_bytes()), **kw)
     et = tTB.BatchedTtsEngine(port_tts_cfg(jcfg), to_port(params), port_mimi_cfg(mimi_cfg),
                               to_port(mimi_params),
-                              tTOK.SentencePieceModel.from_bytes(spm_bytes()), **kw)
+                              tTOK.SentencePieceModel.from_bytes(spm_bytes()), device="cpu",
+                              **kw)
     assert et._ca["k"].shape == (2, 2, 32, 128, 64) and et._ca["k"].dtype == torch.int8
     assert len(et.params["lm"]["depformer"]["transformer"][0]) == 6
 

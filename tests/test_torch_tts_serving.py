@@ -376,7 +376,7 @@ def _engines(batch=2, **kw):
     et = tTB.BatchedTtsEngine(port_tts_cfg(jcfg), to_port(params), port_mimi_cfg(mimi_cfg),
                               to_port(mimi_params),
                               tTOK.SentencePieceModel.from_bytes(spm_bytes()),
-                              batch_size=batch, ca_len=6, **kw)
+                              batch_size=batch, ca_len=6, device="cpu", **kw)
     return jcfg, params, ej, et
 
 
