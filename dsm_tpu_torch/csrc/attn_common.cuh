@@ -30,28 +30,13 @@ __device__ __forceinline__ int word_byte(unsigned u, int b) {
   return (int)(u << (24 - 8 * b)) >> 24;
 }
 
-// The values of one 16-byte load as floats.  int8: 16 values in memory
-// order.  Packed int4: 32 values, out[0..15] the low nibbles (dims d of the
-// 16 bytes), out[16..31] the high nibbles (dims d + Dh/2), excess-8.
-template <bool P4>
+// The 16 int8 values of one 16-byte load as floats, in memory order.
 __device__ __forceinline__ void unpack_load(const int4 v, float* out) {
   const int w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const unsigned u = (unsigned)w[i];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      if constexpr (P4) {
-        // The nibble n goes into the mantissa of 2^23: the float is 2^23 + n,
-        // and one subtraction of 2^23 + 8 gives n - 8 exactly, without an
-        // integer-to-float conversion (a quarter-rate instruction).
-        out[4 * i + b] = __uint_as_float(0x4B000000u | ((u >> (8 * b)) & 15u)) - 8388616.f;
-        out[16 + 4 * i + b] =
-            __uint_as_float(0x4B000000u | ((u >> (8 * b + 4)) & 15u)) - 8388616.f;
-      } else {
-        out[4 * i + b] = (float)word_byte(u, b);
-      }
-    }
+    for (int b = 0; b < 4; ++b) out[4 * i + b] = (float)word_byte((unsigned)w[i], b);
   }
 }
 

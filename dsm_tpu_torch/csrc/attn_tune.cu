@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(kAtThreads) attn_tune_kernel(
         float acc = 0.f;
         if (ok) {
           float kv[16];
-          unpack_load<false>(
+          unpack_load(
               *reinterpret_cast<const int4*>(kc + (int64_t)j * DH + sub * 16), kv);
 #pragma unroll
           for (int e = 0; e < 16; ++e) acc += qf[e] * kv[e];
@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(kAtThreads) attn_tune_kernel(
         const float p = probs[j];
         if (p == 0.f) continue;
         float vv[16];
-        unpack_load<false>(*reinterpret_cast<const int4*>(vc + (int64_t)j * DH + sub * 16), vv);
+        unpack_load(*reinterpret_cast<const int4*>(vc + (int64_t)j * DH + sub * 16), vv);
 #pragma unroll
         for (int e = 0; e < 16; ++e) acc[e] += p * vv[e];
       }

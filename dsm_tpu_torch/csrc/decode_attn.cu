@@ -3,7 +3,8 @@
 //
 //   dsm_decode_attend         <- dsm_tpu/ops/decode_attn.py:_decode_attend_q_flash
 //     with packed4 = 1        <- dsm_tpu/ops/decode_attn.py:_decode_attend_q4_4d
-//                                and :_decode_attend_q4 (the head-major layout)
+//                                and :_decode_attend_q4 (the head-major layout):
+//                                decode_attend_q4_kernel
 //   dsm_decode_attend_commit  <- dsm_tpu/ops/decode_attn.py:_decode_attend_commit_q_4d
 //                                and :_decode_attend_commit_q (h = 32, Dh = 64)
 //
@@ -89,29 +90,51 @@
 //
 // Packed-int4 rings (packed4 = 1, dsm_decode_attend only): a ring row is
 // Dh/2 bytes, byte d holding dims d (low nibble) and d + Dh/2 (high nibble),
-// each stored excess-8 (dsm_tpu/ops/attention.py:pack4).  The body is the
-// same; only the load differs.  A lane's 16-byte load now holds 32 values of
-// one row: 16 neighbouring dims of the first half of the feature dim in the
-// low nibbles and the 16 dims Dh/2 further on in the high nibbles, so the
-// lane keeps those 32 entries of q (and 32 output sums) and a row takes
-// Dh/32 lanes: a warp reads 8 rows per step at Dh=128 and 16 at Dh=64.  The
-// values are (nibble - 8) as f32: the products with bf16 q and the
-// bf16-rounded probs are the Pallas kernels' bf16 x bf16 -> f32 dots.  A
-// never-written row is all zero bytes, which unpack to -8: it is masked by
-// the bitmap and never read.  What bounds it: half the int8 ring's bytes for
-// the same count of values, so the operations per value weigh twice as much:
-// the unpack is a shift, one logic operation and one f32 subtraction a value
-// (unpack_load, attn_common.cuh).
-//
+// each stored excess-8 (dsm_tpu/ops/attention.py:pack4).  Half the int8
+// ring's bytes for the same count of values, so the operations a value weigh
+// twice as much: at 3.35 TB/s an SM takes some 26 values a clock, and an
+// unpack of a shift, a logic operation and an f32 subtraction a value, then
+// an FFMA, fill most of its issue slots.  decode_attend_q4_kernel: persistent
+// blocks, each taking a run of (b, h, span) items (neighbouring heads) in
+// turn; its copy warp builds an item's attended-row mask (interval
+// arithmetic on the window, the valid bytes gathered four to a multiply) and
+// header (q, the fresh rows, q in the score mma's operand order) from loads
+// issued while the item before it is copied, then brings the item's K and V
+// tiles with their scales into a ring of shared-memory stages by TMA bulk
+// copies (three of 12 KB at Dh=64, a 384-row span a tile; four of 8 KB at
+// Dh=128): of each tile only the rows from its first attended row to its
+// last (rounded to 4 rows), tiles without one skipped, so a nearly empty
+// ring moves and computes its few rows, not whole tiles.  The four warps that
+// compute unpack two nibbles into a bf16x2 pair with a logic operation and
+// one bf16x2 fma (n - 8 exactly) and take the dots on mma.sync m16n8k16 (bf16
+// in, f32 accumulated: the products are exact, the sums f32): the scores with
+// 16 rows as A and q in every column of B, the values with the dims as A's
+// rows and 16 rows' probabilities as B, two rows paired into a bf16x2 by a
+// byte permute; each row's probability is taken once a tile.  At one span
+// the block folds the fresh row itself, in the fold kernel's order: one
+// launch a call, no partials.  Where the ring is split, the fold kernel
+// follows as a programmatic dependent launch.  On the H100 the warps that
+// compute are bound by the instructions they issue between dependent steps
+// (an m16n8k16 computes 8 columns of which one is used, and its result is
+// waited for): fewer instructions an item bought more than more stages or
+// blocks.  A never-written row is all zero bytes, which unpack to -8: it is
+// masked by the bitmap; rows of a stage that the mask excludes (an earlier
+// tile's bytes outside the copied rows, finite all the same) get score -inf
+// and probability 0.
+
 // Plain C interface, loaded with ctypes (dsm_tpu_torch/ops/_build.py): each
-// entry point launches both of its kernels on the caller's stream, does not
-// synchronise, allocates nothing (the caller passes the partials' scratch)
-// and returns cudaGetLastError().
+// entry point launches its kernels (two; one for packed rings at one span) on
+// the caller's stream, does not synchronise, allocates nothing (the caller
+// passes the partials' scratch) and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "attn_common.cuh"
 #include "tma_common.cuh"
@@ -124,34 +147,22 @@ using namespace dsm_tma;
 constexpr int kDaThreads = kAttnThreads;
 constexpr int kDaWarps = kAttnWarps;
 
-// The feature dim of value e of the lane that holds bytes [16 sub, 16 sub + 16)
-// of a row.
-template <int DH, bool P4>
-__device__ __forceinline__ int da_dim(int sub, int e) {
-  if constexpr (P4) return (e < 16 ? 0 : DH / 2 - 16) + sub * 16 + e;
-  return sub * 16 + e;
-}
-
 // One block per (b, h, span).  Strides are in elements (bytes for the
-// rings): k/v (b, h) -> base + b*kv_sb + h*kv_sh, then row j at j*RB with RB
-// the row's bytes (DH, or DH/2 packed); scales (b, h) -> base +
-// b*s_sb + h*s_sh, then row j at j.  q is contiguous (B*H, DH); part is
-// (B*H, n_split, DH + 2): acc[DH], then m, then l.
-// The int8 load path is held to 40 registers, six blocks a multiprocessor: the
-// kernel waits on memory, and with five blocks (48 registers) it measured 13 to
-// 24 % slower.  The packed load path keeps 32 values and 32 sums a lane: four.
-template <int DH, bool P4>
-__global__ void __launch_bounds__(kDaThreads, P4 ? 4 : 6) decode_attend_partial_kernel(
+// rings): k/v (b, h) -> base + b*kv_sb + h*kv_sh, then row j at j*DH;
+// scales (b, h) -> base + b*s_sb + h*s_sh, then row j at j.  q is contiguous
+// (B*H, DH); part is (B*H, n_split, DH + 2): acc[DH], then m, then l.
+// Held to 40 registers, six blocks a multiprocessor: the kernel waits on
+// memory, and with five blocks (48 registers) it measured 13 to 24 % slower.
+template <int DH>
+__global__ void __launch_bounds__(kDaThreads, 6) decode_attend_partial_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_cache,
     const int8_t* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const uint8_t* __restrict__ valid,
     float* __restrict__ part, int h, int c, int n_split, int span,
     long long kv_sb, long long kv_sh, long long s_sb, long long s_sh,
     long long pos, int w, int window, float scale) {
-  constexpr int RB = P4 ? DH / 2 : DH;  // bytes of a ring row
-  constexpr int LPR = RB / 16;          // lanes per ring row
-  constexpr int RPW = 32 / LPR;         // ring rows per warp and step
-  constexpr int VPL = P4 ? 32 : 16;     // values a lane holds of its row
+  constexpr int LPR = DH / 16;   // lanes per ring row
+  constexpr int RPW = 32 / LPR;  // ring rows per warp and step
   extern __shared__ float smem[];
   float* probs = smem;        // span floats: scores, then bf16-rounded probs
   float* red = smem + span;   // kDaWarps * DH floats: per-warp partial outputs
@@ -176,10 +187,10 @@ __global__ void __launch_bounds__(kDaThreads, P4 ? 4 : 6) decode_attend_partial_
   const uint8_t* va = valid + (int64_t)b * c;
   float* out = part + ((int64_t)bh * n_split + sp) * (DH + 2);
 
-  float qf[VPL];
+  float qf[16];
 #pragma unroll
-  for (int e = 0; e < VPL; ++e)
-    qf[e] = __bfloat162float(q[(int64_t)bh * DH + da_dim<DH, P4>(sub, e)]);
+  for (int e = 0; e < 16; ++e)
+    qf[e] = __bfloat162float(q[(int64_t)bh * DH + sub * 16 + e]);
 
   // Phase 1: scores of the span's attended rows; masked rows are not read.
   float local_max = -INFINITY;
@@ -188,10 +199,10 @@ __global__ void __launch_bounds__(kDaThreads, P4 ? 4 : 6) decode_attend_partial_
     const bool ok = j < s1 && ring_row_attended(j, w, c, pos, window, va);
     float acc = 0.f;
     if (ok) {
-      float kv[VPL];
-      unpack_load<P4>(*reinterpret_cast<const int4*>(kc + (int64_t)j * RB + sub * 16), kv);
+      float kv[16];
+      unpack_load(*reinterpret_cast<const int4*>(kc + (int64_t)j * DH + sub * 16), kv);
 #pragma unroll
-      for (int e = 0; e < VPL; ++e) acc += qf[e] * kv[e];
+      for (int e = 0; e < 16; ++e) acc += qf[e] * kv[e];
     }
 #pragma unroll
     for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -225,28 +236,28 @@ __global__ void __launch_bounds__(kDaThreads, P4 ? 4 : 6) decode_attend_partial_
   const float denom = block_sum(local_sum, warp_red);  // the probs are all written
 
   // Phase 3: probs times V; rows whose prob is 0 add nothing and are not read.
-  float acc[VPL];
+  float acc[16];
 #pragma unroll
-  for (int e = 0; e < VPL; ++e) acc[e] = 0.f;
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
   for (int j0 = s0 + warp * RPW; j0 < s1; j0 += kDaWarps * RPW) {
     const int j = j0 + rsub;
     if (j >= s1) continue;
     const float p = probs[j - s0];
     if (p == 0.f) continue;
-    float vv[VPL];
-    unpack_load<P4>(*reinterpret_cast<const int4*>(vc + (int64_t)j * RB + sub * 16), vv);
+    float vv[16];
+    unpack_load(*reinterpret_cast<const int4*>(vc + (int64_t)j * DH + sub * 16), vv);
 #pragma unroll
-    for (int e = 0; e < VPL; ++e) acc[e] += p * vv[e];
+    for (int e = 0; e < 16; ++e) acc[e] += p * vv[e];
   }
   // Fold the warp's RPW row groups (lanes with the same sub).
 #pragma unroll
   for (int o = LPR; o < 32; o <<= 1) {
 #pragma unroll
-    for (int e = 0; e < VPL; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    for (int e = 0; e < 16; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
   }
   if (rsub == 0) {
 #pragma unroll
-    for (int e = 0; e < VPL; ++e) red[warp * DH + da_dim<DH, P4>(sub, e)] = acc[e];
+    for (int e = 0; e < 16; ++e) red[warp * DH + sub * 16 + e] = acc[e];
   }
   __syncthreads();
 
@@ -553,6 +564,488 @@ __global__ void __launch_bounds__(kStagedThreads) decode_attend_staged_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split pipeline's kernel over packed-int4 rings (see the note at the
+// top): persistent blocks, a span's K and V tiles staged by TMA bulk copies,
+// the dots on mma.sync.
+// ---------------------------------------------------------------------------
+
+constexpr int kQ4Warps = 4;          // warps that compute; one more warp copies
+constexpr int kQ4Threads = 32 * (kQ4Warps + 1);
+
+// Dynamic shared memory of the packed kernel: the stages (tile, then its
+// scales), two item headers (q, k_new, v_new as bf16, then q in the score
+// mma's operand order), the barriers (full and empty a stage, full and empty
+// a header), the warps' partial outputs, maxima and sums, two tiles' bf16
+// probabilities, two attended-row bit masks of a span, and the span's scores.
+// Stages and tile bytes by head width (tools/q4_attend_variants.py): at Dh=64
+// three stages of 12 KB, a stt-2.6b span of 384 rows a tile; at Dh=128 four
+// of 8 KB (128 rows).
+template <int DH>
+struct Q4Layout {
+  static constexpr int kStages = DH == 64 ? 3 : 4;
+  static constexpr int kTileBytes = DH == 64 ? 12288 : 8192;
+  static constexpr int kRowBytes = DH / 2;
+  static constexpr int kRows = kTileBytes / kRowBytes;  // ring rows of a tile
+  static constexpr int kStage = kTileBytes + 4 * kRows;
+  static constexpr int kHead = kStages * kStage;
+  static constexpr int kHeadBytes = 4 * 2 * DH;
+  static constexpr int kBars = kHead + 2 * kHeadBytes;
+  static constexpr int kRed = kBars + 8 * (2 * kStages + 4);
+  static constexpr int kProbs = kRed + 4 * (kQ4Warps * DH + 2 * kQ4Warps);
+  static constexpr int kMask = kProbs + 2 * 2 * kRows;
+  __host__ __device__ static int mask_words(int span) { return (span + 31) / 32; }
+  __host__ __device__ static int scores(int span) { return kMask + 2 * 4 * mask_words(span); }
+  __host__ __device__ static int bytes(int span) { return scores(span) + 4 * span; }
+};
+
+// A bf16x2 pair of nibbles: bits 0-3 and 16-19 of x, each n = 0..15, go into
+// the mantissas of bf16 128 (0x4300), and one bf16x2 fma with -136 leaves
+// n - 8 exactly.  Two values for a logic operation and an fma.
+__device__ __forceinline__ uint32_t q4_pair(uint32_t x) {
+  const uint32_t r = (x & 0x000F000Fu) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(r), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+
+// The 8 values of a 32-bit word of packed bytes (bytes e = 0..3 holding
+// dims d + e in the low nibble and d + e + Dh/2 in the high one) as four
+// bf16x2 pairs: (d, d+2), (d+H, d+2+H), (d+1, d+3), (d+1+H, d+3+H), H = Dh/2.
+// Through a byte permute of two rows' words, the same pairs hold one dim of
+// two rows.
+__device__ __forceinline__ void q4_word(uint32_t x, uint32_t* r) {
+  r[0] = q4_pair(x);
+  r[1] = q4_pair(x >> 4);
+  r[2] = q4_pair(x >> 8);
+  r[3] = q4_pair(x >> 12);
+}
+
+// d += a b: mma.sync m16n8k16, bf16 in, f32 accumulated.  Fragments as the
+// PTX manual gives them, g = lane / 4, t = lane % 4: a0 (row g, k 2t, 2t+1),
+// a1 (row g+8, the same k), a2 (row g, k 2t+8, 2t+9), a3 (row g+8, those);
+// b0 (k 2t, 2t+1, column g), b1 (k 2t+8, 2t+9); d0, d1 (row g, columns 2t,
+// 2t+1), d2, d3 (row g+8).
+__device__ __forceinline__ void q4_mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Bits r = 0..31 set where j0 + r lies in [lo, hi).
+__device__ __forceinline__ uint32_t q4_rows_between(int j0, int lo, int hi) {
+  lo = max(lo, j0) - j0;
+  hi = min(hi, j0 + 32) - j0;
+  if (hi <= lo) return 0u;
+  return (hi - lo == 32 ? 0xffffffffu : (1u << (hi - lo)) - 1u) << lo;
+}
+
+// Persistent blocks: block x takes the items (b, h, span) [x per_block,
+// (x + 1) per_block) in turn (n_items = B*H*n_split; item i is span
+// i % n_split of (b, h) = i / n_split: a block's items are neighbouring heads
+// of one batch row, contiguous in memory), each item's rows as one span of
+// decode_attend_partial_kernel.
+// Warps 0..3 compute, warp 4 copies.  Strides as decode_attend_partial_kernel's
+// (bytes for the rings, whose rows are DH/2 bytes); q, k_new, v_new and out
+// contiguous (B*H, DH).  With n_split = 1 the block folds the fresh row and
+// writes out, else the span's partial into part (B*H, n_split, DH + 2).
+template <int DH>
+__global__ void __launch_bounds__(kQ4Threads) decode_attend_q4_kernel(
+    const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_cache,
+    const uint8_t* __restrict__ v_cache, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new, const uint8_t* __restrict__ valid,
+    float* __restrict__ part, __nv_bfloat16* __restrict__ out, int n_items, int per_block,
+    int h, int c, int n_split, int span, long long kv_sb, long long kv_sh, long long s_sb,
+    long long s_sh, long long pos, int w, int window, float scale) {
+  using L = Q4Layout<DH>;
+  constexpr int RB = L::kRowBytes;
+  constexpr int TR = L::kRows;
+  constexpr int H = DH / 2;
+  constexpr int WPT = DH / 32;  // words of a row a lane reads for the scores
+  constexpr int MPT = TR / 32;  // mask words of a tile
+  extern __shared__ __align__(128) unsigned char q4_smem[];
+  unsigned char* smem = q4_smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* hfull = empty + L::kStages;
+  uint64_t* hempty = hfull + 2;
+  float* red = reinterpret_cast<float*>(smem + L::kRed);
+  float* wmax = red + kQ4Warps * DH;
+  float* wsum = wmax + kQ4Warps;
+  const int n_words = L::mask_words(span);
+  float* scores = reinterpret_cast<float*>(smem + L::scores(span));
+
+  // The fold kernel (n_split > 1) may launch once every block has started;
+  // it waits for this whole grid before it reads a partial.
+  launch_dependents();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kQ4Warps);
+    }
+    for (int sl = 0; sl < 2; ++sl) {
+      mbar_init(&hfull[sl], 32);
+      mbar_init(&hempty[sl], kQ4Warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // An item's header and mask: two slots each, by the parity of the block's item count.
+  auto header = [&](int k) { return smem + L::kHead + (k & 1) * L::kHeadBytes; };
+  auto mask_of = [&](int k) {
+    return reinterpret_cast<uint32_t*>(smem + L::kMask) + (k & 1) * n_words;
+  };
+  // The attended rows of tile t of an item (nw: its mask words) as [lo, hi)
+  // from the tile's first row, lo rounded down and hi up to 4 rows (16 bytes
+  // of scales); false for a tile with none.  Only those rows are copied and
+  // taken: a row of the stage outside them holds an earlier tile's bytes,
+  // which unpack to finite values, and is masked (score -inf, probability 0).
+  auto tile_rows = [&](const uint32_t* mk, int t, int nw, int& lo, int& hi) {
+    const int x0 = t * MPT, x1 = min(nw, x0 + MPT);
+    int a = x0;
+    while (a < x1 && mk[a] == 0u) ++a;
+    if (a == x1) return false;
+    int z = x1 - 1;
+    while (mk[z] == 0u) --z;
+    lo = (32 * (a - x0) + __ffs(mk[a]) - 1) & ~3;
+    hi = (32 * (z - x0) + 32 - __clz(mk[z]) + 3) & ~3;
+    return true;
+  };
+
+  if (warp == kQ4Warps) {  // the producer
+    // An item's (b, h), first row and rows.
+    auto place = [&](int it, int& bh, int& s0, int& n) {
+      bh = it / n_split;
+      s0 = (it - bh * n_split) * span;
+      n = max(0, min(c, s0 + span) - s0);
+    };
+    // An item's loads: its header (q and, where the block folds, the fresh
+    // rows) and the first 1,024 rows of its validity row, each lane 4-byte
+    // words of rows [32 L, 32 L + 32) (c and the span starts are multiples
+    // of 4, the rows 4-byte aligned).  Issued for the next item before this
+    // one's tiles, so that they land while the tiles are copied.
+    unsigned short hv[3][DH / 32];
+    uint32_t vb[8];
+    auto fetch = [&](int it, int x0) {  // x0: the first mask word (a multiple of 32)
+      int bh, s0, n;
+      place(it, bh, s0, n);
+      if (x0 == 0) {
+        const int64_t row = (int64_t)bh * DH;
+#pragma unroll
+        for (int x = 0; x < DH / 32; ++x) {
+          const int e = lane + 32 * x;
+          hv[0][x] = reinterpret_cast<const unsigned short*>(q)[row + e];
+          hv[1][x] = n_split == 1 ? reinterpret_cast<const unsigned short*>(k_new)[row + e] : 0;
+          hv[2][x] = n_split == 1 ? reinterpret_cast<const unsigned short*>(v_new)[row + e] : 0;
+        }
+      }
+      const uint8_t* va = valid + (int64_t)(bh / h) * c;
+      const int j0 = s0 + 32 * (x0 + lane);
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+        vb[x] = j0 + 4 * x < s0 + n ? *reinterpret_cast<const uint32_t*>(va + j0 + 4 * x) : 0u;
+    };
+    // Rows at ring distance 1 .. d_max from w are in the window.
+    const int d_max = (int)min((long long)min(window - 1, c - 1), pos);
+    int i = 0;  // tiles issued so far (lane 0)
+    int k = 0;  // items so far
+    const int first = blockIdx.x * per_block;
+    const int last = min(n_items, first + per_block);
+    if (first < last) fetch(first, 0);
+    for (int it = first; it < last; ++it, ++k) {
+      int bh, s0, n;
+      place(it, bh, s0, n);
+      const int b = bh / h;
+      const int hh = bh - b * h;
+      const int nw = (n + 31) / 32;
+      if (lane == 0) mbar_wait(&hempty[k & 1], ((k >> 1) & 1) ^ 1);  // the first round passes
+      __syncwarp();
+      // Which rows of the span are attended: lane L builds mask words L,
+      // L + 32, ... (past the first 1,024 rows, from loads made here): the
+      // rows of the window w - d_max .. w - 1 (mod c), and a valid byte (0
+      // or 1) a row, four to a word, gathered into four bits by a multiply.
+      uint32_t* mk = mask_of(k);
+      for (int x0 = 0; x0 < nw; x0 += 32) {
+        if (x0 > 0) fetch(it, x0);
+        const int j0 = s0 + 32 * (x0 + lane);
+        uint32_t bits = 0;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) bits |= ((vb[x] * 0x01020408u) >> 24) << (4 * x);
+        bits &= q4_rows_between(j0, w - d_max, w) | q4_rows_between(j0, c + w - d_max, c);
+        if (x0 + lane < nw) mk[x0 + lane] = bits;
+      }
+      unsigned short* hd = reinterpret_cast<unsigned short*>(header(k));
+#pragma unroll
+      for (int x = 0; x < DH / 32; ++x) {
+        hd[lane + 32 * x] = hv[0][x];
+        hd[DH + lane + 32 * x] = hv[1][x];
+        hd[2 * DH + lane + 32 * x] = hv[2][x];
+      }
+      __syncwarp();
+      // q as the B operand of the score mmas, pair p of lane group tq: in
+      // step 2x the k of word x of the group's part of a row (dims d = 4 (tq
+      // WPT + x)) are the pairs q4_word gives, (d, d+2) and (d+H, d+2+H); in
+      // step 2x+1 the others.
+#pragma unroll
+      for (int y = 0; y < DH / 64; ++y) {
+        const int p = lane + 32 * y;  // of DH / 2 pairs: tq = p / (4 WPT)
+        const int x = (p % (4 * WPT)) / 4, r = p % 4;
+        const int d = 4 * ((p / (4 * WPT)) * WPT + x) + (r >> 1) + (r & 1) * H;
+        reinterpret_cast<uint32_t*>(hd + 3 * DH)[p] = (uint32_t)hd[d] | ((uint32_t)hd[d + 2] << 16);
+      }
+      __syncwarp();
+      mbar_arrive(&hfull[k & 1]);
+      if (it + 1 < last) fetch(it + 1, 0);
+      if (lane == 0) {  // K tiles, then V tiles, with their scales
+        const int n_tiles = (n + TR - 1) / TR;
+        for (int pass = 0; pass < 2; ++pass) {
+          const uint8_t* ring = (pass ? v_cache : k_cache) + b * kv_sb + hh * kv_sh +
+                                (int64_t)s0 * RB;
+          const float* sc = (pass ? v_scale : k_scale) + b * s_sb + hh * s_sh + s0;
+          for (int t = 0; t < n_tiles; ++t) {
+            int lo, hi;
+            if (!tile_rows(mk, t, nw, lo, hi)) continue;
+            const int st = i % L::kStages;
+            mbar_wait(&empty[st], ((i / L::kStages) & 1) ^ 1);
+            unsigned char* stage = smem + st * L::kStage;
+            const int r0 = t * TR + lo;
+            mbar_arrive_expect_tx(&full[st], (uint32_t)(hi - lo) * (RB + 4));
+            bulk_copy(stage + lo * RB, ring + (int64_t)r0 * RB, (uint32_t)(hi - lo) * RB,
+                      &full[st]);
+            bulk_copy(stage + L::kTileBytes + 4 * lo, sc + r0, (uint32_t)(hi - lo) * 4, &full[st]);
+            ++i;
+          }
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // The consumers: 128 threads; in an mma, g = lane / 4, tq = lane % 4.
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  unsigned short* probs = reinterpret_cast<unsigned short*>(smem + L::kProbs);
+  // Row x = tid % 16 of a chunk's probabilities sits in half x / 4 % 2 of
+  // 32-bit word 4 (x / 8) + x % 4 (the rows steps of 32 kQ4Warps keep x).
+  const int pslot = 2 * (4 * ((tid & 15) >> 3) + (tid & 3)) + ((tid >> 2) & 1);
+  int i = 0;  // tiles consumed so far
+  int k = 0;  // items so far
+  const int last = min(n_items, (int)blockIdx.x * per_block + per_block);
+  for (int it = blockIdx.x * per_block; it < last; ++it, ++k) {
+    const int bh = it / n_split;
+    const int sp = it - bh * n_split;
+    const int n = max(0, min(c, sp * span + span) - sp * span);
+    const int n_tiles = (n + TR - 1) / TR;
+    const int nw = (n + 31) / 32;
+    mbar_wait(&hfull[k & 1], (k >> 1) & 1);
+    const uint32_t* mk = mask_of(k);
+    const unsigned short* hd = reinterpret_cast<const unsigned short*>(header(k));
+
+    uint32_t qf[4 * WPT];  // q as the score mmas' B operand (the header's last part)
+#pragma unroll
+    for (int x = 0; x < WPT; ++x) {
+      const uint4 v = reinterpret_cast<const uint4*>(hd + 3 * DH)[tq * WPT + x];
+      qf[4 * x] = v.x, qf[4 * x + 1] = v.y, qf[4 * x + 2] = v.z, qf[4 * x + 3] = v.w;
+    }
+
+    // K tiles: a warp scores 16 rows an mma chain, A the rows (row g and
+    // g+8 of the 16), B q in every column: d0 and d2 are the rows' dots.
+    int live = 0;
+    float local_max = -INFINITY;
+    for (int t = 0; t < n_tiles; ++t) {
+      int lo, hi;  // the tile's attended rows
+      if (!tile_rows(mk, t, nw, lo, hi)) continue;
+      const int st = i % L::kStages;
+      mbar_wait(&full[st], (i / L::kStages) & 1);
+      const unsigned char* tile = smem + st * L::kStage;
+      const float* tsc = reinterpret_cast<const float*>(tile + L::kTileBytes);
+      // Two chunks a step (rows r0.. and r0 + 64..), two independent chains;
+      // the steps from the one that holds row lo.
+      for (int r0 = lo / (32 * kQ4Warps) * (32 * kQ4Warps) + 16 * warp; r0 < hi;
+           r0 += 32 * kQ4Warps) {
+        const int r1 = r0 + 16 * kQ4Warps;
+        uint32_t lw[2][WPT], hw[2][WPT];  // this lane's words of rows g and g+8
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int ru = u && r1 < hi ? r1 : r0;  // past the rows: chunk r0 again, unused
+          const unsigned char* src = tile + (ru + g) * RB + tq * WPT * 4;
+          if constexpr (WPT == 2) {
+            const uint2 a = *reinterpret_cast<const uint2*>(src);
+            const uint2 b = *reinterpret_cast<const uint2*>(src + 8 * RB);
+            lw[u][0] = a.x, lw[u][1] = a.y, hw[u][0] = b.x, hw[u][1] = b.y;
+          } else {
+            const uint4 a = *reinterpret_cast<const uint4*>(src);
+            const uint4 b = *reinterpret_cast<const uint4*>(src + 8 * RB);
+            lw[u][0] = a.x, lw[u][1] = a.y, lw[u][2] = a.z, lw[u][3] = a.w;
+            hw[u][0] = b.x, hw[u][1] = b.y, hw[u][2] = b.z, hw[u][3] = b.w;
+          }
+        }
+        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int x = 0; x < WPT; ++x) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t ra[4], rb[4];
+            q4_word(lw[u][x], ra);
+            q4_word(hw[u][x], rb);
+            q4_mma(acc[u], ra[0], rb[0], ra[1], rb[1], qf[4 * x], qf[4 * x + 1]);
+            q4_mma(acc[u], ra[2], rb[2], ra[3], rb[3], qf[4 * x + 2], qf[4 * x + 3]);
+          }
+        }
+        // The four lanes of group g hold the same dots: lane tq scores row
+        // g + 8 (tq & 1) of chunk tq >> 1.
+        const int r = (tq >> 1 ? r1 : r0) + g + 8 * (tq & 1);
+        if (r < hi) {
+          const float dot = tq >> 1 ? (tq & 1 ? acc[1][2] : acc[1][0])
+                                    : (tq & 1 ? acc[0][2] : acc[0][0]);
+          const int jr = t * TR + r;
+          const float s = (mk[jr >> 5] >> (jr & 31)) & 1u ? dot * (tsc[r] * scale) : -INFINITY;
+          scores[jr] = s;
+          local_max = fmaxf(local_max, s);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      ++i;
+      ++live;
+    }
+    local_max = warp_max(local_max);
+    if (lane == 0) wmax[warp] = local_max;
+    bar_sync_1(32 * kQ4Warps);
+    float m = wmax[0];
+#pragma unroll
+    for (int x = 1; x < kQ4Warps; ++x) m = fmaxf(m, wmax[x]);
+
+    // V tiles: first the tile's probabilities bf16(e * vs), each row's once,
+    // into one of two buffers (0 past the rows, up to the 16 of a chunk),
+    // stored so that rows (tq, tq+4) and (tq+8, tq+12) of a chunk are 32-bit
+    // words tq and 4 + tq of its eight.  Then a warp takes 16 rows an mma
+    // chain, A the rows' values with the dims as rows (dim 4v+j of word v =
+    // g + 8 grp as row g, dim 4v+j+H as row g+8, j the mma of the four), k the
+    // 16 rows (rows tq, tq+4 in a0 and a1, tq+8, tq+12 in a2 and a3, paired by
+    // a byte permute), B the rows' probabilities in every column.
+    float acc[DH / 64][4][4];
+#pragma unroll
+    for (int grp = 0; grp < DH / 64; ++grp)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[grp][j][e] = 0.f;
+    float lsum = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
+      int lo, hi;
+      if (!tile_rows(mk, t, nw, lo, hi)) continue;
+      const int st = i % L::kStages;
+      mbar_wait(&full[st], (i / L::kStages) & 1);
+      const unsigned char* tile = smem + st * L::kStage;
+      const float* tsc = reinterpret_cast<const float*>(tile + L::kTileBytes);
+      unsigned short* pt = probs + (i & 1) * TR;
+      // From the step of 128 rows that holds row lo: a thread's rows, and so
+      // its sum's order, as over the whole tile.
+      for (int r = lo / (32 * kQ4Warps) * (32 * kQ4Warps) + tid; r < (hi + 15) / 16 * 16;
+           r += 32 * kQ4Warps) {
+        float p = 0.f;
+        if (r < hi) {
+          const float sc = scores[t * TR + r];
+          if (sc != -INFINITY) {
+            const float e = expf(sc - m);
+            lsum += e;
+            p = e * tsc[r];
+          }
+        }
+        pt[(r & ~15) + pslot] = __bfloat16_as_ushort(__float2bfloat16(p));
+      }
+      bar_sync_1(32 * kQ4Warps);
+      for (int r0 = lo / (16 * kQ4Warps) * (16 * kQ4Warps) + 16 * warp; r0 < hi;
+           r0 += 16 * kQ4Warps) {
+        const uint32_t* pw = reinterpret_cast<const uint32_t*>(pt + r0);
+        const uint32_t b0 = pw[tq];
+        const uint32_t b1 = pw[4 + tq];
+        const unsigned char* src = tile + (r0 + tq) * RB;
+#pragma unroll
+        for (int grp = 0; grp < DH / 64; ++grp) {
+          const int v = 4 * (g + 8 * grp);  // byte offset of word g + 8 grp
+          const uint32_t u0 = *reinterpret_cast<const uint32_t*>(src + v);
+          const uint32_t u4 = *reinterpret_cast<const uint32_t*>(src + 4 * RB + v);
+          const uint32_t u8 = *reinterpret_cast<const uint32_t*>(src + 8 * RB + v);
+          const uint32_t u12 = *reinterpret_cast<const uint32_t*>(src + 12 * RB + v);
+          uint32_t ra[8], rb[8];  // dims 4v', 4v'+H, 4v'+1, ... of rows (tq, tq+4), (tq+8, tq+12)
+          q4_word(__byte_perm(u0, u4, 0x5410), ra);
+          q4_word(__byte_perm(u0, u4, 0x7632), ra + 4);
+          q4_word(__byte_perm(u8, u12, 0x5410), rb);
+          q4_word(__byte_perm(u8, u12, 0x7632), rb + 4);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            q4_mma(acc[grp][j], ra[2 * j], ra[2 * j + 1], rb[2 * j], rb[2 * j + 1], b0, b1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      ++i;
+    }
+    // The warps' outputs (d0: dim 4v+j, d2: dim 4v+j+H), then in warp order.
+    if (tq == 0) {
+#pragma unroll
+      for (int grp = 0; grp < DH / 64; ++grp)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = 4 * (g + 8 * grp) + j;
+          red[warp * DH + d] = acc[grp][j][0];
+          red[warp * DH + d + H] = acc[grp][j][2];
+        }
+    }
+    lsum = warp_sum(lsum);
+    if (lane == 0) wsum[warp] = lsum;
+    bar_sync_1(32 * kQ4Warps);
+    if (tid < DH) {
+      float o = 0.f, l = 0.f;
+#pragma unroll
+      for (int x = 0; x < kQ4Warps; ++x) {
+        o += red[x * DH + tid];
+        l += wsum[x];
+      }
+      const float m_span = live ? m : -INFINITY;
+      if (n_split == 1) {
+        // The fresh row, folded as decode_attend_combine_kernel folds it.
+        constexpr int EPL = DH / 32;
+        const __nv_bfloat16* hq = reinterpret_cast<const __nv_bfloat16*>(hd);
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          a += __bfloat162float(hq[lane * EPL + e]) * __bfloat162float(hq[DH + lane * EPL + e]);
+        const float s_new = warp_sum(a) * scale;
+        const float vn = __bfloat162float(hq[2 * DH + tid]);
+        const float mt = fmaxf(s_new, m_span);
+        const float e_new = expf(s_new - mt);
+        float denom = e_new;
+        float y = e_new * vn;
+        if (m_span != -INFINITY) {
+          const float corr = expf(m_span - mt);
+          denom += l * corr;
+          y += o * corr;
+        }
+        out[(int64_t)bh * DH + tid] = __float2bfloat16(y / denom);
+      } else {
+        float* po = part + ((int64_t)bh * n_split + sp) * (DH + 2);
+        po[tid] = o;
+        if (tid == 0) {
+          po[DH] = m_span;
+          po[DH + 1] = l;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&hempty[k & 1]);
+  }
+}
+
 // Rows of each of the n_split spans of a ring of c rows: ceil(c / n_split),
 // rounded up to a multiple of 4 (the trailing spans may be short or empty).
 inline int span_rows(int c, int n_split) { return ((c + n_split - 1) / n_split + 3) / 4 * 4; }
@@ -589,6 +1082,68 @@ cudaError_t staged_opt_in() {
   return err;
 }
 
+
+// Blocks of decode_attend_q4_kernel<DH> that the current card holds at
+// once with `smem` bytes of shared memory each, asked of the card (after
+// its opt-in to shared memory beyond 48 KB) once for each (device, bytes)
+// and kept in a table under a lock: engines launch from their own threads.
+template <int DH>
+cudaError_t q4_resident(int smem, int* blocks) {
+  static std::mutex lock;
+  static std::map<std::pair<int, int>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  const auto it = known.find({dev, smem});
+  if (it != known.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaFuncSetAttribute(decode_attend_q4_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_attend_q4_kernel<DH>,
+                                                        kQ4Threads, smem);
+  if (err != cudaSuccess) return err;
+  *blocks = max(1, per_sm) * sms;
+  known[{dev, smem}] = *blocks;
+  return cudaSuccess;
+}
+
+// The packed kernel's launch: persistent blocks, as many as the card holds
+// at once at this span's shared memory, each taking the same count of items
+// (the last ones one fewer); then, where n_split > 1, the fold, as a
+// programmatic dependent launch.
+template <int DH>
+cudaError_t q4_launch(cudaStream_t s, const void* q, const void* k_cache, const void* v_cache,
+                      const void* k_scale, const void* v_scale, const void* k_new,
+                      const void* v_new, const void* valid, void* part, void* out,
+                      long long bh, int h, int c, int n_split, int span, long long kv_sb,
+                      long long kv_sh, long long s_sb, long long s_sh, long long pos, int w,
+                      int window, float scale) {
+  const int smem = Q4Layout<DH>::bytes(span);
+  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+  int resident = 0;
+  const cudaError_t got = q4_resident<DH>(smem, &resident);
+  if (got != cudaSuccess) return got;
+  const long long items = bh * n_split;
+  const long long per_block = (items + resident - 1) / resident;
+  const unsigned grid = (unsigned)((items + per_block - 1) / per_block);
+  decode_attend_q4_kernel<DH><<<grid, kQ4Threads, smem, s>>>(
+      (const __nv_bfloat16*)q, (const uint8_t*)k_cache, (const uint8_t*)v_cache,
+      (const float*)k_scale, (const float*)v_scale, (const __nv_bfloat16*)k_new,
+      (const __nv_bfloat16*)v_new, (const uint8_t*)valid, (float*)part, (__nv_bfloat16*)out,
+      (int)items, (int)per_block, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos, w, window,
+      scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  return launch_fold<DH>((unsigned)bh, s, q, k_new, v_new, part, out, n_split, scale, nullptr,
+                         nullptr, nullptr, nullptr, h, kv_sb, kv_sh, w);
+}
+
 }  // namespace
 
 extern "C" {
@@ -598,8 +1153,26 @@ long long dsm_decode_attend_split_smem_bytes(int span, int dh) {
   return (long long)(span + kDaWarps * dh) * (long long)sizeof(float);
 }
 
-// part: f32 scratch of b * h * n_split * (dh + 2) values.  packed4: the
-// rings are nibble-packed int4 rows of dh / 2 bytes (else int8 rows of dh).
+// Dynamic shared memory the packed kernel needs for spans of `span` rows
+// (-1 for a head width it does not take).
+long long dsm_decode_attend_q4_smem_bytes(int span, int dh) {
+  if (dh == 128) return Q4Layout<128>::bytes(span);
+  if (dh == 64) return Q4Layout<64>::bytes(span);
+  return -1;
+}
+
+// Ring rows of one of the packed kernel's tiles (-1 for a head width it does
+// not take).
+int dsm_decode_attend_q4_tile_rows(int dh) {
+  if (dh == 128) return Q4Layout<128>::kRows;
+  if (dh == 64) return Q4Layout<64>::kRows;
+  return -1;
+}
+
+// part: f32 scratch of b * h * n_split * (dh + 2) values (unused, and may be
+// null, for packed rings at n_split = 1).  packed4: the rings are
+// nibble-packed int4 rows of dh / 2 bytes, c a multiple of 4, rows, scales
+// and their (b, h) strides 16-byte aligned (else int8 rows of dh).
 // Returns a cudaError_t.
 int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
                       const void* k_scale, const void* v_scale, const void* k_new,
@@ -612,10 +1185,23 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
   if (bh == 0) return (int)cudaSuccess;
   if (n_split < 1 || c < 1 || w < 0 || w >= c) return (int)cudaErrorInvalidValue;
   const int span = span_rows(c, n_split);
-  const size_t smem = (size_t)dsm_decode_attend_split_smem_bytes(span, dh);
   cudaStream_t s = (cudaStream_t)stream;
-#define DSM_DA_LAUNCH(DH, P4)                                                    \
-  decode_attend_partial_kernel<DH, P4><<<(unsigned)(bh * n_split), kDaThreads, smem, s>>>( \
+  if (packed4) {
+    if (c % 4 || kv_sb % 16 || kv_sh % 16 || s_sb % 4 || s_sh % 4)
+      return (int)cudaErrorInvalidValue;
+    if (dh == 128)
+      return (int)q4_launch<128>(s, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
+                                 part, out, bh, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh,
+                                 pos, w, window, scale);
+    if (dh == 64)
+      return (int)q4_launch<64>(s, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
+                                part, out, bh, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh,
+                                pos, w, window, scale);
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)dsm_decode_attend_split_smem_bytes(span, dh);
+#define DSM_DA_LAUNCH(DH)                                                        \
+  decode_attend_partial_kernel<DH><<<(unsigned)(bh * n_split), kDaThreads, smem, s>>>( \
       (const __nv_bfloat16*)q, (const int8_t*)k_cache, (const int8_t*)v_cache,   \
       (const float*)k_scale, (const float*)v_scale, (const uint8_t*)valid,       \
       (float*)part, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos, w,       \
@@ -624,14 +1210,10 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,                      \
       (const __nv_bfloat16*)v_new, (const float*)part, (__nv_bfloat16*)out,      \
       n_split, scale, nullptr, nullptr, nullptr, nullptr, h, kv_sb, kv_sh, w)
-  if (dh == 128 && packed4) {
-    DSM_DA_LAUNCH(128, true);
-  } else if (dh == 64 && packed4) {
-    DSM_DA_LAUNCH(64, true);
-  } else if (dh == 128) {
-    DSM_DA_LAUNCH(128, false);
+  if (dh == 128) {
+    DSM_DA_LAUNCH(128);
   } else if (dh == 64) {
-    DSM_DA_LAUNCH(64, false);
+    DSM_DA_LAUNCH(64);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -49,6 +49,8 @@ _SIGNATURES = {
         [_P] * 12 + [_LL, _I, _I, _I, _I, _LL, _I, _I, ctypes.c_float, _P], _I
     ),
     "dsm_decode_attend_split_smem_bytes": ([_I, _I], _LL),
+    "dsm_decode_attend_q4_smem_bytes": ([_I, _I], _LL),
+    "dsm_decode_attend_q4_tile_rows": ([_I], _I),
     # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, part, out,
     # b, h, c, dh, packed4, n_split, k/v strides (b, h) in bytes, scale
     # strides (b, h), pos, w, window, scale, stream

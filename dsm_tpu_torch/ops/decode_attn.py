@@ -35,8 +35,9 @@ may opt in to (some 50,000 rows); anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -187,9 +188,14 @@ decode_attend_commit.launches = 0
 # The same wrapper serves the packed-int4 rings (``kv_bits = 4``): uint8 rings
 # ``(B, H, C, Dh/2)``, byte d holding dims (d, d + Dh/2) excess-8
 # (``attention.pack4``).  There it replaces the Pallas kernels
-# ``_decode_attend_q4_4d`` (4-D blocks) and ``_decode_attend_q4`` (head-major):
-# one kernel body with a packed load path, addressed through (b, h) strides,
-# so both layouts are the same launch.
+# ``_decode_attend_q4_4d`` (4-D blocks) and ``_decode_attend_q4`` (head-major)
+# with a kernel of its own, addressed through (b, h) strides, so both layouts
+# are the same launch: persistent blocks whose copy warp stages each (b, h,
+# span)'s K and V tiles by TMA bulk copies, the dots on ``mma.sync``, and at
+# one span (:func:`packed_split`) the fresh row folded in the same launch,
+# with no scratch.  Shapes it launches for: rings of a multiple of 4 rows whose
+# rows, scales and (b, h) strides lie on 16 bytes, K and V (and their scales)
+# in one layout, spans whose scores fit a block's shared memory.
 
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the 132 SMs
 _MIN_SPAN = 256        # ring rows a block should at least have to reduce
@@ -264,6 +270,47 @@ def pick_split(bh: int, c: int) -> int:
     with a few blocks each, while a block keeps at least ``_MIN_SPAN`` ring
     rows to reduce.  s2s-2b at B=24 (480 pairs, C=3072): 3 spans of 1024."""
     return max(1, min(-(-_TARGET_BLOCKS // max(bh, 1)), c // _MIN_SPAN))
+
+
+_ITEMS_PER_SM = 2  # (b, h, span) items a split packed ring gives each SM
+
+
+def pick_split_packed(bh: int, c: int, tile_rows: int, sms: int) -> int:
+    """Spans per (b, h) of a packed-int4 ring: its kernel's blocks are
+    persistent and take (b, h, span) items in turn, so a ring is split only
+    where its B*H items give the card's ``sms`` SMs fewer than
+    ``_ITEMS_PER_SM`` each, into the fewest spans that do, of whole tiles of
+    ``tile_rows`` rows (a span that ends inside a tile pays a tile's fixed
+    cost for a part of it); no span but the last is empty.  On the H100 (132
+    SMs; ``tools/q4_attend_variants.py`` at B = 1-8): 1 at the three serving
+    rings (stt-1b 1,024 items, stt-2.6b 2,048, s2s-2b 480), 6 at one stt-1b
+    stream, 3 at eight, 12 at one s2s-2b stream, 4 at four."""
+    tiles = -(-c // tile_rows)
+    n = max(1, min(-(-_ITEMS_PER_SM * sms // max(bh, 1)), c // tile_rows))
+    n = -(-tiles // -(-tiles // n))  # the fewest spans of as many whole tiles
+    while n > 1 and span_rows(c, n) * (n - 1) >= c:
+        n -= 1
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def packed_card(device_index: int, dh: int) -> Tuple[int, int]:
+    """(rows of a tile of the packed kernel at head width ``dh``, SMs of card
+    ``device_index``): what :func:`pick_split_packed` takes."""
+    tile_rows = _build.lib().dsm_decode_attend_q4_tile_rows(dh)
+    if tile_rows < 1:
+        raise ValueError(f"decode_attend: no packed kernel at Dh {dh}")
+    return tile_rows, torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def packed_split(bh: int, c: int, dh: int, device: torch.device) -> int:
+    """The split :func:`decode_attend` takes for a packed-int4 ring of B*H =
+    ``bh`` on ``device``: :func:`pick_split_packed` for the card and its
+    kernel, and one span (the order of the kernel's every serving shape) on
+    the CPU."""
+    if device.type != "cuda":
+        return 1
+    return pick_split_packed(bh, c, *packed_card(device.index or 0, dh))
 
 
 def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
@@ -359,14 +406,27 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
         raise ValueError("decode_attend: ring rows must be 16-byte aligned")
     lib = _build.lib()
     span = span_rows(c, n_split)
-    if lib.dsm_decode_attend_split_smem_bytes(span, dh) > _MAX_SMEM:
+    if packed4:  # the scales are bulk copies too: 4 rows (16 bytes) at a time
+        if c % 4:
+            raise ValueError(f"decode_attend: a packed ring of {c} rows, not a multiple of 4")
+        if (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16
+                or k_scale.stride(0) % 4 or k_scale.stride(1) % 4):
+            raise ValueError("decode_attend: packed rings' scales must be 16-byte aligned")
+        if valid.data_ptr() % 4:
+            raise ValueError("decode_attend: the validity rows must be 4-byte aligned")
+        if lib.dsm_decode_attend_q4_smem_bytes(span, dh) > _MAX_SMEM_OPT_IN:
+            raise ValueError(f"decode_attend: spans of {span} rows exceed shared memory")
+    elif lib.dsm_decode_attend_split_smem_bytes(span, dh) > _MAX_SMEM:
         raise ValueError(f"decode_attend: spans of {span} rows exceed shared memory")
-    part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
+    part = None  # a packed ring at one span folds the fresh row in its one launch
+    if not packed4 or n_split > 1:
+        part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
     err = lib.dsm_decode_attend(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
-        part.data_ptr(), out.data_ptr(), b, h, c, dh, int(packed4), n_split, k_cache.stride(0),
+        None if part is None else part.data_ptr(), out.data_ptr(), b, h, c, dh, int(packed4),
+        n_split, k_cache.stride(0),
         k_cache.stride(1), k_scale.stride(0), k_scale.stride(1), pos, w, window,
         1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
     )
@@ -381,15 +441,17 @@ def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
     uint8) ring and this step's fresh bf16 row ``k_new/v_new (B, H, 1, Dh)``
     -> ``(B, H, 1, Dh)``: ``attention.attend_global_split_q`` (``_q4``) at
     T=1 in the kernel's order.
-    ``n_split`` (default :func:`pick_split`) is the number of spans the ring
-    is reduced in.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (counted in ``decode_attend.launches``) or raise."""
+    ``n_split`` (default :func:`pick_split`, over a packed ring
+    :func:`packed_split`) is the number of spans the ring is reduced in.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``decode_attend.launches``) or raise."""
     if q.shape[2] != 1:
         raise ValueError("decode_attend takes T=1 steps")
     b, h, c, _ = k_cache.shape
     pos, w = int(plan["q_pos"][0]), int(plan["w"][0])
     if n_split is None:
-        n_split = pick_split(b * h, c)
+        n_split = (packed_split(b * h, c, q.shape[-1], k_cache.device)
+                   if k_cache.dtype == torch.uint8 else pick_split(b * h, c))
     q3, kn3, vn3 = (x[:, :, 0, :].contiguous() for x in (q, k_new, v_new))
     fn = decode_attend_plain if k_cache.device.type == "cpu" else _attend_launch
     y = fn(q3, k_cache, v_cache, k_scale, v_scale, kn3, vn3, valid_old, pos, w,

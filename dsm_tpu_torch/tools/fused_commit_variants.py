@@ -57,7 +57,7 @@ _OVERLAP = ("attr.val.programmaticStreamSerializationAllowed = 1;",
 
 
 _STAGED = ("  decode_attend_staged_kernel<DH><<<blocks, kStagedThreads, (size_t)smem, s>>>(",
-           "  decode_attend_partial_kernel<DH, false><<<blocks, kDaThreads, "
+           "  decode_attend_partial_kernel<DH><<<blocks, kDaThreads, "
            "(size_t)dsm_decode_attend_split_smem_bytes(span, DH), s>>>(")
 _STAGED_ARGS = ("      h, c, n_split, span, pos, w, window, scale);",
                 "      h, c, n_split, span, kv_sb, kv_sh, (long long)h * c, c, pos, w, window, scale);")
@@ -72,7 +72,7 @@ VARIANTS = {
     "shipped": (False, []),
     "register-loads": (False, [_STAGED, _STAGED_ARGS]),
     "int-to-float": (False, [(f"{lead}unpack_i8({_LOAD}, {x});",
-                              f"{lead}unpack_load<false>({_LOAD}, {x});")
+                              f"{lead}unpack_load({_LOAD}, {x});")
                              for lead, x in (("        ", "kv"), ("      ", "vv"))]),
     "stages=3": (False, [_constant("kStages", 2, 3)]),
     "stages=4": (False, [_constant("kStages", 2, 4)]),

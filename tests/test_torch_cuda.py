@@ -463,6 +463,24 @@ def test_split_kernels_raise_on_unsupported(cuda_device):
     with pytest.raises(ValueError):  # int8 rows into a packed ring
         RK.ring_commit(packed, packed, k[:, :, :1, :64], k[:, :, :1, :64], 0,
                        s, s, s[:, :, :1], s[:, :, :1])
+    # What the packed kernel's bulk copies refuse, before any launch: rows,
+    # (b, h) strides or scales off 16 bytes, and K and V in different layouts.
+    q4, rows = q[..., :64], packed[..., :32].contiguous()  # Dh = 64: 32 bytes a row
+    flat = torch.zeros(2 * 8 * 8200 + 64, dtype=torch.uint8, device=cuda_device)
+    off_rows = flat[8:8 + rows.numel()].view(rows.shape)
+    off_bh = flat.as_strided(rows.shape, (8 * 8200, 8200, 32, 1))  # 8,200-byte (b, h) stride
+    sflat = torch.ones(2 * 8 * 260 + 4, device=cuda_device)
+    s_off = sflat[1:1 + s.numel()].view(s.shape)
+    s_bh = sflat.as_strided(s.shape, (8 * 258, 258, 1))  # scales' (b, h) stride 258
+    assert DA.supported(q4, rows, plan)
+    for kc, vc, ks in ((off_rows, off_rows, s), (off_bh, off_bh, s), (rows, rows, s_off),
+                       (rows, rows, s_bh), (rows, off_bh, s)):
+        with pytest.raises(ValueError):
+            DA.decode_attend(q4, kc, vc, ks, ks, q4, q4, plan, valid, window=250)
+    with pytest.raises(ValueError):  # a packed ring of 254 rows
+        DA.decode_attend(q4, rows[:, :, :254], rows[:, :, :254], s[:, :, :254], s[:, :, :254],
+                         q4, q4, A.global_ring_plan(3, 254, 1, device=cuda_device),
+                         valid[:, :254].contiguous(), window=250)
     assert _launches() == before
 
 
@@ -1028,14 +1046,25 @@ INT4_CASES = [
     (64, 32, 384, 64, 3000, 375, 0.7),
     (24, 20, 3072, 128, 40, 3000, 0.7),     # s2s-2b rings: no JAX kernel serves them
     (24, 20, 3072, 128, 10000, 3000, 1.0),
+    # Attended rows that start past a tile's first 128 rows (stt-2.6b: rows
+    # 184..382 of its one 384-row tile) or mid-tile and end mid-tile: only
+    # those rows are copied and taken.
+    (64, 32, 384, 64, 383, 200, 1.0),
+    (24, 20, 3072, 128, 2000, 300, 0.9),
+    (1, 20, 3072, 128, 10000, 3000, 1.0),   # one s2s-2b stream: the pick splits it
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_split", [1, None])
+@pytest.mark.parametrize("n_split", [1, None, 5])
 @pytest.mark.parametrize("B,H,C,Dh,pos,window,frac", INT4_CASES)
 def test_decode_attend_int4_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, window, frac,
                                                  n_split):
+    """At one span (the fresh row folded in the kernel's one launch), at the
+    packed pick (one span at the serving rings, 12 for one s2s-2b stream)
+    and at five spans (the fold kernel).  The stt-1b and s2s-2b spans hold
+    several tiles; at the stt-2.6b rings (2,048 items) every persistent
+    block takes more than one (b, h, span)."""
     args, (kv, vv), oldest = _split_inputs_q4(cuda_device, B, H, C, Dh, pos, window, frac,
                                               seed=pos + C)
     plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
@@ -1049,7 +1078,7 @@ def test_decode_attend_int4_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, 
     assert DA.decode_attend.launches == before + 3
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
     y = runs[0][:, :, 0]
-    split = DA.pick_split(B * H, C) if n_split is None else n_split
+    split = DA.packed_split(B * H, C, Dh, cuda_device) if n_split is None else n_split
     rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
     yp = DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid, pos,
                                 plan["w"][0], window, split)
@@ -1064,6 +1093,41 @@ def test_decode_attend_int4_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, 
         swapped = DA.decode_attend(args[0], _swap_nibbles(args[1]), *args[2:7], plan, valid,
                                    window=window, n_split=n_split)[:, :, 0]
         assert not _within(swapped, yp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh", [(64, 32, 384, 64), (24, 20, 3072, 128)])
+def test_decode_attend_int4_is_one_launch_and_allocates_only_its_output(cuda_device, B, H, C,
+                                                                        Dh):
+    """At one span: one kernel on the device a call (the fresh row folded in
+    it, no combine launch) and no memory but the output, at the peak too (no
+    partials' scratch)."""
+    args, _, _ = _split_inputs_q4(cuda_device, B, H, C, Dh, 3000, C - 4, 1.0, seed=3)
+    plan = A.global_ring_plan(3000, C, 1, device=cuda_device)
+    assert DA.packed_split(B * H, C, Dh, cuda_device) == 1
+
+    def call():
+        return DA.decode_attend(*args[:7], plan, args[7], window=C - 4)
+
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = call()
+    torch.cuda.synchronize()
+    out_bytes = -(-y.numel() * y.element_size() // 512) * 512  # the allocator's blocks
+    assert torch.cuda.memory_allocated() - base == out_bytes
+    assert torch.cuda.max_memory_allocated() - base == out_bytes
+    del y
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and "decode_attend_q4_kernel" in next(iter(kernels)), kernels
+    assert sum(kernels.values()) == 3
 
 
 @pytest.mark.cuda

@@ -165,7 +165,9 @@ def _bf(x):
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("n_split", [1, 3])
+# Every split the packed picker chooses on the H100 at these rings (1 or 2),
+# more spans, and None: decode_attend's own choice on the CPU (one span).
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, None])
 @pytest.mark.parametrize("kernel,B,H,C,Dh,pos,window,valid_frac", [
     ("4d", 2, 8, 256, 128, 0, 250, 1.0),       # nothing committed yet: the fresh row alone
     ("4d", 2, 8, 256, 128, 40, 250, 0.8),
