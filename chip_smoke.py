@@ -17,7 +17,11 @@ lines each:
    rings at B=24; the stt-2.6b rings, (64,32,384,64), through decode_attend
    in one span and through the fused decode_attend_commit; the stt-1b rings,
    (64,16,768,128), through decode_attend; the weight-only matmul qmm at the
-   stt-2.6b matmul shapes, M = 64, and at M = 1 and 24), run three times
+   stt-2.6b matmul shapes, M = 64, and at M = 1 and 24; quantize_commit, the
+   step's quantise-and-commit, at the int8 and packed-int4 rings of stt-1b,
+   stt-2.6b and s2s-2b, and quantize_scale_commit at the fused route's rings,
+   each at w = 0, C/2 and C - 1 with V strided as the QKV product gives it and
+   row amaxes where a reciprocal would miss the quotient), run three times
    with identical results; the fused decode_attend_commit against its
    plain version in its own span order and within the bar of the
    whole-ring order too; commits bit-exact, attention within 2e-2 on
@@ -31,10 +35,11 @@ lines each:
    bf16 codec, seeded random weights) serves 8 sessions, then 4 more in
    reused slots; every frame gets its step event, every marker arrives,
    VAD probabilities are finite, and the kernels launched exactly
-   16 scale_commit + 16 decode_attend_commit + 8 ring_commit per step;
+   16 quantize_scale_commit + 16 decode_attend_commit + 8 ring_commit per
+   step (and no scale_commit or ring_commit_q: OFF_PATH);
 5. times: engine step with all 64 slots active, its kernel profile over
    the served rings and over full, wrapped rings; then ``[stt1b-split]``: the
-   stt-1b LM step at 4 layers with the fused setting off (ring_commit_q +
+   stt-1b LM step at 4 layers with the fused setting off (quantize_commit +
    decode_attend at the stt-1b rings) against the fused route from one
    state; then the stt-2.6b path: ``[stt26]`` the BatchedAsr engine from
    configs/config-stt-en.toml as shipped (d=2048, 48 layers, 32 heads x 64,
@@ -43,7 +48,7 @@ lines each:
    PER_STEP_STT26 launches per step and no int8 library GEMM,
    ``[stt26-times]``/``[stt26-profile]`` as for stt-1b, and ``[stt26-path]``:
    one LM step through the kernels against the same step through the plain
-   versions, and with the fused setting on (scale_commit +
+   versions, and with the fused setting on (quantize_scale_commit +
    decode_attend_commit at h=32, Dh=64) against the split route;
 6. tts: the batched TTS engine from configs/config-tts-tpu-serving.toml
    (tts-1.6b-en_fr, d=2048, 16 layers, DepFormer 32 slices x 4 layers,
@@ -74,7 +79,7 @@ lines each:
 
 8. The later paths, each at full width and depth: ``[stt1b-kv4]`` the stt-1b
    engine built with ``AsrConfig(kv_bits=4)`` (packed-int4 rings, uint8
-   (64,16,768,64): ring_commit_q with uint8 rows + decode_attend over the
+   (64,16,768,64): quantize_commit with uint8 rows + decode_attend over the
    packed ring, never the fused commit), 12 sessions, its step time and peak
    memory beside the int8 engine's; ``[stt26-kv4]`` the stt-2.6b LM step over
    uint8 (64,32,384,32) rings against the plain path, after 40 steps and over
@@ -103,9 +108,12 @@ kernel's JSON entry carries its bound: the larger of the bytes the case must
 move at 3.35 TB/s and its operations at the card's peak for their type (67
 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s bf16 on them for qmm),
 counted from the rows this run's mask lets in; and the library call's time
-(``library_ms``): for the commits the in-place slice assignments that
-compute the same function, for qmm ``torch._weight_int8pack_mm`` (no single
-PyTorch call computes the attention kernels' function).  qmm is timed as the
+(``library_ms``): for the copy commits the in-place slice assignments that
+compute the same function, for quantize_commit and quantize_scale_commit the
+eager chain the parent ran on the same rows (its quantisation, then the copy
+kernel: no single PyTorch call quantises and commits), for qmm
+``torch._weight_int8pack_mm`` (no single PyTorch call computes the attention
+kernels' function).  qmm is timed as the
 serving step meets it: each call on another of 128 MiB of weight copies (the
 weight cold in the 50 MB L2) and behind a kernel that writes x (in the step a
 norm, the attention or the gate runs before every qmm), that kernel's own
@@ -115,8 +123,12 @@ scale is an ``also`` line.  The entries named ``wrapper[rings]`` are the TPU ker
 with another entry's kernel at other shapes or through another load path
 (the packed-int4 rings): their numbers are that shape's.
 
-The last three lines: the kernels' JSON, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.  Any failed check raises.
+Before them the ``[launches]`` lines: device launches and kernel ms a step
+or tick of each path's profile beside those before the quantise-and-commit
+kernels (PERF.md section 5).  The
+last three lines: the kernels' JSON (ring_commit_q and scale_commit with 0
+launches: OFF_PATH), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Any failed check raises.
 """
 
 from __future__ import annotations
@@ -131,6 +143,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
+    "quantize_scale_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
+    "quantize_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "scale_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "decode_attend_commit": "dsm_tpu_torch/csrc/decode_attn.cu",
     "ring_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
@@ -141,6 +155,8 @@ SOURCES = {
     "attn_tune": "dsm_tpu_torch/csrc/attn_tune.cu",
 }
 REPLACES = {
+    "quantize_scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
+    "quantize_commit": "dsm_tpu/ops/ring_kernels.py:66",
     "scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
     "decode_attend_commit": "dsm_tpu/ops/decode_attn.py:545",
     "ring_commit": "dsm_tpu/ops/ring_kernels.py:120",
@@ -150,6 +166,11 @@ REPLACES = {
     "qmm": "dsm_tpu/ops/qmm.py:42",
     "attn_tune": "tools/attn_kernel_tune.py:42",
 }
+# The literal counterparts of TPU kernels 4 and 1 on rows quantised already:
+# built and held to their plain versions, but the step quantises its fresh
+# rows in the commit (quantize_commit, quantize_scale_commit) and launches
+# them no more.  Their JSON entries say so, with 0 launches.
+OFF_PATH = {"ring_commit_q": "quantize_commit", "scale_commit": "quantize_scale_commit"}
 # TPU kernels that the port serves with one of the kernels above at other
 # shapes: JSON name -> (wrapper, TPU kernel, the path that launches it there).
 ROUTES = {
@@ -167,38 +188,54 @@ ROUTES = {
                                          "tts202501"),
 }
 # Launches per engine step of the STT path: each of the LM's 16 layers
-# commits its int8 scales and attends over its int8 ring with the fused
-# commit; the Mimi encoder transformer's 8 layers commit their bf16 rows.
-PER_STEP = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8}
+# quantises its fresh rows and commits their scales (quantize_scale_commit)
+# and attends over its int8 ring with the fused commit; the Mimi encoder
+# transformer's 8 layers commit their bf16 rows.  The copy kernels of rows
+# quantised already (OFF_PATH) launch no more.
+_NONE = {"scale_commit": 0, "ring_commit_q": 0}
+PER_STEP = {"quantize_scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
+            "quantize_commit": 0, **_NONE}
 # Launches per engine tick of the TTS path: each of the LM's 16 layers as
 # above plus its voice cross-attention over the int8 store; the Mimi
 # decoder transformer's 8 layers commit their 2 bf16 rows (T=2).  The
 # DepFormer's dense slice cache and the conv stacks run no kernel.
-PER_TICK_TTS = {"scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
-                "ca_decode_attend": 16}
+PER_TICK_TTS = {"quantize_scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
+                "ca_decode_attend": 16, "quantize_commit": 0, "decode_attend": 0, **_NONE}
 # Launches per engine step of the stt-2.6b path: 32 heads x 64 are not a
-# shape of the fused rule, so each of the LM's 48 layers commits its int8 rows
-# and scales with ring_commit_q and attends with decode_attend (one span);
-# its 4 matmuls and the text head are weight-only: qmm; Mimi as above.
-PER_STEP_STT26 = {"ring_commit_q": 48, "decode_attend": 48, "ring_commit": 8, "qmm": 193,
-                  "scale_commit": 0, "decode_attend_commit": 0}
+# shape of the fused rule, so each of the LM's 48 layers quantises and
+# commits its int8 rows and scales with quantize_commit and attends with
+# decode_attend (one span); its 4 matmuls and the text head are weight-only:
+# qmm; Mimi as above.
+PER_STEP_STT26 = {"quantize_commit": 48, "decode_attend": 48, "ring_commit": 8, "qmm": 193,
+                  "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
 # Launches per engine tick of the duplex path: s2s-2b's 20 heads over a
 # 3072-row ring are not a shape of the fused commit, so each of the LM's 24
-# layers commits its int8 rows and scales with ring_commit_q and attends
-# with decode_attend; the Mimi encoder's and decoder's 8 layers each commit
-# their 2 bf16 rows.
-PER_TICK_DUPLEX = {"ring_commit_q": 24, "decode_attend": 24, "ring_commit": 16,
-                   "scale_commit": 0, "decode_attend_commit": 0}
+# layers quantises and commits its int8 rows and scales with quantize_commit
+# and attends with decode_attend; the Mimi encoder's and decoder's 8 layers
+# each commit their 2 bf16 rows.
+PER_TICK_DUPLEX = {"quantize_commit": 24, "decode_attend": 24, "ring_commit": 16,
+                   "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
 # stt-1b with packed-int4 rings: an int4 ring never takes the fused commit, so
-# each of the 16 layers commits its uint8 rows and scales with ring_commit_q
-# and attends with decode_attend over the packed ring.
-PER_STEP_STT1B_KV4 = {"ring_commit_q": 16, "decode_attend": 16, "ring_commit": 8,
-                      "scale_commit": 0, "decode_attend_commit": 0}
+# each of the 16 layers quantises, packs and commits its uint8 rows and scales
+# with quantize_commit and attends with decode_attend over the packed ring.
+PER_STEP_STT1B_KV4 = {"quantize_commit": 16, "decode_attend": 16, "ring_commit": 8,
+                      "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
 # tts_202501: 48 layers of 32 heads x 64 (not a shape of the fused rule): the
 # split pipeline over (64,32,512,64) int8 rings plus the voice cross-attention
 # in every layer; the Mimi decoder's 8 layers commit their 2 bf16 rows.
-PER_TICK_TTS202501 = {"ring_commit_q": 48, "decode_attend": 48, "ca_decode_attend": 48,
-                      "ring_commit": 8, "scale_commit": 0, "decode_attend_commit": 0}
+PER_TICK_TTS202501 = {"quantize_commit": 48, "decode_attend": 48, "ca_decode_attend": 48,
+                      "ring_commit": 8, "quantize_scale_commit": 0, "decode_attend_commit": 0,
+                      **_NONE}
+# Device launches and kernel ms a step or tick on each path before the step
+# quantised its fresh K/V rows in the commit (PR 9's tree, PERF.md section 5:
+# the parent's leg of run B, PR 10, NVIDIA H100 80GB HBM3, 700.00 W): printed
+# beside this run's (the ``[launches]`` lines).  The key is the profile's tag.
+PARENT_PROFILE = {"profile": ("stt-1b step", 3146, 10.81),
+                  "stt26-profile": ("stt-2.6b step", 4470, 15.18),
+                  "duplex-profile": ("duplex tick, short rings", 20398, 47.19),
+                  "tts-profile": ("TTS tick", 18449, 55.18),
+                  "tts202501-profile": ("tts_202501 tick", 29131, 87.40),
+                  "stt1b-kv4-profile": ("[stt1b-kv4] step", 3257, 10.76)}
 # The bf16 K/V ring of each Mimi transformer layer in the duplex engine
 # (B=24, 8 heads, context 250 + T=2 rows rounded up to 256, Dh=64).
 DUPLEX_MIMI_RING = (24, 8, 256, 64)
@@ -214,7 +251,7 @@ PATH_RTOL = 2e-2  # the TTS path through the kernels against its plain versions
 # operands (a dropped row of 3,072 equal ones would move it by 0.018).
 FULL_RING_RTOL = 5e-2
 SEAM_RTOL = 1e-3
-# decode_attend alone (with ring_commit_q, bit for bit its plain version)
+# decode_attend alone (with quantize_commit, bit for bit its plain version)
 # through its kernel over full wrapped packed-int4 rings: the step's relative
 # L2 from the plain step, held to at most twice what the previous packed-int4
 # kernel (one 16-byte register load in flight a lane) read there (0.0116 at
@@ -225,7 +262,8 @@ Q4_ALONE_FULL_RTOL = {"stt26-kv4": 0.02, "duplex-kv4": 0.04}
 ROW_RTOL = 5e-2  # a freshly quantised ring row of one route against the other's
 # The case whose times stand in the kernels' JSON line: the full STT
 # rings, and the TTS serving voice source.
-HEADLINE = {"scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 valid=1.0",
+HEADLINE = {"quantize_scale_commit": "stt1b int8 w=767", "quantize_commit": "stt26 int8 w=383",
+            "scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 valid=1.0",
             "ring_commit": "w=254", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
             "ring_commit_q": "duplex w=3071",
             "decode_attend": "duplex pos=10000 valid=1.0 split=3",
@@ -809,6 +847,135 @@ def _commit_q_cases(dev, g, tag, b, h, c, dh, ws, packed4=False):
     return cases
 
 
+def _miss_amaxes(qmax, n, seed):
+    """``n`` bf16 amaxes in [0.5, 4) where ``amax * fl(1/qmax)`` and ``amax /
+    qmax`` differ in f32 (a few dozen such values, repeated): a scale taken
+    by the reciprocal fails a bit-for-bit check on each row."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.uniform(0.5, 4.0, 200_000).astype(np.float32)).bfloat16()
+    a = a.float().numpy()
+    a = rng.permutation(np.unique(a[a * np.float32(1.0 / qmax) != a / np.float32(qmax)]))
+    check(len(a) >= 8, "too few amaxes that a reciprocal misses")
+    return np.resize(a, n)
+
+
+def _fresh_rows(dev, g, b, h, dh, qmax, seed):
+    """The step's fresh K and V rows ``(B, H, 1, Dh)`` bf16: K contiguous (as
+    after the rotary embedding), V a strided view of a QKV product ``(B, 1, 3,
+    H, Dh)`` as ``transformer._qkv`` gives it.  Unit spread, each row's amax
+    one of :func:`_miss_amaxes` at a random place and sign; in each of K and V
+    a row of ties (amax ``qmax``: scale 1, values k + 0.5), a row of +-amax
+    and an all-zero row."""
+    import torch
+
+    rows = []
+    for i in range(2):
+        amax = torch.from_numpy(_miss_amaxes(qmax, b * h, seed + i)).to(dev)
+        x = (torch.rand(b * h, dh, generator=g, device=dev) - 0.5) * 0.9 * amax[:, None]
+        at = torch.randint(0, dh, (b * h,), generator=g, device=dev)
+        sign = torch.randint(0, 2, (b * h,), generator=g, device=dev) * 2.0 - 1.0
+        x[torch.arange(b * h, device=dev), at] = amax * sign
+        x[0] = 0.0
+        x[1] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -3.5], device=dev).repeat(dh)[:dh]
+        x[1, 5] = qmax
+        x[2, ::2], x[2, 1::2] = amax[2], -amax[2]
+        rows.append(x.reshape(b, h, dh).bfloat16())
+    qkv = torch.zeros(b, 1, 3, h, dh, dtype=torch.bfloat16, device=dev)
+    qkv[:, 0, 2] = rows[1]
+    v = qkv[:, :, 2].transpose(1, 2)
+    check(not v.is_contiguous(), "the V rows are not a strided view")
+    return rows[0][:, :, None].contiguous(), v
+
+
+def _eager_chain(k, v, qmax):
+    """The parent's eager quantisation of the fresh rows, as
+    ``transformer.step`` ran it before the commit: 9 device operations a
+    tensor (``pack4``'s 5 more a packed one), the scale divided by a Python
+    number."""
+    import torch
+
+    from dsm_tpu_torch.ops import attention as A
+
+    def one(x):
+        xf = x.float()
+        scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / qmax
+        q = torch.clamp(torch.round(xf / scale[..., None]), -qmax, qmax)
+        return (A.pack4(q) if qmax == 7.0 else q.to(torch.int8)), scale
+
+    (kq, ks), (vq, vs) = one(k), one(v)
+    return kq, vq, ks, vs
+
+
+def _quantize_commit_cases(dev, g, tag, b, h, c, dh, ws, packed4=False, scales_only=False):
+    """quantize_commit (or, ``scales_only``, quantize_scale_commit) at rows
+    ``ws`` of one set of rings: the kernel's set (and returned rows) and the
+    plain version's bit for bit, and every row but the written ones as it
+    was.  ``packed4``: uint8 rings of Dh/2 bytes a row.  The library entry is
+    the eager chain the parent ran on the same rows: :func:`_eager_chain`,
+    then the copy kernel (ring_commit_q or scale_commit)."""
+    import torch
+
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    qmax = 7.0 if packed4 else 127.0
+    row_bytes = dh // 2 if packed4 else dh
+    k, v = _fresh_rows(dev, g, b, h, dh, qmax, seed=c + dh + int(packed4))
+    lo, hi, dt = (0, 256, torch.uint8) if packed4 else (-127, 128, torch.int8)
+    orig = [torch.randint(lo, hi, (b, h, c, row_bytes), generator=g, device=dev, dtype=dt)
+            for _ in range(2)] + [torch.rand(b, h, c, generator=g, device=dev) for _ in range(2)]
+    if scales_only:
+        orig = orig[2:]
+    kern = [x.clone() for x in orig]
+    plain = [x.clone() for x in orig]
+    name = "quantize_scale_commit" if scales_only else "quantize_commit"
+    written = []
+    cases = []
+    for w in ws:
+        if scales_only:
+            def run_k(w=w):
+                return (*RK.quantize_scale_commit(k, v, *kern, w), *kern)
+
+            def run_p(w=w):
+                return (*RK.quantize_scale_commit_plain(k, v, *plain, w), *plain)
+
+            def library(w=w):
+                kq, vq, ks, vs = _eager_chain(k, v, qmax)
+                RK.scale_commit(kern[0], kern[1], ks, vs, w)
+                return kq, vq
+        else:
+            def run_k(w=w):
+                RK.quantize_commit(k, v, *kern, w)
+                return tuple(kern)
+
+            def run_p(w=w):
+                RK.quantize_commit_plain(k, v, *plain, w)
+                return tuple(plain)
+
+            def library(w=w):
+                kq, vq, ks, vs = _eager_chain(k, v, qmax)
+                RK.ring_commit(kern[0], kern[1], kq, vq, w, kern[2], kern[3], ks, vs)
+
+        def cmp(got, want, w=w):
+            _exact(got, want)
+            written.append(w)
+            keep = torch.ones(c, dtype=torch.bool, device=dev)
+            keep[written] = False
+            for ring_k, ring_0 in zip(got[-len(orig):], orig):
+                check(torch.equal(ring_k[:, :, keep], ring_0[:, :, keep]),
+                      f"{name} touched a row it was not given")
+            return 0.0
+
+        n_rows = 2 * b * h
+        info = {"bytes": n_rows * (2 * dh + row_bytes + 4), "flops": n_rows * 6 * dh,
+                "library": library}
+        label = f"{tag} {'uint8' if packed4 else 'int8'} w={w}"
+        cases.append((name, label, run_k, run_p, cmp, info))
+    return cases
+
+
 def kernel_cases(dev):
     """Inputs at the serving paths' shapes, from a seeded generator; each
     case is (name, label, run_kernel, run_plain, compare).  Each run returns
@@ -891,6 +1058,20 @@ def kernel_cases(dev):
     cases += _split_cases_q4(dev, g, "duplex-kv4", 24, 20, 3072, 128, 3000,
                              ((40, 0.7), (3071, 1.0), (10000, 1.0)))
     cases += _tune_cases(dev, g)
+
+    # The step's quantise-and-commit (TPU kernels 4 and 1 on the path): the
+    # split route's int8 and packed-int4 rings of stt-1b (fused_attn = False),
+    # stt-2.6b and tts_202501, and s2s-2b; the fused route's rings of stt-1b,
+    # tts-1.6b and stt-2.6b (fused_attn = True), and the s2s-2b width.
+    for packed4 in (False, True):
+        for tag, (b, h, c, dh) in (("stt1b", (64, 16, 768, 128)), ("stt26", (64, 32, 384, 64)),
+                                   ("duplex", (24, 20, 3072, 128))):
+            cases += _quantize_commit_cases(dev, g, tag, b, h, c, dh, (0, c // 2, c - 1),
+                                            packed4)
+    for tag, (b, h, c, dh) in (("stt1b", (64, 16, 768, 128)), ("tts", (64, 16, 1024, 128)),
+                               ("stt26", (64, 32, 384, 64)), ("duplex", (24, 20, 3072, 128))):
+        cases += _quantize_commit_cases(dev, g, tag, b, h, c, dh, (0, c // 2, c - 1),
+                                        scales_only=True)
     return cases
 
 
@@ -1094,14 +1275,10 @@ def _verify(sessions, sids, n_vad):
 def phase_serve(dev):
     import torch
 
-    from dsm_tpu_torch.ops import decode_attn as DA
-    from dsm_tpu_torch.ops import ring_kernels as RK
     from dsm_tpu_torch.server import builder
     from dsm_tpu_torch.server import config as CFG
 
-    counters = {"scale_commit": RK.scale_commit,
-                "decode_attend_commit": DA.decode_attend_commit,
-                "ring_commit": RK.ring_commit}
+    counters = {name: _duplex_counters()[name] for name in PER_STEP}
     mod = CFG.Config.load(os.path.join(ROOT, "configs", "config-stt.toml")).modules["asr"]
     t0 = time.perf_counter()
     engine = builder.build_batched_asr(mod, dev)
@@ -1341,13 +1518,9 @@ def _qmm_times(name, label, info, bound_ms, card):
 
 
 def _lm_counters():
-    from dsm_tpu_torch.ops import decode_attn as DA
     from dsm_tpu_torch.ops import qmm as QM
-    from dsm_tpu_torch.ops import ring_kernels as RK
 
-    return {"ring_commit_q": RK.ring_commit_q, "decode_attend": DA.decode_attend,
-            "ring_commit": RK.ring_commit, "qmm": QM.qmm, "scale_commit": RK.scale_commit,
-            "decode_attend_commit": DA.decode_attend_commit}
+    return {**_duplex_counters(), "qmm": QM.qmm}
 
 
 def _with_fused(lm_cfg, fused_attn):
@@ -1420,8 +1593,8 @@ def _compare_routes(tag, what, a, b, w):
 def phase_stt1b_split(dev):
     """Kernel 5's route on a path: the stt-1b LM (full width, 4 of its 16
     layers, B=64, int8 KV, W8A8) steps 24 frames, then one more from that
-    state with the fused setting off (ring_commit_q + decode_attend over the
-    (64,16,768,128) rings) and one by the shape rule (scale_commit +
+    state with the fused setting off (quantize_commit + decode_attend over the
+    (64,16,768,128) rings) and one by the shape rule (quantize_scale_commit +
     decode_attend_commit)."""
     import dataclasses
 
@@ -1455,10 +1628,10 @@ def phase_stt1b_split(dev):
     w = state["t"]["pos"] % ring.shape[2]
     fused = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
     split = _lm_step_counted(_with_fused(lm_cfg, False), params, state, text, audio, mask)
-    want_split = {"ring_commit_q": depth, "decode_attend": depth, "ring_commit": 0, "qmm": 0,
-                  "scale_commit": 0, "decode_attend_commit": 0}
-    want_fused = {**want_split, "ring_commit_q": 0, "decode_attend": 0,
-                  "scale_commit": depth, "decode_attend_commit": depth}
+    want_split = {"quantize_commit": depth, "decode_attend": depth, "ring_commit": 0, "qmm": 0,
+                  "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
+    want_fused = {**want_split, "quantize_commit": 0, "decode_attend": 0,
+                  "quantize_scale_commit": depth, "decode_attend_commit": depth}
     check(split[2] == want_split, f"stt1b-split: launches {split[2]}, want {want_split}")
     check(fused[2] == want_fused, f"stt1b-split: fused launches {fused[2]}")
     same, worst, err = _compare_routes("stt1b-split", "the split route", split, fused, w)
@@ -1540,7 +1713,7 @@ def phase_stt26_path(engine, dev):
     """One LM step of the stt-2.6b engine from its state after the timed
     steps (every slot active): through the kernels against the same step
     through their plain versions (relative L2, PATH_RTOL), and with the
-    fused setting on (48 scale_commit + 48 decode_attend_commit at h=32,
+    fused setting on (48 quantize_scale_commit + 48 decode_attend_commit at h=32,
     Dh=64) against the split route."""
     import torch
 
@@ -1559,8 +1732,9 @@ def phase_stt26_path(engine, dev):
 
     split = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
     layers = lm_cfg.transformer.num_layers
-    want = {"ring_commit_q": layers, "decode_attend": layers, "ring_commit": 0,
-            "qmm": 4 * layers + 1, "scale_commit": 0, "decode_attend_commit": 0}
+    want = {"quantize_commit": layers, "decode_attend": layers, "ring_commit": 0,
+            "qmm": 4 * layers + 1, "quantize_scale_commit": 0, "decode_attend_commit": 0,
+            **_NONE}
     check(split[2] == want, f"stt26-path: launches {split[2]}, want {want}")
     with plain_seams(), torch.inference_mode():
         plain = LM.step(lm_cfg, params, _clone(state), text, audio, mask)
@@ -1576,13 +1750,13 @@ def phase_stt26_path(engine, dev):
     check(history > PATH_RTOL,
           f"stt26-path: the ring's history moves the hidden state only {history!r}")
     print(f"[stt26-path] {n} active rows at tick {pos} (every slot with at least {seen} valid "
-          f"ring rows), LM step through ring_commit_q + decode_attend + qmm ({split[2]}) "
+          f"ring rows), LM step through quantize_commit + decode_attend + qmm ({split[2]}) "
           f"against their plain versions from one state: relative L2 hidden "
           f"{rel['hidden']!r}, text logits {rel['text_logits']!r} (bar {PATH_RTOL}); with the "
           f"ring's history masked the hidden state moves {history!r}", flush=True)
 
     fused = _lm_step_counted(_with_fused(lm_cfg, True), params, state, text, audio, mask)
-    want_fused = {**want, "ring_commit_q": 0, "decode_attend": 0, "scale_commit": layers,
+    want_fused = {**want, "quantize_commit": 0, "decode_attend": 0, "quantize_scale_commit": layers,
                   "decode_attend_commit": layers}
     check(fused[2] == want_fused, f"stt26-path: fused launches {fused[2]}, want {want_fused}")
     same, worst, err = _compare_routes("stt26-path", "the fused route", fused, split, w)
@@ -1655,7 +1829,7 @@ def phase_stt26_kv4(engine, dev, card):
     timed; and, held to no bar since no engine reaches it, the 40 rows with
     every never-written row marked valid at a scale of 1e-3 (a packed ring
     reads its zero bytes as -8).  From each state the step also runs with
-    the ring kernels alone (ring_commit_q + decode_attend, qmm plain) and
+    the ring kernels alone (quantize_commit + decode_attend, qmm plain) and
     with qmm alone through its kernel: which kernel's summation order moves
     the outputs, and how far (over full rings qmm alone passes PATH_RTOL, so
     steps that launch it are held to FULL_RING_RTOL there); and every
@@ -1680,11 +1854,11 @@ def phase_stt26_kv4(engine, dev, card):
 
     history = [tokens() for _ in range(40)]
     text, audio = tokens()
-    ring_launches = {"ring_commit_q": layers, "decode_attend": layers}
+    ring_launches = {"quantize_commit": layers, "decode_attend": layers}
     want_launches = {**ring_launches, "ring_commit": 0, "qmm": 4 * layers + 1,
-                     "scale_commit": 0, "decode_attend_commit": 0}
+                     "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
     counters = _lm_counters()
-    ring_seams, qmm_seam = (RK.ring_commit, DA._attend_launch), QM._launch
+    ring_seams, qmm_seam = (RK.quantize_commit, DA._attend_launch), QM._launch
 
     def step(state, ring_kernels, qmm_kernel, seam=None):
         """One step from a clone of ``state`` -> (text logits, hidden state),
@@ -1693,7 +1867,7 @@ def phase_stt26_kv4(engine, dev, card):
         before = {name: fn.launches for name, fn in counters.items()}
         with plain_seams(), torch.inference_mode(), contextlib.ExitStack() as stack:
             if ring_kernels:
-                RK.ring_commit = ring_seams[0]
+                RK.quantize_commit = ring_seams[0]
                 stack.enter_context(attend_seam_errors(seam, ring_seams[1]))
             if qmm_kernel:
                 QM._launch = qmm_seam
@@ -1724,7 +1898,7 @@ def phase_stt26_kv4(engine, dev, card):
         forgot["t"]["valid"].zero_()
         return rel, _rel(step(forgot, False, False)[1], plain[1])
 
-    # The kernels of decode_attend (no ring commit: both legs run ring_commit_q
+    # The kernels of decode_attend (no ring commit: both legs run quantize_commit
     # + decode_attend, as want_launches holds), by name in the profile.
     attend_kernels = {4: ("decode_attend_q4_kernel", "decode_attend_combine_kernel"),
                       8: ("decode_attend_partial_kernel", "decode_attend_combine_kernel")}
@@ -1790,7 +1964,7 @@ def phase_stt26_kv4(engine, dev, card):
             r = rel[bits, where]
             print(f"[stt26-kv4] stt-2.6b LM step, {layers} layers, B={n}, kv_bits = {bits}, rings "
                   f"{what}: relative L2 (hidden state, text logits) from the plain step, both "
-                  f"sides' launches counted: all kernels {r['all']!r}, ring_commit_q + "
+                  f"sides' launches counted: all kernels {r['all']!r}, quantize_commit + "
                   f"decode_attend alone {r['rings']!r}, qmm alone {r['qmm']!r} (bar "
                   f"{PATH_RTOL}; over full rings {FULL_RING_RTOL} where qmm is a kernel, "
                   f"{Q4_ALONE_FULL_RTOL['stt26-kv4']} decode_attend alone over int4); each "
@@ -1914,14 +2088,19 @@ def _profile(fn, n: int):
 
 # Name stems of the port's kernels (dsm_tpu_torch/csrc/, each in an anonymous
 # namespace): a profile lists these wherever they rank.
-PORT_KERNELS = ("ring_commit", "scale_commit", "decode_attend", "ca_decode_attend", "qmm",
+PORT_KERNELS = ("ring_commit", "scale_commit", "quantize_commit", "decode_attend",
+                "ca_decode_attend", "qmm",
                 "attn_tune")
+
+
+PROFILES = {}  # (tag, what) -> (kernel ms, device launches) a step or tick
 
 
 def _print_profile(tag, what, rows, wall_us, n, unit, card, top):
     """The profile's summary line, its ``top`` kernels and then the port's own
     kernels wherever they rank -> kernel ms a call."""
     total = sum(t for _, t, _ in rows)
+    PROFILES.setdefault((tag, what), (total / n / 1e3, sum(c for _, _, c in rows) / n))
     print(f"[{tag}] {what}kernels {total / n / 1e3!r} ms/{unit} of {wall_us / n / 1e3!r} "
           f"ms/{unit} wall (profiled over {n}): device busy {total / wall_us!r}, "
           f"{sum(c for _, _, c in rows) / n:.0f} device launches/{unit}, {len(rows)} kernel "
@@ -2095,18 +2274,20 @@ def plain_seams():
     from dsm_tpu_torch.ops import qmm as QM
     from dsm_tpu_torch.ops import ring_kernels as RK
 
-    saved = (RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch,
-             DA._attend_launch, QM._launch)
+    saved = (RK.scale_commit, RK.ring_commit, RK.quantize_commit, RK.quantize_scale_commit,
+             DA._launch, DA._ca_launch, DA._attend_launch, QM._launch)
     # ring_commit_plain also takes the scale rings (the split pipeline's commit).
     RK.scale_commit, RK.ring_commit = RK.scale_commit_plain, RK.ring_commit_plain
+    RK.quantize_commit = RK.quantize_commit_plain
+    RK.quantize_scale_commit = RK.quantize_scale_commit_plain
     DA._launch, DA._ca_launch = DA.decode_attend_commit_plain, DA.ca_decode_attend_plain
     DA._attend_launch = DA.decode_attend_plain
     QM._launch = lambda x2, wq, s, ksplit: QM.qmm_plain(x2, wq, s)
     try:
         yield
     finally:
-        (RK.scale_commit, RK.ring_commit, DA._launch, DA._ca_launch,
-         DA._attend_launch, QM._launch) = saved
+        (RK.scale_commit, RK.ring_commit, RK.quantize_commit, RK.quantize_scale_commit,
+         DA._launch, DA._ca_launch, DA._attend_launch, QM._launch) = saved
 
 
 @contextlib.contextmanager
@@ -2295,9 +2476,10 @@ def _duplex_counters():
     from dsm_tpu_torch.ops import decode_attn as DA
     from dsm_tpu_torch.ops import ring_kernels as RK
 
-    return {"ring_commit_q": RK.ring_commit_q, "decode_attend": DA.decode_attend,
-            "ring_commit": RK.ring_commit, "scale_commit": RK.scale_commit,
-            "decode_attend_commit": DA.decode_attend_commit}
+    return {"quantize_commit": RK.quantize_commit, "decode_attend": DA.decode_attend,
+            "ring_commit": RK.ring_commit, "quantize_scale_commit": RK.quantize_scale_commit,
+            "decode_attend_commit": DA.decode_attend_commit,
+            "ring_commit_q": RK.ring_commit_q, "scale_commit": RK.scale_commit}
 
 
 def _duplex_open(engine, sid, seconds, sessions, asr_delay=0):
@@ -2524,7 +2706,7 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     check(len(seam) == layers and max(seam) <= SEAM_RTOL,
           f"duplex path check: decode_attend is {seam!r} from its plain version on the "
           f"layers' own operands")
-    check(launched == {**dict.fromkeys(counters, 0), "ring_commit_q": layers,
+    check(launched == {**dict.fromkeys(counters, 0), "quantize_commit": layers,
                        "decode_attend": layers},
           f"duplex path check: the kernels' step launched {launched}")
     check(not any(launched_plain.values()),
@@ -2533,7 +2715,7 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     history = _rel(empty["hidden"], want["hidden"])
     bar = FULL_RING_RTOL if full else PATH_RTOL
     packed = engine.state["lm"]["t"]["layers"][0]["k"].dtype == torch.uint8
-    if full and packed:  # the step's only kernels: decode_attend alone, with ring_commit_q
+    if full and packed:  # the step's only kernels: decode_attend alone, with quantize_commit
         bar = Q4_ALONE_FULL_RTOL["duplex-kv4"]
     for k, r in rel.items():
         check(bool(torch.isfinite(got[k]).all()), f"duplex path check: {k} not finite")
@@ -2545,8 +2727,8 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     check(not full or min(rel.values()) > 0,
           "duplex path check: kernels and plain versions bit-identical over full rings")
     print(f"[{tag}-path] {n} active rows at tick {pos} (every slot with at least {seen} "
-          f"valid ring rows), LM step through ring_commit_q + decode_attend ({layers} "
-          f"launches each; none in the plain step; ring_commit_q is bit for bit its plain "
+          f"valid ring rows), LM step through quantize_commit + decode_attend ({layers} "
+          f"launches each; none in the plain step; quantize_commit is bit for bit its plain "
           f"version, so this is decode_attend alone) against their "
           f"plain versions from one state: relative L2 hidden {rel['hidden']!r}, text "
           f"logits {rel['text_logits']!r} (bar {bar}); each layer's decode_attend from its "
@@ -2844,7 +3026,17 @@ def main() -> int:
                  "max_abs_err": max_err(wrapper, route_tag(HEADLINE[name])), **ms[name]}
                 for name, (wrapper, tpu, path) in ROUTES.items()]
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was launched on no main path")
+        if k["name"] in OFF_PATH:
+            check(k["launches"] == 0, f"{k['name']} still launched on a path")
+            k["path"] = f"none: the step launches {OFF_PATH[k['name']]} in its place"
+        else:
+            check(k["launches"] > 0, f"{k['name']} was launched on no main path")
+    for key, (what, launches, ms) in PARENT_PROFILE.items():
+        got_ms, got_launches = PROFILES[key, ""] if key != "duplex-profile" else PROFILES[
+            key, "24 slots, short rings: "]
+        print(f"[launches] {what}: {got_launches:.0f} device launches, kernels {got_ms!r} ms "
+              f"(profiler; before the quantise-and-commit kernels, PERF.md section 5: "
+              f"{launches} launches, {ms} ms); card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,15 @@
 // Hopper (sm_90a) kernels of the KV rings: the commits.
 //
-// Three kernels, each the counterpart of one Pallas TPU kernel:
+// Three copy kernels, each the counterpart of one Pallas TPU kernel:
 //   dsm_ring_commit    <- dsm_tpu/ops/ring_kernels.py:_ring_commit
 //   dsm_ring_commit_q  <- dsm_tpu/ops/ring_kernels.py:_ring_commit_q
 //   dsm_scale_commit   <- dsm_tpu/ops/ring_kernels.py:_scale_commit
+// and the quantise-and-commit kernel that serves the last two on the step's
+// path, the fresh rows' int8 (or packed-int4) quantisation folded in:
+//   dsm_quantize_commit <- _ring_commit_q (the rows into the rings) and
+//                          _scale_commit (the rows returned), with
+//                          dsm_tpu/ops/attention.py:quantize_kv_rows(_packed4)
+//                          before them, which XLA fuses on the TPU
 // The fused pipeline's attention, which commits its int8 row itself, is in
 // decode_attn.cu (dsm_decode_attend_commit).
 //
@@ -108,6 +114,140 @@ __global__ void ring_commit_q_kernel(uint32_t* __restrict__ k_cache,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Quantise and commit: the fresh bf16 K and V rows (B, H, 1, Dh), read
+// where they lie through their (b, h) strides (V is a strided view of
+// the QKV product), each quantised per row as
+// dsm_tpu/ops/attention.py:quantize_kv_rows(_packed4):
+//   scale = max(amax, 1e-8) / qmax         qmax = 127 (int8) or 7 (int4)
+//   q     = clamp(rint(x / scale), -qmax, qmax)
+// in f32 with IEEE division (__fdiv_rn) and round half to even (rintf), no
+// fast math: bit for bit the JAX package's and the plain version's.  A row
+// holding a NaN keeps it: amax and scale NaN (torch.clamp and jnp.maximum
+// keep a NaN where fmaxf would drop it), every value 0, as a NaN converts.
+// The int8 row, or the nibble-packed row of attention.pack4 (byte d holds
+// dims d and d + Dh/2, excess-8), goes to `kq/vq + (b*H + h) * q_pane`: the
+// ring row w (q_pane = C row widths past row w) or the returned rows
+// (q_pane = one row width); both scales go into the scale rings at row w.
+// One launch for K and V.
+//
+// What bounds it on the H100: nothing the card can stream.  The stt-1b rows
+// are 512 KB of bf16 in and some 270 KB out, a tenth of a microsecond at
+// 3.35 TB/s, where a launch costs some 2 us whatever it does.  On the TPU
+// XLA fuses the eager quantisation into the producers around the Pallas
+// commit; here it was some 19 launches a layer (27 at int4) before one copy
+// launch.  So the design removes launches and device passes and nothing
+// else: Dh/8 lanes a row (a segment of a power of two lanes, 16 at Dh=128,
+// 8 at Dh=64), each with one 16-byte load of 8 bf16 values, the
+// row's amax by __shfl_xor_sync within the segment, the values quantised in
+// registers, one 8-byte store of int8 a lane; for a packed row the lanes of
+// the first half exchange 4 nibbles by one shuffle with their partners Dh/2
+// dims on, and each lane stores one 32-bit word of whole bytes.  One lane
+// stores the scale.  No shared memory, no synchronisation beyond the warp.
+// ---------------------------------------------------------------------------
+
+constexpr int kQuantThreads = 128;  // threads per block of the quantise-and-commit kernel
+
+struct QuantCommitArgs {
+  const uint16_t* k;      // fresh bf16 rows, (B, H, 1, Dh), the last dim contiguous
+  const uint16_t* v;
+  long long k_sb, k_sh;   // (b, h) strides of k, in elements
+  long long v_sb, v_sh;
+  uint8_t* kq;            // int8 or packed row of pane (b, h) at kq + bh * q_pane
+  uint8_t* vq;
+  long long q_pane;       // bytes
+  float* ks;              // scale rings (B, H, C)
+  float* vs;
+  long long rows;         // B * H
+  int h, c, w;
+  int lanes;              // Dh / 8 lanes hold a row
+  int seg_log2;           // log2 of the segment: lanes rounded up to a power of two
+};
+
+// max that keeps a NaN from either side (fmaxf returns the other operand).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ void load8(const uint16_t* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);  // 8 bf16
+  const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(words[i] << 16);
+    x[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
+}
+
+template <bool kPacked>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_commit_kernel(const QuantCommitArgs a) {
+  const int seg = 1 << a.seg_log2;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (seg - 1);  // lane within the row's segment
+  // Row index over K rows then V rows; a segment's lanes share it, so whole
+  // segments leave together and the shuffles below name live lanes only.
+  const long long row = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> a.seg_log2;
+  if (row >= 2 * a.rows) return;
+  const bool is_v = row >= a.rows;
+  const long long bh = is_v ? row - a.rows : row;
+  const long long b = bh / a.h;
+  const long long hh = bh - b * a.h;
+  const unsigned mask = seg == 32 ? 0xffffffffu : ((1u << seg) - 1u) << (lane & ~(seg - 1));
+  const bool live = sub < a.lanes;  // lanes past Dh/8 in a segment hold nothing
+
+  float x[8];
+  float m = 0.f;
+  if (live) {
+    const uint16_t* src = (is_v ? a.v : a.k) + b * (is_v ? a.v_sb : a.k_sb) +
+                          hh * (is_v ? a.v_sh : a.k_sh) + sub * 8;
+    load8(src, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m = nan_max(m, fabsf(x[i]));
+  }
+  for (int off = seg >> 1; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(mask, m, off));
+  const float qmax = kPacked ? 7.f : 127.f;
+  const float scale = m != m ? m : __fdiv_rn(fmaxf(m, 1e-8f), qmax);
+
+  int q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float r = rintf(__fdiv_rn(live ? x[i] : 0.f, scale));
+    q[i] = r != r ? 0 : (int)fminf(fmaxf(r, -qmax), qmax);
+  }
+  uint8_t* dst = (is_v ? a.vq : a.kq) + bh * a.q_pane;
+  if (kPacked) {
+    // Nibbles q + 8, one a byte: dims 0-3 of the lane in `lo`, 4-7 in `hi`.
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lo |= (uint32_t)(q[i] + 8) << (8 * i);
+      hi |= (uint32_t)(q[i + 4] + 8) << (8 * i);
+    }
+    // Lane l < half holds dims 8l.. and lane l + half the dims Dh/2 on: the
+    // first forms bytes 8l..8l+3 (its lo under the partner's lo), the
+    // second bytes 8l+4..8l+7 (the first's hi under its own hi).
+    const int half = a.lanes >> 1;
+    const bool first = sub < half;
+    const int base = lane & ~(seg - 1);
+    const uint32_t other =
+        __shfl_sync(mask, first ? hi : lo, base + (first ? sub + half : sub - half));
+    if (live) {
+      const uint32_t word = first ? lo | (other << 4) : other | (hi << 4);
+      reinterpret_cast<uint32_t*>(dst)[first ? 2 * sub : 2 * (sub - half) + 1] = word;
+    }
+  } else if (live) {
+    uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w0 |= (uint32_t)(q[i] & 0xff) << (8 * i);
+      w1 |= (uint32_t)(q[i + 4] & 0xff) << (8 * i);
+    }
+    reinterpret_cast<uint2*>(dst)[sub] = make_uint2(w0, w1);
+  }
+  if (sub == 0) (is_v ? a.vs : a.ks)[bh * a.c + a.w] = scale;
+}
+
 inline unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -166,6 +306,37 @@ int dsm_scale_commit(void* ks_cache, void* vs_cache, const void* ks_new,
   scale_commit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (float*)ks_cache, (float*)vs_cache, (const float*)ks_new,
       (const float*)vs_new, n, t, c, w);
+  return (int)cudaGetLastError();
+}
+
+// The fresh bf16 rows k, v (B, H, 1, Dh), their (b, h) strides in elements
+// (the rows 16-byte aligned); the int8 (packed4 0) or packed-int4 (packed4
+// 1) rows go to kq/vq + (b*H + h) * q_pane bytes, the scales into ks/vs (B,
+// H, C) at row w.  Dh a multiple of 8 (of 16 packed) from 8 to 256.  Returns
+// a cudaError_t.
+int dsm_quantize_commit(const void* k, const void* v, long long k_sb, long long k_sh,
+                        long long v_sb, long long v_sh, void* kq, void* vq,
+                        long long q_pane, void* ks, void* vs, long long b, int h, int c,
+                        int dh, int packed4, int w, void* stream) {
+  if (dh % (packed4 ? 16 : 8) || dh < 8 || dh > 256) return (int)cudaErrorInvalidValue;
+  QuantCommitArgs a;
+  a.k = (const uint16_t*)k; a.v = (const uint16_t*)v;
+  a.k_sb = k_sb; a.k_sh = k_sh; a.v_sb = v_sb; a.v_sh = v_sh;
+  a.kq = (uint8_t*)kq; a.vq = (uint8_t*)vq; a.q_pane = q_pane;
+  a.ks = (float*)ks; a.vs = (float*)vs;
+  a.rows = b * h; a.h = h; a.c = c; a.w = w;
+  a.lanes = dh / 8;
+  a.seg_log2 = 0;
+  while ((1 << a.seg_log2) < a.lanes) ++a.seg_log2;
+  if (a.rows == 0) return (int)cudaSuccess;
+  const int64_t threads = 2 * a.rows << a.seg_log2;
+  const unsigned grid = (unsigned)((threads + kQuantThreads - 1) / kQuantThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (packed4) {
+    quantize_commit_kernel<true><<<grid, kQuantThreads, 0, s>>>(a);
+  } else {
+    quantize_commit_kernel<false><<<grid, kQuantThreads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,11 @@ _SIGNATURES = {
     "dsm_ring_commit_q": ([_P] * 8 + [_LL, _I, _I, _I, _I, _I, _P], _I),
     # ks_cache, vs_cache, ks_new, vs_new, b, h, t, c, w, stream
     "dsm_scale_commit": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
+    # k, v, k strides (b, h), v strides (b, h), kq, vq, q_pane, ks, vs, b, h, c,
+    # dh, packed4, w, stream
+    "dsm_quantize_commit": (
+        [_P, _P] + [_LL] * 4 + [_P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P], _I
+    ),
     "dsm_decode_attend_commit_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
     # valid, part, out, b, h, c, dh, n_split, pos, w, window, scale, stream

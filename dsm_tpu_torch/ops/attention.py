@@ -20,6 +20,7 @@ bf16 x int8 product is exact in f32, so this equals JAX's bf16 dots with
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -99,6 +100,23 @@ def update_valid_bitmap(valid: torch.Tensor, w: list,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(value: float, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # a plain tensor, usable in and out of inference mode
+        return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def div_ieee(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` rounded as IEEE division, on every device.  ATen
+    multiplies a CUDA tensor divided by a Python number by the f32
+    reciprocal (``div_true_kernel_cuda``), which misses the quotient by one
+    bit for some x, where the JAX package and the CPU divide; a 0-dim tensor
+    on the device divides.
+    The divisor is made once per value and device, so the division costs no
+    launch more than before (``qmm.mm_w8a8`` runs it on every W8A8 matmul)."""
+    return x / _divisor(float(value), x.device)
+
+
 def quantize_kv_rows(k_new: torch.Tensor, v_new: torch.Tensor):
     """Per-row symmetric int8 quantisation of fresh K/V rows.
 
@@ -108,7 +126,7 @@ def quantize_kv_rows(k_new: torch.Tensor, v_new: torch.Tensor):
     def one(x):
         xf = x.float()
         amax = xf.abs().amax(dim=-1)
-        scale = torch.clamp(amax, min=1e-8) / 127.0
+        scale = div_ieee(torch.clamp(amax, min=1e-8), 127.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
         return q.to(torch.int8), scale
 
@@ -141,7 +159,7 @@ def quantize_kv_rows_packed4(k_new: torch.Tensor, v_new: torch.Tensor):
 
     def one(x):
         xf = x.float()
-        scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 7.0
+        scale = div_ieee(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 7.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7)
         return pack4(q), scale
 

@@ -1,6 +1,6 @@
 """In-place KV ring commits (counterpart of ``dsm_tpu/ops/ring_kernels.py``).
 
-Three kernels, CUDA C++ in ``csrc/ring_attn.cu``:
+Five wrappers over four kernels, CUDA C++ in ``csrc/ring_attn.cu``:
 
 ``ring_commit`` replaces ``dsm_tpu/ops/ring_kernels.py:_ring_commit``: it
 writes T new K/V rows ``(B, H, T, Dh)`` into the bf16 or f32 rings
@@ -17,6 +17,19 @@ launch; at s2s-2b B=24 that is 2 x 61 KB of rows and 2 x 1.9 KB of scales,
 once per LM layer.  The packed-int4 rings (uint8, rows of ``Dh/2`` bytes)
 take the same launch: the kernel copies bytes and is given the row width
 in bytes.  :func:`ring_commit` with the scale rings goes there.
+
+``quantize_commit`` and ``quantize_scale_commit`` serve TPU kernels 4 and 1
+on the step's path, one kernel (``dsm_quantize_commit``) with the fresh rows'
+quantisation folded in: they take the fresh bf16 K and V rows ``(B, H, 1,
+Dh)`` where they lie (V is a strided view of the QKV product), quantise each
+row as ``attention.quantize_kv_rows`` (or ``quantize_kv_rows_packed4`` for a
+uint8 ring) and write the int8 or packed rows into the rings
+(``quantize_commit``, the split pipeline) or return them (``quantize_scale_commit``,
+the fused pipeline, whose attention commits the rows itself), the scales into
+the scale rings, in one launch where the eager chain before the copy took
+some 19 (27 at int4).  ``ring_commit_q`` and ``scale_commit`` stay the literal
+counterparts of ``_ring_commit_q`` and ``_scale_commit`` on rows quantised
+already.
 
 What bounds them on the H100: a few hundred KB moved at most, so each is
 bound by its launch and the latency of one round of stores, not by
@@ -44,7 +57,7 @@ import ctypes
 import torch
 
 from . import _build
-from .attention import ring_write_global
+from . import attention as attn
 
 
 def _check_rows(w: int, t: int, c: int) -> None:
@@ -76,7 +89,7 @@ def ring_commit_plain(k_cache, v_cache, k_new, v_new, w: int, ks_cache=None,
                             ks_new, vs_new, w)
         return
     _check_rows(w, k_new.shape[2], k_cache.shape[2])
-    ring_write_global(k_cache, v_cache, k_new, v_new, w)
+    attn.ring_write_global(k_cache, v_cache, k_new, v_new, w)
 
 
 def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -240,3 +253,118 @@ def scale_commit(ks_cache: torch.Tensor, vs_cache: torch.Tensor,
 
 
 scale_commit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# quantize_commit and quantize_scale_commit: the fresh rows quantised in the
+# commit
+# ---------------------------------------------------------------------------
+
+
+def quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, w: int) -> None:
+    """Plain PyTorch version of :func:`quantize_commit` (any device):
+    ``quantize_kv_rows`` (``quantize_kv_rows_packed4`` for uint8 rings), then
+    :func:`ring_commit_q_plain`."""
+    if k_cache.dtype == torch.uint8:
+        kq, vq, ks, vs = attn.quantize_kv_rows_packed4(k, v)
+    else:
+        kq, vq, ks, vs = attn.quantize_kv_rows(k, v)
+    ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, kq, vq, ks, vs, w)
+
+
+def quantize_scale_commit_plain(k, v, ks_cache, vs_cache, w: int):
+    """Plain PyTorch version of :func:`quantize_scale_commit` (any device):
+    ``quantize_kv_rows``, then :func:`scale_commit_plain`; returns ``kq, vq``."""
+    kq, vq, ks, vs = attn.quantize_kv_rows(k, v)
+    scale_commit_plain(ks_cache, vs_cache, ks, vs, w)
+    return kq, vq
+
+
+def _quantize_launch(name, k, v, kq_ptr, vq_ptr, q_pane, ks_cache, vs_cache, w, packed4):
+    """Check the fresh rows and the scale rings for ``dsm_quantize_commit`` and
+    launch it: the rows ``(B, H, 1, Dh)`` bf16 on the card (the step's
+    dtype there), the last dim contiguous and each row on 16 bytes (through
+    any (b, h) strides), Dh a multiple of 8 (16 packed) up to 256; f32 scale
+    rings ``(B, H, C)``."""
+    b, h, t, dh = k.shape
+    c = ks_cache.shape[2]
+    if t != 1 or v.shape != k.shape:
+        raise ValueError(f"{name} takes fresh rows (B, H, 1, Dh), got {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    if k.dtype != torch.bfloat16 or v.dtype != k.dtype:
+        raise ValueError(f"{name} kernel takes bf16 rows, got {k.dtype} / {v.dtype}")
+    if dh % (16 if packed4 else 8) or not 8 <= dh <= 256:
+        raise ValueError(f"{name} kernel takes Dh a multiple of {16 if packed4 else 8} "
+                         f"up to 256, got {dh}")
+    if ks_cache.dtype != torch.float32 or vs_cache.dtype != torch.float32:
+        raise ValueError(f"{name} takes f32 scale rings")
+    if ks_cache.shape != (b, h, c) or vs_cache.shape != ks_cache.shape:
+        raise ValueError(f"{name}: rows {tuple(k.shape)} do not fit scale rings "
+                         f"{tuple(ks_cache.shape)}")
+    _check_cuda(name, {"ks_cache": ks_cache, "vs_cache": vs_cache})
+    for label, x in (("k", k), ("v", v)):
+        if not x.is_cuda:
+            raise ValueError(f"{name}: {label} is on {x.device}, not CUDA")
+        if x.stride(3) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
+            raise ValueError(f"{name}: the rows of {label} are not contiguous on 16 bytes "
+                             f"(strides {x.stride()})")
+    err = _build.lib().dsm_quantize_commit(
+        k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        kq_ptr, vq_ptr, q_pane, ks_cache.data_ptr(), vs_cache.data_ptr(),
+        b, h, c, dh, int(packed4), w, ctypes.c_void_p(_build.stream_ptr()),
+    )
+    _build.check(err, name)
+
+
+def quantize_commit(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, ks_cache: torch.Tensor, vs_cache: torch.Tensor,
+                    w: int) -> None:
+    """Quantise the fresh rows ``k, v (B, H, 1, Dh)`` per row and write them
+    into the int8 rings ``(B, H, C, Dh)`` (nibble-packed into the uint8
+    rings ``(B, H, C, Dh/2)``) and their scales into the f32 scale rings
+    ``(B, H, C)``, all at row ``w``, in place, in one launch: the split
+    pipeline's ``quantize_kv_rows(_packed4)`` + :func:`ring_commit_q`."""
+    b, h, t, dh = k.shape
+    c = k_cache.shape[2]
+    _check_rows(w, t, c)
+    if k_cache.device.type == "cpu":
+        quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, w)
+        return
+    if k_cache.dtype not in (torch.int8, torch.uint8) or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"quantize_commit takes int8 or packed uint8 rings, got "
+                         f"{k_cache.dtype} / {v_cache.dtype}")
+    packed4 = k_cache.dtype == torch.uint8
+    row_bytes = dh // 2 if packed4 else dh
+    if k_cache.shape != (b, h, c, row_bytes) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"quantize_commit: rows {tuple(k.shape)} do not fit ring "
+                         f"{tuple(k_cache.shape)}")
+    _check_cuda("quantize_commit", {"k_cache": k_cache, "v_cache": v_cache})
+    _quantize_launch("quantize_commit", k, v, k_cache.data_ptr() + w * row_bytes,
+                     v_cache.data_ptr() + w * row_bytes, c * row_bytes, ks_cache, vs_cache,
+                     w, packed4)
+    quantize_commit.launches += 1
+
+
+quantize_commit.launches = 0
+
+
+def quantize_scale_commit(k: torch.Tensor, v: torch.Tensor, ks_cache: torch.Tensor,
+                          vs_cache: torch.Tensor, w: int):
+    """Quantise the fresh rows ``k, v (B, H, 1, Dh)`` per row to int8, write
+    their scales into the f32 scale rings ``(B, H, C)`` at row ``w``, in
+    place, and return ``kq, vq (B, H, 1, Dh)`` int8, contiguous, in one
+    launch: the fused pipeline's ``quantize_kv_rows`` + :func:`scale_commit`
+    (``decode_attend_commit`` commits the int8 rows)."""
+    b, h, t, dh = k.shape
+    _check_rows(w, t, ks_cache.shape[2])
+    if ks_cache.device.type == "cpu":
+        return quantize_scale_commit_plain(k, v, ks_cache, vs_cache, w)
+    kq = torch.empty((b, h, t, dh), dtype=torch.int8, device=k.device)
+    vq = torch.empty_like(kq)
+    _quantize_launch("quantize_scale_commit", k, v, kq.data_ptr(), vq.data_ptr(), dh,
+                     ks_cache, vs_cache, w, False)
+    quantize_scale_commit.launches += 1
+    return kq, vq
+
+
+quantize_scale_commit.launches = 0

@@ -224,7 +224,7 @@ def quantize_weights(tree, min_size: int = 1 << 16, w8a8=True):
                 or "layer_scale" in name or "alpha" in name):
             return leaf
         w = leaf.float()
-        s = w.abs().amax(dim=-1, keepdim=True) / 127.0
+        s = attn.div_ieee(w.abs().amax(dim=-1, keepdim=True), 127.0)
         s = torch.clamp(s, min=1e-12)
         q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
         return tagged(q, s[..., 0])
@@ -336,7 +336,7 @@ def quantize_ca_kv(ca_kv, s_len: Optional[int] = None) -> dict:
         if pad:
             x = torch.cat([x, x.new_zeros((*x.shape[:3], pad, x.shape[4]))], dim=3)
         xf = x.float()
-        scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+        scale = attn.div_ieee(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 127.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
         return q.to(torch.int8), scale
 
@@ -369,20 +369,22 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
     """One streaming step: ``x (B, T, D)`` -> ``(y (B, T, D), state')``.
 
     The kernel seams sit where the JAX step has them:
-      * int8 rings (T=1): quantise the fresh K/V rows, then by the JAX
-        package's shape rule (``decode_attn.fused_commit_supported``: Dh=128,
-        ``h % 8 == 0``, ``h <= 16`` and a ring of at most 2.5 MB per slot)
-        the fused pipeline, ``scale_commit`` then ``decode_attend_commit``
-        over the pre-commit ring (it commits the int8 row itself); for every
-        other int8 ring the split pipeline, ``ring_commit`` with the scale
-        rings then ``decode_attend`` over the committed ring (on the card a
-        head width its kernel does not take raises).  ``cfg.fused_attn``
-        overrides the rule: True takes the fused pipeline at every ring of
-        at most 2.5 MB per slot with ``h % 8 == 0``, False the split
-        pipeline everywhere;
+      * int8 rings (T=1): by the JAX package's shape rule
+        (``decode_attn.fused_commit_supported``: Dh=128, ``h % 8 == 0``,
+        ``h <= 16`` and a ring of at most 2.5 MB per slot) the fused
+        pipeline, ``quantize_scale_commit`` (the fresh K/V rows quantised,
+        their scales committed) then ``decode_attend_commit`` over the
+        pre-commit ring (it commits the int8 row itself); for every other
+        int8 ring the split pipeline, ``quantize_commit`` (the rows quantised
+        and committed with their scales) then ``decode_attend`` over the
+        committed ring (on the card a head width its kernel does not take
+        raises).  ``cfg.fused_attn`` overrides the rule: True takes the fused
+        pipeline at every ring of at most 2.5 MB per slot with ``h % 8 ==
+        0``, False the split pipeline everywhere;
       * packed-int4 rings (uint8, ``init_state(kv_bits=4)``; T=1): the fresh
-        rows are quantised and packed by ``quantize_kv_rows_packed4`` and
-        always take the split pipeline, whatever ``cfg.fused_attn`` says;
+        rows are quantised and nibble-packed by ``quantize_commit`` (as
+        ``quantize_kv_rows_packed4``) and always take the split pipeline,
+        whatever ``cfg.fused_attn`` says;
       * bf16/f32 rings: ``ring_commit``, then ``attend_global_split`` over
         the committed ring (this step's rows are masked from the ring read);
       * ``ca_kv``: the stacked per-layer source of :func:`precompute_ca_kv`
@@ -414,19 +416,16 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
             q = attn.apply_rope(q, *rope)
             k = attn.apply_rope(k, *rope)
         if kv_quant:
-            packed4 = st["k"].dtype == torch.uint8
-            quantize = attn.quantize_kv_rows_packed4 if packed4 else attn.quantize_kv_rows
-            kq, vq, ks_new, vs_new = quantize(k, v)
             # fused_commit_supported holds for int8 rings only: never for packed4.
             if dattn.fused_commit_supported(q, st["k"], plan, cfg.fused_attn):
-                rkern.scale_commit(st["ks"], st["vs"], ks_new, vs_new, plan["w"][0])
+                kq, vq = rkern.quantize_scale_commit(k, v, st["ks"], st["vs"], plan["w"][0])
                 y, _, _ = dattn.decode_attend_commit(
                     q, st["k"], st["v"], st["ks"], st["vs"], kq, vq, k, v, plan,
                     valid_old, window=cfg.context,
                 )
             else:
-                rkern.ring_commit(st["k"], st["v"], kq, vq, plan["w"][0],
-                                  st["ks"], st["vs"], ks_new, vs_new)
+                rkern.quantize_commit(k, v, st["k"], st["v"], st["ks"], st["vs"],
+                                      plan["w"][0])
                 y = dattn.decode_attend(q, st["k"], st["v"], st["ks"], st["vs"], k, v,
                                         plan, valid_old, window=cfg.context)
         else:

@@ -103,7 +103,8 @@ def _launches():
     return (RK.ring_commit.launches, RK.scale_commit.launches,
             DA.decode_attend_commit.launches, DA.ca_decode_attend.launches,
             RK.ring_commit_q.launches, DA.decode_attend.launches, QM.qmm.launches,
-            AT.attn_tune.launches)
+            AT.attn_tune.launches, RK.quantize_commit.launches,
+            RK.quantize_scale_commit.launches)
 
 
 def test_wrappers_raise_for_non_cuda_devices():
@@ -921,9 +922,9 @@ def test_build_duplex_takes_int8_rings_on_the_card_by_default(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused_attn,want", [
-    (None, {"ring_commit_q": 2, "decode_attend": 2}),
-    (True, {"scale_commit": 2, "decode_attend_commit": 2}),
-    (False, {"ring_commit_q": 2, "decode_attend": 2})])
+    (None, {"quantize_commit": 2, "decode_attend": 2}),
+    (True, {"quantize_scale_commit": 2, "decode_attend_commit": 2}),
+    (False, {"quantize_commit": 2, "decode_attend": 2})])
 def test_step_routes_head_major_rings_by_the_setting(cuda_device, fused_attn, want):
     """``transformer.step`` at h = 8, Dh = 64 with weight-only int8 weights:
     the launches follow ``fused_attn``, every matmul goes through qmm, and
@@ -939,7 +940,9 @@ def test_step_routes_head_major_rings_by_the_setting(cuda_device, fused_attn, wa
     ref_state = T.init_state(ref_cfg, 3, kv_quant=True, device=cuda_device)
     counters = {"ring_commit_q": RK.ring_commit_q, "decode_attend": DA.decode_attend,
                 "scale_commit": RK.scale_commit,
-                "decode_attend_commit": DA.decode_attend_commit, "qmm": QM.qmm}
+                "decode_attend_commit": DA.decode_attend_commit, "qmm": QM.qmm,
+                "quantize_commit": RK.quantize_commit,
+                "quantize_scale_commit": RK.quantize_scale_commit}
     for step in range(3):
         x = (torch.randn(3, 1, 512, generator=gen, device=cuda_device) * 0.3).bfloat16()
         y_ref, ref_state = T.step(ref_cfg, params, ref_state, x)
@@ -1175,9 +1178,9 @@ def test_ring_commit_q_kernel_takes_uint8_rows(cuda_device, B, H, C, Dh, w):
 @pytest.mark.parametrize("heads,head_dim,fused_attn", [(8, 128, None), (8, 64, True)])
 def test_step_with_int4_rings_on_the_card(cuda_device, monkeypatch, heads, head_dim,
                                           fused_attn):
-    """``transformer.step`` over packed rings: ring_commit_q + decode_attend
-    in every layer, never the fused pipeline; against the same steps through
-    the plain versions on the card."""
+    """``transformer.step`` over packed rings: quantize_commit + decode_attend
+    in every layer, never the fused pipeline nor ring_commit_q; against the
+    same steps through the plain versions on the card."""
     cfg = T.TransformerConfig(d_model=heads * head_dim, num_heads=heads, num_layers=2,
                               dim_feedforward=256, context=250, fused_attn=fused_attn)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -1193,15 +1196,17 @@ def test_step_with_int4_rings_on_the_card(cuda_device, monkeypatch, heads, head_
         ys.append(y)
     torch.cuda.synchronize()
     after = _launches()
-    assert after[4] - before[4] == 10 and after[5] - before[5] == 10  # commit_q, decode_attend
-    assert after[1] == before[1] and after[2] == before[2]  # no fused pipeline
+    assert after[8] - before[8] == 10 and after[5] - before[5] == 10  # the split pipeline
+    assert after[4] == before[4]  # the rows are quantised in the commit
+    assert after[1] == before[1] and after[2] == before[2] and after[9] == before[9]
+    wrapper = RK.quantize_commit
     monkeypatch.setattr(DA, "_attend_launch", DA.decode_attend_plain)
-    monkeypatch.setattr(RK, "ring_commit", RK.ring_commit_plain)
+    monkeypatch.setattr(RK, "quantize_commit", RK.quantize_commit_plain)
     for x, y in zip(xs, ys):
         yr, ref = T.step(cfg, params, ref, x)
         np.testing.assert_allclose(y.float().cpu().numpy(), yr.float().cpu().numpy(),
                                    atol=5e-2, rtol=5e-2)
-    assert RK.ring_commit_q.launches == after[4]  # the reference launched nothing
+    assert wrapper.launches == after[8]  # the reference launched nothing
     assert st["layers"][0]["k"].dtype == torch.uint8
     for key in ("k", "v", "ks", "vs"):  # layer 0 sees the same input on both routes
         assert torch.equal(st["layers"][0][key], ref["layers"][0][key])
@@ -1312,3 +1317,270 @@ def test_attn_tune_kernel_raises_on_unsupported(cuda_device):
     with pytest.raises(ValueError):  # a packed ring is not this kernel's
         AT.attn_tune(args[0], args[1].to(torch.uint8), *args[2:], 300, 250)
     assert AT.attn_tune.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The division of the scales: a CUDA tensor over a Python number
+# ---------------------------------------------------------------------------
+
+
+def _reciprocal_misses(qmax, lo, hi, n, bf16=False):
+    """``n`` amaxes in [lo, hi) where ``amax * fl(1/qmax)`` and ``amax /
+    qmax`` differ in f32 (bf16-exact ones with ``bf16``, which repeat: a few
+    dozen of the bf16 values there miss): a scale taken by the reciprocal
+    fails a bit-for-bit check on each of them."""
+    rng = np.random.default_rng(int(qmax))
+    a = rng.uniform(lo, hi, 200_000).astype(np.float32)
+    if bf16:
+        a = torch.from_numpy(a).bfloat16().float().numpy()
+    miss = a * np.float32(1.0 / qmax) != a / np.float32(qmax)
+    a = rng.permutation(np.unique(a[miss]))
+    assert len(a) >= 8
+    return np.resize(a, n)
+
+
+def _rows_on_misses(qmax, b, h, dh, seed, bf16=False):
+    """Rows ``(B, H, 1, Dh)`` f32 of unit spread, each row's amax one of
+    :func:`_reciprocal_misses` at a random place and sign."""
+    rng = np.random.default_rng(seed)
+    amax = _reciprocal_misses(qmax, 0.5, 4.0, b * h, bf16)
+    x = rng.uniform(-0.45, 0.45, (b * h, dh)).astype(np.float32) * amax[:, None]
+    at = rng.integers(0, dh, b * h)
+    x[np.arange(b * h), at] = amax * rng.choice([-1.0, 1.0], b * h).astype(np.float32)
+    x = torch.from_numpy(x.reshape(b, h, 1, dh))
+    return x.bfloat16().float() if bf16 else x
+
+
+def _same_bits(a, b):
+    """Bit for bit, a NaN equal to a NaN."""
+    return _differ(a, b) == 0
+
+
+def _differ(a, b) -> int:
+    """How many elements differ (a NaN equal to a NaN; any other dtype or
+    shape: all of them)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.numel(), b.numel())
+    if a.is_floating_point():
+        return int((a.nan_to_num() != b.nan_to_num()).sum() + (a.isnan() != b.isnan()).sum())
+    return int((a != b).sum())
+
+
+@pytest.mark.cuda
+def test_scales_divide_on_the_card_as_on_the_cpu(cuda_device):
+    """The five quantisations that divide a scale by 127 or 7 (the KV rows,
+    the packed KV rows, ``mm_w8a8``'s activations, the voice source and the
+    weights) give the same scales and integers on the card as on the CPU,
+    bit for bit, on rows whose amaxes a reciprocal would miss.  A failure
+    names each output that differs and in how many of its elements."""
+    cpu = torch.device("cpu")
+    pairs = {}  # what -> (card, cpu)
+    for bf16 in (False, True):
+        k, v = (_rows_on_misses(127.0, 8, 16, 128, seed, bf16) for seed in (1, 2))
+        k4, v4 = (_rows_on_misses(7.0, 8, 16, 128, seed, bf16) for seed in (3, 4))
+        if bf16:
+            k, v, k4, v4 = (x.bfloat16() for x in (k, v, k4, v4))
+        for fn, args in ((A.quantize_kv_rows, (k, v)), (A.quantize_kv_rows_packed4, (k4, v4))):
+            want = fn(*(x.to(cpu) for x in args))
+            got = fn(*(x.to(cuda_device) for x in args))
+            for what, g, w in zip(("kq", "vq", "ks", "vs"), got, want):
+                pairs[f"{fn.__name__} {what} {'bf16' if bf16 else 'f32'}"] = (g, w)
+    x = _rows_on_misses(127.0, 48, 1, 256, 5).reshape(48, 256)
+    wq = torch.randint(-127, 128, (64, 256), generator=torch.Generator().manual_seed(6),
+                       dtype=torch.int8)
+    s = torch.rand(64, generator=torch.Generator().manual_seed(7)) * 1e-2
+    pairs["mm_w8a8 output (f32)"] = (
+        QM.mm_w8a8(x.to(cuda_device), wq.to(cuda_device), s.to(cuda_device)),
+        QM.mm_w8a8(x, wq, s))
+    src = _rows_on_misses(127.0, 2 * 4, 2, 64, 8).reshape(2, 4, 2, 1, 64).expand(
+        2, 4, 2, 3, 64).contiguous()
+    want = T.quantize_ca_kv((src, -src))
+    got = T.quantize_ca_kv((src.to(cuda_device), -src.to(cuda_device)))
+    for key in ("k", "v", "ks", "vs"):
+        pairs[f"quantize_ca_kv {key}"] = (got[key], want[key])
+    w = _rows_on_misses(127.0, 64, 1, 256, 9).reshape(64, 256)
+    want = T.quantize_weights({"w": w}, min_size=1)["w"]
+    got = T.quantize_weights({"w": w.to(cuda_device)}, min_size=1)["w"]
+    for key in ("q", "s"):
+        pairs[f"quantize_weights {key}"] = (got[key], want[key])
+    differ = {what: f"{_differ(g, w)} of {w.numel()}" for what, (g, w) in pairs.items()
+              if _differ(g, w)}
+    assert not differ, f"the card differs from the CPU: {differ}"
+
+
+# ---------------------------------------------------------------------------
+# Quantise and commit (TPU kernels 4 and 1 on the step's path)
+# ---------------------------------------------------------------------------
+
+
+def _fresh_rows(dev, b, h, dh, qmax, seed, k_strided=False):
+    """The step's fresh K and V rows ``(B, H, 1, Dh)``: V (and K with
+    ``k_strided``) a strided view of a QKV product ``(B, 1, 3, H, Dh)``, as
+    ``transformer._qkv`` gives it, K otherwise contiguous, as after the
+    rotary embedding.  Amaxes a reciprocal would miss; in each of K and V a
+    row of ties (amax ``qmax``: scale 1, values k + 0.5), a row at +-amax,
+    an all-zero row and a row holding a NaN."""
+    rows = []
+    for i in range(2):
+        x = _rows_on_misses(qmax, b, h, dh, seed + i, bf16=True).reshape(b * h, dh)
+        x[0] = 0.0
+        x[1] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -3.5]).repeat(dh)[:dh]
+        x[1, 5] = qmax
+        a = x[2].abs().max()
+        x[2, ::2], x[2, 1::2] = a, -a
+        x[3, dh // 3] = float("nan")
+        rows.append(x.reshape(b, h, 1, dh).bfloat16())
+    qkv = torch.zeros(b, 1, 3, h, dh, dtype=torch.bfloat16)
+    qkv[:, 0, 1], qkv[:, 0, 2] = rows[0][:, :, 0], rows[1][:, :, 0]
+    qkv = qkv.to(dev)
+    v = qkv[:, :, 2].transpose(1, 2)
+    k = qkv[:, :, 1].transpose(1, 2) if k_strided else rows[0].to(dev)
+    assert not v.is_contiguous() and k.is_contiguous() != k_strided
+    return k, v
+
+
+def _rings(dev, b, h, c, row_bytes, packed4, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi, dt = (0, 256, torch.uint8) if packed4 else (-127, 128, torch.int8)
+    kc, vc = (torch.randint(lo, hi, (b, h, c, row_bytes), generator=g, device=dev, dtype=dt)
+              for _ in range(2))
+    ks, vs = (torch.rand(b, h, c, generator=g, device=dev) for _ in range(2))
+    return [kc, vc, ks, vs]
+
+
+QUANT_COMMIT_CASES = [  # (B, H, C, Dh, packed4): the split route's serving rings
+    (64, 16, 768, 128, False), (64, 32, 384, 64, False), (24, 20, 3072, 128, False),
+    (64, 16, 768, 128, True), (64, 32, 384, 64, True), (24, 20, 3072, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh,packed4", QUANT_COMMIT_CASES)
+def test_quantize_commit_kernel_matches_plain(cuda_device, B, H, C, Dh, packed4):
+    """At w = 0, mid and C - 1: three kernel runs and the plain version write
+    the same four rings bit for bit, every row but w as it was; one launch a
+    call, no ``ring_commit_q``."""
+    k, v = _fresh_rows(cuda_device, B, H, Dh, 7.0 if packed4 else 127.0, seed=C)
+    orig = _rings(cuda_device, B, H, C, Dh // 2 if packed4 else Dh, packed4, seed=C)
+    for w in (0, C // 2, C - 1):
+        plain = [x.clone() for x in orig]
+        RK.quantize_commit_plain(k, v, *plain, w)
+        before = _launches()
+        for _ in range(3):
+            kern = [x.clone() for x in orig]
+            RK.quantize_commit(k, v, *kern, w)
+            torch.cuda.synchronize()
+            for got, want in zip(kern, plain):
+                assert _same_bits(got, want)
+        after = _launches()
+        assert after[8] - before[8] == 3 and after[:8] == before[:8] and after[9] == before[9]
+        keep = torch.ones(C, dtype=torch.bool, device=cuda_device)
+        keep[w] = False
+        for got, ring in zip(kern, orig):
+            assert torch.equal(got[:, :, keep], ring[:, :, keep])
+        assert torch.isnan(kern[2][:, :, w]).sum() == 1 and kern[2][0, 0, w] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh", [(64, 16, 768, 128), (64, 16, 1024, 128),
+                                      (64, 32, 384, 64)])
+def test_quantize_scale_commit_kernel_matches_plain(cuda_device, B, H, C, Dh):
+    """The fused route's rings (stt-1b, TTS, stt-2.6b with ``fused_attn``): the
+    returned rows contiguous int8 and both scale rings bit for bit with the
+    plain version at w = 0, mid and C - 1, three runs; one launch a call."""
+    k, v = _fresh_rows(cuda_device, B, H, Dh, 127.0, seed=C + 1)
+    orig = _rings(cuda_device, B, H, C, Dh, False, seed=C)[2:]
+    for w in (0, C // 2, C - 1):
+        plain = [x.clone() for x in orig]
+        want = RK.quantize_scale_commit_plain(k, v, *plain, w)
+        before = _launches()
+        for _ in range(3):
+            kern = [x.clone() for x in orig]
+            got = RK.quantize_scale_commit(k, v, *kern, w)
+            torch.cuda.synchronize()
+            for g, p in zip(got, want):
+                assert g.is_contiguous() and g.dtype == torch.int8 and g.shape == (B, H, 1, Dh)
+                assert _same_bits(g, p)
+            for g, p in zip(kern, plain):
+                assert _same_bits(g, p)
+        after = _launches()
+        assert after[9] - before[9] == 3 and after[:9] == before[:9]
+        keep = torch.ones(C, dtype=torch.bool, device=cuda_device)
+        keep[w] = False
+        assert torch.equal(kern[0][:, :, keep], orig[0][:, :, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,packed4", [(96, False), (96, True), (256, True), (16, True),
+                                        (8, False)])
+def test_quantize_commit_kernel_takes_other_widths(cuda_device, Dh, packed4):
+    """Row widths a segment of a power of two lanes holds with idle lanes
+    (Dh = 96: 12 of 16), in a whole warp (Dh = 256) or in one or two lanes;
+    K strided too."""
+    b, h, c, w = 3, 5, 40, 39
+    k, v = _fresh_rows(cuda_device, b, h, Dh, 7.0 if packed4 else 127.0, seed=Dh,
+                       k_strided=True)
+    orig = _rings(cuda_device, b, h, c, Dh // 2 if packed4 else Dh, packed4, seed=Dh)
+    kern, plain = [x.clone() for x in orig], [x.clone() for x in orig]
+    RK.quantize_commit(k, v, *kern, w)
+    RK.quantize_commit_plain(k, v, *plain, w)
+    torch.cuda.synchronize()
+    for got, want in zip(kern, plain):
+        assert _same_bits(got, want)
+    if not packed4:
+        ks, vs = orig[2].clone(), orig[3].clone()
+        got = RK.quantize_scale_commit(k, v, ks, vs, w)
+        want = RK.quantize_scale_commit_plain(k, v, orig[2].clone(), orig[3].clone(), w)
+        assert all(_same_bits(g, p) for g, p in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_quantize_commit_kernels_raise_on_unsupported(cuda_device):
+    """What the kernel does not take raises before any launch."""
+    k, v = _fresh_rows(cuda_device, 2, 4, 64, 127.0, seed=0)
+    rings = _rings(cuda_device, 2, 4, 16, 64, False, seed=0)
+    before = _launches()
+    with pytest.raises(ValueError, match="Dh a multiple"):  # 12 bytes a row: not 8 lanes' worth
+        RK.quantize_commit(k[..., :12], v[..., :12], rings[0][..., :12].contiguous(),
+                           rings[1][..., :12].contiguous(), *rings[2:], 3)
+    with pytest.raises(ValueError, match="bf16 rows"):
+        RK.quantize_commit(k.float(), v.float(), *rings, 3)
+    off = torch.zeros(k.numel() + 8, dtype=k.dtype, device=cuda_device)[4:4 + k.numel()]
+    with pytest.raises(ValueError, match="16 bytes"):  # rows 8 bytes off 16
+        RK.quantize_commit(off.view_as(k), v, *rings, 3)
+    with pytest.raises(ValueError, match="do not fit"):  # a packed ring of Dh bytes a row
+        RK.quantize_commit(k, v, *_rings(cuda_device, 2, 4, 16, 64, True, seed=1), 3)
+    with pytest.raises(ValueError, match="w % T"):
+        RK.quantize_scale_commit(k, v, *rings[2:], 16)
+    with pytest.raises(ValueError, match="f32 scale rings"):
+        RK.quantize_scale_commit(k, v, rings[2].double(), rings[3].double(), 3)
+    assert _launches() == before
+
+
+def test_quantize_commit_wrappers_raise_for_non_cuda_devices():
+    """A tensor that is on neither the CPU nor a CUDA device goes to no
+    plain version: the wrappers raise."""
+    m = torch.device("meta")
+    k = torch.empty(1, 8, 1, 64, dtype=torch.bfloat16, device=m)
+    before = _launches()
+    with pytest.raises(ValueError):
+        RK.quantize_commit(k, k, torch.empty(1, 8, 32, 64, dtype=torch.int8, device=m),
+                           torch.empty(1, 8, 32, 64, dtype=torch.int8, device=m),
+                           torch.empty(1, 8, 32, device=m), torch.empty(1, 8, 32, device=m), 0)
+    with pytest.raises(ValueError):
+        RK.quantize_scale_commit(k, k, torch.empty(1, 8, 32, device=m),
+                                 torch.empty(1, 8, 32, device=m), 0)
+    assert _launches() == before
+
+
+def test_quantize_commit_on_cpu_tensors_takes_the_plain_version():
+    k, v = _fresh_rows(torch.device("cpu"), 2, 4, 64, 127.0, seed=0)
+    rings = _rings(torch.device("cpu"), 2, 4, 16, 64, False, seed=0)
+    before = _launches()
+    RK.quantize_commit(k, v, *rings, 5)
+    kq, vq, ksn, vsn = A.quantize_kv_rows(k, v)
+    assert torch.equal(rings[0][:, :, 5], kq[:, :, 0]) and torch.equal(rings[1][:, :, 5],
+                                                                      vq[:, :, 0])
+    got = RK.quantize_scale_commit(k, v, rings[2], rings[3], 6)
+    assert torch.equal(got[0], kq) and _same_bits(rings[3][:, :, 6], vsn[:, :, 0])
+    assert _launches() == before

@@ -47,10 +47,12 @@ class _Routes:
     """Counts which seam of the port's step each call went through."""
 
     def __init__(self, monkeypatch):
-        self.calls = {"scale_commit": 0, "decode_attend_commit": 0, "ring_commit_q": 0,
-                      "decode_attend": 0}
-        for mod, name in ((trk, "scale_commit"), (tda, "decode_attend_commit"),
-                          (trk, "ring_commit_q"), (tda, "decode_attend")):
+        self.calls = {"quantize_scale_commit": 0, "decode_attend_commit": 0,
+                      "quantize_commit": 0, "decode_attend": 0, "scale_commit": 0,
+                      "ring_commit_q": 0}
+        for mod, name in ((trk, "quantize_scale_commit"), (tda, "decode_attend_commit"),
+                          (trk, "quantize_commit"), (tda, "decode_attend"),
+                          (trk, "scale_commit"), (trk, "ring_commit_q")):
             monkeypatch.setattr(mod, name, self._counted(getattr(mod, name), name))
 
     def _counted(self, fn, name):
@@ -91,8 +93,8 @@ def test_step_routes_int8_rings_by_the_jax_shape_rule(monkeypatch, d, heads, hea
                          None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(as_np(yt), as_np(yj), atol=3e-2, rtol=3e-2)
     n = 2 * len(masks)
-    want = ({"ring_commit_q": n, "decode_attend": n} if route == "split"
-            else {"scale_commit": n, "decode_attend_commit": n})
+    want = ({"quantize_commit": n, "decode_attend": n} if route == "split"
+            else {"quantize_scale_commit": n, "decode_attend_commit": n})
     assert {k: v for k, v in routes.calls.items() if v} == want
     np.testing.assert_array_equal(st["valid"].numpy(), np.asarray(sj["valid"]))
     for key in ("k", "v", "ks", "vs"):  # layer 0 sees the same input on both sides

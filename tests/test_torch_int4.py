@@ -308,6 +308,7 @@ def test_step_with_int4_rings_matches_jax(jax_kernels, monkeypatch, d, heads, he
                                     (jrk, "_ring_commit_q"), (jrk, "_scale_commit")])
     tcounts = _Counts(monkeypatch, [(trk, "scale_commit"), (tda, "decode_attend_commit"),
                                     (trk, "ring_commit_q"), (tda, "decode_attend"),
+                                    (trk, "quantize_commit"), (trk, "quantize_scale_commit"),
                                     (tattn, "quantize_kv_rows_packed4"),
                                     (tattn, "quantize_kv_rows")])
     rng = np.random.default_rng(1)
@@ -326,7 +327,7 @@ def test_step_with_int4_rings_matches_jax(jax_kernels, monkeypatch, d, heads, he
         np.testing.assert_allclose(as_np(yt), as_np(yj), atol=3e-2, rtol=3e-2)
     n = 2 * steps
     assert jcounts.nonzero() == {jax_kernel: n, "_ring_commit_q": n}
-    assert tcounts.nonzero() == {"ring_commit_q": n, "decode_attend": n,
+    assert tcounts.nonzero() == {"quantize_commit": n, "decode_attend": n,
                                  "quantize_kv_rows_packed4": n}
     np.testing.assert_array_equal(st["valid"].numpy(), np.asarray(sj["valid"]))
     assert st["pos"] == int(sj["pos"]) == steps

@@ -261,9 +261,9 @@ class _Counts:
 
 
 @pytest.mark.parametrize("fused_attn,env,jax_route,port_route", [
-    (None, None, "_decode_attend_q", ("ring_commit_q", "decode_attend")),
-    (True, "1", "_decode_attend_commit_q", ("scale_commit", "decode_attend_commit")),
-    (False, "0", "_decode_attend_q", ("ring_commit_q", "decode_attend"))])
+    (None, None, "_decode_attend_q", ("quantize_commit", "decode_attend")),
+    (True, "1", "_decode_attend_commit_q", ("quantize_scale_commit", "decode_attend_commit")),
+    (False, "0", "_decode_attend_q", ("quantize_commit", "decode_attend"))])
 def test_step_at_head_major_shapes_matches_the_pallas_kernels(
         jax_profile, monkeypatch, fused_attn, env, jax_route, port_route):
     """h = 8, Dh = 64, ring 256, B = 8, weight-only int8 weights: the JAX
@@ -292,6 +292,7 @@ def test_step_at_head_major_shapes_matches_the_pallas_kernels(
                                     (jrk, "_ring_commit_q"), (jrk, "_scale_commit")])
     tcounts = _Counts(monkeypatch, [(trk, "scale_commit"), (tda, "decode_attend_commit"),
                                     (trk, "ring_commit_q"), (tda, "decode_attend"),
+                                    (trk, "quantize_commit"), (trk, "quantize_scale_commit"),
                                     (tqmm, "qmm_plain"), (tqmm, "mm_w8a8")])
     rng = np.random.default_rng(1)
     masks = [None, np.arange(b) % 3 != 1, None]

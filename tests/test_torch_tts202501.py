@@ -175,7 +175,8 @@ def test_step_at_32_heads_with_the_voice_matches_the_pallas_kernels(jax_kernels,
                                     (jrk, "_ring_commit_q"), (jrk, "_scale_commit")])
     tcounts = _Counts(monkeypatch, [(tda, "ca_decode_attend"), (trk, "ring_commit_q"),
                                     (tda, "decode_attend"), (trk, "scale_commit"),
-                                    (tda, "decode_attend_commit")])
+                                    (tda, "decode_attend_commit"), (trk, "quantize_commit"),
+                                    (trk, "quantize_scale_commit")])
     steps = 5
     for i in range(steps):
         x = (rng.standard_normal((b, 1, d)) * 0.3).astype(np.float32)
@@ -188,7 +189,7 @@ def test_step_at_32_heads_with_the_voice_matches_the_pallas_kernels(jax_kernels,
     n = 2 * steps
     assert jcounts.nonzero() == {"_ca_decode_attend_q": n, "_decode_attend_q": n,
                                  "_ring_commit_q": n}
-    assert tcounts.nonzero() == {"ca_decode_attend": n, "ring_commit_q": n, "decode_attend": n}
+    assert tcounts.nonzero() == {"ca_decode_attend": n, "quantize_commit": n, "decode_attend": n}
     np.testing.assert_array_equal(st["valid"].numpy(), np.asarray(sj["valid"]))
 
 
