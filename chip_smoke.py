@@ -21,7 +21,11 @@ lines each:
    step's quantise-and-commit, at the int8 and packed-int4 rings of stt-1b,
    stt-2.6b and s2s-2b, and quantize_scale_commit at the fused route's rings,
    each at w = 0, C/2 and C - 1 with V strided as the QKV product gives it and
-   row amaxes where a reciprocal would miss the quotient), run three times
+   row amaxes where a reciprocal would miss the quotient; rope_commit, the
+   rotary embedding folded into the bf16 commit, at the Mimi rings of the
+   STT/TTS and duplex engines, and rope_qk, the rope alone, at the LM rows of
+   stt-1b, stt-2.6b and s2s-2b, q, k and v strided views of a QKV product),
+   run three times
    with identical results; the fused decode_attend_commit against its
    plain version in its own span order and within the bar of the
    whole-ring order too; commits bit-exact, attention within 2e-2 on
@@ -35,8 +39,9 @@ lines each:
    bf16 codec, seeded random weights) serves 8 sessions, then 4 more in
    reused slots; every frame gets its step event, every marker arrives,
    VAD probabilities are finite, and the kernels launched exactly
-   16 quantize_scale_commit + 16 decode_attend_commit + 8 ring_commit per
-   step (and no scale_commit or ring_commit_q: OFF_PATH);
+   16 rope_qk + 16 quantize_scale_commit + 16 decode_attend_commit + 8
+   rope_commit per step (and no scale_commit, ring_commit_q or ring_commit:
+   OFF_PATH);
 5. times: engine step with all 64 slots active, its kernel profile over
    the served rings and over full, wrapped rings; then ``[stt1b-split]``: the
    stt-1b LM step at 4 layers with the fused setting off (quantize_commit +
@@ -111,7 +116,9 @@ counted from the rows this run's mask lets in; and the library call's time
 (``library_ms``): for the copy commits the in-place slice assignments that
 compute the same function, for quantize_commit and quantize_scale_commit the
 eager chain the parent ran on the same rows (its quantisation, then the copy
-kernel: no single PyTorch call quantises and commits), for qmm
+kernel: no single PyTorch call quantises and commits), for rope_commit and
+rope_qk the parent's eager rotary embedding of q and k (then, for
+rope_commit, its ring_commit of the rotated k and of v), for qmm
 ``torch._weight_int8pack_mm`` (no single PyTorch call computes the attention
 kernels' function).  qmm is timed as the
 serving step meets it: each call on another of 128 MiB of weight copies (the
@@ -124,10 +131,11 @@ with another entry's kernel at other shapes or through another load path
 (the packed-int4 rings): their numbers are that shape's.
 
 Before them the ``[launches]`` lines: device launches and kernel ms a step
-or tick of each path's profile beside those before the quantise-and-commit
+or tick of each path's profile beside those before the rope-and-commit
 kernels (PERF.md section 5).  The
-last three lines: the kernels' JSON (ring_commit_q and scale_commit with 0
-launches: OFF_PATH), the card's name and power limit, and ``{"ok": true,
+last three lines: the kernels' JSON (ring_commit_q, scale_commit and
+ring_commit with 0 launches: OFF_PATH), the card's name and power limit, and
+``{"ok": true,
 "device": {...}}``.  Any failed check raises.
 """
 
@@ -148,6 +156,8 @@ SOURCES = {
     "scale_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "decode_attend_commit": "dsm_tpu_torch/csrc/decode_attn.cu",
     "ring_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
+    "rope_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
+    "rope_qk": "dsm_tpu_torch/csrc/ring_attn.cu",
     "ca_decode_attend": "dsm_tpu_torch/csrc/ca_attn.cu",
     "ring_commit_q": "dsm_tpu_torch/csrc/ring_attn.cu",
     "decode_attend": "dsm_tpu_torch/csrc/decode_attn.cu",
@@ -160,17 +170,22 @@ REPLACES = {
     "scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
     "decode_attend_commit": "dsm_tpu/ops/decode_attn.py:545",
     "ring_commit": "dsm_tpu/ops/ring_kernels.py:120",
+    "rope_commit": "dsm_tpu/ops/ring_kernels.py:120",
+    # No Pallas kernel: the rope that XLA fuses before _ring_commit_q and _scale_commit.
+    "rope_qk": "dsm_tpu/ops/attention.py:49",
     "ca_decode_attend": "dsm_tpu/ops/decode_attn.py:960",
     "ring_commit_q": "dsm_tpu/ops/ring_kernels.py:66",
     "decode_attend": "dsm_tpu/ops/decode_attn.py:215",
     "qmm": "dsm_tpu/ops/qmm.py:42",
     "attn_tune": "tools/attn_kernel_tune.py:42",
 }
-# The literal counterparts of TPU kernels 4 and 1 on rows quantised already:
-# built and held to their plain versions, but the step quantises its fresh
-# rows in the commit (quantize_commit, quantize_scale_commit) and launches
-# them no more.  Their JSON entries say so, with 0 launches.
-OFF_PATH = {"ring_commit_q": "quantize_commit", "scale_commit": "quantize_scale_commit"}
+# The literal counterparts of TPU kernels 4, 1 and 3 on rows quantised or
+# rotated already: built and held to their plain versions, but the step
+# quantises its fresh rows in the commit (quantize_commit,
+# quantize_scale_commit) and rotates them in the bf16 commit (rope_commit),
+# and launches them no more.  Their JSON entries say so, with 0 launches.
+OFF_PATH = {"ring_commit_q": "quantize_commit", "scale_commit": "quantize_scale_commit",
+            "ring_commit": "rope_commit"}
 # TPU kernels that the port serves with one of the kernels above at other
 # shapes: JSON name -> (wrapper, TPU kernel, the path that launches it there).
 ROUTES = {
@@ -188,54 +203,59 @@ ROUTES = {
                                          "tts202501"),
 }
 # Launches per engine step of the STT path: each of the LM's 16 layers
-# quantises its fresh rows and commits their scales (quantize_scale_commit)
-# and attends over its int8 ring with the fused commit; the Mimi encoder
-# transformer's 8 layers commit their bf16 rows.  The copy kernels of rows
-# quantised already (OFF_PATH) launch no more.
-_NONE = {"scale_commit": 0, "ring_commit_q": 0}
-PER_STEP = {"quantize_scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
-            "quantize_commit": 0, **_NONE}
+# rotates q and k (rope_qk), quantises its fresh rows and commits their
+# scales (quantize_scale_commit) and attends over its int8 ring with the
+# fused commit; the Mimi encoder transformer's 8 layers rotate q and k and
+# commit their bf16 rows in one launch (rope_commit).  The copy kernels of
+# rows quantised or rotated already (OFF_PATH) launch no more.
+_NONE = {"scale_commit": 0, "ring_commit_q": 0, "ring_commit": 0}
+PER_STEP = {"rope_qk": 16, "quantize_scale_commit": 16, "decode_attend_commit": 16,
+            "rope_commit": 8, "quantize_commit": 0, **_NONE}
 # Launches per engine tick of the TTS path: each of the LM's 16 layers as
 # above plus its voice cross-attention over the int8 store; the Mimi
-# decoder transformer's 8 layers commit their 2 bf16 rows (T=2).  The
-# DepFormer's dense slice cache and the conv stacks run no kernel.
-PER_TICK_TTS = {"quantize_scale_commit": 16, "decode_attend_commit": 16, "ring_commit": 8,
-                "ca_decode_attend": 16, "quantize_commit": 0, "decode_attend": 0, **_NONE}
+# decoder transformer's 8 layers rotate and commit their 2 bf16 rows (T=2).
+# The DepFormer (no positional embedding, a dense slice cache) and the conv
+# stacks run no kernel.
+PER_TICK_TTS = {"rope_qk": 16, "quantize_scale_commit": 16, "decode_attend_commit": 16,
+                "rope_commit": 8, "ca_decode_attend": 16, "quantize_commit": 0,
+                "decode_attend": 0, **_NONE}
 # Launches per engine step of the stt-2.6b path: 32 heads x 64 are not a
 # shape of the fused rule, so each of the LM's 48 layers quantises and
 # commits its int8 rows and scales with quantize_commit and attends with
 # decode_attend (one span); its 4 matmuls and the text head are weight-only:
 # qmm; Mimi as above.
-PER_STEP_STT26 = {"quantize_commit": 48, "decode_attend": 48, "ring_commit": 8, "qmm": 193,
+PER_STEP_STT26 = {"rope_qk": 48, "quantize_commit": 48, "decode_attend": 48, "rope_commit": 8,
+                  "qmm": 193,
                   "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
 # Launches per engine tick of the duplex path: s2s-2b's 20 heads over a
 # 3072-row ring are not a shape of the fused commit, so each of the LM's 24
 # layers quantises and commits its int8 rows and scales with quantize_commit
 # and attends with decode_attend; the Mimi encoder's and decoder's 8 layers
-# each commit their 2 bf16 rows.
-PER_TICK_DUPLEX = {"quantize_commit": 24, "decode_attend": 24, "ring_commit": 16,
+# each rotate and commit their 2 bf16 rows.
+PER_TICK_DUPLEX = {"rope_qk": 24, "quantize_commit": 24, "decode_attend": 24, "rope_commit": 16,
                    "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
 # stt-1b with packed-int4 rings: an int4 ring never takes the fused commit, so
 # each of the 16 layers quantises, packs and commits its uint8 rows and scales
 # with quantize_commit and attends with decode_attend over the packed ring.
-PER_STEP_STT1B_KV4 = {"quantize_commit": 16, "decode_attend": 16, "ring_commit": 8,
+PER_STEP_STT1B_KV4 = {"rope_qk": 16, "quantize_commit": 16, "decode_attend": 16, "rope_commit": 8,
                       "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
 # tts_202501: 48 layers of 32 heads x 64 (not a shape of the fused rule): the
 # split pipeline over (64,32,512,64) int8 rings plus the voice cross-attention
-# in every layer; the Mimi decoder's 8 layers commit their 2 bf16 rows.
-PER_TICK_TTS202501 = {"quantize_commit": 48, "decode_attend": 48, "ca_decode_attend": 48,
-                      "ring_commit": 8, "quantize_scale_commit": 0, "decode_attend_commit": 0,
-                      **_NONE}
+# in every layer; the Mimi decoder's 8 layers rotate and commit their 2 bf16
+# rows.
+PER_TICK_TTS202501 = {"rope_qk": 48, "quantize_commit": 48, "decode_attend": 48,
+                      "ca_decode_attend": 48, "rope_commit": 8, "quantize_scale_commit": 0,
+                      "decode_attend_commit": 0, **_NONE}
 # Device launches and kernel ms a step or tick on each path before the step
-# quantised its fresh K/V rows in the commit (PR 9's tree, PERF.md section 5:
-# the parent's leg of run B, PR 10, NVIDIA H100 80GB HBM3, 700.00 W): printed
-# beside this run's (the ``[launches]`` lines).  The key is the profile's tag.
-PARENT_PROFILE = {"profile": ("stt-1b step", 3146, 10.81),
-                  "stt26-profile": ("stt-2.6b step", 4470, 15.18),
-                  "duplex-profile": ("duplex tick, short rings", 20398, 47.19),
-                  "tts-profile": ("TTS tick", 18449, 55.18),
-                  "tts202501-profile": ("tts_202501 tick", 29131, 87.40),
-                  "stt1b-kv4-profile": ("[stt1b-kv4] step", 3257, 10.76)}
+# folded the rotary embedding into its commits (the figures PERF.md section 5
+# gave then, NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's (the
+# ``[launches]`` lines).  The key is the profile's tag.
+PARENT_PROFILE = {"profile": ("stt-1b step", 2858, 10.26),
+                  "stt26-profile": ("stt-2.6b step", 3608, 13.43),
+                  "duplex-profile": ("duplex tick, short rings", 19971, 46.14),
+                  "tts-profile": ("TTS tick", 18164, 54.77),
+                  "tts202501-profile": ("tts_202501 tick", 28208, 85.68),
+                  "stt1b-kv4-profile": ("[stt1b-kv4] step", 2842, 9.93)}
 # The bf16 K/V ring of each Mimi transformer layer in the duplex engine
 # (B=24, 8 heads, context 250 + T=2 rows rounded up to 256, Dh=64).
 DUPLEX_MIMI_RING = (24, 8, 256, 64)
@@ -264,7 +284,8 @@ ROW_RTOL = 5e-2  # a freshly quantised ring row of one route against the other's
 # rings, and the TTS serving voice source.
 HEADLINE = {"quantize_scale_commit": "stt1b int8 w=767", "quantize_commit": "stt26 int8 w=383",
             "scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 valid=1.0",
-            "ring_commit": "w=254", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
+            "ring_commit": "w=254", "rope_commit": "stt w=254",
+            "rope_qk": "stt1b (64,16,1,128)", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
             "ring_commit_q": "duplex w=3071",
             "decode_attend": "duplex pos=10000 valid=1.0 split=3",
             "qmm": "M=64 O=11264 I=2048",
@@ -976,6 +997,101 @@ def _quantize_commit_cases(dev, g, tag, b, h, c, dh, ws, packed4=False, scales_o
     return cases
 
 
+def _eager_rope(x, cos, sin):
+    """The parent's eager ``attention.apply_rope``: a float cast, four
+    products, a difference, a sum, a stack and a cast back, each product
+    rounded apart (8 device operations a tensor)."""
+    import torch
+
+    b, h, t, d = x.shape
+    xf = x.float().reshape(b, h, t, d // 2, 2)
+    x1, x2 = xf[..., 0], xf[..., 1]
+    c, s = cos[:, None], sin[:, None]
+    return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(
+        b, h, t, d).to(x.dtype)
+
+
+def _qkv_rows(dev, g, b, h, t, dh, pos):
+    """The step's q, k and v ``(B, H, T, Dh)`` bf16 as strided views of one
+    QKV product ``(B, T, 3, H, Dh)`` (``transformer._qkv``), and cos, sin
+    ``(1, T, Dh/2)`` of positions ``pos ..``."""
+    import torch
+
+    from dsm_tpu_torch.ops import attention as A
+
+    qkv = (torch.randn(b, t, 3, h, dh, generator=g, device=dev) * 2).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    check(not any(x.is_contiguous() for x in (q, k, v)), "the rows are not strided views")
+    cos, sin = A.rope_cos_sin(torch.arange(t, device=dev)[None] + pos, dh, 10_000.0)
+    return q, k, v, cos, sin
+
+
+def _rope_info(q, cos, rings, library):
+    """q and k rotated, v copied: each of q, k, v read once, cos and sin
+    read once, the rotated q and k written and, with rings, the k and v ring
+    rows written; two products and two fused multiply-adds a rotary pair of
+    q and of k (6 operations)."""
+    row_bytes = q.numel() * q.element_size()
+    n_bytes = ((3 if rings else 2) * row_bytes + 2 * cos.numel() * 4 + 2 * row_bytes
+               + (2 * q.numel() * rings[0].element_size() if rings else 0))
+    return {"bytes": n_bytes, "flops": 2 * (q.numel() // 2) * 6, "library": library}
+
+
+def _rope_commit_cases(dev, g, tag, b, h, c, t, dh, ws):
+    """rope_commit at rows ``ws`` of one pair of bf16 rings: the kernel's
+    rotated q, k and rings and the plain version's bit for bit, every row
+    but the written ones as it was.  The library entry is the chain the
+    parent ran on the same rows: its eager rope of q and of k, then
+    ring_commit (which made V contiguous first)."""
+    import torch
+
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    orig = [torch.randn(b, h, c, dh, generator=g, device=dev).bfloat16() for _ in range(2)]
+    kern = [x.clone() for x in orig]
+    plain = [x.clone() for x in orig]
+    cases, written = [], []
+    for w in ws:
+        q, k, v, cos, sin = _qkv_rows(dev, g, b, h, t, dh, 3000 + w)
+
+        def run_k(q=q, k=k, v=v, cos=cos, sin=sin, w=w):
+            return (*RK.rope_commit(q, k, v, *kern, cos, sin, w), *kern)
+
+        def run_p(q=q, k=k, v=v, cos=cos, sin=sin, w=w):
+            return (*RK.rope_commit_plain(q, k, v, *plain, cos, sin, w), *plain)
+
+        def library(q=q, k=k, v=v, cos=cos, sin=sin, w=w):
+            qr, kr = _eager_rope(q, cos, sin), _eager_rope(k, cos, sin)
+            RK.ring_commit(kern[0], kern[1], kr, v, w)
+            return qr, kr
+
+        def cmp(got, want, w=w):
+            _exact(got, want)
+            written.extend(range(w, w + t))
+            keep = torch.ones(c, dtype=torch.bool, device=dev)
+            keep[written] = False
+            for ring_k, ring_0 in zip(got[2:], orig):
+                check(torch.equal(ring_k[:, :, keep], ring_0[:, :, keep]),
+                      "rope_commit touched a row it was not given")
+            return 0.0
+
+        cases.append(("rope_commit", f"{tag} w={w}", run_k, run_p, cmp,
+                      _rope_info(q, cos, kern, library)))
+    return cases
+
+
+def _rope_qk_case(dev, g, tag, b, h, dh, pos):
+    """rope_qk at an LM's fresh rows: bit for bit its plain version; the
+    library entry is the parent's eager rope of q and of k."""
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    q, k, _, cos, sin = _qkv_rows(dev, g, b, h, 1, dh, pos)
+    return ("rope_qk", f"{tag} ({b},{h},1,{dh})", lambda: RK.rope_qk(q, k, cos, sin),
+            lambda: RK.rope_qk_plain(q, k, cos, sin), _exact,
+            _rope_info(q, cos, None, lambda: (_eager_rope(q, cos, sin),
+                                              _eager_rope(k, cos, sin))))
+
+
 def kernel_cases(dev):
     """Inputs at the serving paths' shapes, from a seeded generator; each
     case is (name, label, run_kernel, run_plain, compare).  Each run returns
@@ -1010,6 +1126,16 @@ def kernel_cases(dev):
     for w in (0, 254):
         cases.append(_commit_case("ring_commit", f"duplex B=24 w={w}", RK.ring_commit,
                                   RK.ring_commit_plain, kc, vc, kn, vn, w))
+    # The step's path for the codec's rings: the rope folded into the commit
+    # (T=2 rows a step, q, k and v strided), at the STT/TTS and duplex batch;
+    # then the rope alone before the LM's int8 commits, at the fresh rows of
+    # stt-1b / tts-1.6b, stt-2.6b / tts_202501 and s2s-2b.
+    cases += _rope_commit_cases(dev, g, "stt", 64, 8, 256, 2, 64, (0, 128, 254))
+    cases += _rope_commit_cases(dev, g, "duplex B=24", *DUPLEX_MIMI_RING[:3], 2,
+                                DUPLEX_MIMI_RING[3], (0, 254))
+    for tag, (b, h, dh) in (("stt1b", (64, 16, 128)), ("stt26", (64, 32, 64)),
+                            ("duplex", (24, 20, 128))):
+        cases.append(_rope_qk_case(dev, g, tag, b, h, dh, 100_000))
     cases += _attend_cases(dev, g, "stt", 64, 16, 768, 128, 750, False,
                            ((0, 1.0), (40, 0.9), (767, 0.6), (3000, 1.0)), timed=(3000,))
 
@@ -1628,8 +1754,9 @@ def phase_stt1b_split(dev):
     w = state["t"]["pos"] % ring.shape[2]
     fused = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
     split = _lm_step_counted(_with_fused(lm_cfg, False), params, state, text, audio, mask)
-    want_split = {"quantize_commit": depth, "decode_attend": depth, "ring_commit": 0, "qmm": 0,
-                  "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
+    want_split = {"rope_qk": depth, "quantize_commit": depth, "decode_attend": depth,
+                  "rope_commit": 0, "qmm": 0, "quantize_scale_commit": 0,
+                  "decode_attend_commit": 0, **_NONE}
     want_fused = {**want_split, "quantize_commit": 0, "decode_attend": 0,
                   "quantize_scale_commit": depth, "decode_attend_commit": depth}
     check(split[2] == want_split, f"stt1b-split: launches {split[2]}, want {want_split}")
@@ -1732,9 +1859,9 @@ def phase_stt26_path(engine, dev):
 
     split = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
     layers = lm_cfg.transformer.num_layers
-    want = {"quantize_commit": layers, "decode_attend": layers, "ring_commit": 0,
-            "qmm": 4 * layers + 1, "quantize_scale_commit": 0, "decode_attend_commit": 0,
-            **_NONE}
+    want = {"rope_qk": layers, "quantize_commit": layers, "decode_attend": layers,
+            "rope_commit": 0, "qmm": 4 * layers + 1, "quantize_scale_commit": 0,
+            "decode_attend_commit": 0, **_NONE}
     check(split[2] == want, f"stt26-path: launches {split[2]}, want {want}")
     with plain_seams(), torch.inference_mode():
         plain = LM.step(lm_cfg, params, _clone(state), text, audio, mask)
@@ -1750,7 +1877,8 @@ def phase_stt26_path(engine, dev):
     check(history > PATH_RTOL,
           f"stt26-path: the ring's history moves the hidden state only {history!r}")
     print(f"[stt26-path] {n} active rows at tick {pos} (every slot with at least {seen} valid "
-          f"ring rows), LM step through quantize_commit + decode_attend + qmm ({split[2]}) "
+          f"ring rows), LM step through rope_qk + quantize_commit + decode_attend + qmm "
+          f"({split[2]}) "
           f"against their plain versions from one state: relative L2 hidden "
           f"{rel['hidden']!r}, text logits {rel['text_logits']!r} (bar {PATH_RTOL}); with the "
           f"ring's history masked the hidden state moves {history!r}", flush=True)
@@ -1854,11 +1982,11 @@ def phase_stt26_kv4(engine, dev, card):
 
     history = [tokens() for _ in range(40)]
     text, audio = tokens()
-    ring_launches = {"quantize_commit": layers, "decode_attend": layers}
-    want_launches = {**ring_launches, "ring_commit": 0, "qmm": 4 * layers + 1,
+    ring_launches = {"rope_qk": layers, "quantize_commit": layers, "decode_attend": layers}
+    want_launches = {**ring_launches, "rope_commit": 0, "qmm": 4 * layers + 1,
                      "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
     counters = _lm_counters()
-    ring_seams, qmm_seam = (RK.quantize_commit, DA._attend_launch), QM._launch
+    ring_seams, qmm_seam = (RK.quantize_commit, DA._attend_launch, RK.rope_qk), QM._launch
 
     def step(state, ring_kernels, qmm_kernel, seam=None):
         """One step from a clone of ``state`` -> (text logits, hidden state),
@@ -1867,7 +1995,7 @@ def phase_stt26_kv4(engine, dev, card):
         before = {name: fn.launches for name, fn in counters.items()}
         with plain_seams(), torch.inference_mode(), contextlib.ExitStack() as stack:
             if ring_kernels:
-                RK.quantize_commit = ring_seams[0]
+                RK.quantize_commit, RK.rope_qk = ring_seams[0], ring_seams[2]
                 stack.enter_context(attend_seam_errors(seam, ring_seams[1]))
             if qmm_kernel:
                 QM._launch = qmm_seam
@@ -2063,33 +2191,47 @@ def _tts_verify(sessions, sids, frame):
     return n_frames
 
 
-def _profile(fn, n: int):
+def _profile(fn, n: int, attempts: int = 4):
     """``n`` calls of ``fn`` under the profiler -> the kernels as ``(name,
     device us, launches)`` by falling device time, and the calls' wall time
     in us.  Device activity only: with the host's operator events as well
     (several for each launch) the profiler takes tens of seconds to hand over
-    a tick's 20,000 launches."""
+    a tick's 20,000 launches.  A profile that holds fewer rope kernels than
+    the wrappers counted in the calls lost events (a TTS tick's profile once
+    held none of its LM step's launches) and is taken again."""
     import torch
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
     cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == cuda and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
+    for attempt in range(attempts):
+        launched = RK.rope_commit.launches + RK.rope_qk.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launched = RK.rope_commit.launches + RK.rope_qk.launches - launched
+        rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                       if e.device_type == cuda and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        seen = sum(c for key, _, c in rows if "rope_commit_kernel" in key)
+        if seen == launched:
+            break
+        print(f"[profile] attempt {attempt + 1}: the profiler holds {seen} of the {launched} "
+              f"rope launches of the calls: events lost, "
+              f"{'profiled again' if attempt + 1 < attempts else 'numbers below incomplete'}",
+              flush=True)
     check(bool(rows), "the profiler saw no device time")
     return rows, wall_us
 
 
 # Name stems of the port's kernels (dsm_tpu_torch/csrc/, each in an anonymous
 # namespace): a profile lists these wherever they rank.
-PORT_KERNELS = ("ring_commit", "scale_commit", "quantize_commit", "decode_attend",
-                "ca_decode_attend", "qmm",
+PORT_KERNELS = ("ring_commit", "rope_commit", "scale_commit", "quantize_commit",
+                "decode_attend", "ca_decode_attend", "qmm",
                 "attn_tune")
 
 
@@ -2197,8 +2339,8 @@ def phase_tts(dev, card, preset=None):
                          dict), "LM weights not int8")
     check(engine.default_condition is not None, "no description condition")
     check(engine.mimi_cfg.transformer.num_layers == 8, "not the 8-layer Mimi decoder")
-    check(per_tick["ca_decode_attend"] == tcfg.num_layers
-          and per_tick["ring_commit"] == engine.mimi_cfg.transformer.num_layers,
+    check(per_tick["ca_decode_attend"] == per_tick["rope_qk"] == tcfg.num_layers
+          and per_tick["rope_commit"] == engine.mimi_cfg.transformer.num_layers,
           "the launches per tick do not follow the config")
     # Seeded random voices: 5 speakers x 125 frames of the conditioning width.
     rng = np.random.default_rng(5)
@@ -2275,9 +2417,11 @@ def plain_seams():
     from dsm_tpu_torch.ops import ring_kernels as RK
 
     saved = (RK.scale_commit, RK.ring_commit, RK.quantize_commit, RK.quantize_scale_commit,
-             DA._launch, DA._ca_launch, DA._attend_launch, QM._launch)
+             RK.rope_commit, RK.rope_qk, DA._launch, DA._ca_launch, DA._attend_launch,
+             QM._launch)
     # ring_commit_plain also takes the scale rings (the split pipeline's commit).
     RK.scale_commit, RK.ring_commit = RK.scale_commit_plain, RK.ring_commit_plain
+    RK.rope_commit, RK.rope_qk = RK.rope_commit_plain, RK.rope_qk_plain
     RK.quantize_commit = RK.quantize_commit_plain
     RK.quantize_scale_commit = RK.quantize_scale_commit_plain
     DA._launch, DA._ca_launch = DA.decode_attend_commit_plain, DA.ca_decode_attend_plain
@@ -2287,7 +2431,8 @@ def plain_seams():
         yield
     finally:
         (RK.scale_commit, RK.ring_commit, RK.quantize_commit, RK.quantize_scale_commit,
-         DA._launch, DA._ca_launch, DA._attend_launch, QM._launch) = saved
+         RK.rope_commit, RK.rope_qk, DA._launch, DA._ca_launch, DA._attend_launch,
+         QM._launch) = saved
 
 
 @contextlib.contextmanager
@@ -2476,7 +2621,8 @@ def _duplex_counters():
     from dsm_tpu_torch.ops import decode_attn as DA
     from dsm_tpu_torch.ops import ring_kernels as RK
 
-    return {"quantize_commit": RK.quantize_commit, "decode_attend": DA.decode_attend,
+    return {"rope_qk": RK.rope_qk, "quantize_commit": RK.quantize_commit,
+            "decode_attend": DA.decode_attend, "rope_commit": RK.rope_commit,
             "ring_commit": RK.ring_commit, "quantize_scale_commit": RK.quantize_scale_commit,
             "decode_attend_commit": DA.decode_attend_commit,
             "ring_commit_q": RK.ring_commit_q, "scale_commit": RK.scale_commit}
@@ -2588,9 +2734,9 @@ def phase_duplex(dev, card, kv_bits=8):
     for rings in (engine.enc_state["enc_t"]["layers"], engine.dec_state["dec_t"]["layers"]):
         check(all(tuple(r[kv].shape) == DUPLEX_MIMI_RING and r[kv].dtype == torch.bfloat16
                   for r in rings for kv in ("k", "v")),
-              "the codec's rings are not the shape the ring_commit cases hold")
-    check(PER_TICK_DUPLEX["decode_attend"] == tcfg.num_layers
-          and PER_TICK_DUPLEX["ring_commit"] == 2 * engine.mimi_cfg.transformer.num_layers,
+              "the codec's rings are not the shape the rope_commit cases hold")
+    check(PER_TICK_DUPLEX["decode_attend"] == PER_TICK_DUPLEX["rope_qk"] == tcfg.num_layers
+          and PER_TICK_DUPLEX["rope_commit"] == 2 * engine.mimi_cfg.transformer.num_layers,
           "PER_TICK_DUPLEX does not follow the config")
     torch.cuda.synchronize()
     print(f"[{tag}] engine built in {time.perf_counter() - t0:.3f} s (s2s-2b d=2560 L=24 "
@@ -2662,9 +2808,9 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     step (the split ring pipeline): hidden state and text logits must agree
     within PATH_RTOL (relative L2); with the ring's history masked out (an
     empty validity bitmap) they must not: the bar sees the attention.  The
-    Mimi encode and decode steps (``ring_commit`` at T=2, whose rows are bit
-    for bit the plain version's): codes, pcm and every ring equal.  Each side's
-    launches are counted: 24 + 24 through the kernels, none through the plain
+    Mimi encode and decode steps (``rope_commit`` at T=2, bit for bit the
+    plain version): codes, pcm and every ring equal.  Each side's launches
+    are counted: 24 + 24 + 24 through the kernels, none through the plain
     versions; and each ``decode_attend`` launch is held to its plain version
     on the same operands (SEAM_RTOL).  ``full``: the engine's rings are full
     (see :func:`_fill_rings`), the outputs' bar is FULL_RING_RTOL, and a
@@ -2706,8 +2852,8 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     check(len(seam) == layers and max(seam) <= SEAM_RTOL,
           f"duplex path check: decode_attend is {seam!r} from its plain version on the "
           f"layers' own operands")
-    check(launched == {**dict.fromkeys(counters, 0), "quantize_commit": layers,
-                       "decode_attend": layers},
+    check(launched == {**dict.fromkeys(counters, 0), "rope_qk": layers,
+                       "quantize_commit": layers, "decode_attend": layers},
           f"duplex path check: the kernels' step launched {launched}")
     check(not any(launched_plain.values()),
           f"duplex path check: the plain step launched {launched_plain}")
@@ -2727,9 +2873,9 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     check(not full or min(rel.values()) > 0,
           "duplex path check: kernels and plain versions bit-identical over full rings")
     print(f"[{tag}-path] {n} active rows at tick {pos} (every slot with at least {seen} "
-          f"valid ring rows), LM step through quantize_commit + decode_attend ({layers} "
-          f"launches each; none in the plain step; quantize_commit is bit for bit its plain "
-          f"version, so this is decode_attend alone) against their "
+          f"valid ring rows), LM step through rope_qk + quantize_commit + decode_attend "
+          f"({layers} launches each; none in the plain step; rope_qk and quantize_commit are "
+          f"bit for bit their plain versions, so this is decode_attend alone) against their "
           f"plain versions from one state: relative L2 hidden {rel['hidden']!r}, text "
           f"logits {rel['text_logits']!r} (bar {bar}); each layer's decode_attend from its "
           f"plain version on the same operands at most {max(seam)!r} (bar {SEAM_RTOL}); with "
@@ -2752,13 +2898,18 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
                  for kv in ("k", "v")]
         return enc, out, rings
 
-    before = RK.ring_commit.launches
+    before = {name: fn.launches for name, fn in counters.items()}
     enc, out, rings = run_mimi()
-    launched = RK.ring_commit.launches - before
+    launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+    before = {name: fn.launches for name, fn in counters.items()}
     with plain_seams():
         enc_p, out_p, rings_p = run_mimi()
-    check(launched == PER_TICK_DUPLEX["ring_commit"],
-          f"duplex path check: {launched} ring_commit launches in the two Mimi steps")
+    launched_plain = {name: fn.launches - before[name] for name, fn in counters.items()}
+    check(launched == {**dict.fromkeys(counters, 0),
+                       "rope_commit": PER_TICK_DUPLEX["rope_commit"]},
+          f"duplex path check: the two Mimi steps launched {launched}")
+    check(not any(launched_plain.values()),
+          f"duplex path check: the plain Mimi steps launched {launched_plain}")
     check(bool(torch.isfinite(out).all()) and float(out.float().abs().max()) > 0,
           "duplex path check: Mimi pcm not finite or all zero")
     check(torch.equal(enc, enc_p), "duplex path check: Mimi codes differ from the plain path")
@@ -2766,8 +2917,9 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     check(all(torch.equal(a, b) for a, b in zip(rings, rings_p)) and len(rings) == 32,
           "duplex path check: a codec ring differs from the plain path")
     print(f"[duplex-path] Mimi encode_step and decode_step at {n} rows, rings "
-          f"{DUPLEX_MIMI_RING} at tick {engine.enc_state['enc_t']['pos']}: {launched} "
-          f"ring_commit launches (T=2) against the plain versions from one state: codes "
+          f"{DUPLEX_MIMI_RING} at tick {engine.enc_state['enc_t']['pos']}: "
+          f"{launched['rope_commit']} rope_commit launches (T=2; none in the plain steps) "
+          f"against the plain versions from one state: codes "
           f"{tuple(enc.shape)} equal, pcm {tuple(out.shape)} equal, 32 rings bit for bit",
           flush=True)
 
@@ -3035,7 +3187,7 @@ def main() -> int:
         got_ms, got_launches = PROFILES[key, ""] if key != "duplex-profile" else PROFILES[
             key, "24 slots, short rings: "]
         print(f"[launches] {what}: {got_launches:.0f} device launches, kernels {got_ms!r} ms "
-              f"(profiler; before the quantise-and-commit kernels, PERF.md section 5: "
+              f"(profiler; before the rope-and-commit kernels, PERF.md section 5: "
               f"{launches} launches, {ms} ms); card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

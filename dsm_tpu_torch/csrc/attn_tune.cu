@@ -8,12 +8,12 @@
 //
 //   bb   batch rows one block works through, one after the other, for its
 //        head: grid (B / bb) * H.  Numerics identical for every bb.
-//   i8s  q is quantised per (b, h) row (qs = max(max|q| / 127, 1e-8),
+//   i8s  q is quantised per (b, h) row (qs = max(max|q| * fl(1/127), 1e-8),
 //        qq = clip(round(q / qs), +-127)) and the scores are s8 x s8 -> s32
 //        products (__dp4a) times ks_j * (qs * scale): no int8 -> f32
 //        conversion of K.
 //   i8p  p_j = e_j * vs_j is quantised per row of scores (pa = max(max_j p_j
-//        / 127, 1e-12), pq = clip(round(p / pa), +-127): a second pass over
+//        * fl(1/127), 1e-12), pq = clip(round(p / pa), +-127): a second pass over
 //        the scores in shared memory) and the V dot is taken in s32 (integer
 //        multiply-adds), times pa.
 //
@@ -54,6 +54,9 @@ using namespace dsm_attn;
 
 constexpr int kAtThreads = kAttnThreads;
 constexpr int kAtWarps = kAttnWarps;
+// fl(1/127), the f32 reciprocal that XLA multiplies by where the jitted tool
+// divides by 127.0 (tools/attn_kernel_tune.py); the plain version's too.
+constexpr float kRecip127 = 0x1.020408p-7f;
 
 // q, k_new, v_new, out: contiguous (B, H, DH) bf16; rings contiguous
 // (B, H, C, DH) int8; scales contiguous (B, H, C) f32; valid (B, C) bytes.
@@ -109,7 +112,7 @@ __global__ void __launch_bounds__(kAtThreads) attn_tune_kernel(
     int qi[4] = {0, 0, 0, 0};
     float qs = 1.f;
     if constexpr (I8S) {
-      qs = fmaxf(amax / 127.f, 1e-8f);
+      qs = fmaxf(__fmul_rn(amax, kRecip127), 1e-8f);
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const int v = (int)fminf(fmaxf(rintf(qf[e] / qs), -127.f), 127.f);
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(kAtThreads) attn_tune_kernel(
     const float denom = block_sum(local_sum, warp_red) + e_new;
     float pa = 1.f;
     if constexpr (I8P) {
-      pa = fmaxf(block_max(local_pmax, warp_red) / 127.f, 1e-12f);
+      pa = fmaxf(__fmul_rn(block_max(local_pmax, warp_red), kRecip127), 1e-12f);
       for (int i = tid; i < c; i += kAtThreads)
         probs_i[i] = (int)fminf(fmaxf(rintf(probs[i] / pa), -127.f), 127.f);
       __syncthreads();

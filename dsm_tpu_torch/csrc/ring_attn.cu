@@ -4,12 +4,16 @@
 //   dsm_ring_commit    <- dsm_tpu/ops/ring_kernels.py:_ring_commit
 //   dsm_ring_commit_q  <- dsm_tpu/ops/ring_kernels.py:_ring_commit_q
 //   dsm_scale_commit   <- dsm_tpu/ops/ring_kernels.py:_scale_commit
-// and the quantise-and-commit kernel that serves the last two on the step's
-// path, the fresh rows' int8 (or packed-int4) quantisation folded in:
+// and the two kernels that serve them on the step's path, the eager work in
+// front of each commit folded in:
 //   dsm_quantize_commit <- _ring_commit_q (the rows into the rings) and
 //                          _scale_commit (the rows returned), with
 //                          dsm_tpu/ops/attention.py:quantize_kv_rows(_packed4)
 //                          before them, which XLA fuses on the TPU
+//   dsm_rope_commit     <- _ring_commit, with
+//                          dsm_tpu/ops/attention.py:apply_rope on q and k
+//                          before it (without rings: the rope alone, before
+//                          dsm_quantize_commit on the int8 and int4 rings)
 // The fused pipeline's attention, which commits its int8 row itself, is in
 // decode_attn.cu (dsm_decode_attend_commit).
 //
@@ -18,8 +22,11 @@
 // allocates nothing; it returns cudaGetLastError() so the Python wrapper can
 // raise on a refused launch.  Rings are updated in place.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -118,11 +125,13 @@ __global__ void ring_commit_q_kernel(uint32_t* __restrict__ k_cache,
 // Quantise and commit: the fresh bf16 K and V rows (B, H, 1, Dh), read
 // where they lie through their (b, h) strides (V is a strided view of
 // the QKV product), each quantised per row as
-// dsm_tpu/ops/attention.py:quantize_kv_rows(_packed4):
-//   scale = max(amax, 1e-8) / qmax         qmax = 127 (int8) or 7 (int4)
+// dsm_tpu/ops/attention.py:quantize_kv_rows(_packed4) under jax.jit:
+//   scale = max(amax, 1e-8) * fl(1/qmax)   qmax = 127 (int8) or 7 (int4)
 //   q     = clamp(rint(x / scale), -qmax, qmax)
-// in f32 with IEEE division (__fdiv_rn) and round half to even (rintf), no
-// fast math: bit for bit the JAX package's and the plain version's.  A row
+// in f32: XLA folds the division by the constant qmax into a product with
+// its f32 reciprocal (__fmul_rn), the division by the scale stays an IEEE
+// division (__fdiv_rn), rounded half to even (rintf), no fast math: bit for
+// bit the jitted JAX function's and the plain version's.  A row
 // holding a NaN keeps it: amax and scale NaN (torch.clamp and jnp.maximum
 // keep a NaN where fmaxf would drop it), every value 0, as a NaN converts.
 // The int8 row, or the nibble-packed row of attention.pack4 (byte d holds
@@ -147,6 +156,10 @@ __global__ void ring_commit_q_kernel(uint32_t* __restrict__ k_cache,
 // ---------------------------------------------------------------------------
 
 constexpr int kQuantThreads = 128;  // threads per block of the quantise-and-commit kernel
+// fl(1/127) and fl(1/7): the f32 reciprocals XLA multiplies by where the
+// jitted step divides by 127.0 or 7.0; attention.mul_recip's too.
+constexpr float kRecip127 = 0x1.020408p-7f;
+constexpr float kRecip7 = 0x1.24924ap-3f;
 
 struct QuantCommitArgs {
   const uint16_t* k;      // fresh bf16 rows, (B, H, 1, Dh), the last dim contiguous
@@ -207,7 +220,7 @@ quantize_commit_kernel(const QuantCommitArgs a) {
   }
   for (int off = seg >> 1; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(mask, m, off));
   const float qmax = kPacked ? 7.f : 127.f;
-  const float scale = m != m ? m : __fdiv_rn(fmaxf(m, 1e-8f), qmax);
+  const float scale = m != m ? m : __fmul_rn(fmaxf(m, 1e-8f), kPacked ? kRecip7 : kRecip127);
 
   int q[8];
 #pragma unroll
@@ -246,6 +259,114 @@ quantize_commit_kernel(const QuantCommitArgs a) {
     reinterpret_cast<uint2*>(dst)[sub] = make_uint2(w0, w1);
   }
   if (sub == 0) (is_v ? a.vs : a.ks)[bh * a.c + a.w] = scale;
+}
+
+// ---------------------------------------------------------------------------
+// Rope and commit: the rotary embedding of q and k (B, H, T, Dh), read where
+// they lie through their (b, h, t) strides (views of the QKV product), as
+// dsm_tpu/ops/attention.py:apply_rope computes it under jax.jit, which
+// contracts each pair's rotation into one fused multiply-add:
+//   o1 = fma(x1, c, -(x2 * s))     o2 = fma(x1, s, x2 * c)
+// (__fmul_rn / __fmaf_rn: nvcc's own contraction cannot move a rounding),
+// cast back to x's type (__float2bfloat16_rn for bf16).  The rotated q and
+// k go to contiguous outputs (B, H, T, Dh); with rings, the rotated k and
+// the unchanged v also go into the K/V rings (B, H, C, Dh) at rows w ..
+// w+T-1, converted to the rings' type as the plain version's assignment
+// converts them.  cos and sin are (B or 1, T, Dh/2) f32: cs_b is their batch
+// stride, 0 where one row serves every b.
+//
+// What bounds it on the H100: its launch.  The Mimi layer's q, k and v
+// (64, 8, 2, 64) bf16 are 393 KB in; the rotated q and k and the two ring
+// rows 524 KB out: a quarter of a microsecond at 3.35 TB/s, where a launch
+// costs some 2 us.  On the TPU XLA fuses the rope
+// into the producers around the Pallas commit; here it was 16 launches (two
+// of apply_rope's eight-operation chains) and a copy of V before the commit's
+// one.  So the design removes launches and nothing else: one thread a
+// rotary pair, blockIdx.y picks q (0), k (1) or v (2), no shared memory, no
+// synchronisation.
+// ---------------------------------------------------------------------------
+struct RopeCommitArgs {
+  const void* src[3];    // q, k, v: (B, H, T, Dh) in x's type, pairs contiguous
+  long long sb[3], sh[3], st[3];  // their (b, h, t) strides, in elements
+  const float* cos;      // (B or 1, T, Dh/2)
+  const float* sin;
+  long long cs_b;        // batch stride of cos / sin in elements
+  void* out[2];          // rotated q, k: (B, H, T, Dh) contiguous, x's type
+  void* ring[2];         // K, V rings (B, H, C, Dh) in the rings' type, or null
+  long long pairs;       // B * H * T * Dh / 2
+  int h, t, half, c, w;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// x's type into the rings' type, as a PyTorch .to() converts it.
+template <typename R, typename X>
+__device__ __forceinline__ R convert(X x) {
+  if constexpr (std::is_same<R, X>::value) {
+    return x;
+  } else {
+    return from_float<R>(to_float(x));
+  }
+}
+
+template <typename X, typename R>
+__global__ void __launch_bounds__(kThreads) rope_commit_kernel(const RopeCommitArgs a) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= a.pairs) return;
+  const int which = blockIdx.y;  // 0 q, 1 k, 2 v
+  const int p = (int)(i % a.half);
+  const long long row = i / a.half;  // (b, h, t) in row-major order
+  const int ti = (int)(row % a.t);
+  const long long bh = row / a.t;
+  const long long b = bh / a.h;
+  const long long hh = bh - b * a.h;
+  // Selects by which without indexing the parameter arrays at run time,
+  // which would copy the arguments to local memory.
+  const void* base = which == 0 ? a.src[0] : which == 1 ? a.src[1] : a.src[2];
+  const long long sb = which == 0 ? a.sb[0] : which == 1 ? a.sb[1] : a.sb[2];
+  const long long sh = which == 0 ? a.sh[0] : which == 1 ? a.sh[1] : a.sh[2];
+  const long long st = which == 0 ? a.st[0] : which == 1 ? a.st[1] : a.st[2];
+  const X* src = (const X*)base + b * sb + hh * sh + ti * st + 2 * p;
+  const X x1 = src[0], x2 = src[1];
+  const long long dst = (bh * a.c + a.w + ti) * (2LL * a.half) + 2 * p;
+  if (which == 2) {
+    R* v_ring = (R*)a.ring[1];
+    v_ring[dst] = convert<R>(x1);
+    v_ring[dst + 1] = convert<R>(x2);
+    return;
+  }
+  const long long cs = b * a.cs_b + (long long)ti * a.half + p;
+  const float c = a.cos[cs], s = a.sin[cs];
+  const float f1 = to_float(x1), f2 = to_float(x2);
+  const X o1 = from_float<X>(__fmaf_rn(f1, c, -__fmul_rn(f2, s)));
+  const X o2 = from_float<X>(__fmaf_rn(f1, s, __fmul_rn(f2, c)));
+  X* out = (X*)(which == 0 ? a.out[0] : a.out[1]) + row * (2LL * a.half) + 2 * p;
+  out[0] = o1;
+  out[1] = o2;
+  if (which == 1 && a.ring[0] != nullptr) {
+    R* k_ring = (R*)a.ring[0];
+    k_ring[dst] = convert<R>(o1);
+    k_ring[dst + 1] = convert<R>(o2);
+  }
+}
+
+template <typename X>
+void launch_rope_commit(const RopeCommitArgs& a, int r_bytes, dim3 grid, cudaStream_t s) {
+  if (r_bytes == 2) {
+    rope_commit_kernel<X, __nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    rope_commit_kernel<X, float><<<grid, kThreads, 0, s>>>(a);
+  }
 }
 
 inline unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -336,6 +457,42 @@ int dsm_quantize_commit(const void* k, const void* v, long long k_sb, long long 
     quantize_commit_kernel<true><<<grid, kQuantThreads, 0, s>>>(a);
   } else {
     quantize_commit_kernel<false><<<grid, kQuantThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// q, k, v (B, H, T, Dh) with their (b, h, t) strides in elements (pairs
+// contiguous), x_bytes 2 (bf16) or 4 (f32); cos, sin (B or 1, T, Dh/2) f32
+// with batch stride cs_b; the rotated q, k into q_out, k_out (B, H, T, Dh)
+// contiguous; with k_cache and v_cache not null, the rotated k and v into
+// the rings (B, H, C, Dh) of r_bytes 2 (bf16) or 4 (f32) at rows w ..
+// w+T-1.  Returns a cudaError_t.
+int dsm_rope_commit(const void* q, const void* k, const void* v, long long q_sb,
+                    long long q_sh, long long q_st, long long k_sb, long long k_sh,
+                    long long k_st, long long v_sb, long long v_sh, long long v_st,
+                    const void* cos, const void* sin, long long cs_b, void* q_out,
+                    void* k_out, void* k_cache, void* v_cache, long long b, int h, int t,
+                    int dh, int c, int w, int x_bytes, int r_bytes, void* stream) {
+  if (dh % 2 || (x_bytes != 2 && x_bytes != 4) || (r_bytes != 2 && r_bytes != 4) ||
+      (k_cache == nullptr) != (v_cache == nullptr))
+    return (int)cudaErrorInvalidValue;
+  RopeCommitArgs a;
+  a.src[0] = q; a.src[1] = k; a.src[2] = v;
+  a.sb[0] = q_sb; a.sh[0] = q_sh; a.st[0] = q_st;
+  a.sb[1] = k_sb; a.sh[1] = k_sh; a.st[1] = k_st;
+  a.sb[2] = v_sb; a.sh[2] = v_sh; a.st[2] = v_st;
+  a.cos = (const float*)cos; a.sin = (const float*)sin; a.cs_b = cs_b;
+  a.out[0] = q_out; a.out[1] = k_out;
+  a.ring[0] = k_cache; a.ring[1] = v_cache;
+  a.half = dh / 2; a.h = h; a.t = t; a.c = c; a.w = w;
+  a.pairs = b * h * t * a.half;
+  if (a.pairs == 0) return (int)cudaSuccess;
+  const dim3 grid(grid_for(a.pairs), k_cache != nullptr ? 3 : 2);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_bytes == 2) {
+    launch_rope_commit<__nv_bfloat16>(a, r_bytes, grid, s);
+  } else {
+    launch_rope_commit<float>(a, r_bytes, grid, s);
   }
   return (int)cudaGetLastError();
 }

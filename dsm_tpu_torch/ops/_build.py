@@ -47,6 +47,11 @@ _SIGNATURES = {
     "dsm_quantize_commit": (
         [_P, _P] + [_LL] * 4 + [_P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P], _I
     ),
+    # q, k, v, their (b, h, t) strides, cos, sin, cos batch stride, q_out,
+    # k_out, k_cache, v_cache, b, h, t, dh, c, w, x_bytes, r_bytes, stream
+    "dsm_rope_commit": (
+        [_P] * 3 + [_LL] * 9 + [_P, _P, _LL] + [_P] * 4 + [_LL] + [_I] * 7 + [_P], _I
+    ),
     "dsm_decode_attend_commit_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
     # valid, part, out, b, h, c, dh, n_split, pos, w, window, scale, stream

@@ -20,6 +20,8 @@ bf16 x int8 product is exact in f32, so this equals JAX's bf16 dots with
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import functools
 import math
 from typing import Optional, Tuple
@@ -34,25 +36,66 @@ NEG_INF = -1e9
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _libm():
+    """The C library's ``cosf`` and ``sinf``, which XLA's CPU code calls."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("cosf", "sinf"):
+        getattr(lib, name).argtypes = [ctypes.c_float]
+        getattr(lib, name).restype = ctypes.c_float
+    return lib
+
+
+def _libm_map(name: str, x: torch.Tensor) -> torch.Tensor:
+    fn = getattr(_libm(), name)
+    return torch.tensor([fn(v) for v in x.reshape(-1).tolist()],
+                        dtype=torch.float32).reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, max_period: float, device: torch.device) -> torch.Tensor:
+    """The rope's frequencies ``(Dh/2,)`` f32, made once per shape and device:
+    the constant XLA folds, ``1 / max_period ** e`` in f64 on the f32
+    exponents ``e = 2i / Dh``, rounded once to f32 (f32 ``pow`` differs from
+    it in about a third of the frequencies)."""
+    with torch.inference_mode(False):  # a plain tensor, usable in and out of inference mode
+        e = 2.0 * torch.arange(head_dim // 2, dtype=torch.float32) / head_dim
+        return (1.0 / torch.pow(float(max_period), e.double())).float().to(device)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, max_period: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (B, T) int -> cos, sin (B, T, Dh/2) f32."""
-    half = head_dim // 2
-    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
-    inv_freq = 1.0 / torch.pow(float(max_period), 2.0 * idx / head_dim)
+    """positions (B, T) int -> cos, sin (B, T, Dh/2) f32.
+
+    Rounded as the jitted JAX step computes them: the frequencies of
+    :func:`_inv_freq`; on the CPU, cos and sin are the C library's ``cosf``
+    and ``sinf``, which XLA calls there (PyTorch's own vectorised ones differ
+    from them in the last bit for some 3 % of angles; a step takes ``T *
+    Dh/2`` of each).  On the card they are PyTorch's."""
+    inv_freq = _inv_freq(head_dim, float(max_period), positions.device)
     angles = positions.float()[..., None] * inv_freq
+    if angles.device.type == "cpu":
+        return _libm_map("cosf", angles), _libm_map("sinf", angles)
     return torch.cos(angles), torch.sin(angles)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, H, T, Dh) with interleaved rotary pairs (x0,x1),(x2,x3),..."""
+    """x (B, H, T, Dh) with interleaved rotary pairs (x0,x1),(x2,x3),...
+
+    Rounded as the jitted JAX step contracts it: ``o1 = fma(x1, c, -(x2*s))``
+    and ``o2 = fma(x1, s, x2*c)``, the second product rounded to f32, the
+    first fused.  Here the first product is taken in f64, where the product
+    of a bf16 or f32 value and an f32 value is exact (at most 48 bits), the
+    sum is taken in f64 and rounded once to f32.  That sum is the fused one
+    unless the rounded term is finer than 2**-29 of the product, where the
+    exact sum needs more than 53 bits and could round twice."""
     b, h, t, d = x.shape
     xf = x.float().reshape(b, h, t, d // 2, 2)
-    x1, x2 = xf[..., 0], xf[..., 1]
+    x1, x2 = xf[..., 0].double(), xf[..., 1]
     c = cos[:, None, :, :]
     s = sin[:, None, :, :]
-    o1 = x1 * c - x2 * s
-    o2 = x1 * s + x2 * c
+    o1 = (x1 * c.double() - (x2 * s).double()).float()
+    o2 = (x1 * s.double() + (x2 * c).double()).float()
     return torch.stack([o1, o2], dim=-1).reshape(b, h, t, d).to(x.dtype)
 
 
@@ -101,32 +144,40 @@ def update_valid_bitmap(valid: torch.Tensor, w: list,
 
 
 @functools.lru_cache(maxsize=None)
-def _divisor(value: float, device: torch.device) -> torch.Tensor:
+def _constant(value: float, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # a plain tensor, usable in and out of inference mode
         return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def div_ieee(x: torch.Tensor, value: float) -> torch.Tensor:
-    """``x / value`` rounded as IEEE division, on every device.  ATen
-    multiplies a CUDA tensor divided by a Python number by the f32
-    reciprocal (``div_true_kernel_cuda``), which misses the quotient by one
-    bit for some x, where the JAX package and the CPU divide; a 0-dim tensor
-    on the device divides.
-    The divisor is made once per value and device, so the division costs no
-    launch more than before (``qmm.mm_w8a8`` runs it on every W8A8 matmul)."""
-    return x / _divisor(float(value), x.device)
+    """``x / value`` rounded as IEEE division, on every device, as numpy
+    divides (``quantize_weights``).  ATen multiplies a CUDA tensor divided
+    by a Python number by the f32 reciprocal (``div_true_kernel_cuda``); a
+    0-dim tensor on the device divides.  The divisor is made once per value
+    and device, so the division costs no launch more."""
+    return x / _constant(float(value), x.device)
+
+
+def mul_recip(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as the jitted JAX step computes a division by a
+    constant: XLA folds it into ``x * fl(1/value)``, the f32 reciprocal of
+    the f32 constant, on every device.  A true division differs in about one
+    value in twenty; the reciprocal is made once per value and device."""
+    recip = torch.ones((), dtype=torch.float32) / torch.tensor(value, dtype=torch.float32)
+    return x * _constant(float(recip), x.device)
 
 
 def quantize_kv_rows(k_new: torch.Tensor, v_new: torch.Tensor):
     """Per-row symmetric int8 quantisation of fresh K/V rows.
 
     Returns ``(kq, vq int8, ks, vs (B, H, T) f32)``; bit-exact with the JAX
-    version (both round half to even)."""
+    version under ``jax.jit`` (the scale times fl(1/127), the values a true
+    division by it, both rounded half to even)."""
 
     def one(x):
         xf = x.float()
         amax = xf.abs().amax(dim=-1)
-        scale = div_ieee(torch.clamp(amax, min=1e-8), 127.0)
+        scale = mul_recip(torch.clamp(amax, min=1e-8), 127.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
         return q.to(torch.int8), scale
 
@@ -154,12 +205,13 @@ def unpack4(p: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 def quantize_kv_rows_packed4(k_new: torch.Tensor, v_new: torch.Tensor):
     """Per-row symmetric int4 quantisation of fresh K/V rows, nibble-packed
     (:func:`pack4`): ``(kq, vq (B, H, T, Dh/2) uint8, ks, vs (B, H, T) f32)``,
-    half the int8 ring's bytes.  Bit-exact with the JAX version (f32
-    division, both round half to even)."""
+    half the int8 ring's bytes.  Bit-exact with the JAX version under
+    ``jax.jit`` (the scale times fl(1/7), the values a true f32 division by
+    it, both rounded half to even)."""
 
     def one(x):
         xf = x.float()
-        scale = div_ieee(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 7.0)
+        scale = mul_recip(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 7.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7)
         return pack4(q), scale
 

@@ -31,7 +31,7 @@ import math
 import torch
 
 from . import _build
-from .attention import div_ieee
+from .attention import mul_recip
 
 _MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
 # How far the int8-dot variants may lie from the bf16 variant, as a share of
@@ -41,8 +41,9 @@ I8_FROM_BF16 = 5e-2
 
 def _quantize_rows(x: torch.Tensor, floor: float):
     """Per-row symmetric int8: ``(round(x / s) clipped to +-127, s)`` with
-    ``s = max(max|x| / 127, floor)`` over the last dim, kept."""
-    s = torch.clamp(div_ieee(x.abs().amax(dim=-1, keepdim=True), 127.0), min=floor)
+    ``s = max(max|x| * fl(1/127), floor)`` over the last dim, kept: the jitted
+    tool's division by 127.0."""
+    s = torch.clamp(mul_recip(x.abs().amax(dim=-1, keepdim=True), 127.0), min=floor)
     return torch.clamp(torch.round(x / s), -127, 127), s
 
 

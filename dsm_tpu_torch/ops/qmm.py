@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .attention import div_ieee
+from .attention import mul_recip
 
 _MIN_ROWS = 17
 
@@ -72,7 +72,7 @@ def mm_w8a8(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
             f"mm_w8a8 needs K and N multiples of 8, got K={i} N={o}"
         )
     x2 = x.reshape(-1, i).float()
-    xs = torch.clamp(div_ieee(x2.abs().amax(dim=-1, keepdim=True), 127.0), min=1e-8)
+    xs = torch.clamp(mul_recip(x2.abs().amax(dim=-1, keepdim=True), 127.0), min=1e-8)
     xq = torch.clamp(torch.round(x2 / xs), -127, 127).to(torch.int8)
     m = xq.shape[0]
     if m < _MIN_ROWS:

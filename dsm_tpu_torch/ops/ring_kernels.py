@@ -1,6 +1,6 @@
 """In-place KV ring commits (counterpart of ``dsm_tpu/ops/ring_kernels.py``).
 
-Five wrappers over four kernels, CUDA C++ in ``csrc/ring_attn.cu``:
+Seven wrappers over five kernels, CUDA C++ in ``csrc/ring_attn.cu``:
 
 ``ring_commit`` replaces ``dsm_tpu/ops/ring_kernels.py:_ring_commit``: it
 writes T new K/V rows ``(B, H, T, Dh)`` into the bf16 or f32 rings
@@ -17,6 +17,17 @@ launch; at s2s-2b B=24 that is 2 x 61 KB of rows and 2 x 1.9 KB of scales,
 once per LM layer.  The packed-int4 rings (uint8, rows of ``Dh/2`` bytes)
 take the same launch: the kernel copies bytes and is given the row width
 in bytes.  :func:`ring_commit` with the scale rings goes there.
+
+``rope_commit`` serves TPU kernel 3 on the step's path, with the rotary
+embedding folded in (``dsm_rope_commit``): it takes the step's q, k and v
+``(B, H, T, Dh)`` where they lie (strided views of the QKV product), rotates
+q and k as ``attention.apply_rope`` does, writes the rotated k and the
+unchanged v into the bf16 or f32 rings at row ``w`` and returns the rotated
+q and k, in one launch where the eager step took 20 (two rope chains of 9
+operations, V made contiguous, the copy).  ``rope_qk`` is the same kernel
+without rings: the rope before the int8 and packed-int4 commits below, one
+launch for 18.  ``ring_commit`` stays the literal counterpart of
+``_ring_commit`` on rows rotated already.
 
 ``quantize_commit`` and ``quantize_scale_commit`` serve TPU kernels 4 and 1
 on the step's path, one kernel (``dsm_quantize_commit``) with the fresh rows'
@@ -368,3 +379,127 @@ def quantize_scale_commit(k: torch.Tensor, v: torch.Tensor, ks_cache: torch.Tens
 
 
 quantize_scale_commit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# rope_commit and rope_qk: the rotary embedding folded into the bf16 commit
+# ---------------------------------------------------------------------------
+
+
+def rope_qk_plain(q, k, cos, sin):
+    """Plain PyTorch version of :func:`rope_qk` (any device):
+    ``attention.apply_rope`` on q and on k."""
+    return attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin)
+
+
+def rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, w: int):
+    """Plain PyTorch version of :func:`rope_commit` (any device):
+    :func:`rope_qk_plain`, then :func:`ring_commit_plain` of the rotated k
+    and of v; returns the rotated ``q, k``."""
+    q, k = rope_qk_plain(q, k, cos, sin)
+    ring_commit_plain(k_cache, v_cache, k, v, w)
+    return q, k
+
+
+def _all_on_cpu(name: str, tensors: dict) -> bool:
+    """True where every tensor lies on the CPU (the plain version), False
+    where every one lies on the first one's CUDA device (the kernel); raises
+    for any other mix."""
+    if all(x.device.type == "cpu" for x in tensors.values()):
+        return True
+    dev = next(iter(tensors.values())).device
+    for label, x in tensors.items():
+        if not x.is_cuda or x.device != dev:
+            raise ValueError(f"{name}: {label} is on {x.device}, not the CUDA device {dev}")
+    return False
+
+
+def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, w):
+    """Check the rows, cos/sin and the rings for ``dsm_rope_commit`` and
+    launch it -> the rotated ``q, k (B, H, T, Dh)``, contiguous.  The rows are
+    bf16 or f32 with contiguous pairs (the last dim of stride 1, any (b, h,
+    t) strides: views of the QKV product), Dh even; cos and sin ``(B or 1, T,
+    Dh/2)`` f32; the rings, if given, bf16 or f32 ``(B, H, C, Dh)``."""
+    b, h, t, dh = q.shape
+    rows = {"q": q, "k": k} if v is None else {"q": q, "k": k, "v": v}
+    for label, x in rows.items():
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: {label} is {tuple(x.shape)}, q {tuple(q.shape)}")
+        if x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != q.dtype:
+            raise ValueError(f"{name} takes bf16 or f32 rows of one dtype, got {x.dtype} "
+                             f"for {label}, {q.dtype} for q")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}: the last dim of {label} is not contiguous "
+                             f"(strides {x.stride()})")
+    if dh % 2:
+        raise ValueError(f"{name} takes an even Dh, got {dh}")
+    for label, x in (("cos", cos), ("sin", sin)):
+        if x.dtype != torch.float32 or x.dim() != 3 or x.shape[0] not in (1, b) \
+                or tuple(x.shape[1:]) != (t, dh // 2):
+            raise ValueError(f"{name}: {label} must be f32 (B or 1, T, Dh/2), got "
+                             f"{x.dtype} {tuple(x.shape)} for rows {tuple(q.shape)}")
+    cos, sin = cos.contiguous(), sin.contiguous()
+    c = 0
+    if k_cache is not None:
+        c = k_cache.shape[2]
+        _check_rows(w, t, c)
+        if k_cache.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"{name} takes bf16 or f32 rings, got {k_cache.dtype}")
+        if v_cache.dtype != k_cache.dtype or v_cache.shape != k_cache.shape:
+            raise ValueError(f"{name}: K and V rings differ in dtype or shape")
+        if k_cache.shape != (b, h, c, dh):
+            raise ValueError(f"{name}: rows {tuple(q.shape)} do not fit ring "
+                             f"{tuple(k_cache.shape)}")
+        for label, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+            if not x.is_contiguous():
+                raise ValueError(f"{name}: {label} is not contiguous")
+    q_out = torch.empty((b, h, t, dh), dtype=q.dtype, device=q.device)
+    k_out = torch.empty_like(q_out)
+    strides = [s for x in (q, k, v if v is not None else k) for s in x.stride()[:3]]
+    err = _build.lib().dsm_rope_commit(
+        q.data_ptr(), k.data_ptr(), v.data_ptr() if v is not None else None, *strides,
+        cos.data_ptr(), sin.data_ptr(), 0 if cos.shape[0] == 1 else t * (dh // 2),
+        q_out.data_ptr(), k_out.data_ptr(),
+        k_cache.data_ptr() if k_cache is not None else None,
+        v_cache.data_ptr() if v_cache is not None else None,
+        b, h, t, dh, c, w, q.element_size(),
+        k_cache.element_size() if k_cache is not None else 2,
+        ctypes.c_void_p(_build.stream_ptr()),
+    )
+    _build.check(err, name)
+    return q_out, k_out
+
+
+def rope_commit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, w: int):
+    """Rotate ``q, k (B, H, T, Dh)`` by the rotary embedding ``cos, sin (B
+    or 1, T, Dh/2)`` (as ``attention.apply_rope``), write the rotated k and
+    the unchanged ``v`` into the bf16 or f32 rings ``(B, H, C, Dh)`` at rows
+    ``w .. w+T-1``, in place, and return the rotated ``q, k``, contiguous in
+    q's dtype, in one launch: the step's ``apply_rope`` x2 + :func:`ring_commit`.
+    q, k and v are read through their strides."""
+    tensors = {"q": q, "k": k, "v": v, "k_cache": k_cache, "v_cache": v_cache,
+               "cos": cos, "sin": sin}
+    if _all_on_cpu("rope_commit", tensors):
+        return rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, w)
+    out = _rope_launch("rope_commit", q, k, v, k_cache, v_cache, cos, sin, w)
+    rope_commit.launches += 1
+    return out
+
+
+rope_commit.launches = 0
+
+
+def rope_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Rotate ``q, k (B, H, T, Dh)`` by the rotary embedding ``cos, sin (B
+    or 1, T, Dh/2)`` and return them contiguous in q's dtype, in one launch
+    of :func:`rope_commit`'s kernel without rings: the step's ``apply_rope``
+    x2 before the int8 and packed-int4 commits."""
+    if _all_on_cpu("rope_qk", {"q": q, "k": k, "cos": cos, "sin": sin}):
+        return rope_qk_plain(q, k, cos, sin)
+    out = _rope_launch("rope_qk", q, k, None, None, None, cos, sin, 0)
+    rope_qk.launches += 1
+    return out
+
+
+rope_qk.launches = 0

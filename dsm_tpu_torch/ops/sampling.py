@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from .attention import mul_recip
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -181,7 +183,7 @@ def sample(cfg: SamplingConfig, logits: torch.Tensor,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if key is None:
         raise ValueError("sampling at temperature > 0 needs a key")
-    logits = _top_k_mask(logits.float() / cfg.temperature, cfg.top_k)
+    logits = _top_k_mask(mul_recip(logits.float(), cfg.temperature), cfg.top_k)
     g = gumbel(key, logits.shape)
     return torch.argmax(logits + g, dim=-1).to(torch.int32)
 

@@ -326,7 +326,7 @@ def precompute_ca_kv(cfg: TransformerConfig, params: list, ca_tokens: torch.Tens
 def quantize_ca_kv(ca_kv, s_len: Optional[int] = None) -> dict:
     """int8 copy of a precomputed source with per-row f32 scales over Dh;
     rows zero-padded up to a multiple of 128 (``s_len`` = the real rows),
-    bit for bit as the JAX package."""
+    bit for bit as the JAX package under ``jax.jit``."""
     k, v = ca_kv
     s = k.shape[3]
     s_len = s if s_len is None else int(s_len)
@@ -336,7 +336,7 @@ def quantize_ca_kv(ca_kv, s_len: Optional[int] = None) -> dict:
         if pad:
             x = torch.cat([x, x.new_zeros((*x.shape[:3], pad, x.shape[4]))], dim=3)
         xf = x.float()
-        scale = attn.div_ieee(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 127.0)
+        scale = attn.mul_recip(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 127.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
         return q.to(torch.int8), scale
 
@@ -369,6 +369,10 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
     """One streaming step: ``x (B, T, D)`` -> ``(y (B, T, D), state')``.
 
     The kernel seams sit where the JAX step has them:
+      * the rotary embedding (``cfg.positional_embedding == "rope"``) of q
+        and k: folded into the commit of bf16/f32 rings (``rope_commit``),
+        one launch of its own (``rope_qk``) before the int8 and packed-int4
+        commits below;
       * int8 rings (T=1): by the JAX package's shape rule
         (``decode_attn.fused_commit_supported``: Dh=128, ``h % 8 == 0``,
         ``h <= 16`` and a ring of at most 2.5 MB per slot) the fused
@@ -385,8 +389,9 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
         rows are quantised and nibble-packed by ``quantize_commit`` (as
         ``quantize_kv_rows_packed4``) and always take the split pipeline,
         whatever ``cfg.fused_attn`` says;
-      * bf16/f32 rings: ``ring_commit``, then ``attend_global_split`` over
-        the committed ring (this step's rows are masked from the ring read);
+      * bf16/f32 rings: ``rope_commit`` (``ring_commit`` without the rope),
+        then ``attend_global_split`` over the committed ring (this step's
+        rows are masked from the ring read);
       * ``ca_kv``: the stacked per-layer source of :func:`precompute_ca_kv`
         (a ``(k, v)`` pair) or of :func:`quantize_ca_kv` (the int8 dict),
         attended after each self-attention block (:func:`_cross_block`).
@@ -412,10 +417,9 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
     for li, (lp, st) in enumerate(zip(params, state["layers"])):
         xn = norm_mod.apply_norm(cfg.norm_kind, lp["norm1"], x)
         q, k, v = _qkv(cfg, lp, xn)
-        if rope is not None:
-            q = attn.apply_rope(q, *rope)
-            k = attn.apply_rope(k, *rope)
         if kv_quant:
+            if rope is not None:
+                q, k = rkern.rope_qk(q, k, *rope)
             # fused_commit_supported holds for int8 rings only: never for packed4.
             if dattn.fused_commit_supported(q, st["k"], plan, cfg.fused_attn):
                 kq, vq = rkern.quantize_scale_commit(k, v, st["ks"], st["vs"], plan["w"][0])
@@ -429,7 +433,10 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
                 y = dattn.decode_attend(q, st["k"], st["v"], st["ks"], st["vs"], k, v,
                                         plan, valid_old, window=cfg.context)
         else:
-            rkern.ring_commit(st["k"], st["v"], k, v, plan["w"][0])
+            if rope is not None:
+                q, k = rkern.rope_commit(q, k, v, st["k"], st["v"], *rope, plan["w"][0])
+            else:
+                rkern.ring_commit(st["k"], st["v"], k, v, plan["w"][0])
             y = attn.attend_global_split(
                 q, st["k"], st["v"], k, v, plan, valid_old, window=cfg.context
             )

@@ -104,7 +104,7 @@ def _launches():
             DA.decode_attend_commit.launches, DA.ca_decode_attend.launches,
             RK.ring_commit_q.launches, DA.decode_attend.launches, QM.qmm.launches,
             AT.attn_tune.launches, RK.quantize_commit.launches,
-            RK.quantize_scale_commit.launches)
+            RK.quantize_scale_commit.launches, RK.rope_commit.launches, RK.rope_qk.launches)
 
 
 def test_wrappers_raise_for_non_cuda_devices():
@@ -922,13 +922,14 @@ def test_build_duplex_takes_int8_rings_on_the_card_by_default(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused_attn,want", [
-    (None, {"quantize_commit": 2, "decode_attend": 2}),
-    (True, {"quantize_scale_commit": 2, "decode_attend_commit": 2}),
-    (False, {"quantize_commit": 2, "decode_attend": 2})])
+    (None, {"rope_qk": 2, "quantize_commit": 2, "decode_attend": 2}),
+    (True, {"rope_qk": 2, "quantize_scale_commit": 2, "decode_attend_commit": 2}),
+    (False, {"rope_qk": 2, "quantize_commit": 2, "decode_attend": 2})])
 def test_step_routes_head_major_rings_by_the_setting(cuda_device, fused_attn, want):
     """``transformer.step`` at h = 8, Dh = 64 with weight-only int8 weights:
-    the launches follow ``fused_attn``, every matmul goes through qmm, and
-    the three settings agree."""
+    the launches follow ``fused_attn``, every layer rotates q and k in one
+    ``rope_qk`` launch, every matmul goes through qmm, and the three settings
+    agree."""
     cfg = T.TransformerConfig(d_model=512, num_heads=8, num_layers=2, dim_feedforward=2048,
                               context=250, fused_attn=fused_attn)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -942,7 +943,8 @@ def test_step_routes_head_major_rings_by_the_setting(cuda_device, fused_attn, wa
                 "scale_commit": RK.scale_commit,
                 "decode_attend_commit": DA.decode_attend_commit, "qmm": QM.qmm,
                 "quantize_commit": RK.quantize_commit,
-                "quantize_scale_commit": RK.quantize_scale_commit}
+                "quantize_scale_commit": RK.quantize_scale_commit, "rope_qk": RK.rope_qk,
+                "rope_commit": RK.rope_commit, "ring_commit": RK.ring_commit}
     for step in range(3):
         x = (torch.randn(3, 1, 512, generator=gen, device=cuda_device) * 0.3).bfloat16()
         y_ref, ref_state = T.step(ref_cfg, params, ref_state, x)
@@ -1199,9 +1201,11 @@ def test_step_with_int4_rings_on_the_card(cuda_device, monkeypatch, heads, head_
     assert after[8] - before[8] == 10 and after[5] - before[5] == 10  # the split pipeline
     assert after[4] == before[4]  # the rows are quantised in the commit
     assert after[1] == before[1] and after[2] == before[2] and after[9] == before[9]
+    assert after[11] - before[11] == 10  # the rope: one launch a layer
     wrapper = RK.quantize_commit
     monkeypatch.setattr(DA, "_attend_launch", DA.decode_attend_plain)
     monkeypatch.setattr(RK, "quantize_commit", RK.quantize_commit_plain)
+    monkeypatch.setattr(RK, "rope_qk", RK.rope_qk_plain)
     for x, y in zip(xs, ys):
         yr, ref = T.step(cfg, params, ref, x)
         np.testing.assert_allclose(y.float().cpu().numpy(), yr.float().cpu().numpy(),
@@ -1369,11 +1373,14 @@ def _differ(a, b) -> int:
 
 @pytest.mark.cuda
 def test_scales_divide_on_the_card_as_on_the_cpu(cuda_device):
-    """The five quantisations that divide a scale by 127 or 7 (the KV rows,
-    the packed KV rows, ``mm_w8a8``'s activations, the voice source and the
-    weights) give the same scales and integers on the card as on the CPU,
-    bit for bit, on rows whose amaxes a reciprocal would miss.  A failure
-    names each output that differs and in how many of its elements."""
+    """The five quantisations that take a scale as max|x| over 127 or 7 give
+    the same scales and integers on the card as on the CPU, bit for bit, on
+    rows whose amaxes a reciprocal would miss: the KV rows, the packed KV
+    rows, ``mm_w8a8``'s activations and the voice source multiply by fl(1/127)
+    or fl(1/7), as the jitted JAX step does (``attention.mul_recip``); the
+    weights divide, as the JAX package's numpy does (``div_ieee``).  A
+    failure names each output that differs and in how many of its
+    elements."""
     cpu = torch.device("cpu")
     pairs = {}  # what -> (card, cpu)
     for bf16 in (False, True):
@@ -1584,3 +1591,163 @@ def test_quantize_commit_on_cpu_tensors_takes_the_plain_version():
     got = RK.quantize_scale_commit(k, v, rings[2], rings[3], 6)
     assert torch.equal(got[0], kq) and _same_bits(rings[3][:, :, 6], vsn[:, :, 0])
     assert _launches() == before
+
+
+# ---------------------------------------------------------------------------
+# Rope and commit (TPU kernel 3 on the step's path) and the rope alone
+# ---------------------------------------------------------------------------
+
+
+def _rope_rows(dev, b, h, t, dh, dtype, seed, per_batch=False):
+    """q, k, v ``(B, H, T, Dh)`` as strided views of one QKV product ``(B,
+    T, 3, H, Dh)`` (``transformer._qkv``), and cos, sin ``(1, T, Dh/2)`` of
+    positions past 3000 (``(B, T, Dh/2)``, a position a slot, with
+    ``per_batch``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (torch.randn(b, t, 3, h, dh, generator=g, device=dev) * 2).to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not any(x.is_contiguous() for x in (q, k, v))
+    pos = torch.arange(t, device=dev)[None] + 3000 + seed
+    if per_batch:
+        pos = pos + 977 * torch.arange(b, device=dev)[:, None]
+    cos, sin = A.rope_cos_sin(pos, dh, 10_000.0)
+    return q, k, v, cos, sin
+
+
+ROPE_CASES = [  # (B, H, C, T, Dh, dtype): the Mimi rings at B = 64 and 24, T = 1, f32
+    (64, 8, 256, 2, 64, torch.bfloat16), (24, 8, 256, 2, 64, torch.bfloat16),
+    (64, 8, 256, 1, 64, torch.bfloat16), (3, 4, 64, 2, 128, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_batch", [False, True], ids=["cos(1,T)", "cos(B,T)"])
+@pytest.mark.parametrize("B,H,C,T,Dh,dtype", ROPE_CASES)
+def test_rope_commit_kernel_matches_plain(cuda_device, B, H, C, T, Dh, dtype, per_batch):
+    """At w = 0, mid and C - T: three kernel runs give the plain version's
+    rotated q and k (contiguous) and rings bit for bit, every row but the
+    written ones as it was; one launch a call."""
+    q, k, v, cos, sin = _rope_rows(cuda_device, B, H, T, Dh, dtype, seed=C + T, per_batch=per_batch)
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    orig = [torch.randn(B, H, C, Dh, generator=g, device=cuda_device).to(dtype) for _ in range(2)]
+    for w in (0, C // 2, C - T):
+        plain = [x.clone() for x in orig]
+        want = RK.rope_commit_plain(q, k, v, *plain, cos, sin, w)
+        before = _launches()
+        for _ in range(3):
+            kern = [x.clone() for x in orig]
+            got = RK.rope_commit(q, k, v, *kern, cos, sin, w)
+            torch.cuda.synchronize()
+            assert all(x.is_contiguous() and x.dtype == dtype for x in got)
+            for a, p in zip(list(got) + kern, list(want) + plain):
+                assert _same_bits(a, p)
+        after = _launches()
+        assert after[10] - before[10] == 3 and after[:10] == before[:10]
+        assert after[11] == before[11]
+        keep = torch.ones(C, dtype=torch.bool, device=cuda_device)
+        keep[w:w + T] = False
+        for a, ring in zip(kern, orig):
+            assert torch.equal(a[:, :, keep], ring[:, :, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Dh", [(64, 16, 128), (64, 32, 64), (24, 20, 128), (64, 8, 64)])
+def test_rope_qk_kernel_matches_plain(cuda_device, B, H, Dh):
+    """The LM rows of stt-1b / TTS, stt-2.6b / tts_202501 and s2s-2b, and the
+    Mimi width: bit for bit, three runs, one launch a call."""
+    q, k, _, cos, sin = _rope_rows(cuda_device, B, H, 1, Dh, torch.bfloat16, seed=Dh + H)
+    want = RK.rope_qk_plain(q, k, cos, sin)
+    before = _launches()
+    for _ in range(3):
+        got = RK.rope_qk(q, k, cos, sin)
+        torch.cuda.synchronize()
+        assert all(x.is_contiguous() for x in got)
+        assert all(_same_bits(a, p) for a, p in zip(got, want))
+    after = _launches()
+    assert after[11] - before[11] == 3 and after[:11] == before[:11]
+
+
+@pytest.mark.cuda
+def test_rope_commit_wrappers_raise_on_unsupported(cuda_device):
+    """CPU rings given CUDA rows, a bad ``w``, cos of another dtype or
+    shape, rows of two dtypes or an odd Dh: each raises before any launch."""
+    q, k, v, cos, sin = _rope_rows(cuda_device, 2, 4, 2, 64, torch.bfloat16, seed=0)
+    rings = [torch.zeros(2, 4, 32, 64, dtype=torch.bfloat16, device=cuda_device)
+             for _ in range(2)]
+    before = _launches()
+    with pytest.raises(ValueError, match="not the CUDA device"):
+        RK.rope_commit(q, k, v, *(r.cpu() for r in rings), cos, sin, 0)
+    with pytest.raises(ValueError, match="not the CUDA device"):
+        RK.rope_qk(q, k, cos.cpu(), sin.cpu())
+    for w in (1, 31, 32):
+        with pytest.raises(ValueError, match="w % T"):
+            RK.rope_commit(q, k, v, *rings, cos, sin, w)
+    with pytest.raises(ValueError, match="f32"):
+        RK.rope_commit(q, k, v, *rings, cos.double(), sin.double(), 0)
+    with pytest.raises(ValueError, match="f32"):
+        RK.rope_qk(q, k, cos[:, :1], sin[:, :1])
+    with pytest.raises(ValueError, match="one dtype"):
+        RK.rope_qk(q, k.float(), cos, sin)
+    with pytest.raises(ValueError, match="do not fit"):
+        RK.rope_commit(q, k, v, *(r[..., :32].contiguous() for r in rings), cos, sin, 0)
+    with pytest.raises(ValueError, match="even Dh"):
+        RK.rope_qk(q[..., :63], k[..., :63], cos[..., :31].contiguous(),
+                   sin[..., :31].contiguous())
+    assert _launches() == before
+
+
+def test_rope_commit_wrappers_raise_for_non_cuda_devices():
+    """A tensor that is on neither the CPU nor a CUDA device goes to no
+    plain version: the wrappers raise."""
+    m = torch.device("meta")
+    x = torch.empty(1, 8, 2, 64, device=m)
+    cs = torch.empty(1, 2, 32, device=m)
+    ring = torch.empty(1, 8, 32, 64, device=m)
+    before = _launches()
+    with pytest.raises(ValueError):
+        RK.rope_commit(x, x, x, ring, ring, cs, cs, 0)
+    with pytest.raises(ValueError):
+        RK.rope_qk(x, x, cs, cs)
+    assert _launches() == before
+
+
+def test_rope_commit_on_cpu_tensors_takes_the_plain_version():
+    q, k, v, cos, sin = _rope_rows(torch.device("cpu"), 2, 4, 2, 64, torch.float32, seed=0)
+    rings = [torch.zeros(2, 4, 32, 64) for _ in range(2)]
+    before = _launches()
+    qr, kr = RK.rope_commit(q, k, v, *rings, cos, sin, 6)
+    assert torch.equal(qr, A.apply_rope(q, cos, sin)) and torch.equal(kr, A.apply_rope(k, cos, sin))
+    assert torch.equal(rings[0][:, :, 6:8], kr) and torch.equal(rings[1][:, :, 6:8], v)
+    assert all(torch.equal(a, b) for a, b in zip(RK.rope_qk(q, k, cos, sin), (qr, kr)))
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_step_folds_the_rope_into_the_commit_on_the_card(cuda_device, monkeypatch, dtype):
+    """``transformer.step`` at the codec transformer's shapes (8 heads x 64,
+    T = 2 frames, a 32-row ring, 20 steps: it wraps): one ``rope_commit``
+    launch a layer, no ``ring_commit`` or ``rope_qk``; against the same
+    steps through the plain version, outputs and every layer's rings bit
+    for bit (the attention is plain PyTorch on both sides)."""
+    cfg = T.TransformerConfig(d_model=512, num_heads=8, num_layers=2, dim_feedforward=256,
+                              context=30, gating=False, norm="layer_norm", layer_scale=0.5)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init(cfg, gen, dtype)
+    st = T.init_state(cfg, 3, dtype, step_t=2, device=cuda_device)
+    ref = T.init_state(cfg, 3, dtype, step_t=2, device=cuda_device)
+    xs = [torch.randn(3, 2, 512, generator=gen, device=cuda_device).to(dtype)
+          for _ in range(20)]
+    before = _launches()
+    ys = []
+    for x in xs:
+        y, st = T.step(cfg, params, st, x)
+        ys.append(y)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert after[10] - before[10] == 40 and after[0] == before[0] and after[11] == before[11]
+    monkeypatch.setattr(RK, "rope_commit", RK.rope_commit_plain)
+    for x, y in zip(xs, ys):
+        yr, ref = T.step(cfg, params, ref, x)
+        assert _same_bits(y, yr)
+    for lt, lr in zip(st["layers"], ref["layers"]):
+        assert _same_bits(lt["k"], lr["k"]) and _same_bits(lt["v"], lr["v"])

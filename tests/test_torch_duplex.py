@@ -28,7 +28,7 @@ from dsm_tpu_torch.ops import ring_kernels as trk
 from dsm_tpu_torch.ops import sampling as tS
 from dsm_tpu_torch.ops import transformer as tT
 from dsm_tpu_torch.sessions import lm_gen as tGEN
-from tests.test_torch_ops import as_np, to_port
+from tests.test_torch_ops import JitStep, as_np, to_port
 from tests.test_torch_tts import _fields, port_lm_cfg, port_tcfg
 
 torch.set_num_threads(2)
@@ -85,10 +85,11 @@ def test_step_routes_int8_rings_by_the_jax_shape_rule(monkeypatch, d, heads, hea
     routes = _Routes(monkeypatch)
     rng = np.random.default_rng(1)
     masks = [None, None, np.array([True, False]), None, None]
+    jstep = JitStep(cfg)
     for m in masks:
         x = (rng.standard_normal((b, 1, d)) * 0.3).astype(np.float32)
-        yj, sj = jT.step(cfg, params, sj, jnp.asarray(x).astype(jnp.bfloat16),
-                         None if m is None else jnp.asarray(m))
+        yj, sj = jstep(params, sj, jnp.asarray(x).astype(jnp.bfloat16),
+                       None if m is None else jnp.asarray(m))
         yt, st = tT.step(tcfg, pt, st, torch.from_numpy(x).to(torch.bfloat16),
                          None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(as_np(yt), as_np(yj), atol=3e-2, rtol=3e-2)
@@ -115,10 +116,11 @@ def test_split_route_equals_fused_route(monkeypatch):
     sj = jT.init_state(cfg, 2, jnp.bfloat16, kv_quant=True)
     st = {r: tT.init_state(port_tcfg(cfg), 2, kv_quant=True) for r in ("fused", "split")}
     rng = np.random.default_rng(4)
+    jstep = JitStep(cfg)
     for _ in range(4):
         x = (rng.standard_normal((2, 1, 1024)) * 0.3).astype(np.float32)
         xt = torch.from_numpy(x).to(torch.bfloat16)
-        yj, sj = jT.step(cfg, params, sj, jnp.asarray(x).astype(jnp.bfloat16))
+        yj, sj = jstep(params, sj, jnp.asarray(x).astype(jnp.bfloat16))
         y_fused, st["fused"] = tT.step(port_tcfg(cfg), pt, st["fused"], xt)
         with monkeypatch.context() as mp:
             mp.setattr(tda, "fused_commit_supported", lambda *a: False)

@@ -274,10 +274,12 @@ def test_engine_observer_and_loop_thread():
     seen = []
     et.tick_observer = lambda dt, n, phases: seen.append((dt, n, phases))
     done = []
+    # The session and its frames are in place before the loop runs: a tick
+    # between open_session and push_pcm would step the reset alone.
+    drv = et.open_session(done.append)
+    drv.push_pcm(_pcm(8, 4, frame))
     et.start()
     try:
-        drv = et.open_session(done.append)
-        drv.push_pcm(_pcm(8, 4, frame))
         drv.end_input()
         for _ in range(600):
             if any(isinstance(e, tDB.DuplexDoneEvent) for e in done):

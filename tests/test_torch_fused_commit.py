@@ -12,6 +12,7 @@ is the CPU route's whole-ring order, unchanged.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,7 +81,7 @@ def _pallas(case):
     b, h, c, dh, pos, window, frac = case
     j = {k: jnp.asarray(v).astype(_DTYPES[k])
          for k, v in _inputs(b, h, c, dh, frac, seed=pos + b).items()}
-    kq, vq, ksn, vsn = jattn.quantize_kv_rows(j["k_new"], j["v_new"])
+    kq, vq, ksn, vsn = jax.jit(jattn.quantize_kv_rows)(j["k_new"], j["v_new"])
     plan = jattn.global_ring_plan(jnp.int32(pos), c, 1)
     ks, vs = jrk.scale_commit(j["ks"], j["vs"], ksn, vsn, plan["w"][0], interpret=True)
     y, k_ring, v_ring = jda.decode_attend_commit(

@@ -7,6 +7,7 @@ atol = rtol = 2e-2, the bar of tests/test_decode_attn.py (the kernels sum
 in other orders and round the probabilities to bf16).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,7 +123,7 @@ def test_decode_attend_commit_plain_matches_pallas(B, H, C, Dh, pos, window, val
     p = _to_pairs(_attn_inputs(B, H, C, Dh, valid_frac, seed=pos + B))
     j = {k: v[0] for k, v in p.items()}
     t = {k: v[1] for k, v in p.items()}
-    kqj, vqj, ksnj, vsnj = jattn.quantize_kv_rows(j["k_new"], j["v_new"])
+    kqj, vqj, ksnj, vsnj = jax.jit(jattn.quantize_kv_rows)(j["k_new"], j["v_new"])
     kqt, vqt, ksnt, vsnt = tattn.quantize_kv_rows(t["k_new"], t["v_new"])
     jplan = jattn.global_ring_plan(jnp.int32(pos), C, 1)
     tplan = tattn.global_ring_plan(pos, C, 1)
@@ -228,7 +229,7 @@ def test_decode_attend_plain_matches_pallas_flash_and_xla(B, H, C, Dh, pos, wind
     y_port_xla = tattn.attend_global_split_q(t["q"], t["kc"], t["vc"], t["ks"], t["vs"],
                                              t["k_new"], t["v_new"], tplan, t["valid"],
                                              window=window)
-    kq, vq, ksn, vsn = jattn.quantize_kv_rows(j["k_new"], j["v_new"])
+    kq, vq, ksn, vsn = jax.jit(jattn.quantize_kv_rows)(j["k_new"], j["v_new"])
     kc2, vc2, ks2, vs2 = jrk.ring_commit(j["kc"], j["vc"], kq, vq, jplan["w"][0], j["ks"],
                                          j["vs"], ksn, vsn, interpret=True)
     y_flash = jda.decode_attend(j["q"], kc2, vc2, ks2, vs2, j["k_new"], j["v_new"], jplan,
@@ -255,7 +256,7 @@ def test_decode_attend_first_step_ignores_garbage_ring(n_split):
     t = {k: v[1] for k, v in p.items()}
     none_j, none_t = jnp.zeros((B, C), bool), torch.zeros(B, C, dtype=torch.bool)
     jplan = jattn.global_ring_plan(jnp.int32(0), C, 1)
-    kq, vq, ksn, vsn = jattn.quantize_kv_rows(j["k_new"], j["v_new"])
+    kq, vq, ksn, vsn = jax.jit(jattn.quantize_kv_rows)(j["k_new"], j["v_new"])
     kc2, vc2, ks2, vs2 = jrk.ring_commit(j["kc"], j["vc"], kq, vq, jplan["w"][0], j["ks"],
                                          j["vs"], ksn, vsn, interpret=True)
     yj = jda.decode_attend(j["q"], kc2, vc2, ks2, vs2, j["k_new"], j["v_new"], jplan,

@@ -48,6 +48,28 @@ def as_np(x):
     return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
 
 
+class JitStep:
+    """``dsm_tpu.ops.transformer.step`` for ``cfg`` under ``jax.jit``, as the
+    JAX engines run it: ``(params, state, x, mask=None, ca_kv=None)``.
+
+    Each instance traces anew, so no trace made under other kernel settings
+    (environment variables read while tracing) is reused.  ``traces``
+    counts its traces: a JAX kernel counted by a wrapper is called once per
+    layer and trace, not per step."""
+
+    def __init__(self, cfg):
+        self.traces = 0
+
+        def run(params, state, x, mask, ca_kv):
+            self.traces += 1
+            return jT.step(cfg, params, state, x, mask, ca_kv)
+
+        self._run = jax.jit(run)
+
+    def __call__(self, params, state, x, mask=None, ca_kv=None):
+        return self._run(params, state, x, mask, ca_kv)
+
+
 def both(a, dtype="float32"):
     """numpy f32 array -> (jax array, torch tensor) of ``dtype``."""
     j = jnp.asarray(a).astype(dtype)
@@ -90,12 +112,12 @@ def test_gating_hidden_stt_1b():
 def test_rope_matches_jax(pos):
     b, h, t, dh = 2, 3, 2, 16
     positions = np.arange(t, dtype=np.int32)[None].repeat(b, 0) + pos
-    cj, sj = jattn.rope_cos_sin(jnp.asarray(positions), dh, 100_000.0)
+    cj, sj = jax.jit(lambda p: jattn.rope_cos_sin(p, dh, 100_000.0))(jnp.asarray(positions))
     ct, st = tattn.rope_cos_sin(torch.from_numpy(positions), dh, 100_000.0)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), **F32_TOL)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), **F32_TOL)
     x = np.random.default_rng(pos).standard_normal((b, h, t, dh)).astype(np.float32)
-    yj = jattn.apply_rope(jnp.asarray(x), cj, sj)
+    yj = jax.jit(jattn.apply_rope)(jnp.asarray(x), cj, sj)
     yt = tattn.apply_rope(torch.from_numpy(x), ct, st)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **F32_TOL)
 
@@ -108,7 +130,7 @@ def test_quantize_kv_rows_bit_exact(dtype):
     # A zero row exercises the 1e-8 scale floor.
     kj = kj.at[0, 0, 0].set(0)
     kt[0, 0, 0] = 0
-    outj = jattn.quantize_kv_rows(kj, vj)
+    outj = jax.jit(jattn.quantize_kv_rows)(kj, vj)
     outt = tattn.quantize_kv_rows(kt, vt)
     for a, b in zip(outj, outt):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
@@ -191,12 +213,13 @@ def test_ring_write_and_valid_bitmap_match_jax():
 
 @pytest.mark.parametrize("m", [1, 5, 16, 17, 40])
 def test_mm_w8a8_matches_jax(m):
-    """M <= 16 takes the zero-row padding; results bit-exact."""
+    """M <= 16 takes the zero-row padding; results bit-exact with the
+    jitted JAX function."""
     rng = np.random.default_rng(m)
     x = (rng.standard_normal((m, 64)) * 2.0).astype(np.float32)
     wq = rng.integers(-127, 128, (48, 64)).astype(np.int8)
     s = rng.uniform(0.001, 0.05, 48).astype(np.float32)
-    yj = jqmm.mm_w8a8(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s))
+    yj = jax.jit(jqmm.mm_w8a8)(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s))
     yt = tqmm.mm_w8a8(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(s))
     np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
 

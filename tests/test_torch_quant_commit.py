@@ -9,9 +9,10 @@ the JAX package, at small sizes, on the CPU.
   and the returned int8 rows bit for bit, at w = 0, a middle row and C - 1,
   with V a strided view of the QKV product as ``transformer._qkv`` gives it,
   on rows that sit on rounding ties, rows at +-amax, an all-zero row (scale
-  1e-8 / qmax) and a row holding a NaN (its scale NaN on both sides).
+  1e-8 * fl(1/qmax)) and a row holding a NaN (its scale NaN on both sides).
+  The JAX quantisation runs under ``jax.jit``, as in the JAX step.
 * ``transformer.step`` over 12 steps at h = 8 for the three ``fused_attn``
-  settings and ``kv_bits = 4`` against the JAX step through its Pallas
+  settings and ``kv_bits = 4`` against the jitted JAX step through its Pallas
   kernels: outputs within 3e-2 (two layers of bf16 matmuls between the
   attention calls), layer 0's rings bit for bit, both sides' routes counted:
   the new wrappers on the port's side and no ``scale_commit`` or
@@ -32,7 +33,7 @@ from dsm_tpu.ops import transformer as jT
 from dsm_tpu_torch.ops import decode_attn as tda
 from dsm_tpu_torch.ops import ring_kernels as trk
 from dsm_tpu_torch.ops import transformer as tT
-from tests.test_torch_ops import as_np, to_port
+from tests.test_torch_ops import JitStep, as_np, to_port
 from tests.test_torch_stt26 import _Counts
 from tests.test_torch_tts import _fields
 
@@ -101,9 +102,9 @@ def test_quantize_commit_plain_matches_quantize_and_ring_commit_q(B, H, C, Dh, p
     (jk, jv), (tk, tv) = _fresh(B, H, Dh, qmax, seed=C + Dh)
     rings = _rings(B, H, C, Dh // 2 if packed4 else Dh, packed4, seed=w)
     if packed4:
-        kq, vq, ks, vs = jattn.quantize_kv_rows_packed4(jk, jv)
+        kq, vq, ks, vs = jax.jit(jattn.quantize_kv_rows_packed4)(jk, jv)
     else:
-        kq, vq, ks, vs = jattn.quantize_kv_rows(jk, jv)
+        kq, vq, ks, vs = jax.jit(jattn.quantize_kv_rows)(jk, jv)
     want = jrk._ring_commit_q(*map(jnp.asarray, rings), kq, vq, ks, vs,
                               jnp.asarray([w], jnp.int32), interpret=True)
     got = [torch.from_numpy(x.copy()) for x in rings]
@@ -111,7 +112,8 @@ def test_quantize_commit_plain_matches_quantize_and_ring_commit_q(B, H, C, Dh, p
     for g, ref in zip(got, want):
         _assert_same(g, ref)
     assert np.isnan(np.asarray(ks)).sum() == 1 and np.isnan(got[2][:, :, w].numpy()).sum() == 1
-    assert float(got[2][0, 0, w]) == np.float32(np.float32(1e-8) / np.float32(qmax))
+    # The all-zero row's scale: the floor times fl(1/qmax), as under jax.jit.
+    assert float(got[2][0, 0, w]) == np.float32(1e-8) * (np.float32(1) / np.float32(qmax))
     keep = np.arange(C) != w
     for g, ring in zip(got, rings):
         np.testing.assert_array_equal(g.numpy()[:, :, keep], ring[:, :, keep])
@@ -129,7 +131,7 @@ def test_quantize_scale_commit_plain_matches_quantize_and_scale_commit(B, H, C, 
     w = {"first": 0, "middle": C // 2 - 3, "last": C - 1}[where]
     (jk, jv), (tk, tv) = _fresh(B, H, Dh, 127.0, seed=C + w)
     rings = _rings(B, H, C, Dh, False, seed=w)[2:]
-    kq, vq, ks, vs = jattn.quantize_kv_rows(jk, jv)
+    kq, vq, ks, vs = jax.jit(jattn.quantize_kv_rows)(jk, jv)
     want = jrk._scale_commit(*map(jnp.asarray, rings), ks, vs, jnp.asarray([w], jnp.int32),
                              interpret=True)
     got = [torch.from_numpy(x.copy()) for x in rings]
@@ -178,6 +180,7 @@ def test_step_quantises_in_the_commit(jax_kernels, monkeypatch, fused_attn, kv_b
                                     (tda, "decode_attend_commit")])
     rng = np.random.default_rng(1)
     steps = 12
+    jstep = JitStep(cfg)
     for i in range(steps):
         x = (rng.standard_normal((b, 1, d)) * 0.3).astype(np.float32)
         m = np.array([True, i % 3 != 0]) if i >= 3 else None
@@ -185,13 +188,13 @@ def test_step_quantises_in_the_commit(jax_kernels, monkeypatch, fused_attn, kv_b
             reset = np.array([False, True])
             sj = jT.reset_state(sj, jnp.asarray(reset))
             st = tT.reset_state(st, torch.from_numpy(reset))
-        yj, sj = jT.step(cfg, params, sj, jnp.asarray(x).astype(jnp.bfloat16),
-                         None if m is None else jnp.asarray(m))
+        yj, sj = jstep(params, sj, jnp.asarray(x).astype(jnp.bfloat16),
+                       None if m is None else jnp.asarray(m))
         yt, st = tT.step(tcfg, pt, st, torch.from_numpy(x).to(torch.bfloat16),
                          None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(as_np(yt), as_np(yj), atol=3e-2, rtol=3e-2)
-    n = 2 * steps
-    assert jcounts.nonzero() == {jax_route[0]: n, jax_route[1]: n}
+    n, nj = 2 * steps, 2 * jstep.traces  # the JAX side counts its kernels per trace
+    assert jcounts.nonzero() == {jax_route[0]: nj, jax_route[1]: nj}
     assert tcounts.nonzero() == {port_route[0]: n, port_route[1]: n}
     np.testing.assert_array_equal(st["valid"].numpy(), np.asarray(sj["valid"]))
     for key in ("k", "v", "ks", "vs"):  # layer 0 sees the same input on both sides

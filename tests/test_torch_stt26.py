@@ -42,7 +42,7 @@ from dsm_tpu_torch.server import config as tCFG
 from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
 from dsm_tpu_torch.sessions import asr as tASR
 from tests.test_mimi import small_cfg as small_mimi_cfg
-from tests.test_torch_ops import as_np, to_port
+from tests.test_torch_ops import JitStep, as_np, to_port
 from tests.test_torch_tts import _fields, port_lm_cfg, port_mimi_cfg, port_tcfg
 
 torch.set_num_threads(2)
@@ -195,7 +195,9 @@ def test_mm_follows_the_profile_as_jax_follows_its_globals(jax_profile, default,
     assert wt["q"] is qt["q"] and ("w8a8" in wt) == (w8a8 is not True)
     for site in ("in_proj", "mlp_in", "mlp_out", "text_linear", None):
         assert tT.w8a8_at(wt, site) == jax_profile.w8a8_enabled(site)
-        yj = np.asarray(jT.mm(jnp.asarray(x), qj, site=site))
+        # A fresh function a site: the profile is read while tracing.
+        yj = np.asarray(jax.jit(lambda x, w, site=site: jT.mm(x, w, site=site))(
+            jnp.asarray(x), qj))
         yt = tT.mm(torch.from_numpy(x), wt, site=site).numpy()
         if tT.w8a8_at(wt, site):
             np.testing.assert_array_equal(yt, yj)
@@ -296,15 +298,16 @@ def test_step_at_head_major_shapes_matches_the_pallas_kernels(
                                     (tqmm, "qmm_plain"), (tqmm, "mm_w8a8")])
     rng = np.random.default_rng(1)
     masks = [None, np.arange(b) % 3 != 1, None]
+    jstep = JitStep(cfg)
     for m in masks:
         x = (rng.standard_normal((b, 1, d)) * 0.3).astype(np.float32)
-        yj, sj = jT.step(cfg, params, sj, _bf16(x), None if m is None else jnp.asarray(m))
+        yj, sj = jstep(params, sj, _bf16(x), None if m is None else jnp.asarray(m))
         yt, st = tT.step(tcfg, pt, st, torch.from_numpy(x).to(torch.bfloat16),
                          None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(as_np(yt), as_np(yj), atol=3e-2, rtol=3e-2)
-    n = layers * len(masks)
+    n, nj = layers * len(masks), layers * jstep.traces  # the JAX side counts per trace
     jax_commit = "_scale_commit" if fused_attn else "_ring_commit_q"
-    assert jcounts.nonzero() == {jax_route: n, jax_commit: n, "_qmm": 4 * n}
+    assert jcounts.nonzero() == {jax_route: nj, jax_commit: nj, "_qmm": 4 * nj}
     assert tcounts.nonzero() == {port_route[0]: n, port_route[1]: n, "qmm_plain": 4 * n}
     np.testing.assert_array_equal(st["valid"].numpy(), np.asarray(sj["valid"]))
     # The scales of layer 0's fresh rows come from matmuls summed in another
@@ -367,9 +370,10 @@ def test_sin_positional_embedding_matches_jax():
     params = jT.init(cfg, jax.random.PRNGKey(1))
     pt = to_port({"transformer": params})["transformer"]
     sj, st = jT.init_state(cfg, 2, jnp.float32), tT.init_state(tcfg, 2, torch.float32)
+    jstep = JitStep(cfg)
     for i in range(40):
         xs = rng.standard_normal((2, 1, 64)).astype(np.float32)
-        yj, sj = jT.step(cfg, params, sj, jnp.asarray(xs))
+        yj, sj = jstep(params, sj, jnp.asarray(xs))
         yt, st = tT.step(tcfg, pt, st, torch.from_numpy(xs))
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="positional embedding"):

@@ -16,7 +16,7 @@ import torch
 
 from dsm_tpu.ops import transformer as jT
 from dsm_tpu_torch.ops import transformer as tT
-from tests.test_torch_ops import as_np, to_port
+from tests.test_torch_ops import JitStep, as_np, to_port
 
 torch.set_num_threads(2)
 
@@ -41,11 +41,12 @@ def test_step_int8_rings_matches_jax_fused_kernels(monkeypatch):
     assert st["valid"].shape == sj["valid"].shape == (b, 256)
     rng = np.random.default_rng(4)
     masks = [None, None, np.array([True, False]), None]
+    jstep = JitStep(cfg)
     for i, m in enumerate(masks):
         x = (rng.standard_normal((b, 1, 1024)) * 0.3).astype(np.float32)
         xj = jnp.asarray(x).astype(jnp.bfloat16)
         xt = torch.from_numpy(x).to(torch.bfloat16)
-        yj, sj = jT.step(cfg, params, sj, xj, None if m is None else jnp.asarray(m))
+        yj, sj = jstep(params, sj, xj, None if m is None else jnp.asarray(m))
         yt, st = tT.step(_tcfg(cfg), pt, st, xt, None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(as_np(yt), as_np(yj), atol=3e-2, rtol=3e-2)
     assert st["pos"] == int(sj["pos"]) == len(masks)

@@ -30,7 +30,7 @@ from dsm_tpu_torch.ops import attention as tattn
 from dsm_tpu_torch.ops import decode_attn as tda
 from dsm_tpu_torch.ops import sampling as tS
 from dsm_tpu_torch.ops import transformer as tT
-from tests.test_torch_ops import as_np, to_port
+from tests.test_torch_ops import JitStep, as_np, to_port
 
 torch.set_num_threads(2)
 
@@ -117,7 +117,7 @@ def test_sample_per_slot_tokens_equal(top_k):
     cfg_j, cfg_t = jS.SamplingConfig(0.7, top_k), tS.SamplingConfig(0.7, top_k)
     np.testing.assert_array_equal(
         tS.sample(cfg_t, torch.from_numpy(logits), tS.prng_key(9)).numpy(),
-        np.asarray(jS.sample(cfg_j, jnp.asarray(logits), key)))
+        np.asarray(jax.jit(jS.sample, static_argnums=0)(cfg_j, jnp.asarray(logits), key)))
     np.testing.assert_array_equal(
         tS.sample_dynamic(torch.from_numpy(logits), tS.prng_key(9),
                           torch.from_numpy(temp), top_k).numpy(),
@@ -146,7 +146,7 @@ def test_precompute_and_quantize_ca_kv_match_jax():
     np.testing.assert_allclose(kt.numpy(), np.asarray(kj), **F32_TOL)
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), **F32_TOL)
     # Quantisation of the same source: bit for bit.
-    qj = jT.quantize_ca_kv((kj, vj), s_len=200)
+    qj = jax.jit(jT.quantize_ca_kv, static_argnames="s_len")((kj, vj), s_len=200)
     qt = tT.quantize_ca_kv((torch.from_numpy(np.asarray(kj)),
                             torch.from_numpy(np.asarray(vj))), s_len=200)
     assert qt["k"].shape[3] == 256 and qt["s_len"] == int(qj["s_len"]) == 200
@@ -225,7 +225,7 @@ def test_transformer_step_with_cross_attention(monkeypatch, form, gating):
     ca_j = jT.precompute_ca_kv(cfg, params, jnp.asarray(src))
     ca_t = tT.precompute_ca_kv(port_tcfg(cfg), pt, torch.from_numpy(src))
     if form == "int8_dict":
-        ca_j = jT.quantize_ca_kv(ca_j)
+        ca_j = jax.jit(jT.quantize_ca_kv)(ca_j)
         ca_t = tT.quantize_ca_kv(tuple(torch.from_numpy(np.asarray(x)) for x in
                                        (jT.precompute_ca_kv(cfg, params, jnp.asarray(src)))))
         assert ca_t["k"].shape[3] == 256
@@ -233,9 +233,10 @@ def test_transformer_step_with_cross_attention(monkeypatch, form, gating):
     st = tT.init_state(port_tcfg(cfg), 2, torch.float32)
     rng = np.random.default_rng(7)
     tol = 2e-2 if form == "int8_dict" else 1e-4
+    jstep = JitStep(cfg)
     for i in range(3):
         x = rng.standard_normal((2, 1, 512)).astype(np.float32)
-        yj, sj = jT.step(cfg, params, sj, jnp.asarray(x), ca_kv=ca_j)
+        yj, sj = jstep(params, sj, jnp.asarray(x), ca_kv=ca_j)
         yt, st = tT.step(port_tcfg(cfg), pt, st, torch.from_numpy(x), ca_kv=ca_t)
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=tol, rtol=tol)
 
