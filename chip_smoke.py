@@ -54,7 +54,19 @@ lines each:
    ``[stt26-times]``/``[stt26-profile]`` as for stt-1b, and ``[stt26-path]``:
    one LM step through the kernels against the same step through the plain
    versions, and with the fused setting on (quantize_scale_commit +
-   decode_attend_commit at h=32, Dh=64) against the split route;
+   decode_attend_commit at h=32, Dh=64) against the split route.  The
+   engines of these phases run the eager step (``cuda_graph=False``), so that
+   the wrappers count every launch; ``[graph-stt1b]``, ``[graph-stt26]`` and
+   ``[graph-stt1b-kv4]`` run ``BatchedAsrEngine`` as it serves, its step
+   captured once as a CUDA graph and replayed every tick: the eager and the
+   captured engine's step timed (host ms, device busy share and device
+   launches a step from a profile, peak memory with the graph's pool), then
+   the replay against the eager ``ASR.step`` from one state over GRAPH_STEPS
+   steps (past a wrap of every ring; slots opened, closed and reset, partial
+   masks): outputs bit for bit at every step, the whole state every 100 steps
+   and at the end; at stt-1b the captured engine also serves the 12-session
+   workload of ``[serve]`` beside an eager engine, events equal, its launches
+   counted over its warm-up and capture (a replay counts none);
 6. tts: the batched TTS engine from configs/config-tts-tpu-serving.toml
    (tts-1.6b-en_fr, d=2048, 16 layers, DepFormer 32 slices x 4 layers,
    B=64, int8 voice store, int8 KV, int8 weights + W8A8, bf16 codec, the
@@ -395,11 +407,24 @@ def _attend_info(n_rows, b, h, c, dh, row_bytes=None):
             "flops": rows * 4 * dh, "library": None}
 
 
+def _tick(pos, dev):
+    """A position as the kernels' wrappers take it: the step's 0-d int32
+    tensor on the card, made once per case (the plain versions take the
+    int)."""
+    import torch
+
+    return torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
 def _commit_case(name, label, kern, plain, k0, v0, kn, vn, w):
+    """The kernel's wrapper reads the position from the card, here a wrapped
+    one (``w + 2C``: the kernel takes it modulo C); the plain version gets
+    ``w``."""
     rk, rv, pk, pv = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    pos = _tick(w + 2 * k0.shape[2], k0.device)
 
     def run_k():
-        kern(rk, rv, kn, vn, w)
+        kern(rk, rv, kn, vn, pos)
         return rk, rv
 
     def run_p():
@@ -493,8 +518,8 @@ def _attend_cases(dev, g, tag, b, h, c, dh, window, sharp, positions, timed=()):
         if pos in timed:
             sk, sv, sks, svs = kring.clone(), vring.clone(), kscale.clone(), vscale.clone()
 
-            def split_pair(sk=sk, sv=sv, sks=sks, svs=svs, plan=plan, valid=valid, w=w):
-                RK.ring_commit(sk, sv, kq, vq, w, sks, svs, ksn, vsn)
+            def split_pair(sk=sk, sv=sv, sks=sks, svs=svs, plan=plan, valid=valid):
+                RK.ring_commit(sk, sv, kq, vq, plan["pos"], sks, svs, ksn, vsn)
                 DA.decode_attend(q, sk, sv, sks, svs, k_new, v_new, plan, valid,
                                  window=window)
 
@@ -841,9 +866,10 @@ def _commit_q_cases(dev, g, tag, b, h, c, dh, ws, packed4=False):
         kn, vn = rows(1), rows(1)
         ksn, vsn = (torch.rand(b, h, 1, generator=g, device=dev) for _ in range(2))
         news = (kn, vn, ksn, vsn)
+        pos = _tick(w + 2 * c, dev)  # read on the card, modulo C
 
-        def run_k(news=news, w=w):
-            RK.ring_commit(kern[0], kern[1], news[0], news[1], w, kern[2], kern[3],
+        def run_k(news=news, pos=pos):
+            RK.ring_commit(kern[0], kern[1], news[0], news[1], pos, kern[2], kern[3],
                            news[2], news[3])
             return tuple(kern)
 
@@ -955,29 +981,30 @@ def _quantize_commit_cases(dev, g, tag, b, h, c, dh, ws, packed4=False, scales_o
     written = []
     cases = []
     for w in ws:
+        pos = _tick(w + 2 * c, dev)  # read on the card, modulo C
         if scales_only:
-            def run_k(w=w):
-                return (*RK.quantize_scale_commit(k, v, *kern, w), *kern)
+            def run_k(pos=pos):
+                return (*RK.quantize_scale_commit(k, v, *kern, pos), *kern)
 
             def run_p(w=w):
                 return (*RK.quantize_scale_commit_plain(k, v, *plain, w), *plain)
 
-            def library(w=w):
+            def library(pos=pos):
                 kq, vq, ks, vs = _eager_chain(k, v, qmax)
-                RK.scale_commit(kern[0], kern[1], ks, vs, w)
+                RK.scale_commit(kern[0], kern[1], ks, vs, pos)
                 return kq, vq
         else:
-            def run_k(w=w):
-                RK.quantize_commit(k, v, *kern, w)
+            def run_k(pos=pos):
+                RK.quantize_commit(k, v, *kern, pos)
                 return tuple(kern)
 
             def run_p(w=w):
                 RK.quantize_commit_plain(k, v, *plain, w)
                 return tuple(plain)
 
-            def library(w=w):
+            def library(pos=pos):
                 kq, vq, ks, vs = _eager_chain(k, v, qmax)
-                RK.ring_commit(kern[0], kern[1], kq, vq, w, kern[2], kern[3], ks, vs)
+                RK.ring_commit(kern[0], kern[1], kq, vq, pos, kern[2], kern[3], ks, vs)
 
         def cmp(got, want, w=w):
             _exact(got, want)
@@ -1053,16 +1080,17 @@ def _rope_commit_cases(dev, g, tag, b, h, c, t, dh, ws):
     cases, written = [], []
     for w in ws:
         q, k, v, cos, sin = _qkv_rows(dev, g, b, h, t, dh, 3000 + w)
+        pos = _tick(w + 2 * c, dev)  # read on the card, modulo C
 
-        def run_k(q=q, k=k, v=v, cos=cos, sin=sin, w=w):
-            return (*RK.rope_commit(q, k, v, *kern, cos, sin, w), *kern)
+        def run_k(q=q, k=k, v=v, cos=cos, sin=sin, pos=pos):
+            return (*RK.rope_commit(q, k, v, *kern, cos, sin, pos), *kern)
 
         def run_p(q=q, k=k, v=v, cos=cos, sin=sin, w=w):
             return (*RK.rope_commit_plain(q, k, v, *plain, cos, sin, w), *plain)
 
-        def library(q=q, k=k, v=v, cos=cos, sin=sin, w=w):
+        def library(q=q, k=k, v=v, cos=cos, sin=sin, pos=pos):
             qr, kr = _eager_rope(q, cos, sin), _eager_rope(k, cos, sin)
-            RK.ring_commit(kern[0], kern[1], kr, v, w)
+            RK.ring_commit(kern[0], kern[1], kr, v, pos)
             return qr, kr
 
         def cmp(got, want, w=w):
@@ -1353,11 +1381,11 @@ def _pcm(seed: int, seconds: float, frame: int):
     return (sig + 0.05 * rng.standard_normal(n)).astype(np.float32)
 
 
-def _open(engine, sid, seconds, sessions):
+def _open(engine, sid, seconds, sessions, seed=None):
     import numpy as np
 
     events = []
-    ch = engine.open_channel(events.append)
+    ch = engine.open_channel(events.append, seed=seed)
     check(ch is not None, "no free slot")
     frame = engine.frame_size
     pcm = _pcm(sid, seconds, frame)
@@ -1407,7 +1435,7 @@ def phase_serve(dev):
     counters = {name: _duplex_counters()[name] for name in PER_STEP}
     mod = CFG.Config.load(os.path.join(ROOT, "configs", "config-stt.toml")).modules["asr"]
     t0 = time.perf_counter()
-    engine = builder.build_batched_asr(mod, dev)
+    engine = builder.build_batched_asr(mod, dev, cuda_graph=False)  # [graph]: the captured one
     tcfg = engine.cfg.lm.transformer
     check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, engine.cfg.lm.audio_codebooks,
            engine.batch_size) == (2048, 16, 16, 32, 64), "not the stt-1b B=64 config")
@@ -1751,7 +1779,7 @@ def phase_stt1b_split(dev):
         for _ in range(24):
             state = LM.step(lm_cfg, params, state, *tokens(), mask)[2]
     text, audio = tokens()
-    w = state["t"]["pos"] % ring.shape[2]
+    w = int(state["t"]["pos"]) % ring.shape[2]
     fused = _lm_step_counted(lm_cfg, params, state, text, audio, mask)
     split = _lm_step_counted(_with_fused(lm_cfg, False), params, state, text, audio, mask)
     want_split = {"rope_qk": depth, "quantize_commit": depth, "decode_attend": depth,
@@ -1763,7 +1791,7 @@ def phase_stt1b_split(dev):
     check(fused[2] == want_fused, f"stt1b-split: fused launches {fused[2]}")
     same, worst, err = _compare_routes("stt1b-split", "the split route", split, fused, w)
     print(f"[stt1b-split] stt-1b LM step, {depth} layers (a cut: 16 in the model), B=64, rings "
-          f"{tuple(ring.shape)} holding {state['t']['pos']} rows: fused setting off launches "
+          f"{tuple(ring.shape)} holding {int(state['t']['pos'])} rows: fused setting off launches "
           f"{ {k: v for k, v in split[2].items() if v} }, the shape rule "
           f"{ {k: v for k, v in fused[2].items() if v} }; outputs relative L2 {err} (bar "
           f"{PATH_RTOL}); layer 0's four rings bit for bit, every row but w={w} of every layer "
@@ -1786,7 +1814,7 @@ def phase_stt26(dev):
           f"{mod.raw['w8a8']}, batch_size = {mod.batch_size}, asr_delay_in_tokens = "
           f"{mod.asr_delay_in_tokens})", flush=True)
     t0 = time.perf_counter()
-    engine = builder.build_batched_asr(mod, dev)
+    engine = builder.build_batched_asr(mod, dev, cuda_graph=False)  # [graph]: the captured one
     lm = engine.cfg.lm
     tcfg = lm.transformer
     check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, tcfg.context,
@@ -1853,7 +1881,7 @@ def phase_stt26_path(engine, dev):
     audio = torch.randint(0, 2048, (n, lm_cfg.audio_codebooks), generator=g, device=dev,
                           dtype=torch.int32)
     mask = torch.ones(n, dtype=torch.bool, device=dev)
-    pos = state["t"]["pos"]
+    pos = int(state["t"]["pos"])  # for the lines below: read outside the step
     w = pos % state["t"]["layers"][0]["k"].shape[2]
     seen = int(state["t"]["valid"].sum(dim=1).min())
 
@@ -1898,6 +1926,229 @@ def phase_stt26_path(engine, dev):
 
 
 # ---------------------------------------------------------------------------
+# The captured step: BatchedAsrEngine replaying its step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# Steps the graph step is held to the eager step over, and whether they pass a
+# wrap of the LM's ring: the stt-1b LM's 768-row ring and the codec's 256-row
+# ring (2 rows a step), the stt-2.6b LM's 384-row ring; a short check of the
+# packed-int4 rings, past a wrap of the codec's ring only.
+GRAPH_STEPS = {"stt1b": (800, True), "stt26": (400, True), "stt1b-kv4": (160, False)}
+GRAPH_CHECK_EVERY = 100  # steps between whole-state comparisons (and at the end)
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit (a NaN equals the same NaN)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def _tree_diff(a, b, path=""):
+    """The paths of two state trees' tensors that differ in any bit."""
+    if isinstance(a, dict):
+        return [p for k in a for p in _tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _tree_diff(x, y, f"{path}/{i}")]
+    return [] if _bits_equal(a, b) else [path]
+
+
+def _graph_traffic(b, frame, steps, seed):
+    """``steps`` engine inputs from a seed: slots open and close along the
+    way (an open slot's stream ends with probability 1/40 a step, a closed
+    slot opens again with 1/10 and is reset then), and an open slot has a
+    frame 9 steps in 10, so masks are partial."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    active = rng.uniform(size=b) < 0.8
+    for i in range(steps):
+        opening = ~active & (rng.uniform(size=b) < 0.1)
+        closing = active & (rng.uniform(size=b) < 0.025)
+        reset = opening | (active & (i == 0))
+        active = (active | opening) & ~closing
+        mask = active & (rng.uniform(size=b) < 0.9)
+        pcm = (rng.standard_normal((b, 1, frame)) * 0.1).astype(np.float32)
+        yield pcm, mask, reset
+
+
+def _graph_times(engine, tag, what, card, rope_per_step):
+    """Host ms a step (median, min, max over 50, every slot active), the
+    device's busy share and device launches a step from a profile of 2 steps,
+    and the peak memory (the caching allocator's reserved bytes, a captured
+    graph's private pool included) since the caller reset it."""
+    import numpy as np
+    import torch
+
+    b = engine.batch_size
+    pcm = (np.random.default_rng(7).standard_normal((b, 1, engine.frame_size)) * 0.1
+           ).astype(np.float32)
+    on, off = np.ones(b, bool), np.zeros(b, bool)
+    times = []
+    with torch.inference_mode():
+        engine._invoke_step(pcm, on, on)  # every slot fresh
+        for i in range(55):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine._invoke_step(pcm, on, off)
+            torch.cuda.synchronize()
+            if i >= 5:
+                times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(out["text_token"].float()).all()), f"{tag}: bad tokens")
+        rows, wall_us = _profile(lambda: engine._invoke_step(pcm, on, off), 2,
+                                 rope_launches=2 * rope_per_step)
+    kernel_ms = _print_profile(f"{tag}-profile", what, rows, wall_us, 2, "step", card, 6)
+    launches = sum(c for _, _, c in rows) / 2
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(times)
+    print(f"[{tag}] {what}engine step, {b} slots active: median {step_ms!r} ms, min "
+          f"{min(times)!r}, max {max(times)!r} over 50 after 5 warm-up; device busy "
+          f"{kernel_ms / (wall_us / 2 / 1e3)!r}; {launches:.0f} device launches a step; peak "
+          f"memory {peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}",
+          flush=True)
+    return {"step_ms": step_ms, "min_ms": min(times), "max_ms": max(times),
+            "busy": kernel_ms / (wall_us / 2 / 1e3), "launches": launches,
+            "kernel_ms": kernel_ms, "peak_gb": peak}
+
+
+def _graph_serve(cfg, params, batch, per_step, tag):
+    """The 12-session workload of ``[serve]`` (8 sessions, then 4 more in
+    reused slots, idle connections in the other slots) through an eager and a
+    captured engine on the same pcm, fill gate off so that both step the same
+    frames: each session's step events, words (tokens and times) and markers
+    equal.  The kernels' counts start at 0 before the captured engine is
+    built and are read after it served: its warm-up steps and its capture
+    count, its replays do not."""
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+
+    counters = _lm_counters()
+    logs = {}
+    for graph in (False, True):
+        if graph:
+            for fn in counters.values():
+                fn.launches = 0
+        engine = BatchedAsrEngine(cfg, params, batch_size=batch, device="cuda",
+                                  fill_gate_frac=0.0, cuda_graph=graph)
+        engine.warmup()
+        sessions = {}
+        for sid in range(8):  # seeded, so that sampling at temperature > 0 agrees too
+            _open(engine, sid, 3.0 + sid / 8.0, sessions, seed=sid)
+        idle = [engine.open_channel(lambda ev: None, seed=0)
+                for _ in range(engine.batch_size - engine.used_slots())]
+        _drive(engine, sessions)
+        for sid in range(4):
+            engine.close_channel(sessions[sid]["ch"])
+        for sid in range(8, 12):
+            _open(engine, sid, 1.0, sessions, seed=sid)
+        _drive(engine, {sid: sessions[sid] for sid in range(4, 12)})
+        _verify(sessions, range(12), cfg.lm.extra_heads[0] if cfg.lm.extra_heads else 0)
+        for ch in [s["ch"] for s in sessions.values()] + idle:
+            engine.close_channel(ch)
+        logs[graph] = ({sid: [(e.step_idx, [(type(w).__name__, getattr(w, "tokens", None),
+                                             getattr(w, "start_time", None),
+                                             getattr(w, "stop_time", None)) for w in e.words],
+                               list(e.markers)) for e in s["events"]]
+                        for sid, s in sessions.items()}, engine.step_count)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        del engine
+    check(logs[True] == logs[False],
+          f"{tag}: the captured engine's events differ from the eager engine's")
+    warm = 2  # BatchedAsrEngine.warmup's steps, then the capture
+    want = {name: n * (warm + 1) for name, n in per_step.items()}
+    want = {**dict.fromkeys(counters, 0), **want}
+    check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
+    words = sum(len(e[1]) for evs in logs[True][0].values() for e in evs)
+    print(f"[{tag}] captured engine serves the 12-session workload of [serve] (fill gate off "
+          f"in both): {logs[True][1]} engine steps, {words} word events, 12 markers; step "
+          f"events, words and markers equal to the eager engine's; kernel launches counted "
+          f"over its warm-up and capture {launches} = {warm + 1} x per step, none on replay",
+          flush=True)
+    return launches
+
+
+def phase_graph(cfg, params, batch, card, tag, per_step, serve=False, timed=True):
+    """The ASR step as one captured CUDA graph (``BatchedAsrEngine`` with
+    ``cuda_graph``) against the eager step.  Timed: an eager engine's step,
+    then a captured engine's (host ms, device busy share and launches a step
+    from the profile, peak memory with the graph's pool).  Then the eager
+    ``ASR.step`` runs beside the captured engine from a clone of its state
+    over ``GRAPH_STEPS`` steps of traffic with slots opening, closing and
+    reset and partial masks: every step's outputs (text token, step_idx,
+    VAD probabilities, codes) equal bit for bit, and every ``GRAPH_CHECK_EVERY``
+    steps and at the end the whole state (rings, scale rings, ``valid``,
+    ``pos``, conv and codec carries, counters).  With ``serve`` the captured
+    engine serves the 12-session workload beside an eager engine."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.sessions import asr as ASR
+
+    numbers = {}
+    rope = per_step["rope_qk"] + per_step["rope_commit"]
+    if timed:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eager = BatchedAsrEngine(cfg, params, batch_size=batch, device="cuda", cuda_graph=False)
+        eager.warmup()
+        numbers["eager"] = _graph_times(eager, tag, "eager: ", card, rope)
+        del eager
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = BatchedAsrEngine(cfg, params, batch_size=batch, device="cuda", cuda_graph=True)
+    engine.warmup()  # two steps on the side stream, then the capture
+    capture_s = time.perf_counter() - t0
+    check(engine._graph is not None, f"{tag}: no graph captured")
+    if timed:
+        numbers["graph"] = _graph_times(engine, tag, "captured: ", card, rope)
+    steps, lm_wraps = GRAPH_STEPS[tag.split("graph-")[-1]]
+    ref = _clone(engine.state)
+    b, frame = engine.batch_size, engine.frame_size
+    dev = torch.device("cuda")
+    seeds = torch.as_tensor(engine._seeds, device=dev)
+    resets = closed = partial = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, (pcm, mask, reset) in enumerate(_graph_traffic(b, frame, steps, seed=41)):
+            resets += int(reset.sum())
+            partial += int(0 < mask.sum() < b)
+            closed += int((~mask).sum())
+            got = engine._invoke_step(pcm, mask, reset)
+            want, ref = ASR.step(cfg, params, ref, torch.as_tensor(pcm, device=dev),
+                                 torch.as_tensor(mask, device=dev),
+                                 torch.as_tensor(reset, device=dev), seeds=seeds)
+            for key in ("text_token", "step_idx", "prs", "codes"):
+                check(_bits_equal(got[key], want[key]),
+                      f"{tag}: step {i}: {key} of the replay differs from the eager step's")
+            if (i + 1) % GRAPH_CHECK_EVERY == 0 or i + 1 == steps:
+                diff = _tree_diff(engine.state, ref)
+                check(not diff, f"{tag}: step {i}: the state differs at {diff[:5]}")
+    lm_pos, codec_pos = int(ref["lm"]["t"]["pos"]), int(ref["mimi_enc"]["enc_t"]["pos"])
+    lm_ring = engine.state["lm"]["t"]["layers"][0]["k"].shape[2]
+    codec_ring = engine.state["mimi_enc"]["enc_t"]["layers"][0]["k"].shape[2]
+    check(2 * steps > codec_ring and (steps > lm_ring or not lm_wraps),
+          f"{tag}: the rings did not wrap")
+    print(f"[{tag}] captured in {capture_s:.2f} s with the warm-up; {steps} steps of "
+          f"{cfg.lm.transformer.num_layers} layers from one state, replay against the eager "
+          f"ASR.step: text tokens, step_idx, VAD probabilities and codes bit for bit at every "
+          f"step, the whole state (rings, scale rings, valid, pos, conv and codec carries) "
+          f"every {GRAPH_CHECK_EVERY} steps and at the end; {resets} slot resets, {closed} "
+          f"slot-steps without a frame, {partial} partial masks; LM ring of {lm_ring} rows at "
+          f"tick {lm_pos}, codec ring of {codec_ring} at tick {codec_pos}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del engine, ref
+    torch.cuda.empty_cache()
+    if serve:
+        numbers["launches"] = _graph_serve(cfg, params, batch, per_step, f"{tag}-serve")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
 # Phase 8 (STT): packed-int4 rings on the stt-1b engine and the stt-2.6b LM step
 # ---------------------------------------------------------------------------
 
@@ -1916,14 +2167,15 @@ def phase_stt1b_kv4(dev, card, int8_numbers):
     from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
 
     mod = CFG.Config.load(os.path.join(ROOT, "configs", "config-stt.toml")).modules["asr"]
-    built = builder.build_batched_asr(mod, dev)
+    built = builder.build_batched_asr(mod, dev, cuda_graph=False)
     cfg = dataclasses.replace(built.cfg, kv_bits=4)
     params, batch, tokenizer = built.params, built.batch_size, built.tokenizer
     del built  # its int8 rings go before the int4 engine allocates its own
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = BatchedAsrEngine(cfg, params, batch_size=batch, device=dev,
-                              fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)))
+                              fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)),
+                              cuda_graph=False)
     engine.tokenizer = tokenizer
     tcfg = engine.cfg.lm.transformer
     ring = engine.state["lm"]["t"]["layers"][0]
@@ -1943,6 +2195,9 @@ def phase_stt1b_kv4(dev, card, int8_numbers):
           f"median {step_ms!r} ms against {int8_numbers[0]!r}; kernels {kernel_ms!r} ms a step "
           f"against {int8_numbers[2]!r}; peak memory {peak_gb:.2f} GB against "
           f"{int8_numbers[1]:.2f} GB; card {card}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    phase_graph(cfg, params, batch, card, "graph-stt1b-kv4", PER_STEP_STT1B_KV4, timed=False)
     return launches
 
 
@@ -2064,7 +2319,7 @@ def phase_stt26_kv4(engine, dev, card):
 
         unwritten = _clone(state)
         with torch.inference_mode():
-            unwritten["t"]["pos"] = 3000
+            unwritten["t"]["pos"] = torch.full_like(unwritten["t"]["pos"], 3000)
             unwritten["t"]["valid"].fill_(True)
             for layer in unwritten["t"]["layers"]:
                 layer["ks"].clamp_(min=1e-3)
@@ -2191,14 +2446,16 @@ def _tts_verify(sessions, sids, frame):
     return n_frames
 
 
-def _profile(fn, n: int, attempts: int = 4):
+def _profile(fn, n: int, attempts: int = 4, rope_launches=None):
     """``n`` calls of ``fn`` under the profiler -> the kernels as ``(name,
     device us, launches)`` by falling device time, and the calls' wall time
     in us.  Device activity only: with the host's operator events as well
     (several for each launch) the profiler takes tens of seconds to hand over
     a tick's 20,000 launches.  A profile that holds fewer rope kernels than
-    the wrappers counted in the calls lost events (a TTS tick's profile once
-    held none of its LM step's launches) and is taken again."""
+    the wrappers counted in the calls (``rope_launches`` where the calls
+    replay a captured graph, whose launches no wrapper counts) lost events (a
+    TTS tick's profile once held none of its LM step's launches) and is taken
+    again."""
     import torch
 
     from dsm_tpu_torch.ops import ring_kernels as RK
@@ -2214,6 +2471,8 @@ def _profile(fn, n: int, attempts: int = 4):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         launched = RK.rope_commit.launches + RK.rope_qk.launches - launched
+        if rope_launches is not None:
+            launched = rope_launches
         rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                        if e.device_type == cuda and e.self_device_time_total > 0),
                       key=lambda r: -r[1])
@@ -2408,6 +2667,12 @@ def phase_tts(dev, card, preset=None):
     return engine, launches
 
 
+def _with_w(plain):
+    """A plain attention in a launch seam's place: the seam takes ``(..., pos,
+    window, n_split)``, the plain version the position's ring row too."""
+    return lambda *a: plain(*a[:-2], a[-3] % a[1].shape[2], *a[-2:])
+
+
 @contextlib.contextmanager
 def plain_seams():
     """Every kernel seam of the port takes its plain version, on CUDA tensors
@@ -2424,8 +2689,8 @@ def plain_seams():
     RK.rope_commit, RK.rope_qk = RK.rope_commit_plain, RK.rope_qk_plain
     RK.quantize_commit = RK.quantize_commit_plain
     RK.quantize_scale_commit = RK.quantize_scale_commit_plain
-    DA._launch, DA._ca_launch = DA.decode_attend_commit_plain, DA.ca_decode_attend_plain
-    DA._attend_launch = DA.decode_attend_plain
+    DA._launch, DA._ca_launch = _with_w(DA.decode_attend_commit_plain), DA.ca_decode_attend_plain
+    DA._attend_launch = _with_w(DA.decode_attend_plain)
     QM._launch = lambda x2, wq, s, ksplit: QM.qmm_plain(x2, wq, s)
     try:
         yield
@@ -2448,7 +2713,7 @@ def attend_seam_errors(errs, launch=None):
 
     def both(*args):
         y = launch(*args)
-        errs.append(_rel(y, DA.decode_attend_plain(*args)))
+        errs.append(_rel(y, _with_w(DA.decode_attend_plain)(*args)))
         return y
 
     DA._attend_launch = both
@@ -2493,7 +2758,7 @@ def _fill_rings(t_state, g, pos):
             for key, x in zip(("k", "v", "ks", "vs"), quantize(*rows)):
                 layer[key].copy_(x)
         t_state["valid"].fill_(True)
-    t_state["pos"] = pos
+    t_state["pos"] = torch.full_like(t_state["pos"], int(pos))
 
 
 def phase_tts_path(engine, dev, tag="tts"):
@@ -2827,7 +3092,7 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     audio = torch.randint(0, 2048, (n, cfg.lm.audio_codebooks), generator=g, device=dev,
                           dtype=torch.int32)
     mask = torch.ones(n, dtype=torch.bool, device=dev)
-    pos = engine.state["lm"]["t"]["pos"]
+    pos = int(engine.state["lm"]["t"]["pos"])  # for the lines below: read outside the step
     seen = int(engine.state["lm"]["t"]["valid"].sum(dim=1).min())
 
     counters = _duplex_counters()  # the kernels' wrappers, not the seams' plain versions
@@ -2917,7 +3182,7 @@ def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
     check(all(torch.equal(a, b) for a, b in zip(rings, rings_p)) and len(rings) == 32,
           "duplex path check: a codec ring differs from the plain path")
     print(f"[duplex-path] Mimi encode_step and decode_step at {n} rows, rings "
-          f"{DUPLEX_MIMI_RING} at tick {engine.enc_state['enc_t']['pos']}: "
+          f"{DUPLEX_MIMI_RING} at tick {int(engine.enc_state['enc_t']['pos'])}: "
           f"{launched['rope_commit']} rope_commit launches (T=2; none in the plain steps) "
           f"against the plain versions from one state: codes "
           f"{tuple(enc.shape)} equal, pcm {tuple(out.shape)} equal, 32 rings bit for bit",
@@ -2967,7 +3232,7 @@ def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
     print(f"[{tag}-times] engine tick, 24 slots active: median {statistics.median(ticks)!r} "
           f"ms, min {min(ticks)!r}, max {max(ticks)!r} over {n_ticks} after 5 warm-up (host "
           f"clock, each tick ends in its device-to-host fetch; rings hold "
-          f"{engine.state['lm']['t']['pos']} rows); peak memory {peak_gb:.2f} GB; "
+          f"{int(engine.state['lm']['t']['pos'])} rows); peak memory {peak_gb:.2f} GB; "
           f"card {card}", flush=True)
     _profile_ticks(engine, 1, f"{tag}-profile", "24 slots, short rings", card)
     phase_duplex_path(engine, dev, tag, mimi=not brief)
@@ -3017,7 +3282,7 @@ def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
     # each decode_attend reads the K and V of its whole window (a row whose
     # probability times v_scale rounds to 0 is skipped; the int8 rows hold
     # what the short run left: zeros mostly).
-    engine.state["lm"]["t"]["pos"] = 5000
+    engine.state["lm"]["t"]["pos"] = torch.full_like(engine.state["lm"]["t"]["pos"], 5000)
     with torch.inference_mode():  # the bitmap was made inside the step
         engine.state["lm"]["t"]["valid"].fill_(True)
         for layer in engine.state["lm"]["t"]["layers"]:
@@ -3106,7 +3371,13 @@ def main() -> int:
     engine, launches = phase_serve(dev)
     stt1b_numbers = phase_times(engine, dev, card, full_rings=True)
     elapsed("serve + times")
-    del engine
+    cfg1b, params1b, batch1b = engine.cfg, engine.params, engine.batch_size
+    del engine  # its state goes before the graph phase's engines allocate theirs
+    torch.cuda.empty_cache()
+    graph = {"stt1b": phase_graph(cfg1b, params1b, batch1b, card, "graph-stt1b", PER_STEP,
+                                  serve=True)}
+    del params1b
+    elapsed("graph-stt1b")
     torch.cuda.empty_cache()
     kv4_launches = phase_stt1b_kv4(dev, card, stt1b_numbers)
     elapsed("stt1b-kv4")
@@ -3121,7 +3392,12 @@ def main() -> int:
     elapsed("stt26")
     stt26_kv4_launches = phase_stt26_kv4(stt26_engine, dev, card)
     elapsed("stt26-kv4")
+    cfg26, params26, batch26 = stt26_engine.cfg, stt26_engine.params, stt26_engine.batch_size
     del stt26_engine
+    torch.cuda.empty_cache()
+    graph["stt26"] = phase_graph(cfg26, params26, batch26, card, "graph-stt26", PER_STEP_STT26)
+    del params26
+    elapsed("graph-stt26")
     torch.cuda.empty_cache()
     tts_engine, tts_launches = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
@@ -3154,7 +3430,8 @@ def main() -> int:
     # ``launches``: the main paths' runs (each counted from 0 to its end) and
     # the two single-step legs; each path's count beside it.  A route's entry
     # counts the path that launches its wrapper at that shape.
-    per_path = {"stt": launches, "tts": tts_launches, "duplex": duplex_launches,
+    per_path = {"stt": launches, "stt_graph": graph["stt1b"]["launches"],
+                "tts": tts_launches, "duplex": duplex_launches,
                 "stt26": stt26_launches, "stt26_fused": fused_launches,
                 "stt1b_split": split_launches, "stt1b_kv4": kv4_launches,
                 "stt26_kv4": stt26_kv4_launches, "duplex_kv4": duplex_kv4_launches,
@@ -3189,6 +3466,14 @@ def main() -> int:
         print(f"[launches] {what}: {got_launches:.0f} device launches, kernels {got_ms!r} ms "
               f"(profiler; before the rope-and-commit kernels, PERF.md section 5: "
               f"{launches} launches, {ms} ms); card {card}", flush=True)
+    for key, what in (("stt1b", "stt-1b"), ("stt26", "stt-2.6b")):
+        e, g = graph[key]["eager"], graph[key]["graph"]
+        print(f"[graph] {what} engine step, eager against captured (this run): host ms median "
+              f"{e['step_ms']!r} / {g['step_ms']!r} (min {e['min_ms']!r} / {g['min_ms']!r}, "
+              f"max {e['max_ms']!r} / {g['max_ms']!r}); device busy {e['busy']!r} / "
+              f"{g['busy']!r}; device launches a step {e['launches']:.0f} / "
+              f"{g['launches']:.0f}; kernels {e['kernel_ms']!r} / {g['kernel_ms']!r} ms; peak "
+              f"memory {e['peak_gb']:.2f} / {g['peak_gb']:.2f} GB; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

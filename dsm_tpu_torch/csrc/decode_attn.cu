@@ -126,6 +126,13 @@
 // entry point launches its kernels (two; one for packed rings at one span) on
 // the caller's stream, does not synchronise, allocates nothing (the caller
 // passes the partials' scratch) and returns cudaGetLastError().
+//
+// The position: each entry point takes a device pointer to the step's shared
+// tick pos (int32, the query's position), and each kernel reads it at its
+// start and derives w = pos % C, as the Pallas kernels read their
+// scalar-prefetched position and write row from device memory.  The grid
+// depends on shapes only (the split is picked from B*H and C), so a step's
+// launches can be captured in a CUDA graph once and replayed at every tick.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,7 +167,7 @@ __global__ void __launch_bounds__(kDaThreads, 6) decode_attend_partial_kernel(
     const float* __restrict__ v_scale, const uint8_t* __restrict__ valid,
     float* __restrict__ part, int h, int c, int n_split, int span,
     long long kv_sb, long long kv_sh, long long s_sb, long long s_sh,
-    long long pos, int w, int window, float scale) {
+    const int* __restrict__ pos_p, int window, float scale) {
   constexpr int LPR = DH / 16;   // lanes per ring row
   constexpr int RPW = 32 / LPR;  // ring rows per warp and step
   extern __shared__ float smem[];
@@ -179,6 +186,8 @@ __global__ void __launch_bounds__(kDaThreads, 6) decode_attend_partial_kernel(
   const int rsub = lane / LPR;  // which row of the warp's step
   const int s0 = sp * span;
   const int s1 = min(c, s0 + span);
+  const long long pos = *pos_p;
+  const int w = (int)(pos % c);
 
   const int8_t* kc = k_cache + b * kv_sb + hh * kv_sh;
   const int8_t* vc = v_cache + b * kv_sb + hh * kv_sh;
@@ -277,15 +286,16 @@ __global__ void __launch_bounds__(kDaThreads, 6) decode_attend_partial_kernel(
 // One block of DH threads per (b, h): fold the spans' partials and the fresh
 // bf16 row, in span order.  q, k_new, v_new, out are contiguous (B*H, DH).
 // With kq_new (the fused pipeline) it also commits this step's int8 rows
-// kq_new / vq_new (contiguous (B*H, DH)) into ring row w, addressed as the
-// partial kernels address the rings.
+// kq_new / vq_new (contiguous (B*H, DH)) into ring row w = *pos % c,
+// addressed as the partial kernels address the rings.
 template <int DH>
 __global__ void __launch_bounds__(DH) decode_attend_combine_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
     const __nv_bfloat16* __restrict__ v_new, const float* __restrict__ part,
     __nv_bfloat16* __restrict__ out, int n_split, float scale, int8_t* __restrict__ k_cache,
     int8_t* __restrict__ v_cache, const int8_t* __restrict__ kq_new,
-    const int8_t* __restrict__ vq_new, int h, long long kv_sb, long long kv_sh, int w) {
+    const int8_t* __restrict__ vq_new, int h, int c, long long kv_sb, long long kv_sh,
+    const int* __restrict__ pos) {
   constexpr int EPL = DH / 32;
   const int bh = blockIdx.x;
   const int tid = threadIdx.x;
@@ -323,6 +333,7 @@ __global__ void __launch_bounds__(DH) decode_attend_combine_kernel(
   out[row + tid] = __float2bfloat16(o / denom);
   if (kq_new != nullptr) {
     const int b = bh / h;
+    const int w = *pos % c;
     const int64_t dst = b * kv_sb + (bh - b * h) * kv_sh + (int64_t)w * DH + tid;
     k_cache[dst] = kq_new[row + tid];
     v_cache[dst] = vq_new[row + tid];
@@ -381,8 +392,8 @@ __global__ void __launch_bounds__(kStagedThreads) decode_attend_staged_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_cache,
     const int8_t* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const uint8_t* __restrict__ valid,
-    float* __restrict__ part, int h, int c, int n_split, int span, long long pos, int w,
-    int window, float scale) {
+    float* __restrict__ part, int h, int c, int n_split, int span,
+    const int* __restrict__ pos_p, int window, float scale) {
   using L = StagedLayout<DH>;
   constexpr int TR = L::kRows;
   constexpr int LPR = DH / 16;   // lanes per ring row
@@ -413,6 +424,8 @@ __global__ void __launch_bounds__(kStagedThreads) decode_attend_staged_kernel(
   const int n_words = (n + 31) / 32;
   const uint8_t* va = valid + (int64_t)b * c;
   float* out = part + ((int64_t)bh * n_split + sp) * (DH + 2);
+  const long long pos = *pos_p;
+  const int w = (int)(pos % c);
 
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) {
@@ -659,7 +672,7 @@ __global__ void __launch_bounds__(kQ4Threads) decode_attend_q4_kernel(
     const __nv_bfloat16* __restrict__ v_new, const uint8_t* __restrict__ valid,
     float* __restrict__ part, __nv_bfloat16* __restrict__ out, int n_items, int per_block,
     int h, int c, int n_split, int span, long long kv_sb, long long kv_sh, long long s_sb,
-    long long s_sh, long long pos, int w, int window, float scale) {
+    long long s_sh, const int* __restrict__ pos_p, int window, float scale) {
   using L = Q4Layout<DH>;
   constexpr int RB = L::kRowBytes;
   constexpr int TR = L::kRows;
@@ -752,6 +765,8 @@ __global__ void __launch_bounds__(kQ4Threads) decode_attend_q4_kernel(
         vb[x] = j0 + 4 * x < s0 + n ? *reinterpret_cast<const uint32_t*>(va + j0 + 4 * x) : 0u;
     };
     // Rows at ring distance 1 .. d_max from w are in the window.
+    const long long pos = *pos_p;
+    const int w = (int)(pos % c);
     const int d_max = (int)min((long long)min(window - 1, c - 1), pos);
     int i = 0;  // tiles issued so far (lane 0)
     int k = 0;  // items so far
@@ -1057,7 +1072,7 @@ template <int DH>
 cudaError_t launch_fold(unsigned bh, cudaStream_t s, const void* q, const void* k_new,
                         const void* v_new, const void* part, void* out, int n_split, float scale,
                         void* k_cache, void* v_cache, const void* kq_new, const void* vq_new,
-                        int h, long long kv_sb, long long kv_sh, int w) {
+                        int h, int c, long long kv_sb, long long kv_sh, const int* pos) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
@@ -1071,7 +1086,7 @@ cudaError_t launch_fold(unsigned bh, cudaStream_t s, const void* q, const void* 
                             (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
                             (const float*)part, (__nv_bfloat16*)out, n_split, scale,
                             (int8_t*)k_cache, (int8_t*)v_cache, (const int8_t*)kq_new,
-                            (const int8_t*)vq_new, h, kv_sb, kv_sh, w);
+                            (const int8_t*)vq_new, h, c, kv_sb, kv_sh, pos);
 }
 
 template <int DH>
@@ -1122,7 +1137,7 @@ cudaError_t q4_launch(cudaStream_t s, const void* q, const void* k_cache, const 
                       const void* k_scale, const void* v_scale, const void* k_new,
                       const void* v_new, const void* valid, void* part, void* out,
                       long long bh, int h, int c, int n_split, int span, long long kv_sb,
-                      long long kv_sh, long long s_sb, long long s_sh, long long pos, int w,
+                      long long kv_sh, long long s_sb, long long s_sh, const int* pos,
                       int window, float scale) {
   const int smem = Q4Layout<DH>::bytes(span);
   if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
@@ -1136,12 +1151,12 @@ cudaError_t q4_launch(cudaStream_t s, const void* q, const void* k_cache, const 
       (const __nv_bfloat16*)q, (const uint8_t*)k_cache, (const uint8_t*)v_cache,
       (const float*)k_scale, (const float*)v_scale, (const __nv_bfloat16*)k_new,
       (const __nv_bfloat16*)v_new, (const uint8_t*)valid, (float*)part, (__nv_bfloat16*)out,
-      (int)items, (int)per_block, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos, w, window,
+      (int)items, (int)per_block, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos, window,
       scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   return launch_fold<DH>((unsigned)bh, s, q, k_new, v_new, part, out, n_split, scale, nullptr,
-                         nullptr, nullptr, nullptr, h, kv_sb, kv_sh, w);
+                         nullptr, nullptr, nullptr, h, c, kv_sb, kv_sh, pos);
 }
 
 }  // namespace
@@ -1170,7 +1185,8 @@ int dsm_decode_attend_q4_tile_rows(int dh) {
 }
 
 // part: f32 scratch of b * h * n_split * (dh + 2) values (unused, and may be
-// null, for packed rings at n_split = 1).  packed4: the rings are
+// null, for packed rings at n_split = 1).  pos: the device int32 tick, the
+// query's position; the ring's newest row is w = pos % c.  packed4: the rings are
 // nibble-packed int4 rows of dh / 2 bytes, c a multiple of 4, rows, scales
 // and their (b, h) strides 16-byte aligned (else int8 rows of dh).
 // Returns a cudaError_t.
@@ -1179,11 +1195,11 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
                       const void* v_new, const void* valid, void* part, void* out,
                       long long b, int h, int c, int dh, int packed4, int n_split,
                       long long kv_sb, long long kv_sh, long long s_sb,
-                      long long s_sh, long long pos, int w, int window,
+                      long long s_sh, const int* pos, int window,
                       float scale, void* stream) {
   const long long bh = b * h;
   if (bh == 0) return (int)cudaSuccess;
-  if (n_split < 1 || c < 1 || w < 0 || w >= c) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || c < 1 || pos == nullptr) return (int)cudaErrorInvalidValue;
   const int span = span_rows(c, n_split);
   cudaStream_t s = (cudaStream_t)stream;
   if (packed4) {
@@ -1192,11 +1208,11 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
     if (dh == 128)
       return (int)q4_launch<128>(s, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
                                  part, out, bh, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh,
-                                 pos, w, window, scale);
+                                 pos, window, scale);
     if (dh == 64)
       return (int)q4_launch<64>(s, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
                                 part, out, bh, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh,
-                                pos, w, window, scale);
+                                pos, window, scale);
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)dsm_decode_attend_split_smem_bytes(span, dh);
@@ -1204,12 +1220,12 @@ int dsm_decode_attend(const void* q, const void* k_cache, const void* v_cache,
   decode_attend_partial_kernel<DH><<<(unsigned)(bh * n_split), kDaThreads, smem, s>>>( \
       (const __nv_bfloat16*)q, (const int8_t*)k_cache, (const int8_t*)v_cache,   \
       (const float*)k_scale, (const float*)v_scale, (const uint8_t*)valid,       \
-      (float*)part, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos, w,       \
+      (float*)part, h, c, n_split, span, kv_sb, kv_sh, s_sb, s_sh, pos,          \
       window, scale);                                                            \
   decode_attend_combine_kernel<DH><<<(unsigned)bh, DH, 0, s>>>(                  \
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,                      \
       (const __nv_bfloat16*)v_new, (const float*)part, (__nv_bfloat16*)out,      \
-      n_split, scale, nullptr, nullptr, nullptr, nullptr, h, kv_sb, kv_sh, w)
+      n_split, scale, nullptr, nullptr, nullptr, nullptr, h, c, kv_sb, kv_sh, pos)
   if (dh == 128) {
     DSM_DA_LAUNCH(128);
   } else if (dh == 64) {
@@ -1231,18 +1247,18 @@ long long dsm_decode_attend_commit_smem_bytes(int span, int dh) {
 
 // The fused pipeline: the TMA-staged attention over the pre-commit ring in
 // n_split spans, then the fold, which also commits kq_new / vq_new into ring
-// row w.  Contiguous (B, H, C, dh) int8 rings, (B, H, C) f32 scales, c a
-// multiple of 4.  part: f32 scratch of b * h * n_split * (dh + 2) values.
-// Returns a cudaError_t.
+// row w = pos % c (pos the device int32 tick).  Contiguous (B, H, C, dh)
+// int8 rings, (B, H, C) f32 scales, c a multiple of 4.  part: f32 scratch of
+// b * h * n_split * (dh + 2) values.  Returns a cudaError_t.
 int dsm_decode_attend_commit(const void* q, void* k_cache, void* v_cache,
                              const void* k_scale, const void* v_scale, const void* kq_new,
                              const void* vq_new, const void* k_new, const void* v_new,
                              const void* valid, void* part, void* out, long long b, int h,
-                             int c, int dh, int n_split, long long pos, int w, int window,
+                             int c, int dh, int n_split, const int* pos, int window,
                              float scale, void* stream) {
   const long long bh = b * h;
   if (bh == 0) return (int)cudaSuccess;
-  if (n_split < 1 || c < 4 || c % 4 || w < 0 || w >= c) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || c < 4 || c % 4 || pos == nullptr) return (int)cudaErrorInvalidValue;
   const int span = span_rows(c, n_split);
   const long long kv_sh = (long long)c * dh, kv_sb = h * kv_sh;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1255,11 +1271,11 @@ int dsm_decode_attend_commit(const void* q, void* k_cache, void* v_cache,
   decode_attend_staged_kernel<DH><<<blocks, kStagedThreads, (size_t)smem, s>>>(           \
       (const __nv_bfloat16*)q, (const int8_t*)k_cache, (const int8_t*)v_cache,           \
       (const float*)k_scale, (const float*)v_scale, (const uint8_t*)valid, (float*)part,   \
-      h, c, n_split, span, pos, w, window, scale);                                        \
+      h, c, n_split, span, pos, window, scale);                                           \
   err = cudaGetLastError();                                                               \
   if (err != cudaSuccess) return (int)err;                                                \
   err = launch_fold<DH>((unsigned)bh, s, q, k_new, v_new, part, out, n_split, scale,      \
-                        k_cache, v_cache, kq_new, vq_new, h, kv_sb, kv_sh, w);            \
+                        k_cache, v_cache, kq_new, vq_new, h, c, kv_sb, kv_sh, pos);       \
   if (err != cudaSuccess) return (int)err
   if (dh == 128) {
     DSM_DAC_LAUNCH(128);

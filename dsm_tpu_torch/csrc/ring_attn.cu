@@ -21,6 +21,14 @@
 // entry point launches on the caller's stream, does not synchronise and
 // allocates nothing; it returns cudaGetLastError() so the Python wrapper can
 // raise on a refused launch.  Rings are updated in place.
+//
+// The write row: each entry point takes a device pointer to the step's
+// shared tick pos (an int32 0-d tensor, non-negative), and each kernel
+// reads it and writes rows w = pos % C on, as the Pallas kernels read their
+// scalar-prefetched w from device memory.  No launch depends on a value on
+// the host that changes from step to step, so a step's launches can be
+// captured in a CUDA graph once and replayed.  The read is one dependent
+// load at a thread's start, served from L2 after the first block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,9 +50,11 @@ __global__ void ring_commit_kernel(Elem* __restrict__ k_cache,
                                    Elem* __restrict__ v_cache,
                                    const Elem* __restrict__ k_new,
                                    const Elem* __restrict__ v_new,
-                                   int64_t n, int t, int c, int dh, int w) {
+                                   int64_t n, int t, int c, int dh,
+                                   const int* __restrict__ pos) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int w = *pos % c;
   const int d = (int)(i % dh);
   const int64_t row = i / dh;
   const int ti = (int)(row % t);
@@ -65,9 +75,10 @@ __global__ void scale_commit_kernel(float* __restrict__ ks_cache,
                                     float* __restrict__ vs_cache,
                                     const float* __restrict__ ks_new,
                                     const float* __restrict__ vs_new,
-                                    int64_t n, int t, int c, int w) {
+                                    int64_t n, int t, int c, const int* __restrict__ pos) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int w = *pos % c;
   const int ti = (int)(i % t);
   const int64_t bh = i / t;
   const int64_t dst = bh * c + w + ti;
@@ -99,8 +110,9 @@ __global__ void ring_commit_q_kernel(uint32_t* __restrict__ k_cache,
                                      const float* __restrict__ ks_new,
                                      const float* __restrict__ vs_new,
                                      int64_t n_words, int64_t n_scales, int t,
-                                     int c, int dw, int w) {
+                                     int c, int dw, const int* __restrict__ pos) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int w = *pos % c;
   if (blockIdx.y == 2) {
     if (i >= n_scales) return;
     const int ti = (int)(i % t);
@@ -135,9 +147,10 @@ __global__ void ring_commit_q_kernel(uint32_t* __restrict__ k_cache,
 // holding a NaN keeps it: amax and scale NaN (torch.clamp and jnp.maximum
 // keep a NaN where fmaxf would drop it), every value 0, as a NaN converts.
 // The int8 row, or the nibble-packed row of attention.pack4 (byte d holds
-// dims d and d + Dh/2, excess-8), goes to `kq/vq + (b*H + h) * q_pane`: the
-// ring row w (q_pane = C row widths past row w) or the returned rows
-// (q_pane = one row width); both scales go into the scale rings at row w.
+// dims d and d + Dh/2, excess-8), goes to `kq/vq + (b*H + h) * q_pane +
+// w * q_row`: the ring row w (q_pane = C row widths, q_row = one) or the
+// returned rows (q_pane = one row width, q_row = 0); both scales go into the
+// scale rings at row w.
 // One launch for K and V.
 //
 // What bounds it on the H100: nothing the card can stream.  The stt-1b rows
@@ -166,13 +179,15 @@ struct QuantCommitArgs {
   const uint16_t* v;
   long long k_sb, k_sh;   // (b, h) strides of k, in elements
   long long v_sb, v_sh;
-  uint8_t* kq;            // int8 or packed row of pane (b, h) at kq + bh * q_pane
+  uint8_t* kq;            // int8 or packed row of pane (b, h) at kq + bh * q_pane + w * q_row
   uint8_t* vq;
   long long q_pane;       // bytes
+  long long q_row;        // bytes
   float* ks;              // scale rings (B, H, C)
   float* vs;
+  const int* pos;         // the shared tick; w = pos % c
   long long rows;         // B * H
-  int h, c, w;
+  int h, c;
   int lanes;              // Dh / 8 lanes hold a row
   int seg_log2;           // log2 of the segment: lanes rounded up to a power of two
 };
@@ -208,6 +223,7 @@ quantize_commit_kernel(const QuantCommitArgs a) {
   const long long hh = bh - b * a.h;
   const unsigned mask = seg == 32 ? 0xffffffffu : ((1u << seg) - 1u) << (lane & ~(seg - 1));
   const bool live = sub < a.lanes;  // lanes past Dh/8 in a segment hold nothing
+  const int w = *a.pos % a.c;
 
   float x[8];
   float m = 0.f;
@@ -228,7 +244,7 @@ quantize_commit_kernel(const QuantCommitArgs a) {
     const float r = rintf(__fdiv_rn(live ? x[i] : 0.f, scale));
     q[i] = r != r ? 0 : (int)fminf(fmaxf(r, -qmax), qmax);
   }
-  uint8_t* dst = (is_v ? a.vq : a.kq) + bh * a.q_pane;
+  uint8_t* dst = (is_v ? a.vq : a.kq) + bh * a.q_pane + w * a.q_row;
   if (kPacked) {
     // Nibbles q + 8, one a byte: dims 0-3 of the lane in `lo`, 4-7 in `hi`.
     uint32_t lo = 0, hi = 0;
@@ -258,7 +274,7 @@ quantize_commit_kernel(const QuantCommitArgs a) {
     }
     reinterpret_cast<uint2*>(dst)[sub] = make_uint2(w0, w1);
   }
-  if (sub == 0) (is_v ? a.vs : a.ks)[bh * a.c + a.w] = scale;
+  if (sub == 0) (is_v ? a.vs : a.ks)[bh * a.c + w] = scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -271,8 +287,8 @@ quantize_commit_kernel(const QuantCommitArgs a) {
 // cast back to x's type (__float2bfloat16_rn for bf16).  The rotated q and
 // k go to contiguous outputs (B, H, T, Dh); with rings, the rotated k and
 // the unchanged v also go into the K/V rings (B, H, C, Dh) at rows w ..
-// w+T-1, converted to the rings' type as the plain version's assignment
-// converts them.  cos and sin are (B or 1, T, Dh/2) f32: cs_b is their batch
+// w+T-1, w = pos % C, converted to the rings' type as the plain version's
+// assignment converts them.  cos and sin are (B or 1, T, Dh/2) f32: cs_b is their batch
 // stride, 0 where one row serves every b.
 //
 // What bounds it on the H100: its launch.  The Mimi layer's q, k and v
@@ -293,8 +309,9 @@ struct RopeCommitArgs {
   long long cs_b;        // batch stride of cos / sin in elements
   void* out[2];          // rotated q, k: (B, H, T, Dh) contiguous, x's type
   void* ring[2];         // K, V rings (B, H, C, Dh) in the rings' type, or null
+  const int* pos;        // the shared tick (with rings); w = pos % c
   long long pairs;       // B * H * T * Dh / 2
-  int h, t, half, c, w;
+  int h, t, half, c;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -338,7 +355,8 @@ __global__ void __launch_bounds__(kThreads) rope_commit_kernel(const RopeCommitA
   const long long st = which == 0 ? a.st[0] : which == 1 ? a.st[1] : a.st[2];
   const X* src = (const X*)base + b * sb + hh * sh + ti * st + 2 * p;
   const X x1 = src[0], x2 = src[1];
-  const long long dst = (bh * a.c + a.w + ti) * (2LL * a.half) + 2 * p;
+  const int w = a.ring[0] != nullptr ? *a.pos % a.c : 0;
+  const long long dst = (bh * a.c + w + ti) * (2LL * a.half) + 2 * p;
   if (which == 2) {
     R* v_ring = (R*)a.ring[1];
     v_ring[dst] = convert<R>(x1);
@@ -377,10 +395,11 @@ extern "C" {
 
 const char* dsm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// elem_bytes: 2 (bf16) or 4 (f32).  Returns a cudaError_t.
+// elem_bytes: 2 (bf16) or 4 (f32); pos: the device int32 tick, rows
+// pos % c on.  Returns a cudaError_t.
 int dsm_ring_commit(void* k_cache, void* v_cache, const void* k_new,
                     const void* v_new, int elem_bytes, long long b, int h,
-                    int t, int c, int dh, int w, void* stream) {
+                    int t, int c, int dh, const int* pos, void* stream) {
   const int64_t n = (int64_t)b * h * t * dh;
   if (n == 0) return (int)cudaSuccess;
   const dim3 grid(grid_for(n), 2);
@@ -388,11 +407,11 @@ int dsm_ring_commit(void* k_cache, void* v_cache, const void* k_new,
   if (elem_bytes == 2) {
     ring_commit_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
         (uint16_t*)k_cache, (uint16_t*)v_cache, (const uint16_t*)k_new,
-        (const uint16_t*)v_new, n, t, c, dh, w);
+        (const uint16_t*)v_new, n, t, c, dh, pos);
   } else if (elem_bytes == 4) {
     ring_commit_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
         (uint32_t*)k_cache, (uint32_t*)v_cache, (const uint32_t*)k_new,
-        (const uint32_t*)v_new, n, t, c, dh, w);
+        (const uint32_t*)v_new, n, t, c, dh, pos);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -404,7 +423,7 @@ int dsm_ring_commit(void* k_cache, void* v_cache, const void* k_new,
 int dsm_ring_commit_q(void* k_cache, void* v_cache, void* ks_cache,
                       void* vs_cache, const void* k_new, const void* v_new,
                       const void* ks_new, const void* vs_new, long long b,
-                      int h, int t, int c, int dh, int w, void* stream) {
+                      int h, int t, int c, int dh, const int* pos, void* stream) {
   if (dh % 4) return (int)cudaErrorInvalidValue;
   const int64_t n_scales = (int64_t)b * h * t;
   const int64_t n_words = n_scales * (dh / 4);
@@ -414,38 +433,38 @@ int dsm_ring_commit_q(void* k_cache, void* v_cache, void* ks_cache,
       (uint32_t*)k_cache, (uint32_t*)v_cache, (float*)ks_cache,
       (float*)vs_cache, (const uint32_t*)k_new, (const uint32_t*)v_new,
       (const float*)ks_new, (const float*)vs_new, n_words, n_scales, t, c,
-      dh / 4, w);
+      dh / 4, pos);
   return (int)cudaGetLastError();
 }
 
 int dsm_scale_commit(void* ks_cache, void* vs_cache, const void* ks_new,
                      const void* vs_new, long long b, int h, int t, int c,
-                     int w, void* stream) {
+                     const int* pos, void* stream) {
   const int64_t n = (int64_t)b * h * t;
   if (n == 0) return (int)cudaSuccess;
   const dim3 grid(grid_for(n), 2);
   scale_commit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (float*)ks_cache, (float*)vs_cache, (const float*)ks_new,
-      (const float*)vs_new, n, t, c, w);
+      (const float*)vs_new, n, t, c, pos);
   return (int)cudaGetLastError();
 }
 
 // The fresh bf16 rows k, v (B, H, 1, Dh), their (b, h) strides in elements
 // (the rows 16-byte aligned); the int8 (packed4 0) or packed-int4 (packed4
-// 1) rows go to kq/vq + (b*H + h) * q_pane bytes, the scales into ks/vs (B,
-// H, C) at row w.  Dh a multiple of 8 (of 16 packed) from 8 to 256.  Returns
-// a cudaError_t.
+// 1) rows go to kq/vq + (b*H + h) * q_pane + w * q_row bytes, the scales into
+// ks/vs (B, H, C) at row w, w = pos % c.  Dh a multiple of 8 (of 16 packed)
+// from 8 to 256.  Returns a cudaError_t.
 int dsm_quantize_commit(const void* k, const void* v, long long k_sb, long long k_sh,
                         long long v_sb, long long v_sh, void* kq, void* vq,
-                        long long q_pane, void* ks, void* vs, long long b, int h, int c,
-                        int dh, int packed4, int w, void* stream) {
+                        long long q_pane, long long q_row, void* ks, void* vs, long long b,
+                        int h, int c, int dh, int packed4, const int* pos, void* stream) {
   if (dh % (packed4 ? 16 : 8) || dh < 8 || dh > 256) return (int)cudaErrorInvalidValue;
   QuantCommitArgs a;
   a.k = (const uint16_t*)k; a.v = (const uint16_t*)v;
   a.k_sb = k_sb; a.k_sh = k_sh; a.v_sb = v_sb; a.v_sh = v_sh;
-  a.kq = (uint8_t*)kq; a.vq = (uint8_t*)vq; a.q_pane = q_pane;
-  a.ks = (float*)ks; a.vs = (float*)vs;
-  a.rows = b * h; a.h = h; a.c = c; a.w = w;
+  a.kq = (uint8_t*)kq; a.vq = (uint8_t*)vq; a.q_pane = q_pane; a.q_row = q_row;
+  a.ks = (float*)ks; a.vs = (float*)vs; a.pos = pos;
+  a.rows = b * h; a.h = h; a.c = c;
   a.lanes = dh / 8;
   a.seg_log2 = 0;
   while ((1 << a.seg_log2) < a.lanes) ++a.seg_log2;
@@ -466,15 +485,16 @@ int dsm_quantize_commit(const void* k, const void* v, long long k_sb, long long 
 // with batch stride cs_b; the rotated q, k into q_out, k_out (B, H, T, Dh)
 // contiguous; with k_cache and v_cache not null, the rotated k and v into
 // the rings (B, H, C, Dh) of r_bytes 2 (bf16) or 4 (f32) at rows w ..
-// w+T-1.  Returns a cudaError_t.
+// w+T-1, w = pos % c (pos the device int32 tick; unread without rings).
+// Returns a cudaError_t.
 int dsm_rope_commit(const void* q, const void* k, const void* v, long long q_sb,
                     long long q_sh, long long q_st, long long k_sb, long long k_sh,
                     long long k_st, long long v_sb, long long v_sh, long long v_st,
                     const void* cos, const void* sin, long long cs_b, void* q_out,
                     void* k_out, void* k_cache, void* v_cache, long long b, int h, int t,
-                    int dh, int c, int w, int x_bytes, int r_bytes, void* stream) {
+                    int dh, int c, const int* pos, int x_bytes, int r_bytes, void* stream) {
   if (dh % 2 || (x_bytes != 2 && x_bytes != 4) || (r_bytes != 2 && r_bytes != 4) ||
-      (k_cache == nullptr) != (v_cache == nullptr))
+      (k_cache == nullptr) != (v_cache == nullptr) || (k_cache != nullptr && pos == nullptr))
     return (int)cudaErrorInvalidValue;
   RopeCommitArgs a;
   a.src[0] = q; a.src[1] = k; a.src[2] = v;
@@ -484,7 +504,8 @@ int dsm_rope_commit(const void* q, const void* k, const void* v, long long q_sb,
   a.cos = (const float*)cos; a.sin = (const float*)sin; a.cs_b = cs_b;
   a.out[0] = q_out; a.out[1] = k_out;
   a.ring[0] = k_cache; a.ring[1] = v_cache;
-  a.half = dh / 2; a.h = h; a.t = t; a.c = c; a.w = w;
+  a.pos = pos;
+  a.half = dh / 2; a.h = h; a.t = t; a.c = c;
   a.pairs = b * h * t * a.half;
   if (a.pairs == 0) return (int)cudaSuccess;
   const dim3 grid(grid_for(a.pairs), k_cache != nullptr ? 3 : 2);

@@ -35,37 +35,40 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "dsm_error_string": ([_I], ctypes.c_char_p),
-    # k_cache, v_cache, k_new, v_new, elem_bytes, b, h, t, c, dh, w, stream
-    "dsm_ring_commit": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P], _I),
+    # The ring and attention kernels take ``pos``, a device pointer to the
+    # step's int32 tick (they derive w = pos % C), never a host value.
+    # k_cache, v_cache, k_new, v_new, elem_bytes, b, h, t, c, dh, pos, stream
+    "dsm_ring_commit": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P], _I),
     # k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new, vs_new,
-    # b, h, t, c, dh, w, stream
-    "dsm_ring_commit_q": ([_P] * 8 + [_LL, _I, _I, _I, _I, _I, _P], _I),
-    # ks_cache, vs_cache, ks_new, vs_new, b, h, t, c, w, stream
-    "dsm_scale_commit": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
-    # k, v, k strides (b, h), v strides (b, h), kq, vq, q_pane, ks, vs, b, h, c,
-    # dh, packed4, w, stream
+    # b, h, t, c, dh, pos, stream
+    "dsm_ring_commit_q": ([_P] * 8 + [_LL, _I, _I, _I, _I, _P, _P], _I),
+    # ks_cache, vs_cache, ks_new, vs_new, b, h, t, c, pos, stream
+    "dsm_scale_commit": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P], _I),
+    # k, v, k strides (b, h), v strides (b, h), kq, vq, q_pane, q_row, ks, vs,
+    # b, h, c, dh, packed4, pos, stream
     "dsm_quantize_commit": (
-        [_P, _P] + [_LL] * 4 + [_P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P], _I
+        [_P, _P] + [_LL] * 4 + [_P, _P, _LL, _LL, _P, _P, _LL, _I, _I, _I, _I, _P, _P], _I
     ),
     # q, k, v, their (b, h, t) strides, cos, sin, cos batch stride, q_out,
-    # k_out, k_cache, v_cache, b, h, t, dh, c, w, x_bytes, r_bytes, stream
+    # k_out, k_cache, v_cache, b, h, t, dh, c, pos, x_bytes, r_bytes, stream
     "dsm_rope_commit": (
-        [_P] * 3 + [_LL] * 9 + [_P, _P, _LL] + [_P] * 4 + [_LL] + [_I] * 7 + [_P], _I
+        [_P] * 3 + [_LL] * 9 + [_P, _P, _LL] + [_P] * 4 + [_LL] + [_I] * 4 + [_P, _I, _I, _P],
+        _I
     ),
     "dsm_decode_attend_commit_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
-    # valid, part, out, b, h, c, dh, n_split, pos, w, window, scale, stream
+    # valid, part, out, b, h, c, dh, n_split, pos, window, scale, stream
     "dsm_decode_attend_commit": (
-        [_P] * 12 + [_LL, _I, _I, _I, _I, _LL, _I, _I, ctypes.c_float, _P], _I
+        [_P] * 12 + [_LL, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P], _I
     ),
     "dsm_decode_attend_split_smem_bytes": ([_I, _I], _LL),
     "dsm_decode_attend_q4_smem_bytes": ([_I, _I], _LL),
     "dsm_decode_attend_q4_tile_rows": ([_I], _I),
     # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, part, out,
     # b, h, c, dh, packed4, n_split, k/v strides (b, h) in bytes, scale
-    # strides (b, h), pos, w, window, scale, stream
+    # strides (b, h), pos, window, scale, stream
     "dsm_decode_attend": (
-        [_P] * 10 + [_LL, _I, _I, _I, _I, _I] + [_LL] * 5 + [_I, _I, ctypes.c_float, _P], _I
+        [_P] * 10 + [_LL, _I, _I, _I, _I, _I] + [_LL] * 4 + [_P, _I, ctypes.c_float, _P], _I
     ),
     "dsm_ca_decode_attend_smem_bytes": ([_I, _I], _LL),
     # q, k_src, v_src, k_scale, v_scale, out, b, h, s_len, dh, q strides

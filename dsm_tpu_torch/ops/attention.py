@@ -8,10 +8,12 @@ One ring per layer, ``(B, H, C, Dh)``, shared write index for every slot:
   validity      k_pos >= 0, k_pos <= q_pos, q_pos - k_pos < window,
                 and the slot's bit in the ``(B, C)`` validity bitmap
 
-``pos`` is a host int: the plan's write rows and query positions are
-Python ints, so the kernels take ``w`` as a scalar argument and nothing
-waits on the device.  Rings are updated in place (the JAX package gets
-the same effect from buffer donation and aliasing).
+``pos`` is a 0-d int32 tensor on the rings' device, as in the JAX package:
+the plan's write rows and query positions are device tensors, and the
+kernels read the position from device memory (the Pallas kernels'
+scalar-prefetched ``w``), so a step reads nothing back to the host and can
+be captured in a CUDA graph.  Rings are updated in place (the JAX package
+gets the same effect from buffer donation and aliasing).
 
 The attention functions compute dot products in f32.  A bf16 x bf16 or
 bf16 x int8 product is exact in f32, so this equals JAX's bf16 dots with
@@ -104,43 +106,67 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def global_ring_plan(pos: int, context: int, t_new: int, device=None) -> dict:
+def global_ring_plan(pos, context: int, t_new: int, device=None) -> dict:
     """Plan for appending ``t_new`` frames at the shared tick ``pos``.
 
-    Returns ``w`` and ``q_pos`` as lists of ``t_new`` ints, ``k_pos (C,)``
-    int64 on ``device`` and ``new_pos`` int."""
-    pos = int(pos)
-    w = [(pos + t) % context for t in range(t_new)]
-    q_pos = [pos + t for t in range(t_new)]
-    p_last = pos + t_new - 1
-    w_last = p_last % context
-    j = torch.arange(context, dtype=torch.int64, device=device)
-    k_pos = p_last - torch.remainder(w_last - j, context)
-    return {"w": w, "q_pos": q_pos, "k_pos": k_pos, "new_pos": pos + t_new}
+    ``pos``: a 0-d integer tensor (the step's, on the rings' device) or, for
+    a caller that holds one, an int made into an int32 tensor on ``device``.
+    Returns ``pos`` (0-d int32), ``w`` and ``q_pos (T,)``, ``k_pos (C,)``
+    and ``new_pos = pos + T``, int32 tensors on ``pos``'s device, as the JAX
+    function's; nothing is read back to the host."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(torch.int32)
+    else:
+        pos = torch.tensor(pos, dtype=torch.int32, device=device)
+    t_idx = torch.arange(t_new, dtype=torch.int32, device=pos.device)
+    w = (pos + t_idx) % context
+    q_pos = pos + t_idx
+    p_last = pos + (t_new - 1)
+    j = torch.arange(context, dtype=torch.int32, device=pos.device)
+    k_pos = p_last - torch.remainder(p_last % context - j, context)
+    return {"pos": pos, "w": w, "q_pos": q_pos, "k_pos": k_pos, "new_pos": pos + t_new}
+
+
+def check_tick(name: str, pos, device: torch.device) -> None:
+    """A kernel wrapper's position: the step's 0-d int32 tensor on the rings'
+    ``device``, never a host int (a kernel reads it from device memory)."""
+    if not (isinstance(pos, torch.Tensor) and pos.dim() == 0 and pos.dtype == torch.int32):
+        raise ValueError(f"{name} takes the position as a 0-d int32 tensor on the rings' "
+                         f"device, got {pos!r}")
+    if pos.device != device:
+        raise ValueError(f"{name}: the position is on {pos.device}, the rings on {device}")
+
+
+def ring_rows(pos, c: int, t: int, device) -> torch.Tensor:
+    """The ring rows ``(T,)`` int64 on ``device`` that an append of ``t``
+    rows at the shared tick ``pos`` writes: ``pos % c + 0 .. t-1``.  ``pos``
+    a 0-d tensor on ``device`` (read there, not on the host) or an int (no
+    host-to-device copy either)."""
+    if isinstance(pos, torch.Tensor):
+        return (pos.to(torch.int64) % c) + torch.arange(t, dtype=torch.int64, device=device)
+    w = int(pos) % c
+    return torch.arange(w, w + t, dtype=torch.int64, device=device)
 
 
 def ring_write_global(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                      k_new: torch.Tensor, v_new: torch.Tensor, w0: int) -> None:
-    """Write ``T`` new rows ``(B, H, T, Dh)`` into the rings at ``w0``, in
-    place.  The rows must not wrap: ``init_state`` makes the capacity a
-    multiple of T, so a fixed-cadence append lands at ``w0 % T == 0``."""
-    t_new = k_new.shape[2]
-    if w0 + t_new > k_cache.shape[2]:
-        raise ValueError(f"append of {t_new} rows at {w0} wraps the ring")
-    k_cache[:, :, w0:w0 + t_new] = k_new.to(k_cache.dtype)
-    v_cache[:, :, w0:w0 + t_new] = v_new.to(v_cache.dtype)
+                      k_new: torch.Tensor, v_new: torch.Tensor, pos) -> None:
+    """Write ``T`` new rows ``(B, H, T, Dh)`` into the rings at row ``pos %
+    C`` (``pos`` a 0-d tensor or an int), in place, by an index copy: no host
+    read.  ``init_state`` makes the capacity a multiple of T, so a
+    fixed-cadence append lands at ``w % T == 0`` and never wraps."""
+    rows = ring_rows(pos, k_cache.shape[2], k_new.shape[2], k_cache.device)
+    k_cache.index_copy_(2, rows, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(2, rows, v_new.to(v_cache.dtype))
 
 
-def update_valid_bitmap(valid: torch.Tensor, w: list,
+def update_valid_bitmap(valid: torch.Tensor, w: torch.Tensor,
                         mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Copy of ``valid (B, C)`` with the rows written this step set to the
-    slot's mask (False for inactive slots: their rows hold garbage)."""
-    out = valid.clone()
-    m = mask if mask is not None else torch.ones(
-        valid.shape[0], dtype=torch.bool, device=valid.device)
-    for r in w:
-        out[:, r] = m
-    return out
+    """Copy of ``valid (B, C)`` with the rows ``w (T,)`` (the plan's, a
+    device tensor) written this step set to the slot's mask (False for
+    inactive slots: their rows hold garbage), by one index copy."""
+    b = valid.shape[0]
+    m = mask if mask is not None else torch.ones(b, dtype=torch.bool, device=valid.device)
+    return valid.index_copy(1, w.to(torch.int64), m[:, None].expand(b, w.shape[0]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,16 +252,13 @@ def quantize_kv_rows_packed4(k_new: torch.Tensor, v_new: torch.Tensor):
 
 
 def _ring_ok(plan: dict, valid_old: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, T, C) mask of ring rows each query may attend."""
+    """(B, T, C) mask of ring rows each query may attend, from the plan's
+    device tensors: the rows written this step are stale for every query."""
     k_pos = plan["k_pos"][None, :]
-    dev = k_pos.device
-    t = len(plan["q_pos"])
-    # Built on the device from host ints: no host-to-device copy, no sync.
-    q_pos = (torch.arange(t, dtype=torch.int64, device=dev)
-             + plan["q_pos"][0])[:, None]
-    ok = (k_pos >= 0) & (k_pos <= q_pos) & (q_pos - k_pos < window)
-    for r in plan["w"]:
-        ok[:, r] = False  # rows being overwritten this step are stale
+    q_pos = plan["q_pos"][:, None]
+    j = torch.arange(k_pos.shape[1], dtype=torch.int32, device=k_pos.device)
+    stale = (j[None, :] == plan["w"][:, None]).any(0)
+    ok = (k_pos >= 0) & (k_pos <= q_pos) & (q_pos - k_pos < window) & ~stale[None, :]
     return ok[None] & valid_old[:, None, :]
 
 

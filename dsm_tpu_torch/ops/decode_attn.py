@@ -26,6 +26,11 @@ operations is :func:`decode_attend_plain`'s at the same ``n_split``.
 The wrapper runs the plain version for CPU tensors, in the whole-ring order
 the CPU route has always had (``n_split`` None), and launches the kernel
 for CUDA tensors, counting the call in ``decode_attend_commit.launches``.
+Both attention wrappers take the plan's ``"pos"``, the step's 0-d int32
+tick on the rings' device, and the kernels read it from device memory (w =
+pos % C), as the Pallas kernels read their scalar-prefetched position: no
+host read, so the step can be captured in a CUDA graph.  The plain versions
+compute with the position as a tensor too.
 Shapes it launches for: any B and H, Dh in {64, 128}, bf16 queries and
 fresh rows, contiguous int8 rings of a multiple of 4 rows, 16-byte
 aligned, f32 scales, and spans whose scores fit the shared memory a block
@@ -42,27 +47,38 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import NEG_INF, unpack4
+from .attention import NEG_INF, check_tick, unpack4
 
 _MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
 _MAX_SMEM_OPT_IN = 232448  # an H100 block's shared memory with the opt-in
 
 
+def _row_index(w, device) -> torch.Tensor:
+    """Ring row ``w`` (an int or a 0-d tensor on ``device``) as a (1,) int64
+    index on ``device``, for an index copy that reads nothing back to the
+    host and copies nothing to the device."""
+    if isinstance(w, torch.Tensor):
+        return w.to(torch.int64).reshape(1)
+    return torch.full((1,), int(w), dtype=torch.int64, device=device)
+
+
 def decode_attend_commit_plain(q, k_cache, v_cache, k_scale, v_scale, kq_new,
-                               vq_new, k_new, v_new, valid, pos: int, w: int,
+                               vq_new, k_new, v_new, valid, pos, w,
                                window: int, n_split: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version (any device) over 3-D rows: ``q, k_new, v_new,
     kq_new, vq_new (B, H, Dh)``, rings ``(B, H, C, Dh)`` int8, scales
-    ``(B, H, C)`` f32, ``valid (B, C)`` bool.  Returns ``(B, H, Dh)`` in
-    ``q.dtype`` and writes ring row ``w`` in place.
+    ``(B, H, C)`` f32, ``valid (B, C)`` bool; ``pos`` and ``w = pos % C`` ints
+    or 0-d tensors.  Returns ``(B, H, Dh)`` in ``q.dtype`` and writes ring row
+    ``w`` in place.
 
     ``n_split`` None: one softmax over the whole ring (masked rows -1e9), the
     CPU route's order.  An integer: the kernel's order at that split, which
     is :func:`decode_attend_plain` over the committed ring (row ``w`` is
     masked there, so it reads the same rows)."""
+    row = _row_index(w, k_cache.device)
     if n_split is not None:
-        k_cache[:, :, w] = kq_new
-        v_cache[:, :, w] = vq_new
+        k_cache.index_copy_(2, row, kq_new[:, :, None])
+        v_cache.index_copy_(2, row, vq_new[:, :, None])
         return decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                                    valid, pos, w, window, n_split)
     c, dh = k_cache.shape[2], k_cache.shape[3]
@@ -82,19 +98,18 @@ def decode_attend_commit_plain(q, k_cache, v_cache, k_scale, v_scale, kq_new,
     p_c = (e_c * v_scale).to(torch.bfloat16).float()
     out_c = torch.einsum("bhc,bhcd->bhd", p_c, v_cache.float())
     res = (out_c + e_n[..., None] * v_new.float()) / denom[..., None]
-    k_cache[:, :, w] = kq_new
-    v_cache[:, :, w] = vq_new
+    k_cache.index_copy_(2, row, kq_new[:, :, None])
+    v_cache.index_copy_(2, row, vq_new[:, :, None])
     return res.to(q.dtype)
 
 
 def _launch(q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
-            valid, pos: int, w: int, window: int, n_split: int) -> torch.Tensor:
-    """The kernel at ``n_split`` spans."""
+            valid, pos: torch.Tensor, window: int, n_split: int) -> torch.Tensor:
+    """The kernel at ``n_split`` spans; ``pos`` the device tick, w = pos % C."""
     b, h, c, dh = k_cache.shape
     if dh not in (64, 128):
         raise ValueError(f"decode_attend_commit kernel takes Dh 64 or 128, got {dh}")
-    if not 0 <= w < c:
-        raise ValueError(f"decode_attend_commit: w={w} outside ring of {c}")
+    check_tick("decode_attend_commit", pos, k_cache.device)
     if c % 4:
         raise ValueError(f"decode_attend_commit: a ring of {c} rows, not a multiple of 4")
     if not 1 <= n_split <= c:
@@ -131,7 +146,7 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), kq_new.data_ptr(), vq_new.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(), part.data_ptr(),
-        out.data_ptr(), b, h, c, dh, n_split, pos, w, window, 1.0 / math.sqrt(dh),
+        out.data_ptr(), b, h, c, dh, n_split, pos.data_ptr(), window, 1.0 / math.sqrt(dh),
         ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "decode_attend_commit")
@@ -144,24 +159,24 @@ def decode_attend_commit(q, k_cache, v_cache, ks_committed, vs_committed,
                          window: int):
     """Attend ``q (B, H, 1, Dh)`` over the pre-commit int8 ring and this
     step's fresh row, then commit the quantised fresh row ``kq_new/vq_new
-    (B, H, 1, Dh)`` into ring row ``plan["w"][0]`` in place.  The scale
+    (B, H, 1, Dh)`` into ring row ``plan["pos"] % C`` in place.  The scale
     rings must already hold this step's scales.  Returns
     ``(y (B, H, 1, Dh), k_cache, v_cache)``, the rings being the inputs,
     updated.  On the card the ring is reduced in :func:`pick_split`'s
     spans; on the CPU in the whole-ring order."""
     if q.shape[2] != 1:
         raise ValueError("decode_attend_commit takes T=1 steps")
-    pos, w = int(plan["q_pos"][0]), int(plan["w"][0])
+    pos = plan["pos"]
     rows = [x[:, :, 0, :].contiguous() for x in (q, kq_new, vq_new, k_new, v_new)]
     q3, kq3, vq3, kn3, vn3 = rows
+    b, h, c, _ = k_cache.shape
     if k_cache.device.type == "cpu":
         y = decode_attend_commit_plain(
             q3, k_cache, v_cache, ks_committed, vs_committed, kq3, vq3, kn3,
-            vn3, valid_old, pos, w, window)
+            vn3, valid_old, pos, pos % c, window)
     else:
-        b, h, c, _ = k_cache.shape
         y = _launch(q3, k_cache, v_cache, ks_committed, vs_committed, kq3, vq3,
-                    kn3, vn3, valid_old, pos, w, window, pick_split(b * h, c))
+                    kn3, vn3, valid_old, pos, window, pick_split(b * h, c))
     return y[:, :, None, :], k_cache, v_cache
 
 
@@ -314,12 +329,13 @@ def packed_split(bh: int, c: int, dh: int, device: torch.device) -> int:
 
 
 def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
-                        valid, pos: int, w: int, window: int,
+                        valid, pos, w, window: int,
                         n_split: int = 1) -> torch.Tensor:
     """Plain PyTorch version (any device) over 3-D rows: ``q, k_new, v_new
     (B, H, Dh)``, committed rings ``(B, H, C, Dh)`` int8 or ``(B, H, C,
     Dh/2)`` packed-int4 uint8, scales ``(B, H, C)`` f32, ``valid (B, C)``
-    bool -> ``(B, H, Dh)`` in ``q.dtype``.
+    bool, ``pos`` and ``w = pos % C`` ints or 0-d tensors -> ``(B, H, Dh)``
+    in ``q.dtype``.
 
     The kernel's order of operations, its split included: each of the
     ``n_split`` spans takes its own maximum ``m_i``, rounds the unnormalised
@@ -365,7 +381,7 @@ def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
 
 
 def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
-                   pos: int, w: int, window: int, n_split: int) -> torch.Tensor:
+                   pos: torch.Tensor, window: int, n_split: int) -> torch.Tensor:
     b, h, c, row_bytes = k_cache.shape
     dh = q.shape[-1]
     packed4 = k_cache.dtype == torch.uint8
@@ -375,8 +391,7 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
         raise ValueError(f"decode_attend: ring rows of {row_bytes} bytes for Dh {dh} "
                          f"({k_cache.dtype})")
     ring_dtype = torch.uint8 if packed4 else torch.int8
-    if not 0 <= w < c:
-        raise ValueError(f"decode_attend: w={w} outside ring of {c}")
+    check_tick("decode_attend", pos, k_cache.device)
     if not 1 <= n_split <= c:
         raise ValueError(f"decode_attend: n_split={n_split} for a ring of {c}")
     want = {
@@ -427,7 +442,7 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
         v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
         None if part is None else part.data_ptr(), out.data_ptr(), b, h, c, dh, int(packed4),
         n_split, k_cache.stride(0),
-        k_cache.stride(1), k_scale.stride(0), k_scale.stride(1), pos, w, window,
+        k_cache.stride(1), k_scale.stride(0), k_scale.stride(1), pos.data_ptr(), window,
         1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "decode_attend")
@@ -448,14 +463,17 @@ def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
     if q.shape[2] != 1:
         raise ValueError("decode_attend takes T=1 steps")
     b, h, c, _ = k_cache.shape
-    pos, w = int(plan["q_pos"][0]), int(plan["w"][0])
+    pos = plan["pos"]
     if n_split is None:
         n_split = (packed_split(b * h, c, q.shape[-1], k_cache.device)
                    if k_cache.dtype == torch.uint8 else pick_split(b * h, c))
     q3, kn3, vn3 = (x[:, :, 0, :].contiguous() for x in (q, k_new, v_new))
-    fn = decode_attend_plain if k_cache.device.type == "cpu" else _attend_launch
-    y = fn(q3, k_cache, v_cache, k_scale, v_scale, kn3, vn3, valid_old, pos, w,
-           window, n_split)
+    if k_cache.device.type == "cpu":
+        y = decode_attend_plain(q3, k_cache, v_cache, k_scale, v_scale, kn3, vn3, valid_old,
+                                pos, pos % c, window, n_split)
+    else:
+        y = _attend_launch(q3, k_cache, v_cache, k_scale, v_scale, kn3, vn3, valid_old, pos,
+                           window, n_split)
     return y[:, :, None, :]
 
 

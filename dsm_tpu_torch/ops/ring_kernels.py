@@ -52,10 +52,18 @@ one element needs no such block, so none of the TPU kernels' tiling
 conditions (batch blocks, row blocks, 128-slot scale blocks) is kept: any
 B, H, C and T that meet the contract below are served.
 
-Contract, as in the JAX package: ``w % T == 0`` and ``w + T <= C`` (the
-ring capacity is a multiple of T, so a fixed-cadence append never wraps);
-anything else raises.  The rings are updated in place, where the JAX
-package aliases its outputs to its inputs.
+The position: every wrapper takes the step's shared tick ``pos``, a 0-d
+int32 tensor on the rings' device (``attention.global_ring_plan``'s
+``"pos"``), never a host int, and each kernel reads it from device memory
+and writes rows ``w = pos % C`` on: the counterpart of the Pallas kernels'
+scalar-prefetched ``w``.  So nothing is read back to the host and a step of
+launches can be captured in a CUDA graph and replayed at every tick.
+Contract, as in the JAX package: ``C % T == 0`` and ``pos % T == 0`` (so a
+fixed-cadence append never wraps).  The first is checked on every device;
+the second where the position lies on the CPU (reading it there is no
+sync), and by construction on the card (the step advances ``pos`` by T from
+0).  The rings are updated in place, where the JAX package aliases its
+outputs to its inputs.
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors, counting the launch in its ``launches`` attribute.
@@ -71,11 +79,24 @@ from . import _build
 from . import attention as attn
 
 
-def _check_rows(w: int, t: int, c: int) -> None:
-    if t < 1 or w < 0 or w % t or w + t > c:
-        raise ValueError(
-            f"ring commit needs w % T == 0 and w + T <= C, got w={w} T={t} C={c}"
-        )
+def _check_rows(pos, t: int, c: int) -> None:
+    """The commit contract for ``t`` rows into a ring of ``c`` at position
+    ``pos`` (an int, or a tensor read only where it lies on the CPU)."""
+    if t < 1 or c % t:
+        raise ValueError(f"ring commit needs C % T == 0, got T={t} C={c}")
+    if isinstance(pos, torch.Tensor):
+        if pos.device.type != "cpu":
+            return
+        pos = int(pos)  # no sync: the tensor is on the CPU
+    if pos < 0 or pos % t:
+        raise ValueError(f"ring commit needs pos % T == 0 and pos >= 0, got pos={pos} T={t}")
+
+
+def _check_pos(name: str, pos, t: int, c: int, device: torch.device) -> None:
+    """A wrapper's position (``attention.check_tick``) under the commit
+    contract (:func:`_check_rows`)."""
+    attn.check_tick(name, pos, device)
+    _check_rows(pos, t, c)
 
 
 def _check_cuda(name: str, tensors: dict) -> None:
@@ -91,34 +112,34 @@ def _check_cuda(name: str, tensors: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def ring_commit_plain(k_cache, v_cache, k_new, v_new, w: int, ks_cache=None,
+def ring_commit_plain(k_cache, v_cache, k_new, v_new, pos, ks_cache=None,
                       vs_cache=None, ks_new=None, vs_new=None) -> None:
     """Plain PyTorch version of :func:`ring_commit` (any device), with or
-    without the scale rings."""
+    without the scale rings; ``pos`` a 0-d tensor or an int."""
     if ks_cache is not None:
         ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
-                            ks_new, vs_new, w)
+                            ks_new, vs_new, pos)
         return
-    _check_rows(w, k_new.shape[2], k_cache.shape[2])
-    attn.ring_write_global(k_cache, v_cache, k_new, v_new, w)
+    _check_rows(pos, k_new.shape[2], k_cache.shape[2])
+    attn.ring_write_global(k_cache, v_cache, k_new, v_new, pos)
 
 
 def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                k_new: torch.Tensor, v_new: torch.Tensor, w: int,
+                k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor,
                 ks_cache=None, vs_cache=None, ks_new=None, vs_new=None) -> None:
     """Write ``k_new/v_new (B, H, T, Dh)`` into the rings ``(B, H, C, Dh)``
-    at row ``w``, in place.  With the scale rings ``ks_cache/vs_cache (B, H,
+    at rows ``pos % C`` on, in place.  With the scale rings ``ks_cache/vs_cache (B, H,
     C)`` and the fresh scales ``ks_new/vs_new (B, H, T)`` all four rings are
     written by one launch of :func:`ring_commit_q`."""
     if ks_cache is not None:
         ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
-                      ks_new, vs_new, w)
+                      ks_new, vs_new, pos)
         return
     b, h, t, dh = k_new.shape
     c = k_cache.shape[2]
-    _check_rows(w, t, c)
+    _check_pos("ring_commit", pos, t, c, k_cache.device)
     if k_cache.device.type == "cpu":
-        ring_commit_plain(k_cache, v_cache, k_new, v_new, w)
+        ring_commit_plain(k_cache, v_cache, k_new, v_new, pos)
         return
     if k_cache.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"ring_commit takes bf16 or f32 rings, got {k_cache.dtype}")
@@ -135,7 +156,7 @@ def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
                                 "k_new": k_new, "v_new": v_new})
     err = _build.lib().dsm_ring_commit(
         k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), k_cache.element_size(), b, h, t, c, dh, w,
+        v_new.data_ptr(), k_cache.element_size(), b, h, t, c, dh, pos.data_ptr(),
         ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "ring_commit")
@@ -151,30 +172,32 @@ ring_commit.launches = 0
 
 
 def ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
-                        ks_new, vs_new, w: int) -> None:
+                        ks_new, vs_new, pos) -> None:
     """Plain PyTorch version of :func:`ring_commit_q` (any device): four
-    slice assignments."""
+    index copies at rows ``pos % C`` on (``pos`` a 0-d tensor or an int)."""
     t = k_new.shape[2]
-    _check_rows(w, t, k_cache.shape[2])
-    k_cache[:, :, w:w + t] = k_new.to(k_cache.dtype)
-    v_cache[:, :, w:w + t] = v_new.to(v_cache.dtype)
-    ks_cache[:, :, w:w + t] = ks_new.to(ks_cache.dtype)
-    vs_cache[:, :, w:w + t] = vs_new.to(vs_cache.dtype)
+    _check_rows(pos, t, k_cache.shape[2])
+    rows = attn.ring_rows(pos, k_cache.shape[2], t, k_cache.device)
+    k_cache.index_copy_(2, rows, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(2, rows, v_new.to(v_cache.dtype))
+    ks_cache.index_copy_(2, rows, ks_new.to(ks_cache.dtype))
+    vs_cache.index_copy_(2, rows, vs_new.to(vs_cache.dtype))
 
 
 def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
-                  vs_new, w: int) -> None:
+                  vs_new, pos: torch.Tensor) -> None:
     """Write the quantised rows ``k_new/v_new (B, H, T, Dh)`` int8 into the
     int8 rings ``(B, H, C, Dh)`` and their scales ``ks_new/vs_new (B, H,
-    T)`` into the f32 scale rings ``(B, H, C)``, all at row ``w``, in place,
+    T)`` into the f32 scale rings ``(B, H, C)``, all at rows ``pos % C`` on,
+    in place,
     in one launch.  Packed-int4 rows and rings are uint8 with ``Dh/2`` bytes
     a row in place of ``Dh``."""
     b, h, t, row_bytes = k_new.shape
     c = k_cache.shape[2]
-    _check_rows(w, t, c)
+    _check_pos("ring_commit_q", pos, t, c, k_cache.device)
     if k_cache.device.type == "cpu":
         ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
-                            ks_new, vs_new, w)
+                            ks_new, vs_new, pos)
         return
     if k_cache.dtype not in (torch.int8, torch.uint8) or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"ring_commit_q takes int8 or packed uint8 rings, got "
@@ -210,7 +233,7 @@ def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
     err = _build.lib().dsm_ring_commit_q(
         k_cache.data_ptr(), v_cache.data_ptr(), ks_cache.data_ptr(),
         vs_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        ks_new.data_ptr(), vs_new.data_ptr(), b, h, t, c, row_bytes, w,
+        ks_new.data_ptr(), vs_new.data_ptr(), b, h, t, c, row_bytes, pos.data_ptr(),
         ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "ring_commit_q")
@@ -225,23 +248,25 @@ ring_commit_q.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def scale_commit_plain(ks_cache, vs_cache, ks_new, vs_new, w: int) -> None:
-    """Plain PyTorch version of :func:`scale_commit` (any device)."""
+def scale_commit_plain(ks_cache, vs_cache, ks_new, vs_new, pos) -> None:
+    """Plain PyTorch version of :func:`scale_commit` (any device; ``pos`` a
+    0-d tensor or an int)."""
     t = ks_new.shape[2]
-    _check_rows(w, t, ks_cache.shape[2])
-    ks_cache[:, :, w:w + t] = ks_new.to(ks_cache.dtype)
-    vs_cache[:, :, w:w + t] = vs_new.to(vs_cache.dtype)
+    _check_rows(pos, t, ks_cache.shape[2])
+    rows = attn.ring_rows(pos, ks_cache.shape[2], t, ks_cache.device)
+    ks_cache.index_copy_(2, rows, ks_new.to(ks_cache.dtype))
+    vs_cache.index_copy_(2, rows, vs_new.to(vs_cache.dtype))
 
 
 def scale_commit(ks_cache: torch.Tensor, vs_cache: torch.Tensor,
-                 ks_new: torch.Tensor, vs_new: torch.Tensor, w: int) -> None:
+                 ks_new: torch.Tensor, vs_new: torch.Tensor, pos: torch.Tensor) -> None:
     """Write the fresh per-row scales ``(B, H, T)`` into the f32 scale
-    rings ``(B, H, C)`` at row ``w``, in place."""
+    rings ``(B, H, C)`` at rows ``pos % C`` on, in place."""
     b, h, t = ks_new.shape
     c = ks_cache.shape[2]
-    _check_rows(w, t, c)
+    _check_pos("scale_commit", pos, t, c, ks_cache.device)
     if ks_cache.device.type == "cpu":
-        scale_commit_plain(ks_cache, vs_cache, ks_new, vs_new, w)
+        scale_commit_plain(ks_cache, vs_cache, ks_new, vs_new, pos)
         return
     if ks_cache.dtype != torch.float32 or vs_cache.dtype != torch.float32:
         raise ValueError("scale_commit takes f32 scale rings")
@@ -257,7 +282,7 @@ def scale_commit(ks_cache: torch.Tensor, vs_cache: torch.Tensor,
                                  "ks_new": ks_new, "vs_new": vs_new})
     err = _build.lib().dsm_scale_commit(
         ks_cache.data_ptr(), vs_cache.data_ptr(), ks_new.data_ptr(),
-        vs_new.data_ptr(), b, h, t, c, w, ctypes.c_void_p(_build.stream_ptr()),
+        vs_new.data_ptr(), b, h, t, c, pos.data_ptr(), ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "scale_commit")
     scale_commit.launches += 1
@@ -272,7 +297,7 @@ scale_commit.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, w: int) -> None:
+def quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, pos) -> None:
     """Plain PyTorch version of :func:`quantize_commit` (any device):
     ``quantize_kv_rows`` (``quantize_kv_rows_packed4`` for uint8 rings), then
     :func:`ring_commit_q_plain`."""
@@ -280,23 +305,25 @@ def quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, w: int) ->
         kq, vq, ks, vs = attn.quantize_kv_rows_packed4(k, v)
     else:
         kq, vq, ks, vs = attn.quantize_kv_rows(k, v)
-    ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, kq, vq, ks, vs, w)
+    ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, kq, vq, ks, vs, pos)
 
 
-def quantize_scale_commit_plain(k, v, ks_cache, vs_cache, w: int):
+def quantize_scale_commit_plain(k, v, ks_cache, vs_cache, pos):
     """Plain PyTorch version of :func:`quantize_scale_commit` (any device):
     ``quantize_kv_rows``, then :func:`scale_commit_plain`; returns ``kq, vq``."""
     kq, vq, ks, vs = attn.quantize_kv_rows(k, v)
-    scale_commit_plain(ks_cache, vs_cache, ks, vs, w)
+    scale_commit_plain(ks_cache, vs_cache, ks, vs, pos)
     return kq, vq
 
 
-def _quantize_launch(name, k, v, kq_ptr, vq_ptr, q_pane, ks_cache, vs_cache, w, packed4):
+def _quantize_launch(name, k, v, kq_ptr, vq_ptr, q_pane, q_row, ks_cache, vs_cache, pos,
+                     packed4):
     """Check the fresh rows and the scale rings for ``dsm_quantize_commit`` and
     launch it: the rows ``(B, H, 1, Dh)`` bf16 on the card (the step's
     dtype there), the last dim contiguous and each row on 16 bytes (through
     any (b, h) strides), Dh a multiple of 8 (16 packed) up to 256; f32 scale
-    rings ``(B, H, C)``."""
+    rings ``(B, H, C)``.  Pane (b, h)'s row goes to ``kq_ptr + (b*H + h) *
+    q_pane + w * q_row`` bytes, ``w = pos % C`` read by the kernel."""
     b, h, t, dh = k.shape
     c = ks_cache.shape[2]
     if t != 1 or v.shape != k.shape:
@@ -321,25 +348,25 @@ def _quantize_launch(name, k, v, kq_ptr, vq_ptr, q_pane, ks_cache, vs_cache, w, 
                              f"(strides {x.stride()})")
     err = _build.lib().dsm_quantize_commit(
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        kq_ptr, vq_ptr, q_pane, ks_cache.data_ptr(), vs_cache.data_ptr(),
-        b, h, c, dh, int(packed4), w, ctypes.c_void_p(_build.stream_ptr()),
+        kq_ptr, vq_ptr, q_pane, q_row, ks_cache.data_ptr(), vs_cache.data_ptr(),
+        b, h, c, dh, int(packed4), pos.data_ptr(), ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, name)
 
 
 def quantize_commit(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, ks_cache: torch.Tensor, vs_cache: torch.Tensor,
-                    w: int) -> None:
+                    pos: torch.Tensor) -> None:
     """Quantise the fresh rows ``k, v (B, H, 1, Dh)`` per row and write them
     into the int8 rings ``(B, H, C, Dh)`` (nibble-packed into the uint8
     rings ``(B, H, C, Dh/2)``) and their scales into the f32 scale rings
-    ``(B, H, C)``, all at row ``w``, in place, in one launch: the split
+    ``(B, H, C)``, all at row ``pos % C``, in place, in one launch: the split
     pipeline's ``quantize_kv_rows(_packed4)`` + :func:`ring_commit_q`."""
     b, h, t, dh = k.shape
     c = k_cache.shape[2]
-    _check_rows(w, t, c)
+    _check_pos("quantize_commit", pos, t, c, k_cache.device)
     if k_cache.device.type == "cpu":
-        quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, w)
+        quantize_commit_plain(k, v, k_cache, v_cache, ks_cache, vs_cache, pos)
         return
     if k_cache.dtype not in (torch.int8, torch.uint8) or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"quantize_commit takes int8 or packed uint8 rings, got "
@@ -350,9 +377,8 @@ def quantize_commit(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"quantize_commit: rows {tuple(k.shape)} do not fit ring "
                          f"{tuple(k_cache.shape)}")
     _check_cuda("quantize_commit", {"k_cache": k_cache, "v_cache": v_cache})
-    _quantize_launch("quantize_commit", k, v, k_cache.data_ptr() + w * row_bytes,
-                     v_cache.data_ptr() + w * row_bytes, c * row_bytes, ks_cache, vs_cache,
-                     w, packed4)
+    _quantize_launch("quantize_commit", k, v, k_cache.data_ptr(), v_cache.data_ptr(),
+                     c * row_bytes, row_bytes, ks_cache, vs_cache, pos, packed4)
     quantize_commit.launches += 1
 
 
@@ -360,20 +386,20 @@ quantize_commit.launches = 0
 
 
 def quantize_scale_commit(k: torch.Tensor, v: torch.Tensor, ks_cache: torch.Tensor,
-                          vs_cache: torch.Tensor, w: int):
+                          vs_cache: torch.Tensor, pos: torch.Tensor):
     """Quantise the fresh rows ``k, v (B, H, 1, Dh)`` per row to int8, write
-    their scales into the f32 scale rings ``(B, H, C)`` at row ``w``, in
-    place, and return ``kq, vq (B, H, 1, Dh)`` int8, contiguous, in one
+    their scales into the f32 scale rings ``(B, H, C)`` at row ``pos % C``,
+    in place, and return ``kq, vq (B, H, 1, Dh)`` int8, contiguous, in one
     launch: the fused pipeline's ``quantize_kv_rows`` + :func:`scale_commit`
     (``decode_attend_commit`` commits the int8 rows)."""
     b, h, t, dh = k.shape
-    _check_rows(w, t, ks_cache.shape[2])
+    _check_pos("quantize_scale_commit", pos, t, ks_cache.shape[2], ks_cache.device)
     if ks_cache.device.type == "cpu":
-        return quantize_scale_commit_plain(k, v, ks_cache, vs_cache, w)
+        return quantize_scale_commit_plain(k, v, ks_cache, vs_cache, pos)
     kq = torch.empty((b, h, t, dh), dtype=torch.int8, device=k.device)
     vq = torch.empty_like(kq)
-    _quantize_launch("quantize_scale_commit", k, v, kq.data_ptr(), vq.data_ptr(), dh,
-                     ks_cache, vs_cache, w, False)
+    _quantize_launch("quantize_scale_commit", k, v, kq.data_ptr(), vq.data_ptr(), dh, 0,
+                     ks_cache, vs_cache, pos, False)
     quantize_scale_commit.launches += 1
     return kq, vq
 
@@ -392,12 +418,12 @@ def rope_qk_plain(q, k, cos, sin):
     return attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin)
 
 
-def rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, w: int):
+def rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, pos):
     """Plain PyTorch version of :func:`rope_commit` (any device):
     :func:`rope_qk_plain`, then :func:`ring_commit_plain` of the rotated k
     and of v; returns the rotated ``q, k``."""
     q, k = rope_qk_plain(q, k, cos, sin)
-    ring_commit_plain(k_cache, v_cache, k, v, w)
+    ring_commit_plain(k_cache, v_cache, k, v, pos)
     return q, k
 
 
@@ -414,7 +440,7 @@ def _all_on_cpu(name: str, tensors: dict) -> bool:
     return False
 
 
-def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, w):
+def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, pos):
     """Check the rows, cos/sin and the rings for ``dsm_rope_commit`` and
     launch it -> the rotated ``q, k (B, H, T, Dh)``, contiguous.  The rows are
     bf16 or f32 with contiguous pairs (the last dim of stride 1, any (b, h,
@@ -442,7 +468,7 @@ def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, w):
     c = 0
     if k_cache is not None:
         c = k_cache.shape[2]
-        _check_rows(w, t, c)
+        _check_pos(name, pos, t, c, k_cache.device)
         if k_cache.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"{name} takes bf16 or f32 rings, got {k_cache.dtype}")
         if v_cache.dtype != k_cache.dtype or v_cache.shape != k_cache.shape:
@@ -462,7 +488,7 @@ def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, w):
         q_out.data_ptr(), k_out.data_ptr(),
         k_cache.data_ptr() if k_cache is not None else None,
         v_cache.data_ptr() if v_cache is not None else None,
-        b, h, t, dh, c, w, q.element_size(),
+        b, h, t, dh, c, pos.data_ptr() if pos is not None else None, q.element_size(),
         k_cache.element_size() if k_cache is not None else 2,
         ctypes.c_void_p(_build.stream_ptr()),
     )
@@ -471,18 +497,20 @@ def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, w):
 
 
 def rope_commit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, w: int):
+                v_cache: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                pos: torch.Tensor):
     """Rotate ``q, k (B, H, T, Dh)`` by the rotary embedding ``cos, sin (B
     or 1, T, Dh/2)`` (as ``attention.apply_rope``), write the rotated k and
     the unchanged ``v`` into the bf16 or f32 rings ``(B, H, C, Dh)`` at rows
-    ``w .. w+T-1``, in place, and return the rotated ``q, k``, contiguous in
-    q's dtype, in one launch: the step's ``apply_rope`` x2 + :func:`ring_commit`.
-    q, k and v are read through their strides."""
+    ``w .. w+T-1``, ``w = pos % C``, in place, and return the rotated ``q,
+    k``, contiguous in q's dtype, in one launch: the step's ``apply_rope`` x2 +
+    :func:`ring_commit`.  q, k and v are read through their strides."""
     tensors = {"q": q, "k": k, "v": v, "k_cache": k_cache, "v_cache": v_cache,
                "cos": cos, "sin": sin}
     if _all_on_cpu("rope_commit", tensors):
-        return rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, w)
-    out = _rope_launch("rope_commit", q, k, v, k_cache, v_cache, cos, sin, w)
+        _check_pos("rope_commit", pos, q.shape[2], k_cache.shape[2], k_cache.device)
+        return rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, pos)
+    out = _rope_launch("rope_commit", q, k, v, k_cache, v_cache, cos, sin, pos)
     rope_commit.launches += 1
     return out
 
@@ -497,7 +525,7 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tens
     x2 before the int8 and packed-int4 commits."""
     if _all_on_cpu("rope_qk", {"q": q, "k": k, "cos": cos, "sin": sin}):
         return rope_qk_plain(q, k, cos, sin)
-    out = _rope_launch("rope_qk", q, k, None, None, None, cos, sin, 0)
+    out = _rope_launch("rope_qk", q, k, None, None, None, cos, sin, None)
     rope_qk.launches += 1
     return out
 

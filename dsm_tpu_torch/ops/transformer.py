@@ -117,11 +117,11 @@ def capacity(cfg: TransformerConfig, step_t: int = 1, kv_quant: bool = False) ->
 def init_state(cfg: TransformerConfig, batch: int, cache_dtype=torch.bfloat16,
                step_t: int = 1, kv_quant: bool = False, device=None,
                kv_bits: int = 8) -> dict:
-    """Per-layer K/V rings, the shared tick ``pos`` (a host int) and the
-    ``(B, C)`` validity bitmap.  ``kv_quant``: int8 rings with per-row f32
-    scale rings ``ks``/``vs``; with ``kv_bits = 4`` the rings hold int4
-    values nibble-packed into uint8 rows of ``Dh/2`` bytes
-    (``attention.pack4``), same capacity."""
+    """Per-layer K/V rings, the shared tick ``pos`` (a 0-d int32 tensor on
+    ``device``, as the JAX package's) and the ``(B, C)`` validity bitmap.
+    ``kv_quant``: int8 rings with per-row f32 scale rings ``ks``/``vs``; with
+    ``kv_bits = 4`` the rings hold int4 values nibble-packed into uint8 rows
+    of ``Dh/2`` bytes (``attention.pack4``), same capacity."""
     if kv_bits not in (8, 4):
         raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
     h, hd = cfg.num_heads, cfg.hd
@@ -145,7 +145,7 @@ def init_state(cfg: TransformerConfig, batch: int, cache_dtype=torch.bfloat16,
             })
     return {
         "layers": layers,
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
         "valid": torch.zeros((batch, cap), dtype=torch.bool, device=device),
     }
 
@@ -395,17 +395,22 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
       * ``ca_kv``: the stacked per-layer source of :func:`precompute_ca_kv`
         (a ``(k, v)`` pair) or of :func:`quantize_ca_kv` (the int8 dict),
         attended after each self-attention block (:func:`_cross_block`).
+
+    ``state["pos"]`` is a 0-d int32 tensor on the device: the rope's
+    positions, the validity bitmap and every kernel's write row come from it
+    on the device, and the step returns ``pos + T`` as a tensor.  Nothing is
+    read back to the host, so the step can be captured in a CUDA graph.
     """
     _check_supported(cfg)
     b, t, _ = x.shape
     cap = state["valid"].shape[1]
     plan = attn.global_ring_plan(state["pos"], cap, t, device=x.device)
+    pos = plan["pos"]
     valid_old = state["valid"]
     valid = attn.update_valid_bitmap(valid_old, plan["w"], mask)
 
     rope = None
-    positions = (torch.arange(t, dtype=torch.int64, device=x.device)
-                 + plan["q_pos"][0])[None, :]
+    positions = plan["q_pos"][None, :]
     if cfg.positional_embedding == "rope":
         rope = attn.rope_cos_sin(positions, cfg.hd, cfg.max_period)
     elif cfg.positional_embedding == "sin":
@@ -422,21 +427,20 @@ def step(cfg: TransformerConfig, params: list, state: dict, x: torch.Tensor,
                 q, k = rkern.rope_qk(q, k, *rope)
             # fused_commit_supported holds for int8 rings only: never for packed4.
             if dattn.fused_commit_supported(q, st["k"], plan, cfg.fused_attn):
-                kq, vq = rkern.quantize_scale_commit(k, v, st["ks"], st["vs"], plan["w"][0])
+                kq, vq = rkern.quantize_scale_commit(k, v, st["ks"], st["vs"], pos)
                 y, _, _ = dattn.decode_attend_commit(
                     q, st["k"], st["v"], st["ks"], st["vs"], kq, vq, k, v, plan,
                     valid_old, window=cfg.context,
                 )
             else:
-                rkern.quantize_commit(k, v, st["k"], st["v"], st["ks"], st["vs"],
-                                      plan["w"][0])
+                rkern.quantize_commit(k, v, st["k"], st["v"], st["ks"], st["vs"], pos)
                 y = dattn.decode_attend(q, st["k"], st["v"], st["ks"], st["vs"], k, v,
                                         plan, valid_old, window=cfg.context)
         else:
             if rope is not None:
-                q, k = rkern.rope_commit(q, k, v, st["k"], st["v"], *rope, plan["w"][0])
+                q, k = rkern.rope_commit(q, k, v, st["k"], st["v"], *rope, pos)
             else:
-                rkern.ring_commit(st["k"], st["v"], k, v, plan["w"][0])
+                rkern.ring_commit(st["k"], st["v"], k, v, pos)
             y = attn.attend_global_split(
                 q, st["k"], st["v"], k, v, plan, valid_old, window=cfg.context
             )

@@ -7,6 +7,19 @@ the device, markers delivered once their audio has been decoded, per-slot
 reset on reuse.  The public surface is the JAX engine's; the port's own
 ``server/app.py`` serves it.
 
+On a CUDA device the step is one captured CUDA graph, the counterpart of the
+JAX engine's ``jax.jit(step, donate_argnums=(1,))``: :meth:`warmup` runs the
+step eagerly on the side stream it captures on (every kernel built, every
+lazy device constant made, cuBLAS's workspace there), then captures
+``sessions.asr.step_in_place`` once over the engine's state buffers and
+static input buffers, and every tick copies pcm, mask, reset and seeds
+through pinned host staging into those buffers and replays the graph.  The
+graph's outputs are static, so each replay's are copied into a buffer of
+their own before the next replay can overwrite them.  A capture that fails
+raises; the engine never falls back to the eager step.  ``cuda_graph=False``
+runs the eager step (the reference the card's checks hold the graph to); the
+CPU has no graph.
+
 Left out for now (ROADMAP.md): the device mesh, the native frame packer,
 the int16 pcm wire, prometheus metrics, session logs and dispatch-ahead
 beyond one step in flight.  Mailboxes use the Python deque path.
@@ -102,11 +115,17 @@ class BatchedAsrEngine:
     tick_sleep = 0.002  # idle wait of the model loop, seconds
 
     def __init__(self, cfg: ASR.AsrConfig, params: dict, batch_size: int,
-                 device="cuda", fill_gate_frac: float = 0.2):
+                 device="cuda", fill_gate_frac: float = 0.2,
+                 cuda_graph: Optional[bool] = None):
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size
         self.device = torch.device(device)
+        # The captured step (default on CUDA); none on the CPU.
+        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else cuda_graph
+        if self.cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
         # bf16 rings on the card, f32 on the CPU (int8 when cfg.kv_quant).
         cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.state = ASR.init_state(cfg, batch_size, cache_dtype, self.device)
@@ -182,6 +201,8 @@ class BatchedAsrEngine:
     # -- device loop --
 
     def start(self) -> None:
+        if self.cuda_graph and self._graph is None:
+            self.warmup()  # capture before the threads start
         self.running = True
         self._drain_thread = threading.Thread(
             target=self._drain_loop, name="asr-post-loop", daemon=True)
@@ -201,6 +222,15 @@ class BatchedAsrEngine:
             self._drain_thread = None
 
     def _invoke_step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray):
+        """One step on host arrays -> its outputs, tensors of their own: a
+        replay of the captured step, or the eager step."""
+        if self.cuda_graph:
+            if self._graph is None:
+                raise RuntimeError("the CUDA graph step is not captured: call warmup() "
+                                   "or start() first")
+            self._stage(pcm, mask, reset)
+            self._graph.replay()
+            return {k: v.clone() for k, v in self._static_out.items()}
         dev = self.device
         out, self.state = ASR.step(
             self.cfg, self.params, self.state,
@@ -209,8 +239,61 @@ class BatchedAsrEngine:
             seeds=torch.as_tensor(self._seeds, device=dev))
         return out
 
+    def _stage(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray) -> None:
+        """Copy a step's inputs into the graph's static buffers through
+        pinned host staging: two staging sets in turn, each written only
+        once its previous copy to the device has run (its event)."""
+        i = self._stage_next
+        self._stage_next ^= 1
+        host = self._staging[i]
+        self._staged[i].synchronize()
+        for name, arr in (("pcm", pcm), ("mask", mask), ("reset", reset),
+                          ("seeds", self._seeds)):
+            host[name].numpy()[...] = arr
+        for name, buf in self._static_in.items():
+            buf.copy_(host[name], non_blocking=True)
+        self._staged[i].record()
+
+    def _body(self) -> dict:
+        """The step to capture: ``step_in_place`` over the engine's state and
+        the static input buffers."""
+        x = self._static_in
+        return ASR.step_in_place(self.cfg, self.params, self.state, x["pcm"], x["mask"],
+                                 x["reset"], seeds=x["seeds"])
+
+    def _capture(self, steps: int) -> None:
+        """Run the step ``steps`` times (at least once) on a side stream, with
+        no slot active, then capture it there; raises if capture fails."""
+        b, dev = self.batch_size, self.device
+        self._static_in = {
+            "pcm": torch.zeros((b, 1, self.frame_size), dtype=torch.float32, device=dev),
+            "mask": torch.zeros(b, dtype=torch.bool, device=dev),
+            "reset": torch.zeros(b, dtype=torch.bool, device=dev),
+            "seeds": torch.zeros(b, dtype=torch.int64, device=dev),
+        }
+        self._staging = [{k: torch.empty(v.shape, dtype=v.dtype).pin_memory()
+                          for k, v in self._static_in.items()} for _ in range(2)]
+        self._staged = [torch.cuda.Event(), torch.cuda.Event()]
+        self._stage_next = 0
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream), torch.inference_mode():
+            for _ in range(max(1, steps)):
+                self._body()
+            with torch.cuda.graph(graph, stream=stream):
+                self._static_out = self._body()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        self._graph = graph
+
     def warmup(self, steps: int = 2) -> None:
-        """Run zero frames through the whole step (no slot active)."""
+        """Run zero frames through the whole step (no slot active); with
+        ``cuda_graph``, through the step to capture, then capture it."""
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture(steps)
+            return
         zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
         off = np.zeros(self.batch_size, bool)
         with torch.inference_mode():

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import logging
 import os
+from typing import Optional
 
 import torch
 
@@ -49,8 +50,13 @@ def _random_init_warning(what: str, spec) -> None:
     log.warning("%s %s not available locally; using random init", what, spec)
 
 
-def build_batched_asr(mod: CFG.ModuleConfig, device) -> BatchedAsrEngine:
+def build_batched_asr(mod: CFG.ModuleConfig, device,
+                      cuda_graph: Optional[bool] = None) -> BatchedAsrEngine:
     """The engine for a ``BatchedAsr`` module on ``device``.
+
+    ``cuda_graph`` is the engine's (``BatchedAsrEngine``: the step captured
+    as one CUDA graph, the default on CUDA; False for the eager step); no
+    TOML key sets it.
 
     On CUDA it takes the JAX builder's accelerator profile: int8 KV rings,
     int8 LM weights, bf16 codec and bf16 LM activations.  The matmuls are
@@ -100,6 +106,7 @@ def build_batched_asr(mod: CFG.ModuleConfig, device) -> BatchedAsrEngine:
         asr_cfg, {"mimi": mimi_params, "lm": lm_params},
         batch_size=batch, device=device,
         fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)),
+        cuda_graph=cuda_graph,
     )
     engine.tokenizer = _tokenizer(mod)
     return engine

@@ -117,6 +117,46 @@ def step(cfg: AsrConfig, params: dict, state: dict, pcm: torch.Tensor,
     return out, new_state
 
 
+def _copy_into(dst, src) -> None:
+    """Write each tensor of the state tree ``src`` into the tensor at the
+    same place of ``dst``, in place; a tensor of ``src`` that is ``dst``'s
+    own (a ring the step wrote in place) is left as it is."""
+    if isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"state trees differ: {sorted(dst)} / {sorted(src)}")
+        for key in dst:
+            _copy_into(dst[key], src[key])
+    elif isinstance(dst, list):
+        for a, b in zip(dst, src, strict=True):
+            _copy_into(a, b)
+    elif isinstance(dst, torch.Tensor):
+        if src is dst:
+            return
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"state tensor {tuple(src.shape)} {src.dtype} does not fit "
+                             f"its buffer {tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(src)
+    else:
+        raise TypeError(f"state leaf of type {type(dst).__name__}")
+
+
+def step_in_place(cfg: AsrConfig, params: dict, state: dict, pcm: torch.Tensor,
+                  mask: torch.Tensor, reset: torch.Tensor,
+                  seeds: Optional[torch.Tensor] = None,
+                  rng: Optional[torch.Tensor] = None) -> dict:
+    """:func:`step` on state buffers that stay the same from step to step
+    (the counterpart of the JAX engine's ``donate_argnums=(1,)``): the step,
+    then every state tensor it replaced (``pos``, ``valid``, ``step_idx``,
+    ``text_token``, ``next_codebooks``, the conv and codec carries) written
+    back into ``state``'s own tensor with ``copy_``; the rings are written in
+    place by the step already.  Returns ``out``.  It computes what
+    :func:`step` computes; its launches can be captured in a CUDA graph
+    (``server/batched_asr.py``) and replayed on the same buffers."""
+    out, new_state = step(cfg, params, state, pcm, mask, reset, seeds, rng)
+    _copy_into(state, new_state)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Host-side word assembly (a copy of the JAX module's, which imports jax)
 # ---------------------------------------------------------------------------

@@ -46,8 +46,10 @@ _K_DOT = ("      if (r < rows) {\n        float kv[16];",
           "      if (r < 0) {\n        float kv[16];")
 _V_DOT = (f"      unpack_i8({_LOAD}, vv);",
           "      for (int e = 0; e < 16; ++e) vv[e] = 0.f;")
-_OUT = "  float* out = part + ((int64_t)bh * n_split + sp) * (DH + 2);\n\n  if (tid == 0) {\n"
+_OUT = ("  float* out = part + ((int64_t)bh * n_split + sp) * (DH + 2);\n"
+        "  const long long pos = *pos_p;\n  const int w = (int)(pos % c);\n\n  if (tid == 0) {\n")
 _EMPTY = ("  float* out = part + ((int64_t)bh * n_split + sp) * (DH + 2);\n"
+          "  const long long pos = *pos_p;\n  const int w = (int)(pos % c);\n"
           "  if (tid < DH) out[tid] = 0.f;\n"
           "  if (tid == 0) { out[DH] = -INFINITY; out[DH + 1] = 0.f; }\n"
           "  if (true) return;\n\n  if (tid == 0) {\n")
@@ -59,8 +61,9 @@ _OVERLAP = ("attr.val.programmaticStreamSerializationAllowed = 1;",
 _STAGED = ("  decode_attend_staged_kernel<DH><<<blocks, kStagedThreads, (size_t)smem, s>>>(",
            "  decode_attend_partial_kernel<DH><<<blocks, kDaThreads, "
            "(size_t)dsm_decode_attend_split_smem_bytes(span, DH), s>>>(")
-_STAGED_ARGS = ("      h, c, n_split, span, pos, w, window, scale);",
-                "      h, c, n_split, span, kv_sb, kv_sh, (long long)h * c, c, pos, w, window, scale);")
+_STAGED_ARGS = ("      h, c, n_split, span, pos, window, scale);",
+                "      h, c, n_split, span, kv_sb, kv_sh, (long long)h * c, c, pos, window, "
+                "scale);")
 
 
 def _constant(name: str, value: int, new: int):
@@ -151,7 +154,7 @@ def run(names, device) -> list:
         q, k_new, v_new, k, v, ks, vs, valid = _inputs(g, b, h, c, dh, share, device)
         kq, vq, ksn, vsn = attn.quantize_kv_rows(k_new, v_new)
         plan = attn.global_ring_plan(pos, c, 1, device=device)
-        w = pos % c
+        pos_t, w = plan["pos"], pos % c
         r3 = [x[:, :, 0].contiguous() for x in (q, kq, vq, k_new, v_new)]
         n_split = dattn.pick_split(b * h, c)
         want = dattn.decode_attend_commit_plain(r3[0], k.clone(), v.clone(), ks, vs, *r3[1:],
@@ -189,7 +192,7 @@ def run(names, device) -> list:
                 err = fn(r3[0].data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
                          vs.data_ptr(), r3[1].data_ptr(), r3[2].data_ptr(), r3[3].data_ptr(),
                          r3[4].data_ptr(), valid.data_ptr(), part.data_ptr(), out.data_ptr(),
-                         b, h, c, dh, n_split, pos, w, window, 1.0 / math.sqrt(dh), 1,
+                         b, h, c, dh, n_split, pos_t.data_ptr(), window, 1.0 / math.sqrt(dh),
                          ctypes.c_void_p(_build.stream_ptr()))
                 if err:
                     raise RuntimeError(f"CUDA error {err}")
@@ -199,7 +202,7 @@ def run(names, device) -> list:
         sk, sv, sks, svs = k.clone(), v.clone(), ks.clone(), vs.clone()
 
         def split_pair():
-            rk.ring_commit(sk, sv, kq, vq, w, sks, svs, ksn, vsn)
+            rk.ring_commit(sk, sv, kq, vq, pos_t, sks, svs, ksn, vsn)
             return dattn.decode_attend(q, sk, sv, sks, svs, k_new, v_new, plan, valid,
                                        window=window)[:, :, 0]
 

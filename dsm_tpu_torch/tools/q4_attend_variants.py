@@ -50,6 +50,7 @@ from pathlib import Path
 import torch
 
 from ..ops import _build
+from ..ops import attention
 from ..ops import decode_attn as DA
 from .attn_kernel_tune import MEM_BYTES_PER_S, device_time_ms
 
@@ -87,12 +88,12 @@ def _skip(loop: str):
 
 _GRID = "  *blocks = max(1, per_sm) * sms;"
 _FOLD = ("  return launch_fold<DH>((unsigned)bh, s, q, k_new, v_new, part, out, n_split, scale, "
-         "nullptr,\n                         nullptr, nullptr, nullptr, h, kv_sb, kv_sh, w);")
+         "nullptr,\n                         nullptr, nullptr, nullptr, h, c, kv_sb, kv_sh, pos);")
 _FOLD_AFTER = ("  decode_attend_combine_kernel<DH><<<(unsigned)bh, DH, 0, s>>>(\n"
                "      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, "
                "(const __nv_bfloat16*)v_new,\n"
                "      (const float*)part, (__nv_bfloat16*)out, n_split, scale, nullptr, nullptr, "
-               "nullptr,\n      nullptr, h, kv_sb, kv_sh, w);\n  return cudaGetLastError();")
+               "nullptr,\n      nullptr, h, c, kv_sb, kv_sh, pos);\n  return cudaGetLastError();")
 _STAGES = "  static constexpr int kStages = DH == 64 ? 3 : 4;"
 _TILE = "  static constexpr int kTileBytes = DH == 64 ? 12288 : 8192;"
 
@@ -233,7 +234,7 @@ def run(names, device, parent=None) -> list:
         args = _inputs(g, b, h, c, dh, share, device)
         q, k, v, ks, vs, k_new, v_new, valid = args
         w = pos % c
-        plan = {"q_pos": [pos], "w": [w]}
+        plan = attention.global_ring_plan(pos, c, 1, device=device)
         j = torch.arange(c, device=device)
         dist = torch.remainder(w - j, c)
         attended = int((((dist != 0) & (dist <= pos) & (dist < window))[None] & valid).sum())
@@ -277,8 +278,9 @@ def run(names, device, parent=None) -> list:
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
                              vs.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
                              part.data_ptr(), out.data_ptr(), b, h, c, dh, 1, n_split,
-                             k.stride(0), k.stride(1), ks.stride(0), ks.stride(1), pos, w,
-                             window, 1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()))
+                             k.stride(0), k.stride(1), ks.stride(0), ks.stride(1),
+                             plan["pos"].data_ptr(), window, 1.0 / math.sqrt(dh),
+                             ctypes.c_void_p(_build.stream_ptr()))
                     if err:
                         raise RuntimeError(f"CUDA error {err}")
 

@@ -28,6 +28,12 @@ from dsm_tpu_torch.ops import transformer as T
 torch.set_num_threads(2)
 
 
+def tick(pos, dev=None):
+    """A position as the wrappers take it: the step's 0-d int32 tensor on the
+    rings' device."""
+    return torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -112,26 +118,29 @@ def test_wrappers_raise_for_non_cuda_devices():
     before = _launches()
     with pytest.raises(ValueError):
         RK.ring_commit(torch.empty(1, 1, 32, 8, device=m), torch.empty(1, 1, 32, 8, device=m),
-                       torch.empty(1, 1, 2, 8, device=m), torch.empty(1, 1, 2, 8, device=m), 0)
+                       torch.empty(1, 1, 2, 8, device=m), torch.empty(1, 1, 2, 8, device=m),
+                       tick(0, m))
     with pytest.raises(ValueError):
         RK.scale_commit(torch.empty(1, 1, 32, device=m), torch.empty(1, 1, 32, device=m),
-                        torch.empty(1, 1, 1, device=m), torch.empty(1, 1, 1, device=m), 0)
+                        torch.empty(1, 1, 1, device=m), torch.empty(1, 1, 1, device=m),
+                        tick(0, m))
     q, k_new, v_new, kc, vc, ks, vs, valid = (x.to(m) for x in _attn_inputs(
         torch.device("cpu"), 1, 8, 256, 64, 1.0, 0))
     kq, vq = kc[:, :, :1], vc[:, :, :1]
     with pytest.raises(ValueError):
         DA.decode_attend_commit(q, kc, vc, ks, vs, kq, vq, k_new, v_new,
-                                A.global_ring_plan(0, 256, 1), valid, window=250)
+                                A.global_ring_plan(0, 256, 1, device=m), valid, window=250)
     with pytest.raises(ValueError):
         DA.ca_decode_attend(q, kc, vc, ks, vs, 200)
     with pytest.raises(ValueError):
-        RK.ring_commit(kc, vc, kq, vq, 0, ks, vs, ks[:, :, :1], vs[:, :, :1])
+        RK.ring_commit(kc, vc, kq, vq, tick(0, m), ks, vs, ks[:, :, :1], vs[:, :, :1])
     with pytest.raises(ValueError):
-        DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, A.global_ring_plan(0, 256, 1),
-                         valid, window=250)
+        DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new,
+                         A.global_ring_plan(0, 256, 1, device=m), valid, window=250)
     with pytest.raises(ValueError):  # packed-int4 rings go to the kernel or raise as well
         DA.decode_attend(q, kc[..., :32].to(torch.uint8), vc[..., :32].to(torch.uint8), ks, vs,
-                         k_new, v_new, A.global_ring_plan(0, 256, 1), valid, window=250)
+                         k_new, v_new, A.global_ring_plan(0, 256, 1, device=m), valid,
+                         window=250)
     with pytest.raises(ValueError):
         AT.attn_tune(q[:, :, 0], kc, vc, ks, vs, k_new[:, :, 0], v_new[:, :, 0], valid, 300,
                      250, bb=1)
@@ -148,12 +157,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     np.testing.assert_allclose(y.numpy(), (x @ wq.float().T * sc).numpy(), atol=1e-5,
                                rtol=1e-5)
     z = torch.zeros(1, 2, 32, 8)
-    RK.ring_commit(z, z.clone(), torch.ones(1, 2, 2, 8), torch.ones(1, 2, 2, 8), 30)
+    RK.ring_commit(z, z.clone(), torch.ones(1, 2, 2, 8), torch.ones(1, 2, 2, 8), tick(30))
     assert z[:, :, 30:].eq(1).all() and z[:, :, :30].eq(0).all()
     q, k_new, v_new, kc, vc, ks, vs, valid = _attn_inputs(
         torch.device("cpu"), 1, 4, 256, 64, 1.0, 0)
     kq, vq, ksn, vsn = A.quantize_kv_rows(k_new, v_new)
-    RK.ring_commit(kc, vc, kq, vq, 7, ks, vs, ksn, vsn)
+    RK.ring_commit(kc, vc, kq, vq, tick(7), ks, vs, ksn, vsn)
     assert torch.equal(kc[:, :, 7], kq[:, :, 0]) and torch.equal(vs[:, :, 7], vsn[:, :, 0])
     y = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, A.global_ring_plan(7, 256, 1),
                          valid, window=250)
@@ -177,7 +186,7 @@ def test_ring_commit_kernel_matches_plain(cuda_device, dtype, w):
               for _ in range(2))
     kp, vp = kc.clone(), vc.clone()
     before = RK.ring_commit.launches
-    RK.ring_commit(kc, vc, kn, vn, w)
+    RK.ring_commit(kc, vc, kn, vn, tick(w, cuda_device))
     RK.ring_commit_plain(kp, vp, kn, vn, w)
     torch.cuda.synchronize()
     assert RK.ring_commit.launches == before + 1
@@ -195,7 +204,7 @@ def test_scale_commit_kernel_matches_plain(cuda_device, C, w):
     ksn, vsn = (torch.rand(64, 16, 1, generator=g, device=cuda_device) for _ in range(2))
     kp, vp = ks.clone(), vs.clone()
     before = RK.scale_commit.launches
-    RK.scale_commit(ks, vs, ksn, vsn, w)
+    RK.scale_commit(ks, vs, ksn, vsn, tick(w, cuda_device))
     RK.scale_commit_plain(kp, vp, ksn, vsn, w)
     torch.cuda.synchronize()
     assert RK.scale_commit.launches == before + 1
@@ -384,7 +393,7 @@ def test_ring_commit_q_kernel_matches_plain(cuda_device, B, H, C, Dh, w):
                         for shape in ((B, H, C),) * 2 + ((B, H, 1),) * 2)
     plain = [x.clone() for x in (kc, vc, ks, vs)]
     before = RK.ring_commit_q.launches, RK.ring_commit.launches
-    RK.ring_commit(kc, vc, kn, vn, w, ks, vs, ksn, vsn)
+    RK.ring_commit(kc, vc, kn, vn, tick(w, cuda_device), ks, vs, ksn, vsn)
     RK.ring_commit_plain(plain[0], plain[1], kn, vn, w, plain[2], plain[3], ksn, vsn)
     torch.cuda.synchronize()
     assert (RK.ring_commit_q.launches, RK.ring_commit.launches) == (before[0] + 1, before[1])
@@ -453,7 +462,7 @@ def test_split_kernels_raise_on_unsupported(cuda_device):
         DA.decode_attend(q[..., :64].float(), k[..., :64], k[..., :64], s, s,
                          q[..., :64], q[..., :64], plan, valid, window=250)
     with pytest.raises(ValueError):  # bf16 rings go to ring_commit without scales
-        RK.ring_commit(k.bfloat16(), k.bfloat16(), k[:, :, :1], k[:, :, :1], 0,
+        RK.ring_commit(k.bfloat16(), k.bfloat16(), k[:, :, :1], k[:, :, :1], plan["pos"],
                        s, s, s[:, :, :1], s[:, :, :1])
     # A uint8 ring is a packed-int4 ring of Dh/2 bytes a row, nothing else.
     packed = torch.zeros(2, 8, 256, 64, dtype=torch.uint8, device=cuda_device)
@@ -462,7 +471,7 @@ def test_split_kernels_raise_on_unsupported(cuda_device):
         DA.decode_attend(q[..., :64], packed, packed, s, s, q[..., :64], q[..., :64], plan,
                          valid, window=250)
     with pytest.raises(ValueError):  # int8 rows into a packed ring
-        RK.ring_commit(packed, packed, k[:, :, :1, :64], k[:, :, :1, :64], 0,
+        RK.ring_commit(packed, packed, k[:, :, :1, :64], k[:, :, :1, :64], plan["pos"],
                        s, s, s[:, :, :1], s[:, :, :1])
     # What the packed kernel's bulk copies refuse, before any launch: rows,
     # (b, h) strides or scales off 16 bytes, and K and V in different layouts.
@@ -772,7 +781,7 @@ def test_decode_attend_commit_kernel_in_span_order(cuda_device, B, H, C, Dh, pos
     split = DA.pick_split(B * H, C) if n_split is None else n_split
     rows = [x[:, :, 0].contiguous() for x in (q, kq, vq, k_new, v_new)]
     before = DA.decode_attend_commit.launches
-    runs = [DA._launch(rows[0], kc, vc, ks, vs, *rows[1:], valid, pos, pos % C, window,
+    runs = [DA._launch(rows[0], kc, vc, ks, vs, *rows[1:], valid, plan["pos"], window,
                        split) for _ in range(3)]
     torch.cuda.synchronize()
     assert DA.decode_attend_commit.launches == before + 3
@@ -806,7 +815,8 @@ def test_decode_attend_commit_takes_long_spans_and_raises_on_unsupported(cuda_de
                                       x[:, :, :254].contiguous()
                                       for x in (kc, vc, ks, vs, valid))
         DA.decode_attend_commit(q, kc2, vc2, ks2, vs2, kq, vq, k_new, v_new,
-                                A.global_ring_plan(7, 254, 1), valid2, window=250)
+                                A.global_ring_plan(7, 254, 1, device=cuda_device), valid2,
+                                window=250)
     with pytest.raises(ValueError):  # Dh = 96
         z = torch.zeros(2, 8, 1, 96, dtype=torch.bfloat16, device=cuda_device)
         r = torch.zeros(2, 8, 256, 96, dtype=torch.int8, device=cuda_device)
@@ -820,7 +830,8 @@ def test_decode_attend_commit_takes_long_spans_and_raises_on_unsupported(cuda_de
         ring = torch.zeros(1, 1, c, 64, dtype=torch.int8, device=cuda_device)
         sc = torch.ones(1, 1, c, device=cuda_device)
         args = (rows[0], ring, ring.clone(), sc, sc.clone(), *rows[1:],
-                torch.ones(1, c, dtype=torch.bool, device=cuda_device), c + 5, 5, c - 4, 1)
+                torch.ones(1, c, dtype=torch.bool, device=cuda_device),
+                tick(c + 5, cuda_device), c - 4, 1)
         if raises:
             with pytest.raises(ValueError):  # beyond the opt-in limit of a block
                 DA._launch(*args)
@@ -1165,7 +1176,7 @@ def test_ring_commit_q_kernel_takes_uint8_rows(cuda_device, B, H, C, Dh, w):
     orig = kc.clone()
     plain = [x.clone() for x in (kc, vc, ks, vs)]
     before = RK.ring_commit_q.launches
-    RK.ring_commit(kc, vc, kn, vn, w, ks, vs, ksn, vsn)
+    RK.ring_commit(kc, vc, kn, vn, tick(w, cuda_device), ks, vs, ksn, vsn)
     RK.ring_commit_plain(plain[0], plain[1], kn, vn, w, plain[2], plain[3], ksn, vsn)
     torch.cuda.synchronize()
     assert RK.ring_commit_q.launches == before + 1
@@ -1203,7 +1214,9 @@ def test_step_with_int4_rings_on_the_card(cuda_device, monkeypatch, heads, head_
     assert after[1] == before[1] and after[2] == before[2] and after[9] == before[9]
     assert after[11] - before[11] == 10  # the rope: one launch a layer
     wrapper = RK.quantize_commit
-    monkeypatch.setattr(DA, "_attend_launch", DA.decode_attend_plain)
+    # The seam takes (..., pos, window, n_split), the plain version w = pos % C too.
+    monkeypatch.setattr(DA, "_attend_launch", lambda *a: DA.decode_attend_plain(
+        *a[:-2], a[-3] % a[1].shape[2], *a[-2:]))
     monkeypatch.setattr(RK, "quantize_commit", RK.quantize_commit_plain)
     monkeypatch.setattr(RK, "rope_qk", RK.rope_qk_plain)
     for x, y in zip(xs, ys):
@@ -1475,7 +1488,7 @@ def test_quantize_commit_kernel_matches_plain(cuda_device, B, H, C, Dh, packed4)
         before = _launches()
         for _ in range(3):
             kern = [x.clone() for x in orig]
-            RK.quantize_commit(k, v, *kern, w)
+            RK.quantize_commit(k, v, *kern, tick(w, cuda_device))
             torch.cuda.synchronize()
             for got, want in zip(kern, plain):
                 assert _same_bits(got, want)
@@ -1503,7 +1516,7 @@ def test_quantize_scale_commit_kernel_matches_plain(cuda_device, B, H, C, Dh):
         before = _launches()
         for _ in range(3):
             kern = [x.clone() for x in orig]
-            got = RK.quantize_scale_commit(k, v, *kern, w)
+            got = RK.quantize_scale_commit(k, v, *kern, tick(w, cuda_device))
             torch.cuda.synchronize()
             for g, p in zip(got, want):
                 assert g.is_contiguous() and g.dtype == torch.int8 and g.shape == (B, H, 1, Dh)
@@ -1529,14 +1542,14 @@ def test_quantize_commit_kernel_takes_other_widths(cuda_device, Dh, packed4):
                        k_strided=True)
     orig = _rings(cuda_device, b, h, c, Dh // 2 if packed4 else Dh, packed4, seed=Dh)
     kern, plain = [x.clone() for x in orig], [x.clone() for x in orig]
-    RK.quantize_commit(k, v, *kern, w)
+    RK.quantize_commit(k, v, *kern, tick(w, cuda_device))
     RK.quantize_commit_plain(k, v, *plain, w)
     torch.cuda.synchronize()
     for got, want in zip(kern, plain):
         assert _same_bits(got, want)
     if not packed4:
         ks, vs = orig[2].clone(), orig[3].clone()
-        got = RK.quantize_scale_commit(k, v, ks, vs, w)
+        got = RK.quantize_scale_commit(k, v, ks, vs, tick(w, cuda_device))
         want = RK.quantize_scale_commit_plain(k, v, orig[2].clone(), orig[3].clone(), w)
         assert all(_same_bits(g, p) for g, p in zip(got, want))
 
@@ -1547,20 +1560,23 @@ def test_quantize_commit_kernels_raise_on_unsupported(cuda_device):
     k, v = _fresh_rows(cuda_device, 2, 4, 64, 127.0, seed=0)
     rings = _rings(cuda_device, 2, 4, 16, 64, False, seed=0)
     before = _launches()
+    pos = tick(3, cuda_device)
     with pytest.raises(ValueError, match="Dh a multiple"):  # 12 bytes a row: not 8 lanes' worth
         RK.quantize_commit(k[..., :12], v[..., :12], rings[0][..., :12].contiguous(),
-                           rings[1][..., :12].contiguous(), *rings[2:], 3)
+                           rings[1][..., :12].contiguous(), *rings[2:], pos)
     with pytest.raises(ValueError, match="bf16 rows"):
-        RK.quantize_commit(k.float(), v.float(), *rings, 3)
+        RK.quantize_commit(k.float(), v.float(), *rings, pos)
     off = torch.zeros(k.numel() + 8, dtype=k.dtype, device=cuda_device)[4:4 + k.numel()]
     with pytest.raises(ValueError, match="16 bytes"):  # rows 8 bytes off 16
-        RK.quantize_commit(off.view_as(k), v, *rings, 3)
+        RK.quantize_commit(off.view_as(k), v, *rings, pos)
     with pytest.raises(ValueError, match="do not fit"):  # a packed ring of Dh bytes a row
-        RK.quantize_commit(k, v, *_rings(cuda_device, 2, 4, 16, 64, True, seed=1), 3)
-    with pytest.raises(ValueError, match="w % T"):
-        RK.quantize_scale_commit(k, v, *rings[2:], 16)
+        RK.quantize_commit(k, v, *_rings(cuda_device, 2, 4, 16, 64, True, seed=1), pos)
+    with pytest.raises(ValueError, match="0-d int32 tensor"):  # a host int
+        RK.quantize_scale_commit(k, v, *rings[2:], 3)
+    with pytest.raises(ValueError, match="the position is on cpu"):
+        RK.quantize_scale_commit(k, v, *rings[2:], tick(3))
     with pytest.raises(ValueError, match="f32 scale rings"):
-        RK.quantize_scale_commit(k, v, rings[2].double(), rings[3].double(), 3)
+        RK.quantize_scale_commit(k, v, rings[2].double(), rings[3].double(), pos)
     assert _launches() == before
 
 
@@ -1573,10 +1589,11 @@ def test_quantize_commit_wrappers_raise_for_non_cuda_devices():
     with pytest.raises(ValueError):
         RK.quantize_commit(k, k, torch.empty(1, 8, 32, 64, dtype=torch.int8, device=m),
                            torch.empty(1, 8, 32, 64, dtype=torch.int8, device=m),
-                           torch.empty(1, 8, 32, device=m), torch.empty(1, 8, 32, device=m), 0)
+                           torch.empty(1, 8, 32, device=m), torch.empty(1, 8, 32, device=m),
+                           tick(0, m))
     with pytest.raises(ValueError):
         RK.quantize_scale_commit(k, k, torch.empty(1, 8, 32, device=m),
-                                 torch.empty(1, 8, 32, device=m), 0)
+                                 torch.empty(1, 8, 32, device=m), tick(0, m))
     assert _launches() == before
 
 
@@ -1584,11 +1601,11 @@ def test_quantize_commit_on_cpu_tensors_takes_the_plain_version():
     k, v = _fresh_rows(torch.device("cpu"), 2, 4, 64, 127.0, seed=0)
     rings = _rings(torch.device("cpu"), 2, 4, 16, 64, False, seed=0)
     before = _launches()
-    RK.quantize_commit(k, v, *rings, 5)
+    RK.quantize_commit(k, v, *rings, tick(5))
     kq, vq, ksn, vsn = A.quantize_kv_rows(k, v)
     assert torch.equal(rings[0][:, :, 5], kq[:, :, 0]) and torch.equal(rings[1][:, :, 5],
                                                                       vq[:, :, 0])
-    got = RK.quantize_scale_commit(k, v, rings[2], rings[3], 6)
+    got = RK.quantize_scale_commit(k, v, rings[2], rings[3], tick(6))
     assert torch.equal(got[0], kq) and _same_bits(rings[3][:, :, 6], vsn[:, :, 0])
     assert _launches() == before
 
@@ -1635,7 +1652,7 @@ def test_rope_commit_kernel_matches_plain(cuda_device, B, H, C, T, Dh, dtype, pe
         before = _launches()
         for _ in range(3):
             kern = [x.clone() for x in orig]
-            got = RK.rope_commit(q, k, v, *kern, cos, sin, w)
+            got = RK.rope_commit(q, k, v, *kern, cos, sin, tick(w, cuda_device))
             torch.cuda.synchronize()
             assert all(x.is_contiguous() and x.dtype == dtype for x in got)
             for a, p in zip(list(got) + kern, list(want) + plain):
@@ -1668,27 +1685,31 @@ def test_rope_qk_kernel_matches_plain(cuda_device, B, H, Dh):
 
 @pytest.mark.cuda
 def test_rope_commit_wrappers_raise_on_unsupported(cuda_device):
-    """CPU rings given CUDA rows, a bad ``w``, cos of another dtype or
-    shape, rows of two dtypes or an odd Dh: each raises before any launch."""
+    """CPU rings given CUDA rows, a host int for the position or one on the
+    CPU, cos of another dtype or shape, rows of two dtypes or an odd Dh: each
+    raises before any launch."""
     q, k, v, cos, sin = _rope_rows(cuda_device, 2, 4, 2, 64, torch.bfloat16, seed=0)
     rings = [torch.zeros(2, 4, 32, 64, dtype=torch.bfloat16, device=cuda_device)
              for _ in range(2)]
     before = _launches()
+    pos = tick(0, cuda_device)
     with pytest.raises(ValueError, match="not the CUDA device"):
-        RK.rope_commit(q, k, v, *(r.cpu() for r in rings), cos, sin, 0)
+        RK.rope_commit(q, k, v, *(r.cpu() for r in rings), cos, sin, pos)
     with pytest.raises(ValueError, match="not the CUDA device"):
         RK.rope_qk(q, k, cos.cpu(), sin.cpu())
     for w in (1, 31, 32):
-        with pytest.raises(ValueError, match="w % T"):
+        with pytest.raises(ValueError, match="0-d int32 tensor"):
             RK.rope_commit(q, k, v, *rings, cos, sin, w)
+        with pytest.raises(ValueError, match="the position is on cpu"):
+            RK.rope_commit(q, k, v, *rings, cos, sin, tick(w))
     with pytest.raises(ValueError, match="f32"):
-        RK.rope_commit(q, k, v, *rings, cos.double(), sin.double(), 0)
+        RK.rope_commit(q, k, v, *rings, cos.double(), sin.double(), pos)
     with pytest.raises(ValueError, match="f32"):
         RK.rope_qk(q, k, cos[:, :1], sin[:, :1])
     with pytest.raises(ValueError, match="one dtype"):
         RK.rope_qk(q, k.float(), cos, sin)
     with pytest.raises(ValueError, match="do not fit"):
-        RK.rope_commit(q, k, v, *(r[..., :32].contiguous() for r in rings), cos, sin, 0)
+        RK.rope_commit(q, k, v, *(r[..., :32].contiguous() for r in rings), cos, sin, pos)
     with pytest.raises(ValueError, match="even Dh"):
         RK.rope_qk(q[..., :63], k[..., :63], cos[..., :31].contiguous(),
                    sin[..., :31].contiguous())
@@ -1704,7 +1725,7 @@ def test_rope_commit_wrappers_raise_for_non_cuda_devices():
     ring = torch.empty(1, 8, 32, 64, device=m)
     before = _launches()
     with pytest.raises(ValueError):
-        RK.rope_commit(x, x, x, ring, ring, cs, cs, 0)
+        RK.rope_commit(x, x, x, ring, ring, cs, cs, tick(0, m))
     with pytest.raises(ValueError):
         RK.rope_qk(x, x, cs, cs)
     assert _launches() == before
@@ -1714,7 +1735,7 @@ def test_rope_commit_on_cpu_tensors_takes_the_plain_version():
     q, k, v, cos, sin = _rope_rows(torch.device("cpu"), 2, 4, 2, 64, torch.float32, seed=0)
     rings = [torch.zeros(2, 4, 32, 64) for _ in range(2)]
     before = _launches()
-    qr, kr = RK.rope_commit(q, k, v, *rings, cos, sin, 6)
+    qr, kr = RK.rope_commit(q, k, v, *rings, cos, sin, tick(6))
     assert torch.equal(qr, A.apply_rope(q, cos, sin)) and torch.equal(kr, A.apply_rope(k, cos, sin))
     assert torch.equal(rings[0][:, :, 6:8], kr) and torch.equal(rings[1][:, :, 6:8], v)
     assert all(torch.equal(a, b) for a, b in zip(RK.rope_qk(q, k, cos, sin), (qr, kr)))
@@ -1751,3 +1772,175 @@ def test_step_folds_the_rope_into_the_commit_on_the_card(cuda_device, monkeypatc
         assert _same_bits(y, yr)
     for lt, lr in zip(st["layers"], ref["layers"]):
         assert _same_bits(lt["k"], lr["k"]) and _same_bits(lt["v"], lr["v"])
+
+
+# ---------------------------------------------------------------------------
+# The position in device memory, and the ASR step as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ring_commit", "ring_commit_q", "scale_commit",
+                                    "quantize_commit", "quantize_scale_commit", "rope_commit"])
+def test_commit_kernels_read_the_position_from_the_card(cuda_device, kernel):
+    """Each commit kernel reads the step's tick from device memory and writes
+    rows ``tick % C`` on: at w = 0, mid and C - 1 (C - T for rope_commit),
+    the tick held at w + 3C, bit for bit the plain version's at w."""
+    dev = cuda_device
+    b, h, c, dh = 8, 4, 256, 64
+    t = 2 if kernel == "rope_commit" else 1
+    g = torch.Generator(device=dev).manual_seed(len(kernel))
+    k, v = _fresh_rows(dev, b, h, dh, 127.0, seed=3)
+    kn8, vn8, ksn, vsn = A.quantize_kv_rows(k, v)
+    for w in (0, c // 2, c - t):
+        tick_t = tick(w + 3 * c, dev)
+        if kernel in ("ring_commit", "rope_commit"):
+            rings = [torch.randn(b, h, c, dh, generator=g, device=dev).bfloat16()
+                     for _ in range(2)]
+        else:
+            rings = _rings(dev, b, h, c, dh, False, seed=w)
+            if kernel in ("scale_commit", "quantize_scale_commit"):
+                rings = rings[2:]
+        kern, plain = [x.clone() for x in rings], [x.clone() for x in rings]
+        if kernel == "ring_commit":
+            rows = [torch.randn(b, h, 1, dh, generator=g, device=dev).bfloat16()
+                    for _ in range(2)]
+            RK.ring_commit(*kern, *rows, tick_t)
+            RK.ring_commit_plain(*plain, *rows, w)
+        elif kernel == "ring_commit_q":
+            RK.ring_commit(kern[0], kern[1], kn8, vn8, tick_t, kern[2], kern[3], ksn, vsn)
+            RK.ring_commit_plain(plain[0], plain[1], kn8, vn8, w, plain[2], plain[3], ksn, vsn)
+        elif kernel == "scale_commit":
+            RK.scale_commit(*kern, ksn, vsn, tick_t)
+            RK.scale_commit_plain(*plain, ksn, vsn, w)
+        elif kernel == "quantize_commit":
+            RK.quantize_commit(k, v, *kern, tick_t)
+            RK.quantize_commit_plain(k, v, *plain, w)
+        elif kernel == "quantize_scale_commit":
+            got = RK.quantize_scale_commit(k, v, *kern, tick_t)
+            want = RK.quantize_scale_commit_plain(k, v, *plain, w)
+            assert all(_same_bits(a, p) for a, p in zip(got, want))
+        else:
+            q, kk, vv, cos, sin = _rope_rows(dev, b, h, t, dh, torch.bfloat16, seed=w)
+            got = RK.rope_commit(q, kk, vv, *kern, cos, sin, tick_t)
+            want = RK.rope_commit_plain(q, kk, vv, *plain, cos, sin, w)
+            assert all(_same_bits(a, p) for a, p in zip(got, want))
+        torch.cuda.synchronize()
+        for a, p, r in zip(kern, plain, rings):
+            assert _same_bits(a, p)
+            assert not _same_bits(a, r)  # a row was written
+
+
+def _small_asr(dev, d_model, heads, w8a8, kv_bits):
+    """The smoke TOML's ASR module at B = 8, 2 LM layers of ``heads`` heads
+    over a 128-row int8 ring (context 120), the codec at full size (a 256-row
+    ring, 2 rows a step), built for the card: int8 LM weights (W8A8 or
+    weight-only), int8 or packed-int4 rings."""
+    import dataclasses
+    import tomllib
+
+    from dsm_tpu_torch.server import builder as B
+    from dsm_tpu_torch.server import config as CFG
+
+    with open("configs/config-smoke.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = raw["modules"]["asr"]
+    mod.update(batch_size=8, w8a8=w8a8)
+    mod["model"]["transformer"].update(d_model=d_model, num_heads=heads, num_layers=2,
+                                       dim_feedforward=768, context=120)
+    built = B.build_batched_asr(CFG.Config.from_dict(raw).modules["asr"], dev, cuda_graph=False)
+    return dataclasses.replace(built.cfg, kv_bits=kv_bits), built.params
+
+
+def _traffic(b, frame, steps, seed):
+    """Inputs of ``steps`` engine ticks: slots open (with a reset) and close,
+    partial masks."""
+    rng = np.random.default_rng(seed)
+    active = rng.uniform(size=b) < 0.7
+    for i in range(steps):
+        opening = ~active & (rng.uniform(size=b) < 0.15)
+        closing = active & (rng.uniform(size=b) < 0.05)
+        reset = opening | (active & (i == 0))
+        active = (active | opening) & ~closing
+        mask = active & (rng.uniform(size=b) < 0.9)
+        yield (rng.standard_normal((b, 1, frame)) * 0.1).astype(np.float32), mask, reset
+
+
+def _tree_same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_same(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_tree_same(x, y) for x, y in zip(a, b))
+    return _same_bits(a, b)
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_clone(v) for v in tree]
+    return tree.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_model,heads,w8a8,kv_bits", [
+    (1024, 8, True, 8), (512, 8, False, 8), (1024, 8, True, 4)],
+    ids=["fused-w8a8", "split-qmm", "int4"])
+def test_captured_asr_step_equals_the_eager_step(cuda_device, d_model, heads, w8a8, kv_bits):
+    """``BatchedAsrEngine`` captures its step once and replays it; from one
+    state the eager ``ASR.step`` beside it over 160 steps (both rings wrap),
+    slots opened, closed and reset, partial masks: every step's outputs and
+    the whole state bit for bit, each replay's outputs still equal after the
+    next replay, and the state's buffers the same from start to end."""
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.sessions import asr as ASR
+
+    cfg, params = _small_asr(cuda_device, d_model, heads, w8a8, kv_bits)
+    eng = BatchedAsrEngine(cfg, params, batch_size=8, device=cuda_device, fill_gate_frac=0.0)
+    assert eng.cuda_graph and eng._graph is None
+    with pytest.raises(RuntimeError, match="not captured"):
+        eng._invoke_step(np.zeros((8, 1, eng.frame_size), np.float32),
+                         np.zeros(8, bool), np.zeros(8, bool))
+    eng.warmup()
+    assert eng._graph is not None
+    ptrs = [t.data_ptr() for t in _tensors(eng.state)]
+    ref = _tree_clone(eng.state)
+    seeds = torch.as_tensor(eng._seeds, device=cuda_device)
+    prev = None
+    with torch.inference_mode():
+        for pcm, mask, reset in _traffic(8, eng.frame_size, 160, seed=d_model + kv_bits):
+            got = eng._invoke_step(pcm, mask, reset)
+            want, ref = ASR.step(cfg, params, ref, *(torch.as_tensor(x, device=cuda_device)
+                                                     for x in (pcm, mask, reset)), seeds=seeds)
+            for key in ("text_token", "step_idx", "prs", "codes"):
+                assert _same_bits(got[key], want[key]), key
+            if prev is not None:  # the last replay's outputs survived this one
+                assert all(_same_bits(prev[0][k], prev[1][k]) for k in prev[0])
+            prev = (got, want)
+    assert int(ref["lm"]["t"]["pos"]) > 128 and int(ref["mimi_enc"]["enc_t"]["pos"]) > 256
+    assert _tree_same(eng.state, ref)
+    assert [t.data_ptr() for t in _tensors(eng.state)] == ptrs
+
+
+@pytest.mark.cuda
+def test_asr_step_body_makes_no_host_sync(cuda_device):
+    """The fixed-buffer step (the body the engine captures) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the card,
+    so nothing the host reads back can go stale in a replay."""
+    from dsm_tpu_torch.sessions import asr as ASR
+
+    cfg, params = _small_asr(cuda_device, 1024, 8, True, 8)
+    state = ASR.init_state(cfg, 8, torch.bfloat16, cuda_device)
+    pcm = torch.randn(8, 1, cfg.mimi.frame_size, device=cuda_device) * 0.1
+    mask = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    seeds = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    with torch.inference_mode():
+        ASR.step_in_place(cfg, params, state, pcm, mask, mask, seeds=seeds)  # lazy constants
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                ASR.step_in_place(cfg, params, state, pcm, mask, ~mask, seeds=seeds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(state["lm"]["t"]["pos"]) == 4

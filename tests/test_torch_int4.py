@@ -120,8 +120,8 @@ def test_ring_commit_uint8_rows_bit_exact(w):
                            *map(jnp.asarray, scales), *map(jnp.asarray, new_s), interpret=True)
     t_rings = [torch.from_numpy(x.copy()) for x in rings]
     t_scales = [torch.from_numpy(x.copy()) for x in scales]
-    trk.ring_commit(*t_rings, *map(torch.from_numpy, rows), w, *t_scales,
-                    *map(torch.from_numpy, new_s))
+    trk.ring_commit(*t_rings, *map(torch.from_numpy, rows), torch.tensor(w, dtype=torch.int32),
+                    *t_scales, *map(torch.from_numpy, new_s))
     for got, ref in zip(t_rings + t_scales, want):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert t_rings[0].dtype == torch.uint8

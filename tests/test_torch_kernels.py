@@ -32,6 +32,11 @@ def as_np(x):
     return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
 
 
+def tick(pos):
+    """A position as the wrappers take it: the step's 0-d int32 tensor."""
+    return torch.tensor(pos, dtype=torch.int32)
+
+
 def pair(a, dtype):
     j = jnp.asarray(a).astype(dtype)
     return j, bridge.to_tensor(np.asarray(j))
@@ -54,16 +59,26 @@ def test_ring_commit_plain_matches_pallas(dtype, w):
     b, h, c, t, dh = 2, 8, 256, 2, 64  # the Mimi ring at B=2
     kc, vc, kn, vn = (pair(a, dtype) for a in _commit_inputs(b, h, c, t, dh, dtype, w))
     kj, vj = jrk.ring_commit(kc[0], vc[0], kn[0], vn[0], w, interpret=True)
-    trk.ring_commit(kc[1], vc[1], kn[1], vn[1], w)
+    trk.ring_commit(kc[1], vc[1], kn[1], vn[1], tick(w))
     np.testing.assert_array_equal(as_np(kc[1]), as_np(kj))
     np.testing.assert_array_equal(as_np(vc[1]), as_np(vj))
 
 
 @pytest.mark.parametrize("w", [1, 255, 256])
 def test_ring_commit_rejects_misaligned_rows(w):
+    """A host int is refused (the wrappers take the step's device tick); a
+    tick that is not a multiple of T is refused; 256 is a later tick whose
+    rows wrap to row 0."""
     z = torch.zeros(1, 1, 256, 8)
+    rows = torch.ones(1, 1, 2, 8)
     with pytest.raises(ValueError):
-        trk.ring_commit(z, z.clone(), torch.zeros(1, 1, 2, 8), torch.zeros(1, 1, 2, 8), w)
+        trk.ring_commit(z, z.clone(), rows, rows, w)
+    if w % 2:
+        with pytest.raises(ValueError):
+            trk.ring_commit(z, z.clone(), rows, rows, tick(w))
+    else:
+        trk.ring_commit(z, z.clone(), rows, rows, tick(w))
+        assert z[:, :, :2].eq(1).all() and not z[:, :, 2:].any()
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +93,7 @@ def test_scale_commit_plain_matches_pallas(w):
     ks, vs = pair(rng.uniform(size=(b, h, c)), "float32"), pair(rng.uniform(size=(b, h, c)), "float32")
     ksn, vsn = pair(rng.uniform(size=(b, h, 1)), "float32"), pair(rng.uniform(size=(b, h, 1)), "float32")
     kj, vj = jrk.scale_commit(ks[0], vs[0], ksn[0], vsn[0], w, interpret=True)
-    trk.scale_commit(ks[1], vs[1], ksn[1], vsn[1], w)
+    trk.scale_commit(ks[1], vs[1], ksn[1], vsn[1], tick(w))
     np.testing.assert_array_equal(ks[1].numpy(), np.asarray(kj))
     np.testing.assert_array_equal(vs[1].numpy(), np.asarray(vj))
 
@@ -129,7 +144,7 @@ def test_decode_attend_commit_plain_matches_pallas(B, H, C, Dh, pos, window, val
     tplan = tattn.global_ring_plan(pos, C, 1)
 
     ksj, vsj = jrk.scale_commit(j["ks"], j["vs"], ksnj, vsnj, jplan["w"][0], interpret=True)
-    trk.scale_commit(t["ks"], t["vs"], ksnt, vsnt, tplan["w"][0])
+    trk.scale_commit(t["ks"], t["vs"], ksnt, vsnt, tplan["pos"])
     np.testing.assert_array_equal(t["ks"].numpy(), np.asarray(ksj))
     np.testing.assert_array_equal(t["vs"].numpy(), np.asarray(vsj))
 
@@ -175,21 +190,24 @@ def test_ring_commit_q_plain_matches_pallas(B, H, C, Dh, w):
     assert jrk.supported(kc[0], kn[0], True)
     want = jrk.ring_commit(kc[0], vc[0], kn[0], vn[0], w, ks[0], vs[0], ksn[0], vsn[0],
                            interpret=True)
-    trk.ring_commit(kc[1], vc[1], kn[1], vn[1], w, ks[1], vs[1], ksn[1], vsn[1])
+    trk.ring_commit(kc[1], vc[1], kn[1], vn[1], tick(w), ks[1], vs[1], ksn[1], vsn[1])
     for got, ref in zip((kc[1], vc[1], ks[1], vs[1]), want):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert trk.ring_commit_q.launches == 0  # CPU tensors: the plain version
 
 
 def test_ring_commit_q_keeps_the_semantic_conditions_only():
-    """Any B (the JAX kernel's batch block refuses 24), no tiling terms; a
-    row past the ring's end is refused."""
+    """Any B (the JAX kernel's batch block refuses 24), no tiling terms; the
+    tick past the ring's end writes row ``tick % C``; a host int is refused."""
     kc = torch.zeros(24, 3, 40, 12, dtype=torch.int8)
     ks = torch.zeros(24, 3, 40)
     kn = torch.ones(24, 3, 1, 12, dtype=torch.int8)
-    trk.ring_commit(kc, kc.clone(), kn, kn, 39, ks, ks.clone(), ks[:, :, :1] + 2,
+    trk.ring_commit(kc, kc.clone(), kn, kn, tick(39), ks, ks.clone(), ks[:, :, :1] + 2,
                     ks[:, :, :1] + 2)
     assert kc[:, :, 39].eq(1).all() and not kc[:, :, :39].any() and ks[:, :, 39].eq(2).all()
+    trk.ring_commit(kc, kc.clone(), kn + 1, kn, tick(40), ks, ks.clone(), ks[:, :, :1] + 3,
+                    ks[:, :, :1])
+    assert kc[:, :, 0].eq(2).all() and ks[:, :, 0].eq(3).all() and kc[:, :, 39].eq(1).all()
     with pytest.raises(ValueError):
         trk.ring_commit(kc, kc.clone(), kn, kn, 40, ks, ks.clone(), ks[:, :, :1],
                         ks[:, :, :1])
@@ -236,7 +254,7 @@ def test_decode_attend_plain_matches_pallas_flash_and_xla(B, H, C, Dh, pos, wind
                                 j["valid"], window=window, interpret=True)
 
     kqt, vqt, ksnt, vsnt = tattn.quantize_kv_rows(t["k_new"], t["v_new"])
-    trk.ring_commit(t["kc"], t["vc"], kqt, vqt, tplan["w"][0], t["ks"], t["vs"], ksnt, vsnt)
+    trk.ring_commit(t["kc"], t["vc"], kqt, vqt, tplan["pos"], t["ks"], t["vs"], ksnt, vsnt)
     np.testing.assert_array_equal(t["kc"].numpy(), np.asarray(kc2))
     np.testing.assert_array_equal(t["vs"].numpy(), np.asarray(vs2))
     y = tda.decode_attend(t["q"], t["kc"], t["vc"], t["ks"], t["vs"], t["k_new"],

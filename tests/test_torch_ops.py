@@ -170,7 +170,7 @@ def test_attend_global_split_matches_jax(t, pos, quant):
     jplan = jattn.global_ring_plan(jnp.int32(pos), c, t)
     tplan = tattn.global_ring_plan(pos, c, t)
     np.testing.assert_array_equal(tplan["k_pos"].numpy(), np.asarray(jplan["k_pos"]))
-    assert tplan["w"] == [int(x) for x in jplan["w"]]
+    assert tplan["w"].tolist() == [int(x) for x in jplan["w"]]
     args_j = {k: v[0] for k, v in p.items()}
     args_t = {k: v[1] for k, v in p.items()}
     if quant:

@@ -119,7 +119,8 @@ def test_quantize_commit_plain_matches_quantize_and_ring_commit_q(B, H, C, Dh, p
         np.testing.assert_array_equal(g.numpy()[:, :, keep], ring[:, :, keep])
     before = trk.quantize_commit.launches
     again = [torch.from_numpy(x.copy()) for x in rings]
-    trk.quantize_commit(tk, tv, *again, w)  # CPU tensors: the plain version, no launch
+    # CPU tensors: the plain version, no launch; the position a 0-d int32 tensor.
+    trk.quantize_commit(tk, tv, *again, torch.tensor(w, dtype=torch.int32))
     assert trk.quantize_commit.launches == before
     for g, ref in zip(again, got):
         _assert_same(g, ref.numpy())
@@ -142,7 +143,8 @@ def test_quantize_scale_commit_plain_matches_quantize_and_scale_commit(B, H, C, 
         _assert_same(g, ref)
     before = trk.quantize_scale_commit.launches
     again = [torch.from_numpy(x.copy()) for x in rings]
-    rows = trk.quantize_scale_commit(tk, tv, *again, w)  # CPU: the plain version
+    rows = trk.quantize_scale_commit(tk, tv, *again,
+                                     torch.tensor(w, dtype=torch.int32))  # CPU: the plain version
     assert trk.quantize_scale_commit.launches == before
     for g, ref in zip(list(rows) + again, [tkq, tvq] + got):
         _assert_same(g, ref.numpy())

@@ -106,7 +106,7 @@ def test_rope_commit_plain_matches_rope_and_ring_commit(dtype, T, Dh, where):
     # CPU tensors: the wrapper takes the plain version and launches nothing.
     before = trk.rope_commit.launches
     again = [x.clone() for x in trings]
-    q2, k2 = trk.rope_commit(tq, tk, tv, *again, ct, st, w)
+    q2, k2 = trk.rope_commit(tq, tk, tv, *again, ct, st, torch.tensor(w, dtype=torch.int32))
     assert trk.rope_commit.launches == before
     for a, b_ in zip([q2, k2] + again, [qt, kt] + got):
         assert torch.equal(a, b_)
@@ -128,12 +128,20 @@ def test_rope_qk_plain_matches_the_jitted_rope(dtype, Dh):
 
 
 def test_rope_commit_raises_on_a_bad_w():
+    """The position is the step's 0-d int32 tick: a host int is refused, and
+    so is a tick that is not a multiple of T or is negative; tick 32 of a
+    32-row ring writes rows 0 and 1."""
     (tq, tk, tv), _ = _qkv_views(2, 4, 2, 64, torch.float32, seed=0)
     _, (ct, st) = _cos_sin(2, 2, 64, 0)
     rings = [torch.zeros(2, 4, 32, 64) for _ in range(2)]
     for w in (1, 31, 32, -2):
-        with pytest.raises(ValueError, match="w % T"):
+        with pytest.raises(ValueError, match="0-d int32 tensor"):
             trk.rope_commit(tq, tk, tv, *rings, ct, st, w)
+    for w in (1, 31, -2):
+        with pytest.raises(ValueError, match="pos % T"):
+            trk.rope_commit(tq, tk, tv, *rings, ct, st, torch.tensor(w, dtype=torch.int32))
+    trk.rope_commit(tq, tk, tv, *rings, ct, st, torch.tensor(32, dtype=torch.int32))
+    assert torch.equal(rings[1][:, :, :2], tv) and not rings[1][:, :, 2:].any()
 
 
 def _route_counts(monkeypatch):
