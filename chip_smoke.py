@@ -78,7 +78,22 @@ lines each:
    step, the DepFormer and the Mimi decode step are timed at 64 active
    slots, with a kernel profile, and the LM step with the voice store and
    the Mimi decode step from that state are held against the same steps
-   through the kernels' plain versions (``[tts-path]``);
+   through the kernels' plain versions (``[tts-path]``).  This engine runs
+   the eager tick (``cuda_graph=False``), so that the wrappers count every
+   launch; ``[graph-tts]`` (and ``[graph-tts202501]`` after ``[tts202501]``)
+   runs ``BatchedTtsEngine`` as ``build_batched_tts`` makes it on CUDA, its
+   tick (the TTS step, the DepFormer, the gated Mimi decode, the packing)
+   captured once as a CUDA graph and replayed every tick: it serves the same
+   16 sessions with the eager engine's events (words, times, every frame bit
+   for bit), its launches counted over its warm-up and capture (a replay
+   counts none); the eager and the captured tick are timed at 64 active slots
+   (host ms, device busy share, launches and kernel ms from a profile, peak
+   memory with the graph's pool); then the replay is held to the eager
+   ``TTS.step`` + ``MIMI.decode_step`` from one state over GRAPH_TICKS ticks
+   (past a wrap of the LM ring and the Mimi decoder's ring; slots opened,
+   closed and reset, partial masks, a voice written and a pad overwrite
+   between replays): the packed array bit for bit at every tick, the whole
+   state every 40 ticks and at the end;
 7. duplex: the batched full-duplex dialogue engine from
    configs/config-duplex-tpu-serving.toml (s2s-2b: d=2560, 24 layers, 20
    heads x 128, context 3000, 16 + 16 codebooks, DepFormer 16 slices x 6
@@ -2537,27 +2552,22 @@ def _median_ms(fn, n: int = 10, warmup: int = 3):
     return statistics.median(ts), min(ts), max(ts)
 
 
-def phase_tts(dev, card, preset=None):
-    """The batched TTS engine from configs/config-tts-tpu-serving.toml;
-    ``preset = "tts_202501"`` puts that model in place of the TOML's (no TOML
-    of it is in the repository) and tags the lines ``[tts202501]``."""
+def _tts_counters(per_tick):
+    from dsm_tpu_torch.ops import decode_attn as DA
+
+    counters = {**_duplex_counters(), "ca_decode_attend": DA.ca_decode_attend}
+    return {name: counters[name] for name in per_tick}
+
+
+def _tts_module(tag, preset=None):
+    """configs/config-tts-tpu-serving.toml's TTS module with ``fuse_ticks``
+    and ``pipeline_depth`` set to 1 (the single-tick path the port serves);
+    ``preset`` puts that ``LM`` preset in place of the TOML's model."""
     import dataclasses
 
-    import numpy as np
-    import torch
-
-    from dsm_tpu_torch.ops import decode_attn as DA
-    from dsm_tpu_torch.ops import ring_kernels as RK
-    from dsm_tpu_torch.server import builder
-    from dsm_tpu_torch.server import config as CFG
-    from dsm_tpu_torch.server.voices import VoiceResolver
-
     from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.server import config as CFG
 
-    tag = "tts202501" if preset else "tts"
-    per_tick = PER_TICK_TTS202501 if preset else PER_TICK_TTS
-    counters = {**_duplex_counters(), "ca_decode_attend": DA.ca_decode_attend}
-    counters = {name: counters[name] for name in per_tick}
     path = os.path.join(ROOT, "configs", "config-tts-tpu-serving.toml")
     mod = CFG.Config.load(path).modules["tts"]
     model = f"its lm replaced by the preset LM.{preset}()" if preset else "its own model"
@@ -2569,9 +2579,85 @@ def phase_tts(dev, card, preset=None):
     mod.raw["pipeline_depth"] = 1
     if preset:
         mod = dataclasses.replace(mod, lm=getattr(LM, preset)())
+    return mod
+
+
+def _tts_voices(engine):
+    """Seeded random voices: 5 speakers x 125 frames of the conditioning width."""
+    import numpy as np
+
+    from dsm_tpu_torch.server.voices import VoiceResolver
+
+    rng = np.random.default_rng(5)
+    n_rows = 125 * engine.cfg.speaker_cond_n_speakers
+    engine.voices = VoiceResolver(preloaded={
+        f"spk{i}": rng.standard_normal((n_rows, engine.cfg.speaker_cond_dim)).astype(np.float32)
+        for i in range(8)})
+
+
+def _tts_serve(engine, preset):
+    """The TTS workload: 12 sessions (8 with voices), wordless sessions in the
+    other slots, then 4 more sessions with voices in slots freed by closed
+    ones; every session ends, every word comes back, every frame is whole
+    and finite -> ``(sessions, second, idle, frames)``."""
+    sessions = {}
+    texts = TTS_SHORT_TEXTS if preset else TTS_TEXTS
+    for sid in range(12):
+        _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions, texts=texts)
+    # Wordless sessions fill the other slots (pad or end-of-word each tick),
+    # so the last 4 sessions can only land in slots freed by closed ones.
+    idle = {}
+    for i in range(engine.batch_size - engine.used_slots()):
+        _tts_open(engine, 100 + i, None, idle, words=False)
+    check(engine.used_slots() == engine.batch_size, "TTS slots left free")
+    first = {sid: sessions[sid] for sid in range(12)}
+    _tts_drive(engine, first)
+    frame = engine.mimi_cfg.frame_size
+    n_frames = _tts_verify(sessions, range(12), frame)
+    freed = {sessions[sid]["drv"].slot for sid in range(4)}
+    for sid in range(4):
+        engine.close_session(sessions[sid]["drv"])
+    second = {}
+    for sid in range(12, 16):
+        drv = _tts_open(engine, sid, f"spk{sid - 12}", second, texts=texts)
+        check(drv.slot in freed, f"tts session {sid} did not reuse a freed slot")
+    _tts_drive(engine, second)
+    n_frames += _tts_verify(second, range(12, 16), frame)
+    return sessions, second, idle, n_frames
+
+
+def _tts_log(sessions, ticks):
+    """Each session's events as comparable values (words with their times,
+    frames as their bits) and the engine ticks served."""
+    import numpy as np
+
+    def ev(e):
+        if hasattr(e, "pcm"):
+            return ("audio", np.asarray(e.pcm, np.float32).tobytes())
+        if hasattr(e, "text"):
+            return ("word", e.text, e.start_s, e.stop_s)
+        return (type(e).__name__,)
+
+    return {sid: [ev(e) for e in s["events"]] for sid, s in sessions.items()}, ticks
+
+
+def phase_tts(dev, card, preset=None):
+    """The batched TTS engine from configs/config-tts-tpu-serving.toml;
+    ``preset = "tts_202501"`` puts that model in place of the TOML's (no TOML
+    of it is in the repository) and tags the lines ``[tts202501]``.  The
+    engine runs the eager tick (``cuda_graph=False``), so that the wrappers
+    count every launch -> ``(engine, launches, (events, ticks))``."""
+    import torch
+
+    from dsm_tpu_torch.server import builder
+
+    tag = "tts202501" if preset else "tts"
+    per_tick = PER_TICK_TTS202501 if preset else PER_TICK_TTS
+    counters = _tts_counters(per_tick)
+    mod = _tts_module(tag, preset)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    engine = builder.build_batched_tts(mod, dev)
+    engine = builder.build_batched_tts(mod, dev, cuda_graph=False)  # counts every launch
     lm = engine.cfg.lm
     tcfg, dcfg = lm.transformer, lm.depformer.transformer
     shape = (tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, tcfg.context,
@@ -2601,12 +2687,7 @@ def phase_tts(dev, card, preset=None):
     check(per_tick["ca_decode_attend"] == per_tick["rope_qk"] == tcfg.num_layers
           and per_tick["rope_commit"] == engine.mimi_cfg.transformer.num_layers,
           "the launches per tick do not follow the config")
-    # Seeded random voices: 5 speakers x 125 frames of the conditioning width.
-    rng = np.random.default_rng(5)
-    n_rows = 125 * engine.cfg.speaker_cond_n_speakers
-    engine.voices = VoiceResolver(preloaded={
-        f"spk{i}": rng.standard_normal((n_rows, engine.cfg.speaker_cond_dim)).astype(np.float32)
-        for i in range(8)})
+    _tts_voices(engine)
     torch.cuda.synchronize()
     print(f"[{tag}] engine built in {time.perf_counter() - t0:.3f} s (d={tcfg.d_model} "
           f"L={tcfg.num_layers} h={tcfg.num_heads}x{tcfg.hd} ctx {tcfg.context}, DepFormer "
@@ -2624,30 +2705,8 @@ def phase_tts(dev, card, preset=None):
     for fn in counters.values():
         fn.launches = 0
     ticks0 = engine.step_count
-    sessions = {}
-    texts = TTS_SHORT_TEXTS if preset else TTS_TEXTS
-    for sid in range(12):
-        _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions, texts=texts)
-    # Wordless sessions fill the other slots (pad or end-of-word each tick),
-    # so the last 4 sessions can only land in slots freed by closed ones.
-    idle = {}
-    for i in range(engine.batch_size - engine.used_slots()):
-        _tts_open(engine, 100 + i, None, idle, words=False)
-    check(engine.used_slots() == engine.batch_size, "TTS slots left free")
     t0 = time.perf_counter()
-    first = {sid: sessions[sid] for sid in range(12)}
-    _tts_drive(engine, first)
-    frame = engine.mimi_cfg.frame_size
-    n_frames = _tts_verify(sessions, range(12), frame)
-    freed = {sessions[sid]["drv"].slot for sid in range(4)}
-    for sid in range(4):
-        engine.close_session(sessions[sid]["drv"])
-    second = {}
-    for sid in range(12, 16):
-        drv = _tts_open(engine, sid, f"spk{sid - 12}", second, texts=texts)
-        check(drv.slot in freed, f"tts session {sid} did not reuse a freed slot")
-    _tts_drive(engine, second)
-    n_frames += _tts_verify(second, range(12, 16), frame)
+    sessions, second, idle, n_frames = _tts_serve(engine, preset)
     serve_s = time.perf_counter() - t0
     ticks = engine.step_count - ticks0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -2657,14 +2716,15 @@ def phase_tts(dev, card, preset=None):
               f"{name}: {n} launches over {ticks} ticks, want {per_tick[name]} per tick")
     print(f"[{tag}] 16 sessions (8 + 4 reused slots with voices, 4 without), all done; "
           f"{sum(len(s['text'].split()) for s in list(sessions.values()) + list(second.values()))} "
-          f"words returned, {n_frames} frames of {frame} finite samples, {ticks} ticks in "
+          f"words returned, {n_frames} frames of {engine.mimi_cfg.frame_size} finite samples, "
+          f"{ticks} ticks in "
           f"{serve_s:.3f} s with 64 slots open; launches {launches} = per tick "
           f"{per_tick}", flush=True)
     for s in [sessions[sid] for sid in range(4, 12)] + list(second.values()) \
             + list(idle.values()):
         engine.close_session(s["drv"])
     check(engine.used_slots() == 0, "TTS slots still open")
-    return engine, launches
+    return engine, launches, _tts_log({**sessions, **second}, ticks)
 
 
 def _with_w(plain):
@@ -2743,7 +2803,8 @@ def _fill_rings(t_state, g, pos):
     """A transformer state whose rings are full and wrapped: every layer's K
     and V rows are random bf16 rows of unit spread through the port's own
     quantiser (``quantize_kv_rows``; ``quantize_kv_rows_packed4`` for uint8
-    rings), every row valid, the tick counter at ``pos``."""
+    rings), every row valid, the tick counter at ``pos``: each written into
+    the state's own tensors."""
     import torch
 
     from dsm_tpu_torch.ops import attention as A
@@ -2758,7 +2819,7 @@ def _fill_rings(t_state, g, pos):
             for key, x in zip(("k", "v", "ks", "vs"), quantize(*rows)):
                 layer[key].copy_(x)
         t_state["valid"].fill_(True)
-    t_state["pos"] = torch.full_like(t_state["pos"], int(pos))
+        t_state["pos"].fill_(int(pos))  # in place: a captured tick reads this buffer
 
 
 def phase_tts_path(engine, dev, tag="tts"):
@@ -2875,6 +2936,213 @@ def phase_tts_times(engine, dev, card, tag="tts"):
         print(f"[{tag}-times] {name}, 64 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
               f"over 10 after 3 warm-up (host clock with synchronize); card {card}",
               flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The TTS tick as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+# Ticks the captured tick is held to the eager tick over, from a state whose
+# LM ring and Mimi decoder ring (256 rows, 2 a tick) sit 40 rows before a
+# wrap; the whole state is compared every GRAPH_TTS_CHECK_EVERY ticks.
+GRAPH_TICKS = {"graph-tts": 160, "graph-tts202501": 80}
+GRAPH_TTS_CHECK_EVERY = 40
+
+
+def _tts_graph_traffic(b, ticks, seed):
+    """``ticks`` engine inputs from a seed: slots open (with a reset) and close
+    along the way, an open slot steps 9 ticks in 10 (partial masks), and
+    each takes one of the three constraint modes with a word-piece token."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    active = rng.uniform(size=b) < 0.8
+    for i in range(ticks):
+        opening = ~active & (rng.uniform(size=b) < 0.1)
+        closing = active & (rng.uniform(size=b) < 0.025)
+        reset = opening | (active & (i == 0))
+        active = (active | opening) & ~closing
+        mask = active & (rng.uniform(size=b) < 0.9)
+        modes = rng.integers(0, 3, size=b).astype(np.int32)
+        toks = rng.integers(4, 8000, size=b).astype(np.int32)
+        yield modes, toks, mask, reset
+
+
+def _tts_graph_times(engine, tag, what, card, rope_per_tick):
+    """The engine's device tick (``_invoke_step``: staging or upload, the
+    tick, the fetch) with every slot active and choosing pad or end-of-word:
+    host ms a tick (median, min, max over 30 after 5 warm-up), the device's
+    busy share, kernel ms and device launches a tick from a profile of 2
+    ticks, and the peak memory (reserved, a captured graph's private pool
+    included, and allocated) since the caller reset it."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch.sessions import tts as TTS
+
+    b = engine.batch_size
+    modes = np.full(b, TTS.ALLOW_PAD_OR_EPAD, np.int32)
+    toks = np.zeros(b, np.int32)
+    on, off = np.ones(b, bool), np.zeros(b, bool)
+    times = []
+    with torch.inference_mode():
+        engine._invoke_step(modes, toks, on, on)  # every slot fresh
+        for i in range(35):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed = engine._invoke_step(modes, toks, on, off)
+            torch.cuda.synchronize()
+            if i >= 5:
+                times.append((time.perf_counter() - t0) * 1e3)
+        check(bool((packed[b:2 * b] == 36).all()), f"{tag}: the slots did not step")
+        rows, wall_us = _profile(lambda: engine._invoke_step(modes, toks, on, off), 2,
+                                 rope_launches=2 * rope_per_tick)
+    kernel_ms = _print_profile(f"{tag}-profile", what, rows, wall_us, 2, "tick", card, 6)
+    launches = sum(c for _, _, c in rows) / 2
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+    tick_ms = statistics.median(times)
+    busy = kernel_ms / (wall_us / 2 / 1e3)
+    print(f"[{tag}] {what}engine tick, {b} slots active: median {tick_ms!r} ms, min "
+          f"{min(times)!r}, max {max(times)!r} over 30 after 5 warm-up; device busy "
+          f"{busy!r}; {launches:.0f} device launches a tick; kernels {kernel_ms!r} ms a tick; "
+          f"peak memory {peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}",
+          flush=True)
+    return {"step_ms": tick_ms, "min_ms": min(times), "max_ms": max(times), "busy": busy,
+            "launches": launches, "kernel_ms": kernel_ms, "peak_gb": peak,
+            "peak_alloc_gb": peak_alloc}
+
+
+def _first_difference(got, want):
+    """Where two serve logs (``_tts_log``) first differ, for the message."""
+    if got[1] != want[1]:
+        return f"{got[1]} ticks against {want[1]}"
+    for sid in want[0]:
+        a, b = got[0].get(sid, []), want[0][sid]
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return f"session {sid}, event {i}: {x[:2]} against {y[:2]}"
+        if len(a) != len(b):
+            return f"session {sid}: {len(a)} events against {len(b)}"
+    return "none"
+
+
+def phase_graph_tts(dev, card, eager_log, preset=None):
+    """The TTS tick as one captured CUDA graph: the engine as
+    ``build_batched_tts`` makes it on CUDA (``cuda_graph`` left at its
+    default), its tick captured by ``warmup()``.  (1) It serves ``[tts]``'s
+    workload from the same weights and start: each session's events (words
+    with their times, every frame bit for bit) and the ticks equal to the
+    eager engine's ``eager_log``; the kernels counted over its warm-up and
+    capture (3 x per tick), none over the replays.  (2) Its tick timed.  (3)
+    From a state whose LM and Mimi decoder rings sit 40 rows before a wrap,
+    the eager tick (``TTS.step`` + ``MIMI.decode_step`` on a clone of the
+    state, the engine's params and voice store shared) beside the replay over
+    ``GRAPH_TICKS`` ticks of traffic (slots opened, closed and reset, partial
+    masks, a voice written and a pad overwrite between replays): the packed
+    array of every tick bit for bit, the whole state every
+    ``GRAPH_TTS_CHECK_EVERY`` ticks and at the end."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.sessions import tts as TTS
+
+    tag = "graph-tts202501" if preset else "graph-tts"
+    per_tick = PER_TICK_TTS202501 if preset else PER_TICK_TTS
+    counters = _tts_counters(per_tick)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mod = _tts_module(tag, preset)
+    t0 = time.perf_counter()
+    engine = builder.build_batched_tts(mod, dev)
+    check(engine.cuda_graph and engine._graph is None, f"{tag}: the tick is not captured "
+          f"by default on CUDA")
+    _tts_voices(engine)
+    engine.warmup()  # two ticks on the side stream, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    check(engine._graph is not None, f"{tag}: no graph captured")
+
+    ticks0 = engine.step_count
+    t0 = time.perf_counter()
+    sessions, second, idle, n_frames = _tts_serve(engine, preset)
+    serve_s = time.perf_counter() - t0
+    log = _tts_log({**sessions, **second}, engine.step_count - ticks0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(log == eager_log, f"{tag}: the captured engine's events differ from the eager "
+          f"engine's: first at {_first_difference(log, eager_log)}")
+    want = {name: 3 * n for name, n in per_tick.items()}
+    check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
+    for s in [sessions[sid] for sid in range(4, 12)] + list(second.values()) \
+            + list(idle.values()):
+        engine.close_session(s["drv"])
+    n_words = sum(1 for evs in log[0].values() for e in evs if e[0] == "word")
+    print(f"[{tag}] built and captured in {capture_s:.2f} s; served [{tag[6:]}]'s 16 sessions "
+          f"in {log[1]} ticks ({serve_s:.3f} s): {n_words} word events and {n_frames} frames, "
+          f"each session's events (words, times, every frame bit for bit) equal to the eager "
+          f"engine's; kernel launches counted over its warm-up and capture {launches} = 3 x "
+          f"per tick, none on replay", flush=True)
+
+    rope = per_tick["rope_qk"] + per_tick["rope_commit"]
+    numbers = {"launches": launches,
+               "graph": _tts_graph_times(engine, tag, "captured: ", card, rope)}
+
+    b = engine.batch_size
+    g = torch.Generator(device=dev).manual_seed(21)
+    lm_t, dec_t = engine.state["lm"]["t"], engine.mimi_state["dec_t"]
+    lm_ring, dec_ring = lm_t["valid"].shape[1], dec_t["valid"].shape[1]
+    _fill_rings(lm_t, g, 3 * lm_ring - 40)
+    dec_t["pos"].fill_(3 * dec_ring - 40)
+    rng = np.random.default_rng(43)
+    engine._text_temp[:] = rng.uniform(0.0, 1.0, b)
+    engine._audio_temp[:] = rng.uniform(0.0, 1.0, b)
+    engine._seeds[:] = rng.integers(0, 2**32, b)
+    ref = copy.copy(engine)  # the eager tick; params, voice store and host arrays shared
+    ref.cuda_graph = False
+    ref.state, ref.mimi_state = _clone(engine.state), _clone(engine.mimi_state)
+    ticks = GRAPH_TICKS[tag]
+    voice = engine.voice_kv("spk6")
+    resets = partial = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, (modes, toks, mask, reset) in enumerate(_tts_graph_traffic(b, ticks, seed=43)):
+            resets += int(reset.sum())
+            partial += int(0 < mask.sum() < b)
+            if i == ticks // 3:  # between replays, into the store both read
+                engine._apply_voice_writes([(5, voice)])
+            if i == ticks // 2:
+                slots = torch.as_tensor(engine._rows(mask), device=dev)
+                for e in (engine, ref):
+                    TTS.overwrite_last_text_token_in_place(e.state, engine.cfg.text_pad_token,
+                                                           slots)
+            got = engine._invoke_step(modes, toks, mask, reset)
+            want_packed = ref._invoke_step(modes, toks, mask, reset)
+            check(np.array_equal(got, want_packed),
+                  f"{tag}: tick {i}: the replay's packed array differs from the eager tick's")
+            if (i + 1) % GRAPH_TTS_CHECK_EVERY == 0 or i + 1 == ticks:
+                diff = (_tree_diff(engine.state, ref.state)
+                        + _tree_diff(engine.mimi_state, ref.mimi_state, "/mimi"))
+                check(not diff, f"{tag}: tick {i}: the state differs at {diff[:5]}")
+    lm_pos, dec_pos = int(ref.state["lm"]["t"]["pos"]), int(ref.mimi_state["dec_t"]["pos"])
+    check(lm_pos > 3 * lm_ring and dec_pos > 3 * dec_ring, f"{tag}: the rings did not wrap")
+    decoded = int(np.asarray(got[2 * b:3 * b]).sum())
+    print(f"[{tag}] {ticks} ticks of {engine.cfg.lm.transformer.num_layers} layers from one "
+          f"state, replay against the eager TTS.step + MIMI.decode_step: the packed array "
+          f"(text tokens, steps, decode mask, int16 pcm) bit for bit at every tick, the whole "
+          f"state (LM rings, scale rings, valid, pos, token buffers, counters, Mimi decoder "
+          f"ring and carries) every {GRAPH_TTS_CHECK_EVERY} ticks and at the end; {resets} "
+          f"slot resets, {partial} partial masks, a voice written at tick {ticks // 3} and a "
+          f"pad overwrite at {ticks // 2}; LM ring of {lm_ring} rows at tick {lm_pos}, Mimi "
+          f"decoder ring of {dec_ring} at {dec_pos}; {decoded} frames decoded at the last "
+          f"tick; {time.perf_counter() - t0:.1f} s", flush=True)
+    del engine, ref
+    torch.cuda.empty_cache()
+    return numbers
 
 
 # ---------------------------------------------------------------------------
@@ -3399,16 +3667,29 @@ def main() -> int:
     del params26
     elapsed("graph-stt26")
     torch.cuda.empty_cache()
-    tts_engine, tts_launches = phase_tts(dev, card)
+    tts_engine, tts_launches, tts_log = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
+    torch.cuda.empty_cache()  # the peak below: this engine's, not earlier phases' cache
+    torch.cuda.reset_peak_memory_stats()
+    tts_eager = _tts_graph_times(tts_engine, "graph-tts", "eager: ", card,
+                                 PER_TICK_TTS["rope_qk"] + PER_TICK_TTS["rope_commit"])
     elapsed("tts")
     del tts_engine
-    torch.cuda.empty_cache()
-    tts202501_engine, tts202501_launches = phase_tts(dev, card, preset="tts_202501")
+    graph["tts"] = {**phase_graph_tts(dev, card, tts_log), "eager": tts_eager}
+    elapsed("graph-tts")
+    tts202501_engine, tts202501_launches, tts202501_log = phase_tts(dev, card,
+                                                                    preset="tts_202501")
     phase_tts_times(tts202501_engine, dev, card, tag="tts202501")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tts202501_eager = _tts_graph_times(
+        tts202501_engine, "graph-tts202501", "eager: ", card,
+        PER_TICK_TTS202501["rope_qk"] + PER_TICK_TTS202501["rope_commit"])
     elapsed("tts202501")
     del tts202501_engine
-    torch.cuda.empty_cache()
+    graph["tts202501"] = {**phase_graph_tts(dev, card, tts202501_log, preset="tts_202501"),
+                          "eager": tts202501_eager}
+    elapsed("graph-tts202501")
     duplex_engine, duplex_launches = phase_duplex(dev, card)
     int8_full, int8_peak = phase_duplex_times(duplex_engine, dev, card)
     elapsed("duplex")
@@ -3435,7 +3716,9 @@ def main() -> int:
                 "stt26": stt26_launches, "stt26_fused": fused_launches,
                 "stt1b_split": split_launches, "stt1b_kv4": kv4_launches,
                 "stt26_kv4": stt26_kv4_launches, "duplex_kv4": duplex_kv4_launches,
-                "tts202501": tts202501_launches, "tune": tune_launches}
+                "tts202501": tts202501_launches, "tune": tune_launches,
+                "tts_graph": graph["tts"]["launches"],
+                "tts202501_graph": graph["tts202501"]["launches"]}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -3466,14 +3749,16 @@ def main() -> int:
         print(f"[launches] {what}: {got_launches:.0f} device launches, kernels {got_ms!r} ms "
               f"(profiler; before the rope-and-commit kernels, PERF.md section 5: "
               f"{launches} launches, {ms} ms); card {card}", flush=True)
-    for key, what in (("stt1b", "stt-1b"), ("stt26", "stt-2.6b")):
+    for key, what in (("stt1b", "stt-1b engine step"), ("stt26", "stt-2.6b engine step"),
+                      ("tts", "tts-1.6b engine tick"), ("tts202501", "tts_202501 engine tick")):
         e, g = graph[key]["eager"], graph[key]["graph"]
-        print(f"[graph] {what} engine step, eager against captured (this run): host ms median "
+        print(f"[graph] {what}, eager against captured (this run): host ms median "
               f"{e['step_ms']!r} / {g['step_ms']!r} (min {e['min_ms']!r} / {g['min_ms']!r}, "
               f"max {e['max_ms']!r} / {g['max_ms']!r}); device busy {e['busy']!r} / "
-              f"{g['busy']!r}; device launches a step {e['launches']:.0f} / "
+              f"{g['busy']!r}; device launches each {e['launches']:.0f} / "
               f"{g['launches']:.0f}; kernels {e['kernel_ms']!r} / {g['kernel_ms']!r} ms; peak "
-              f"memory {e['peak_gb']:.2f} / {g['peak_gb']:.2f} GB; card {card}", flush=True)
+              f"memory {e['peak_gb']:.2f} / {g['peak_gb']:.2f} GB reserved; card {card}",
+              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

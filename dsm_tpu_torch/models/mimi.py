@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..ops import conv as C
 from ..ops import rvq as Q
 from ..ops import transformer as T
+from ..utils.state import copy_into
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,3 +332,13 @@ def decode_step(cfg: MimiConfig, params, state, codes, mask=None):
     pcm, s_dec = decoder_step(cfg.seanet, params["decoder"], state["dec"],
                               xt.transpose(1, 2), mask)
     return pcm, {"up": s_up, "dec_t": s_t, "dec": s_dec}
+
+
+def decode_step_in_place(cfg: MimiConfig, params, state, codes, mask=None):
+    """:func:`decode_step` on state buffers that stay the same from step to
+    step: the decoder ring is written in place by the step already; its
+    ``pos`` and ``valid``, the upsample carry and the SEANet conv carries are
+    written back into ``state``'s own tensors.  Returns the pcm."""
+    pcm, new_state = decode_step(cfg, params, state, codes, mask)
+    copy_into(state, new_state)
+    return pcm

@@ -78,7 +78,10 @@ def prng_key(seed, device=None) -> torch.Tensor:
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a batch of keys ``(..., 2)``; ``data`` is
     an int or a tensor broadcast against the batch."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & _M32
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & _M32
+    else:  # a fill on the keys' device: no copy from the host (the tick is captured)
+        d = torch.full((), int(data) & _M32, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 

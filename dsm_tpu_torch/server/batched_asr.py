@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..sessions import asr as ASR
+from .cuda_graph import StagedInputs, capture
 
 FRAME_SIZE = 1920  # 80 ms at 24 kHz
 
@@ -228,7 +229,8 @@ class BatchedAsrEngine:
             if self._graph is None:
                 raise RuntimeError("the CUDA graph step is not captured: call warmup() "
                                    "or start() first")
-            self._stage(pcm, mask, reset)
+            self._inputs.stage({"pcm": pcm, "mask": mask, "reset": reset,
+                                "seeds": self._seeds})
             self._graph.replay()
             return {k: v.clone() for k, v in self._static_out.items()}
         dev = self.device
@@ -239,25 +241,10 @@ class BatchedAsrEngine:
             seeds=torch.as_tensor(self._seeds, device=dev))
         return out
 
-    def _stage(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray) -> None:
-        """Copy a step's inputs into the graph's static buffers through
-        pinned host staging: two staging sets in turn, each written only
-        once its previous copy to the device has run (its event)."""
-        i = self._stage_next
-        self._stage_next ^= 1
-        host = self._staging[i]
-        self._staged[i].synchronize()
-        for name, arr in (("pcm", pcm), ("mask", mask), ("reset", reset),
-                          ("seeds", self._seeds)):
-            host[name].numpy()[...] = arr
-        for name, buf in self._static_in.items():
-            buf.copy_(host[name], non_blocking=True)
-        self._staged[i].record()
-
     def _body(self) -> dict:
         """The step to capture: ``step_in_place`` over the engine's state and
         the static input buffers."""
-        x = self._static_in
+        x = self._inputs.buffers
         return ASR.step_in_place(self.cfg, self.params, self.state, x["pcm"], x["mask"],
                                  x["reset"], seeds=x["seeds"])
 
@@ -265,27 +252,13 @@ class BatchedAsrEngine:
         """Run the step ``steps`` times (at least once) on a side stream, with
         no slot active, then capture it there; raises if capture fails."""
         b, dev = self.batch_size, self.device
-        self._static_in = {
+        self._inputs = StagedInputs({
             "pcm": torch.zeros((b, 1, self.frame_size), dtype=torch.float32, device=dev),
             "mask": torch.zeros(b, dtype=torch.bool, device=dev),
             "reset": torch.zeros(b, dtype=torch.bool, device=dev),
             "seeds": torch.zeros(b, dtype=torch.int64, device=dev),
-        }
-        self._staging = [{k: torch.empty(v.shape, dtype=v.dtype).pin_memory()
-                          for k, v in self._static_in.items()} for _ in range(2)]
-        self._staged = [torch.cuda.Event(), torch.cuda.Event()]
-        self._stage_next = 0
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream), torch.inference_mode():
-            for _ in range(max(1, steps)):
-                self._body()
-            with torch.cuda.graph(graph, stream=stream):
-                self._static_out = self._body()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        self._graph = graph
+        })
+        self._graph, self._static_out = capture(self._body, steps, dev)
 
     def warmup(self, steps: int = 2) -> None:
         """Run zero frames through the whole step (no slot active); with

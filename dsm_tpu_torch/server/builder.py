@@ -145,9 +145,14 @@ _TTS_UNPORTED = {
 }
 
 
-def build_batched_tts(mod: CFG.ModuleConfig, device) -> BatchedTtsEngine:
+def build_batched_tts(mod: CFG.ModuleConfig, device,
+                      cuda_graph: Optional[bool] = None) -> BatchedTtsEngine:
     """The continuously batched engine for a ``Tts`` module with
     ``batch_size > 1`` on ``device``.
+
+    ``cuda_graph`` is the engine's (``BatchedTtsEngine``: the tick captured
+    as one CUDA graph, the default on CUDA; False for the eager tick); no
+    TOML key sets it.
 
     On CUDA it takes the JAX builder's accelerator profile: bf16, int8 LM
     KV rings, int8 LM weights with W8A8 matmuls (the DepFormer's included;
@@ -204,7 +209,7 @@ def build_batched_tts(mod: CFG.ModuleConfig, device) -> BatchedTtsEngine:
         batch_size=int(mod.batch_size),
         cfg_enabled=bool(raw.get("cfg_enabled", False)),
         ca_quant=bool(raw.get("ca_int8", False)), device=device,
-        pcm_wire_int16=wire == "int16",
+        pcm_wire_int16=wire == "int16", cuda_graph=cuda_graph,
     )
     voice_dir = CFG.resolve_path(mod.voice_dir) if mod.voice_dir else None
     if voice_dir is not None and not os.path.isdir(voice_dir):

@@ -1,0 +1,62 @@
+"""What the engines share to serve a step as one captured CUDA graph.
+
+A captured graph replays its launches on the same buffers for ever: its
+inputs are static device buffers that each tick refills from host arrays
+(:class:`StagedInputs`), and :func:`capture` records the step once, after
+warm-up runs on the stream it captures on.  ``server/batched_asr.py`` and
+``server/tts_batched.py`` use both.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+
+class StagedInputs:
+    """A graph's static input buffers on the card (``buffers``), filled from
+    host arrays through pinned host staging: two staging sets in turn, each
+    written only once its previous copy to the device has run (its event)."""
+
+    def __init__(self, buffers: Dict[str, torch.Tensor]):
+        self.buffers = buffers
+        self._staging = [{k: torch.empty(v.shape, dtype=v.dtype).pin_memory()
+                          for k, v in buffers.items()} for _ in range(2)]
+        self._staged = [torch.cuda.Event(), torch.cuda.Event()]
+        self._next = 0
+
+    def stage(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Copy one host array into each buffer of the same name, on the
+        current stream."""
+        if arrays.keys() != self.buffers.keys():
+            raise ValueError(f"staged {sorted(arrays)}, the graph reads {sorted(self.buffers)}")
+        i = self._next
+        self._next ^= 1
+        host = self._staging[i]
+        self._staged[i].synchronize()
+        for name, arr in arrays.items():
+            host[name].numpy()[...] = arr
+        for name, buf in self.buffers.items():
+            buf.copy_(host[name], non_blocking=True)
+        self._staged[i].record()
+
+
+def capture(body: Callable[[], object], warm_steps: int, device):
+    """Run ``body`` ``warm_steps`` times (at least once) on a side stream,
+    then capture it there -> ``(graph, outputs)``, the outputs static
+    tensors that every replay overwrites.  The warm-up builds what the step
+    makes lazily (kernels, device constants, the cuBLAS workspace of that
+    stream) before the capture; a capture that fails raises."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.inference_mode():
+        for _ in range(max(1, warm_steps)):
+            body()
+        with torch.cuda.graph(graph, stream=stream):
+            out = body()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    torch.cuda.synchronize(device)
+    return graph, out

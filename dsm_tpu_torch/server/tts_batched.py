@@ -16,6 +16,20 @@ frames are Mimi-decoded on the device in the same tick, and the tick
 fetches one packed array: text tokens, step counters, the decode mask and
 the pcm (f32 bits, or int16 pairs with ``pcm_wire_int16``).
 
+On a CUDA device the tick is one captured CUDA graph, the counterpart of the
+JAX engine's ``jax.jit(_step, donate_argnums=(1, 3))``: :meth:`warmup` runs
+the tick on the side stream it captures on, then captures
+``sessions.tts.step_in_place``, the gated ``models.mimi.decode_step_in_place``
+and the packing once over the engine's state buffers and static input
+buffers; every tick copies modes, tokens, mask, reset, temperatures, seeds
+and guidance through pinned host staging into those buffers, replays the
+graph and fetches the packed array into pinned memory.  The voice writes and
+the pad overwrite run between replays, in place, into the buffers the graph
+reads; the word driver stays on the host.  A capture that fails raises; the
+engine never falls back to the eager tick.  ``cuda_graph=False`` runs the
+eager tick (the reference the card's checks hold the graph to); the CPU has
+no graph.
+
 Left out (ROADMAP.md): the fused multi-tick path with the device script
 machine, dispatch-ahead (``pipeline_depth > 1``), the device mesh and
 prometheus metrics.  The builder refuses the options that select them.
@@ -36,6 +50,7 @@ import torch
 from ..models import mimi as MIMI
 from ..ops import transformer as T
 from ..sessions import tts as TTS
+from .cuda_graph import StagedInputs, capture
 from .tts_module import AudioEvent, WordEvent
 
 
@@ -118,7 +133,7 @@ class BatchedTtsEngine:
                  mimi_params: dict, tokenizer, batch_size: int = 8,
                  ca_len: Optional[int] = None, tick_sleep: float = 0.002,
                  cfg_enabled: bool = False, ca_quant: bool = False, device="cuda",
-                 pcm_wire_int16: bool = False):
+                 pcm_wire_int16: bool = False, cuda_graph: Optional[bool] = None):
         if cfg.cfg_alpha is not None:
             raise ValueError("set cfg_enabled=True for batched guidance (per-request "
                              "alpha); a static cfg_alpha is for unbatched sessions")
@@ -130,6 +145,11 @@ class BatchedTtsEngine:
         self.batch_size = batch_size
         self.tick_sleep = tick_sleep
         self.device = torch.device(device)
+        # The captured tick (default on CUDA); none on the CPU.
+        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else cuda_graph
+        if self.cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.condition_provider = None
         self.default_condition = None
         # Guidance doubles the model rows [cond..., uncond...]; the uncond
@@ -269,41 +289,100 @@ class BatchedTtsEngine:
             return (words.view(np.int16).astype(np.float32) / 32767.0).reshape(n, frame)
         return words.view(np.float32).reshape(n, frame)
 
+    def _rows(self, a: np.ndarray) -> np.ndarray:
+        """A per-slot host array -> per model row (doubled with guidance)."""
+        return np.concatenate([a, a]) if self.cfg_enabled else a
+
     def _invoke_step(self, modes, toks, mask, reset) -> np.ndarray:
         """One device tick for host arrays ``(batch_size,)`` -> the packed
-        int32 host array ``[text (n), steps (n), dec_mask (n), pcm words]``."""
+        int32 host array ``[text (n), steps (n), dec_mask (n), pcm words]``:
+        a replay of the captured tick, whose array is pinned memory that the
+        next replay overwrites, or the eager tick."""
+        if self.cuda_graph:
+            if self._graph is None:
+                raise RuntimeError("the CUDA graph tick is not captured: call warmup() "
+                                   "or start() first")
+            arrays = {"modes": self._rows(modes), "toks": self._rows(toks),
+                      "mask": self._rows(mask), "reset": self._rows(reset),
+                      "text_temp": self._rows(self._text_temp),
+                      "audio_temp": self._rows(self._audio_temp),
+                      "seeds": self._rows(self._seeds)}
+            if self.cfg_enabled:
+                arrays["alpha"] = self._cfg_alpha
+            self._inputs.stage(arrays)
+            self._graph.replay()
+            self._out_host.copy_(self._static_out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()  # the tick's one fetch
+            return self._out_host.numpy()
         dev = self.device
-        n = self.batch_size
 
         def rows(a, dtype=None):
-            a = np.concatenate([a, a]) if self.cfg_enabled else a
+            a = self._rows(a)
             return torch.as_tensor(a if dtype is None else a.astype(dtype), device=dev)
 
-        temps = {"text": rows(self._text_temp), "audio": rows(self._audio_temp)}
-        alpha = (torch.as_tensor(self._cfg_alpha, device=dev) if self.cfg_enabled
-                 else None)
+        x = {"modes": rows(modes), "toks": rows(toks), "mask": rows(mask),
+             "reset": rows(reset), "text_temp": rows(self._text_temp),
+             "audio_temp": rows(self._audio_temp), "seeds": rows(self._seeds, np.int64)}
+        if self.cfg_enabled:
+            x["alpha"] = torch.as_tensor(self._cfg_alpha, device=dev)
         with torch.inference_mode():
-            out, self.state = TTS.step(
-                self.cfg, self.params, self.state, rows(modes), rows(toks),
-                ca_kv=self._ca, mask=rows(mask), reset=rows(reset), temps=temps,
-                seeds=rows(self._seeds, np.int64), cfg_alpha=alpha)
-            steps = out["step_idx"][:n]
-            delay = self.cfg.text_audio_delay_in_tokens + self.cfg.acoustic_delay
-            active = torch.as_tensor(mask, device=dev)
-            dec_mask = out["frame_valid"][:n] & (steps > delay) & active
-            pcm, self.mimi_state = MIMI.decode_step(
-                self.mimi_cfg, self.mimi_params, self.mimi_state,
-                out["frame"][:n, :, None], dec_mask)
-            row = pcm[:, 0, :].float()
-            if self._pcm_wire_i16:
-                row = torch.clamp(row * 32767.0, -32767.0, 32767.0).to(torch.int16)
-            packed = torch.cat([out["text_token"][:n].to(torch.int32),
-                                steps.to(torch.int32), dec_mask.to(torch.int32),
-                                row.contiguous().view(torch.int32).reshape(-1)])
-            return packed.cpu().numpy()  # the tick's one device-to-host fetch
+            return self._device_tick(x, in_place=False).cpu().numpy()
+
+    def _device_tick(self, x: dict, in_place: bool) -> torch.Tensor:
+        """The tick on device inputs ``x`` -> the packed int32 array: the TTS
+        step, the gated Mimi decode of the completed frames, the int16 wire
+        where it is set.  ``in_place``: the fixed-buffer forms over
+        ``self.state`` and ``self.mimi_state`` (the body the graph captures);
+        else the functional forms, whose new states replace the engine's."""
+        n = self.batch_size
+        kw = dict(ca_kv=self._ca, mask=x["mask"], reset=x["reset"],
+                  temps={"text": x["text_temp"], "audio": x["audio_temp"]},
+                  seeds=x["seeds"], cfg_alpha=x.get("alpha"))
+        if in_place:
+            out = TTS.step_in_place(self.cfg, self.params, self.state, x["modes"],
+                                    x["toks"], **kw)
+        else:
+            out, self.state = TTS.step(self.cfg, self.params, self.state, x["modes"],
+                                       x["toks"], **kw)
+        steps = out["step_idx"][:n]
+        delay = self.cfg.text_audio_delay_in_tokens + self.cfg.acoustic_delay
+        dec_mask = out["frame_valid"][:n] & (steps > delay) & x["mask"][:n]
+        codes = out["frame"][:n, :, None]
+        if in_place:
+            pcm = MIMI.decode_step_in_place(self.mimi_cfg, self.mimi_params,
+                                            self.mimi_state, codes, dec_mask)
+        else:
+            pcm, self.mimi_state = MIMI.decode_step(self.mimi_cfg, self.mimi_params,
+                                                    self.mimi_state, codes, dec_mask)
+        row = pcm[:, 0, :].float()
+        if self._pcm_wire_i16:
+            row = torch.clamp(row * 32767.0, -32767.0, 32767.0).to(torch.int16)
+        return torch.cat([out["text_token"][:n].to(torch.int32), steps.to(torch.int32),
+                          dec_mask.to(torch.int32),
+                          row.contiguous().view(torch.int32).reshape(-1)])
+
+    def _capture(self, steps: int) -> None:
+        """Run the tick ``steps`` times (at least once) on a side stream, with
+        no slot active, then capture it there; raises if capture fails."""
+        r, dev = self.rows, self.device
+        dtypes = {"modes": torch.int32, "toks": torch.int32, "mask": torch.bool,
+                  "reset": torch.bool, "text_temp": torch.float32,
+                  "audio_temp": torch.float32, "seeds": torch.int64}
+        buffers = {name: torch.zeros(r, dtype=dt, device=dev) for name, dt in dtypes.items()}
+        if self.cfg_enabled:
+            buffers["alpha"] = torch.ones(self.batch_size, dtype=torch.float32, device=dev)
+        self._inputs = StagedInputs(buffers)
+        self._graph, self._static_out = capture(
+            lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev)
+        self._out_host = torch.empty(self._static_out.shape, dtype=torch.int32).pin_memory()
 
     def warmup(self, steps: int = 2) -> None:
-        """Run ticks with no slot active through the whole step."""
+        """Run ticks with no slot active through the whole step; with
+        ``cuda_graph``, through the tick to capture, then capture it."""
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture(steps)
+            return
         n = self.batch_size
         modes = np.full(n, TTS.ALLOW_PAD, np.int32)
         off = np.zeros(n, bool)
@@ -313,6 +392,8 @@ class BatchedTtsEngine:
     # -- loop --
 
     def start(self) -> None:
+        if self.cuda_graph and self._graph is None:
+            self.warmup()  # capture before the loop starts
         self.running = True
         self.thread = threading.Thread(target=self._loop, name="tts-model-loop",
                                        daemon=True)
@@ -380,11 +461,11 @@ class BatchedTtsEngine:
             if pcm is not None and dec_mask[slot]:
                 drv.pcm_samples += frame
                 drv.deliver(AudioEvent(pcm=pcm[slot].copy()))
-        if overwrite.any():
-            rows = np.concatenate([overwrite, overwrite]) if self.cfg_enabled else overwrite
-            self.state = TTS.overwrite_last_text_token(
-                self.state, self.cfg.text_pad_token,
-                torch.as_tensor(rows, device=self.device))
+        if overwrite.any():  # in place: a replay reads the state's own buffers
+            with torch.inference_mode():
+                TTS.overwrite_last_text_token_in_place(
+                    self.state, self.cfg.text_pad_token,
+                    torch.as_tensor(self._rows(overwrite), device=self.device))
         return True
 
     # -- the surface the app calls --

@@ -23,6 +23,7 @@ import torch
 from ..models import lm as LM
 from ..models import mimi as MIMI
 from ..ops import sampling as S
+from ..utils.state import copy_into as _copy_into
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,29 +116,6 @@ def step(cfg: AsrConfig, params: dict, state: dict, pcm: torch.Tensor,
                  "next_codebooks": next_codebooks, "text_token": new_text,
                  "step_idx": new_step}
     return out, new_state
-
-
-def _copy_into(dst, src) -> None:
-    """Write each tensor of the state tree ``src`` into the tensor at the
-    same place of ``dst``, in place; a tensor of ``src`` that is ``dst``'s
-    own (a ring the step wrote in place) is left as it is."""
-    if isinstance(dst, dict):
-        if dst.keys() != src.keys():
-            raise ValueError(f"state trees differ: {sorted(dst)} / {sorted(src)}")
-        for key in dst:
-            _copy_into(dst[key], src[key])
-    elif isinstance(dst, list):
-        for a, b in zip(dst, src, strict=True):
-            _copy_into(a, b)
-    elif isinstance(dst, torch.Tensor):
-        if src is dst:
-            return
-        if src.shape != dst.shape or src.dtype != dst.dtype:
-            raise ValueError(f"state tensor {tuple(src.shape)} {src.dtype} does not fit "
-                             f"its buffer {tuple(dst.shape)} {dst.dtype}")
-        dst.copy_(src)
-    else:
-        raise TypeError(f"state leaf of type {type(dst).__name__}")
 
 
 def step_in_place(cfg: AsrConfig, params: dict, state: dict, pcm: torch.Tensor,

@@ -17,7 +17,8 @@ Every slot has its own step counter, so sessions of any age step together.
 Sampling with ``seeds`` draws from per-slot streams keyed by (seed, step,
 draw index), as the JAX package does; the tokens then do not depend on the
 batch.  The step returns new tensors for the buffers it changes; the LM's
-rings are updated in place.
+rings are updated in place.  :func:`step_in_place` writes those tensors back
+into the state's own buffers, the form a captured CUDA graph replays.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from ..models import lm as LM
 from ..ops import sampling as S
+from ..utils.state import copy_into
 
 UNGENERATED = -1  # token-buffer entries not written yet
 
@@ -101,7 +103,7 @@ def reset_slots(cfg: TtsConfig, state: dict, reset: torch.Tensor) -> dict:
 def _delays(cfg: TtsConfig, device) -> torch.Tensor:
     d = torch.full((cfg.n_codebooks,), cfg.acoustic_delay, dtype=torch.int32,
                    device=device)
-    d[0] = 0
+    d[:1].fill_(0)  # a fill, not a copy from the host: the tick is captured on the card
     return d[None, :]
 
 
@@ -240,6 +242,21 @@ def step(cfg: TtsConfig, params: dict, state: dict, allowed_mode: torch.Tensor,
     return out, new_state
 
 
+def step_in_place(cfg: TtsConfig, params: dict, state: dict, allowed_mode: torch.Tensor,
+                  allowed_token: torch.Tensor, **kw) -> dict:
+    """:func:`step` on state buffers that stay the same from tick to tick
+    (the counterpart of the JAX engine's ``donate_argnums``): the step, then
+    every state tensor it replaced (``audio_tokens``, ``text_tokens``,
+    ``consecutive_pads``, ``prev_text``, ``step_idx``, the LM's ``pos`` and
+    ``valid``) written back into ``state``'s own tensor with ``copy_``; the
+    LM's rings are written in place by the step already.  Keywords as
+    :func:`step`'s; returns ``out``.  Its launches can be captured in a CUDA
+    graph (``server/tts_batched.py``) and replayed on the same buffers."""
+    out, new_state = step(cfg, params, state, allowed_mode, allowed_token, **kw)
+    copy_into(state, new_state)
+    return out
+
+
 def overwrite_last_text_token(state: dict, token: int,
                               slots: Optional[torch.Tensor] = None) -> dict:
     """Replace the last written text token of the ``slots (B,)`` (all by
@@ -256,6 +273,14 @@ def overwrite_last_text_token(state: dict, token: int,
     out["text_tokens"] = text_buf
     out["prev_text"] = torch.where(sel, token, state["prev_text"]).to(torch.int32)
     return out
+
+
+def overwrite_last_text_token_in_place(state: dict, token: int,
+                                       slots: Optional[torch.Tensor] = None) -> None:
+    """:func:`overwrite_last_text_token` written into ``state``'s own
+    ``text_tokens`` and ``prev_text``, so that a captured tick that reads
+    them sees the pad."""
+    copy_into(state, overwrite_last_text_token(state, token, slots))
 
 
 def tokenize_prompt(turns, bos: int, eos: int, encode) -> list:

@@ -1944,3 +1944,132 @@ def test_asr_step_body_makes_no_host_sync(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert int(state["lm"]["t"]["pos"]) == 4
+
+
+# ---------------------------------------------------------------------------
+# The TTS tick as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _small_tts(dev, cfg_enabled):
+    """The TTS serving TOML at B = 8 on the card: 2 LM layers of 8 heads x 128
+    over a 128-row int8 ring (context 120; the fused route), the int8 voice
+    store, W8A8, the int16 wire, a DepFormer of 8 slices x 2 layers, the codec
+    at full size (a 256-row ring, 2 rows a tick)."""
+    import tomllib
+
+    from dsm_tpu_torch.server import builder as B
+    from dsm_tpu_torch.server import config as CFG
+
+    with open("configs/config-tts-tpu-serving.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = raw["modules"]["tts"]
+    mod.update(batch_size=8, fuse_ticks=1, pipeline_depth=1, cfg_enabled=cfg_enabled)
+    mod["model"]["transformer"].update(d_model=1024, num_heads=8, num_layers=2,
+                                       dim_feedforward=768, context=120)
+    mod["model"]["depformer"].update(num_slices=8)
+    mod["model"]["depformer"]["transformer"].update(d_model=64, num_heads=2, num_layers=2,
+                                                    dim_feedforward=192, context=8)
+    mod["model"].update(audio_codebooks=8)
+    mod["generation"].update(speaker_cond_n_speakers=1, text_audio_delay_in_tokens=3)
+    return B.build_batched_tts(CFG.Config.from_dict(raw).modules["tts"], dev)
+
+
+def _tts_traffic(b, steps, seed):
+    """Inputs of ``steps`` engine ticks: slots open (with a reset) and close,
+    partial masks, the three constraint modes."""
+    rng = np.random.default_rng(seed)
+    active = rng.uniform(size=b) < 0.7
+    for i in range(steps):
+        opening = ~active & (rng.uniform(size=b) < 0.15)
+        closing = active & (rng.uniform(size=b) < 0.05)
+        reset = opening | (active & (i == 0))
+        active = (active | opening) & ~closing
+        mask = active & (rng.uniform(size=b) < 0.9)
+        modes = rng.integers(0, 3, size=b).astype(np.int32)
+        toks = rng.integers(4, 200, size=b).astype(np.int32)
+        yield modes, toks, mask, reset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_enabled", [False, True], ids=["plain", "cfg"])
+def test_captured_tts_tick_equals_the_eager_tick(cuda_device, cfg_enabled):
+    """``BatchedTtsEngine`` captures its tick once (the default on CUDA) and
+    replays it; the eager tick (``TTS.step`` + ``MIMI.decode_step``) runs
+    beside it from a clone of its state over 160 ticks, past a wrap of the LM
+    ring and of the codec ring, slots opened, closed and reset, partial masks,
+    a voice written and a pad overwrite between replays: the packed array of
+    every tick and the whole state at the end bit for bit, the state's
+    buffers the same from start to end."""
+    import copy
+
+    from dsm_tpu_torch.ops import transformer as TT
+    from dsm_tpu_torch.sessions import tts as TTS
+
+    eng = _small_tts(cuda_device, cfg_enabled)
+    b = eng.batch_size
+    assert eng.cuda_graph and eng._graph is None
+    off = np.zeros(b, bool)
+    with pytest.raises(RuntimeError, match="not captured"):
+        eng._invoke_step(np.zeros(b, np.int32), np.zeros(b, np.int32), off, off)
+    rng = np.random.default_rng(1)
+    eng._text_temp[:] = rng.uniform(0.0, 1.0, b)
+    eng._audio_temp[:] = rng.uniform(0.0, 1.0, b)
+    eng._seeds[:] = np.arange(b) + 40
+    if cfg_enabled:
+        eng._cfg_alpha[:] = rng.uniform(1.0, 3.0, b)
+    eng.warmup()
+    assert eng._graph is not None
+    ref = copy.copy(eng)  # the eager tick on a clone of the state; params, voices shared
+    ref.cuda_graph = False
+    ref.state, ref.mimi_state = _tree_clone(eng.state), _tree_clone(eng.mimi_state)
+    ptrs = [t.data_ptr() for t in _tensors(eng.state) + _tensors(eng.mimi_state)]
+    tcfg = eng.cfg.lm.transformer
+    voice = TT.precompute_ca_kv(
+        tcfg, eng.params["lm"]["transformer"],
+        torch.randn(1, eng.ca_len, tcfg.ca_dim or tcfg.d_model, device=cuda_device).bfloat16())
+    with torch.inference_mode():
+        for i, (modes, toks, mask, reset) in enumerate(_tts_traffic(b, 160, seed=7)):
+            if i == 50:  # shared voice store: written once for both
+                eng._apply_voice_writes([(3, voice)])
+            if i == 70:
+                slots = torch.as_tensor(eng._rows(mask), device=cuda_device)
+                for e in (eng, ref):
+                    TTS.overwrite_last_text_token_in_place(e.state, eng.cfg.text_pad_token,
+                                                           slots)
+            got = eng._invoke_step(modes, toks, mask, reset).copy()
+            want = ref._invoke_step(modes, toks, mask, reset)
+            assert np.array_equal(got, want), i
+    assert int(ref.state["lm"]["t"]["pos"]) > 128
+    assert int(ref.mimi_state["dec_t"]["pos"]) > 256
+    assert _tree_same(eng.state, ref.state) and _tree_same(eng.mimi_state, ref.mimi_state)
+    assert [t.data_ptr() for t in _tensors(eng.state) + _tensors(eng.mimi_state)] == ptrs
+    assert int(np.asarray(got[2 * b:3 * b]).sum()) > 0, "no frame was decoded"
+
+
+@pytest.mark.cuda
+def test_tts_tick_body_makes_no_host_sync(cuda_device):
+    """The fixed-buffer tick (the body the engine captures: the TTS step,
+    the DepFormer's per-tick carry and Gumbel noise, top-k, the gated Mimi
+    decode) under ``torch.cuda.set_sync_debug_mode("error")``: nothing waits
+    on the card, so nothing the host reads back can go stale in a replay."""
+    eng = _small_tts(cuda_device, True)
+    r, dev = eng.rows, cuda_device
+    x = {"modes": torch.full((r,), 2, dtype=torch.int32, device=dev),
+         "toks": torch.zeros(r, dtype=torch.int32, device=dev),
+         "mask": torch.ones(r, dtype=torch.bool, device=dev),
+         "reset": torch.zeros(r, dtype=torch.bool, device=dev),
+         "text_temp": torch.full((r,), 0.6, device=dev),
+         "audio_temp": torch.full((r,), 0.8, device=dev),
+         "seeds": torch.arange(r, dtype=torch.int64, device=dev),
+         "alpha": torch.full((eng.batch_size,), 2.0, device=dev)}
+    with torch.inference_mode():
+        eng._device_tick(x, in_place=True)  # lazy constants
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(8):
+                eng._device_tick(x, in_place=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(eng.state["step_idx"][0]) == 9

@@ -24,8 +24,11 @@ card.  Held here:
   at most 0.1 % of their values, and their scales within 1e-2.  Layer 0's
   rows are not bit for bit for every input: the port's RMSNorm and its bf16
   QKV product round a few elements of some rows otherwise than the jitted
-  JAX step does (on these inputs 16 of 1,024 norm outputs at one step),
-  which moves a quantised value by one step (ROADMAP queue 3).
+  JAX step does, which moves a quantised value by one step (ROADMAP queue 3
+  item 2): the norm's sum now follows XLA:CPU's order, but XLA:CPU's
+  ``rsqrt`` is the x86 approximation refined by two Newton steps, which no
+  tensor operation reproduces, and its bf16 product is an f32 GEMM in
+  Eigen's blocked order, which torch's product does not take.
 * ``sessions.asr.step_in_place`` equals ``sessions.asr.step`` bit for bit
   over a wrap of both rings with slot resets and partial masks, and the state
   keeps its buffers (``data_ptr``) from step to step.

@@ -213,3 +213,82 @@ def test_apply_rope_plain_form_is_the_fused_one_over_2_20_pairs():
     x1, x2 = x[..., 0::2], x[..., 1::2]
     rounded = x1 * c[:, None] - x2 * s[:, None]
     assert (rounded.view(np.int32) != want[..., 0::2].view(np.int32)).mean() > 0.1
+
+
+def _wide_rows(d, n, seed):
+    """``n`` bf16 rows of width ``d`` with a large dynamic range: magnitudes
+    log-uniform over 2^-8 .. 2^8, random signs."""
+    rng = np.random.default_rng(seed)
+    mag = np.exp2(rng.uniform(-8.0, 8.0, (n, d)))
+    return (mag * rng.choice([-1.0, 1.0], (n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [64, 1024, 2048, 2560])
+def test_rms_norm_sums_in_the_jitted_steps_order(d):
+    """``mean_square`` (the statistic of ``rms_norm``) bit for bit the jitted
+    JAX one (XLA:CPU sums in windows of 32, zero-padded at both ends, then
+    multiplies by the f32 reciprocal of the width; ``torch.mean`` differs in
+    most rows), and the output bit for bit in every row whose ``rsqrt``
+    agrees.  XLA:CPU's
+    ``rsqrt`` is the x86 approximation refined by two Newton steps, which
+    ``torch.rsqrt`` does not reproduce (ROADMAP queue 3): a row where the two
+    differ may differ in an element."""
+    from dsm_tpu.ops import norm as jN
+    from dsm_tpu_torch.ops import norm as tN
+
+    x = _wide_rows(d, 256, seed=d)
+    alpha = np.random.default_rng(1).uniform(0.5, 2.0, d).astype(np.float32)
+    xj, aj = jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(alpha).astype(jnp.bfloat16)
+    xt, at = torch.from_numpy(x).bfloat16(), torch.from_numpy(alpha).bfloat16()
+    var_j = jax.jit(lambda v: jnp.mean(v.astype(jnp.float32) ** 2, axis=-1))(xj)
+    xf = xt.float()
+    var_t = tN.mean_square(xf)[:, 0]
+    _assert_same_bits(var_t, var_j, "mean square")
+    assert (_bits(torch.mean(xf * xf, -1)) != _bits(var_j)).mean() > 0.3  # the order matters
+    want = jax.jit(jN.rms_norm)({"alpha": aj}, xj)
+    got = tN.rms_norm({"alpha": at}, xt)
+    r_j = jax.jit(lambda v: jax.lax.rsqrt(v + 1e-8))(var_j)
+    same_scale = _bits(torch.rsqrt(var_t + 1e-8)) == _bits(r_j)
+    assert same_scale.mean() > 0.5
+    _assert_same_bits(got[torch.from_numpy(same_scale)], np.asarray(want)[same_scale], "rows")
+
+
+def _blocked_fma_dot(x: torch.Tensor, w: torch.Tensor, kc: int) -> torch.Tensor:
+    """``x (M, K) @ w (K, N)`` in f32 as a GEMM of Eigen's form sums: each
+    block of ``kc`` columns of K an in-order chain of fused multiply-adds from
+    0 (one rounding a step: the f64 product of two bf16 values is exact), the
+    blocks' sums added in order."""
+    out = torch.zeros(x.shape[0], w.shape[1])
+    for s in range(0, x.shape[1], kc):
+        acc = torch.zeros_like(out)
+        for k in range(s, min(s + kc, x.shape[1])):
+            acc = (x[:, k:k + 1].double() * w[k:k + 1].double() + acc.double()).float()
+        out = out + acc
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 1024, 3072), (64, 2048, 2048)])
+def test_the_jitted_bf16_dot_is_an_f32_gemm_rounded_once(m, k, n):
+    """The finding behind ROADMAP queue 3 item 2, held: XLA:CPU's jitted bf16
+    product is the f32 product of the upcast operands rounded once to bf16,
+    and that f32 product is summed as Eigen's GEMM sums it (in-order
+    fused multiply-add chains over blocks of K, the blocks added in order;
+    the block follows Eigen's cache-size rule, so the test finds it among
+    256-1024).  Torch's bf16 product takes another order and misses some
+    elements; the port keeps it (a K-step loop a product would be the fix).
+    ``pytest -s`` prints the counts."""
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32)).astype(jnp.bfloat16)
+    w = jnp.asarray((rng.standard_normal((k, n)) * 0.02).astype(np.float32)).astype(jnp.bfloat16)
+    bf16 = jax.jit(lambda a, b: a @ b)(x, w)
+    f32 = jax.jit(lambda a, b: jnp.dot(a.astype(jnp.float32), b.astype(jnp.float32)))(x, w)
+    _assert_same_bits(torch.from_numpy(np.asarray(f32)).bfloat16(), bf16, "rounded once")
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    wt = torch.from_numpy(np.array(w.astype(jnp.float32)))
+    differ = {kc: int((_bits(_blocked_fma_dot(xt, wt, kc)) != _bits(f32)).sum())
+              for kc in (256, 512, 1024)}
+    torch_bf16 = int((_bits(xt.bfloat16() @ wt.bfloat16()) != _bits(bf16)).sum())
+    print(f"\n({m},{k})x({k},{n}): f32 elements off the blocked order by block {differ}; "
+          f"torch's bf16 product off the jitted one in {torch_bf16} of {m * n}")
+    assert min(differ.values()) == 0
+    assert torch_bf16 > 0
