@@ -97,17 +97,36 @@ lines each:
 7. duplex: the batched full-duplex dialogue engine from
    configs/config-duplex-tpu-serving.toml (s2s-2b: d=2560, 24 layers, 20
    heads x 128, context 3000, 16 + 16 codebooks, DepFormer 16 slices x 6
-   layers, B=24, int8 KV, int8 weights + W8A8, bf16 codec; pipeline_depth
-   set to 1, the path the port serves) serves 12 dialogues, two of them
-   text-only (ASR delay), then 4 more in reused slots: every pushed frame
+   layers, B=24, int8 KV, int8 weights + W8A8, bf16 codec), eager
+   (``cuda_graph=False``, so that the wrappers count every launch) at
+   pipeline_depth 1 (the file's 2 -> 1: the reference of ``[graph-duplex]``),
+   serves 12 dialogues, three of them text-only (ASR delay), then 4 more in
+   reused slots: every pushed frame
    is stepped, audio starts after the acoustic delay, every audio frame is
    1,920 finite samples, every dialogue ends, and the kernels launched
    exactly PER_TICK_DUPLEX per tick (the split ring pipeline; no fused
-   commit); then the LM step, the Mimi encode step and the Mimi decode
+   commit); its tick is timed at 24 active slots over 30 ticks with a
+   profile (the eager side of the ``[graph]`` line); then the LM step, the
+   Mimi encode step and the Mimi decode
    step through the kernels against the same steps through their plain
    versions (``[duplex-path]``), and the tick, Mimi
    encode, the LM step, the DepFormer and Mimi decode timed at 24 active
    slots with a kernel profile, the tick once more over full rings.
+   ``[graph-duplex]``: the engine as ``build_duplex`` makes it from the file
+   as shipped (pipeline_depth 2, its tick captured once as a CUDA graph:
+   the key split, Mimi encode, the LM step with the DepFormer, the codec
+   resets, the gated Mimi decode, the packing) serves the same workload with
+   the eager engine's events (text, every frame bit for bit), its launches
+   counted over its warm-up and capture (3 x per tick, none on replay); its
+   tick is timed at depth 2 and at depth 1 (host ms, completion-to-completion
+   interval, device busy share, launches and kernel ms from a profile, peak
+   memory with the graph's pool); then the replay is held to the eager tick
+   from one state over GRAPH_DUPLEX_TICKS ticks (past a wrap of the LM ring
+   and both codec rings; slots opened, closed and reset, partial masks,
+   text-only slots): the packed array bit for bit at every tick, the key and
+   the whole state every 40 ticks and at the end; ``[graph-duplex-kv4]``
+   (after ``[duplex-kv4]``) the same check over 40 ticks on packed-int4
+   rings.
 
 8. The later paths, each at full width and depth: ``[stt1b-kv4]`` the stt-1b
    engine built with ``AsrConfig(kv_bits=4)`` (packed-int4 rings, uint8
@@ -3222,28 +3241,29 @@ def _duplex_verify(engine, sessions, sids):
     return n_audio, n_text
 
 
-def phase_duplex(dev, card, kv_bits=8):
-    """The dialogue engine from configs/config-duplex-tpu-serving.toml;
-    ``kv_bits = 4`` changes the file's 8 (packed-int4 rings), serves half as
-    many dialogues and tags the lines ``[duplex-kv4]``."""
-    import torch
-
-    from dsm_tpu_torch.server import builder
+def _duplex_module(tag, kv_bits, depth):
+    """configs/config-duplex-tpu-serving.toml with ``kv_bits`` and
+    ``pipeline_depth`` as given (printed where they differ from the file)."""
     from dsm_tpu_torch.server import config as CFG
 
-    tag = "duplex" if kv_bits == 8 else "duplex-kv4"
-    n_first, n_second = (12, 4) if kv_bits == 8 else (6, 2)
-    counters = _duplex_counters()
     path = os.path.join(ROOT, "configs", "config-duplex-tpu-serving.toml")
     mod = CFG.Config.load(path).modules["duplex"]
-    print(f"[{tag}] {os.path.relpath(path, ROOT)}: pipeline_depth "
-          f"{mod.raw['pipeline_depth']} -> 1 (a cut: the port serves no dispatch-ahead), "
-          f"kv_bits {mod.raw['kv_bits']} -> {kv_bits}; every other key as in the file",
+    changed = [f"{key} {mod.raw[key]} -> {value}"
+               for key, value in (("pipeline_depth", depth), ("kv_bits", kv_bits))
+               if mod.raw[key] != value]
+    print(f"[{tag}] {os.path.relpath(path, ROOT)}: "
+          f"{', '.join(changed) if changed else 'as shipped'}; every other key as in the file",
           flush=True)
-    mod.raw["pipeline_depth"] = 1
+    mod.raw["pipeline_depth"] = depth
     mod.raw["kv_bits"] = kv_bits
-    t0 = time.perf_counter()
-    engine = builder.build_duplex(mod, dev)
+    return mod
+
+
+def _check_duplex_engine(engine, kv_bits):
+    """The engine is s2s-2b at B=24 with the serving profile and the rings
+    the kernel cases hold."""
+    import torch
+
     lm = engine.cfg.lm
     tcfg, dcfg = lm.transformer, lm.depformer.transformer
     check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.hd, tcfg.context,
@@ -3271,23 +3291,15 @@ def phase_duplex(dev, card, kv_bits=8):
     check(PER_TICK_DUPLEX["decode_attend"] == PER_TICK_DUPLEX["rope_qk"] == tcfg.num_layers
           and PER_TICK_DUPLEX["rope_commit"] == 2 * engine.mimi_cfg.transformer.num_layers,
           "PER_TICK_DUPLEX does not follow the config")
-    torch.cuda.synchronize()
-    print(f"[{tag}] engine built in {time.perf_counter() - t0:.3f} s (s2s-2b d=2560 L=24 "
-          f"h=20x128 ctx 3000, 16+16 codebooks, DepFormer 16x6 d=1024 h=16, B=24, "
-          f"{ring['k'].dtype} rings {tuple(ring['k'].shape)}, int8 weights + W8A8, bf16 codec, "
-          f"seeded random weights); memory allocated "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    t0 = time.perf_counter()
-    engine.warmup()
-    torch.cuda.synchronize()
-    print(f"[{tag}] warmup {time.perf_counter() - t0:.3f} s", flush=True)
+    return ring
 
-    for fn in counters.values():
-        fn.launches = 0
-    ticks0 = engine.step_count
+
+def _duplex_serve(engine, n_first, n_second, base_s):
+    """``n_first`` dialogues (two text-only, with an ASR delay), idle
+    connections in the other slots, driven to their ends and checked; then
+    ``n_second`` more in the slots of the first ones closed.  Returns the
+    dialogues, the idle drivers and the audio and text events' counts."""
     sessions = {}
-    t0 = time.perf_counter()
-    base_s = 2.0 if kv_bits == 8 else 1.5  # shorter dialogues in the int4 leg
     for sid in range(n_first):
         _duplex_open(engine, sid, base_s + (sid % 5) / 4.0, sessions,
                      asr_delay=6 if sid in (3, 7) else 0)
@@ -3302,13 +3314,62 @@ def phase_duplex(dev, card, kv_bits=8):
     freed = {sessions[sid]["drv"].slot for sid in range(n_second)}
     for sid in range(n_second):
         engine.close_session(sessions[sid]["drv"])
-    second = {}
     for sid in range(n_first, n_first + n_second):
-        drv = _duplex_open(engine, sid, base_s, second,
+        drv = _duplex_open(engine, sid, base_s, sessions,
                            asr_delay=5 if sid == n_first + 1 else 0)
         check(drv.slot in freed, f"dialogue {sid} did not reuse a freed slot")
+    second = {sid: sessions[sid] for sid in range(n_first, n_first + n_second)}
     _duplex_drive(engine, second)
-    a2, t2 = _duplex_verify(engine, second, range(n_first, n_first + n_second))
+    a2, t2 = _duplex_verify(engine, second, second)
+    return sessions, idle, n_audio + a2, n_text + t2
+
+
+def _duplex_log(sessions, ticks):
+    """Each dialogue's events (kind, text, the pcm's bytes) and the ticks
+    dispatched: what two engines serving one workload must agree on."""
+    return ({sid: [(type(e).__name__, getattr(e, "text", None),
+                    e.pcm.tobytes() if hasattr(e, "pcm") else None) for e in s["events"]]
+             for sid, s in sessions.items()}, ticks)
+
+
+def phase_duplex(dev, card, kv_bits=8):
+    """The dialogue engine from configs/config-duplex-tpu-serving.toml,
+    eager (``cuda_graph=False``, so that the wrappers count every launch)
+    at ``pipeline_depth`` 1: the reference the captured engine of
+    ``[graph-duplex]`` is held to.  ``kv_bits = 4`` changes the file's 8
+    (packed-int4 rings), serves half as many dialogues and tags the lines
+    ``[duplex-kv4]``.  Returns the engine, the launches and the served
+    workload's log."""
+    import torch
+
+    from dsm_tpu_torch.server import builder
+
+    tag = "duplex" if kv_bits == 8 else "duplex-kv4"
+    n_first, n_second = (12, 4) if kv_bits == 8 else (6, 2)
+    counters = _duplex_counters()
+    mod = _duplex_module(tag, kv_bits, 1)
+    t0 = time.perf_counter()
+    engine = builder.build_duplex(mod, dev, cuda_graph=False)
+    ring = _check_duplex_engine(engine, kv_bits)
+    torch.cuda.synchronize()
+    role = " (the reference of [graph-duplex])" if kv_bits == 8 else ""
+    print(f"[{tag}] eager engine{role} built in "
+          f"{time.perf_counter() - t0:.3f} s (s2s-2b d=2560 L=24 "
+          f"h=20x128 ctx 3000, 16+16 codebooks, DepFormer 16x6 d=1024 h=16, B=24, "
+          f"{ring['k'].dtype} rings {tuple(ring['k'].shape)}, int8 weights + W8A8, bf16 codec, "
+          f"seeded random weights); memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    print(f"[{tag}] warmup {time.perf_counter() - t0:.3f} s", flush=True)
+
+    for fn in counters.values():
+        fn.launches = 0
+    ticks0 = engine.step_count
+    t0 = time.perf_counter()
+    base_s = 2.0 if kv_bits == 8 else 1.5  # shorter dialogues in the int4 leg
+    sessions, idle, n_audio, n_text = _duplex_serve(engine, n_first, n_second, base_s)
     serve_s = time.perf_counter() - t0
     ticks = engine.step_count - ticks0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -3318,21 +3379,21 @@ def phase_duplex(dev, card, kv_bits=8):
               f"per tick")
         check(n > 0 or PER_TICK_DUPLEX[name] == 0,
               f"{name} never launched on the duplex path")
-    frames = sum(s["frames"] for s in list(sessions.values()) + list(second.values()))
-    text_only = sum(s["asr_delay"] > 0 for s in list(sessions.values()) + list(second.values()))
+    frames = sum(s["frames"] for s in sessions.values())
+    text_only = sum(s["asr_delay"] > 0 for s in sessions.values())
     print(f"[{tag}] {n_first + n_second} dialogues ({n_first} + {n_second} in reused slots; "
           f"{text_only} text-only with an ASR delay), "
-          f"all done; {frames} frames pushed and stepped, {n_audio + a2} audio frames of "
+          f"all done; {frames} frames pushed and stepped, {n_audio} audio frames of "
           f"{engine.mimi_cfg.frame_size} finite samples (none before the acoustic delay, "
-          f"none for text-only dialogues), {n_text + t2} text events, {ticks} ticks in "
+          f"none for text-only dialogues), {n_text} text events, {ticks} ticks in "
           f"{serve_s:.3f} s with 24 slots open; launches {launches} = per tick "
           f"{PER_TICK_DUPLEX}", flush=True)
-    for s in [sessions[sid] for sid in range(n_second, n_first)] + list(second.values()):
-        engine.close_session(s["drv"])
+    for sid in range(n_second, n_first + n_second):
+        engine.close_session(sessions[sid]["drv"])
     for drv in idle:
         engine.close_session(drv)
     check(engine.used_slots() == 0, "duplex slots still open")
-    return engine, launches
+    return engine, launches, _duplex_log(sessions, ticks)
 
 
 def phase_duplex_path(engine, dev, tag="duplex", mimi=True, full=False):
@@ -3571,6 +3632,227 @@ def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
     return statistics.median(full), peak_gb
 
 
+# ---------------------------------------------------------------------------
+# The duplex tick as one captured CUDA graph, with dispatch-ahead
+# ---------------------------------------------------------------------------
+
+# Ticks the captured duplex tick is held to the eager tick over, from a state
+# whose LM ring (3,072 rows, one a tick) sits half as many rows and the codec
+# rings (256 rows, two a tick) 40 rows before a wrap; the whole state every
+# GRAPH_DUPLEX_CHECK_EVERY ticks and at the end.
+GRAPH_DUPLEX_TICKS = {"graph-duplex": 80, "graph-duplex-kv4": 40}
+GRAPH_DUPLEX_CHECK_EVERY = 40
+DUPLEX_TEXT_ONLY = (3, 7)  # slots of the traffic with an ASR delay of 6
+
+
+def _duplex_graph_times(engine, tag, what, card, rope_per_tick=None):
+    """The engine's tick with every slot open and fed a frame (``tick()``:
+    the gather, the dispatch and, ``pipeline_depth`` - 1 ticks later, the
+    fetch and post-processing): host ms a tick between returns (median, min,
+    max over 30 after 5 warm-up) and the observer's completion-to-completion
+    interval; then, at depth 1, the device's busy share, kernel ms and device
+    launches a tick from a profile (1 eager tick, 2 replays:
+    ``rope_per_tick`` given for a replay, whose launches no wrapper counts);
+    peak memory (reserved, a captured graph's pool included, and allocated)
+    since the caller reset it."""
+    import torch
+
+    b, frame = engine.batch_size, engine.mimi_cfg.frame_size
+    depth = engine.pipeline_depth
+    opened = [engine.open_session(lambda ev: None) for _ in range(b - engine.used_slots())]
+    check(engine.used_slots() == b, f"{tag}: slots left free for the timing")
+    for drv in engine.slots:
+        drv.push_pcm(_pcm(5, 0.08 * 35, frame))
+    dts = []
+    engine.tick_observer = lambda dt, n, phases: dts.append(dt * 1e3)
+    times = []
+    with torch.inference_mode():
+        for i in range(35):
+            t0 = time.perf_counter()
+            check(engine.tick(), f"{tag}: a tick with {b} slots stepped nothing")
+            if i >= 5:
+                times.append((time.perf_counter() - t0) * 1e3)
+        while engine._inflight:  # the tick still in flight at depth 2
+            engine._post_process(engine._inflight.popleft())
+        engine.tick_observer = None
+        n = 1 if rope_per_tick is None else 2
+        engine.pipeline_depth = 1  # the profile: one tick, its fetch included
+        for drv in engine.slots:
+            drv.push_pcm(_pcm(6, 0.08 * n, frame))
+        rows, wall_us = _profile(engine.tick, n, rope_launches=None if rope_per_tick is None
+                                 else n * rope_per_tick)
+        engine.pipeline_depth = depth
+    kernel_ms = _print_profile(f"{tag}-profile", what, rows, wall_us, n, "tick", card, 6)
+    for drv in opened:
+        engine.close_session(drv)
+    launches = sum(c for _, _, c in rows) / n
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+    tick_ms, dt_ms = statistics.median(times), statistics.median(dts[5:])
+    busy = kernel_ms / (wall_us / n / 1e3)
+    print(f"[{tag}] {what}engine tick at pipeline_depth {depth}, {b} slots active: median "
+          f"{tick_ms!r} ms, min {min(times)!r}, max {max(times)!r} over 30 after 5 warm-up; "
+          f"completion-to-completion median {dt_ms!r} ms; at depth 1 (profiled): device busy "
+          f"{busy!r}, {launches:.0f} device launches a tick, kernels {kernel_ms!r} ms a tick; "
+          f"peak memory {peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}",
+          flush=True)
+    return {"step_ms": tick_ms, "min_ms": min(times), "max_ms": max(times), "dt_ms": dt_ms,
+            "busy": busy, "launches": launches, "kernel_ms": kernel_ms, "peak_gb": peak,
+            "peak_alloc_gb": peak_alloc}
+
+
+def _duplex_against_eager(engine, tag, dev, seed):
+    """From a state whose LM ring sits half of GRAPH_DUPLEX_TICKS rows and
+    the codec rings 40 rows before a wrap (the LM rings full of real
+    quantised rows), the eager tick (a shallow
+    copy of the engine on clones of its key and states, params shared)
+    beside the replay over GRAPH_DUPLEX_TICKS ticks of traffic: slots opened,
+    closed and reset, partial masks, two text-only slots.  Every packed array
+    bit for bit, and the key and every state every GRAPH_DUPLEX_CHECK_EVERY
+    ticks and at the end."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    b, frame = engine.batch_size, engine.mimi_cfg.frame_size
+    lm_t = engine.state["lm"]["t"]
+    codec = (engine.enc_state["enc_t"], engine.dec_state["dec_t"])
+    lm_ring, codec_ring = lm_t["valid"].shape[1], codec[0]["valid"].shape[1]
+    ticks = GRAPH_DUPLEX_TICKS[tag]
+    _fill_rings(lm_t, torch.Generator(device=dev).manual_seed(seed), 3 * lm_ring - ticks // 2)
+    with torch.inference_mode():
+        for t in codec:
+            t["pos"].fill_(3 * codec_ring - 40)
+    ref = copy.copy(engine)
+    ref.cuda_graph = False
+    ref.rng = engine.rng.clone()
+    ref.state, ref.enc_state, ref.dec_state = (
+        _clone(engine.state), _clone(engine.enc_state), _clone(engine.dec_state))
+    delay = np.zeros(b, np.int32)
+    delay[list(DUPLEX_TEXT_ONLY)] = 6
+    resets = partial = decoded = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, (pcm, mask, reset) in enumerate(_graph_traffic(b, frame, ticks, seed)):
+            resets += int(reset.sum())
+            partial += int(0 < mask.sum() < b)
+            got = engine._invoke_step(pcm, mask, reset, delay)
+            want = ref._invoke_step(pcm, mask, reset, delay)
+            check(np.array_equal(got, want),
+                  f"{tag}: tick {i}: the replay's packed array differs from the eager tick's")
+            decoded += int(got[2 * b:3 * b].sum())
+            if (i + 1) % GRAPH_DUPLEX_CHECK_EVERY == 0 or i + 1 == ticks:
+                diff = (_tree_diff(engine.state, ref.state)
+                        + _tree_diff(engine.enc_state, ref.enc_state, "/enc")
+                        + _tree_diff(engine.dec_state, ref.dec_state, "/dec")
+                        + _tree_diff(engine.rng, ref.rng, "/rng"))
+                check(not diff, f"{tag}: tick {i}: the state differs at {diff[:5]}")
+    lm_pos, codec_pos = int(ref.state["lm"]["t"]["pos"]), int(ref.enc_state["enc_t"]["pos"])
+    check(lm_pos > 3 * lm_ring and codec_pos > 3 * codec_ring and
+          int(ref.dec_state["dec_t"]["pos"]) > 3 * codec_ring, f"{tag}: the rings did not wrap")
+    check(decoded > 0, f"{tag}: no frame was decoded")
+    ring = lm_t["layers"][0]["k"]
+    print(f"[{tag}] {ticks} ticks of {engine.cfg.lm.transformer.num_layers} layers over "
+          f"{ring.dtype} rings {tuple(ring.shape)} from one state, replay against the eager "
+          f"tick (Mimi encode, lm_gen.step with the DepFormer, codec resets, Mimi decode): the "
+          f"packed array (text tokens, steps, decode mask, pcm bits) bit for bit at every tick, "
+          f"the key and the whole state (LM rings, scale rings, valid, pos, token buffers, "
+          f"counters, Mimi rings and carries) every {GRAPH_DUPLEX_CHECK_EVERY} ticks and at the "
+          f"end; {resets} slot resets, {partial} partial masks, text-only slots "
+          f"{list(DUPLEX_TEXT_ONLY)}; {decoded} frames decoded; LM ring of {lm_ring} rows at "
+          f"tick {lm_pos}, Mimi rings of {codec_ring} at {codec_pos}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del ref
+
+
+def phase_graph_duplex(dev, card, eager_log):
+    """The duplex tick as one captured CUDA graph, with dispatch-ahead: the
+    engine as ``build_duplex`` makes it from configs/config-duplex-tpu-serving.toml
+    as shipped (``pipeline_depth = 2``, ``cuda_graph`` left at its default,
+    on), its tick captured by ``warmup()``.  (1) It serves ``[duplex]``'s
+    workload from the same weights and session starts: each dialogue's events
+    (text, every frame bit for bit) and the ticks equal to the eager depth-1
+    engine's ``eager_log``; the kernels counted over its warm-up and capture
+    (3 x per tick), none over the replays.  (2) Its tick timed at depth 2 and
+    at depth 1.  (3) The replay held to the eager tick over
+    GRAPH_DUPLEX_TICKS ticks past a wrap of every ring."""
+    import torch
+
+    from dsm_tpu_torch.server import builder
+
+    tag = "graph-duplex"
+    counters = _duplex_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mod = _duplex_module(tag, 8, 2)
+    t0 = time.perf_counter()
+    engine = builder.build_duplex(mod, dev)
+    _check_duplex_engine(engine, 8)
+    check(engine.cuda_graph and engine._graph is None and engine.pipeline_depth == 2,
+          f"{tag}: the tick is not captured by default on CUDA, or not at depth 2")
+    engine.warmup()  # two ticks on the side stream, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    check(engine._graph is not None, f"{tag}: no graph captured")
+
+    ticks0 = engine.step_count
+    t0 = time.perf_counter()
+    sessions, idle, n_audio, n_text = _duplex_serve(engine, 12, 4, 2.0)
+    serve_s = time.perf_counter() - t0
+    log = _duplex_log(sessions, engine.step_count - ticks0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(log == eager_log, f"{tag}: the captured engine's events differ from the eager "
+          f"engine's: first at {_first_difference(log, eager_log)}")
+    want = {name: 3 * n for name, n in PER_TICK_DUPLEX.items()}
+    check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
+    for sid in range(4, 16):
+        engine.close_session(sessions[sid]["drv"])
+    for drv in idle:
+        engine.close_session(drv)
+    print(f"[{tag}] built and captured in {capture_s:.2f} s; served [duplex]'s 16 dialogues "
+          f"at pipeline_depth 2 in {log[1]} ticks ({serve_s:.3f} s): {n_audio} audio frames and "
+          f"{n_text} text events, each dialogue's events (text, every frame bit for bit, Done "
+          f"last) equal to the eager depth-1 engine's; kernel launches counted over its warm-up "
+          f"and capture {launches} = 3 x per tick, none on replay", flush=True)
+
+    rope = PER_TICK_DUPLEX["rope_qk"] + PER_TICK_DUPLEX["rope_commit"]
+    numbers = {"launches": launches,
+               "graph2": _duplex_graph_times(engine, tag, "captured: ", card, rope)}
+    engine.pipeline_depth = 1
+    numbers["graph"] = _duplex_graph_times(engine, tag, "captured: ", card, rope)
+    engine.pipeline_depth = 2
+    _duplex_against_eager(engine, tag, dev, seed=45)
+    del engine
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def phase_graph_duplex_kv4(dev):
+    """The captured duplex tick over packed-int4 rings (the serving TOML with
+    ``kv_bits = 4``, uint8 (24,20,3072,64)): the replay held to the eager tick
+    over GRAPH_DUPLEX_TICKS["graph-duplex-kv4"] ticks past a wrap of every
+    ring, bit for bit."""
+    import torch
+
+    from dsm_tpu_torch.server import builder
+
+    tag = "graph-duplex-kv4"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = builder.build_duplex(_duplex_module(tag, 4, 2), dev)
+    _check_duplex_engine(engine, 4)
+    engine.warmup()
+    torch.cuda.synchronize()
+    check(engine._graph is not None, f"{tag}: no graph captured")
+    print(f"[{tag}] built and captured in {time.perf_counter() - t0:.2f} s", flush=True)
+    _duplex_against_eager(engine, tag, dev, seed=47)
+    del engine
+    torch.cuda.empty_cache()
+
+
 def phase_tune(dev):
     """Path C: the tuning tool in process, as ``python -m
     dsm_tpu_torch.tools.attn_kernel_tune --batch 64`` runs it: every variant a
@@ -3690,12 +3972,17 @@ def main() -> int:
     graph["tts202501"] = {**phase_graph_tts(dev, card, tts202501_log, preset="tts_202501"),
                           "eager": tts202501_eager}
     elapsed("graph-tts202501")
-    duplex_engine, duplex_launches = phase_duplex(dev, card)
+    duplex_engine, duplex_launches, duplex_log = phase_duplex(dev, card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    duplex_eager = _duplex_graph_times(duplex_engine, "graph-duplex", "eager: ", card)
     int8_full, int8_peak = phase_duplex_times(duplex_engine, dev, card)
     elapsed("duplex")
     del duplex_engine
     torch.cuda.empty_cache()
-    duplex_engine, duplex_kv4_launches = phase_duplex(dev, card, kv_bits=4)
+    graph["duplex"] = {**phase_graph_duplex(dev, card, duplex_log), "eager": duplex_eager}
+    elapsed("graph-duplex")
+    duplex_engine, duplex_kv4_launches, _ = phase_duplex(dev, card, kv_bits=4)
     int4_full, int4_peak = phase_duplex_times(duplex_engine, dev, card, tag="duplex-kv4",
                                               brief=True)
     del duplex_engine
@@ -3704,6 +3991,8 @@ def main() -> int:
           f"full rings median {int4_full!r} ms against {int8_full!r}; peak memory "
           f"{int4_peak:.2f} GB against {int8_peak:.2f} GB; card {card}", flush=True)
     elapsed("duplex-kv4")
+    phase_graph_duplex_kv4(dev)
+    elapsed("graph-duplex-kv4")
     tune_launches = phase_tune(dev)
     elapsed("tune")
     ms = kernel_times(dev, card)
@@ -3718,7 +4007,8 @@ def main() -> int:
                 "stt26_kv4": stt26_kv4_launches, "duplex_kv4": duplex_kv4_launches,
                 "tts202501": tts202501_launches, "tune": tune_launches,
                 "tts_graph": graph["tts"]["launches"],
-                "tts202501_graph": graph["tts202501"]["launches"]}
+                "tts202501_graph": graph["tts202501"]["launches"],
+                "duplex_graph": graph["duplex"]["launches"]}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -3759,6 +4049,16 @@ def main() -> int:
               f"{g['launches']:.0f}; kernels {e['kernel_ms']!r} / {g['kernel_ms']!r} ms; peak "
               f"memory {e['peak_gb']:.2f} / {g['peak_gb']:.2f} GB reserved; card {card}",
               flush=True)
+    e, g1, g2 = graph["duplex"]["eager"], graph["duplex"]["graph"], graph["duplex"]["graph2"]
+    print(f"[graph] s2s-2b duplex engine tick, eager at depth 1 against captured at depth 1 and "
+          f"2 (this run): host ms median {e['step_ms']!r} / {g1['step_ms']!r} / "
+          f"{g2['step_ms']!r} (min {e['min_ms']!r} / {g1['min_ms']!r} / {g2['min_ms']!r}, max "
+          f"{e['max_ms']!r} / {g1['max_ms']!r} / {g2['max_ms']!r}); completion-to-completion "
+          f"{e['dt_ms']!r} / {g1['dt_ms']!r} / {g2['dt_ms']!r} ms; at depth 1 device busy "
+          f"{e['busy']!r} / {g1['busy']!r}, device launches each {e['launches']:.0f} / "
+          f"{g1['launches']:.0f}, kernels {e['kernel_ms']!r} / {g1['kernel_ms']!r} ms; peak "
+          f"memory {e['peak_gb']:.2f} / {g1['peak_gb']:.2f} GB reserved; card {card}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -310,6 +310,16 @@ def reset_decode_state(state: dict, reset_mask: torch.Tensor) -> dict:
     }
 
 
+def reset_encode_state_in_place(state: dict, reset_mask: torch.Tensor) -> None:
+    """:func:`reset_encode_state` written into ``state``'s own tensors."""
+    copy_into(state, reset_encode_state(state, reset_mask))
+
+
+def reset_decode_state_in_place(state: dict, reset_mask: torch.Tensor) -> None:
+    """:func:`reset_decode_state` written into ``state``'s own tensors."""
+    copy_into(state, reset_decode_state(state, reset_mask))
+
+
 def encode_step(cfg: MimiConfig, params, state, pcm, mask=None):
     """One 80 ms codec step: ``pcm (B, 1, 1920)`` -> ``codes (B, n_q, 1)``."""
     x, s_enc = encoder_step(cfg.seanet, params["encoder"], state["enc"], pcm, mask)
@@ -320,6 +330,16 @@ def encode_step(cfg: MimiConfig, params, state, pcm, mask=None):
         params["downsample"], state["down"], xt.transpose(1, 2), mask)
     codes = Q.split_encode(cfg.rvq, params["quantizer"], x)
     return codes, {"enc": s_enc, "enc_t": s_t, "down": s_down}
+
+
+def encode_step_in_place(cfg: MimiConfig, params, state, pcm, mask=None):
+    """:func:`encode_step` on state buffers that stay the same from step to
+    step: the encoder ring is written in place by the step already; its
+    ``pos`` and ``valid``, the SEANet conv carries and the downsample carry
+    are written back into ``state``'s own tensors.  Returns the codes."""
+    codes, new_state = encode_step(cfg, params, state, pcm, mask)
+    copy_into(state, new_state)
+    return codes
 
 
 def decode_step(cfg: MimiConfig, params, state, codes, mask=None):

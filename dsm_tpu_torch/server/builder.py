@@ -231,10 +231,15 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
     return engine
 
 
-def build_duplex(mod: CFG.ModuleConfig, device):
+def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = None):
     """The engine for an ``Lm`` (full-duplex dialogue) module on ``device``:
     :class:`BatchedDuplexEngine` for ``batch_size > 1``, else the
     single-dialogue :class:`DuplexEngine`.
+
+    ``cuda_graph`` is the batched engine's (the tick captured as one CUDA
+    graph, the default on CUDA; False for the eager tick); no TOML key sets
+    it.  ``pipeline_depth`` (TOML, default 1) is the batched engine's
+    dispatch-ahead, as in the JAX builder.
 
     The TOML's ``kv_quant`` selects the serving profile (int8 KV rings, int8
     LM weights, quantised here once, with W8A8 matmuls or, with ``w8a8 =
@@ -249,8 +254,6 @@ def build_duplex(mod: CFG.ModuleConfig, device):
     for key, what in _TTS_UNPORTED.items():
         if raw.get(key):
             raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
-    if int(raw.get("pipeline_depth", 1)) != 1:
-        raise NotImplementedError("pipeline_depth > 1 is not ported yet; see ROADMAP.md")
     kv_bits = int(raw.get("kv_bits", 8))
     if kv_bits not in (8, 4):
         raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
@@ -290,6 +293,7 @@ def build_duplex(mod: CFG.ModuleConfig, device):
     if batch > 1:
         return BatchedDuplexEngine(
             cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
-            batch_size=batch, kv_quant=kv_quant, kv_bits=kv_bits, device=device)
+            batch_size=batch, kv_quant=kv_quant, kv_bits=kv_bits, device=device,
+            cuda_graph=cuda_graph, pipeline_depth=int(raw.get("pipeline_depth", 1)))
     return DuplexEngine(cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
                         kv_quant=kv_quant, device=device)

@@ -13,6 +13,25 @@ tick's host-bound outputs are packed into one int32 tensor (text tokens,
 step counters, the decode mask, the pcm's f32 bits): one device-to-host
 fetch per tick.
 
+On a CUDA device the tick is one captured CUDA graph, the counterpart of the
+JAX engine's ``jax.jit(_fused, donate_argnums=(1, 2, 3))``: :meth:`warmup`
+runs the tick on the side stream it captures on, then captures the key
+split, ``models.mimi.encode_step_in_place``, ``sessions.lm_gen.step_in_place``
+(the LM step and the DepFormer), the in-place codec resets, the gated
+``models.mimi.decode_step_in_place`` and the packing once over the engine's
+key, state buffers and static inputs; every tick copies pcm, mask, reset
+and ASR delays through pinned host staging into those inputs and replays the
+graph.  A capture that fails raises; the engine never falls back to the
+eager tick.  ``cuda_graph=False`` runs the eager tick (the reference the
+card's checks hold the graph to); the CPU has no graph.
+
+Dispatch-ahead (``pipeline_depth = D > 1``, as the JAX engine's): up to D
+ticks are in flight, and a tick's outputs are post-processed once D are;
+each replay's packed array is copied into one of D pinned host buffers behind
+an event, and post-processing waits on that event alone.  A slot's Done
+follows its last dispatched outputs, and ``stop()`` delivers the ticks still
+in flight.
+
 The serving profile is chosen by arguments, not by the environment:
 ``kv_quant`` gives the LM int8 KV rings (by default on CUDA and not on the
 CPU, as in the JAX engine), ``kv_bits = 4`` with it
@@ -21,9 +40,8 @@ and the weights run as they are given (the
 builder hands over int8 weights, which multiply by the profile they carry:
 W8A8, or weight-only with ``w8a8 = false``).
 
-Left out (ROADMAP.md): dispatch-ahead (``pipeline_depth > 1``), the device
-mesh and prometheus metrics.  ``server/builder.py`` refuses the options that
-select them.
+Left out (ROADMAP.md): the device mesh and prometheus metrics.
+``server/builder.py`` refuses the options that select them.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ import torch
 from ..models import mimi as MIMI
 from ..ops import sampling as S
 from ..sessions import lm_gen
+from .cuda_graph import StagedInputs, capture
 
 
 @dataclasses.dataclass
@@ -111,18 +130,28 @@ class BatchedDuplexEngine:
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, batch_size: int = 8,
                  tick_sleep: float = 0.002, kv_quant: Optional[bool] = None, kv_bits: int = 8,
-                 *, device):
+                 *, device, cuda_graph: Optional[bool] = None, pipeline_depth: int = 1):
         """``params``: ``{"lm": ...}``, dense or int8 (``quantize_weights``),
         used as given; ``mimi_params``: both halves of the codec;
         ``kv_quant``: int8 KV rings, packed int4 with ``kv_bits = 4``; None
         (the default) takes them on CUDA and not on the CPU;
-        ``device``: where everything lives."""
+        ``device``: where everything lives; ``cuda_graph``: the tick as one
+        captured CUDA graph, the default on CUDA (True elsewhere raises);
+        ``pipeline_depth``: 1 fetches each tick's outputs before the next
+        tick, D > 1 keeps up to D - 1 ticks in flight while the host
+        post-processes an older one (dispatch-ahead: the next mic frame never
+        depends on a fetched output, so the events are the same)."""
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.tick_sleep = tick_sleep
         self.device = torch.device(device)
+        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else bool(cuda_graph)
+        if self.cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.pipeline_depth = max(1, int(pipeline_depth))
         self.kv_quant = self.device.type == "cuda" if kv_quant is None else bool(kv_quant)
         self.kv_bits = kv_bits if self.kv_quant else 8
         self.cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -136,7 +165,7 @@ class BatchedDuplexEngine:
                                        kv_bits=self.kv_bits)
         self.enc_state = MIMI.init_encode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
         self.dec_state = MIMI.init_decode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
-        self.rng = S.prng_key(0, device=dev)
+        self.rng = S.prng_key(0, device=dev)  # split once a tick, inside the tick
 
         self.slots: List[Optional[DuplexSlot]] = [None] * batch_size
         self.free: deque = deque(range(batch_size))
@@ -146,9 +175,13 @@ class BatchedDuplexEngine:
         self.running = False
         self.thread: Optional[threading.Thread] = None
         self.step_count = 0
-        # (step s, n_active, (gather, dispatch, fetch, post) s) per stepped tick
+        # (dt s, n_active, (gather, dispatch, fetch, post) s) per stepped tick;
+        # dt is the completion-to-completion interval
         self.tick_observer = None
         self._pcm_buf = np.zeros((batch_size, 1, mimi_cfg.frame_size), np.float32)
+        # (fetch, drivers, n_active, t_gather0, t_disp0, t_disp1) per tick in flight
+        self._inflight: deque = deque()
+        self._last_fetch_t: Optional[float] = None
 
     # -- session lifecycle --
 
@@ -178,52 +211,129 @@ class BatchedDuplexEngine:
 
     # -- device step --
 
-    def _next_key(self) -> torch.Tensor:
-        self.rng, sub = S.split(self.rng)
-        return sub
+    def _device_tick(self, x: dict, in_place: bool) -> torch.Tensor:
+        """The tick on device inputs ``x`` (``pcm (B, 1, frame)`` f32,
+        ``mask``, ``reset``, ``asr_delay``) -> the packed int32 array ``[text
+        (n), steps (n), dec_mask (n), pcm bits (n * frame)]``: the key split,
+        Mimi encode, the LM step with the DepFormer, the codec resets (after
+        the encode, as in the JAX engine), the gated Mimi decode.
+        ``in_place``: the fixed-buffer forms over the engine's key and states
+        (the body the graph captures); else the functional forms, whose new
+        key and states replace the engine's."""
+        cfg, mcfg, mp = self.cfg, self.mimi_cfg, self.mimi_params
+        mask, reset, delay = x["mask"], x["reset"], x["asr_delay"]
+        rng, key = S.split(self.rng)
+        pcm = x["pcm"].to(self._mimi_dtype)
+        if in_place:
+            self.rng.copy_(rng)
+            codes = MIMI.encode_step_in_place(mcfg, mp, self.enc_state, pcm, mask)
+        else:
+            self.rng = rng
+            codes, self.enc_state = MIMI.encode_step(mcfg, mp, self.enc_state, pcm, mask)
+        user_tokens = codes[:, :cfg.input_audio_codebooks, 0].to(torch.int32)
+        kw = dict(asr_delay=delay, mask=mask, reset=reset)
+        if in_place:
+            out = lm_gen.step_in_place(cfg, self.params, self.state, user_tokens, key, **kw)
+            MIMI.reset_encode_state_in_place(self.enc_state, reset)
+            MIMI.reset_decode_state_in_place(self.dec_state, reset)
+        else:
+            out, self.state = lm_gen.step(cfg, self.params, self.state, user_tokens, key, **kw)
+            self.enc_state = MIMI.reset_encode_state(self.enc_state, reset)
+            self.dec_state = MIMI.reset_decode_state(self.dec_state, reset)
+        # Text-only (ASR-delay) slots skip the decode.
+        dec_mask = out["frame_valid"] & (delay <= 0)
+        frame_codes = torch.where(dec_mask[:, None], out["frame"], 0)[:, :, None]
+        if in_place:
+            pcm_out = MIMI.decode_step_in_place(mcfg, mp, self.dec_state, frame_codes, dec_mask)
+        else:
+            pcm_out, self.dec_state = MIMI.decode_step(mcfg, mp, self.dec_state, frame_codes,
+                                                       dec_mask)
+        return torch.cat([
+            out["text_token"].to(torch.int32),
+            out["step_idx"].to(torch.int32),
+            dec_mask.to(torch.int32),
+            pcm_out[:, 0, :].float().contiguous().view(torch.int32).reshape(-1),
+        ])
+
+    def _dispatch(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray,
+                  asr_delay: np.ndarray):
+        """Queue one device tick for host arrays -> its fetch, for
+        :meth:`_fetch`: on the graph, the replay's packed array copied into
+        the next of ``pipeline_depth`` pinned host buffers behind an event
+        (the oldest in flight has been fetched before its buffer comes round
+        again); on the eager tick, the packed device tensor.  The host
+        arrays may be reused once this returns."""
+        if self.cuda_graph:
+            if self._graph is None:
+                raise RuntimeError("the CUDA graph tick is not captured: call warmup() "
+                                   "or start() first")
+            self._inputs.stage({"pcm": pcm, "mask": mask, "reset": reset,
+                                "asr_delay": asr_delay})
+            self._graph.replay()
+            i = self._next_out
+            self._next_out = (i + 1) % len(self._out_host)
+            self._out_host[i].copy_(self._static_out, non_blocking=True)
+            self._out_done[i].record()
+            return self._out_host[i], self._out_done[i]
+        dev = self.device
+        x = {"pcm": torch.as_tensor(pcm, device=dev), "mask": torch.as_tensor(mask, device=dev),
+             "reset": torch.as_tensor(reset, device=dev),
+             "asr_delay": torch.as_tensor(asr_delay, device=dev)}
+        with torch.inference_mode():
+            return self._device_tick(x, in_place=False), None
+
+    @staticmethod
+    def _fetch(fetch) -> np.ndarray:
+        """A dispatched tick's packed int32 array on the host: the wait on its
+        copy's event alone, or the device-to-host copy of the eager tick."""
+        packed, done = fetch
+        if done is not None:
+            done.synchronize()
+            return packed.numpy()
+        return packed.cpu().numpy()
 
     def _invoke_step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray,
-                     asr_delay: np.ndarray, key: torch.Tensor) -> torch.Tensor:
-        """One device tick for host arrays -> the packed int32 device tensor
-        ``[text (n), steps (n), dec_mask (n), pcm bits (n * frame)]``."""
-        dev = self.device
-        cfg = self.cfg
-        with torch.inference_mode():
-            mask_t = torch.as_tensor(mask, device=dev)
-            reset_t = torch.as_tensor(reset, device=dev)
-            delay_t = torch.as_tensor(asr_delay, device=dev)
-            x = torch.as_tensor(pcm, device=dev).to(self._mimi_dtype)
-            codes, self.enc_state = MIMI.encode_step(
-                self.mimi_cfg, self.mimi_params, self.enc_state, x, mask_t)
-            user_tokens = codes[:, :cfg.input_audio_codebooks, 0].to(torch.int32)
-            out, self.state = lm_gen.step(cfg, self.params, self.state, user_tokens, key,
-                                          asr_delay=delay_t, mask=mask_t, reset=reset_t)
-            # The codec's per-slot reset rides the same tick, after the
-            # encode, as in the JAX engine; text-only slots skip the decode.
-            self.enc_state = MIMI.reset_encode_state(self.enc_state, reset_t)
-            self.dec_state = MIMI.reset_decode_state(self.dec_state, reset_t)
-            dec_mask = out["frame_valid"] & (delay_t <= 0)
-            frame_codes = torch.where(dec_mask[:, None], out["frame"], 0)[:, :, None]
-            pcm_out, self.dec_state = MIMI.decode_step(
-                self.mimi_cfg, self.mimi_params, self.dec_state, frame_codes, dec_mask)
-            return torch.cat([
-                out["text_token"].to(torch.int32),
-                out["step_idx"].to(torch.int32),
-                dec_mask.to(torch.int32),
-                pcm_out[:, 0, :].float().contiguous().view(torch.int32).reshape(-1),
-            ])
+                     asr_delay: np.ndarray) -> np.ndarray:
+        """One device tick for host arrays ``(batch_size, ...)``, fetched ->
+        the packed int32 host array (on the graph, pinned memory that the
+        tick ``pipeline_depth`` later overwrites)."""
+        return self._fetch(self._dispatch(pcm, mask, reset, asr_delay))
+
+    def _capture(self, steps: int) -> None:
+        """Run the tick ``steps`` times (at least once) on a side stream with
+        no slot active, then capture it there; raises if capture fails."""
+        b, dev = self.batch_size, self.device
+        self._inputs = StagedInputs({
+            "pcm": torch.zeros(self._pcm_buf.shape, dtype=torch.float32, device=dev),
+            "mask": torch.zeros(b, dtype=torch.bool, device=dev),
+            "reset": torch.zeros(b, dtype=torch.bool, device=dev),
+            "asr_delay": torch.zeros(b, dtype=torch.int32, device=dev)})
+        off = np.zeros(b, bool)
+        self._inputs.stage({"pcm": self._pcm_buf, "mask": off, "reset": off,
+                            "asr_delay": self._asr_delay.copy()})
+        self._graph, self._static_out = capture(
+            lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev)
+        self._out_host = [torch.empty(self._static_out.shape, dtype=torch.int32).pin_memory()
+                          for _ in range(self.pipeline_depth)]
+        self._out_done = [torch.cuda.Event() for _ in range(self.pipeline_depth)]
+        self._next_out = 0
 
     def warmup(self, steps: int = 2) -> None:
-        """Run ticks with no slot active through the whole step."""
+        """Run ticks with no slot active through the whole step; with
+        ``cuda_graph``, through the tick to capture, then capture it."""
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture(steps)
+            return
         off = np.zeros(self.batch_size, bool)
         for _ in range(steps):
-            packed = self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy(),
-                                       self._next_key())
-        packed.cpu()
+            self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
 
     # -- loop --
 
     def start(self) -> None:
+        if self.cuda_graph and self._graph is None:
+            self.warmup()  # capture before the loop starts
         self.running = True
         self.thread = threading.Thread(target=self._loop, name="duplex-model-loop",
                                        daemon=True)
@@ -233,6 +343,8 @@ class BatchedDuplexEngine:
         self.running = False
         if self.thread:
             self.thread.join(timeout=5)
+        while self._inflight:  # deliver the trailing dispatched ticks
+            self._post_process(self._inflight.popleft())
 
     def _loop(self) -> None:
         while self.running:
@@ -244,7 +356,8 @@ class BatchedDuplexEngine:
                 time.sleep(0.1)
 
     def tick(self) -> bool:
-        """One engine tick; True if any slot stepped."""
+        """One engine tick; True if any slot stepped or a dispatched tick
+        was post-processed."""
         n = self.batch_size
         mask = np.zeros(n, bool)
         reset = np.zeros(n, bool)
@@ -260,7 +373,8 @@ class BatchedDuplexEngine:
                     continue
                 f = drv.take_frame(frame)
                 if f is None:
-                    if drv.eos:
+                    # Done only after the slot's last dispatched outputs.
+                    if drv.eos and not any(it[1][slot] is drv for it in self._inflight):
                         drv.finished = True
                         if drv.text_acc:  # the trailing partial word
                             drv.deliver(DuplexTextEvent(
@@ -273,21 +387,31 @@ class BatchedDuplexEngine:
                 stepped[slot] = drv
             asr_delay = self._asr_delay.copy()
         if not mask.any() and not reset.any():
+            if self._inflight:  # drain the pipeline while input pauses
+                self._post_process(self._inflight.popleft())
+                return True
             return False
 
         t0 = time.perf_counter()
-        packed_dev = self._invoke_step(self._pcm_buf, mask, reset, asr_delay,
-                                       self._next_key())
+        fetch = self._dispatch(self._pcm_buf, mask, reset, asr_delay)
         t1 = time.perf_counter()
         self.step_count += 1
-        self._post_process(packed_dev, stepped, int(mask.sum()), t_tick0, t0, t1)
+        self._inflight.append((fetch, stepped, int(mask.sum()), t_tick0, t0, t1))
+        if len(self._inflight) >= self.pipeline_depth:
+            self._post_process(self._inflight.popleft())
         return True
 
-    def _post_process(self, packed_dev, stepped, n_active, t_tick0, t0, t1) -> None:
+    def _post_process(self, item) -> None:
+        fetch, stepped, n_active, t_tick0, t0, t1 = item
         n = self.batch_size
         frame = self.mimi_cfg.frame_size
-        packed = packed_dev.cpu().numpy()  # the tick's one device-to-host fetch
+        packed = self._fetch(fetch)  # the tick's one device-to-host fetch
         t2 = time.perf_counter()
+        # Dispatched ahead, one tick's dispatch-to-fetch spans other ticks'
+        # host work: the interval between completions is the tick's cost
+        # (t2 - t0 at depth 1 and for the first fetch).
+        dt = t2 - t0 if self._last_fetch_t is None else min(t2 - t0, t2 - self._last_fetch_t)
+        self._last_fetch_t = t2
         text_tokens = packed[:n]
         steps = packed[n:2 * n]
         dec_mask = packed[2 * n:3 * n].astype(bool)
@@ -309,5 +433,4 @@ class BatchedDuplexEngine:
                 drv.deliver(DuplexAudioEvent(pcm=pcm[slot].copy()))
         if self.tick_observer is not None:
             t3 = time.perf_counter()
-            self.tick_observer(t2 - t0, n_active,
-                               (t0 - t_tick0, t1 - t0, t2 - t1, t3 - t2))
+            self.tick_observer(dt, n_active, (t0 - t_tick0, t1 - t0, t2 - t1, t3 - t2))

@@ -16,7 +16,9 @@ in place: a masked slot's entries are gathered before the write and written
 back, so no buffer is copied.  Past the end of a slot's buffers
 (``max_steps + acoustic_delay`` entries) a write is dropped and a read gives
 the smallest int32, an absent token, as JAX's scatter and
-``take_along_axis`` do.
+``take_along_axis`` do.  :func:`step_in_place` also writes the counters and
+the LM's position and bitmap back into the state's own buffers, the form a
+captured CUDA graph replays.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from ..models import lm as LM
 from ..ops import sampling as S
+from ..utils.state import copy_into
 
 UNGENERATED = -1
 _OUT_OF_RANGE = torch.iinfo(torch.int32).min  # what a read past the buffer's end gives
@@ -225,3 +228,18 @@ def step(cfg: DuplexConfig, params: dict, state: dict,
     out = {"text_token": text_token, "frame": frame, "frame_valid": frame_valid,
            "audio_tokens": audio_tokens, "step_idx": state["step_idx"]}
     return out, state
+
+
+def step_in_place(cfg: DuplexConfig, params: dict, state: dict,
+                  input_audio_tokens: torch.Tensor, rng: torch.Tensor, **kw) -> dict:
+    """:func:`step` on state buffers that stay the same from tick to tick
+    (the counterpart of the JAX engine's ``donate_argnums``): the step on a
+    shallow copy of ``state``, then every tensor it replaced (``prev_text``,
+    ``step_idx``, the LM's ``pos`` and ``valid``) written back into
+    ``state``'s own tensor; the token buffers and the LM's rings are written
+    in place by the step already.  Keywords as :func:`step`'s; returns
+    ``out``.  Its launches can be captured in a CUDA graph
+    (``server/duplex_batched.py``) and replayed on the same buffers."""
+    out, new_state = step(cfg, params, dict(state), input_audio_tokens, rng, **kw)
+    copy_into(state, new_state)
+    return out

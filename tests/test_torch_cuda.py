@@ -2073,3 +2073,169 @@ def test_tts_tick_body_makes_no_host_sync(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert int(eng.state["step_idx"][0]) == 9
+
+
+# ---------------------------------------------------------------------------
+# The duplex tick as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _small_duplex(dev, kv_bits=8, pipeline_depth=1, cuda_graph=None):
+    """The duplex serving TOML at B = 8 on the card: 2 LM layers of 4 heads x
+    128 over a 128-row int8 or packed-int4 ring (context 120; the split
+    route, as s2s-2b's 20 heads take), W8A8, a DepFormer of 4 slices x 2
+    layers, 4 + 4 codebooks, the codec at full size (a 256-row ring, 2 rows a
+    tick)."""
+    import tomllib
+
+    from dsm_tpu_torch.server import builder as B
+    from dsm_tpu_torch.server import config as CFG
+
+    with open("configs/config-duplex-tpu-serving.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = raw["modules"]["duplex"]
+    mod.update(batch_size=8, pipeline_depth=pipeline_depth, kv_bits=kv_bits)
+    mod["model"].update(audio_codebooks=8, text_in_vocab_size=321, text_out_vocab_size=320)
+    mod["model"]["transformer"].update(d_model=512, num_heads=4, num_layers=2,
+                                       dim_feedforward=768, context=120)
+    mod["model"]["depformer"].update(num_slices=4)
+    mod["model"]["depformer"]["transformer"].update(d_model=64, num_heads=2, num_layers=2,
+                                                    dim_feedforward=192, context=4)
+    mod["generation"].update(generated_audio_codebooks=4, input_audio_codebooks=4)
+    return B.build_duplex(CFG.Config.from_dict(raw).modules["duplex"], dev,
+                          cuda_graph=cuda_graph)
+
+
+def _duplex_traffic(b, frame, steps, seed):
+    """Inputs of ``steps`` engine ticks: slots open (with a reset) and close,
+    partial masks, a text-only (ASR-delay) slot among them."""
+    rng = np.random.default_rng(seed)
+    active = rng.uniform(size=b) < 0.7
+    delay = np.where(np.arange(b) == 2, 5, 0).astype(np.int32)
+    for i in range(steps):
+        opening = ~active & (rng.uniform(size=b) < 0.15)
+        closing = active & (rng.uniform(size=b) < 0.05)
+        reset = opening | (active & (i == 0))
+        active = (active | opening) & ~closing
+        mask = active & (rng.uniform(size=b) < 0.9)
+        pcm = (rng.standard_normal((b, 1, frame)) * 0.1).astype(np.float32)
+        yield pcm, mask, reset, delay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_captured_duplex_tick_equals_the_eager_tick(cuda_device, kv_bits):
+    """``BatchedDuplexEngine`` captures its tick once (the default on CUDA)
+    and replays it; the eager tick runs beside it from a clone of its key and
+    states, every ring 40 ticks before its end, over 80 ticks (every ring
+    wraps), slots opened, closed and reset, partial
+    masks and a text-only slot: the packed array of every tick and, at the
+    end, the key and every state bit for bit, the buffers the same from
+    start to end."""
+    import copy
+
+    eng = _small_duplex(cuda_device, kv_bits)
+    b, frame = eng.batch_size, eng.mimi_cfg.frame_size
+    assert eng.cuda_graph and eng._graph is None
+    off = np.zeros(b, bool)
+    with pytest.raises(RuntimeError, match="not captured"):
+        eng._invoke_step(eng._pcm_buf, off, off, np.zeros(b, np.int32))
+    eng.warmup()
+    assert eng._graph is not None
+    lm_t = eng.state["lm"]["t"]
+    lm_t["pos"].fill_(lm_t["valid"].shape[1] - 40)
+    for t in (eng.enc_state["enc_t"], eng.dec_state["dec_t"]):
+        t["pos"].fill_(t["valid"].shape[1] - 80)  # 2 rows a tick
+    ref = copy.copy(eng)  # the eager tick on clones; params shared
+    ref.cuda_graph = False
+    ref.rng = eng.rng.clone()
+    ref.state, ref.enc_state, ref.dec_state = (
+        _tree_clone(eng.state), _tree_clone(eng.enc_state), _tree_clone(eng.dec_state))
+    def trees(e):
+        return [e.rng] + _tensors(e.state) + _tensors(e.enc_state) + _tensors(e.dec_state)
+
+    ptrs = [t.data_ptr() for t in trees(eng)]
+    decoded = 0
+    with torch.inference_mode():
+        for i, (pcm, mask, reset, delay) in enumerate(_duplex_traffic(b, frame, 80, kv_bits)):
+            got = eng._invoke_step(pcm, mask, reset, delay).copy()
+            want = ref._invoke_step(pcm, mask, reset, delay)
+            assert np.array_equal(got, want), i
+            decoded += int(got[2 * b:3 * b].sum())
+    assert _tree_same(eng.state, ref.state) and _tree_same(eng.enc_state, ref.enc_state)
+    assert _tree_same(eng.dec_state, ref.dec_state) and _same_bits(eng.rng, ref.rng)
+    assert [t.data_ptr() for t in trees(eng)] == ptrs
+    assert int(ref.state["lm"]["t"]["pos"]) > ref.state["lm"]["t"]["valid"].shape[1]
+    assert int(ref.enc_state["enc_t"]["pos"]) > ref.enc_state["enc_t"]["valid"].shape[1]
+    assert decoded > 0, "no frame was decoded"
+
+
+@pytest.mark.cuda
+def test_duplex_tick_body_makes_no_host_sync(cuda_device):
+    """The fixed-buffer tick (the body the engine captures: the key split,
+    Mimi encode, the LM step, the DepFormer's carry and draws, the codec
+    resets, the gated Mimi decode) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the card,
+    so nothing the host reads back can go stale in a replay."""
+    eng = _small_duplex(cuda_device, cuda_graph=False)
+    b, dev = eng.batch_size, cuda_device
+    x = {"pcm": torch.randn(b, 1, eng.mimi_cfg.frame_size, device=dev) * 0.1,
+         "mask": torch.ones(b, dtype=torch.bool, device=dev),
+         "reset": torch.zeros(b, dtype=torch.bool, device=dev),
+         "asr_delay": torch.tensor([0, 3] * (b // 2), dtype=torch.int32, device=dev)}
+    with torch.inference_mode():
+        eng._device_tick(x, in_place=True)  # lazy constants
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                eng._device_tick(x, in_place=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(eng.state["step_idx"][0]) == 5
+
+
+@pytest.mark.cuda
+def test_captured_duplex_engine_at_depth_2_gives_the_depth_1_events(cuda_device):
+    """Five dialogues (one text-only, two in reused slots) served by the
+    captured engine at ``pipeline_depth`` 2 and 1 and by the eager engine:
+    every dialogue's events equal (text, every frame bit for bit), Done
+    last; at depth 2 ``stop()`` delivers the tick still in flight."""
+    def serve(**kw):
+        eng = _small_duplex(cuda_device, **kw)
+        eng.warmup()
+        frame = eng.mimi_cfg.frame_size
+        events = [[] for _ in range(5)]
+        drivers = []
+        for sid in range(5):
+            if sid == 3:  # the next two land in the slots of the first two
+                for _ in range(12):
+                    eng.tick()
+                for drv in drivers[:2]:
+                    assert drv.finished
+                    eng.close_session(drv)
+            drv = eng.open_session(events[sid].append, asr_delay_in_tokens=4 * (sid == 1))
+            pcm = np.random.default_rng(sid).standard_normal(frame * (6 + sid))
+            drv.push_pcm((pcm * 0.1).astype(np.float32))
+            drv.end_input()
+            drivers.append(drv)
+        for _ in range(10):  # the last dialogue's last frame: dispatched, not fetched
+            eng.tick()
+        before = sum(map(len, events))
+        eng.stop()
+        drained = sum(map(len, events)) - before
+        for _ in range(3):
+            eng.tick()
+        return events, drained
+
+    runs = {"eager": serve(cuda_graph=False), "graph 1": serve(),
+            "graph 2": serve(pipeline_depth=2)}
+    assert runs["eager"][1] == runs["graph 1"][1] == 0 and runs["graph 2"][1] > 0
+    for sid in range(5):
+        logs = {name: [(type(e).__name__, getattr(e, "text", None),
+                        None if not hasattr(e, "pcm") else e.pcm.tobytes()) for e in evs[sid]]
+                for name, (evs, _) in runs.items()}
+        assert logs["graph 2"] == logs["graph 1"] == logs["eager"], sid
+        assert logs["graph 2"][-1][0] == "DuplexDoneEvent"
+        n_audio = sum(k == "DuplexAudioEvent" for k, _, _ in logs["graph 2"])
+        assert n_audio == (0 if sid == 1 else 6 + sid - 2), (sid, n_audio)

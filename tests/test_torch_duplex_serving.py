@@ -76,19 +76,50 @@ def _small_duplex_module(**over):
     ("pipeline_depth", 2, "pipeline_depth"), ("kv_bits", 4, None),
     ("mesh", {"dp": 2}, "mesh"), ("w8a8_sites", ["mlp"], "w8a8_sites")])
 def test_build_duplex_refuses_unported_options(key, value, match):
-    """``match`` None: an option that was refused once and is served now."""
-    if match is None:
+    """``match``: what the refusal of an unported option says.  The options
+    that were refused once and are served now (``kv_bits = 4``,
+    ``pipeline_depth = 2``) reach the engine."""
+    if key in ("kv_bits", "pipeline_depth"):
         eng = tbuilder.build_duplex(_small_duplex_module(kv_quant=True, **{key: value}), "cpu")
-        assert eng.kv_bits == 4 and eng.state["lm"]["t"]["layers"][0]["k"].dtype == torch.uint8
+        if key == "kv_bits":
+            assert eng.kv_bits == 4
+            assert eng.state["lm"]["t"]["layers"][0]["k"].dtype == torch.uint8
+        else:
+            assert eng.pipeline_depth == 2 and eng.kv_bits == 8 and not eng.cuda_graph
         return
     with pytest.raises(NotImplementedError, match=match):
         tbuilder.build_duplex(_small_duplex_module(**{key: value}), "cpu")
 
 
 def test_build_duplex_refuses_the_serving_toml_as_it_stands():
-    """pipeline_depth = 2 is not ported: the builder says so."""
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        tbuilder.build_duplex(tCFG.Config.load(TOML).modules["duplex"], "cpu")
+    """The serving TOML's options as shipped all pass ``build_duplex`` and
+    reach the engine (its model narrowed: s2s-2b in f32 is too large for a
+    CPU test): 24 slots, dispatch-ahead at depth 2, int8 KV rings, int8
+    weights with W8A8; on the CPU no graph.  Then one dialogue runs through
+    the depth-2 pipeline to its Done."""
+    with open(TOML, "rb") as f:
+        shipped = tomllib.load(f)["modules"]["duplex"]
+    mod = _small_duplex_module(**{k: shipped[k] for k in (
+        "batch_size", "pipeline_depth", "kv_quant", "kv_bits")})
+    assert {k: mod.raw[k] for k in shipped if not isinstance(shipped[k], dict)} == {
+        k: v for k, v in shipped.items() if not isinstance(v, dict)}
+    eng = tbuilder.build_duplex(mod, "cpu")
+    assert isinstance(eng, tDB.BatchedDuplexEngine)
+    assert (eng.batch_size, eng.pipeline_depth, eng.kv_quant, eng.kv_bits) == (24, 2, True, 8)
+    assert eng.state["lm"]["t"]["layers"][0]["k"].dtype == torch.int8
+    lp = eng.params["lm"]["transformer"][0]["in_proj_w"]
+    assert isinstance(lp, dict) and lp["q"].dtype == torch.int8 and "w8a8" not in lp
+    assert eng.cuda_graph is False and eng._graph is None
+    eng.warmup(1)
+    events = []
+    drv = eng.open_session(events.append)
+    drv.push_pcm(np.random.default_rng(1).standard_normal(1920 * 4).astype(np.float32) * 0.1)
+    drv.end_input()
+    for _ in range(8):
+        eng.tick()
+    kinds = [type(e).__name__ for e in events]
+    assert drv.steps == 4 and kinds.count("DuplexAudioEvent") == 2
+    assert kinds[-1] == "DuplexDoneEvent" and not eng._inflight
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
