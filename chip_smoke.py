@@ -71,7 +71,7 @@ lines each:
    (tts-1.6b-en_fr, d=2048, 16 layers, DepFormer 32 slices x 4 layers,
    B=64, int8 voice store, int8 KV, int8 weights + W8A8, bf16 codec, the
    description LUT, the int16 pcm wire; fuse_ticks and pipeline_depth set
-   to 1, the paths the port serves) serves 8 sessions with seeded random
+   to 1: the single-tick path, eager) serves 8 sessions with seeded random
    voices and 4 without, then 4 more in reused slots: every session ends,
    every frame is 1,920 finite samples, every word fed comes back, and the
    kernels launched exactly PER_TICK_TTS per tick; then the tick, the LM
@@ -105,7 +105,7 @@ lines each:
    is stepped, audio starts after the acoustic delay, every audio frame is
    1,920 finite samples, every dialogue ends, and the kernels launched
    exactly PER_TICK_DUPLEX per tick (the split ring pipeline; no fused
-   commit); its tick is timed at 24 active slots over 30 ticks with a
+   commit); its tick is timed at 24 active slots over TICKS_TIMED ticks with a
    profile (the eager side of the ``[graph]`` line); then the LM step, the
    Mimi encode step and the Mimi decode
    step through the kernels against the same steps through their plain
@@ -127,6 +127,28 @@ lines each:
    the whole state every 40 ticks and at the end; ``[graph-duplex-kv4]``
    (after ``[duplex-kv4]``) the same check over 40 ticks on packed-int4
    rings.
+7b. The serving presets as shipped, after ``[graph-duplex-kv4]``:
+   ``[graph-stt-serving]``: ``build_batched_asr`` from
+   configs/config-stt-tpu-serving.toml (stt-1b, B=192, the step captured,
+   ``pipeline_depth = 2``, the int16 upload wire) with every slot streaming
+   STT_SERVING_FRAMES frames and a marker (past the LM ring's and the codec
+   ring's wraps): its events (steps, words, markers, VAD probabilities' bits)
+   equal to those of the same engine at depth 1, its launches counted over
+   warm-up and capture (3 x per step); tick host ms and
+   completion-to-completion at depth 2 and 1, a synchronous step's host ms,
+   device busy, launches and kernel ms, peak memory, and the largest batch
+   ``auto_batch_size`` fits on the card.  ``[graph-tts-serving]``:
+   ``build_batched_tts`` from configs/config-tts-tpu-serving.toml (tts-1.6b,
+   B=64, ``fuse_ticks = 4`` through the device script machine, one frame
+   captured and replayed 4 times a dispatch, ``pipeline_depth = 2``,
+   ``ca_int8``, the int16 wire) serves 65 sessions (one of 50 words, 8
+   voices, a slot reused at frame TTS_SERVING_REUSE_AT): each session's
+   events (words, times, audio words, Done) equal to the captured
+   single-tick engine's (``fuse_ticks = 1``, depth 1, the same file and
+   weights), its launches counted over warm-up and capture (3 x per frame);
+   ms a dispatch and a frame, completion-to-completion, launches and kernel
+   ms a dispatch, the delay to first audio in frames beside the single-tick
+   engine's, the 52-op ``apply_ops`` and peak memory.
 
 8. The later paths, each at full width and depth: ``[stt1b-kv4]`` the stt-1b
    engine built with ``AsrConfig(kv_bits=4)`` (packed-int4 rings, uint8
@@ -1967,7 +1989,9 @@ def phase_stt26_path(engine, dev):
 # wrap of the LM's ring: the stt-1b LM's 768-row ring and the codec's 256-row
 # ring (2 rows a step), the stt-2.6b LM's 384-row ring; a short check of the
 # packed-int4 rings, past a wrap of the codec's ring only.
-GRAPH_STEPS = {"stt1b": (800, True), "stt26": (400, True), "stt1b-kv4": (160, False)}
+# Steps of each replay check and whether its LM ring wraps: that check starts its
+# rings full, half its steps before the third wrap.
+GRAPH_STEPS = {"stt1b": (400, True), "stt26": (400, True), "stt1b-kv4": (160, False)}
 GRAPH_CHECK_EVERY = 100  # steps between whole-state comparisons (and at the end)
 
 
@@ -2141,6 +2165,10 @@ def phase_graph(cfg, params, batch, card, tag, per_step, serve=False, timed=True
     if timed:
         numbers["graph"] = _graph_times(engine, tag, "captured: ", card, rope)
     steps, lm_wraps = GRAPH_STEPS[tag.split("graph-")[-1]]
+    lm_ring = engine.state["lm"]["t"]["valid"].shape[1]
+    if lm_wraps:
+        _fill_rings(engine.state["lm"]["t"], torch.Generator(device="cuda").manual_seed(33),
+                    3 * lm_ring - steps // 2)
     ref = _clone(engine.state)
     b, frame = engine.batch_size, engine.frame_size
     dev = torch.device("cuda")
@@ -2163,15 +2191,16 @@ def phase_graph(cfg, params, batch, card, tag, per_step, serve=False, timed=True
                 diff = _tree_diff(engine.state, ref)
                 check(not diff, f"{tag}: step {i}: the state differs at {diff[:5]}")
     lm_pos, codec_pos = int(ref["lm"]["t"]["pos"]), int(ref["mimi_enc"]["enc_t"]["pos"])
-    lm_ring = engine.state["lm"]["t"]["layers"][0]["k"].shape[2]
     codec_ring = engine.state["mimi_enc"]["enc_t"]["layers"][0]["k"].shape[2]
-    check(2 * steps > codec_ring and (steps > lm_ring or not lm_wraps),
+    check(2 * steps > codec_ring and (lm_pos > 3 * lm_ring or not lm_wraps),
           f"{tag}: the rings did not wrap")
     print(f"[{tag}] captured in {capture_s:.2f} s with the warm-up; {steps} steps of "
           f"{cfg.lm.transformer.num_layers} layers from one state, replay against the eager "
           f"ASR.step: text tokens, step_idx, VAD probabilities and codes bit for bit at every "
           f"step, the whole state (rings, scale rings, valid, pos, conv and codec carries) "
-          f"every {GRAPH_CHECK_EVERY} steps and at the end; {resets} slot resets, {closed} "
+          f"every {GRAPH_CHECK_EVERY} steps and at the end; LM rings "
+          f"{'full of quantised rows from ' + str(3 * lm_ring - steps // 2) if lm_wraps else 'fresh'}"
+          f"; {resets} slot resets, {closed} "
           f"slot-steps without a frame, {partial} partial masks; LM ring of {lm_ring} rows at "
           f"tick {lm_pos}, codec ring of {codec_ring} at tick {codec_pos}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2580,8 +2609,9 @@ def _tts_counters(per_tick):
 
 def _tts_module(tag, preset=None):
     """configs/config-tts-tpu-serving.toml's TTS module with ``fuse_ticks``
-    and ``pipeline_depth`` set to 1 (the single-tick path the port serves);
-    ``preset`` puts that ``LM`` preset in place of the TOML's model."""
+    and ``pipeline_depth`` set to 1 (the single-tick path; ``[graph-tts-serving]``
+    serves the file as shipped); ``preset`` puts that ``LM`` preset in place of
+    the TOML's model."""
     import dataclasses
 
     from dsm_tpu_torch.models import lm as LM
@@ -2592,8 +2622,9 @@ def _tts_module(tag, preset=None):
     model = f"its lm replaced by the preset LM.{preset}()" if preset else "its own model"
     print(f"[{tag}] {os.path.relpath(path, ROOT)} with {model}: fuse_ticks "
           f"{mod.raw['fuse_ticks']} -> 1, "
-          f"pipeline_depth {mod.raw['pipeline_depth']} -> 1 (the single-tick path the "
-          f"port serves); every other key as in the file", flush=True)
+          f"pipeline_depth {mod.raw['pipeline_depth']} -> 1 (the single-tick path; "
+          f"[graph-tts-serving] serves the file as shipped); every other key as in the file",
+          flush=True)
     mod.raw["fuse_ticks"] = 1
     mod.raw["pipeline_depth"] = 1
     if preset:
@@ -2964,7 +2995,10 @@ def phase_tts_times(engine, dev, card, tag="tts"):
 # Ticks the captured tick is held to the eager tick over, from a state whose
 # LM ring and Mimi decoder ring (256 rows, 2 a tick) sit 40 rows before a
 # wrap; the whole state is compared every GRAPH_TTS_CHECK_EVERY ticks.
-GRAPH_TICKS = {"graph-tts": 160, "graph-tts202501": 80}
+GRAPH_TICKS = {"graph-tts": 48, "graph-tts202501": 48}  # from 40 rows before the wraps
+# Ticks timed after a warm-up by _tts_graph_times and _duplex_graph_times (the
+# eager ticks take 0.3-1 s each).
+TICKS_WARM, TICKS_TIMED = 3, 12
 GRAPH_TTS_CHECK_EVERY = 40
 
 
@@ -2990,8 +3024,8 @@ def _tts_graph_traffic(b, ticks, seed):
 def _tts_graph_times(engine, tag, what, card, rope_per_tick):
     """The engine's device tick (``_invoke_step``: staging or upload, the
     tick, the fetch) with every slot active and choosing pad or end-of-word:
-    host ms a tick (median, min, max over 30 after 5 warm-up), the device's
-    busy share, kernel ms and device launches a tick from a profile of 2
+    host ms a tick (median, min, max over TICKS_TIMED after TICKS_WARM), the
+    device's busy share, kernel ms and device launches a tick from a profile of 2
     ticks, and the peak memory (reserved, a captured graph's private pool
     included, and allocated) since the caller reset it."""
     import numpy as np
@@ -3006,14 +3040,15 @@ def _tts_graph_times(engine, tag, what, card, rope_per_tick):
     times = []
     with torch.inference_mode():
         engine._invoke_step(modes, toks, on, on)  # every slot fresh
-        for i in range(35):
+        for i in range(TICKS_WARM + TICKS_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             packed = engine._invoke_step(modes, toks, on, off)
             torch.cuda.synchronize()
-            if i >= 5:
+            if i >= TICKS_WARM:
                 times.append((time.perf_counter() - t0) * 1e3)
-        check(bool((packed[b:2 * b] == 36).all()), f"{tag}: the slots did not step")
+        check(bool((packed[b:2 * b] == 1 + TICKS_WARM + TICKS_TIMED).all()),
+              f"{tag}: the slots did not step")
         rows, wall_us = _profile(lambda: engine._invoke_step(modes, toks, on, off), 2,
                                  rope_launches=2 * rope_per_tick)
     kernel_ms = _print_profile(f"{tag}-profile", what, rows, wall_us, 2, "tick", card, 6)
@@ -3023,7 +3058,8 @@ def _tts_graph_times(engine, tag, what, card, rope_per_tick):
     tick_ms = statistics.median(times)
     busy = kernel_ms / (wall_us / 2 / 1e3)
     print(f"[{tag}] {what}engine tick, {b} slots active: median {tick_ms!r} ms, min "
-          f"{min(times)!r}, max {max(times)!r} over 30 after 5 warm-up; device busy "
+          f"{min(times)!r}, max {max(times)!r} over {TICKS_TIMED} after {TICKS_WARM} "
+          f"warm-up; device busy "
           f"{busy!r}; {launches:.0f} device launches a tick; kernels {kernel_ms!r} ms a tick; "
           f"peak memory {peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}",
           flush=True)
@@ -3649,7 +3685,7 @@ def _duplex_graph_times(engine, tag, what, card, rope_per_tick=None):
     """The engine's tick with every slot open and fed a frame (``tick()``:
     the gather, the dispatch and, ``pipeline_depth`` - 1 ticks later, the
     fetch and post-processing): host ms a tick between returns (median, min,
-    max over 30 after 5 warm-up) and the observer's completion-to-completion
+    max over TICKS_TIMED after TICKS_WARM) and the observer's completion-to-completion
     interval; then, at depth 1, the device's busy share, kernel ms and device
     launches a tick from a profile (1 eager tick, 2 replays:
     ``rope_per_tick`` given for a replay, whose launches no wrapper counts);
@@ -3662,15 +3698,15 @@ def _duplex_graph_times(engine, tag, what, card, rope_per_tick=None):
     opened = [engine.open_session(lambda ev: None) for _ in range(b - engine.used_slots())]
     check(engine.used_slots() == b, f"{tag}: slots left free for the timing")
     for drv in engine.slots:
-        drv.push_pcm(_pcm(5, 0.08 * 35, frame))
+        drv.push_pcm(_pcm(5, 0.08 * (TICKS_WARM + TICKS_TIMED), frame))
     dts = []
     engine.tick_observer = lambda dt, n, phases: dts.append(dt * 1e3)
     times = []
     with torch.inference_mode():
-        for i in range(35):
+        for i in range(TICKS_WARM + TICKS_TIMED):
             t0 = time.perf_counter()
             check(engine.tick(), f"{tag}: a tick with {b} slots stepped nothing")
-            if i >= 5:
+            if i >= TICKS_WARM:
                 times.append((time.perf_counter() - t0) * 1e3)
         while engine._inflight:  # the tick still in flight at depth 2
             engine._post_process(engine._inflight.popleft())
@@ -3688,10 +3724,11 @@ def _duplex_graph_times(engine, tag, what, card, rope_per_tick=None):
     launches = sum(c for _, _, c in rows) / n
     peak = torch.cuda.max_memory_reserved() / 1e9
     peak_alloc = torch.cuda.max_memory_allocated() / 1e9
-    tick_ms, dt_ms = statistics.median(times), statistics.median(dts[5:])
+    tick_ms, dt_ms = statistics.median(times), statistics.median(dts[TICKS_WARM:])
     busy = kernel_ms / (wall_us / n / 1e3)
     print(f"[{tag}] {what}engine tick at pipeline_depth {depth}, {b} slots active: median "
-          f"{tick_ms!r} ms, min {min(times)!r}, max {max(times)!r} over 30 after 5 warm-up; "
+          f"{tick_ms!r} ms, min {min(times)!r}, max {max(times)!r} over {TICKS_TIMED} after "
+          f"{TICKS_WARM} warm-up; "
           f"completion-to-completion median {dt_ms!r} ms; at depth 1 (profiled): device busy "
           f"{busy!r}, {launches:.0f} device launches a tick, kernels {kernel_ms!r} ms a tick; "
           f"peak memory {peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}",
@@ -3853,6 +3890,431 @@ def phase_graph_duplex_kv4(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The serving presets as shipped: configs/config-stt-tpu-serving.toml and
+# configs/config-tts-tpu-serving.toml, each with its dispatch-ahead, its int16
+# wire and (TTS) its fused frames, on the captured graphs.
+# ---------------------------------------------------------------------------
+
+STT_SERVING_FRAMES = 810  # a slot's frames: past the LM ring's 768 rows and the codec's 128
+TTS_SERVING_REUSE_AT = 96  # the frame at which a finished session's slot is reopened
+TTS_LONG_TEXT = " ".join(["one two three four five six seven eight nine ten"] * 5)  # 50 words
+TTS_SCRIPT_OPS = 52  # init, 50 words, end of input: one session's queue
+
+
+def _serving_module(name, tag):
+    from dsm_tpu_torch.server import config as CFG
+
+    path = os.path.join(ROOT, "configs", f"config-{name}-tpu-serving.toml")
+    mod = CFG.Config.load(path).modules["asr" if name == "stt" else "tts"]
+    keys = ("batch_size", "pipeline_depth", "pcm_wire", "fuse_ticks", "ca_int8")
+    print(f"[{tag}] {os.path.relpath(path, ROOT)} as shipped: "
+          f"{ {k: mod.raw[k] for k in keys if k in mod.raw} }, every key as in the file",
+          flush=True)
+    return mod
+
+
+def _stt_serving_run(engine, pcm, tag):
+    """Every slot opened with its stream and a marker, the tick driven from
+    this thread with the engine's post-process thread running, as
+    ``start()`` runs them -> (events of each slot, host ms of each tick,
+    post-process completion times, steps)."""
+    import threading
+
+    import numpy as np
+
+    frame, delay = engine.frame_size, engine.cfg.asr_delay_in_tokens
+    chans = []
+    for slot in range(engine.batch_size):
+        events = []
+        ch = engine.open_channel(events.append, seed=slot)
+        ch.push_pcm(pcm[slot])
+        engine.add_marker(ch, 1000 + slot)
+        ch.push_pcm(np.zeros(frame * (delay + 1), np.float32))
+        chans.append((ch, events))
+    check(engine.used_slots() == engine.batch_size, f"{tag}: slots left free")
+    done = []
+    post = engine._process_item
+
+    def timed(item):
+        post(item)
+        done.append(time.perf_counter())
+
+    engine._process_item = timed
+    engine.running = True
+    engine._drain_thread = threading.Thread(target=engine._drain_loop, daemon=True)
+    engine._drain_thread.start()
+    ticks, steps0 = [], engine.step_count
+    deadline = time.monotonic() + 300.0
+    while any(ch.buffered_samples() >= frame for ch, _ in chans):
+        check(time.monotonic() < deadline, f"{tag}: the streams did not drain")
+        t0 = time.perf_counter()
+        check(engine.tick(), f"{tag}: a tick stepped nothing")
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    engine.flush()
+    engine.stop()
+    del engine._process_item
+    log = [[(e.step_idx, [(type(w).__name__, getattr(w, "tokens", None),
+                           getattr(w, "start_time", None), getattr(w, "stop_time", None))
+                          for w in e.words], list(e.markers), e.prs.tobytes())
+            for e in events] for _, events in chans]
+    for ch, _ in chans:
+        engine.close_channel(ch)
+    return log, ticks, done, engine.step_count - steps0
+
+
+def phase_stt_serving(dev, card):
+    """``build_batched_asr`` from configs/config-stt-tpu-serving.toml as
+    shipped: stt-1b at B=192 (``auto_batch_size`` does not clamp it), the step
+    captured, two steps in flight (``pipeline_depth = 2``), the int16 upload
+    wire.  Every slot streams STT_SERVING_FRAMES frames and a marker (past
+    the LM ring's and the codec ring's wraps); its events (steps, words,
+    markers, VAD probabilities' bits) equal to those of the same engine at
+    depth 1 from the same weights; the kernels counted over its warm-up and
+    capture (3 x per step, none on replay).  Then host ms a tick at depth 2
+    and completion-to-completion, and from ``_graph_times`` host ms a
+    synchronous step, device busy, launches and kernel ms a step and peak
+    memory; the largest batch that ``auto_batch_size`` fits on the card."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server.autoconfig import auto_batch_size, device_memory_bytes
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+
+    tag = "graph-stt-serving"
+    mod = _serving_module("stt", tag)
+    counters = {name: _duplex_counters()[name] for name in PER_STEP}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = builder.build_batched_asr(mod, dev)
+    check(engine.batch_size == 192 and engine.pipeline_depth == 2 and engine._pcm_wire_int16
+          and engine.cuda_graph, f"{tag}: built B={engine.batch_size} depth "
+          f"{engine.pipeline_depth} int16 {engine._pcm_wire_int16}, not the file's")
+    engine.warmup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b, frame = engine.batch_size, engine.frame_size
+    pcm = [_pcm(slot % 16, STT_SERVING_FRAMES * frame / 24000.0, frame) *
+           np.float32(0.5 + (slot % 5) / 2) for slot in range(b)]  # loud streams clip
+    t0 = time.perf_counter()
+    log2, ticks2, done2, steps2 = _stt_serving_run(engine, pcm, tag)
+    serve_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 3 * n for name, n in PER_STEP.items()}
+    check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+    lm_pos = int(engine.state["lm"]["t"]["pos"])
+    codec_pos = int(engine.state["mimi_enc"]["enc_t"]["pos"])
+    lm_ring = engine.state["lm"]["t"]["valid"].shape[1]
+    codec_ring = engine.state["mimi_enc"]["enc_t"]["valid"].shape[1]
+    check(steps2 >= 800 and lm_pos > lm_ring and codec_pos > codec_ring,
+          f"{tag}: {steps2} steps, LM ring at {lm_pos} of {lm_ring}, codec at {codec_pos}")
+    for slot, evs in enumerate(log2):
+        check([e[0] for e in evs] == list(range(1, len(evs) + 1)) and len(evs) == steps2,
+              f"{tag}: slot {slot}: {len(evs)} step events for {steps2} steps")
+        check([m for e in evs for m in e[2]] == [1000 + slot], f"{tag}: slot {slot}: markers")
+        prs = np.frombuffer(b"".join(e[3] for e in evs), np.float32)
+        check(prs.size == 4 * steps2 and bool(np.isfinite(prs).all()),
+              f"{tag}: slot {slot}: bad VAD probabilities")
+    words = sum(len(e[1]) for evs in log2 for e in evs)
+    dt2 = np.diff(np.asarray(done2)) * 1e3
+    print(f"[{tag}] built and captured in {build_s:.2f} s: B={b} (auto_batch_size: no clamp), "
+          f"pipeline_depth 2, int16 wire; {steps2} steps ({serve_s:.1f} s) with every slot "
+          f"streaming, {words} word events, {b} markers; LM ring of {lm_ring} rows at tick "
+          f"{lm_pos}, codec ring of {codec_ring} at {codec_pos}; kernel launches counted over "
+          f"its warm-up and capture {launches} = 3 x per step, none on replay", flush=True)
+    print(f"[{tag}] depth 2, {b} slots streaming: tick host ms median "
+          f"{statistics.median(ticks2[10:])!r} (min {min(ticks2[10:])!r}, max "
+          f"{max(ticks2[10:])!r}) over {len(ticks2) - 10} after 10; completion-to-completion "
+          f"median {float(np.median(dt2[10:]))!r} ms (max {float(dt2[10:].max())!r}); peak memory "
+          f"{peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}", flush=True)
+    numbers = {"launches": launches, "tick_ms": statistics.median(ticks2[10:]),
+               "dt_ms": float(np.median(dt2[10:])), "peak_gb": peak}
+    params, cfg = engine.params, engine.cfg
+    del engine
+    torch.cuda.empty_cache()
+    ref = BatchedAsrEngine(cfg, params, batch_size=b, device=dev, pipeline_depth=1,
+                           pcm_wire_int16=True)
+    ref.warmup()
+    log1, ticks1, done1, steps1 = _stt_serving_run(ref, pcm, tag)
+    check(steps1 == steps2 and log1 == log2, f"{tag}: the depth-2 events differ from the "
+          f"depth-1 engine's (steps {steps2} / {steps1})")
+    dt1 = np.diff(np.asarray(done1)) * 1e3
+    print(f"[{tag}] the same engine at depth 1 from the same weights: {steps1} steps, every "
+          f"slot's events (steps, words, markers, VAD probabilities' bits) equal to depth 2's; "
+          f"depth 1 tick host ms median {statistics.median(ticks1[10:])!r}, "
+          f"completion-to-completion median {float(np.median(dt1[10:]))!r} ms; card {card}",
+          flush=True)
+    numbers["tick_ms_depth1"] = statistics.median(ticks1[10:])
+    numbers["dt_ms_depth1"] = float(np.median(dt1[10:]))
+    del ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = BatchedAsrEngine(cfg, params, batch_size=b, device=dev, pipeline_depth=2,
+                              pcm_wire_int16=True)
+    engine.warmup()
+    numbers["step"] = _graph_times(engine, tag, "captured, int16 wire: ", card,
+                                   PER_STEP["rope_qk"] + PER_STEP["rope_commit"])
+    fit = auto_batch_size(10 ** 6, mod.lm, device_memory_bytes(dev))
+    print(f"[{tag}] auto_batch_size: the largest batch that fits this card is {fit} (the file "
+          f"asks 192); card {card}", flush=True)
+    numbers["fit"] = fit
+    del engine, params
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _tts_serving_run(engine, sessions_cfg, reuse_sid, tag):
+    """The 64-slot workload on ``engine``: every slot opened before the first
+    tick with its words fed and its input ended (slot 0's session 50 words),
+    at frame TTS_SERVING_REUSE_AT session ``reuse_sid`` (finished by then)
+    closed and session 64 opened in its slot -> (events of each session,
+    frames dispatched, the frames the engine had dispatched (the current
+    tick's included) when each session's first audio was delivered, host ms
+    of each tick, post completion times)."""
+    from dsm_tpu_torch.server.tts_batched import AudioEvent
+
+    fuse = engine.fuse
+    state = {"frames": 0}
+    sessions, first_audio = {}, {}
+    steps0 = engine.step_count
+
+    def open_(sid, voice, text):
+        events = []
+
+        def deliver(ev, sid=sid, events=events):
+            if isinstance(ev, AudioEvent) and sid not in first_audio:
+                first_audio[sid] = engine.step_count - steps0
+            events.append(ev)
+
+        ca = engine.voice_kv(voice) if voice else None
+        drv = engine.open_session(deliver, voice_ca=ca, seed=100 + sid, text_temperature=0.6,
+                                  audio_temperature=0.8)
+        check(drv is not None, f"{tag}: no free slot")
+        enc, _ = engine.encode_words(text, inserted_bos=False)
+        drv.feed_words(enc)
+        drv.end_input()
+        sessions[sid] = {"drv": drv, "events": events, "text": text}
+        return drv
+
+    for sid, (voice, text) in enumerate(sessions_cfg):
+        open_(sid, voice, text)
+    check(engine.used_slots() == engine.batch_size, f"{tag}: slots left free")
+    done, ticks = [], []
+    if fuse > 1:
+        post = engine._post_fused
+
+        def timed(item):
+            post(item)
+            done.append(time.perf_counter())
+
+        engine._post_fused = timed
+    deadline = time.monotonic() + 600.0
+    while True:
+        check(time.monotonic() < deadline, f"{tag}: sessions did not finish")
+        if state["frames"] == TTS_SERVING_REUSE_AT:
+            drv = sessions[reuse_sid]["drv"]
+            check(drv.finished, f"{tag}: session {reuse_sid} still runs at frame "
+                  f"{TTS_SERVING_REUSE_AT}")
+            engine.close_session(drv)
+            check(open_(64, "spk3", TTS_TEXTS[3]).slot == drv.slot,
+                  f"{tag}: session 64 did not reuse slot {drv.slot}")
+        t0 = time.perf_counter()
+        if not engine.tick():
+            break
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        state["frames"] += fuse
+        if fuse == 1:
+            done.append(time.perf_counter())
+    if fuse > 1:
+        del engine._post_fused
+    for s in sessions.values():
+        engine.close_session(s["drv"])
+    return sessions, state["frames"], first_audio, ticks, done
+
+
+def _tts_serving_times(engine, tag, card, rope_per_frame):
+    """Every slot with a 50-word session: host ms a tick at the engine's
+    depth (a dispatch of ``fuse`` frames; from the second on the tick also
+    posts the one before) over 12 after 3, completion-to-completion of the
+    posts; then at depth 1 a profile of one dispatch (its fetch included):
+    device busy, launches and kernel ms a dispatch."""
+    import torch
+
+    fuse, depth = engine.fuse, engine.pipeline_depth
+    drvs = []
+    for sid in range(engine.batch_size):
+        drv = engine.open_session(lambda ev: None, seed=500 + sid)
+        enc, _ = engine.encode_words(TTS_LONG_TEXT, inserted_bos=False)
+        drv.feed_words(enc)
+        drvs.append(drv)
+    done, times = [], []
+    post = engine._post_fused
+
+    def timed(item):
+        post(item)
+        done.append(time.perf_counter())
+
+    engine._post_fused = timed
+    with torch.inference_mode():
+        for i in range(15):
+            t0 = time.perf_counter()
+            check(engine.tick(), f"{tag}: a dispatch stepped nothing")
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        while engine._inflight_f:
+            engine._post_fused(engine._inflight_f.popleft())
+        del engine._post_fused
+        engine.pipeline_depth = 1
+        rows, wall_us = _profile(engine.tick, 1, rope_launches=fuse * rope_per_frame)
+        engine.pipeline_depth = depth
+    kernel_ms = _print_profile(f"{tag}-profile", "captured, one dispatch: ", rows, wall_us, 1,
+                               "dispatch", card, 6)
+    for drv in drvs:
+        engine.close_session(drv)
+    launches = sum(c for _, _, c in rows)
+    tick_ms = statistics.median(times)
+    dt_ms = statistics.median([(b - a) * 1e3 for a, b in zip(done[3:], done[4:])])
+    busy = kernel_ms / (wall_us / 1e3)
+    print(f"[{tag}] dispatch of {fuse} frames at pipeline_depth {depth}, "
+          f"{engine.batch_size} slots active: tick host ms median {tick_ms!r} ({tick_ms / fuse!r} "
+          f"a frame), min {min(times)!r}, max {max(times)!r} over 12 after 3; "
+          f"completion-to-completion median {dt_ms!r} ms ({dt_ms / fuse!r} a frame); at depth "
+          f"1 (profiled): device busy {busy!r}, {launches:.0f} device launches a dispatch, "
+          f"kernels {kernel_ms!r} ms a dispatch; card {card}", flush=True)
+    return {"tick_ms": tick_ms, "dt_ms": dt_ms, "busy": busy, "device_launches": launches,
+            "kernel_ms": kernel_ms}
+
+
+def _script_ops_ms(engine, tag, card):
+    """One session's queue (TTS_SCRIPT_OPS ops: init, 50 one-chunk words,
+    end of input) applied to the device machine as the engine applies it:
+    host ms of the call and ms to its completion on the card (median of 20
+    after 3), on a machine whose slot 0 is then re-initialised."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch.sessions import tts_script as SCRIPT
+
+    ops = [(SCRIPT.OP_INIT, 0, None, 0, 0, 0)]
+    for wid in range(TTS_SCRIPT_OPS - 2):
+        toks = np.zeros(SCRIPT.WORD_CHUNK, np.int32)
+        toks[:3] = [11 + wid, 12 + wid, 13 + wid]
+        ops.append((SCRIPT.OP_WORD, 0, toks, 3, wid, 3 * wid))
+    ops.append((SCRIPT.OP_EOS, 0, None, 0, 0, 0))
+    host, total = [], []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._apply_script_ops(ops)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= 3:
+            host.append((t1 - t0) * 1e3)
+            total.append((time.perf_counter() - t0) * 1e3)
+    m = engine._mstate
+    check(int(m["n_words"][0]) == TTS_SCRIPT_OPS - 2 and bool(m["eos"][0])
+          and int(m["toks"][0, 3 * 49 + 2]) == 13 + 49, f"{tag}: the op table was not applied")
+    print(f"[{tag}] apply_ops of a {len(ops)}-op queue (init, {TTS_SCRIPT_OPS - 2} words, end "
+          f"of input; one staged copy of {engine._ops_in.buffers['ops'].shape[0]} rows): host "
+          f"ms median {statistics.median(host)!r}, to completion on the card "
+          f"{statistics.median(total)!r} (max {max(total)!r}) over 20; card {card}", flush=True)
+    return statistics.median(total)
+
+
+def phase_tts_serving(dev, card):
+    """``build_batched_tts`` from configs/config-tts-tpu-serving.toml as
+    shipped: tts-1.6b at B=64, ``fuse_ticks = 4`` (the device script
+    machine; one frame captured, replayed 4 times a dispatch),
+    ``pipeline_depth = 2``, ``ca_int8``, the int16 wire.  The 64-slot
+    workload (one 50-word session, voices on 8 slots, a reused slot at frame
+    TTS_SERVING_REUSE_AT) against the captured single-tick engine
+    (``fuse_ticks = 1``, depth 1, otherwise the same file and weights): each
+    session's events (words, times, audio words, Done) bit for bit; the
+    kernels counted over the fused engine's warm-up and capture (3 x per
+    frame, none on replay).  Then ms a dispatch and a frame,
+    completion-to-completion, the delay to first audio in frames, launches a
+    dispatch, the 52-op ``apply_ops`` and peak memory."""
+    import torch
+
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server.tts_batched import BatchedTtsEngine
+
+    tag = "graph-tts-serving"
+    mod = _serving_module("tts", tag)
+    counters = _tts_counters(PER_TICK_TTS)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = builder.build_batched_tts(mod, dev)
+    check(engine.batch_size == 64 and engine.fuse == 4 and engine.pipeline_depth == 2
+          and engine.ca_quant and engine._pcm_wire_i16 and engine.cuda_graph
+          and engine.script_cap == 1024, f"{tag}: not the file's engine")
+    _tts_voices(engine)
+    engine.warmup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plan = [(None, TTS_LONG_TEXT)] + [(f"spk{sid}" if sid < 8 else None,
+                                       TTS_TEXTS[sid % len(TTS_TEXTS)]) for sid in range(1, 64)]
+    reuse = 10  # "short one": finished well before the reuse frame
+    t0 = time.perf_counter()
+    fused, frames_f, first_f, ticks_f, _ = _tts_serving_run(engine, plan, reuse, tag)
+    serve_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 3 * n for name, n in PER_TICK_TTS.items()}
+    check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
+    frame = engine.mimi_cfg.frame_size
+    n_audio = _tts_verify(fused, range(65), frame)
+    check(len(fused[0]["text"].split()) >= 50 and frames_f >= 160,
+          f"{tag}: {frames_f} frames, a {len(fused[0]['text'].split())}-word session")
+    print(f"[{tag}] built and captured in {build_s:.2f} s: B=64, fuse_ticks 4, pipeline_depth "
+          f"2, int8 voice store, int16 wire, script ring {engine.script_cap}; served 65 "
+          f"sessions (a 50-word one, 8 voices, session 64 in slot "
+          f"{fused[64]['drv'].slot} reused at frame {TTS_SERVING_REUSE_AT}) in {frames_f} "
+          f"frames ({serve_s:.1f} s): {n_audio} audio frames, every word back, Done last; "
+          f"kernel launches counted over its warm-up and capture {launches} = 3 x per frame, "
+          f"none on replay", flush=True)
+    rope = PER_TICK_TTS["rope_qk"] + PER_TICK_TTS["rope_commit"]
+    numbers = {"launches": launches, **_tts_serving_times(engine, tag, card, rope)}
+    numbers["ops_ms"] = _script_ops_ms(engine, tag, card)
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+    numbers["peak_gb"] = peak
+    print(f"[{tag}] peak memory of the fused engine {peak:.2f} GB reserved ({peak_alloc:.2f} "
+          f"GB allocated); card {card}", flush=True)
+    ref = BatchedTtsEngine(
+        engine.cfg, engine.params, engine.mimi_cfg, engine.mimi_params, engine.tokenizer,
+        batch_size=64, ca_len=engine.ca_len, cfg_enabled=engine.cfg_enabled,
+        ca_quant=engine.ca_quant, device=dev, pcm_wire_int16=True, fuse_ticks=1,
+        pipeline_depth=1)
+    ref.voices = engine.voices
+    del engine
+    torch.cuda.empty_cache()
+    ref.warmup()
+    single, frames_s, first_s, ticks_s, _ = _tts_serving_run(ref, plan, reuse, tag)
+    log_f, log_s = _tts_log(fused, frames_f)[0], _tts_log(single, frames_s)[0]
+    check(log_f == log_s, f"{tag}: the fused engine's events differ from the single-tick "
+          f"engine's: first at {_first_difference((log_f, 0), (log_s, 0))}")
+    check(first_f[0] >= first_s[0], f"{tag}: first audio delivered earlier fused than single")
+    numbers["first_audio"] = (first_s[0], first_f[0])
+    print(f"[{tag}] the captured single-tick engine (fuse_ticks 1, depth 1, the same file and "
+          f"weights): {frames_s} frames; every session's events (words, times, audio words, "
+          f"Done) equal to the fused engine's; session 0's first audio delivered when "
+          f"{first_s[0]} frames were dispatched single-tick, {first_f[0]} fused at depth 2 "
+          f"(+{first_f[0] - first_s[0]} frames); single-tick host ms a frame median "
+          f"{statistics.median(ticks_s[10:])!r}; card {card}", flush=True)
+    del ref
+    torch.cuda.empty_cache()
+    return numbers
+
+
 def phase_tune(dev):
     """Path C: the tuning tool in process, as ``python -m
     dsm_tpu_torch.tools.attn_kernel_tune --batch 64`` runs it: every variant a
@@ -3993,6 +4455,10 @@ def main() -> int:
     elapsed("duplex-kv4")
     phase_graph_duplex_kv4(dev)
     elapsed("graph-duplex-kv4")
+    stt_serving = phase_stt_serving(dev, card)
+    elapsed("graph-stt-serving")
+    tts_serving = phase_tts_serving(dev, card)
+    elapsed("graph-tts-serving")
     tune_launches = phase_tune(dev)
     elapsed("tune")
     ms = kernel_times(dev, card)
@@ -4008,7 +4474,8 @@ def main() -> int:
                 "tts202501": tts202501_launches, "tune": tune_launches,
                 "tts_graph": graph["tts"]["launches"],
                 "tts202501_graph": graph["tts202501"]["launches"],
-                "duplex_graph": graph["duplex"]["launches"]}
+                "duplex_graph": graph["duplex"]["launches"],
+                "stt_serving": stt_serving["launches"], "tts_serving": tts_serving["launches"]}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -4059,6 +4526,22 @@ def main() -> int:
           f"{g1['launches']:.0f}, kernels {e['kernel_ms']!r} / {g1['kernel_ms']!r} ms; peak "
           f"memory {e['peak_gb']:.2f} / {g1['peak_gb']:.2f} GB reserved; card {card}",
           flush=True)
+    st, tt = stt_serving, tts_serving
+    print(f"[serving] stt-1b, configs/config-stt-tpu-serving.toml as shipped (B=192, depth 2, "
+          f"int16 wire, captured): tick host ms {st['tick_ms']!r} at depth 2 / "
+          f"{st['tick_ms_depth1']!r} at depth 1, completion-to-completion {st['dt_ms']!r} / "
+          f"{st['dt_ms_depth1']!r} ms; synchronous step {st['step']['step_ms']!r} ms, kernels "
+          f"{st['step']['kernel_ms']!r} ms, {st['step']['launches']:.0f} device launches, "
+          f"device busy {st['step']['busy']!r}; peak {st['peak_gb']:.2f} GB reserved; "
+          f"auto_batch_size fits B={st['fit']}; card {card}", flush=True)
+    print(f"[serving] tts-1.6b, configs/config-tts-tpu-serving.toml as shipped (B=64, "
+          f"fuse_ticks 4, depth 2, ca_int8, int16 wire, captured): dispatch host ms "
+          f"{tt['tick_ms']!r} ({tt['tick_ms'] / 4!r} a frame), completion-to-completion "
+          f"{tt['dt_ms']!r} ms, kernels {tt['kernel_ms']!r} ms and {tt['device_launches']:.0f} device "
+          f"launches a dispatch, device busy {tt['busy']!r}; first audio at "
+          f"{tt['first_audio'][1]} frames dispatched against {tt['first_audio'][0]} "
+          f"single-tick; 52-op apply_ops {tt['ops_ms']!r} ms; peak {tt['peak_gb']:.2f} GB "
+          f"reserved; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,22 +7,34 @@ the device, markers delivered once their audio has been decoded, per-slot
 reset on reuse.  The public surface is the JAX engine's; the port's own
 ``server/app.py`` serves it.
 
+A step's host-bound outputs leave the device as one int32 array packed as
+the JAX engine packs them (:func:`pack_outputs`): text tokens, step
+counters, then the VAD probabilities in 1e-6 fixed point (truncated),
+unpacked on the host by the JAX engine's numpy expressions.
+
 On a CUDA device the step is one captured CUDA graph, the counterpart of the
 JAX engine's ``jax.jit(step, donate_argnums=(1,))``: :meth:`warmup` runs the
 step eagerly on the side stream it captures on (every kernel built, every
 lazy device constant made, cuBLAS's workspace there), then captures
-``sessions.asr.step_in_place`` once over the engine's state buffers and
-static input buffers, and every tick copies pcm, mask, reset and seeds
-through pinned host staging into those buffers and replays the graph.  The
-graph's outputs are static, so each replay's are copied into a buffer of
-their own before the next replay can overwrite them.  A capture that fails
-raises; the engine never falls back to the eager step.  ``cuda_graph=False``
-runs the eager step (the reference the card's checks hold the graph to); the
-CPU has no graph.
+``sessions.asr.step_in_place`` and the packing once over the engine's state
+buffers and static input buffers, and every tick copies pcm, mask, reset and
+seeds through pinned host staging into those buffers and replays the graph.
+Right after each replay the packed array is copied into the next of
+``pipeline_depth + 1`` pinned host buffers behind an event; the
+post-process waits on that event alone, so fetching a step never waits for
+a later replay, and a buffer comes round again only after its step was
+post-processed.  A capture that fails raises; the engine never falls back
+to the eager step.  ``cuda_graph=False`` runs the eager step (the reference
+the card's checks hold the graph to); the CPU has no graph.
+
+Dispatch-ahead is the JAX engine's rule: after a dispatch the tick drains
+while more than ``pipeline_depth`` steps are in flight (0: synchronous, 1:
+one step in flight, 2: two).  With ``pcm_wire_int16`` the pcm goes up as
+int16, ``(clip(pcm, -1, 1) * 32767).astype(int16)`` on the host, and the
+step dequantises it on the device as its first node (:func:`wire_in`).
 
 Left out for now (ROADMAP.md): the device mesh, the native frame packer,
-the int16 pcm wire, prometheus metrics, session logs and dispatch-ahead
-beyond one step in flight.  Mailboxes use the Python deque path.
+prometheus metrics and session logs.  Mailboxes use the Python deque path.
 """
 
 from __future__ import annotations
@@ -40,9 +52,30 @@ import numpy as np
 import torch
 
 from ..sessions import asr as ASR
-from .cuda_graph import StagedInputs, capture
+from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 
 FRAME_SIZE = 1920  # 80 ms at 24 kHz
+
+
+def wire_out(pcm: np.ndarray) -> np.ndarray:
+    """f32 pcm -> the int16 upload wire (truncating, as the JAX engine)."""
+    return (np.clip(pcm, -1.0, 1.0) * 32767.0).astype(np.int16)
+
+
+def wire_in(pcm: torch.Tensor) -> torch.Tensor:
+    """The int16 wire -> f32 on the device: a product with the f32
+    constant 1/32767, as the JAX engine's ``_wire_in``."""
+    return pcm.to(torch.float32) * (1.0 / 32767.0)
+
+
+def pack_outputs(out: dict) -> torch.Tensor:
+    """A step's host-bound outputs as one int32 array: text tokens, step
+    counters, then ``prs`` as 1e-6 fixed point (truncated), as the JAX
+    engine packs them."""
+    parts = [out["text_token"].to(torch.int32), out["step_idx"].to(torch.int32)]
+    if out["prs"].shape[-1]:
+        parts.append((out["prs"].to(torch.float32) * 1e6).to(torch.int32).reshape(-1))
+    return torch.cat(parts)
 
 
 @dataclasses.dataclass
@@ -117,7 +150,8 @@ class BatchedAsrEngine:
 
     def __init__(self, cfg: ASR.AsrConfig, params: dict, batch_size: int,
                  device="cuda", fill_gate_frac: float = 0.2,
-                 cuda_graph: Optional[bool] = None):
+                 cuda_graph: Optional[bool] = None, pipeline_depth: int = 1,
+                 pcm_wire_int16: bool = False):
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size
@@ -148,10 +182,11 @@ class BatchedAsrEngine:
         self.slot_lock = threading.Lock()
         self.running = False
         self.thread: Optional[threading.Thread] = None
-        # One step in flight: a tick dispatches its step, then the previous
-        # step's results are fetched and delivered (inline, or by the drain
-        # thread once start() has run).
-        self.pipeline_depth = 1
+        # Dispatch-ahead: up to pipeline_depth steps stay in flight after a
+        # tick's dispatch; older ones are fetched and delivered (inline, or
+        # by the drain thread once start() has run).
+        self.pipeline_depth = max(int(pipeline_depth), 0)
+        self._pcm_wire_int16 = bool(pcm_wire_int16)
         self._pending: deque = deque()
         self._pending_cv = threading.Condition()
         self._inflight = 0
@@ -221,10 +256,16 @@ class BatchedAsrEngine:
         if self._drain_thread:
             self._drain_thread.join(timeout=5)
             self._drain_thread = None
+        if self.thread is None or not self.thread.is_alive():
+            while self._pending:  # tick()-driven: deliver what is in flight
+                self._drain_one()
 
-    def _invoke_step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray):
-        """One step on host arrays -> its outputs, tensors of their own: a
-        replay of the captured step, or the eager step."""
+    def _step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray) -> dict:
+        """One step on host arrays -> its outputs on the device, ``packed``
+        among them: the replay's static outputs, which the next replay
+        overwrites, or the eager step's."""
+        if self._pcm_wire_int16:
+            pcm = wire_out(pcm)
         if self.cuda_graph:
             if self._graph is None:
                 raise RuntimeError("the CUDA graph step is not captured: call warmup() "
@@ -232,33 +273,57 @@ class BatchedAsrEngine:
             self._inputs.stage({"pcm": pcm, "mask": mask, "reset": reset,
                                 "seeds": self._seeds})
             self._graph.replay()
-            return {k: v.clone() for k, v in self._static_out.items()}
+            return self._static_out
         dev = self.device
-        out, self.state = ASR.step(
-            self.cfg, self.params, self.state,
-            torch.as_tensor(pcm, device=dev), torch.as_tensor(mask, device=dev),
-            torch.as_tensor(reset, device=dev),
-            seeds=torch.as_tensor(self._seeds, device=dev))
-        return out
+        x = torch.as_tensor(pcm, device=dev)
+        with torch.inference_mode():
+            out, self.state = ASR.step(
+                self.cfg, self.params, self.state,
+                wire_in(x) if self._pcm_wire_int16 else x,
+                torch.as_tensor(mask, device=dev), torch.as_tensor(reset, device=dev),
+                seeds=torch.as_tensor(self._seeds, device=dev))
+            return dict(out, packed=pack_outputs(out))
+
+    def _dispatch(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray):
+        """Queue one step for host arrays -> its handle for
+        ``cuda_graph.fetch``: on the graph, the replay's packed array copied
+        into the next of ``pipeline_depth + 1`` pinned host buffers behind an
+        event; on the eager step, the packed device tensor.  The host arrays
+        may be reused once this returns."""
+        packed = self._step(pcm, mask, reset)["packed"]
+        return self._outputs.copy(packed) if self.cuda_graph else (packed, None)
+
+    def _invoke_step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray) -> dict:
+        """One step on host arrays -> the step's outputs (``ASR.step``'s keys),
+        tensors of their own (the card's checks read them beside the eager
+        step's)."""
+        with torch.inference_mode():
+            return {k: v.clone() for k, v in self._step(pcm, mask, reset).items()
+                    if k != "packed"}
 
     def _body(self) -> dict:
-        """The step to capture: ``step_in_place`` over the engine's state and
-        the static input buffers."""
+        """The step to capture: the wire's dequantisation, ``step_in_place``
+        over the engine's state and the static input buffers, the packing."""
         x = self._inputs.buffers
-        return ASR.step_in_place(self.cfg, self.params, self.state, x["pcm"], x["mask"],
-                                 x["reset"], seeds=x["seeds"])
+        pcm = wire_in(x["pcm"]) if self._pcm_wire_int16 else x["pcm"]
+        out = ASR.step_in_place(self.cfg, self.params, self.state, pcm, x["mask"],
+                                x["reset"], seeds=x["seeds"])
+        return dict(out, packed=pack_outputs(out))
 
     def _capture(self, steps: int) -> None:
         """Run the step ``steps`` times (at least once) on a side stream, with
         no slot active, then capture it there; raises if capture fails."""
         b, dev = self.batch_size, self.device
+        pcm_dtype = torch.int16 if self._pcm_wire_int16 else torch.float32
         self._inputs = StagedInputs({
-            "pcm": torch.zeros((b, 1, self.frame_size), dtype=torch.float32, device=dev),
+            "pcm": torch.zeros((b, 1, self.frame_size), dtype=pcm_dtype, device=dev),
             "mask": torch.zeros(b, dtype=torch.bool, device=dev),
             "reset": torch.zeros(b, dtype=torch.bool, device=dev),
             "seeds": torch.zeros(b, dtype=torch.int64, device=dev),
         })
         self._graph, self._static_out = capture(self._body, steps, dev)
+        self._outputs = PinnedOutputs(self._static_out["packed"].shape,
+                                      self.pipeline_depth + 1)
 
     def warmup(self, steps: int = 2) -> None:
         """Run zero frames through the whole step (no slot active); with
@@ -269,10 +334,9 @@ class BatchedAsrEngine:
             return
         zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
         off = np.zeros(self.batch_size, bool)
-        with torch.inference_mode():
-            for _ in range(steps):
-                out = self._invoke_step(zeros, off, off)
-        out["text_token"].cpu()  # waits for the device
+        for _ in range(steps):
+            handle = self._dispatch(zeros, off, off)
+        fetch(handle)  # waits for the device
 
     def tick(self) -> bool:
         """One engine tick; True if any slot stepped or results were drained."""
@@ -305,11 +369,10 @@ class BatchedAsrEngine:
             return False
 
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            out = self._invoke_step(self._pcm_buf, mask, reset)
+        handle = self._dispatch(self._pcm_buf, mask, reset)
         self.step_count += 1
         with self._pending_cv:
-            self._pending.append((out, mask.copy(), chans, t0))
+            self._pending.append((handle, mask.copy(), chans, t0))
             self._inflight += 1
             self._pending_cv.notify_all()
             if self._drain_thread is not None:
@@ -378,10 +441,13 @@ class BatchedAsrEngine:
                 self._pending_cv.notify_all()
 
     def _process_item(self, item) -> None:
-        out, mask, chans, _t0 = item
-        text_tokens = out["text_token"].cpu().numpy()
-        step_idx = out["step_idx"].cpu().numpy()
-        prs = out["prs"].cpu().numpy() if out["prs"].shape[-1] else None
+        handle, mask, chans, _t0 = item
+        packed = fetch(handle)  # one transfer
+        b = self.batch_size
+        text_tokens = packed[:b]
+        step_idx = packed[b:2 * b]
+        prs = (packed[2 * b:].reshape(b, -1).astype(np.float32) * 1e-6
+               if packed.shape[0] > 2 * b else None)
 
         events = self.word_state.process(text_tokens, step_idx, mask)
         by_slot: Dict[int, List[object]] = {}

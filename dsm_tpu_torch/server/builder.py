@@ -64,22 +64,16 @@ def build_batched_asr(mod: CFG.ModuleConfig, device,
     sites of ``w8a8_sites`` (a list or a comma string) and weight-only at the
     others; the profile is written into the weights.  ``batch_size`` is
     clamped to the card's memory (``autoconfig.auto_batch_size``).  On the
-    CPU: f32 throughout, no quantisation."""
+    CPU: f32 throughout, no quantisation.  ``pipeline_depth`` (default 1) is
+    the engine's dispatch-ahead and ``pcm_wire = "int16"`` its int16 pcm
+    upload, as in the JAX builder."""
     device = torch.device(device)
     if mod.type != "BatchedAsr" or mod.lm is None:
         raise ValueError(f"module {mod.name}: not a BatchedAsr module with a model")
     for key, what in _UNPORTED.items():
         if mod.raw.get(key):
             raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
-    wire = str(mod.raw.get("pcm_wire", "")).lower()
-    if wire == "int16":
-        raise NotImplementedError(
-            "pcm_wire: the int16 pcm upload wire of the ASR engine is not ported "
-            "yet; see ROADMAP.md")
-    if wire not in ("", "f32", "float32"):  # f32 is the wire the engine serves
-        raise ValueError(f"unknown pcm_wire {wire!r}")
-    if int(mod.raw.get("pipeline_depth", 1)) != 1:
-        raise NotImplementedError("pipeline_depth > 1 is not ported yet; see ROADMAP.md")
+    wire = _pcm_wire(mod)
     on_accel = device.type == "cuda"
     mimi_cfg = MIMI.v0_1(mod.lm.audio_codebooks)
     asr_cfg = ASR.AsrConfig(
@@ -106,10 +100,21 @@ def build_batched_asr(mod: CFG.ModuleConfig, device,
         asr_cfg, {"mimi": mimi_params, "lm": lm_params},
         batch_size=batch, device=device,
         fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)),
-        cuda_graph=cuda_graph,
+        cuda_graph=cuda_graph, pipeline_depth=int(mod.raw.get("pipeline_depth", 1)),
+        pcm_wire_int16=wire == "int16",
     )
     engine.tokenizer = _tokenizer(mod)
     return engine
+
+
+def _pcm_wire(mod: CFG.ModuleConfig) -> str:
+    """TOML ``pcm_wire``, lower case: ``"int16"``, or ``""`` for the f32
+    wire (``"f32"``, ``"float32"`` or no key); any other name raises, where
+    the JAX builder would fall back to f32 without a word."""
+    wire = str(mod.raw.get("pcm_wire", "")).lower()
+    if wire not in ("", "int16", "f32", "float32"):
+        raise ValueError(f"unknown pcm_wire {wire!r}")
+    return "int16" if wire == "int16" else ""
 
 
 def _tokenizer(mod: CFG.ModuleConfig):
@@ -158,7 +163,11 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
     KV rings, int8 LM weights with W8A8 matmuls (the DepFormer's included;
     weight-only with ``w8a8 = false``), bf16 codec, and the int8 voice store
     when the TOML sets ``ca_int8``.
-    On the CPU: f32 throughout, no quantisation.  The ``[...conditioners]``
+    On the CPU: f32 throughout, no quantisation.  ``fuse_ticks`` (frames a
+    dispatch, through the device script machine, whose ring keeps the
+    engine's default ``script_cap`` of 1024 tokens), ``pipeline_depth`` (the
+    fused path's dispatch-ahead) and ``pcm_wire = "int16"`` (the int16 audio
+    download) are the JAX builder's.  The ``[...conditioners]``
     table builds its provider and the default ``description`` condition, as
     the JAX builder does; the batched step does not add it (nor does the
     JAX package's)."""
@@ -173,15 +182,7 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
     for key, what in _TTS_UNPORTED.items():
         if raw.get(key):
             raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
-    if int(raw.get("fuse_ticks", 1)) != 1:
-        raise NotImplementedError(
-            "fuse_ticks > 1: the fused multi-tick path with the device script "
-            "machine is not ported yet; see ROADMAP.md")
-    if int(raw.get("pipeline_depth", 1)) != 1:
-        raise NotImplementedError("pipeline_depth > 1 is not ported yet; see ROADMAP.md")
-    wire = str(raw.get("pcm_wire", "")).lower()
-    if wire not in ("", "int16", "f32", "float32"):
-        raise ValueError(f"unknown pcm_wire {wire!r}")
+    wire = _pcm_wire(mod)
     on_accel = device.type == "cuda"
     gen_cfg = mod.generation or {}
     keys = ("acoustic_delay", "text_pad_token", "text_bos_token", "text_eos_token",
@@ -210,6 +211,8 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
         cfg_enabled=bool(raw.get("cfg_enabled", False)),
         ca_quant=bool(raw.get("ca_int8", False)), device=device,
         pcm_wire_int16=wire == "int16", cuda_graph=cuda_graph,
+        fuse_ticks=int(raw.get("fuse_ticks", 1)),
+        pipeline_depth=int(raw.get("pipeline_depth", 1)),
     )
     voice_dir = CFG.resolve_path(mod.voice_dir) if mod.voice_dir else None
     if voice_dir is not None and not os.path.isdir(voice_dir):

@@ -2,9 +2,12 @@
 
 A captured graph replays its launches on the same buffers for ever: its
 inputs are static device buffers that each tick refills from host arrays
-(:class:`StagedInputs`), and :func:`capture` records the step once, after
-warm-up runs on the stream it captures on.  ``server/batched_asr.py`` and
-``server/tts_batched.py`` use both.
+(:class:`StagedInputs`), :func:`capture` records the step once, after
+warm-up runs on the stream it captures on, and a replay's packed output goes
+back to the host into one of a few pinned buffers behind an event
+(:class:`PinnedOutputs`, read with :func:`fetch`), so that the engines can
+dispatch ahead.  ``server/batched_asr.py``, ``server/tts_batched.py`` and
+``server/duplex_batched.py`` use them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,38 @@ class StagedInputs:
         for name, buf in self.buffers.items():
             buf.copy_(host[name], non_blocking=True)
         self._staged[i].record()
+
+
+class PinnedOutputs:
+    """``n`` pinned host buffers for a graph's int32 output, used in turn:
+    :meth:`copy` queues the device-to-host copy of a replay's output into the
+    next one behind an event.  A buffer comes round again ``n`` copies later,
+    so the caller reads each before ``n`` more dispatches."""
+
+    def __init__(self, shape, n: int):
+        self.buffers = [torch.empty(shape, dtype=torch.int32).pin_memory() for _ in range(n)]
+        self.done = [torch.cuda.Event() for _ in range(n)]
+        self._next = 0
+
+    def copy(self, out: torch.Tensor):
+        """Queue ``out``'s copy on the current stream -> ``(buffer, event)``,
+        for :func:`fetch`."""
+        i = self._next
+        self._next = (i + 1) % len(self.buffers)
+        self.buffers[i].copy_(out, non_blocking=True)
+        self.done[i].record()
+        return self.buffers[i], self.done[i]
+
+
+def fetch(handle) -> np.ndarray:
+    """A dispatch's packed array on the host, from ``(buffer, event)`` of
+    :meth:`PinnedOutputs.copy` (the wait on that copy's event alone) or
+    ``(device tensor, None)`` of an eager dispatch (its device-to-host copy)."""
+    packed, done = handle
+    if done is not None:
+        done.synchronize()
+        return packed.numpy()
+    return packed.cpu().numpy()
 
 
 def capture(body: Callable[[], object], warm_steps: int, device):

@@ -59,7 +59,7 @@ import torch
 from ..models import mimi as MIMI
 from ..ops import sampling as S
 from ..sessions import lm_gen
-from .cuda_graph import StagedInputs, capture
+from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 
 
 @dataclasses.dataclass
@@ -179,7 +179,7 @@ class BatchedDuplexEngine:
         # dt is the completion-to-completion interval
         self.tick_observer = None
         self._pcm_buf = np.zeros((batch_size, 1, mimi_cfg.frame_size), np.float32)
-        # (fetch, drivers, n_active, t_gather0, t_disp0, t_disp1) per tick in flight
+        # (handle, drivers, n_active, t_gather0, t_disp0, t_disp1) per tick in flight
         self._inflight: deque = deque()
         self._last_fetch_t: Optional[float] = None
 
@@ -257,8 +257,8 @@ class BatchedDuplexEngine:
 
     def _dispatch(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray,
                   asr_delay: np.ndarray):
-        """Queue one device tick for host arrays -> its fetch, for
-        :meth:`_fetch`: on the graph, the replay's packed array copied into
+        """Queue one device tick for host arrays -> its handle for
+        ``cuda_graph.fetch``: on the graph, the replay's packed array copied into
         the next of ``pipeline_depth`` pinned host buffers behind an event
         (the oldest in flight has been fetched before its buffer comes round
         again); on the eager tick, the packed device tensor.  The host
@@ -270,11 +270,7 @@ class BatchedDuplexEngine:
             self._inputs.stage({"pcm": pcm, "mask": mask, "reset": reset,
                                 "asr_delay": asr_delay})
             self._graph.replay()
-            i = self._next_out
-            self._next_out = (i + 1) % len(self._out_host)
-            self._out_host[i].copy_(self._static_out, non_blocking=True)
-            self._out_done[i].record()
-            return self._out_host[i], self._out_done[i]
+            return self._outputs.copy(self._static_out)
         dev = self.device
         x = {"pcm": torch.as_tensor(pcm, device=dev), "mask": torch.as_tensor(mask, device=dev),
              "reset": torch.as_tensor(reset, device=dev),
@@ -282,22 +278,12 @@ class BatchedDuplexEngine:
         with torch.inference_mode():
             return self._device_tick(x, in_place=False), None
 
-    @staticmethod
-    def _fetch(fetch) -> np.ndarray:
-        """A dispatched tick's packed int32 array on the host: the wait on its
-        copy's event alone, or the device-to-host copy of the eager tick."""
-        packed, done = fetch
-        if done is not None:
-            done.synchronize()
-            return packed.numpy()
-        return packed.cpu().numpy()
-
     def _invoke_step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray,
                      asr_delay: np.ndarray) -> np.ndarray:
         """One device tick for host arrays ``(batch_size, ...)``, fetched ->
         the packed int32 host array (on the graph, pinned memory that the
         tick ``pipeline_depth`` later overwrites)."""
-        return self._fetch(self._dispatch(pcm, mask, reset, asr_delay))
+        return fetch(self._dispatch(pcm, mask, reset, asr_delay))
 
     def _capture(self, steps: int) -> None:
         """Run the tick ``steps`` times (at least once) on a side stream with
@@ -313,10 +299,7 @@ class BatchedDuplexEngine:
                             "asr_delay": self._asr_delay.copy()})
         self._graph, self._static_out = capture(
             lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev)
-        self._out_host = [torch.empty(self._static_out.shape, dtype=torch.int32).pin_memory()
-                          for _ in range(self.pipeline_depth)]
-        self._out_done = [torch.cuda.Event() for _ in range(self.pipeline_depth)]
-        self._next_out = 0
+        self._outputs = PinnedOutputs(self._static_out.shape, self.pipeline_depth)
 
     def warmup(self, steps: int = 2) -> None:
         """Run ticks with no slot active through the whole step; with
@@ -393,19 +376,19 @@ class BatchedDuplexEngine:
             return False
 
         t0 = time.perf_counter()
-        fetch = self._dispatch(self._pcm_buf, mask, reset, asr_delay)
+        handle = self._dispatch(self._pcm_buf, mask, reset, asr_delay)
         t1 = time.perf_counter()
         self.step_count += 1
-        self._inflight.append((fetch, stepped, int(mask.sum()), t_tick0, t0, t1))
+        self._inflight.append((handle, stepped, int(mask.sum()), t_tick0, t0, t1))
         if len(self._inflight) >= self.pipeline_depth:
             self._post_process(self._inflight.popleft())
         return True
 
     def _post_process(self, item) -> None:
-        fetch, stepped, n_active, t_tick0, t0, t1 = item
+        handle, stepped, n_active, t_tick0, t0, t1 = item
         n = self.batch_size
         frame = self.mimi_cfg.frame_size
-        packed = self._fetch(fetch)  # the tick's one device-to-host fetch
+        packed = fetch(handle)  # the tick's one device-to-host fetch
         t2 = time.perf_counter()
         # Dispatched ahead, one tick's dispatch-to-fetch spans other ticks'
         # host work: the interval between completions is the tick's cost

@@ -1,43 +1,67 @@
 """Continuously batched TTS serving engine (counterpart of
-``dsm_tpu/server/tts_batched.py``, its single-tick path).
+``dsm_tpu/server/tts_batched.py``).
 
-N independent sessions step together, one frame per tick, in
-``sessions.tts.step``: each slot has its own step counter and its own voice
-in the cross-attention store ``(L, rows, H, S, Dh)``, which opening a
-session writes for its slot only.  With ``ca_quant`` the store is int8
-with per-row f32 scales, its rows padded to a multiple of 128, and the
-voice cross-attention goes through the ``ca_decode_attend`` kernel.
+N independent sessions step together in ``sessions.tts.step``: each slot has
+its own step counter and its own voice in the cross-attention store
+``(L, rows, H, S, Dh)``, which opening a session writes for its slot only.
+With ``ca_quant`` the store is int8 with per-row f32 scales, its rows padded
+to a multiple of 128, and the voice cross-attention goes through the
+``ca_decode_attend`` kernel.
 
 Host side per slot (:class:`TtsSlot`): the word-feeding driver that picks
 each frame's text constraint (a forced word piece, a pad, or the model's
 choice of pad or end-of-word), emits words with 12.5 Hz timestamps, pads
 out the session once its input has ended, and signals the end.  Completed
-frames are Mimi-decoded on the device in the same tick, and the tick
-fetches one packed array: text tokens, step counters, the decode mask and
-the pcm (f32 bits, or int16 pairs with ``pcm_wire_int16``).
+frames are Mimi-decoded on the device in the same tick, and each frame
+leaves the device as one packed int32 array: text tokens, step counters, the
+decode mask and the pcm (f32 bits, or int16 pairs with ``pcm_wire_int16``).
 
-On a CUDA device the tick is one captured CUDA graph, the counterpart of the
-JAX engine's ``jax.jit(_step, donate_argnums=(1, 3))``: :meth:`warmup` runs
-the tick on the side stream it captures on, then captures
-``sessions.tts.step_in_place``, the gated ``models.mimi.decode_step_in_place``
-and the packing once over the engine's state buffers and static input
-buffers; every tick copies modes, tokens, mask, reset, temperatures, seeds
-and guidance through pinned host staging into those buffers, replays the
-graph and fetches the packed array into pinned memory.  The voice writes and
-the pad overwrite run between replays, in place, into the buffers the graph
-reads; the word driver stays on the host.  A capture that fails raises; the
-engine never falls back to the eager tick.  ``cuda_graph=False`` runs the
-eager tick (the reference the card's checks hold the graph to); the CPU has
-no graph.
+Two paths, as in the JAX engine:
 
-Left out (ROADMAP.md): the fused multi-tick path with the device script
-machine, dispatch-ahead (``pipeline_depth > 1``), the device mesh and
-prometheus metrics.  The builder refuses the options that select them.
+* ``fuse_ticks = 1``: one frame a tick; the host driver picks the
+  constraint and patches the final end-of-word to a pad between ticks.
+* ``fuse_ticks = K > 1``: K frames a dispatch.  The device script machine
+  (``sessions/tts_script.py``) picks each frame's constraint, consumes its
+  text token and patches the final end-of-word inside the frame, so no
+  frame waits for the host; the :class:`TtsSlot` becomes the host's mirror,
+  which replays the fetched text tokens through the same rules for word
+  events.  Words and the end of input land in ``pending_*`` and reach the
+  device ring at a dispatch boundary, in one staged op table
+  (``tts_script.apply_ops``), words under the ring's ``script_cap``; the end
+  of input only once every fed word is uploaded.  One fetch a dispatch, of
+  the ``(K, ...)`` packed frames.  Dispatch-ahead (``pipeline_depth = D``):
+  a dispatch is posted once D are in flight, so D - 1 stay on the device
+  while the host replays the older one, at the cost of up to ``K * (D -
+  1)`` frames before audio is delivered.
+
+On a CUDA device the tick is a captured CUDA graph, the counterpart of the
+JAX engine's jitted ``_step`` / ``_fused_step``: :meth:`warmup` runs the
+body on the side stream it captures on, then captures it once over the
+engine's state buffers and static input buffers.  For ``fuse_ticks = 1`` the
+body is the tick (``sessions.tts.step_in_place``, the gated
+``models.mimi.decode_step_in_place``, the packing); every tick copies modes,
+tokens, mask, reset, temperatures, seeds and guidance through pinned host
+staging into those buffers, replays the graph and fetches the packed array
+into pinned memory.  For K > 1 the body is one frame (``constraint``, the
+step with the frame's reset, which it then clears with a device fill,
+``advance``, the pad patch, the decode, the packing into the row of a
+device frame counter); a dispatch stages reset, temperatures, seeds and
+guidance once, replays the frame K times and copies the ``(K, ...)`` frames
+into the next of ``pipeline_depth`` pinned host buffers behind an event.
+The voice writes, the script ops and the single tick's pad overwrite run
+between replays, in place, on the same stream, into the buffers the graph
+reads.  A capture that fails raises; the engine never falls back to the
+eager tick.  ``cuda_graph=False`` runs the eager forms (the reference the
+card's checks hold the graph to); the CPU has no graph.
+
+Left out (ROADMAP.md): the device mesh and prometheus metrics.  The builder
+refuses the options that select them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 import traceback
@@ -50,8 +74,14 @@ import torch
 from ..models import mimi as MIMI
 from ..ops import transformer as T
 from ..sessions import tts as TTS
-from .cuda_graph import StagedInputs, capture
+from ..sessions import tts_script as SCRIPT
+from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 from .tts_module import AudioEvent, WordEvent
+
+log = logging.getLogger("dsm.torch.tts")
+
+
+OP_TABLE_ROWS = 512  # script ops a staged copy carries; longer queues go in chunks
 
 
 @dataclasses.dataclass
@@ -60,9 +90,10 @@ class DoneEvent:
 
 
 class TtsSlot:
-    """Host word-feeding driver for one session."""
+    """Host word-feeding driver for one session; with ``fused``, the mirror
+    of the device script machine."""
 
-    def __init__(self, slot: int, deliver: Callable[[object], None]):
+    def __init__(self, slot: int, deliver: Callable[[object], None], fused: bool = False):
         self.slot = slot
         self.deliver = deliver
         self.lock = threading.Lock()
@@ -77,15 +108,29 @@ class TtsSlot:
         self.finished = False
         self.closed = False
         self.pcm_samples = 0
+        # Fused mode: fed words and the end of input wait in pending_* and
+        # become visible (word_queue / eos) when the engine uploads them to
+        # the device at a dispatch boundary, so that the mirror and the
+        # device replay the same script.
+        self.fused = fused
+        self.pending_words: deque = deque()
+        self.pending_eos = False
+        self.up_toks = 0  # script tokens uploaded to the device
+        self.up_words = 0
+        self.consumed = 0  # script tokens consumed (the mirror's count)
 
     def feed_words(self, words) -> None:
         with self.lock:
+            target = self.pending_words if self.fused else self.word_queue
             for w in words:
-                self.word_queue.append(list(w))
+                target.append(list(w))
 
     def end_input(self) -> None:
         with self.lock:
-            self.eos = True
+            if self.fused:
+                self.pending_eos = True
+            else:
+                self.eos = True
 
     def next_constraint(self, cfg: TTS.TtsConfig):
         """-> ``(mode, token, stalled)``, or None once the session is over."""
@@ -119,6 +164,7 @@ class TtsSlot:
             self.token_idx = 0
         elif tok != cfg.text_pad_token:
             self.token_idx += 1
+            self.consumed += 1
         return patch
 
 
@@ -133,7 +179,8 @@ class BatchedTtsEngine:
                  mimi_params: dict, tokenizer, batch_size: int = 8,
                  ca_len: Optional[int] = None, tick_sleep: float = 0.002,
                  cfg_enabled: bool = False, ca_quant: bool = False, device="cuda",
-                 pcm_wire_int16: bool = False, cuda_graph: Optional[bool] = None):
+                 pcm_wire_int16: bool = False, cuda_graph: Optional[bool] = None,
+                 fuse_ticks: int = 1, script_cap: int = 1024, pipeline_depth: int = 1):
         if cfg.cfg_alpha is not None:
             raise ValueError("set cfg_enabled=True for batched guidance (per-request "
                              "alpha); a static cfg_alpha is for unbatched sessions")
@@ -206,6 +253,30 @@ class BatchedTtsEngine:
         self.thread: Optional[threading.Thread] = None
         self.step_count = 0
 
+        # The fused path: K frames a dispatch through the device script
+        # machine, with up to pipeline_depth - 1 dispatches left in flight.
+        self.fuse = max(1, int(fuse_ticks))
+        self.script_cap = int(script_cap)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        if self.pipeline_depth > 1 and self.fuse == 1:
+            log.warning("tts: pipeline_depth=%d has no effect with fuse_ticks=1; set "
+                        "fuse_ticks>1 to enable dispatch-ahead", self.pipeline_depth)
+        self._inflight_f: deque = deque()
+        if self.fuse > 1:
+            self._cc = SCRIPT.ScriptConsts.from_cfg(cfg)
+            self._mstate = SCRIPT.init(batch_size, self.script_cap, dev)
+            self._pending_script: List[tuple] = []
+            # The fused frame's outputs: row k of the dispatch, picked by a
+            # counter on the device that the frame advances.
+            pcm_words = batch_size * mimi_cfg.frame_size // (2 if self._pcm_wire_i16 else 1)
+            self._frames = torch.zeros((self.fuse, 3 * batch_size + pcm_words),
+                                       dtype=torch.int32, device=dev)
+            self._frame_k = torch.zeros(1, dtype=torch.int64, device=dev)
+            if on_card:  # the op table's staged copy (OP_TABLE_ROWS rows a flush)
+                self._ops_in = StagedInputs({"ops": torch.zeros(
+                    (OP_TABLE_ROWS, SCRIPT.OP_COLS), dtype=torch.int32, device=dev)})
+            self._ops_graph: Optional[torch.cuda.CUDAGraph] = None  # captured with the frame
+
     # -- slots --
 
     def used_slots(self) -> int:
@@ -237,9 +308,11 @@ class BatchedTtsEngine:
                 self._seed_counter = (self._seed_counter + 1) & 0xFFFFFFFF
                 seed = self._seed_counter
             self._seeds[slot] = np.uint32(int(seed) & 0xFFFFFFFF)
-            drv = TtsSlot(slot, deliver)
+            drv = TtsSlot(slot, deliver, fused=self.fuse > 1)
             self.slots[slot] = drv
             self.pending_resets[slot] = True
+            if self.fuse > 1:  # applied before the dispatch whose frame 0 resets the slot
+                self._pending_script.append((SCRIPT.OP_INIT, slot, None, 0, 0, 0))
             self._pending_voice.append((slot, voice_ca))
             if self.cfg_enabled:  # the uncond twin runs without the voice
                 self._pending_voice.append((self.batch_size + slot, None))
@@ -279,6 +352,8 @@ class BatchedTtsEngine:
             if self.slots[drv.slot] is drv:
                 self.slots[drv.slot] = None
                 self.free.append(drv.slot)
+                if self.fuse > 1:
+                    self._pending_script.append((SCRIPT.OP_DEACT, drv.slot, None, 0, 0, 0))
 
     # -- device step --
 
@@ -311,9 +386,7 @@ class BatchedTtsEngine:
                 arrays["alpha"] = self._cfg_alpha
             self._inputs.stage(arrays)
             self._graph.replay()
-            self._out_host.copy_(self._static_out, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()  # the tick's one fetch
-            return self._out_host.numpy()
+            return fetch(self._outputs.copy(self._static_out))  # the tick's one fetch
         dev = self.device
 
         def rows(a, dtype=None):
@@ -330,11 +403,10 @@ class BatchedTtsEngine:
 
     def _device_tick(self, x: dict, in_place: bool) -> torch.Tensor:
         """The tick on device inputs ``x`` -> the packed int32 array: the TTS
-        step, the gated Mimi decode of the completed frames, the int16 wire
-        where it is set.  ``in_place``: the fixed-buffer forms over
-        ``self.state`` and ``self.mimi_state`` (the body the graph captures);
-        else the functional forms, whose new states replace the engine's."""
-        n = self.batch_size
+        step, then :meth:`_pack_frame`.  ``in_place``: the fixed-buffer forms
+        over ``self.state`` and ``self.mimi_state`` (the body the graph
+        captures); else the functional forms, whose new states replace the
+        engine's."""
         kw = dict(ca_kv=self._ca, mask=x["mask"], reset=x["reset"],
                   temps={"text": x["text_temp"], "audio": x["audio_temp"]},
                   seeds=x["seeds"], cfg_alpha=x.get("alpha"))
@@ -344,9 +416,17 @@ class BatchedTtsEngine:
         else:
             out, self.state = TTS.step(self.cfg, self.params, self.state, x["modes"],
                                        x["toks"], **kw)
+        return self._pack_frame(out, x["mask"][:self.batch_size], in_place)
+
+    def _pack_frame(self, out: dict, stepped: torch.Tensor, in_place: bool) -> torch.Tensor:
+        """The shared tail of the single tick and the fused frame: the Mimi
+        decode of the completed frames of the ``stepped`` slots, the int16
+        wire where it is set, the packed int32 array ``[text (n), steps (n),
+        dec_mask (n), pcm words]``."""
+        n = self.batch_size
         steps = out["step_idx"][:n]
         delay = self.cfg.text_audio_delay_in_tokens + self.cfg.acoustic_delay
-        dec_mask = out["frame_valid"][:n] & (steps > delay) & x["mask"][:n]
+        dec_mask = out["frame_valid"][:n] & (steps > delay) & stepped
         codes = out["frame"][:n, :, None]
         if in_place:
             pcm = MIMI.decode_step_in_place(self.mimi_cfg, self.mimi_params,
@@ -361,31 +441,124 @@ class BatchedTtsEngine:
                           dec_mask.to(torch.int32),
                           row.contiguous().view(torch.int32).reshape(-1)])
 
+    def _fused_frame(self, x: dict) -> None:
+        """One frame of a fused dispatch on device inputs ``x`` (the body the
+        graph captures, replayed K times a dispatch): the script machine's
+        constraint, the step with the dispatch's reset, which is then cleared
+        for the later frames, the machine's advance, the final end-of-word
+        patched to a pad before the next frame reads it, and the packed frame
+        written into row ``_frame_k`` of ``_frames``, the counter advanced."""
+        n = self.batch_size
+
+        def rows(t):
+            return torch.cat([t, t]) if self.cfg_enabled else t
+
+        mode, tok, stepped = SCRIPT.constraint_in_place(self._cc, self._mstate)
+        out = TTS.step_in_place(
+            self.cfg, self.params, self.state, rows(mode), rows(tok), ca_kv=self._ca,
+            mask=rows(stepped), reset=rows(x["reset"]),
+            temps={"text": x["text_temp"], "audio": x["audio_temp"]}, seeds=x["seeds"],
+            cfg_alpha=x.get("alpha"))
+        x["reset"].fill_(False)
+        patch = SCRIPT.advance_in_place(self._cc, self._mstate, out["text_token"][:n], stepped)
+        TTS.overwrite_last_text_token_in_place(self.state, self.cfg.text_pad_token, rows(patch))
+        self._frames.index_copy_(0, self._frame_k, self._pack_frame(out, stepped, True)[None])
+        self._frame_k.add_(1).remainder_(self.fuse)
+
+    def _dispatch_fused(self, reset: np.ndarray):
+        """Queue one fused dispatch of K frames -> its handle for
+        ``cuda_graph.fetch``: on the graph, the frame replayed K times and the
+        ``(K, ...)`` frames copied into the next of ``pipeline_depth`` pinned
+        host buffers behind an event (the oldest dispatch in flight was
+        posted before its buffer comes round again); eagerly, a copy of the
+        frames on the device."""
+        arrays = {"reset": reset, "text_temp": self._rows(self._text_temp),
+                  "audio_temp": self._rows(self._audio_temp),
+                  "seeds": self._rows(self._seeds).astype(np.int64)}
+        if self.cfg_enabled:
+            arrays["alpha"] = self._cfg_alpha
+        if self.cuda_graph:
+            if self._graph is None:
+                raise RuntimeError("the CUDA graph frame is not captured: call warmup() "
+                                   "or start() first")
+            self._inputs.stage(arrays)
+            for _ in range(self.fuse):
+                self._graph.replay()
+            return self._outputs.copy(self._frames)
+        x = {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+        with torch.inference_mode():
+            for _ in range(self.fuse):
+                self._fused_frame(x)
+            return self._frames.clone(), None
+
+    def _apply_script_ops(self, ops: List[tuple]) -> None:
+        """Engine-loop thread only: the queued script ops
+        ``(kind, slot, toks, count, word_id, start)`` applied to the device
+        machine in program order, one table a flush: on the card one staged
+        copy of ``OP_TABLE_ROWS`` rows (OP_NOP-padded) and
+        ``tts_script.apply_ops`` over it, a replay of its captured graph with
+        ``cuda_graph``, ordered on the stream after the dispatch in flight."""
+        if not ops:
+            return
+        table = SCRIPT.op_table(ops)
+        with torch.inference_mode():
+            for off in range(0, len(table), OP_TABLE_ROWS):
+                chunk = table[off:off + OP_TABLE_ROWS]
+                if self.device.type != "cuda":
+                    SCRIPT.apply_ops(self._mstate, torch.from_numpy(chunk))
+                    continue
+                padded = np.zeros((OP_TABLE_ROWS, SCRIPT.OP_COLS), np.int32)
+                padded[:len(chunk)] = chunk
+                self._ops_in.stage({"ops": padded})
+                if self._ops_graph is not None:
+                    self._ops_graph.replay()
+                else:
+                    SCRIPT.apply_ops(self._mstate, self._ops_in.buffers["ops"])
+
     def _capture(self, steps: int) -> None:
-        """Run the tick ``steps`` times (at least once) on a side stream, with
-        no slot active, then capture it there; raises if capture fails."""
+        """Run the tick (fused: the frame) ``steps`` times (at least once) on
+        a side stream, with no slot active, then capture it there; raises if
+        capture fails."""
         r, dev = self.rows, self.device
-        dtypes = {"modes": torch.int32, "toks": torch.int32, "mask": torch.bool,
-                  "reset": torch.bool, "text_temp": torch.float32,
+        dtypes = {"reset": torch.bool, "text_temp": torch.float32,
                   "audio_temp": torch.float32, "seeds": torch.int64}
+        if self.fuse == 1:  # the fused frame takes these from the script machine
+            dtypes.update(modes=torch.int32, toks=torch.int32, mask=torch.bool)
         buffers = {name: torch.zeros(r, dtype=dt, device=dev) for name, dt in dtypes.items()}
+        if self.fuse > 1:  # one reset a slot, doubled in the frame with guidance
+            buffers["reset"] = torch.zeros(self.batch_size, dtype=torch.bool, device=dev)
         if self.cfg_enabled:
             buffers["alpha"] = torch.ones(self.batch_size, dtype=torch.float32, device=dev)
         self._inputs = StagedInputs(buffers)
+        if self.fuse > 1:
+            self._graph, _ = capture(lambda: self._fused_frame(self._inputs.buffers),
+                                     steps, dev)
+            self._frame_k.zero_()  # the warm-up advanced it; the capture ran nothing
+            # The op table's application too: its staged buffer holds OP_NOP
+            # rows until a flush stages ops, so the warm-up changes nothing.
+            self._ops_graph, _ = capture(
+                lambda: SCRIPT.apply_ops(self._mstate, self._ops_in.buffers["ops"]), 1, dev)
+            self._outputs = PinnedOutputs(self._frames.shape, self.pipeline_depth)
+            return
         self._graph, self._static_out = capture(
             lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev)
-        self._out_host = torch.empty(self._static_out.shape, dtype=torch.int32).pin_memory()
+        self._outputs = PinnedOutputs(self._static_out.shape, 1)
 
     def warmup(self, steps: int = 2) -> None:
-        """Run ticks with no slot active through the whole step; with
-        ``cuda_graph``, through the tick to capture, then capture it."""
+        """Run ticks (fused: dispatches) with no slot active through the
+        whole step; with ``cuda_graph``, through the body to capture, then
+        capture it."""
         if self.cuda_graph:
             if self._graph is None:
                 self._capture(steps)
             return
         n = self.batch_size
-        modes = np.full(n, TTS.ALLOW_PAD, np.int32)
         off = np.zeros(n, bool)
+        if self.fuse > 1:
+            for _ in range(steps):
+                fetch(self._dispatch_fused(off))
+            return
+        modes = np.full(n, TTS.ALLOW_PAD, np.int32)
         for _ in range(steps):
             self._invoke_step(modes, np.zeros(n, np.int32), off, off)
 
@@ -403,6 +576,11 @@ class BatchedTtsEngine:
         self.running = False
         if self.thread:
             self.thread.join(timeout=5)
+        # Deliver what is still in flight, once the loop has exited (two
+        # threads posting at once could reorder a session's events).
+        if self.thread is None or not self.thread.is_alive():
+            while self._inflight_f:
+                self._post_fused(self._inflight_f.popleft())
 
     def _loop(self) -> None:
         while self.running:
@@ -414,7 +592,98 @@ class BatchedTtsEngine:
                 time.sleep(0.1)
 
     def tick(self) -> bool:
-        """One engine tick; True if any slot stepped."""
+        """One engine tick (fused: one dispatch of K frames); True if any
+        slot stepped or a dispatch in flight was posted."""
+        if self.fuse > 1:
+            return self._tick_fused()
+        return self._tick_single()
+
+    def _tick_fused(self) -> bool:
+        """Upload what the slots may now see, dispatch K frames, and post the
+        oldest dispatch once ``pipeline_depth`` are in flight."""
+        n = self.batch_size
+        reset = np.zeros(n, bool)
+        drivers: List[Optional[TtsSlot]] = [None] * n
+        with self.slot_lock:
+            pending_voice, self._pending_voice = self._pending_voice, []
+            ops, self._pending_script = self._pending_script, []
+            reset[:] = self.pending_resets
+            self.pending_resets[:] = False
+            for slot, drv in enumerate(self.slots):
+                if drv is None or drv.closed or drv.finished:
+                    continue
+                drivers[slot] = drv
+                with drv.lock:
+                    self._promote(drv, ops)
+        if pending_voice:
+            with torch.inference_mode():
+                self._apply_voice_writes(pending_voice)
+        self._apply_script_ops(ops)
+        if not any(d is not None for d in drivers) and not reset.any():
+            if self._inflight_f:  # input paused: deliver what is in flight
+                self._post_fused(self._inflight_f.popleft())
+                return True
+            return False
+        self._inflight_f.append((self._dispatch_fused(reset), drivers))
+        self.step_count += self.fuse
+        if len(self._inflight_f) >= self.pipeline_depth:
+            self._post_fused(self._inflight_f.popleft())
+        return True
+
+    def _promote(self, drv: TtsSlot, ops: List[tuple]) -> None:
+        """Move ``drv``'s pending words to the device ring while it has room
+        (a word longer than the ring is cut to it, or it would wait for ever),
+        as upload ops appended to ``ops``; the end of input once every fed
+        word is up."""
+        slot = drv.slot
+        while drv.pending_words:
+            w = drv.pending_words[0]
+            if len(w) > self.script_cap:
+                log.warning("tts slot %d: word of %d tokens truncated to script_cap=%d",
+                            slot, len(w), self.script_cap)
+                w = drv.pending_words[0] = w[:self.script_cap]
+            if len(w) > self.script_cap - (drv.up_toks - drv.consumed):
+                break
+            drv.pending_words.popleft()
+            drv.word_queue.append(list(w))
+            start, wid = drv.up_toks, drv.up_words
+            for off in range(0, max(len(w), 1), SCRIPT.WORD_CHUNK):
+                chunk = w[off:off + SCRIPT.WORD_CHUNK]
+                toks = np.zeros(SCRIPT.WORD_CHUNK, np.int32)
+                toks[:len(chunk)] = chunk
+                ops.append((SCRIPT.OP_WORD, slot, toks, len(chunk), wid, start + off))
+            drv.up_toks += len(w)
+            drv.up_words += 1
+        if drv.pending_eos and not drv.pending_words and not drv.eos:
+            drv.eos = True
+            ops.append((SCRIPT.OP_EOS, slot, None, 0, 0, 0))
+
+    def _post_fused(self, item) -> None:
+        """One fetch for a dispatch's K frames, replayed frame by frame
+        through the slots' mirrors: words, audio, and Done once a mirror has
+        no constraint left.  The pad patch already ran on the device."""
+        handle, drivers = item
+        packed = fetch(handle)
+        n, frame = self.batch_size, self.mimi_cfg.frame_size
+        for row in packed:
+            text_tokens = row[:n]
+            steps = row[n:2 * n]
+            dec_mask = row[2 * n:3 * n].astype(bool)
+            pcm = self._unpack_pcm(row[3 * n:], n, frame) if dec_mask.any() else None
+            for slot, drv in enumerate(drivers):
+                if drv is None or drv.finished or drv.closed:
+                    continue
+                if drv.next_constraint(self.cfg) is None:
+                    drv.finished = True
+                    drv.deliver(DoneEvent())
+                    continue
+                drv.steps = int(steps[slot])
+                drv.on_text_token(self.cfg, int(text_tokens[slot]), self.tokenizer)
+                if pcm is not None and dec_mask[slot]:
+                    drv.pcm_samples += frame
+                    drv.deliver(AudioEvent(pcm=pcm[slot].copy()))
+
+    def _tick_single(self) -> bool:
         n = self.batch_size
         modes = np.full(n, TTS.ALLOW_PAD, np.int32)
         toks = np.zeros(n, np.int32)

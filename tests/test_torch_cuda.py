@@ -1951,11 +1951,12 @@ def test_asr_step_body_makes_no_host_sync(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _small_tts(dev, cfg_enabled):
+def _small_tts(dev, cfg_enabled, fuse_ticks=1, pipeline_depth=1):
     """The TTS serving TOML at B = 8 on the card: 2 LM layers of 8 heads x 128
     over a 128-row int8 ring (context 120; the fused route), the int8 voice
     store, W8A8, the int16 wire, a DepFormer of 8 slices x 2 layers, the codec
-    at full size (a 256-row ring, 2 rows a tick)."""
+    at full size (a 256-row ring, 2 rows a tick); single-tick unless
+    ``fuse_ticks`` says otherwise."""
     import tomllib
 
     from dsm_tpu_torch.server import builder as B
@@ -1964,7 +1965,8 @@ def _small_tts(dev, cfg_enabled):
     with open("configs/config-tts-tpu-serving.toml", "rb") as f:
         raw = tomllib.load(f)
     mod = raw["modules"]["tts"]
-    mod.update(batch_size=8, fuse_ticks=1, pipeline_depth=1, cfg_enabled=cfg_enabled)
+    mod.update(batch_size=8, fuse_ticks=fuse_ticks, pipeline_depth=pipeline_depth,
+               cfg_enabled=cfg_enabled)
     mod["model"]["transformer"].update(d_model=1024, num_heads=8, num_layers=2,
                                        dim_feedforward=768, context=120)
     mod["model"]["depformer"].update(num_slices=8)
@@ -2239,3 +2241,176 @@ def test_captured_duplex_engine_at_depth_2_gives_the_depth_1_events(cuda_device)
         assert logs["graph 2"][-1][0] == "DuplexDoneEvent"
         n_audio = sum(k == "DuplexAudioEvent" for k, _, _ in logs["graph 2"])
         assert n_audio == (0 if sid == 1 else 6 + sid - 2), (sid, n_audio)
+
+
+def _asr_serve(eng, n_frames=(40, 30, 24, 20), seed=3):
+    """Four streams with markers on an 8-slot engine (the fourth in the slot
+    of the first, closed once it is done; the other slots idle), driven by
+    ``tick()`` -> each stream's events with the VAD probabilities' bits."""
+    frame = eng.frame_size
+    logs = [[] for _ in n_frames]
+    chans = []
+    rng = np.random.default_rng(seed)
+
+    def open_(i):
+        ch = eng.open_channel(logs[i].append, seed=40 + i)
+        ch.push_pcm((rng.standard_normal(frame * n_frames[i]) * 0.1 * (1 + 3 * (i == 1)))
+                    .astype(np.float32))  # stream 1 loud: the int16 wire clips it
+        eng.add_marker(ch, 100 + i)
+        ch.push_pcm(np.zeros(frame * 8, np.float32))
+        chans.append(ch)
+
+    for i in range(3):
+        open_(i)
+    for _ in range(n_frames[0] + 10):
+        eng.tick()
+    eng.flush()
+    eng.close_channel(chans[0])
+    open_(3)
+    while any(ch.buffered_samples() >= frame for ch in chans[1:]):
+        eng.tick()
+    eng.stop()  # tick()-driven: delivers every step in flight
+    return [[(e.step_idx, [(type(w).__name__, getattr(w, "tokens", None),
+                            getattr(w, "start_time", None)) for w in e.words],
+              list(e.markers), e.prs.tobytes()) for e in evs] for evs in logs]
+
+
+@pytest.mark.cuda
+def test_captured_asr_engine_at_depth_2_gives_the_depth_1_events(cuda_device):
+    """The captured engine on the int16 wire at ``pipeline_depth`` 2, 1 and
+    0 and the eager engine at 1: every stream's events equal (steps, words,
+    markers, VAD probabilities bit for bit).  At depth 2 the fetch of step N
+    waits on its own copy's event, which fires while replay N + 1 still
+    runs; each step's packed array lands in a pinned buffer of its own."""
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.server.cuda_graph import fetch
+
+    cfg, params = _small_asr(cuda_device, 1024, 8, True, 8)
+
+    def engine(depth, graph=True):
+        eng = BatchedAsrEngine(cfg, params, batch_size=8, device=cuda_device,
+                               fill_gate_frac=0.0, cuda_graph=graph, pipeline_depth=depth,
+                               pcm_wire_int16=True)
+        eng.warmup()
+        return eng
+
+    runs = {name: _asr_serve(engine(depth, graph))
+            for name, depth, graph in (("graph 2", 2, True), ("graph 1", 1, True),
+                                       ("graph 0", 0, True), ("eager 1", 1, False))}
+    for i in range(4):
+        assert runs["graph 2"][i] == runs["graph 1"][i] == runs["graph 0"][i] \
+            == runs["eager 1"][i], i
+        assert [m for e in runs["graph 2"][i] for m in e[2]] == [100 + i]
+    eng = engine(2)
+    assert len(eng._outputs.buffers) == 3 and all(t.is_pinned() for t in eng._outputs.buffers)
+    b, frame = eng.batch_size, eng.frame_size
+    pcm = (np.random.default_rng(1).standard_normal((b, 1, frame)) * 0.1).astype(np.float32)
+    on, off = np.ones(b, bool), np.zeros(b, bool)
+    fetch(eng._dispatch(pcm, on, on))
+    torch.cuda.synchronize()
+    first = eng._dispatch(pcm, on, off)
+    second = eng._dispatch(pcm, on, off)
+    packed = fetch(first)
+    assert not second[1].query(), "the fetch of step N waited for replay N + 1"
+    assert first[0].data_ptr() != second[0].data_ptr()
+    assert packed.shape == (2 * b + b * 4,) and (packed[b:2 * b] == 2).all()
+    assert (fetch(second)[b:2 * b] == 3).all()
+
+
+def _tts_fused_serve(eng):
+    """Slot 0: a long session; slot 1: a short one, closed at frame 48 and its
+    slot reopened; slot 2: a session fed in two parts; the other slots hold
+    wordless sessions that never end, so every frame up to 400 has an active
+    slot and both engines step the same frames -> each session's events with
+    pcm bits and the frames run."""
+    texts = ["one two three four five six seven eight nine ten one two three",
+             "hi there", "the quick brown fox jumps", "see you"]
+    logs = [[] for _ in texts]
+    live = {}
+
+    def open_(i, first=None):
+        drv = eng.open_session(logs[i].append, seed=70 + i)
+        words, _ = eng.encode_words(texts[i], inserted_bos=False)
+        drv.feed_words(words if first is None else words[:first])
+        if first is None:
+            drv.end_input()
+        live[i] = (drv, words[first:] if first is not None else [])
+        return drv
+
+    open_(0)
+    open_(1)
+    open_(2, first=2)
+    idle = [eng.open_session(lambda ev: None, seed=80 + i)  # so slot 1 is the one reused
+            for i in range(eng.batch_size - 3)]
+    frames = 0
+    while frames < 400:
+        if frames == 8:
+            drv, rest = live[2]
+            drv.feed_words(rest)
+            drv.end_input()
+        if frames == 48:
+            drv = live[1][0]
+            assert drv.finished
+            eng.close_session(drv)
+            assert open_(3).slot == drv.slot
+        if not eng.tick():
+            break
+        frames += eng.fuse
+    eng.stop()
+    assert all(drv.finished for drv, _ in live.values())
+    for drv in idle:
+        eng.close_session(drv)
+    return [[(type(e).__name__, getattr(e, "text", None), getattr(e, "start_s", None),
+              None if not hasattr(e, "pcm") else e.pcm.tobytes()) for e in evs]
+            for evs in logs], frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_enabled", [False, True], ids=["plain", "cfg"])
+def test_captured_fused_tts_engine_equals_the_single_tick_engine(cuda_device, cfg_enabled):
+    """The serving TOML at a small width on the card: the fused engine
+    (``fuse_ticks`` 4, depth 2; one frame captured, replayed 4 times a
+    dispatch) and the captured single-tick engine deliver the same events,
+    pcm bit for bit, Done last, past the 128-row LM ring's wrap."""
+    single = _small_tts(cuda_device, cfg_enabled)
+    fused = _small_tts(cuda_device, cfg_enabled, fuse_ticks=4, pipeline_depth=2)
+    assert fused.fuse == 4 and fused.pipeline_depth == 2 and fused.cuda_graph
+    for eng in (single, fused):
+        eng.warmup()
+    (ev_s, n_s), (ev_f, n_f) = _tts_fused_serve(single), _tts_fused_serve(fused)
+    assert n_s > 128
+    for a, b in zip(ev_s, ev_f):
+        assert a == b
+        assert a[-1][0] == "DoneEvent" and sum(k == "AudioEvent" for k, *_ in a) > 0
+    assert len(fused._outputs.buffers) == 2 and fused._frames.shape[0] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_apply_ops_on_the_card_equals_the_cpu(cuda_device, seed):
+    """``tts_script.apply_ops`` on the card from a random machine, a random
+    op table (same-slot orders, word chunks that wrap a 32-token ring, NOP
+    rows): every field equal to the CPU's."""
+    from dsm_tpu_torch.sessions import tts_script as S
+
+    rng = np.random.default_rng(seed)
+    batch, cap = 8, 32
+    m = S.init(batch, cap)
+    for key in ("toks", "ptr", "widx", "n_toks", "n_words", "past_last"):
+        m[key] = torch.from_numpy(rng.integers(0, 40, m[key].shape).astype(np.int32))
+    m["word_of"] = torch.from_numpy(rng.integers(-1, 9, (batch, cap)).astype(np.int32))
+    for key in ("eos", "drained", "active"):
+        m[key] = torch.from_numpy(rng.uniform(size=batch) < 0.5)
+    ops = []
+    for _ in range(200):
+        kind, slot = int(rng.integers(0, 5)), int(rng.integers(0, batch))
+        count = int(rng.integers(0, S.WORD_CHUNK + 1))
+        toks = rng.integers(1, 100, S.WORD_CHUNK).astype(np.int32)
+        ops.append((kind, slot, toks, count, int(rng.integers(0, 20)),
+                    int(rng.integers(0, 100))))
+    table = S.op_table(ops)
+    on_card = {k: v.to(cuda_device) for k, v in m.items()}
+    S.apply_ops(m, torch.from_numpy(table))
+    S.apply_ops(on_card, torch.from_numpy(table).to(cuda_device))
+    for key in m:
+        assert torch.equal(on_card[key].cpu(), m[key]), key

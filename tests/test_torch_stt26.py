@@ -483,10 +483,12 @@ def test_builder_accepts_the_weight_only_profile(over):
     assert eng.batch_size == 3 and eng.cfg.asr_delay_in_tokens == 3
     assert eng.cfg.lm.extra_heads is None and eng.cfg.lm.transformer.hd == 64
     assert not eng.cfg.kv_quant  # the CPU profile: f32, no quantisation
-    for key in ("mesh", "pcm_wire"):
-        bad, _ = _small_stt26_module(**{key: {"dp": 2} if key == "mesh" else "int16"})
-        with pytest.raises(NotImplementedError, match=key):
-            tbuilder.build_batched_asr(bad, "cpu")
+    bad, _ = _small_stt26_module(mesh={"dp": 2})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tbuilder.build_batched_asr(bad, "cpu")
+    i16, _ = _small_stt26_module(pcm_wire="int16", pipeline_depth=2)
+    eng = tbuilder.build_batched_asr(i16, "cpu")  # both ported: the JAX builder's keys
+    assert eng._pcm_wire_int16 and eng.pipeline_depth == 2
 
 
 @pytest.mark.parametrize("wire", ["f32", "FLOAT32", ""])
@@ -498,14 +500,18 @@ def test_builder_serves_the_f32_pcm_wire(wire):
     assert eng.batch_size == 3 and not eng.cfg.kv_quant
 
 
-@pytest.mark.parametrize("wire,err", [("int16", NotImplementedError),
-                                      ("Int16", NotImplementedError), ("bogus", ValueError)])
+@pytest.mark.parametrize("wire,err", [("int16", None), ("Int16", None), ("bogus", ValueError)])
 def test_builder_refuses_other_pcm_wires(wire, err):
-    """The int16 upload is not ported yet; any other value is refused,
-    where the JAX builder would fall back to f32 without a word."""
+    """``int16`` in any case builds the engine with the int16 upload wire, as
+    the JAX builder does; any other name is refused, where the JAX builder
+    would fall back to f32 without a word."""
     mod, _ = _small_stt26_module(pcm_wire=wire)
-    with pytest.raises(err, match="pcm_wire"):
-        tbuilder.build_batched_asr(mod, "cpu")
+    if err is not None:
+        with pytest.raises(err, match="pcm_wire"):
+            tbuilder.build_batched_asr(mod, "cpu")
+        return
+    eng = tbuilder.build_batched_asr(mod, "cpu")
+    assert eng._pcm_wire_int16 and eng.pipeline_depth == 1
 
 
 # ---------------------------------------------------------------------------

@@ -253,14 +253,26 @@ def test_quantize_weights_of_the_tts_lm_match_jax():
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("fuse_ticks", 4, "device script machine"),
-    ("pipeline_depth", 2, "pipeline_depth"),
+    ("fuse_ticks", 4, None),
+    ("pipeline_depth", 2, None),
     ("mesh", {"dp": 2}, "multi-device"),
     ("batch_size", 1, "single-session"),
 ])
 def test_builder_refuses_unported_options(key, value, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tbuilder.build_batched_tts(_small_tts_module(**{key: value}), "cpu")
+    """``mesh`` and ``batch_size = 1`` still raise; ``fuse_ticks`` and
+    ``pipeline_depth`` (ported) build the engine they name, as the JAX
+    builder does: the fused path with the engine's default script ring, and
+    the depth (which warns without fusing)."""
+    mod = _small_tts_module(**{key: value})
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tbuilder.build_batched_tts(mod, "cpu")
+        return
+    eng = tbuilder.build_batched_tts(mod, "cpu")
+    assert (eng.fuse, eng.pipeline_depth) == ((4, 1) if key == "fuse_ticks" else (1, 2))
+    assert eng.script_cap == 1024
+    if key == "fuse_ticks":
+        assert eng._mstate["toks"].shape == (2, 1024)
 
 
 def test_builder_builds_the_cpu_profile(tmp_path):
