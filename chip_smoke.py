@@ -58,10 +58,10 @@ lines each:
    engines of these phases run the eager step (``cuda_graph=False``), so that
    the wrappers count every launch; ``[graph-stt1b]``, ``[graph-stt26]`` and
    ``[graph-stt1b-kv4]`` run ``BatchedAsrEngine`` as it serves, its step
-   captured once as a CUDA graph and replayed every tick: the eager and the
-   captured engine's step timed (host ms, device busy share and device
-   launches a step from a profile, peak memory with the graph's pool), then
-   the replay against the eager ``ASR.step`` from one state over GRAPH_STEPS
+   captured once as a CUDA graph and replayed every tick: the captured
+   engine's step timed (host ms, device busy share and device launches a
+   step from a profile, peak memory with the graph's pool; the eager step's
+   times are PERF.md section 5's), then the replay against the eager ``ASR.step`` from one state over GRAPH_STEPS
    steps (past a wrap of every ring; slots opened, closed and reset, partial
    masks): outputs bit for bit at every step, the whole state every 100 steps
    and at the end; at stt-1b the captured engine also serves the 12-session
@@ -74,9 +74,8 @@ lines each:
    to 1: the single-tick path, eager) serves 8 sessions with seeded random
    voices and 4 without, then 4 more in reused slots: every session ends,
    every frame is 1,920 finite samples, every word fed comes back, and the
-   kernels launched exactly PER_TICK_TTS per tick; then the tick, the LM
-   step, the DepFormer and the Mimi decode step are timed at 64 active
-   slots, with a kernel profile, and the LM step with the voice store and
+   kernels launched exactly PER_TICK_TTS per tick; then a kernel profile of
+   the tick at 64 active slots, and the LM step with the voice store and
    the Mimi decode step from that state are held against the same steps
    through the kernels' plain versions (``[tts-path]``).  This engine runs
    the eager tick (``cuda_graph=False``), so that the wrappers count every
@@ -86,7 +85,7 @@ lines each:
    captured once as a CUDA graph and replayed every tick: it serves the same
    16 sessions with the eager engine's events (words, times, every frame bit
    for bit), its launches counted over its warm-up and capture (a replay
-   counts none); the eager and the captured tick are timed at 64 active slots
+   counts none); the captured tick is timed at 64 active slots
    (host ms, device busy share, launches and kernel ms from a profile, peak
    memory with the graph's pool); then the replay is held to the eager
    ``TTS.step`` + ``MIMI.decode_step`` from one state over GRAPH_TICKS ticks
@@ -105,13 +104,10 @@ lines each:
    is stepped, audio starts after the acoustic delay, every audio frame is
    1,920 finite samples, every dialogue ends, and the kernels launched
    exactly PER_TICK_DUPLEX per tick (the split ring pipeline; no fused
-   commit); its tick is timed at 24 active slots over TICKS_TIMED ticks with a
-   profile (the eager side of the ``[graph]`` line); then the LM step, the
-   Mimi encode step and the Mimi decode
-   step through the kernels against the same steps through their plain
-   versions (``[duplex-path]``), and the tick, Mimi
-   encode, the LM step, the DepFormer and Mimi decode timed at 24 active
-   slots with a kernel profile, the tick once more over full rings.
+   commit); a kernel profile of its tick at 24 active slots; then the LM
+   step, the Mimi encode step and the Mimi decode step through the kernels
+   against the same steps through their plain versions (``[duplex-path]``),
+   and the profile and the LM path check once more over full rings.
    ``[graph-duplex]``: the engine as ``build_duplex`` makes it from the file
    as shipped (pipeline_depth 2, its tick captured once as a CUDA graph:
    the key split, Mimi encode, the LM step with the DepFormer, the codec
@@ -148,7 +144,30 @@ lines each:
    weights), its launches counted over warm-up and capture (3 x per frame);
    ms a dispatch and a frame, completion-to-completion, launches and kernel
    ms a dispatch, the delay to first audio in frames beside the single-tick
-   engine's, the 52-op ``apply_ops`` and peak memory.
+   engine's, the 52-op ``apply_ops`` and peak memory.  ``[graph-stt-serving]``
+   then serves the same streams on an engine built with ``gc_tune=False``
+   after ``gc.unfreeze()`` and CPython's default thresholds (events equal)
+   and prints the max tick and the ticks over 80 ms with the GC frozen after
+   warm-up (as shipped) and not.
+7c. The load-and-start path, after the serving presets: ``[ckpt]``:
+   configs/config-stt.toml (stt-1b) and configs/config-tts.toml (tts-1.6b) at
+   full width, the builder's own seeded tree of each written to
+   reference-layout bf16 safetensors by the port's writer, then each TOML
+   built from those files through ``cli.build_engines`` and as shipped (the
+   same seeded tree, in memory): every parameter bit for bit, the events of 4
+   STT streams bit for bit, the load seconds printed.  ``[tts-single]``:
+   configs/config-tts.toml as shipped (no ``batch_size``: the single-session
+   ``TtsEngine``) but for ``[ckpt]``'s files and a ``voice_dir`` holding a
+   synthetic 10 s ``.wav`` (through the speaker encoder); the engine from the
+   files captured, the one from memory eager: one session with the voice
+   over SINGLE_TICKS ticks past both rings' wraps, every tick bit for bit,
+   exactly PER_TICK_TTS launches a tick on the eager side (the wrappers
+   counted from 0 before it to after it; the captured engine's warm-up and
+   capture 3 x per tick); the captured engine then synthesises 3 texts with
+   the voice and 1 without: every word back, every frame 1,920 finite
+   samples; host ms a tick of both, device launches and kernel ms a captured
+   tick from a profile; ``[tts-single-path]``: the LM step with the voice and
+   the Mimi decode at B=1 through the kernels against their plain versions.
 
 8. The later paths, each at full width and depth: ``[stt1b-kv4]`` the stt-1b
    engine built with ``AsrConfig(kv_bits=4)`` (packed-int4 rings, uint8
@@ -158,8 +177,8 @@ lines each:
    uint8 (64,32,384,32) rings against the plain path, after 40 steps and over
    full, wrapped rings of real quantised rows, timed beside the int8 rings;
    ``[duplex-kv4]`` the dialogue engine with ``kv_bits = 4`` (uint8
-   (24,20,3072,64)), 8 dialogues, its tick over short and full rings and its
-   peak memory.  Every path check counts the launches of both sides (the
+   (24,20,3072,64)), 8 dialogues, its profile over short and full rings and
+   its peak memory.  Every path check counts the launches of both sides (the
    kernels' step launches them, the plain step none), and over full rings
    (``[duplex-full-path]``, ``[duplex-kv4-full-path]``, ``[stt26-kv4]``) a
    bit-identical pair fails; there decode_attend alone over int4 rings has a
@@ -167,7 +186,7 @@ lines each:
    the 48-layer tts_202501 preset in place of the TOML's model (32 heads x
    64, context 500, DepFormer 32 slices x 6 layers; head-major voice
    cross-attention), 12 sessions, with
-   ``[tts202501-times]`` and ``[tts202501-path]``; ``[tune]`` the
+   ``[tts202501-profile]`` and ``[tts202501-path]``; ``[tune]`` the
    decode-attention tuning tool (dsm_tpu_torch.tools.attn_kernel_tune) in
    process at --batch 64, each row held to a share of the reference's largest
    output.
@@ -215,6 +234,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1991,7 +2011,7 @@ def phase_stt26_path(engine, dev):
 # packed-int4 rings, past a wrap of the codec's ring only.
 # Steps of each replay check and whether its LM ring wraps: that check starts its
 # rings full, half its steps before the third wrap.
-GRAPH_STEPS = {"stt1b": (400, True), "stt26": (400, True), "stt1b-kv4": (160, False)}
+GRAPH_STEPS = {"stt1b": (800, True), "stt26": (400, True), "stt1b-kv4": (160, False)}
 GRAPH_CHECK_EVERY = 100  # steps between whole-state comparisons (and at the end)
 
 
@@ -2148,13 +2168,6 @@ def phase_graph(cfg, params, batch, card, tag, per_step, serve=False, timed=True
 
     numbers = {}
     rope = per_step["rope_qk"] + per_step["rope_commit"]
-    if timed:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        eager = BatchedAsrEngine(cfg, params, batch_size=batch, device="cuda", cuda_graph=False)
-        eager.warmup()
-        numbers["eager"] = _graph_times(eager, tag, "eager: ", card, rope)
-        del eager
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2877,22 +2890,24 @@ def phase_tts_path(engine, dev, tag="tts"):
     (every slot active, voices in the store), the LM step with the voice
     cross-attention and the Mimi decode step run once through the kernels
     and once through their plain versions; their outputs must agree within
-    PATH_RTOL (relative L2).  The LM step without the voice store must not:
-    the bar sees the cross-attention."""
+    PATH_RTOL (relative L2), the kernels counted on the first side only.  The
+    LM step without the voice store must not: the bar sees the
+    cross-attention."""
     import torch
 
     from dsm_tpu_torch.models import lm as LM
     from dsm_tpu_torch.models import mimi as MIMI
 
-    cfg, n = engine.cfg, engine.rows
+    cfg = engine.cfg
+    n, batch = getattr(engine, "rows", 1), getattr(engine, "batch_size", 1)  # TtsEngine: 1
     g = torch.Generator(device=dev).manual_seed(13)
     text = torch.randint(4, 200, (n,), generator=g, device=dev, dtype=torch.int32)
     audio = torch.randint(0, 2048, (n, cfg.lm.audio_codebooks), generator=g, device=dev,
                           dtype=torch.int32)
-    codes = torch.randint(0, 2048, (engine.batch_size, engine.mimi_cfg.n_q, 1), generator=g,
+    codes = torch.randint(0, 2048, (batch, engine.mimi_cfg.n_q, 1), generator=g,
                           device=dev, dtype=torch.int32)
     mask = torch.ones(n, dtype=torch.bool, device=dev)
-    dec_mask = torch.ones(engine.batch_size, dtype=torch.bool, device=dev)
+    dec_mask = torch.ones(batch, dtype=torch.bool, device=dev)
 
     def run(ca_kv):
         with torch.inference_mode():
@@ -2902,10 +2917,18 @@ def phase_tts_path(engine, dev, tag="tts"):
                                       _clone(engine.mimi_state), codes, dec_mask)
         return {"hidden": hidden, "text_logits": logits, "pcm": pcm}
 
+    counters = _tts_counters({**PER_TICK_TTS, **PER_TICK_TTS202501})
+    for fn in counters.values():
+        fn.launches = 0
     got = run(engine._ca)
+    launched = {k: fn.launches for k, fn in counters.items()}
     with plain_seams():
         want = run(engine._ca)
         no_voice = run(None)
+    check(all(launched[k] > 0 for k in ("rope_qk", "ca_decode_attend", "rope_commit"))
+          and {k: fn.launches for k, fn in counters.items()} == launched,
+          f"path check: the kernels' side launched {launched}, the plain side "
+          f"{ {k: fn.launches - launched[k] for k, fn in counters.items()} }")
     rel = {k: _rel(got[k], want[k]) for k in got}
     voice = _rel(no_voice["hidden"], want["hidden"])
     for k, r in rel.items():
@@ -2915,18 +2938,15 @@ def phase_tts_path(engine, dev, tag="tts"):
     print(f"[{tag}-path] {n} active rows, kernels against plain versions from one state: "
           f"relative L2 hidden {rel['hidden']!r}, text logits {rel['text_logits']!r}, "
           f"Mimi pcm {rel['pcm']!r} (bar {PATH_RTOL}); without the voice store the hidden "
-          f"state moves {voice!r}", flush=True)
+          f"state moves {voice!r}; kernels launched { {k: n for k, n in launched.items() if n} } "
+          f"on the kernels' side, none on the plain side", flush=True)
 
 
 def phase_tts_times(engine, dev, card, tag="tts"):
-    """The tick with every slot active, where its time goes, and its three
-    parts alone."""
-    import torch
-
-    from dsm_tpu_torch.models import lm as LM
-    from dsm_tpu_torch.models import mimi as MIMI
-    from dsm_tpu_torch.ops import sampling as S
-
+    """Every slot active: where the eager tick's time goes (a kernel profile
+    of one tick after 2), then the path check (:func:`phase_tts_path`).  The
+    eager tick's host times and its three parts' are PERF.md section 5's; the
+    captured tick is timed in ``[graph-tts]``."""
     b = engine.batch_size
     long_text = " ".join(TTS_TEXTS * 4)
     drivers = []
@@ -2936,56 +2956,13 @@ def phase_tts_times(engine, dev, card, tag="tts"):
         enc, _ = engine.encode_words(long_text, inserted_bos=False)
         drv.feed_words(enc)
         drivers.append(drv)
-    torch.cuda.reset_peak_memory_stats()
-    ticks = []
-    n_ticks = 15
-    for i in range(n_ticks + 5):
-        t0 = time.perf_counter()
+    for _ in range(2):
         check(engine.tick(), "TTS tick with 64 slots stepped nothing")
-        if i >= 5:
-            ticks.append((time.perf_counter() - t0) * 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{tag}-times] engine tick, 64 slots active: median {statistics.median(ticks)!r} ms, "
-          f"min {min(ticks)!r}, max {max(ticks)!r} over {n_ticks} after 5 warm-up (host clock, "
-          f"each tick ends in its device-to-host fetch); peak memory {peak_gb:.2f} GB; "
-          f"card {card}", flush=True)
-
     rows, wall_us = _profile(engine.tick, 1)
     _print_profile(f"{tag}-profile", "", rows, wall_us, 1, "tick", card, 15)
     phase_tts_path(engine, dev, tag)
     for drv in drivers:
         engine.close_session(drv)
-
-    # The tick's three parts alone, at 64 rows.
-    cfg, params = engine.cfg, engine.params["lm"]
-    g = torch.Generator(device=dev).manual_seed(9)
-    text = torch.randint(4, 200, (b,), generator=g, device=dev, dtype=torch.int32)
-    audio = torch.randint(0, 2048, (b, cfg.lm.audio_codebooks), generator=g, device=dev,
-                          dtype=torch.int32)
-    mask = torch.ones(b, dtype=torch.bool, device=dev)
-    hidden = torch.randn(b, cfg.lm.d_model, generator=g, device=dev).bfloat16()
-    forced = torch.full((b, cfg.n_codebooks), -1, dtype=torch.int32, device=dev)
-    steps = torch.full((b,), 40, dtype=torch.int32, device=dev)
-    keys = S.fold_keys(S.slot_keys(torch.arange(b, device=dev), steps), 2)
-    temps = torch.full((b,), 0.8, device=dev)
-    codes = torch.randint(0, 2048, (b, engine.mimi_cfg.n_q, 1), generator=g, device=dev,
-                          dtype=torch.int32)
-    parts = {
-        "lm_step": lambda: LM.step(cfg.lm, params, engine.state["lm"], text, audio, mask,
-                                   ca_kv=engine._ca),
-        "depformer_sample": lambda: LM.depformer_sample(
-            cfg.lm, params, hidden, text, forced, None,
-            S.SamplingConfig(cfg.temperature, cfg.top_k), temperature=temps,
-            slot_keys=keys),
-        "mimi_decode_step": lambda: MIMI.decode_step(
-            engine.mimi_cfg, engine.mimi_params, engine.mimi_state, codes, mask),
-    }
-    for name, fn in parts.items():
-        with torch.inference_mode():
-            med, lo, hi = _median_ms(fn)
-        print(f"[{tag}-times] {name}, 64 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
-              f"over 10 after 3 warm-up (host clock with synchronize); card {card}",
-              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2995,10 +2972,10 @@ def phase_tts_times(engine, dev, card, tag="tts"):
 # Ticks the captured tick is held to the eager tick over, from a state whose
 # LM ring and Mimi decoder ring (256 rows, 2 a tick) sit 40 rows before a
 # wrap; the whole state is compared every GRAPH_TTS_CHECK_EVERY ticks.
-GRAPH_TICKS = {"graph-tts": 48, "graph-tts202501": 48}  # from 40 rows before the wraps
+GRAPH_TICKS = {"graph-tts": 160, "graph-tts202501": 80}  # from 40 rows before the wraps
 # Ticks timed after a warm-up by _tts_graph_times and _duplex_graph_times (the
 # eager ticks take 0.3-1 s each).
-TICKS_WARM, TICKS_TIMED = 3, 12
+TICKS_WARM, TICKS_TIMED = 5, 30
 GRAPH_TTS_CHECK_EVERY = 40
 
 
@@ -3577,70 +3554,25 @@ def _profile_ticks(engine, n, tag, what, card):
 
 
 def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
-    """The tick with every slot active, where its time goes, its four parts
-    alone, and the tick again over full rings.  ``brief``: fewer ticks, the
-    LM step alone of the parts, no codec path check.  Returns the full-ring
-    tick's median ms and the peak memory of the first ticks in GB."""
+    """Every slot active: where the eager tick's time goes over short rings
+    (a kernel profile of one tick after 2), the path check, then the same
+    over full rings (the profile and the path check once more).  ``brief``:
+    no codec path check.  The eager tick's host times and its parts' are
+    PERF.md section 5's; the captured tick is timed in ``[graph-duplex]``.
+    Returns the peak memory of the first ticks in GB."""
     import torch
-
-    from dsm_tpu_torch.models import lm as LM
-    from dsm_tpu_torch.models import mimi as MIMI
-    from dsm_tpu_torch.ops import sampling as S
 
     b = engine.batch_size
     opened = [engine.open_session(lambda ev: None) for _ in range(b)]
-    check(all(d is not None for d in opened), "no free duplex slot for the timing")
-    n_ticks = 10 if brief else 15
+    check(all(d is not None for d in opened), "no free duplex slot for the profile")
     torch.cuda.reset_peak_memory_stats()
-    ticks = _duplex_ticks(engine, n_ticks, 5)
+    _duplex_ticks(engine, 0, 2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{tag}-times] engine tick, 24 slots active: median {statistics.median(ticks)!r} "
-          f"ms, min {min(ticks)!r}, max {max(ticks)!r} over {n_ticks} after 5 warm-up (host "
-          f"clock, each tick ends in its device-to-host fetch; rings hold "
-          f"{int(engine.state['lm']['t']['pos'])} rows); peak memory {peak_gb:.2f} GB; "
+    print(f"[{tag}-times] 24 slots active (rings hold "
+          f"{int(engine.state['lm']['t']['pos'])} rows): peak memory {peak_gb:.2f} GB; "
           f"card {card}", flush=True)
     _profile_ticks(engine, 1, f"{tag}-profile", "24 slots, short rings", card)
     phase_duplex_path(engine, dev, tag, mimi=not brief)
-
-    # The tick's four parts alone, at 24 rows.
-    cfg, params = engine.cfg, engine.params["lm"]
-    g = torch.Generator(device=dev).manual_seed(9)
-    text = torch.randint(4, 200, (b,), generator=g, device=dev, dtype=torch.int32)
-    audio = torch.randint(0, 2048, (b, cfg.lm.audio_codebooks), generator=g, device=dev,
-                          dtype=torch.int32)
-    mask = torch.ones(b, dtype=torch.bool, device=dev)
-    hidden = torch.randn(b, cfg.lm.d_model, generator=g, device=dev).bfloat16()
-    forced = torch.full((b, cfg.generated_audio_codebooks), -1, dtype=torch.int32, device=dev)
-    codes = torch.randint(0, 2048, (b, engine.mimi_cfg.n_q, 1), generator=g, device=dev,
-                          dtype=torch.int32)
-    pcm = (torch.randn(b, 1, engine.mimi_cfg.frame_size, generator=g, device=dev)
-           * 0.1).bfloat16()
-    key = S.prng_key(3, device=dev)
-    lm_state = engine.state["lm"]
-
-    def lm_step():
-        nonlocal lm_state
-        lm_state = LM.step(cfg.lm, params, lm_state, text, audio, mask)[2]
-
-    parts = {
-        "mimi_encode_step": lambda: MIMI.encode_step(
-            engine.mimi_cfg, engine.mimi_params, engine.enc_state, pcm, mask),
-        "lm_step": lm_step,
-        "depformer_sample": lambda: LM.depformer_sample(
-            cfg.lm, params, hidden, text, forced, key,
-            S.SamplingConfig(cfg.audio_temperature, cfg.audio_top_k)),
-        "mimi_decode_step": lambda: MIMI.decode_step(
-            engine.mimi_cfg, engine.mimi_params, engine.dec_state, codes, mask),
-    }
-    if brief:
-        parts = {"lm_step": lm_step}
-    for name, fn in parts.items():
-        with torch.inference_mode():
-            med, lo, hi = _median_ms(fn)
-        print(f"[{tag}-times] {name}, 24 rows: median {med!r} ms, min {lo!r}, max {hi!r} "
-              f"over 10 after 3 warm-up (host clock with synchronize); card {card}",
-              flush=True)
-    engine.state["lm"] = lm_state
 
     # Full rings: a dialogue past 3000 frames (4 minutes).  The tick counter
     # is moved there, every row marked valid and every row's scales set, so
@@ -3653,11 +3585,7 @@ def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
         for layer in engine.state["lm"]["t"]["layers"]:
             layer["ks"].fill_(0.01)
             layer["vs"].fill_(0.01)
-    full = _duplex_ticks(engine, 10, 2)
-    print(f"[{tag}-times] engine tick, 24 slots active, full rings (tick counter set to "
-          f"5000, every row valid, scales 0.01): median {statistics.median(full)!r} ms, min "
-          f"{min(full)!r}, max {max(full)!r} over 10 after 2 warm-up; card {card}",
-          flush=True)
+    _duplex_ticks(engine, 0, 2)
     _profile_ticks(engine, 1, f"{tag}-profile", "24 slots, full rings", card)
     # The path check once more over full, wrapped rings of real quantised rows.
     _fill_rings(engine.state["lm"]["t"], torch.Generator(device=dev).manual_seed(29),
@@ -3665,7 +3593,7 @@ def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
     phase_duplex_path(engine, dev, f"{tag}-full", mimi=False, full=True)
     for drv in opened:
         engine.close_session(drv)
-    return statistics.median(full), peak_gb
+    return peak_gb
 
 
 # ---------------------------------------------------------------------------
@@ -3963,6 +3891,46 @@ def _stt_serving_run(engine, pcm, tag):
     return log, ticks, done, engine.step_count - steps0
 
 
+def _stt_serving_gc(cfg, params, b, pcm, log2, ticks2, tag, card):
+    """The host GC's share of the tick's tail: the run above had the heap
+    frozen after the engine's warm-up (``gc_tune``, as the builder ships
+    it); the same run again on an engine built with ``gc_tune=False`` after
+    ``gc.unfreeze()`` and CPython's default thresholds (700, 10, 10), events
+    equal.  The max tick and the ticks over the 80 ms frame of each, after
+    the first 10, and the gen2 collections during the run."""
+    import gc
+
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.utils.gc_tune import freeze_after_warmup
+
+    gc.unfreeze()
+    gc.set_threshold(700, 10, 10)
+    engine = BatchedAsrEngine(cfg, params, batch_size=b, device="cuda", pipeline_depth=2,
+                              pcm_wire_int16=True, gc_tune=False)
+    engine.warmup()
+    check(gc.get_freeze_count() == 0 and gc.get_threshold() == (700, 10, 10),
+          f"{tag}: gc_tune=False touched the GC")
+    gen2 = gc.get_stats()[2]["collections"]
+    log0, ticks0, _, steps0 = _stt_serving_run(engine, pcm, tag)
+    gen2 = gc.get_stats()[2]["collections"] - gen2
+    check(log0 == log2, f"{tag}: without the GC freeze the events differ")
+    del engine
+    freeze_after_warmup()  # as the engines of the later phases leave it
+    out = {}
+    for what, ts in (("frozen", ticks2[10:]), ("not_frozen", ticks0[10:])):
+        out[what] = {"max_ms": max(ts), "over_80": sum(t > 80.0 for t in ts), "ticks": len(ts),
+                     "median_ms": statistics.median(ts)}
+    f, n = out["frozen"], out["not_frozen"]
+    print(f"[{tag}] the host GC, B={b} depth 2 as shipped: frozen after warm-up (gc_tune, the "
+          f"default): tick max {f['max_ms']!r} ms, {f['over_80']} of {f['ticks']} over 80 ms, "
+          f"median {f['median_ms']!r}; not frozen (gc_tune=False, thresholds 700/10/10): max "
+          f"{n['max_ms']!r} ms, {n['over_80']} of {n['ticks']} over 80 ms, median "
+          f"{n['median_ms']!r}, {gen2} gen2 collections in its run; events equal; card {card}",
+          flush=True)
+    out["gen2_not_frozen"] = gen2
+    return out
+
+
 def phase_stt_serving(dev, card):
     """``build_batched_asr`` from configs/config-stt-tpu-serving.toml as
     shipped: stt-1b at B=192 (``auto_batch_size`` does not clamp it), the step
@@ -4054,6 +4022,7 @@ def phase_stt_serving(dev, card):
     numbers["dt_ms_depth1"] = float(np.median(dt1[10:]))
     del ref
     torch.cuda.empty_cache()
+    numbers["gc"] = _stt_serving_gc(cfg, params, b, pcm, log2, ticks2, tag, card)
     torch.cuda.reset_peak_memory_stats()
     engine = BatchedAsrEngine(cfg, params, batch_size=b, device=dev, pipeline_depth=2,
                               pcm_wire_int16=True)
@@ -4315,6 +4284,307 @@ def phase_tts_serving(dev, card):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints in the reference layout, and the single-session TTS
+# ---------------------------------------------------------------------------
+
+CKPT_MODELS = (("stt", "asr"), ("tts", "tts"))  # config-<name>.toml and its module
+
+
+def _params_same(a, b) -> bool:
+    """Two param trees bit for bit (a weight's profile, ``w8a8``, equal)."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_params_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_params_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return _bits_equal(a, b)
+    return a == b
+
+
+def _file_size_gb(*paths) -> float:
+    return sum(os.path.getsize(p) for p in paths) / 1e9
+
+
+def _tts_sessions(engine, texts, voice, seed0):
+    """``synthesize`` of each text (the voice ``voice`` for those marked
+    True), host ms of every tick -> ``([(pcm, words)], tick ms)``."""
+    tick = engine.tick
+    times = []
+
+    def timed(mode, tok):
+        t0 = time.perf_counter()
+        out = tick(mode, tok)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.tick = timed
+    try:
+        out = []
+        for i, (text, with_voice) in enumerate(texts):
+            kv = engine.voice_kv(voice) if with_voice else None
+            pcm, words = engine.synthesize(text, ca_kv=kv, seed=seed0 + i)
+            out.append((pcm, [(w.text, w.start_s, w.stop_s) for w in words]))
+    finally:
+        del engine.tick
+    return out, times
+
+
+def _check_tts_sessions(tag, texts, results, frame):
+    import numpy as np
+
+    n = 0
+    for (text, _), (pcm, words) in zip(texts, results):
+        check([w[0] for w in words] == text.split(), f"{tag}: words {words} for {text!r}")
+        check(pcm.size > 0 and pcm.size % frame == 0 and bool(np.isfinite(pcm).all()),
+              f"{tag}: {pcm.size} samples, not whole finite frames of {frame}")
+        n += pcm.size // frame
+    return n
+
+
+def phase_ckpt(dev, card, tmp):
+    """configs/config-stt.toml (stt-1b) and configs/config-tts.toml
+    (tts-1.6b) at full width: the builder's own seeded tree of each (the
+    random init a TOML whose files are absent gets) written to
+    reference-layout bf16 safetensors by the port's writer.  configs/
+    config-stt.toml is then built through ``cli.build_engines`` twice, with
+    its ``lm_model_file`` and ``audio_tokenizer_file`` pointed at the files
+    and as shipped (the same tree, in memory): every parameter bit for bit,
+    and the events of 4 streams with markers through the captured step bit
+    for bit.  configs/config-tts.toml's engines are built and held to each
+    other in ``[tts-single]`` -> ``{name: (lm file, mimi file)}``."""
+    import torch
+
+    from dsm_tpu_torch import cli
+    from dsm_tpu_torch.models import mimi as MIMI
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.utils import checkpoint as CK
+
+    files = {}
+    dtype = torch.bfloat16 if torch.device(dev).type == "cuda" else torch.float32  # the builder's
+    for name, kind in CKPT_MODELS:
+        path = os.path.join(ROOT, "configs", f"config-{name}.toml")
+        mod = CFG.Config.load(path).modules[kind]
+        gen = torch.Generator(device=dev)
+        lm, loaded = builder._load_or_init_lm(mod, gen, dtype)
+        mimi_cfg = MIMI.v0_1(mod.lm.audio_codebooks if kind == "asr"
+                             else mod.lm.generated_codebooks)
+        mimi, _ = builder._load_or_init_mimi(mod, mimi_cfg, gen, dtype)
+        check(not loaded, f"ckpt: {mod.lm_model_file} is on this machine")
+        files[name] = (os.path.join(tmp, f"{name}-lm.safetensors"),
+                       os.path.join(tmp, f"{name}-mimi.safetensors"))
+        t0 = time.perf_counter()
+        ref = CK.lm_params_to_reference(mod.lm, lm)
+        n_params = sum(t.numel() for t in ref.values())
+        CK.save_safetensors(files[name][0], ref, dtype)
+        CK.save_safetensors(files[name][1], CK.mimi_params_to_reference(mimi_cfg, mimi), dtype)
+        print(f"[ckpt] {os.path.relpath(path, ROOT)}: the builder's seeded tree ({n_params} LM "
+              f"parameters) written as reference-layout bf16 safetensors "
+              f"({_file_size_gb(*files[name]):.2f} GB, LM + Mimi) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del ref, lm, mimi
+        torch.cuda.empty_cache()
+    path = os.path.join(ROOT, "configs", "config-stt.toml")
+    local = CFG.Config.load(path)
+    local.modules["asr"].lm_model_file, local.modules["asr"].audio_tokenizer_file = files["stt"]
+    t0 = time.perf_counter()
+    eng_file = cli.build_engines(local, dev)["asr"]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng_mem = cli.build_engines(CFG.Config.load(path), dev)["asr"]
+    check(_params_same(eng_file.params, eng_mem.params),
+          "ckpt stt: the engine's parameters from the files differ from memory's")
+    logs = []
+    for eng in (eng_file, eng_mem):
+        eng.warmup()
+        eng._fill_gate_frac = 0.0  # fill gate off, so that both step the same frames
+        sessions = {}
+        for sid in range(4):
+            _open(eng, sid, 2.0 + sid / 4.0, sessions, seed=sid)
+        _drive(eng, sessions)
+        _verify(sessions, range(4), eng.cfg.lm.extra_heads[0])
+        logs.append({sid: [(e.step_idx, [(type(w).__name__, getattr(w, "tokens", None),
+                                          getattr(w, "start_time", None)) for w in e.words],
+                            list(e.markers), e.prs.tobytes()) for e in s["events"]]
+                     for sid, s in sessions.items()})
+        for s in sessions.values():
+            eng.close_channel(s["ch"])
+    check(logs[0] == logs[1], "ckpt stt: the events of the engine from the files differ "
+          "from those of the engine from memory")
+    print(f"[ckpt] configs/config-stt.toml through cli.build_engines from the files: loaded "
+          f"and built in {load_s:.2f} s ({_file_size_gb(*files['stt']):.2f} GB; the reads warm: "
+          f"the files were just written); every parameter and the events of 4 streams "
+          f"({sum(len(v) for v in logs[0].values())} step events, VAD probabilities' bits) "
+          f"bit for bit those of the engine built as shipped (the same seeded tree in memory); "
+          f"card {card}", flush=True)
+    del eng_file, eng_mem
+    torch.cuda.empty_cache()
+    return files
+
+
+def _single_ticks(engine, n, seed, voice, start_rings):
+    """``n`` ticks of one session on the single-session engine (random text
+    constraints, a pad overwrite every ninth tick), the LM and codec rings
+    set to start at ``start_rings`` -> (the packed arrays, host ms of every
+    tick)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    engine.begin(seed, voice)
+    engine.state["lm"]["t"]["pos"].fill_(start_rings[0])
+    engine.mimi_state["dec_t"]["pos"].fill_(start_rings[1])
+    out, times = [], []
+    for i in range(n):
+        mode, tok = int(rng.integers(0, 3)), int(rng.integers(4, 200))
+        t0 = time.perf_counter()
+        out.append(engine.tick(mode, tok).copy())
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i % 9 == 8:
+            engine.overwrite_last_text_token(engine.cfg.text_pad_token)
+    return out, times
+
+
+SINGLE_TICKS, SINGLE_LM_BEFORE, SINGLE_CODEC_BEFORE = 72, 24, 16
+
+
+def phase_tts_single(dev, card, tmp, files):
+    """configs/config-tts.toml (tts-1.6b, no ``batch_size``: the
+    single-session ``TtsEngine``) with its ``voice_dir`` at a directory
+    holding a synthetic 10 s ``.wav`` voice (through the speaker encoder).
+    Built through ``cli.build_engines`` with its files pointed at
+    ``[ckpt]``'s (the tick captured, the default on CUDA), and by
+    ``builder.build_tts`` as shipped (the same seeded tree in memory) with
+    the eager tick (``cuda_graph=False``); every parameter bit for bit.
+    One session with the voice, SINGLE_TICKS ticks from SINGLE_LM_BEFORE
+    rows before the LM ring's wrap and SINGLE_CODEC_BEFORE before the codec
+    ring's, on both: every tick's packed array bit for bit (so the files
+    give the memory's tick, and the graph the eager one), exactly
+    PER_TICK_TTS launches a tick on the eager side (the wrappers counted
+    from 0 before it to after it; the captured engine's warm-up and capture
+    3 x per tick, its replays none).  The captured engine alone then
+    synthesises 3 texts with the voice and 1 without: every word back,
+    every frame 1,920 finite samples.  Host ms a tick of both, device
+    launches and kernel ms a captured tick from a profile; the LM step with
+    the voice and the Mimi decode at B=1 through the kernels against their
+    plain versions."""
+    import torch
+
+    from dsm_tpu_torch import cli
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.server.tts_module import TtsEngine
+    from dsm_tpu_torch.utils.audio import wav_bytes
+
+    tag = "tts-single"
+    path = os.path.join(ROOT, "configs", "config-tts.toml")
+    voices = os.path.join(tmp, "voices")
+    os.makedirs(voices, exist_ok=True)
+    with open(os.path.join(voices, "synthetic.wav"), "wb") as f:
+        f.write(wav_bytes(_pcm(3, 10.0, 1920), 24_000))
+    counters = _tts_counters(PER_TICK_TTS)
+    engines = {}
+    for graph in (True, False):
+        cfg = CFG.Config.load(path)
+        mod = cfg.modules["tts"]
+        if graph:
+            mod.lm_model_file, mod.audio_tokenizer_file = files["tts"]
+        mod.voice_dir = voices
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng = cli.build_engines(cfg, dev)["tts"] if graph else \
+            builder.build_tts(mod, dev, cuda_graph=False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(isinstance(eng, TtsEngine) and eng.cuda_graph == graph and eng.ca_quant
+              and eng.cfg.kv_quant, f"{tag}: not the single-session card profile")
+        eng.warmup()
+        if graph:
+            load_s = build_s
+            launches = {k: fn.launches for k, fn in counters.items()}
+            want = {k: 3 * n for k, n in PER_TICK_TTS.items()}
+            check(launches == want, f"{tag}: warm-up + capture launched {launches}, want {want}")
+        engines[graph] = eng
+    check(_params_same(engines[True].params, engines[False].params)
+          and _params_same(engines[True].mimi_params, engines[False].mimi_params),
+          "ckpt tts: the engine's parameters from the files differ from memory's")
+    tcfg = engines[True].cfg.lm.transformer
+    check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, engines[True].mimi_cfg.n_q)
+          == (2048, 16, 16, 32) and "batch_size" not in mod.raw, f"{tag}: not tts-1.6b at B=1")
+    print(f"[ckpt] configs/config-tts.toml through cli.build_engines from the files: loaded "
+          f"and built in {load_s:.2f} s ({_file_size_gb(*files['tts']):.2f} GB; the reads warm: "
+          f"the files were just written); every parameter bit for bit that of the engine "
+          f"built as shipped (the same seeded tree in memory); the ticks of both below",
+          flush=True)
+    print(f"[{tag}] {os.path.relpath(path, ROOT)} as shipped but for voice_dir (a synthetic "
+          f"10 s wav), captured from [ckpt]'s files and eager from memory: TtsEngine, int8 KV "
+          f"ring, int8 voice store, W8A8, bf16 codec", flush=True)
+    c_lm = engines[True].state["lm"]["t"]["valid"].shape[1]
+    c_dec = engines[True].mimi_state["dec_t"]["valid"].shape[1]
+    start = (c_lm - SINGLE_LM_BEFORE, c_dec - SINGLE_CODEC_BEFORE)
+    ticks = {}
+    for graph in (False, True):
+        for fn in counters.values():
+            fn.launches = 0
+        out, times = _single_ticks(engines[graph], SINGLE_TICKS, 7,
+                                   engines[graph].voice_kv("synthetic"), start)
+        ticks[graph] = (out, times, {k: fn.launches for k, fn in counters.items()})
+    for i, (a, b) in enumerate(zip(ticks[True][0], ticks[False][0])):
+        check(a.tobytes() == b.tobytes(), f"{tag}: tick {i} of the captured engine from the "
+              f"files differs from the eager engine's from memory")
+    decoded = sum(int(a[2]) for a in ticks[True][0])
+    past_wrap = int(engines[True].mimi_state["dec_t"]["pos"]) - c_dec  # rows
+    check(past_wrap > 0 and int(engines[True].state["lm"]["t"]["pos"])
+          == c_lm - SINGLE_LM_BEFORE + SINGLE_TICKS, f"{tag}: {decoded} frames decoded, "
+          f"the codec ring did not wrap")
+    launches = ticks[False][2]
+    want = {k: n * SINGLE_TICKS for k, n in PER_TICK_TTS.items()}
+    check(launches == want, f"{tag}: eager launches {launches}, want {want} "
+          f"({SINGLE_TICKS} ticks)")
+    check(not any(ticks[True][2].values()), f"{tag}: a replay launched a counted kernel")
+    eng = engines[True]
+    del engines
+    torch.cuda.empty_cache()
+    texts = [("one two", False), ("hello there", True), ("good day", True),
+             ("see you", True)]
+    for fn in counters.values():
+        fn.launches = 0
+    res, times = _tts_sessions(eng, texts, "synthetic", 40)
+    check(not any(fn.launches for fn in counters.values()),
+          f"{tag}: a replay launched a counted kernel")
+    frames = _check_tts_sessions(tag, texts, res, eng.mimi_cfg.frame_size)
+    stats = {}
+    for graph, ts in ((True, times[3:]), (False, ticks[False][1][3:])):
+        stats[graph] = (statistics.median(ts), min(ts), max(ts))
+    rows, wall_us = _profile(lambda: eng.tick(2, 0), 2,
+                             rope_launches=2 * (PER_TICK_TTS["rope_qk"] +
+                                                PER_TICK_TTS["rope_commit"]))
+    kernel_ms = _print_profile(f"{tag}-profile", "captured: ", rows, wall_us, 2, "tick", card, 6)
+    device_launches = sum(c for _, _, c in rows) / 2
+    print(f"[{tag}] one session with the wav voice, {SINGLE_TICKS} ticks from "
+          f"{SINGLE_LM_BEFORE} rows before the LM ring's wrap ({c_lm} rows) and "
+          f"{SINGLE_CODEC_BEFORE} before the codec ring's ({c_dec} rows; {decoded} frames "
+          f"decoded, {past_wrap} rows past its wrap): the captured engine from the files bit for "
+          f"bit the eager engine from memory at every tick; eager launches {launches} = "
+          f"PER_TICK_TTS x {SINGLE_TICKS} ticks", flush=True)
+    print(f"[{tag}] the captured engine: {len(texts)} sessions (3 with the wav voice), "
+          f"{len(times)} ticks, {frames} frames of 1,920 finite samples, every word back; "
+          f"tick host ms, captured: median {stats[True][0]!r} (min {stats[True][1]!r}, max "
+          f"{stats[True][2]!r}) over {len(times) - 3} after 3; eager: median "
+          f"{stats[False][0]!r} (min {stats[False][1]!r}, max {stats[False][2]!r}) over "
+          f"{SINGLE_TICKS - 3} after 3; {device_launches:.0f} device launches and "
+          f"{kernel_ms!r} kernel ms a captured tick; card {card}", flush=True)
+    phase_tts_path(eng, dev, tag)
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tick_ms": stats[True], "eager_ms": stats[False],
+            "device_launches": device_launches, "kernel_ms": kernel_ms,
+            "ticks": SINGLE_TICKS, "load_s": load_s}
+
+
 def phase_tune(dev):
     """Path C: the tuning tool in process, as ``python -m
     dsm_tpu_torch.tools.attn_kernel_tune --batch 64`` runs it: every variant a
@@ -4413,44 +4683,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     tts_engine, tts_launches, tts_log = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
-    torch.cuda.empty_cache()  # the peak below: this engine's, not earlier phases' cache
-    torch.cuda.reset_peak_memory_stats()
-    tts_eager = _tts_graph_times(tts_engine, "graph-tts", "eager: ", card,
-                                 PER_TICK_TTS["rope_qk"] + PER_TICK_TTS["rope_commit"])
     elapsed("tts")
     del tts_engine
-    graph["tts"] = {**phase_graph_tts(dev, card, tts_log), "eager": tts_eager}
+    torch.cuda.empty_cache()  # the peak below: the captured engine's, not this one's cache
+    graph["tts"] = phase_graph_tts(dev, card, tts_log)
     elapsed("graph-tts")
     tts202501_engine, tts202501_launches, tts202501_log = phase_tts(dev, card,
                                                                     preset="tts_202501")
     phase_tts_times(tts202501_engine, dev, card, tag="tts202501")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tts202501_eager = _tts_graph_times(
-        tts202501_engine, "graph-tts202501", "eager: ", card,
-        PER_TICK_TTS202501["rope_qk"] + PER_TICK_TTS202501["rope_commit"])
     elapsed("tts202501")
     del tts202501_engine
-    graph["tts202501"] = {**phase_graph_tts(dev, card, tts202501_log, preset="tts_202501"),
-                          "eager": tts202501_eager}
+    torch.cuda.empty_cache()
+    graph["tts202501"] = phase_graph_tts(dev, card, tts202501_log, preset="tts_202501")
     elapsed("graph-tts202501")
     duplex_engine, duplex_launches, duplex_log = phase_duplex(dev, card)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    duplex_eager = _duplex_graph_times(duplex_engine, "graph-duplex", "eager: ", card)
-    int8_full, int8_peak = phase_duplex_times(duplex_engine, dev, card)
+    int8_peak = phase_duplex_times(duplex_engine, dev, card)
     elapsed("duplex")
     del duplex_engine
     torch.cuda.empty_cache()
-    graph["duplex"] = {**phase_graph_duplex(dev, card, duplex_log), "eager": duplex_eager}
+    graph["duplex"] = phase_graph_duplex(dev, card, duplex_log)
     elapsed("graph-duplex")
     duplex_engine, duplex_kv4_launches, _ = phase_duplex(dev, card, kv_bits=4)
-    int4_full, int4_peak = phase_duplex_times(duplex_engine, dev, card, tag="duplex-kv4",
-                                              brief=True)
+    int4_peak = phase_duplex_times(duplex_engine, dev, card, tag="duplex-kv4", brief=True)
     del duplex_engine
     torch.cuda.empty_cache()
-    print(f"[duplex-kv4] int4 rings beside int8 rings (this run, the same card): tick over "
-          f"full rings median {int4_full!r} ms against {int8_full!r}; peak memory "
+    print(f"[duplex-kv4] int4 rings beside int8 rings (this run, the same card): peak memory "
           f"{int4_peak:.2f} GB against {int8_peak:.2f} GB; card {card}", flush=True)
     elapsed("duplex-kv4")
     phase_graph_duplex_kv4(dev)
@@ -4459,6 +4718,11 @@ def main() -> int:
     elapsed("graph-stt-serving")
     tts_serving = phase_tts_serving(dev, card)
     elapsed("graph-tts-serving")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
+        ckpt_files = phase_ckpt(dev, card, tmp)
+        elapsed("ckpt")
+        tts_single = phase_tts_single(dev, card, tmp, ckpt_files)
+        elapsed("tts-single")
     tune_launches = phase_tune(dev)
     elapsed("tune")
     ms = kernel_times(dev, card)
@@ -4475,7 +4739,8 @@ def main() -> int:
                 "tts_graph": graph["tts"]["launches"],
                 "tts202501_graph": graph["tts202501"]["launches"],
                 "duplex_graph": graph["duplex"]["launches"],
-                "stt_serving": stt_serving["launches"], "tts_serving": tts_serving["launches"]}
+                "stt_serving": stt_serving["launches"], "tts_serving": tts_serving["launches"],
+                "tts_single": tts_single["launches"]}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -4508,24 +4773,25 @@ def main() -> int:
               f"{launches} launches, {ms} ms); card {card}", flush=True)
     for key, what in (("stt1b", "stt-1b engine step"), ("stt26", "stt-2.6b engine step"),
                       ("tts", "tts-1.6b engine tick"), ("tts202501", "tts_202501 engine tick")):
-        e, g = graph[key]["eager"], graph[key]["graph"]
-        print(f"[graph] {what}, eager against captured (this run): host ms median "
-              f"{e['step_ms']!r} / {g['step_ms']!r} (min {e['min_ms']!r} / {g['min_ms']!r}, "
-              f"max {e['max_ms']!r} / {g['max_ms']!r}); device busy {e['busy']!r} / "
-              f"{g['busy']!r}; device launches each {e['launches']:.0f} / "
-              f"{g['launches']:.0f}; kernels {e['kernel_ms']!r} / {g['kernel_ms']!r} ms; peak "
-              f"memory {e['peak_gb']:.2f} / {g['peak_gb']:.2f} GB reserved; card {card}",
-              flush=True)
-    e, g1, g2 = graph["duplex"]["eager"], graph["duplex"]["graph"], graph["duplex"]["graph2"]
-    print(f"[graph] s2s-2b duplex engine tick, eager at depth 1 against captured at depth 1 and "
-          f"2 (this run): host ms median {e['step_ms']!r} / {g1['step_ms']!r} / "
-          f"{g2['step_ms']!r} (min {e['min_ms']!r} / {g1['min_ms']!r} / {g2['min_ms']!r}, max "
-          f"{e['max_ms']!r} / {g1['max_ms']!r} / {g2['max_ms']!r}); completion-to-completion "
-          f"{e['dt_ms']!r} / {g1['dt_ms']!r} / {g2['dt_ms']!r} ms; at depth 1 device busy "
-          f"{e['busy']!r} / {g1['busy']!r}, device launches each {e['launches']:.0f} / "
-          f"{g1['launches']:.0f}, kernels {e['kernel_ms']!r} / {g1['kernel_ms']!r} ms; peak "
-          f"memory {e['peak_gb']:.2f} / {g1['peak_gb']:.2f} GB reserved; card {card}",
+        g = graph[key]["graph"]
+        print(f"[graph] {what}, captured (this run; the eager step's times are PERF.md "
+              f"section 5's): host ms median {g['step_ms']!r} (min {g['min_ms']!r}, max "
+              f"{g['max_ms']!r}); device busy {g['busy']!r}; {g['launches']:.0f} device "
+              f"launches; kernels {g['kernel_ms']!r} ms; peak memory {g['peak_gb']:.2f} GB "
+              f"reserved; card {card}", flush=True)
+    g1, g2 = graph["duplex"]["graph"], graph["duplex"]["graph2"]
+    print(f"[graph] s2s-2b duplex engine tick, captured at depth 1 and 2 (this run): host ms "
+          f"median {g1['step_ms']!r} / {g2['step_ms']!r} (min {g1['min_ms']!r} / "
+          f"{g2['min_ms']!r}, max {g1['max_ms']!r} / {g2['max_ms']!r}); "
+          f"completion-to-completion {g1['dt_ms']!r} / {g2['dt_ms']!r} ms; at depth 1 device "
+          f"busy {g1['busy']!r}, {g1['launches']:.0f} device launches, kernels "
+          f"{g1['kernel_ms']!r} ms; peak memory {g1['peak_gb']:.2f} GB reserved; card {card}",
           flush=True)
+    ts = tts_single
+    print(f"[tts-single] tts-1.6b single session, configs/config-tts.toml (B=1, captured): "
+          f"tick host ms median {ts['tick_ms'][0]!r} (min {ts['tick_ms'][1]!r}, max "
+          f"{ts['tick_ms'][2]!r}), eager {ts['eager_ms'][0]!r}; {ts['device_launches']:.0f} "
+          f"device launches and {ts['kernel_ms']!r} kernel ms a tick; card {card}", flush=True)
     st, tt = stt_serving, tts_serving
     print(f"[serving] stt-1b, configs/config-stt-tpu-serving.toml as shipped (B=192, depth 2, "
           f"int16 wire, captured): tick host ms {st['tick_ms']!r} at depth 2 / "
@@ -4533,7 +4799,10 @@ def main() -> int:
           f"{st['dt_ms_depth1']!r} ms; synchronous step {st['step']['step_ms']!r} ms, kernels "
           f"{st['step']['kernel_ms']!r} ms, {st['step']['launches']:.0f} device launches, "
           f"device busy {st['step']['busy']!r}; peak {st['peak_gb']:.2f} GB reserved; "
-          f"auto_batch_size fits B={st['fit']}; card {card}", flush=True)
+          f"auto_batch_size fits B={st['fit']}; tick max {st['gc']['frozen']['max_ms']!r} ms "
+          f"and {st['gc']['frozen']['over_80']} ticks over 80 ms with the GC frozen after "
+          f"warm-up, {st['gc']['not_frozen']['max_ms']!r} ms and "
+          f"{st['gc']['not_frozen']['over_80']} without; card {card}", flush=True)
     print(f"[serving] tts-1.6b, configs/config-tts-tpu-serving.toml as shipped (B=64, "
           f"fuse_ticks 4, depth 2, ca_int8, int16 wire, captured): dispatch host ms "
           f"{tt['tick_ms']!r} ({tt['tick_ms'] / 4!r} a frame), completion-to-completion "

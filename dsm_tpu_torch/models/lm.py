@@ -308,7 +308,8 @@ def depformer_sample(cfg: LmConfig, params: dict, hidden: torch.Tensor,
     draws from per-slot streams ``fold_in(slot_key, 100 + slice)``; their
     Gumbel noise for all slices is made in one pass before the chain, since
     it depends on the keys alone.  Without slot keys, slice ``i`` draws
-    with ``split(key, S)[i]``."""
+    with ``split(key, S)[i]``, its noise too made for every slice at once
+    where the temperature is one for all rows."""
     dp = params["depformer"]
     dep = cfg.depformer
     dcfg = dep.transformer
@@ -331,13 +332,16 @@ def depformer_sample(cfg: LmConfig, params: dict, hidden: torch.Tensor,
                   torch.full((n_draw,), samp.temperature, device=dev))
     else:
         keys = S.split(key, n_slices)
+        if temperature is None and samp.temperature > 0.0:
+            # Every slice's draws in one pass, as slice by slice (the same bits).
+            noise = S.gumbel(keys, (n_draw, v_out))  # (S, B', V)
 
     def draw(logits, i):
         if slot_keys is not None:
             return S.sample_per_slot(logits, None, t_rows, samp.top_k, noise=noise[i])
         if temperature is not None:
             return S.sample_dynamic(logits, keys[i], temperature[:n_draw], samp.top_k)
-        return S.sample(samp, logits, keys[i])
+        return S.sample_with_noise(samp, logits, None if noise is None else noise[i])
 
     def combine_and_sample(logits, i):
         if cfg_alpha is None:

@@ -150,6 +150,24 @@ def encoder_state(cfg: SeaNetConfig, batch: int, dtype=torch.float32,
             "final": C.init_state(final_cfg, batch, dtype, device)}
 
 
+def _resblock_forward(cfg: SeaNetConfig, dim: int, j: int, params, x):
+    c1, c2 = _resblock_cfgs(cfg, dim, j)
+    y = C.forward(c1, params["b1"], F.elu(x))
+    y = C.forward(c2, params["b2"], F.elu(y))
+    return x + y  # true_skip
+
+
+def encoder_forward(cfg: SeaNetConfig, params, x):
+    """The full-sequence encoder: ``pcm (B, 1, T)`` -> ``(B, d, T / 960)``."""
+    init_cfg, dims, downs, final_cfg = _enc_cfgs(cfg)
+    x = C.forward(init_cfg, params["init"], x)
+    for i, (dim, _ratio) in enumerate(dims):
+        for j in range(cfg.n_residual_layers):
+            x = _resblock_forward(cfg, dim, j, params["layers"][i]["res"][j], x)
+        x = C.forward(downs[i], params["layers"][i]["down"], F.elu(x))
+    return C.forward(final_cfg, params["final"], F.elu(x))
+
+
 def encoder_step(cfg: SeaNetConfig, params, state, x, mask=None):
     init_cfg, dims, downs, final_cfg = _enc_cfgs(cfg)
     x, s_init = C.step(init_cfg, params["init"], state["init"], x, mask)
@@ -340,6 +358,16 @@ def encode_step_in_place(cfg: MimiConfig, params, state, pcm, mask=None):
     codes, new_state = encode_step(cfg, params, state, pcm, mask)
     copy_into(state, new_state)
     return codes
+
+
+def encode_pre_quantize(cfg: MimiConfig, params, pcm: torch.Tensor) -> torch.Tensor:
+    """Offline encode without the quantiser (the speaker encoder's input):
+    ``pcm (B, 1, T)`` -> the 12.5 Hz latents ``(B, d, T / 1920)``, through
+    the full-sequence encoder, codec transformer and downsample."""
+    x = encoder_forward(cfg.seanet, params["encoder"], pcm)
+    x = T.forward(cfg.transformer, params["encoder_transformer"], x.transpose(1, 2))
+    return C.forward(C.downsample_cfg(cfg.downsample_stride, cfg.seanet.dimension),
+                     params["downsample"], x.transpose(1, 2))
 
 
 def decode_step(cfg: MimiConfig, params, state, codes, mask=None):

@@ -61,6 +61,20 @@ def _conv(cfg: ConvConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def forward(cfg: ConvConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal conv over ``x (B, C, T)``: the causal left
+    padding (zeros, or copies of the first sample), then the right padding
+    that completes the last frame."""
+    t = x.shape[-1]
+    pt = cfg.padding_total
+    n_frames = max(math.ceil((t + pt - cfg.k_eff) / cfg.stride) + 1, 1)
+    extra = max((n_frames - 1) * cfg.stride + cfg.k_eff - pt - t, 0)
+    if pt or extra:
+        mode = "constant" if cfg.pad_mode == "constant" else "replicate"
+        x = F.pad(x, (pt, extra), mode=mode)
+    return _conv(cfg, params, x)
+
+
 def _where_slot(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     return torch.where(mask.reshape(-1, *([1] * (new.dim() - 1))), new, old)
 
@@ -149,6 +163,16 @@ def _convtr_raw(cfg: ConvTrConfig, params: dict, x: torch.Tensor) -> torch.Tenso
     """Transposed conv without bias: output length ``(T-1)*stride + k``."""
     return F.conv_transpose1d(x, params["w"].to(x.dtype), stride=cfg.stride,
                               groups=cfg.groups)
+
+
+def tr_forward(cfg: ConvTrConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal transposed conv: the right ``padding_total``
+    samples trimmed."""
+    y = _convtr_raw(cfg, params, x)
+    if cfg.bias:
+        y = y + params["b"].to(y.dtype)[None, :, None]
+    pt = cfg.padding_total
+    return y[..., :y.shape[-1] - pt] if pt > 0 else y
 
 
 def tr_init_state(cfg: ConvTrConfig, batch: int, dtype=torch.float32,

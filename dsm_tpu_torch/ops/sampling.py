@@ -182,13 +182,21 @@ def sample(cfg: SamplingConfig, logits: torch.Tensor,
     """Token ids ``(...,) int32`` from ``logits (..., V)``: greedy at
     temperature <= 0, else Gumbel-argmax of ``logits / T`` over the top-k
     with one key ``(2,)`` for the whole array."""
+    if cfg.temperature > 0.0 and key is None:
+        raise ValueError("sampling at temperature > 0 needs a key")
+    noise = gumbel(key, logits.shape) if cfg.temperature > 0.0 else None
+    return sample_with_noise(cfg, logits, noise)
+
+
+def sample_with_noise(cfg: SamplingConfig, logits: torch.Tensor,
+                      noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`sample` with its Gumbel draws made ahead by the caller:
+    ``noise`` is ``gumbel(key, logits.shape)`` (unused, and may be None, at
+    temperature <= 0)."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    if key is None:
-        raise ValueError("sampling at temperature > 0 needs a key")
     logits = _top_k_mask(mul_recip(logits.float(), cfg.temperature), cfg.top_k)
-    g = gumbel(key, logits.shape)
-    return torch.argmax(logits + g, dim=-1).to(torch.int32)
+    return torch.argmax(logits + noise, dim=-1).to(torch.int32)
 
 
 def slot_keys(seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:

@@ -492,3 +492,39 @@ def micro_step(cfg: TransformerConfig, params: list, kv: dict, x: torch.Tensor,
             y = y * lp["layer_scale_1"].to(y.dtype)
         xt = _mlp_block(cfg, lp, xt + y)
     return xt[:, 0, :], kv
+
+
+def forward(cfg: TransformerConfig, params: list, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence pass over ``x (B, T, D)`` from a fresh state: causal
+    attention inside a window of the ``context`` latest positions, the same
+    result as :func:`step` frame by frame.  Plain PyTorch (the JAX package
+    runs it through XLA, no kernel): f32 scores plus a ``NEG_INF`` bias,
+    f32 softmax and V-dot accumulation.  Mimi's offline encode takes it."""
+    _check_supported(cfg)
+    b, t, _ = x.shape
+    dev = x.device
+    positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
+    rope = None
+    if cfg.positional_embedding == "rope":
+        rope = attn.rope_cos_sin(positions, cfg.hd, cfg.max_period)
+    elif cfg.positional_embedding == "sin":
+        x = _pos_embed_sin(cfg, x, positions)
+    q_idx = torch.arange(t, device=dev)[:, None]
+    k_idx = torch.arange(t, device=dev)[None, :]
+    valid = (k_idx <= q_idx) & (q_idx - k_idx < cfg.context)
+    bias = torch.where(valid, 0.0, attn.NEG_INF).to(torch.float32)[None, None]
+    scale = 1.0 / math.sqrt(cfg.hd)
+    for lp in params:
+        xn = norm_mod.apply_norm(cfg.norm_kind, lp["norm1"], x)
+        q, k, v = _qkv(cfg, lp, xn)
+        if rope is not None:
+            q = attn.apply_rope(q, *rope)
+            k = attn.apply_rope(k, *rope)
+        scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale + bias
+        probs = torch.softmax(scores, dim=-1)
+        y = torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype).float(), v.float())
+        y = _proj_out(cfg, lp, y.to(x.dtype), b, t)
+        if "layer_scale_1" in lp:
+            y = y * lp["layer_scale_1"].to(y.dtype)
+        x = _mlp_block(cfg, lp, x + y)
+    return x

@@ -14,12 +14,15 @@
 Close codes, auth and message schemas are the JAX package's.  Word events
 are checked against the port's own classes (``sessions.asr`` and
 ``server.tts_module``) and ASR words are decoded with the engine's
-tokenizer.  The duplex route serves ``?format=pcm`` (raw f32 AUDIO frames)
-and answers 501 to ``?format=opus``: the Opus wire is not ported.  Left
-out (ROADMAP.md): the Mimi-room routes, ``/metrics``, static files, and the
-single-session ``TtsSession`` route (the port serves TTS through
-``BatchedTtsEngine``).  aiohttp and msgpack
-are needed here only: the rest of the port imports neither.
+tokenizer.  The TTS routes serve either engine, as the JAX routes do: a
+``BatchedTtsEngine`` opens a slot, the single-session ``TtsEngine`` runs a
+``TtsSession`` on a worker thread under the engine's lock.  The duplex route
+serves ``?format=pcm`` (raw f32 AUDIO frames) and answers 501 to
+``?format=opus``: the Opus wire is not ported, nor the TTS route's Opus
+formats (pcm msgpack only).  Left out (ROADMAP.md): the Mimi-room routes,
+``/metrics`` and static files.  aiohttp and msgpack are needed here only:
+the rest of the port imports neither.  :meth:`App.run` serves over HTTP or
+TLS.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from .batched_asr import BatchedAsrEngine, Events
 from .duplex import DuplexSession, audio_frame, parse_frame, text_frame
 from .duplex_batched import DuplexAudioEvent, DuplexDoneEvent, DuplexTextEvent
 from .tts_batched import BatchedTtsEngine, DoneEvent
-from .tts_module import AudioEvent
+from .tts_module import AudioEvent, TtsSession
 from .tts_module import WordEvent as TtsWordEvent
 
 RECV_TIMEOUT_S = 120.0
@@ -105,14 +108,15 @@ class _EventPump:
 
 class App:
     def __init__(self, asr_engine: Optional[BatchedAsrEngine] = None,
-                 tts_engine: Optional[BatchedTtsEngine] = None,
+                 tts_engine=None,
                  auth_ctx: Optional[auth_mod.AuthContext] = None,
                  instance_name: str = "dsm-tpu", asr_path: str = "/api/asr-streaming",
                  tts_path: str = "/api/tts", tts_streaming_path: str = "/api/tts_streaming",
                  rate_limit_per_minute: Optional[int] = None,
                  duplex_engine=None, duplex_path: str = "/api/chat"):
-        """``duplex_engine``: a ``BatchedDuplexEngine`` or a single-dialogue
-        ``DuplexEngine``."""
+        """``tts_engine``: a ``BatchedTtsEngine`` or a single-session
+        ``TtsEngine``; ``duplex_engine``: a ``BatchedDuplexEngine`` or a
+        single-dialogue ``DuplexEngine``."""
         self.asr_engine = asr_engine
         self.tts_engine = tts_engine
         self.duplex_engine = duplex_engine
@@ -192,7 +196,7 @@ class App:
             "capacity": {"total": cap, "used": used, "available": cap - used},
             "modules": self._modules(),
         }
-        if self.tts_engine is not None:
+        if self._batched_tts():
             t_cap, t_used = self.tts_engine.batch_size, self.tts_engine.used_slots()
             body["tts_capacity"] = {"total": t_cap, "used": t_used,
                                     "available": t_cap - t_used}
@@ -354,6 +358,9 @@ class App:
 
     # -- TTS --
 
+    def _batched_tts(self) -> bool:
+        return isinstance(self.tts_engine, BatchedTtsEngine)
+
     async def handle_tts_post(self, request):
         err = self._check_auth(request)
         if err is not None:
@@ -363,9 +370,13 @@ class App:
             voice_ca = self.tts_engine.voice_kv(body.get("voice"))
         except FileNotFoundError as e:
             return web.json_response({"error": str(e)}, status=404)
-        kw = {"seed": int(body.get("seed", 0)), "voice_ca": voice_ca}
-        if body.get("cfg_alpha") is not None and self.tts_engine.cfg_enabled:
-            kw["cfg_alpha"] = float(body["cfg_alpha"])
+        kw = {"seed": int(body.get("seed", 0))}
+        if self._batched_tts():
+            kw["voice_ca"] = voice_ca
+            if body.get("cfg_alpha") is not None and self.tts_engine.cfg_enabled:
+                kw["cfg_alpha"] = float(body["cfg_alpha"])
+        else:
+            kw["ca_kv"] = voice_ca
         text = body.get("text", "")
         loop = asyncio.get_running_loop()
         pcm, transcript = await loop.run_in_executor(
@@ -380,11 +391,13 @@ class App:
         return web.Response(body=wav, content_type="audio/wav")
 
     async def handle_tts_ws(self, request):
-        """A continuously batched TTS session: text frames are words, the
-        binary ``\\0`` frame ends the input; Text and Audio messages out."""
+        """A TTS session: text frames are words, the binary ``\\0`` frame
+        ends the input; Text and Audio messages out."""
         err = self._check_auth(request)
         if err is not None:
             return err
+        if not self._batched_tts():
+            return await self._handle_tts_ws_single(request)
         ws = web.WebSocketResponse(heartbeat=PING_INTERVAL_S)
         await ws.prepare(request)
         loop = asyncio.get_running_loop()
@@ -448,6 +461,75 @@ class App:
             send_task.cancel()
         finally:
             self.tts_engine.close_session(slot)
+            if not ws.closed:
+                await ws.close()
+        return ws
+
+    async def _handle_tts_ws_single(self, request):
+        """A session of the single-session engine, run on a worker thread
+        under the engine's lock (one inference at a time): the JAX route's
+        behaviour, with the default condition of the engine."""
+        ws = web.WebSocketResponse(heartbeat=PING_INTERVAL_S)
+        await ws.prepare(request)
+        await ws.send_bytes(proto.tts_ready())
+        loop = asyncio.get_running_loop()
+        out_q: asyncio.Queue = asyncio.Queue()
+        try:
+            ca_kv = self.tts_engine.voice_kv(request.query.get("voice"))
+        except FileNotFoundError as e:
+            await ws.send_bytes(proto.tts_error(str(e)))
+            await ws.close(code=int(proto.CloseCode.RESOURCE_UNAVAILABLE))
+            return ws
+        session = TtsSession(self.tts_engine, ca_kv=ca_kv,
+                             condition=self.tts_engine.default_condition)
+        inserted_bos = False
+        pump = self._pump(loop)
+
+        def run_session():
+            try:
+                with self.tts_engine.lock:
+                    session.run(lambda ev: pump.post(out_q, ev), word_timeout=RECV_TIMEOUT_S)
+            finally:
+                pump.post(out_q, None)
+
+        run_task = loop.run_in_executor(None, run_session)
+
+        async def sender():
+            while True:
+                ev = await out_q.get()
+                if ev is None:
+                    return
+                if isinstance(ev, AudioEvent):
+                    await ws.send_bytes(proto.tts_audio([float(x) for x in ev.pcm]))
+                elif isinstance(ev, TtsWordEvent):
+                    await ws.send_bytes(proto.tts_text(ev.text, ev.start_s, ev.stop_s))
+
+        send_task = asyncio.create_task(sender())
+        deadline = time.time() + RECV_TIMEOUT_S
+        try:
+            # A short receive timeout, so that a finished (or failed) session
+            # thread releases the socket promptly.
+            while not session.done and not run_task.done():
+                if time.time() > deadline:
+                    break
+                try:
+                    msg = await ws.receive(timeout=0.5)
+                except asyncio.TimeoutError:
+                    continue
+                deadline = time.time() + RECV_TIMEOUT_S
+                if msg.type == WSMsgType.TEXT:
+                    words, inserted_bos = self.tts_engine.encode_words(msg.data, inserted_bos)
+                    session.feed_words(words)
+                elif msg.type == WSMsgType.BINARY:
+                    if msg.data == proto.TTS_EOS:
+                        session.end_input()
+                elif msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED,
+                                  WSMsgType.ERROR):
+                    break
+        finally:
+            session.end_input()
+            await run_task
+            await send_task
             if not ws.closed:
                 await ws.close()
         return ws
@@ -538,3 +620,15 @@ class App:
             if not ws.closed:
                 await ws.close()
         return ws
+
+    def run(self, host: str = "0.0.0.0", port: int = 8080, ssl_cert: Optional[str] = None,
+            ssl_key: Optional[str] = None) -> None:
+        """Serve until interrupted, over TLS when both a certificate and a key
+        (PEM paths) are given."""
+        ctx = None
+        if ssl_cert and ssl_key:
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(ssl_cert, ssl_key)
+        web.run_app(self.web_app, host=host, port=port, ssl_context=ctx)

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..sessions import asr as ASR
+from ..utils.gc_tune import freeze_after_warmup
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 
 FRAME_SIZE = 1920  # 80 ms at 24 kHz
@@ -151,8 +152,9 @@ class BatchedAsrEngine:
     def __init__(self, cfg: ASR.AsrConfig, params: dict, batch_size: int,
                  device="cuda", fill_gate_frac: float = 0.2,
                  cuda_graph: Optional[bool] = None, pipeline_depth: int = 1,
-                 pcm_wire_int16: bool = False):
+                 pcm_wire_int16: bool = False, gc_tune: bool = True):
         self.cfg = cfg
+        self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.params = params
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -327,16 +329,19 @@ class BatchedAsrEngine:
 
     def warmup(self, steps: int = 2) -> None:
         """Run zero frames through the whole step (no slot active); with
-        ``cuda_graph``, through the step to capture, then capture it."""
+        ``cuda_graph``, through the step to capture, then capture it.  Then
+        the host GC is frozen unless the engine was built with ``gc_tune=False``,
+        as the JAX engine does."""
         if self.cuda_graph:
             if self._graph is None:
                 self._capture(steps)
-            return
-        zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
-        off = np.zeros(self.batch_size, bool)
-        for _ in range(steps):
-            handle = self._dispatch(zeros, off, off)
-        fetch(handle)  # waits for the device
+        else:
+            zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
+            off = np.zeros(self.batch_size, bool)
+            for _ in range(steps):
+                handle = self._dispatch(zeros, off, off)
+            fetch(handle)  # waits for the device
+        freeze_after_warmup(self.gc_tune)
 
     def tick(self) -> bool:
         """One engine tick; True if any slot stepped or results were drained."""

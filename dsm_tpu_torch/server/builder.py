@@ -1,17 +1,22 @@
 """Build a serving module from a TOML config (counterpart of
-``dsm_tpu/server/builder.py``: ``build_batched_asr``, ``build_tts`` for
-``batch_size > 1``, and ``build_duplex``).
+``dsm_tpu/server/builder.py``: ``build_batched_asr``, ``build_tts`` with the
+single-session engine for ``batch_size = 1`` and the batched one above, and
+``build_duplex``).
 
-No checkpoint loading yet: with its weights absent the module runs at its
+Weights come from the files the TOML names (``lm_model_file``,
+``audio_tokenizer_file``) when they exist locally: reference-layout
+safetensors, or GGUF by extension (``utils/checkpoint.py``).  An ``hf://``
+or ``hf-snapshot://`` reference, or a missing file, leaves the module at its
 configured width with random weights from a seeded ``torch.Generator``,
-logged as a warning, as the JAX builder does without weights.  The text
-tokenizer is loaded from ``text_tokenizer_file`` when the file is there,
-else the byte-level fallback.  Options the port does not serve yet raise
-instead of being ignored.
+logged as a warning, as the JAX builder does without weights.  The serving
+profile then runs on the tree either way.  The text tokenizer is loaded from
+``text_tokenizer_file`` when the file is there, else the byte-level
+fallback.  Options the port does not serve raise instead of being ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from typing import Optional
@@ -25,6 +30,8 @@ from ..ops import transformer as T
 from ..sessions import asr as ASR
 from ..sessions import lm_gen
 from ..sessions import tts as TTS
+from ..models import speaker as SPK
+from ..utils import checkpoint as CK
 from ..utils.tokenizer import load_tokenizer
 from . import config as CFG
 from .autoconfig import auto_batch_size, device_memory_bytes
@@ -32,6 +39,7 @@ from .batched_asr import BatchedAsrEngine
 from .duplex import DuplexEngine
 from .duplex_batched import BatchedDuplexEngine
 from .tts_batched import BatchedTtsEngine
+from .tts_module import TtsEngine
 from .voices import VoiceResolver
 
 log = logging.getLogger("dsm.torch.builder")
@@ -42,12 +50,29 @@ _UNPORTED = {
 }
 
 
-def _random_init_warning(what: str, spec) -> None:
-    if spec and CFG.resolve_path(spec):
-        raise NotImplementedError(
-            f"{what} {spec!r} exists locally but checkpoint loading is not "
-            "ported yet; see ROADMAP.md")
-    log.warning("%s %s not available locally; using random init", what, spec)
+def _load_or_init_lm(mod: CFG.ModuleConfig, gen: torch.Generator, dtype):
+    """The LM's params from ``lm_model_file`` when it is a local file, else
+    random ones from ``gen`` seeded 0 -> ``(params, loaded)``."""
+    path = CFG.resolve_path(mod.lm_model_file) if mod.lm_model_file else None
+    if path:
+        log.info("loading LM weights from %s", path)
+        return CK.build_lm_params(mod.lm, CK.load_tensors(path), dtype, gen.device), True
+    log.warning("LM weights %s not available locally; using random init", mod.lm_model_file)
+    gen.manual_seed(0)
+    return LM.init(mod.lm, gen, dtype), False
+
+
+def _load_or_init_mimi(mod: CFG.ModuleConfig, mimi_cfg, gen: torch.Generator, dtype):
+    """The codec's params from ``audio_tokenizer_file`` when it is a local
+    file, else random ones from ``gen`` seeded 1 -> ``(params, loaded)``."""
+    spec = mod.audio_tokenizer_file
+    path = CFG.resolve_path(spec) if spec else None
+    if path:
+        log.info("loading Mimi weights from %s", path)
+        return CK.build_mimi_params(mimi_cfg, CK.load_tensors(path), dtype, gen.device), True
+    log.warning("Mimi weights %s not available locally; using random init", spec)
+    gen.manual_seed(1)
+    return MIMI.init(mimi_cfg, gen, dtype), False
 
 
 def build_batched_asr(mod: CFG.ModuleConfig, device,
@@ -68,7 +93,7 @@ def build_batched_asr(mod: CFG.ModuleConfig, device,
     the engine's dispatch-ahead and ``pcm_wire = "int16"`` its int16 pcm
     upload, as in the JAX builder."""
     device = torch.device(device)
-    if mod.type != "BatchedAsr" or mod.lm is None:
+    if mod.type not in ("BatchedAsr", "Asr") or mod.lm is None:
         raise ValueError(f"module {mod.name}: not a BatchedAsr module with a model")
     for key, what in _UNPORTED.items():
         if mod.raw.get(key):
@@ -86,13 +111,9 @@ def build_batched_asr(mod: CFG.ModuleConfig, device,
     )
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
-    _random_init_warning("LM weights", mod.lm_model_file)
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    lm_params = LM.init(mod.lm, gen, dtype)
-    _random_init_warning("Mimi weights", mod.audio_tokenizer_file)
-    gen.manual_seed(1)
-    mimi_params = MIMI.init(mimi_cfg, gen, dtype)
+    lm_params, _ = _load_or_init_lm(mod, gen, dtype)
+    mimi_params, _ = _load_or_init_mimi(mod, mimi_cfg, gen, dtype)
     if on_accel:  # the dense copy is freed before the engine allocates its rings
         lm_params = _quantize_lm(mod, lm_params, _w8a8_sites(mod))
     batch = auto_batch_size(int(mod.batch_size), mod.lm, device_memory_bytes(device))
@@ -150,39 +171,77 @@ _TTS_UNPORTED = {
 }
 
 
+def build_tts(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = None):
+    """The engine for a ``Tts`` module on ``device``, as the JAX
+    ``build_tts`` picks it: :class:`BatchedTtsEngine` for ``batch_size > 1``
+    (:func:`build_batched_tts`), else the single-session :class:`TtsEngine`.
+
+    Both take the weights the TOML names (or the seeded random init), the
+    voices (the voice directory, ``[...voices]`` and ``.wav`` samples through
+    the speaker encoder, random from the generator as in the JAX builder,
+    which never loads it either) and the ``[...conditioners]`` provider with
+    its weights adopted from the LM checkpoint and the default
+    ``description`` condition.  On CUDA the JAX builder's accelerator
+    profile: bf16, int8 LM KV rings, int8 LM weights with W8A8 matmuls
+    (weight-only with ``w8a8 = false``) and a bf16 codec; the single-session
+    engine's voice store is int8 unless the TOML sets ``ca_int8 = false``
+    (the batched engine's only with ``ca_int8 = true``).  On the CPU: f32
+    throughout, no quantisation.  ``cuda_graph`` is the engine's (the tick
+    captured as one CUDA graph, the default on CUDA; False for the eager
+    tick); no TOML key sets it."""
+    device = torch.device(device)
+    if int(mod.raw.get("batch_size", 1)) > 1:
+        return build_batched_tts(mod, device, cuda_graph)
+    parts = _tts_parts(mod, device)
+    ca_int8 = mod.raw.get("ca_int8")
+    engine = TtsEngine(parts["cfg"], {"lm": parts["lm"]}, parts["mimi_cfg"], parts["mimi"],
+                       _tokenizer(mod), device=device, cuda_graph=cuda_graph,
+                       ca_quant=None if ca_int8 is None else bool(ca_int8))
+    return _attach_tts_extras(engine, parts)
+
+
 def build_batched_tts(mod: CFG.ModuleConfig, device,
                       cuda_graph: Optional[bool] = None) -> BatchedTtsEngine:
     """The continuously batched engine for a ``Tts`` module with
-    ``batch_size > 1`` on ``device``.
+    ``batch_size > 1`` on ``device`` (:func:`build_tts` has the profile).
 
     ``cuda_graph`` is the engine's (``BatchedTtsEngine``: the tick captured
     as one CUDA graph, the default on CUDA; False for the eager tick); no
-    TOML key sets it.
-
-    On CUDA it takes the JAX builder's accelerator profile: bf16, int8 LM
-    KV rings, int8 LM weights with W8A8 matmuls (the DepFormer's included;
-    weight-only with ``w8a8 = false``), bf16 codec, and the int8 voice store
-    when the TOML sets ``ca_int8``.
-    On the CPU: f32 throughout, no quantisation.  ``fuse_ticks`` (frames a
-    dispatch, through the device script machine, whose ring keeps the
-    engine's default ``script_cap`` of 1024 tokens), ``pipeline_depth`` (the
-    fused path's dispatch-ahead) and ``pcm_wire = "int16"`` (the int16 audio
-    download) are the JAX builder's.  The ``[...conditioners]``
-    table builds its provider and the default ``description`` condition, as
-    the JAX builder does; the batched step does not add it (nor does the
-    JAX package's)."""
+    TOML key sets it.  With ``ca_int8`` the voice store is int8.
+    ``fuse_ticks`` (frames a dispatch, through the device script machine,
+    whose ring keeps the engine's default ``script_cap`` of 1024 tokens),
+    ``pipeline_depth`` (the fused path's dispatch-ahead) and ``pcm_wire =
+    "int16"`` (the int16 audio download) are the JAX builder's.  The
+    batched step does not add the default condition (nor does the JAX
+    package's)."""
     device = torch.device(device)
+    raw = mod.raw
+    if int(mod.batch_size) <= 1:
+        raise ValueError("batch_size <= 1 selects the single-session engine: use build_tts")
+    parts = _tts_parts(mod, device)
+    engine = BatchedTtsEngine(
+        parts["cfg"], {"lm": parts["lm"]}, parts["mimi_cfg"], parts["mimi"], _tokenizer(mod),
+        batch_size=int(mod.batch_size),
+        cfg_enabled=bool(raw.get("cfg_enabled", False)),
+        ca_quant=bool(raw.get("ca_int8", False)), device=device,
+        pcm_wire_int16=_pcm_wire(mod) == "int16", cuda_graph=cuda_graph,
+        fuse_ticks=int(raw.get("fuse_ticks", 1)),
+        pipeline_depth=int(raw.get("pipeline_depth", 1)),
+    )
+    return _attach_tts_extras(engine, parts)
+
+
+def _tts_parts(mod: CFG.ModuleConfig, device: torch.device) -> dict:
+    """What both TTS engines are built from: the ``TtsConfig``, the codec
+    config, the LM and codec params (loaded or seeded, in the device's
+    profile), the voice resolver and the condition provider."""
     raw = mod.raw
     if mod.type != "Tts" or mod.lm is None or mod.lm.depformer is None:
         raise ValueError(f"module {mod.name}: not a Tts module with a DepFormer model")
-    if int(mod.batch_size) <= 1:
-        raise NotImplementedError(
-            "single-session TTS (batch_size = 1, TtsEngine) is not ported yet; "
-            "see ROADMAP.md")
     for key, what in _TTS_UNPORTED.items():
         if raw.get(key):
             raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
-    wire = _pcm_wire(mod)
+    _pcm_wire(mod)  # an unknown wire raises here, whichever engine is built
     on_accel = device.type == "cuda"
     gen_cfg = mod.generation or {}
     keys = ("acoustic_delay", "text_pad_token", "text_bos_token", "text_eos_token",
@@ -193,44 +252,47 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
         lm=mod.lm, kv_quant=on_accel and bool(raw.get("kv_quant", True)),
         **{k: gen_cfg[k] for k in keys if k in gen_cfg})
     mimi_cfg = MIMI.v0_1(mod.lm.generated_codebooks)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    dtype = torch.bfloat16 if on_accel else torch.float32
 
-    _random_init_warning("LM weights", mod.lm_model_file)
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    lm_params = LM.init(mod.lm, gen, dtype)
-    _random_init_warning("Mimi weights", mod.audio_tokenizer_file)
-    gen.manual_seed(1)
-    mimi_params = MIMI.init(mimi_cfg, gen, dtype)
+    lm_params, lm_loaded = _load_or_init_lm(mod, gen, dtype)
+    mimi_params, _ = _load_or_init_mimi(mod, mimi_cfg, gen, dtype)
     if on_accel:
         lm_params = _quantize_lm(mod, lm_params)
 
-    engine = BatchedTtsEngine(
-        tts_cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
-        batch_size=int(mod.batch_size),
-        cfg_enabled=bool(raw.get("cfg_enabled", False)),
-        ca_quant=bool(raw.get("ca_int8", False)), device=device,
-        pcm_wire_int16=wire == "int16", cuda_graph=cuda_graph,
-        fuse_ticks=int(raw.get("fuse_ticks", 1)),
-        pipeline_depth=int(raw.get("pipeline_depth", 1)),
-    )
     voice_dir = CFG.resolve_path(mod.voice_dir) if mod.voice_dir else None
     if voice_dir is not None and not os.path.isdir(voice_dir):
         voice_dir = os.path.dirname(voice_dir)
     preloaded = {name: CFG.resolve_path(spec) for name, spec in (mod.voices or {}).items()
                  if CFG.resolve_path(spec)}
-    engine.voices = VoiceResolver(voice_dir=voice_dir, preloaded=preloaded)
+    spk_cfg = SPK.SpeakerEncoderConfig(
+        cond_dim=tts_cfg.speaker_cond_dim, n_speakers=tts_cfg.speaker_cond_n_speakers,
+        duration_s=tts_cfg.speaker_cond_duration_s, mimi=mimi_cfg)
+    gen.manual_seed(2)
+    voices = VoiceResolver(voice_dir=voice_dir, preloaded=preloaded, speaker_cfg=spk_cfg,
+                           speaker_params=SPK.init(spk_cfg, gen), mimi_params=mimi_params)
+
+    provider = default_condition = None
     cond_raw = (raw.get("model") or {}).get("conditioners")
     if cond_raw:
         gen.manual_seed(3)
         provider = COND.ConditionProvider(mod.lm.d_model, COND.configs_from_toml(cond_raw),
                                           gen)
-        engine.condition_provider = provider
+        if lm_loaded:
+            adopted = provider.load_params(CK.load_tensors(CFG.resolve_path(mod.lm_model_file)))
+            log.info("conditioner weights adopted from checkpoint: %d", adopted)
         for name, c in cond_raw.items():
             if c.get("type") == "Lut" and c.get("possible_values"):
-                engine.default_condition = provider.condition_lut(
-                    name, c["possible_values"][-1])
+                default_condition = provider.condition_lut(name, c["possible_values"][-1])
                 break
+    return {"cfg": tts_cfg, "mimi_cfg": mimi_cfg, "lm": lm_params, "mimi": mimi_params,
+            "voices": voices, "provider": provider, "default_condition": default_condition}
+
+
+def _attach_tts_extras(engine, parts: dict):
+    engine.voices = parts["voices"]
+    engine.condition_provider = parts["provider"]
+    engine.default_condition = parts["default_condition"]
     return engine
 
 
@@ -283,13 +345,9 @@ def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = Non
             "dialogue engine")
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
-    _random_init_warning("LM weights", mod.lm_model_file)
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    lm_params = LM.init(lm_cfg, gen, dtype)
-    _random_init_warning("Mimi weights", mod.audio_tokenizer_file)
-    gen.manual_seed(1)
-    mimi_params = MIMI.init(mimi_cfg, gen, dtype)
+    lm_params, _ = _load_or_init_lm(dataclasses.replace(mod, lm=lm_cfg), gen, dtype)
+    mimi_params, _ = _load_or_init_mimi(mod, mimi_cfg, gen, dtype)
     if kv_quant:  # before the engine allocates its rings beside the dense copy
         lm_params = T.quantize_weights(lm_params, w8a8=bool(raw.get("w8a8", True)))
     batch = int(raw.get("batch_size", 1))

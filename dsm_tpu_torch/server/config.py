@@ -9,9 +9,11 @@ cross-attention, with a LayerNorm ``norm_cross``; an ``Lm`` module's
 ``generation`` table holds its codebook counts and ``acoustic_delay``, its
 ``kv_quant``, ``kv_bits`` and ``pipeline_depth`` stay in ``raw`` for the
 builder); the LM config of other module types is not read.
-Artifact references: a plain path is used when the file exists; ``hf://``
-and ``hf-snapshot://`` references resolve to absent, since the port loads
-no checkpoint yet (ROADMAP.md).
+Artifact references: a plain path (with ``$VAR`` substitution) is used
+when the file exists; ``hf://`` and ``hf-snapshot://`` references resolve to
+absent, since the port reads no download cache (ROADMAP.md), and the
+builders then initialise at random.  :meth:`Config.validate` reports what is
+missing, as the reference's ``validate`` does.
 """
 
 from __future__ import annotations
@@ -155,3 +157,20 @@ class Config:
             authorized_ids=raw.get("authorized_ids", []),
             modules=modules,
         )
+
+    def validate(self) -> List[str]:
+        """Problems with the config, reported and not raised: unknown module
+        types, a model table missing where one is needed, model files not
+        available locally."""
+        problems = []
+        for name, m in self.modules.items():
+            if m.type not in ("Asr", "BatchedAsr", "Tts", "Mimi", "Lm"):
+                problems.append(f"module {name}: unknown type {m.type}")
+            if m.type in ("Asr", "BatchedAsr", "Tts") and m.lm is None:
+                problems.append(f"module {name}: missing [modules.{name}.model]")
+            for label, spec in (("lm_model_file", m.lm_model_file),
+                                ("audio_tokenizer_file", m.audio_tokenizer_file),
+                                ("text_tokenizer_file", m.text_tokenizer_file)):
+                if spec and resolve_path(spec) is None:
+                    problems.append(f"module {name}: {label} {spec!r} not available locally")
+        return problems

@@ -59,6 +59,7 @@ import torch
 from ..models import mimi as MIMI
 from ..ops import sampling as S
 from ..sessions import lm_gen
+from ..utils.gc_tune import freeze_after_warmup
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 
 
@@ -130,7 +131,8 @@ class BatchedDuplexEngine:
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, batch_size: int = 8,
                  tick_sleep: float = 0.002, kv_quant: Optional[bool] = None, kv_bits: int = 8,
-                 *, device, cuda_graph: Optional[bool] = None, pipeline_depth: int = 1):
+                 *, device, cuda_graph: Optional[bool] = None, pipeline_depth: int = 1,
+                 gc_tune: bool = True):
         """``params``: ``{"lm": ...}``, dense or int8 (``quantize_weights``),
         used as given; ``mimi_params``: both halves of the codec;
         ``kv_quant``: int8 KV rings, packed int4 with ``kv_bits = 4``; None
@@ -151,6 +153,7 @@ class BatchedDuplexEngine:
         if self.cuda_graph and self.device.type != "cuda":
             raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.kv_quant = self.device.type == "cuda" if kv_quant is None else bool(kv_quant)
         self.kv_bits = kv_bits if self.kv_quant else 8
@@ -303,14 +306,17 @@ class BatchedDuplexEngine:
 
     def warmup(self, steps: int = 2) -> None:
         """Run ticks with no slot active through the whole step; with
-        ``cuda_graph``, through the tick to capture, then capture it."""
+        ``cuda_graph``, through the tick to capture, then capture it.  Then
+        the host GC is frozen unless the engine was built with
+        ``gc_tune=False``, as the JAX engine does."""
         if self.cuda_graph:
             if self._graph is None:
                 self._capture(steps)
-            return
-        off = np.zeros(self.batch_size, bool)
-        for _ in range(steps):
-            self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
+        else:
+            off = np.zeros(self.batch_size, bool)
+            for _ in range(steps):
+                self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
+        freeze_after_warmup(self.gc_tune)
 
     # -- loop --
 

@@ -75,6 +75,7 @@ from ..models import mimi as MIMI
 from ..ops import transformer as T
 from ..sessions import tts as TTS
 from ..sessions import tts_script as SCRIPT
+from ..utils.gc_tune import freeze_after_warmup
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 from .tts_module import AudioEvent, WordEvent
 
@@ -180,10 +181,12 @@ class BatchedTtsEngine:
                  ca_len: Optional[int] = None, tick_sleep: float = 0.002,
                  cfg_enabled: bool = False, ca_quant: bool = False, device="cuda",
                  pcm_wire_int16: bool = False, cuda_graph: Optional[bool] = None,
-                 fuse_ticks: int = 1, script_cap: int = 1024, pipeline_depth: int = 1):
+                 fuse_ticks: int = 1, script_cap: int = 1024, pipeline_depth: int = 1,
+                 gc_tune: bool = True):
         if cfg.cfg_alpha is not None:
             raise ValueError("set cfg_enabled=True for batched guidance (per-request "
                              "alpha); a static cfg_alpha is for unbatched sessions")
+        self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
         self.params = params
@@ -547,20 +550,21 @@ class BatchedTtsEngine:
     def warmup(self, steps: int = 2) -> None:
         """Run ticks (fused: dispatches) with no slot active through the
         whole step; with ``cuda_graph``, through the body to capture, then
-        capture it."""
+        capture it.  Then the host GC is frozen unless the engine was built
+        with ``gc_tune=False``, as the JAX engine does."""
+        n = self.batch_size
+        off = np.zeros(n, bool)
         if self.cuda_graph:
             if self._graph is None:
                 self._capture(steps)
-            return
-        n = self.batch_size
-        off = np.zeros(n, bool)
-        if self.fuse > 1:
+        elif self.fuse > 1:
             for _ in range(steps):
                 fetch(self._dispatch_fused(off))
-            return
-        modes = np.full(n, TTS.ALLOW_PAD, np.int32)
-        for _ in range(steps):
-            self._invoke_step(modes, np.zeros(n, np.int32), off, off)
+        else:
+            modes = np.full(n, TTS.ALLOW_PAD, np.int32)
+            for _ in range(steps):
+                self._invoke_step(modes, np.zeros(n, np.int32), off, off)
+        freeze_after_warmup(self.gc_tune)
 
     # -- loop --
 

@@ -4,49 +4,23 @@ A voice is the cross-attention source of the TTS LM, ``(1, S, cond_dim)``
 f32.  It comes from a preloaded entry (a ``.safetensors`` path, or an
 array handed over directly) or from a voice directory, looked up by a
 path-traversal-checked relative name with the ``name+start_s`` suffix
-syntax.  ``.wav`` voices need the speaker encoder, which is not ported yet
-(ROADMAP.md queue 1, item 8): they raise.
-
-The ``.safetensors`` files are read with ``json`` and numpy (an 8-byte
-little-endian header length, a JSON header of dtypes, shapes and byte
-offsets, then the raw bytes), so no safetensors package is needed.
+syntax.  A ``.safetensors`` voice holds the source itself; a ``.wav``
+sample is cut to the speaker encoder's duration from ``start_s`` and
+encoded through Mimi's pre-quantisation encoder
+(``models/speaker.py``).  Resolved voices stay in an LRU.
 """
 
 from __future__ import annotations
 
-import json
 import os
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
-           "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
-           "U8": np.uint8, "BOOL": np.bool_}
-
-
-def read_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """Every tensor of a ``.safetensors`` file as a numpy array (bf16 is
-    widened to f32, exactly)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    n = int.from_bytes(data[:8], "little")
-    header = json.loads(data[8:8 + n])
-    body = memoryview(data)[8 + n:]
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        start, end = info["data_offsets"]
-        raw = body[start:end]
-        if info["dtype"] == "BF16":
-            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
-            arr = bits.view(np.float32)
-        else:
-            arr = np.frombuffer(raw, np.dtype(_DTYPES[info["dtype"]]).newbyteorder("<"))
-        out[name] = arr.reshape(info["shape"]).copy()
-    return out
+from ..models import speaker as SPK
+from ..utils.checkpoint import load_safetensors as read_safetensors
 
 
 def parse_voice_spec(spec: str) -> Tuple[str, float]:
@@ -80,23 +54,30 @@ def load_voice_embedding(path: str) -> np.ndarray:
     t = read_safetensors(path)
     for key in ("speaker_wavs", "ca_src", "condition", "embedding"):
         if key in t:
-            arr = np.asarray(t[key], np.float32)
+            arr = np.array(t[key], np.float32)
             break
     else:
         if len(t) != 1:
             raise ValueError(f"ambiguous voice file {path}: keys {list(t)}")
-        arr = np.asarray(next(iter(t.values())), np.float32)
+        arr = np.array(next(iter(t.values())), np.float32)
     return arr[None] if arr.ndim == 2 else arr
 
 
 class VoiceResolver:
-    """Voice spec -> cross-attention source, with an LRU of resolved files."""
+    """Voice spec -> cross-attention source, with an LRU of resolved voices.
+    ``.wav`` voices need ``speaker_cfg``, ``speaker_params`` and
+    ``mimi_params`` (the codec's encoder; its device is the encoder's)."""
 
     def __init__(self, voice_dir: Optional[str] = None,
-                 preloaded: Optional[dict] = None, cache_size: int = 32):
+                 preloaded: Optional[dict] = None,
+                 speaker_cfg: Optional[SPK.SpeakerEncoderConfig] = None,
+                 speaker_params=None, mimi_params=None, cache_size: int = 32):
         self.voice_dir = voice_dir
-        # name -> a .safetensors path, or an array (S, D) / (1, S, D)
+        # name -> a .safetensors or .wav path, or an array (S, D) / (1, S, D)
         self.preloaded = dict(preloaded or {})
+        self.speaker_cfg = speaker_cfg
+        self.speaker_params = speaker_params
+        self.mimi_params = mimi_params
         self._cache: OrderedDict = OrderedDict()
         self.cache_size = cache_size
 
@@ -107,7 +88,7 @@ class VoiceResolver:
         if spec in self._cache:
             self._cache.move_to_end(spec)
             return self._cache[spec]
-        name, _start_s = parse_voice_spec(spec)
+        name, start_s = parse_voice_spec(spec)
         entry = self.preloaded.get(name)
         if entry is not None and not isinstance(entry, str):
             arr = np.asarray(entry, np.float32)
@@ -120,12 +101,30 @@ class VoiceResolver:
         if path.endswith(".safetensors"):
             ca = load_voice_embedding(path)
         elif path.endswith(".wav"):
-            raise NotImplementedError(
-                f"voice {spec!r} is a .wav sample: voices from audio need the "
-                "speaker encoder, not ported yet (ROADMAP.md queue 1, item 8)")
+            ca = self._encode_wav(path, start_s)
         else:
             raise ValueError(f"unsupported voice file {path}")
         self._cache[spec] = ca
         if len(self._cache) > self.cache_size:
             self._cache.popitem(last=False)
         return ca
+
+    def _encode_wav(self, path: str, start_s: float) -> np.ndarray:
+        """A wav sample from ``start_s``, cut or zero-padded to the encoder's
+        duration, through the speaker encoder -> ``(1, S, cond_dim)`` f32."""
+        if self.speaker_cfg is None or self.speaker_params is None:
+            raise RuntimeError("no speaker encoder configured for wav voices")
+        from ..utils.audio import decode_audio
+
+        sr = int(self.speaker_cfg.mimi.sample_rate)
+        pcm = decode_audio(path, sr)
+        start = int(start_s * sr)
+        dur = int(self.speaker_cfg.duration_s * sr)
+        pcm = pcm[start:start + dur]
+        if len(pcm) < dur:
+            pcm = np.pad(pcm, (0, dur - len(pcm)))
+        dev = self.speaker_params["proj"].device
+        with torch.inference_mode():
+            ca = SPK.encode(self.speaker_cfg, self.speaker_params, self.mimi_params,
+                            [torch.as_tensor(pcm, dtype=torch.float32, device=dev)])
+        return ca.float().cpu().numpy()

@@ -50,3 +50,12 @@ def decode_wav_bytes(data: bytes, target_rate: int = 24_000) -> np.ndarray:
 
     g = gcd(sr, target_rate)
     return resample_poly(x.astype(np.float64), target_rate // g, sr // g).astype(np.float32)
+
+
+def decode_audio(path: str, target_rate: int = 24_000) -> np.ndarray:
+    """A ``.wav`` file -> mono f32 pcm at ``target_rate`` (other containers
+    are not ported)."""
+    if not path.lower().endswith(".wav"):
+        raise NotImplementedError(f"cannot decode {path!r}: only WAV files are read by the port")
+    with open(path, "rb") as f:
+        return decode_wav_bytes(f.read(), target_rate)

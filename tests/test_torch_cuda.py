@@ -2414,3 +2414,163 @@ def test_apply_ops_on_the_card_equals_the_cpu(cuda_device, seed):
     S.apply_ops(on_card, torch.from_numpy(table).to(cuda_device))
     for key in m:
         assert torch.equal(on_card[key].cpu(), m[key]), key
+
+
+# ---------------------------------------------------------------------------
+# The single-session TTS tick as one captured CUDA graph; checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _single_tts_module(**files):
+    """configs/config-tts.toml (no ``batch_size``: the single-session engine)
+    on the card: 2 LM layers of 8 heads x 128 over a 128-row int8 ring
+    (context 40), the int8 voice store, W8A8, a DepFormer of 8 slices x 2
+    layers, the codec at full size (a 256-row ring)."""
+    import tomllib
+
+    from dsm_tpu_torch.server import config as CFG
+
+    with open("configs/config-tts.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = raw["modules"]["tts"]
+    mod.update(files)
+    mod["model"]["transformer"].update(d_model=1024, num_heads=8, num_layers=2,
+                                       dim_feedforward=768, context=40)
+    mod["model"]["depformer"].update(num_slices=8)
+    mod["model"]["depformer"]["transformer"].update(d_model=64, num_heads=2, num_layers=2,
+                                                    dim_feedforward=192, context=8)
+    mod["model"].update(audio_codebooks=8)
+    mod["generation"].update(speaker_cond_n_speakers=1, speaker_cond_dim=1024,
+                             text_audio_delay_in_tokens=3)
+    return CFG.Config.from_dict(raw).modules["tts"]
+
+
+def _single_tts(dev, cuda_graph=None, **files):
+    from dsm_tpu_torch.server import builder as B
+
+    return B.build_tts(_single_tts_module(**files), dev, cuda_graph=cuda_graph)
+
+
+def _params_same(a, b):
+    """Param trees bit for bit; a weight's profile (``w8a8``) equal."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_params_same(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_params_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return _same_bits(a, b)
+    return a == b
+
+
+def _single_ticks(eng, n, seed, voice, start_rings=None):
+    """``n`` ticks of one session (random constraints, a pad overwrite every
+    ninth tick) -> the packed arrays; ``start_rings``: the LM and codec ring
+    positions the session starts from (rows before their wraps)."""
+    rng = np.random.default_rng(seed)
+    eng.begin(seed, voice)
+    if start_rings is not None:
+        eng.state["lm"]["t"]["pos"].fill_(start_rings[0])
+        eng.mimi_state["dec_t"]["pos"].fill_(start_rings[1])
+    out = []
+    for i in range(n):
+        out.append(eng.tick(int(rng.integers(0, 3)), int(rng.integers(4, 200))).copy())
+        if i % 9 == 8:
+            eng.overwrite_last_text_token(eng.cfg.text_pad_token)
+    return out
+
+
+@pytest.mark.cuda
+def test_captured_single_tts_tick_equals_the_eager_tick(cuda_device):
+    """``TtsEngine`` on the card captures its tick (the key split, the TTS
+    step, the gated Mimi decode, the packing) and replays it; an engine of
+    the same weights runs the eager tick: over 48 ticks from 20 rows before
+    the LM ring's wrap and 40 before the codec ring's, with a voice, then a
+    session without one, and a pad overwrite between replays, the packed
+    array of every tick bit for bit, the state's buffers the same."""
+    eng = _single_tts(cuda_device)
+    ref = _single_tts(cuda_device, cuda_graph=False)
+    assert eng.cuda_graph and not ref.cuda_graph and eng.ca_quant
+    eng.warmup()
+    assert list(eng._graphs) == [False]
+    ptrs = [t.data_ptr() for t in _tensors(eng.state) + _tensors(eng.mimi_state)]
+    c_lm = eng.state["lm"]["t"]["valid"].shape[1]
+    c_dec = eng.mimi_state["dec_t"]["valid"].shape[1]
+    tcfg = eng.cfg.lm.transformer
+    with torch.inference_mode():
+        src = torch.randn(1, eng.ca_len, tcfg.d_model, device=cuda_device).bfloat16()
+        from dsm_tpu_torch.ops import transformer as TT
+
+        voice = TT.quantize_ca_kv(TT.precompute_ca_kv(
+            tcfg, eng.params["lm"]["transformer"], src), s_len=eng.ca_len)
+    decoded = 0
+    for v, seed in ((voice, 3), (None, 4)):
+        got = _single_ticks(eng, 48, seed, v, (c_lm - 20, c_dec - 40))
+        want = _single_ticks(ref, 48, seed, v, (c_lm - 20, c_dec - 40))
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert np.array_equal(a, b), (seed, i)
+        decoded += sum(int(a[2]) for a in got)
+        assert int(eng.state["lm"]["t"]["pos"]) == c_lm + 28
+    assert decoded > 0, "no frame was decoded"
+    assert [t.data_ptr() for t in _tensors(eng.state) + _tensors(eng.mimi_state)] == ptrs
+
+
+@pytest.mark.cuda
+def test_engine_from_checkpoint_files_equals_the_engine_from_memory(cuda_device, tmp_path):
+    """The TOML's model written from the builder's own seeded tree (the
+    generator on the card, seeds 0 and 1) to reference-layout bf16
+    safetensors by the port's writer, then built from those files: every
+    parameter, the quantised ones included, and every tick of a session bit
+    for bit the engine built at random from the same seeds."""
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.models import mimi as MIMI
+    from dsm_tpu_torch.utils import checkpoint as CK
+
+    mod = _single_tts_module()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    lm = LM.init(mod.lm, gen, torch.bfloat16)
+    gen.manual_seed(1)
+    mimi_cfg = MIMI.v0_1(mod.lm.generated_codebooks)
+    mimi = MIMI.init(mimi_cfg, gen, torch.bfloat16)
+    CK.save_safetensors(str(tmp_path / "lm.safetensors"), CK.lm_params_to_reference(mod.lm, lm))
+    CK.save_safetensors(str(tmp_path / "mimi.safetensors"),
+                        CK.mimi_params_to_reference(mimi_cfg, mimi))
+    assert CK.load_safetensors(str(tmp_path / "lm.safetensors")).dtype("text_emb.weight") == "BF16"
+    del lm, mimi
+    a = _single_tts(cuda_device)
+    b = _single_tts(cuda_device, lm_model_file=str(tmp_path / "lm.safetensors"),
+                    audio_tokenizer_file=str(tmp_path / "mimi.safetensors"))
+    assert _params_same(b.params, a.params) and _params_same(b.mimi_params, a.mimi_params)
+    a.warmup()
+    b.warmup()
+    for x, y in zip(_single_ticks(a, 24, 5, None), _single_ticks(b, 24, 5, None)):
+        assert np.array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_maps_a_file_over_2gb(tmp_path):
+    """A file of 2.5 GB (sparse: the header, a 2.4 GB zero tensor, then a
+    small one written at its end): the reader maps it and reads the tensor
+    past the 2 GiB offset, and a slice of the large one, without reading
+    the file."""
+    import json
+
+    from dsm_tpu_torch.utils import checkpoint as CK
+
+    n_big = 600_000_000
+    tail = np.arange(64, dtype=np.float32) - 7.5
+    header = {"big": {"dtype": "F32", "shape": [n_big], "data_offsets": [0, 4 * n_big]},
+              "tail": {"dtype": "F32", "shape": [8, 8],
+                       "data_offsets": [4 * n_big, 4 * n_big + tail.nbytes]}}
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    path = tmp_path / "big.safetensors"
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        f.seek(8 + len(blob) + 4 * n_big)
+        f.write(tail.tobytes())
+    assert path.stat().st_size > 2**31
+    t = CK.load_safetensors(str(path))
+    np.testing.assert_array_equal(t["tail"], tail.reshape(8, 8))
+    assert isinstance(t["big"], np.memmap) and t["big"].shape == (n_big,)
+    assert not t["big"][n_big - 1000:].any()

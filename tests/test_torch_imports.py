@@ -106,3 +106,26 @@ def test_no_file_of_the_port_names_jax_or_reads_the_environment_for_routing():
                     continue  # looks for nvcc on the PATH
                 assert "os.environ" not in src and "getenv" not in src, path
     assert seen >= 35
+
+
+def test_load_and_start_path_imports_without_web_or_checkpoint_packages():
+    """The card's machine has no aiohttp, msgpack, safetensors or
+    sentencepiece: the CLI's ``build_engines``, the loaders, the speaker
+    encoder and the single-session engine load without them."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("jax", "aiohttp", "msgpack", "safetensors", "sentencepiece"):
+            sys.modules[name] = None
+        for name in ("cli", "utils.checkpoint", "utils.gguf", "utils.gc_tune",
+                     "utils.logging", "utils.banner", "models.speaker",
+                     "models.conditioner", "server.voices", "server.tts_module",
+                     "server.builder"):
+            importlib.import_module("dsm_tpu_torch." + name)
+        from dsm_tpu_torch import cli
+        assert callable(cli.build_engines) and callable(cli.start_engines)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

@@ -37,6 +37,7 @@ from dsm_tpu.server.tts_batched import BatchedTtsEngine as JaxEngine
 from dsm_tpu.sessions import tts as jTTS
 from dsm_tpu.utils import tokenizer as jTOK
 from dsm_tpu_torch.models import conditioner as tCOND
+from dsm_tpu_torch.models import mimi as tMIMI
 from dsm_tpu_torch.ops import transformer as tT
 from dsm_tpu_torch.server import builder as tbuilder
 from dsm_tpu_torch.server import config as tCFG
@@ -44,7 +45,7 @@ from dsm_tpu_torch.server import tts_batched as tTB
 from dsm_tpu_torch.server import tts_preprocess as tPRE
 from dsm_tpu_torch.server import voices as tV
 from dsm_tpu_torch.server.app import App
-from dsm_tpu_torch.server.tts_module import AudioEvent, WordEvent
+from dsm_tpu_torch.server.tts_module import AudioEvent, TtsEngine, WordEvent
 from dsm_tpu_torch.sessions import tts as tTTS
 from dsm_tpu_torch.utils import tokenizer as tTOK
 from tests.test_mimi import small_cfg as small_mimi_cfg
@@ -166,9 +167,19 @@ def test_voice_resolver(tmp_path):
     emb = np.random.default_rng(1).standard_normal((1, 6, 16)).astype(np.float32)
     (tmp_path / "voices" / "sub").mkdir(parents=True)
     save_file({"speaker_wavs": emb}, str(tmp_path / "voices" / "sub" / "anna.safetensors"))
-    (tmp_path / "voices" / "bob.wav").write_bytes(b"RIFF")
+    from dsm_tpu_torch.models import speaker as tSPK
+    from dsm_tpu_torch.utils.audio import wav_bytes
+
+    mimi_cfg = port_mimi_cfg(small_mimi_cfg())  # 600 Hz audio
+    pcm = np.random.default_rng(2).standard_normal(1200).astype(np.float32) * 0.1
+    (tmp_path / "voices" / "bob.wav").write_bytes(wav_bytes(pcm, 600))
+    spk_cfg = tSPK.SpeakerEncoderConfig(cond_dim=16, n_speakers=2, duration_s=0.96,
+                                        mimi=mimi_cfg)
+    gen = torch.Generator()
     arr = emb[0] * 2
-    r = tV.VoiceResolver(voice_dir=str(tmp_path / "voices"), preloaded={"arr": arr})
+    r = tV.VoiceResolver(voice_dir=str(tmp_path / "voices"), preloaded={"arr": arr},
+                         speaker_cfg=spk_cfg, speaker_params=tSPK.init(spk_cfg, gen),
+                         mimi_params=tMIMI.init(mimi_cfg, gen))
     np.testing.assert_array_equal(r.resolve("sub/anna"), emb)
     np.testing.assert_array_equal(r.resolve("sub/anna+2.5"), emb)
     np.testing.assert_array_equal(r.resolve("arr"), arr[None])
@@ -178,8 +189,11 @@ def test_voice_resolver(tmp_path):
         r.resolve("../secret")
     with pytest.raises(FileNotFoundError):
         r.resolve("nobody")
-    with pytest.raises(NotImplementedError, match="speaker encoder"):
-        r.resolve("bob")
+    # A .wav sample goes through the speaker encoder (tests/test_torch_speaker.py
+    # holds it to the JAX encoder): 2 speaker slots of 12 frames, cond_dim wide.
+    bob = r.resolve("bob+0.5")
+    assert bob.shape == (1, 24, 16) and bob.dtype == np.float32 and np.isfinite(bob).all()
+    assert r.resolve("bob+0.5") is bob
 
 
 def test_description_condition_matches_jax():
@@ -259,11 +273,18 @@ def test_quantize_weights_of_the_tts_lm_match_jax():
     ("batch_size", 1, "single-session"),
 ])
 def test_builder_refuses_unported_options(key, value, match):
-    """``mesh`` and ``batch_size = 1`` still raise; ``fuse_ticks`` and
-    ``pipeline_depth`` (ported) build the engine they name, as the JAX
-    builder does: the fused path with the engine's default script ring, and
-    the depth (which warns without fusing)."""
+    """``mesh`` still raises; ``fuse_ticks`` and ``pipeline_depth`` (ported)
+    build the engine they name, as the JAX builder does: the fused path with
+    the engine's default script ring, and the depth (which warns without
+    fusing); ``batch_size = 1`` gives ``build_tts``'s single-session engine,
+    which ``build_batched_tts`` refuses."""
     mod = _small_tts_module(**{key: value})
+    if key == "batch_size":  # served since the single-session engine is ported
+        eng = tbuilder.build_tts(mod, "cpu")
+        assert isinstance(eng, TtsEngine) and not eng.cuda_graph
+        with pytest.raises(ValueError, match="single-session"):
+            tbuilder.build_batched_tts(mod, "cpu")
+        return
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             tbuilder.build_batched_tts(mod, "cpu")
