@@ -168,6 +168,26 @@ lines each:
    samples; host ms a tick of both, device launches and kernel ms a captured
    tick from a profile; ``[tts-single-path]``: the LM step with the voice and
    the Mimi decode at B=1 through the kernels against their plain versions.
+   ``[mimi-rooms]``: a TOML with one ``type = "Mimi"`` module (n_q 16)
+   through ``cli.build_engines`` and ``cli.start_engines`` (Mimi v0_1 at full
+   width, bf16, its warm-up decode); two rooms decode ROOM_FRAMES frames
+   each, interleaved, past the decoder ring's wrap: each room's pcm bit for
+   bit an independent eager ``decode_step`` from a fresh state, the first
+   ROOM_PLAIN_FRAMES within PATH_RTOL of the plain versions (``plain_seams``),
+   exactly 8 ``rope_commit`` launches a frame and no other counted kernel;
+   median and max host ms a frame.
+7d. The serving layer's metrics (``server/metrics.py``): in
+   ``[graph-stt-serving]``, ``[graph-tts-serving]``, ``[graph-duplex]`` and
+   ``[tts-single]`` the registry's deltas over the phase's serving run equal
+   what the phase counted (steps, ``fuse`` a fused dispatch; frames encoded
+   and decoded; warm-ups; requests and audio seconds), the open-channels
+   gauge back to 0, ``render()`` parses with every family, and the VRAM
+   gauges agree with ``torch.cuda.mem_get_info`` and the allocator.
+   ``[graph-stt-serving]``'s B=192 engine runs the native frame packer, as
+   shipped; its depth-1 reference runs the deque mailboxes (the events bit
+   for bit) with a session logger whose text tokens read back rebuild every
+   slot's delivered words; the streams are fed a frame at a time, as
+   clients send them.
 
 8. The later paths, each at full width and depth: ``[stt1b-kv4]`` the stt-1b
    engine built with ``AsrConfig(kv_bits=4)`` (packed-int4 rings, uint8
@@ -403,6 +423,55 @@ QMM_SHAPES = ((64, 6144, 2048), (64, 2048, 2048), (64, 11264, 2048), (64, 2048, 
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def _metric_values() -> dict:
+    """Every sample of the port's metric registry: (name, labels) -> value."""
+    from dsm_tpu_torch.server import metrics as M
+
+    return {(smp.name, tuple(sorted(smp.labels.items()))): smp.value
+            for fam in M.collect() for smp in fam.samples}
+
+
+def _check_metrics(tag, before, want, dev, card, approx=()):
+    """The registry's deltas since ``before`` against ``want`` ({sample name:
+    count}, exact; those named in ``approx`` within 1e-9 relative: float sums
+    in another order); the exposition parses with every family; the VRAM
+    gauges agree with ``torch.cuda.mem_get_info`` and the allocator's bytes."""
+    import torch
+
+    from dsm_tpu_torch.server import metrics as M
+
+    after = _metric_values()
+    got = {name: after.get((name, ()), 0.0) - before.get((name, ()), 0.0) for name in want}
+    for name, value in want.items():
+        ok = (abs(got[name] - value) <= 1e-9 * abs(value) if name in approx
+              else got[name] == value)
+        check(ok, f"{tag}: metric {name} moved by {got[name]!r}, the phase counted {value!r}")
+    types, n_samples = {}, 0
+    for line in M.render().decode().splitlines():
+        if line.startswith("# TYPE "):
+            types[line.split()[2]] = line.split()[3]
+        elif line and not line.startswith("#"):
+            float(line.rsplit(" ", 1)[1])
+            n_samples += 1
+    check(set(types) == M.rendered_families() and set(M.REFERENCE_FAMILIES) <= set(types),
+          f"{tag}: /metrics text lacks families")
+    M.update_device_memory(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    gauges = (M.DEVICE_MEM_FREE.get(), M.DEVICE_MEM_USED.get(), M.DEVICE_MEM_TOTAL.get(),
+              M.MEMORY_CURRENT_VRAM.get())
+    check(gauges[2] == total and gauges[0] + gauges[1] == total
+          and abs(gauges[0] - free) <= 64 << 20 and gauges[3] == allocated
+          and M.MEMORY_PEAK_VRAM.get() >= allocated,
+          f"{tag}: VRAM gauges {gauges} against mem_get_info ({free}, {total}) and "
+          f"{allocated} allocated")
+    print(f"[{tag}] metrics: the registry moved as the phase counted {got}; /metrics parses "
+          f"({len(types)} families, {n_samples} samples); VRAM gauges free "
+          f"{gauges[0] / 1e9:.2f} GB of {gauges[2] / 1e9:.2f} (mem_get_info {free / 1e9:.2f}), "
+          f"allocated {gauges[3] / 1e9:.2f} GB; card {card}", flush=True)
+    return got
 
 
 def card_line() -> str:
@@ -3753,6 +3822,7 @@ def phase_graph_duplex(dev, card, eager_log):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mod = _duplex_module(tag, 8, 2)
+    metrics0 = _metric_values()
     t0 = time.perf_counter()
     engine = builder.build_duplex(mod, dev)
     _check_duplex_engine(engine, 8)
@@ -3768,6 +3838,11 @@ def phase_graph_duplex(dev, card, eager_log):
     sessions, idle, n_audio, n_text = _duplex_serve(engine, 12, 4, 2.0)
     serve_s = time.perf_counter() - t0
     log = _duplex_log(sessions, engine.step_count - ticks0)
+    while engine._inflight:  # a reset-only tick may still be in flight at depth 2
+        engine._post_process(engine._inflight.popleft())
+    _check_metrics(tag, metrics0, {"lm_steps_total": engine.step_count - ticks0,
+                                   "mimi_frames_decoded_total": n_audio,
+                                   "warmup_success_total": 1}, dev, card)
     launches = {name: fn.launches for name, fn in counters.items()}
     check(log == eager_log, f"{tag}: the captured engine's events differ from the eager "
           f"engine's: first at {_first_difference(log, eager_log)}")
@@ -3843,24 +3918,33 @@ def _serving_module(name, tag):
 
 
 def _stt_serving_run(engine, pcm, tag):
-    """Every slot opened with its stream and a marker, the tick driven from
-    this thread with the engine's post-process thread running, as
-    ``start()`` runs them -> (events of each slot, host ms of each tick,
-    post-process completion times, steps)."""
+    """Every slot opened with its stream, fed a frame at a time as clients
+    send it (two frames ahead of the tick), then its marker and the delay's
+    silence; the tick driven from this thread with the engine's post-process
+    thread running, as ``start()`` runs them -> (events of each slot, host ms
+    of each tick, post-process completion times, steps, the channels' ids)."""
     import threading
 
     import numpy as np
 
     frame, delay = engine.frame_size, engine.cfg.asr_delay_in_tokens
-    chans = []
+    chans, fed = [], [0] * engine.batch_size
+
+    def feed():
+        for slot, (ch, _) in enumerate(chans):
+            n = len(pcm[slot])
+            while fed[slot] < n and ch.buffered_samples() < 2 * frame:
+                ch.push_pcm(pcm[slot][fed[slot]:fed[slot] + frame])
+                fed[slot] += frame
+                if fed[slot] >= n:  # the stream's end: its marker, then silence
+                    engine.add_marker(ch, 1000 + slot)
+                    ch.push_pcm(np.zeros(frame * (delay + 1), np.float32))
+
     for slot in range(engine.batch_size):
         events = []
-        ch = engine.open_channel(events.append, seed=slot)
-        ch.push_pcm(pcm[slot])
-        engine.add_marker(ch, 1000 + slot)
-        ch.push_pcm(np.zeros(frame * (delay + 1), np.float32))
-        chans.append((ch, events))
+        chans.append((engine.open_channel(events.append, seed=slot), events))
     check(engine.used_slots() == engine.batch_size, f"{tag}: slots left free")
+    feed()
     done = []
     post = engine._process_item
 
@@ -3879,6 +3963,8 @@ def _stt_serving_run(engine, pcm, tag):
         t0 = time.perf_counter()
         check(engine.tick(), f"{tag}: a tick stepped nothing")
         ticks.append((time.perf_counter() - t0) * 1e3)
+        feed()
+    check(fed == [len(x) for x in pcm], f"{tag}: a stream was not fed to its end")
     engine.flush()
     engine.stop()
     del engine._process_item
@@ -3888,7 +3974,7 @@ def _stt_serving_run(engine, pcm, tag):
             for e in events] for _, events in chans]
     for ch, _ in chans:
         engine.close_channel(ch)
-    return log, ticks, done, engine.step_count - steps0
+    return log, ticks, done, engine.step_count - steps0, [ch.channel_id for ch, _ in chans]
 
 
 def _stt_serving_gc(cfg, params, b, pcm, log2, ticks2, tag, card):
@@ -3907,11 +3993,12 @@ def _stt_serving_gc(cfg, params, b, pcm, log2, ticks2, tag, card):
     gc.set_threshold(700, 10, 10)
     engine = BatchedAsrEngine(cfg, params, batch_size=b, device="cuda", pipeline_depth=2,
                               pcm_wire_int16=True, gc_tune=False)
+    check(engine.packer is not None, f"{tag}: the gc_tune=False engine has no native packer")
     engine.warmup()
     check(gc.get_freeze_count() == 0 and gc.get_threshold() == (700, 10, 10),
           f"{tag}: gc_tune=False touched the GC")
     gen2 = gc.get_stats()[2]["collections"]
-    log0, ticks0, _, steps0 = _stt_serving_run(engine, pcm, tag)
+    log0, ticks0, _, steps0, _ = _stt_serving_run(engine, pcm, tag)
     gen2 = gc.get_stats()[2]["collections"] - gen2
     check(log0 == log2, f"{tag}: without the GC freeze the events differ")
     del engine
@@ -3935,11 +4022,14 @@ def phase_stt_serving(dev, card):
     """``build_batched_asr`` from configs/config-stt-tpu-serving.toml as
     shipped: stt-1b at B=192 (``auto_batch_size`` does not clamp it), the step
     captured, two steps in flight (``pipeline_depth = 2``), the int16 upload
-    wire.  Every slot streams STT_SERVING_FRAMES frames and a marker (past
-    the LM ring's and the codec ring's wraps); its events (steps, words,
-    markers, VAD probabilities' bits) equal to those of the same engine at
-    depth 1 from the same weights; the kernels counted over its warm-up and
-    capture (3 x per step, none on replay).  Then host ms a tick at depth 2
+    wire, the native frame packer.  Every slot streams STT_SERVING_FRAMES
+    frames and a marker (past the LM ring's and the codec ring's wraps); its
+    events (steps, words, markers, VAD probabilities' bits) equal to those of
+    the same engine at depth 1 on the deque mailboxes from the same weights,
+    with a session logger on every channel whose text tokens read back rebuild
+    the delivered words; the kernels counted over its warm-up and capture (3 x
+    per step, none on replay); the metric registry's deltas equal to the run's
+    steps, frames, warm-up and closed channels.  Then host ms a tick at depth 2
     and completion-to-completion, and from ``_graph_times`` host ms a
     synchronous step, device busy, launches and kernel ms a step and peak
     memory; the largest batch that ``auto_batch_size`` fits on the card."""
@@ -3947,8 +4037,11 @@ def phase_stt_serving(dev, card):
     import torch
 
     from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import metrics as M
     from dsm_tpu_torch.server.autoconfig import auto_batch_size, device_memory_bytes
     from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.sessions.asr import WordState
+    from dsm_tpu_torch.utils.session_log import SessionLogger, load_session
 
     tag = "graph-stt-serving"
     mod = _serving_module("stt", tag)
@@ -3957,11 +4050,14 @@ def phase_stt_serving(dev, card):
         fn.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    metrics0 = _metric_values()
+    logs = tempfile.TemporaryDirectory(prefix="chip-smoke-sessions-")
     t0 = time.perf_counter()
     engine = builder.build_batched_asr(mod, dev)
     check(engine.batch_size == 192 and engine.pipeline_depth == 2 and engine._pcm_wire_int16
           and engine.cuda_graph, f"{tag}: built B={engine.batch_size} depth "
           f"{engine.pipeline_depth} int16 {engine._pcm_wire_int16}, not the file's")
+    check(engine.packer is not None, f"{tag}: the engine as shipped has no native packer")
     engine.warmup()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -3969,9 +4065,14 @@ def phase_stt_serving(dev, card):
     pcm = [_pcm(slot % 16, STT_SERVING_FRAMES * frame / 24000.0, frame) *
            np.float32(0.5 + (slot % 5) / 2) for slot in range(b)]  # loud streams clip
     t0 = time.perf_counter()
-    log2, ticks2, done2, steps2 = _stt_serving_run(engine, pcm, tag)
+    log2, ticks2, done2, steps2, _ = _stt_serving_run(engine, pcm, tag)
     serve_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    frames = sum(len(evs) for evs in log2)
+    _check_metrics(tag, metrics0, {"lm_steps_total": steps2, "mimi_frames_encoded_total": frames,
+                                   "warmup_success_total": 1,
+                                   "asr_connection_num_steps_count": b}, dev, card)
+    check(M.ASR_OPEN_CHANNELS.get() == 0, f"{tag}: open channels {M.ASR_OPEN_CHANNELS.get()}")
     want = {name: 3 * n for name, n in PER_STEP.items()}
     check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
     peak = torch.cuda.max_memory_reserved() / 1e9
@@ -3998,7 +4099,10 @@ def phase_stt_serving(dev, card):
           f"its warm-up and capture {launches} = 3 x per step, none on replay", flush=True)
     print(f"[{tag}] depth 2, {b} slots streaming: tick host ms median "
           f"{statistics.median(ticks2[10:])!r} (min {min(ticks2[10:])!r}, max "
-          f"{max(ticks2[10:])!r}) over {len(ticks2) - 10} after 10; completion-to-completion "
+          f"{max(ticks2[10:])!r}) over {len(ticks2) - 10} after 10, with the native packer and "
+          f"the metric calls, the streams fed a frame at a time between ticks (before them: "
+          f"the deque mailboxes, no metrics, every stream pushed before the first tick, "
+          f"15.91-16.89 ms, PERF.md section 5); completion-to-completion "
           f"median {float(np.median(dt2[10:]))!r} ms (max {float(dt2[10:].max())!r}); peak memory "
           f"{peak:.2f} GB reserved ({peak_alloc:.2f} GB allocated); card {card}", flush=True)
     numbers = {"launches": launches, "tick_ms": statistics.median(ticks2[10:]),
@@ -4006,15 +4110,34 @@ def phase_stt_serving(dev, card):
     params, cfg = engine.params, engine.cfg
     del engine
     torch.cuda.empty_cache()
+    # The reference logs its sessions, written as each channel closes (10**6 steps a flush).
     ref = BatchedAsrEngine(cfg, params, batch_size=b, device=dev, pipeline_depth=1,
-                           pcm_wire_int16=True)
+                           pcm_wire_int16=True, use_native_packer=False,
+                           session_logger=SessionLogger(logs.name, flush_every_steps=10 ** 6))
+    check(ref.packer is None, f"{tag}: the reference engine is not on the deque mailboxes")
     ref.warmup()
-    log1, ticks1, done1, steps1 = _stt_serving_run(ref, pcm, tag)
+    log1, ticks1, done1, steps1, ids1 = _stt_serving_run(ref, pcm, tag)
     check(steps1 == steps2 and log1 == log2, f"{tag}: the depth-2 events differ from the "
           f"depth-1 engine's (steps {steps2} / {steps1})")
+    for slot, sid in enumerate(ids1):
+        text, audio, _ = load_session(os.path.join(logs.name, f"dsm-tpu-asr-{sid}.safetensors"))
+        ws = WordState(cfg, 1)
+        words = [e.tokens for step, tok in enumerate(text, start=1)
+                 for e in ws.process([tok], [step], [True]) if hasattr(e, "tokens")]
+        delivered = [w[1] for e in log1[slot] for w in e[1] if w[0] == "WordEvent"]
+        check(words == delivered and text.shape == (len(log1[slot]),)
+              and audio.shape == (len(log1[slot]), cfg.mimi.n_q),
+              f"{tag}: slot {slot}: the session log's {text.shape[0]} text tokens do not "
+              f"rebuild its {len(delivered)} delivered words")
+    logs.cleanup()
+    print(f"[{tag}] the depth-1 reference's session logs ({b} channels, {steps1} steps each) "
+          f"read back: text tokens rebuild every delivered word, audio codes "
+          f"({cfg.mimi.n_q} a step) logged", flush=True)
     dt1 = np.diff(np.asarray(done1)) * 1e3
-    print(f"[{tag}] the same engine at depth 1 from the same weights: {steps1} steps, every "
-          f"slot's events (steps, words, markers, VAD probabilities' bits) equal to depth 2's; "
+    print(f"[{tag}] the same engine at depth 1 on the deque mailboxes with a session logger, "
+          f"from the same weights: "
+          f"{steps1} steps, every slot's events (steps, words, markers, VAD probabilities' "
+          f"bits) equal to depth 2's on the native packer; "
           f"depth 1 tick host ms median {statistics.median(ticks1[10:])!r}, "
           f"completion-to-completion median {float(np.median(dt1[10:]))!r} ms; card {card}",
           flush=True)
@@ -4080,7 +4203,7 @@ def _tts_serving_run(engine, sessions_cfg, reuse_sid, tag):
 
         def timed(item):
             post(item)
-            done.append(time.perf_counter())
+            done.append(time.perf_counter())  # one a dispatch posted
 
         engine._post_fused = timed
     deadline = time.monotonic() + 600.0
@@ -4227,6 +4350,7 @@ def phase_tts_serving(dev, card):
           and engine.ca_quant and engine._pcm_wire_i16 and engine.cuda_graph
           and engine.script_cap == 1024, f"{tag}: not the file's engine")
     _tts_voices(engine)
+    metrics0 = _metric_values()
     engine.warmup()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -4234,13 +4358,17 @@ def phase_tts_serving(dev, card):
                                        TTS_TEXTS[sid % len(TTS_TEXTS)]) for sid in range(1, 64)]
     reuse = 10  # "short one": finished well before the reuse frame
     t0 = time.perf_counter()
-    fused, frames_f, first_f, ticks_f, _ = _tts_serving_run(engine, plan, reuse, tag)
+    fused, frames_f, first_f, ticks_f, posted = _tts_serving_run(engine, plan, reuse, tag)
     serve_s = time.perf_counter() - t0
+    frame = engine.mimi_cfg.frame_size
+    n_audio = _tts_verify(fused, range(65), frame)
+    _check_metrics(tag, metrics0, {"lm_steps_total": 4 * len(posted),
+                                   "lm_step_duration_seconds_count": len(posted),
+                                   "mimi_frames_decoded_total": n_audio,
+                                   "warmup_success_total": 1}, dev, card)
     launches = {name: fn.launches for name, fn in counters.items()}
     want = {name: 3 * n for name, n in PER_TICK_TTS.items()}
     check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
-    frame = engine.mimi_cfg.frame_size
-    n_audio = _tts_verify(fused, range(65), frame)
     check(len(fused[0]["text"].split()) >= 50 and frames_f >= 160,
           f"{tag}: {frames_f} frames, a {len(fused[0]['text'].split())}-word session")
     print(f"[{tag}] built and captured in {build_s:.2f} s: B=64, fuse_ticks 4, pipeline_depth "
@@ -4552,10 +4680,16 @@ def phase_tts_single(dev, card, tmp, files):
              ("see you", True)]
     for fn in counters.values():
         fn.launches = 0
+    metrics0 = _metric_values()
     res, times = _tts_sessions(eng, texts, "synthetic", 40)
     check(not any(fn.launches for fn in counters.values()),
           f"{tag}: a replay launched a counted kernel")
     frames = _check_tts_sessions(tag, texts, res, eng.mimi_cfg.frame_size)
+    _check_metrics(tag, metrics0, {"tts_requests_total": len(texts),
+                                   "tts_synthesis_duration_seconds_count": len(texts),
+                                   "tts_audio_duration_seconds_total":
+                                   sum(pcm.size for pcm, _ in res) / 24_000.0}, dev, card,
+                   approx=("tts_audio_duration_seconds_total",))
     stats = {}
     for graph, ts in ((True, times[3:]), (False, ticks[False][1][3:])):
         stats[graph] = (statistics.median(ts), min(ts), max(ts))
@@ -4583,6 +4717,106 @@ def phase_tts_single(dev, card, tmp, files):
     return {"launches": launches, "tick_ms": stats[True], "eager_ms": stats[False],
             "device_launches": device_launches, "kernel_ms": kernel_ms,
             "ticks": SINGLE_TICKS, "load_s": load_s}
+
+
+ROOM_FRAMES, ROOM_PLAIN_FRAMES = 160, 4  # a room's frames: past the decoder ring's wrap
+ROOMS_TOML = """instance_name = "chip-smoke-rooms"
+
+[modules.mimi]
+type = "Mimi"
+path = "/api/mimi"
+n_q = 16
+"""
+
+
+def phase_mimi_rooms(dev, card, tmp):
+    """The Mimi rooms as the worker builds them: ROOMS_TOML (one ``type =
+    "Mimi"`` module, n_q 16) through ``cli.build_engines`` and
+    ``cli.start_engines`` (the warm-up decode) on the card.  Two rooms decode
+    ROOM_FRAMES frames each, interleaved, from seeded codes: exactly 8
+    ``rope_commit`` launches a frame (the codec transformer's 8 layers) and
+    no other counted kernel; each room's pcm bit for bit an independent eager
+    ``decode_step`` over the same codes from a fresh state; the first
+    ROOM_PLAIN_FRAMES frames within PATH_RTOL of the same steps through the
+    plain versions; host ms a frame (``decode_frame`` returns the pcm on the
+    host)."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch import cli
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.server.mimi_rooms import MimiRoomsEngine
+
+    tag = "mimi-rooms"
+    path = os.path.join(tmp, "rooms.toml")
+    with open(path, "w") as f:
+        f.write(ROOMS_TOML)
+    counters = _duplex_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engines = cli.build_engines(CFG.Config.load(path), dev)
+    rooms = engines["mimi_rooms"]
+    cli.start_engines(engines)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(isinstance(rooms, MimiRoomsEngine) and rooms.cfg.n_q == 16
+          and rooms.device.type == "cuda" and rooms._dtype == torch.bfloat16
+          and rooms.cfg.transformer.d_model == 512 and rooms.cfg.transformer.num_layers == 8,
+          f"{tag}: not Mimi v0_1 at n_q 16, bf16, on the card")
+    warm = {k: fn.launches for k, fn in counters.items()}
+    check(warm == {**dict.fromkeys(counters, 0), "rope_commit": 8},
+          f"{tag}: the warm-up decode launched {warm}")
+    g = np.random.default_rng(11)
+    codes = {name: g.integers(0, 2048, (ROOM_FRAMES, 16)).astype(np.int32) for name in "ab"}
+    for fn in counters.values():
+        fn.launches = 0
+    out, ms = {"a": [], "b": []}, []
+    for i in range(ROOM_FRAMES):
+        for name in "ab":
+            t0 = time.perf_counter()
+            out[name].append(rooms.decode_frame(rooms.room(name), codes[name][i]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches == {**dict.fromkeys(counters, 0), "rope_commit": 8 * 2 * ROOM_FRAMES},
+          f"{tag}: {2 * ROOM_FRAMES} frames launched {launches}, want 8 rope_commit a frame")
+    ring = rooms.room("a").dec_state["dec_t"]["valid"].shape[1]
+    pos = int(rooms.room("a").dec_state["dec_t"]["pos"])
+    check(pos > ring, f"{tag}: the decoder ring ({ring} rows) did not wrap ({pos})")
+    for name in "ab":
+        pcm = np.stack(out[name])
+        check(pcm.shape == (ROOM_FRAMES, rooms.cfg.frame_size) and bool(np.isfinite(pcm).all())
+              and float(np.abs(pcm).max()) > 0, f"{tag}: room {name}: bad pcm")
+        state = rooms.init_state()
+        for i in range(ROOM_FRAMES):
+            alone, state = rooms.decode(state, codes[name][i])
+            check(alone.tobytes() == out[name][i].tobytes(), f"{tag}: room {name} frame {i} "
+                  f"differs from an independent decode_step over the same codes")
+    before = {k: fn.launches for k, fn in counters.items()}
+    errs, exact = [], True
+    with plain_seams():
+        state = rooms.init_state()
+        for i in range(ROOM_PLAIN_FRAMES):
+            plain, state = rooms.decode(state, codes["a"][i])
+            errs.append(_rel(torch.from_numpy(out["a"][i]), torch.from_numpy(plain)))
+            exact = exact and plain.tobytes() == out["a"][i].tobytes()
+    check(all(fn.launches == before[k] for k, fn in counters.items()),
+          f"{tag}: the plain decode launched a counted kernel")
+    check(max(errs) < PATH_RTOL, f"{tag}: the first frames against the plain versions: "
+          f"relative L2 {errs}, bar {PATH_RTOL}")
+    frame_ms = (statistics.median(ms[4:]), max(ms[4:]))
+    print(f"[{tag}] {os.path.basename(path)} (one Mimi module, n_q 16) through "
+          f"cli.build_engines and start_engines in {build_s:.2f} s: Mimi v0_1, bf16, warm-up "
+          f"decode {warm['rope_commit']} rope_commit; 2 rooms x {ROOM_FRAMES} frames "
+          f"interleaved, the decoder ring of {ring} rows at tick {pos}: {launches['rope_commit']} "
+          f"rope_commit launches = 8 a frame, no other counted kernel; each room's pcm bit for "
+          f"bit an independent decode_step from a fresh state; the first {ROOM_PLAIN_FRAMES} "
+          f"frames against the plain versions: relative L2 max {max(errs)!r} (bit for bit: "
+          f"{exact}); host ms a frame median {frame_ms[0]!r}, max {frame_ms[1]!r} over "
+          f"{len(ms) - 4} after 4 (the frame is 80 ms); card {card}", flush=True)
+    del rooms, engines
+    torch.cuda.empty_cache()
+    return {"launches": launches, "frame_ms": frame_ms}
 
 
 def phase_tune(dev):
@@ -4723,6 +4957,8 @@ def main() -> int:
         elapsed("ckpt")
         tts_single = phase_tts_single(dev, card, tmp, ckpt_files)
         elapsed("tts-single")
+        rooms = phase_mimi_rooms(dev, card, tmp)
+        elapsed("mimi-rooms")
     tune_launches = phase_tune(dev)
     elapsed("tune")
     ms = kernel_times(dev, card)
@@ -4740,7 +4976,7 @@ def main() -> int:
                 "tts202501_graph": graph["tts202501"]["launches"],
                 "duplex_graph": graph["duplex"]["launches"],
                 "stt_serving": stt_serving["launches"], "tts_serving": tts_serving["launches"],
-                "tts_single": tts_single["launches"]}
+                "tts_single": tts_single["launches"], "mimi_rooms": rooms["launches"]}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -4792,6 +5028,9 @@ def main() -> int:
           f"tick host ms median {ts['tick_ms'][0]!r} (min {ts['tick_ms'][1]!r}, max "
           f"{ts['tick_ms'][2]!r}), eager {ts['eager_ms'][0]!r}; {ts['device_launches']:.0f} "
           f"device launches and {ts['kernel_ms']!r} kernel ms a tick; card {card}", flush=True)
+    print(f"[mimi-rooms] Mimi v0_1 rooms (B=1 a room, eager, bf16): host ms a frame median "
+          f"{rooms['frame_ms'][0]!r}, max {rooms['frame_ms'][1]!r}; 8 rope_commit launches a "
+          f"frame; card {card}", flush=True)
     st, tt = stt_serving, tts_serving
     print(f"[serving] stt-1b, configs/config-stt-tpu-serving.toml as shipped (B=192, depth 2, "
           f"int16 wire, captured): tick host ms {st['tick_ms']!r} at depth 2 / "

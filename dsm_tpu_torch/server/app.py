@@ -6,10 +6,15 @@
   GET  /api/tts_streaming   words in (text frames), msgpack audio out
   POST /api/tts             offline synthesis -> WAV or JSON
   GET  /api/chat            full-duplex dialogue, byte-tag WS (pcm wire)
+  GET  /api/lm-streaming    the same dialogue route (moshi-server's path)
+  GET  /api/mimi/send/{room}  codes in, decoded once for the room
+  GET  /api/mimi/recv/{room}  the room's audio and text out
   GET  /api/status          capacity and uptime JSON
   GET  /api/health          200 ok
+  GET  /metrics             prometheus text (``server/metrics.py``)
   GET  /api/build_info      build metadata
   GET  /api/modules_info    configured modules
+  GET  /{file}              files under ``static_dir``, ``index.html`` at ``/``
 
 Close codes, auth and message schemas are the JAX package's.  Word events
 are checked against the port's own classes (``sessions.asr`` and
@@ -19,16 +24,20 @@ tokenizer.  The TTS routes serve either engine, as the JAX routes do: a
 ``TtsSession`` on a worker thread under the engine's lock.  The duplex route
 serves ``?format=pcm`` (raw f32 AUDIO frames) and answers 501 to
 ``?format=opus``: the Opus wire is not ported, nor the TTS route's Opus
-formats (pcm msgpack only).  Left out (ROADMAP.md): the Mimi-room routes,
-``/metrics`` and static files.  aiohttp and msgpack are needed here only:
-the rest of the port imports neither.  :meth:`App.run` serves over HTTP or
-TLS.
+formats (pcm msgpack only); a room receiver asking ``format=OggOpus`` gets
+raw pcm, as the JAX route does without a codec.  The handlers make the JAX
+App's metric calls (auth errors, close codes, connections, the opt-in
+stream counters).  aiohttp and msgpack are needed here only: the rest of the
+port imports neither.  :meth:`App.run` serves over HTTP or TLS
+(:func:`make_self_signed_cert` makes a development certificate).
 """
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import os
+import subprocess
 import threading
 import time
 from typing import Optional
@@ -41,10 +50,12 @@ from .. import __version__
 from ..sessions.asr import EndWordEvent, WordEvent
 from ..utils.audio import decode_wav_bytes, wav_bytes
 from . import auth as auth_mod
+from . import metrics
 from . import protocol as proto
 from .batched_asr import BatchedAsrEngine, Events
 from .duplex import DuplexSession, audio_frame, parse_frame, text_frame
 from .duplex_batched import DuplexAudioEvent, DuplexDoneEvent, DuplexTextEvent
+from .mimi_rooms import audio_message, parse_codes, text_message
 from .tts_batched import BatchedTtsEngine, DoneEvent
 from .tts_module import AudioEvent, TtsSession
 from .tts_module import WordEvent as TtsWordEvent
@@ -113,13 +124,17 @@ class App:
                  instance_name: str = "dsm-tpu", asr_path: str = "/api/asr-streaming",
                  tts_path: str = "/api/tts", tts_streaming_path: str = "/api/tts_streaming",
                  rate_limit_per_minute: Optional[int] = None,
-                 duplex_engine=None, duplex_path: str = "/api/chat"):
+                 duplex_engine=None, mimi_rooms_engine=None,
+                 static_dir: Optional[str] = None):
         """``tts_engine``: a ``BatchedTtsEngine`` or a single-session
         ``TtsEngine``; ``duplex_engine``: a ``BatchedDuplexEngine`` or a
-        single-dialogue ``DuplexEngine``."""
+        single-dialogue ``DuplexEngine``; ``mimi_rooms_engine``: a
+        ``MimiRoomsEngine``; ``static_dir``: files served at ``/``."""
         self.asr_engine = asr_engine
         self.tts_engine = tts_engine
         self.duplex_engine = duplex_engine
+        self.mimi_rooms_engine = mimi_rooms_engine
+        self.static_dir = static_dir
         self.auth = auth_ctx or auth_mod.AuthContext(enabled=False)
         self.instance_name = instance_name
         self.rate_limit = rate_limit_per_minute  # new connections per peer
@@ -134,9 +149,20 @@ class App:
             r.add_post(tts_path, self.handle_tts_post)
             r.add_get(tts_streaming_path, self.handle_tts_ws)
         if duplex_engine is not None:
-            r.add_get(duplex_path, self.handle_duplex_ws)
+            # moshi-backend's /api/chat and moshi-server's /api/lm-streaming.
+            r.add_get("/api/chat", self.handle_duplex_ws)
+            r.add_get("/api/lm-streaming", self.handle_duplex_ws)
+        if mimi_rooms_engine is not None:
+            r.add_get("/api/mimi/send/{room}", self.handle_mimi_send)
+            r.add_get("/api/mimi/recv/{room}", self.handle_mimi_recv)
         r.add_get("/api/status", self.handle_status)
         r.add_get("/api/health", self.handle_health)
+        if static_dir:
+            # The static-file fallback (main.rs:989-1009): files under
+            # static_dir at '/', index.html for the root.
+            r.add_get("/", self.handle_static)
+            r.add_get("/{tail:(?!api/|metrics).*}", self.handle_static)
+        r.add_get("/metrics", self.handle_metrics)
         r.add_get("/api/build_info", self.handle_build_info)
         r.add_get("/api/modules_info", self.handle_modules_info)
 
@@ -153,6 +179,7 @@ class App:
             self.auth.check(request.headers, dict(request.query), request.cookies)
             return None
         except auth_mod.AuthError as e:
+            metrics.record_auth_error(e.code)
             return web.json_response(e.to_json(), status=e.status)
 
     def _rate_limited(self, request) -> bool:
@@ -170,6 +197,9 @@ class App:
         return False
 
     async def _close_ws(self, request, code: proto.CloseCode, ws=None):
+        """Refuse a connection with ``code`` (rate limit, capacity), counted
+        in ``ws_close_total``."""
+        metrics.record_ws_close(code)
         if ws is None:
             ws = web.WebSocketResponse()
             await ws.prepare(request)
@@ -202,6 +232,20 @@ class App:
                                     "available": t_cap - t_used}
         return web.json_response(body)
 
+    def _device(self):
+        """The first engine's device, for the memory gauges."""
+        for eng in (self.asr_engine, self.tts_engine, self.duplex_engine,
+                    self.mimi_rooms_engine):
+            if getattr(eng, "device", None) is not None:
+                return eng.device
+        return None
+
+    async def handle_metrics(self, request):
+        dev = self._device()
+        if dev is not None:
+            metrics.update_device_memory(dev)
+        return web.Response(body=metrics.render(), content_type="text/plain", charset="utf-8")
+
     async def handle_build_info(self, request):
         return web.json_response(build_info())
 
@@ -229,6 +273,7 @@ class App:
             return await self._close_ws(request, proto.CloseCode.RATE_LIMITED)
         ws = web.WebSocketResponse(heartbeat=PING_INTERVAL_S)
         await ws.prepare(request)
+        metrics.ASR_CONNECT.inc()
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue = asyncio.Queue()
         pump = self._pump(loop)
@@ -287,6 +332,8 @@ class App:
                     break
                 if msg.type != WSMsgType.BINARY:
                     continue
+                if metrics.stream_metrics_enabled():
+                    metrics.stream_in("asr", len(msg.data))
                 try:
                     m = proto.asr_in_msg(msg.data)
                 except Exception:
@@ -302,6 +349,8 @@ class App:
         finally:
             self.asr_engine.close_channel(ch)
             send_task.cancel()
+            if close_code != proto.CloseCode.NORMAL:
+                metrics.record_ws_close(close_code)
             if not ws.closed:
                 await ws.close(code=int(close_code), message=close_code.reason.encode())
         return ws
@@ -597,19 +646,25 @@ class App:
                 frame = await out_q.get()
                 if frame is None:
                     return
+                if metrics.stream_metrics_enabled():
+                    metrics.stream_out("lm", len(frame))
                 await ws.send_bytes(frame)
 
         send_task = asyncio.create_task(sender())
+        metrics.LM_ACTIVE_CONNECTIONS.inc()
         try:
             async for msg in ws:
                 if msg.type != WSMsgType.BINARY:
                     continue
+                if metrics.stream_metrics_enabled():
+                    metrics.stream_in("lm", len(msg.data))
                 tag, payload = parse_frame(msg.data)
                 if tag == proto.MsgType.AUDIO:
                     push_pcm(np.frombuffer(payload, "<f4"))
                 elif tag == proto.MsgType.PING:
                     await ws.send_bytes(bytes([proto.MsgType.PING]))
         finally:
+            metrics.LM_ACTIVE_CONNECTIONS.dec()
             if batched:
                 self.duplex_engine.close_session(slot)
                 out_q.put_nowait(None)
@@ -620,6 +675,75 @@ class App:
             if not ws.closed:
                 await ws.close()
         return ws
+
+    # -- Mimi broadcast rooms --
+
+    async def handle_mimi_send(self, request):
+        """A sender: CODES frames decoded once and broadcast as AUDIO, TEXT
+        frames passed through."""
+        err = self._check_auth(request)
+        if err is not None:
+            return err
+        eng = self.mimi_rooms_engine
+        room = eng.room(request.match_info["room"])
+        ws = web.WebSocketResponse(heartbeat=5.0)
+        await ws.prepare(request)
+        loop = asyncio.get_running_loop()
+        async for msg in ws:
+            if msg.type != WSMsgType.BINARY or not msg.data:
+                continue
+            tag, payload = msg.data[0], msg.data[1:]
+            if tag == proto.MsgType.CODES:
+                codes = parse_codes(payload, eng.cfg.n_q)
+                if codes is None:
+                    continue
+                pcm = await loop.run_in_executor(None, eng.decode_frame, room, codes)
+                room.broadcast(audio_message(pcm), loop)
+            elif tag == proto.MsgType.TEXT:
+                room.broadcast(text_message(payload.decode(errors="replace")), loop)
+        return ws
+
+    async def handle_mimi_recv(self, request):
+        """A receiver of the room's broadcast: raw pcm AUDIO frames (also for
+        ``format=OggOpus``: the port has no Opus codec) and TEXT frames."""
+        err = self._check_auth(request)
+        if err is not None:
+            return err
+        room = self.mimi_rooms_engine.room(request.match_info["room"])
+        ws = web.WebSocketResponse(heartbeat=5.0)
+        await ws.prepare(request)
+        q = room.subscribe()
+        sender = asyncio.create_task(self._room_sender(ws, q))
+        try:
+            async for msg in ws:
+                if msg.type in (WSMsgType.CLOSE, WSMsgType.ERROR):
+                    break
+        finally:
+            sender.cancel()
+            room.unsubscribe(q)
+            if not ws.closed:
+                await ws.close()
+        return ws
+
+    async def _room_sender(self, ws, q):
+        while True:
+            await ws.send_bytes(await q.get())
+
+    # -- static files --
+
+    async def handle_static(self, request):
+        """A file under ``static_dir``, guarded against path traversal (403);
+        ``/`` and a directory map to its ``index.html``; 404 otherwise."""
+        tail = request.match_info.get("tail", "") or "index.html"
+        root = os.path.realpath(self.static_dir)
+        path = os.path.realpath(os.path.join(root, tail))
+        if not path.startswith(root + os.sep) and path != root:
+            return web.Response(status=403, text="forbidden")
+        if os.path.isdir(path):
+            path = os.path.join(path, "index.html")
+        if not os.path.isfile(path):
+            return web.Response(status=404, text="not found")
+        return web.FileResponse(path)
 
     def run(self, host: str = "0.0.0.0", port: int = 8080, ssl_cert: Optional[str] = None,
             ssl_key: Optional[str] = None) -> None:
@@ -632,3 +756,14 @@ class App:
             ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
             ctx.load_cert_chain(ssl_cert, ssl_key)
         web.run_app(self.web_app, host=host, port=port, ssl_context=ctx)
+
+
+def make_self_signed_cert(cert_path: str, key_path: str, cn: str = "localhost") -> None:
+    """A self-signed TLS certificate and its key (PEM) for development
+    serving, made with ``openssl`` (the reference makes one with rcgen,
+    moshi-backend/src/main.rs)."""
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout", key_path,
+         "-out", cert_path, "-days", "365", "-subj", f"/CN={cn}",
+         "-addext", f"subjectAltName=DNS:{cn},IP:127.0.0.1"],
+        check=True, capture_output=True)

@@ -33,8 +33,21 @@ one step in flight, 2: two).  With ``pcm_wire_int16`` the pcm goes up as
 int16, ``(clip(pcm, -1, 1) * 32767).astype(int16)`` on the host, and the
 step dequantises it on the device as its first node (:func:`wire_in`).
 
-Left out for now (ROADMAP.md): the device mesh, the native frame packer,
-prometheus metrics and session logs.  Mailboxes use the Python deque path.
+Mailboxes: with ``use_native_packer`` (the default where it builds), the
+native frame packer (``server/native.py``): each channel pushes into its
+slot's SPSC ring and the tick packs every active slot in one pass into the
+engine's pcm buffer.  A push that the ring cannot take whole keeps its rest
+in the channel's overflow, moved into the ring before each pack, so no
+sample is dropped and the frames are those of the deque path (the JAX
+channel drops them).  Without it, a Python deque a channel.
+
+The JAX engine's prometheus calls (``server/metrics.py``) are made at its
+call sites, from host values only: steps and frames at the dispatch,
+durations at the drain after the fetch.  A ``session_logger``
+(``utils/session_log.SessionLogger``) logs each delivered step's text token
+and the step's audio codes, which then ride at the end of the packed array.
+
+Left out (ROADMAP.md): the device mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import itertools
+import logging
 import threading
 import time
 import traceback
@@ -53,7 +67,11 @@ import torch
 
 from ..sessions import asr as ASR
 from ..utils.gc_tune import freeze_after_warmup
+from . import metrics
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
+from .native import FramePacker
+
+log = logging.getLogger("dsm.torch.asr")
 
 FRAME_SIZE = 1920  # 80 ms at 24 kHz
 
@@ -69,13 +87,15 @@ def wire_in(pcm: torch.Tensor) -> torch.Tensor:
     return pcm.to(torch.float32) * (1.0 / 32767.0)
 
 
-def pack_outputs(out: dict) -> torch.Tensor:
+def pack_outputs(out: dict, codes: bool = False) -> torch.Tensor:
     """A step's host-bound outputs as one int32 array: text tokens, step
     counters, then ``prs`` as 1e-6 fixed point (truncated), as the JAX
-    engine packs them."""
+    engine packs them; with ``codes``, the audio codes ``(B, K)`` last."""
     parts = [out["text_token"].to(torch.int32), out["step_idx"].to(torch.int32)]
     if out["prs"].shape[-1]:
         parts.append((out["prs"].to(torch.float32) * 1e6).to(torch.int32).reshape(-1))
+    if codes:
+        parts.append(out["codes"].to(torch.int32).reshape(-1))
     return torch.cat(parts)
 
 
@@ -92,17 +112,20 @@ class Events:
 
 
 class Channel:
-    """Per-connection pcm mailbox."""
+    """Per-connection pcm mailbox: the slot's ring of ``packer`` (with an
+    overflow of what the ring did not take), or a deque of chunks."""
 
     _ids = itertools.count(1)
 
     def __init__(self, slot: int, deliver: Callable[[Events], None],
-                 frame_size: Optional[int] = None):
+                 frame_size: Optional[int] = None,
+                 packer: Optional[FramePacker] = None):
         self.slot = slot
         self.channel_id = next(Channel._ids)
         self.frame_size = frame_size or FRAME_SIZE
-        self.pcm = deque()
-        self.pcm_samples = 0
+        self.packer = packer
+        self.pcm = deque()  # the deque path's chunks, or the packer's overflow
+        self.pcm_samples = 0  # samples in ``pcm``
         # Cumulative samples pushed: the marker due step is computed from it.
         self.samples_pushed = 0
         self.markers: List[tuple] = []  # (due_step, marker_id) heap
@@ -115,11 +138,33 @@ class Channel:
     def push_pcm(self, pcm: np.ndarray) -> None:
         self.last_data = time.time()
         self.samples_pushed += len(pcm)
+        pcm = np.asarray(pcm, np.float32)
         with self.lock:
-            self.pcm.append(np.asarray(pcm, np.float32))
+            if self.packer is not None and not self.pcm:
+                taken = self.packer.push(self.slot, pcm)
+                if taken == len(pcm):
+                    return
+                pcm = pcm[taken:]
+            self.pcm.append(pcm)
             self.pcm_samples += len(pcm)
 
+    def refill(self) -> None:
+        """Move the overflow into the slot's ring as far as it has room (the
+        tick calls it before each pack: the ring's one producer at a time,
+        under the channel's lock)."""
+        with self.lock:
+            while self.pcm:
+                chunk = self.pcm[0]
+                taken = self.packer.push(self.slot, chunk)
+                self.pcm_samples -= taken
+                if taken < len(chunk):
+                    self.pcm[0] = chunk[taken:]
+                    return
+                self.pcm.popleft()
+
     def buffered_samples(self) -> int:
+        if self.packer is not None:
+            return int(self.packer.available(self.slot)) + self.pcm_samples
         return self.pcm_samples
 
     def take_frame(self) -> Optional[np.ndarray]:
@@ -152,7 +197,12 @@ class BatchedAsrEngine:
     def __init__(self, cfg: ASR.AsrConfig, params: dict, batch_size: int,
                  device="cuda", fill_gate_frac: float = 0.2,
                  cuda_graph: Optional[bool] = None, pipeline_depth: int = 1,
-                 pcm_wire_int16: bool = False, gc_tune: bool = True):
+                 pcm_wire_int16: bool = False, gc_tune: bool = True,
+                 use_native_packer: Optional[bool] = None, session_logger=None):
+        """``use_native_packer``: None takes the native frame packer where it
+        builds, True raises where it does not, False keeps the deque
+        mailboxes.  ``session_logger``: a ``utils.session_log.SessionLogger``
+        for every channel's text tokens and audio codes."""
         self.cfg = cfg
         self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.params = params
@@ -193,7 +243,19 @@ class BatchedAsrEngine:
         self._pending_cv = threading.Condition()
         self._inflight = 0
         self._drain_thread: Optional[threading.Thread] = None
-        self._pcm_buf = np.zeros((batch_size, 1, self.frame_size), np.float32)
+        self.session_logger = session_logger
+        self.packer: Optional[FramePacker] = None
+        if use_native_packer or use_native_packer is None:
+            try:
+                self.packer = FramePacker(batch_size, self.frame_size)
+            except Exception:
+                if use_native_packer:
+                    raise
+        if self.packer is not None:  # pack() fills the step's pcm buffer itself
+            self._pcm_buf = self.packer.frames[:, None, :]
+            self._active = np.zeros(batch_size, bool)
+        else:
+            self._pcm_buf = np.zeros((batch_size, 1, self.frame_size), np.float32)
         # Per-slot sampling seeds (read at temperature > 0).
         self._seeds = np.zeros(batch_size, np.int64)
         self._seed_counter = int(time.time()) & 0x7FFFFFFF
@@ -217,10 +279,15 @@ class BatchedAsrEngine:
                 self._seed_counter = (self._seed_counter + 1) & 0xFFFFFFFF
                 seed = self._seed_counter
             self._seeds[slot] = int(seed) & 0xFFFFFFFF
-            ch = Channel(slot, deliver, frame_size=self.frame_size)
+            if self.packer is not None:
+                self.packer.reset_slot(slot)
+            ch = Channel(slot, deliver, frame_size=self.frame_size, packer=self.packer)
             self.slots[slot] = ch
             self.pending_resets[slot] = True
             self.word_state.reset_slot(slot)
+        if self.session_logger is not None:
+            self.session_logger.open_session(f"asr-{ch.channel_id}")
+        metrics.ASR_OPEN_CHANNELS.set(self.used_slots())
         return ch
 
     def close_channel(self, ch: Channel) -> None:
@@ -229,6 +296,10 @@ class BatchedAsrEngine:
             if self.slots[ch.slot] is ch:
                 self.slots[ch.slot] = None
                 self.free.append(ch.slot)
+        if self.session_logger is not None:
+            self.session_logger.close_session(f"asr-{ch.channel_id}")
+        metrics.ASR_OPEN_CHANNELS.set(self.used_slots())
+        metrics.ASR_STEPS_PER_CONNECTION.observe(max(ch.steps, 0))
 
     def add_marker(self, ch: Channel, marker_id: int) -> None:
         """The marker is due once all audio sent before it has been decoded,
@@ -284,7 +355,7 @@ class BatchedAsrEngine:
                 wire_in(x) if self._pcm_wire_int16 else x,
                 torch.as_tensor(mask, device=dev), torch.as_tensor(reset, device=dev),
                 seeds=torch.as_tensor(self._seeds, device=dev))
-            return dict(out, packed=pack_outputs(out))
+            return dict(out, packed=pack_outputs(out, self.session_logger is not None))
 
     def _dispatch(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray):
         """Queue one step for host arrays -> its handle for
@@ -310,7 +381,7 @@ class BatchedAsrEngine:
         pcm = wire_in(x["pcm"]) if self._pcm_wire_int16 else x["pcm"]
         out = ASR.step_in_place(self.cfg, self.params, self.state, pcm, x["mask"],
                                 x["reset"], seeds=x["seeds"])
-        return dict(out, packed=pack_outputs(out))
+        return dict(out, packed=pack_outputs(out, self.session_logger is not None))
 
     def _capture(self, steps: int) -> None:
         """Run the step ``steps`` times (at least once) on a side stream, with
@@ -331,16 +402,23 @@ class BatchedAsrEngine:
         """Run zero frames through the whole step (no slot active); with
         ``cuda_graph``, through the step to capture, then capture it.  Then
         the host GC is frozen unless the engine was built with ``gc_tune=False``,
-        as the JAX engine does."""
-        if self.cuda_graph:
-            if self._graph is None:
-                self._capture(steps)
-        else:
-            zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
-            off = np.zeros(self.batch_size, bool)
-            for _ in range(steps):
-                handle = self._dispatch(zeros, off, off)
-            fetch(handle)  # waits for the device
+        as the JAX engine does.  Logs which mailboxes the engine serves with."""
+        try:
+            if self.cuda_graph:
+                if self._graph is None:
+                    self._capture(steps)
+            else:
+                zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
+                off = np.zeros(self.batch_size, bool)
+                for _ in range(steps):
+                    handle = self._dispatch(zeros, off, off)
+                fetch(handle)  # waits for the device
+            metrics.WARMUP_SUCCESS.inc()
+        except Exception:
+            metrics.WARMUP_FAILURE.inc()
+            raise
+        log.info("asr engine B=%d: %s mailboxes", self.batch_size,
+                 "native frame packer" if self.packer is not None else "Python deque")
         freeze_after_warmup(self.gc_tune)
 
     def tick(self) -> bool:
@@ -358,27 +436,47 @@ class BatchedAsrEngine:
         with self.slot_lock:
             reset[:] = self.pending_resets
             self.pending_resets[:] = False
-            for slot, ch in enumerate(self.slots):
-                if ch is None or ch.closed:
-                    continue
-                frame = ch.take_frame()
-                if frame is not None:
-                    self._pcm_buf[slot, 0, :] = frame
-                    mask[slot] = True
-                    chans[slot] = ch
+            if self.packer is not None:
+                active = self._active
+                active[:] = False
+                for slot, ch in enumerate(self.slots):
+                    if ch is not None and not ch.closed:
+                        if ch.pcm:
+                            ch.refill()
+                        active[slot] = True
+                        chans[slot] = ch
+                _, mask, _ = self.packer.pack(active)  # into self._pcm_buf
+                chans = [ch if mask[s] else None for s, ch in enumerate(chans)]
+            else:
+                for slot, ch in enumerate(self.slots):
+                    if ch is None or ch.closed:
+                        continue
+                    frame = ch.take_frame()
+                    if frame is not None:
+                        self._pcm_buf[slot, 0, :] = frame
+                        mask[slot] = True
+                        chans[slot] = ch
 
         if not mask.any() and not reset.any():
+            if any(ch is not None and not ch.closed for ch in self.slots):
+                metrics.PIPELINE_STALLS.inc()  # open sessions, no frame ready
             if self._pending and self._drain_thread is None:
                 self._drain_one()
                 return True
             return False
 
         t0 = time.perf_counter()
+        metrics.PIPELINE_PREPROCESS_DURATION.observe(t0 - t_pre0)
         handle = self._dispatch(self._pcm_buf, mask, reset)
         self.step_count += 1
+        metrics.LM_STEPS_TOTAL.inc()
+        metrics.MIMI_FRAMES_ENCODED.inc(int(mask.sum()))  # one codec frame an active slot
+        metrics.LM_BATCH_UTILIZATION.observe(float(mask.mean()))
         with self._pending_cv:
             self._pending.append((handle, mask.copy(), chans, t0))
             self._inflight += 1
+            metrics.LM_QUEUE_DEPTH.set(self._inflight)
+            metrics.PIPELINE_CHANNEL_QUEUE_DEPTH.set(self._inflight)
             self._pending_cv.notify_all()
             if self._drain_thread is not None:
                 while self._inflight > self.pipeline_depth and self.running:
@@ -427,6 +525,7 @@ class BatchedAsrEngine:
             try:
                 self._process_item(item)
             except Exception:  # the post loop must outlive one bad step
+                metrics.record_connection_error("internal", "asr")
                 traceback.print_exc()
             finally:
                 with self._pending_cv:
@@ -446,13 +545,28 @@ class BatchedAsrEngine:
                 self._pending_cv.notify_all()
 
     def _process_item(self, item) -> None:
-        handle, mask, chans, _t0 = item
+        handle, mask, chans, t0 = item
         packed = fetch(handle)  # one transfer
         b = self.batch_size
         text_tokens = packed[:b]
         step_idx = packed[b:2 * b]
-        prs = (packed[2 * b:].reshape(b, -1).astype(np.float32) * 1e-6
-               if packed.shape[0] > 2 * b else None)
+        end = packed.shape[0]
+        if self.session_logger is not None:
+            end -= b * self.cfg.mimi.n_q
+            codes = packed[end:].reshape(b, -1)
+        prs = (packed[2 * b:end].reshape(b, -1).astype(np.float32) * 1e-6
+               if end > 2 * b else None)
+        dt = time.perf_counter() - t0
+        metrics.ASR_MODEL_STEP_DURATION.observe(dt)
+        metrics.PIPELINE_BATCH_DURATION.observe(dt)
+        if dt > 0:  # text tokens emitted across the active batch
+            metrics.LM_TOKENS_PER_SECOND.set(float(mask.sum()) / dt)
+        t_post0 = time.perf_counter()
+        if self.session_logger is not None:
+            for slot, ch in enumerate(chans):
+                if ch is not None and mask[slot]:
+                    self.session_logger.log_step(f"asr-{ch.channel_id}",
+                                                 int(text_tokens[slot]), codes[slot])
 
         events = self.word_state.process(text_tokens, step_idx, mask)
         by_slot: Dict[int, List[object]] = {}
@@ -473,6 +587,13 @@ class BatchedAsrEngine:
             # Deliver only while the slot still belongs to this channel.
             if not ch.closed and self.slots[slot] is ch:
                 ch.deliver(ev)
+        t_post = time.perf_counter() - t_post0
+        metrics.PIPELINE_POSTPROCESS_DURATION.observe(t_post)
+        # The share of the step window not spent in serial post-processing:
+        # 1.0 when the drain thread hides it behind the next dispatch.
+        if dt + t_post > 0:
+            metrics.PIPELINE_OVERLAP_EFFICIENCY.observe(
+                1.0 if self._drain_thread is not None else dt / (dt + t_post))
 
     def flush(self) -> None:
         """Deliver every step in flight."""
@@ -491,5 +612,6 @@ class BatchedAsrEngine:
                 if not self.tick():
                     time.sleep(self.tick_sleep)
             except Exception:  # the model loop must outlive one bad tick
+                metrics.record_connection_error("internal", "asr")
                 traceback.print_exc()
                 time.sleep(0.1)

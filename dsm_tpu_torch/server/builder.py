@@ -1,7 +1,7 @@
 """Build a serving module from a TOML config (counterpart of
 ``dsm_tpu/server/builder.py``: ``build_batched_asr``, ``build_tts`` with the
-single-session engine for ``batch_size = 1`` and the batched one above, and
-``build_duplex``).
+single-session engine for ``batch_size = 1`` and the batched one above,
+``build_duplex`` and ``build_mimi_rooms``).
 
 Weights come from the files the TOML names (``lm_model_file``,
 ``audio_tokenizer_file``) when they exist locally: reference-layout
@@ -38,6 +38,7 @@ from .autoconfig import auto_batch_size, device_memory_bytes
 from .batched_asr import BatchedAsrEngine
 from .duplex import DuplexEngine
 from .duplex_batched import BatchedDuplexEngine
+from .mimi_rooms import MimiRoomsEngine
 from .tts_batched import BatchedTtsEngine
 from .tts_module import TtsEngine
 from .voices import VoiceResolver
@@ -358,3 +359,15 @@ def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = Non
             cuda_graph=cuda_graph, pipeline_depth=int(raw.get("pipeline_depth", 1)))
     return DuplexEngine(cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
                         kv_quant=kv_quant, device=device)
+
+
+def build_mimi_rooms(mod: CFG.ModuleConfig, device) -> MimiRoomsEngine:
+    """The codec-as-a-service rooms of a ``Mimi`` module on ``device``
+    (moshi-server/src/mimi.rs): Mimi v0_1 with the module's ``n_q`` (16 by
+    default), the codec loaded from ``audio_tokenizer_file`` or seeded, bf16
+    on CUDA and f32 on the CPU."""
+    device = torch.device(device)
+    mimi_cfg = MIMI.v0_1(mod.n_q or 16)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    params, _ = _load_or_init_mimi(mod, mimi_cfg, torch.Generator(device=device), dtype)
+    return MimiRoomsEngine(cfg=mimi_cfg, params=params, device=device)

@@ -111,6 +111,7 @@ class ModuleConfig:
     voice_dir: Optional[str] = None
     voices: Optional[Dict[str, str]] = None
     generation: Optional[Dict[str, Any]] = None
+    n_q: Optional[int] = None  # a Mimi module's codebooks
 
 
 @dataclasses.dataclass
@@ -149,6 +150,7 @@ class Config:
                 voice_dir=m.get("voice_dir"),
                 voices=m.get("voices"),
                 generation=m.get("generation"),
+                n_q=m.get("n_q"),
             )
         return cls(
             instance_name=raw.get("instance_name", "dsm-tpu"),

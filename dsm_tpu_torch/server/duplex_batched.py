@@ -40,8 +40,13 @@ and the weights run as they are given (the
 builder hands over int8 weights, which multiply by the profile they carry:
 W8A8, or weight-only with ``w8a8 = false``).
 
-Left out (ROADMAP.md): the device mesh and prometheus metrics.
-``server/builder.py`` refuses the options that select them.
+The JAX engine's prometheus calls (``server/metrics.py``) are made at its call
+sites, after the fetch, from the host arrays: the step, its duration (the
+interval between completions) and the decoded frames of the packed
+``dec_mask``.
+
+Left out (ROADMAP.md): the device mesh.  ``server/builder.py`` refuses the
+option that selects it.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ..models import mimi as MIMI
 from ..ops import sampling as S
 from ..sessions import lm_gen
 from ..utils.gc_tune import freeze_after_warmup
+from . import metrics
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 
 
@@ -309,13 +315,18 @@ class BatchedDuplexEngine:
         ``cuda_graph``, through the tick to capture, then capture it.  Then
         the host GC is frozen unless the engine was built with
         ``gc_tune=False``, as the JAX engine does."""
-        if self.cuda_graph:
-            if self._graph is None:
-                self._capture(steps)
-        else:
-            off = np.zeros(self.batch_size, bool)
-            for _ in range(steps):
-                self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
+        try:
+            if self.cuda_graph:
+                if self._graph is None:
+                    self._capture(steps)
+            else:
+                off = np.zeros(self.batch_size, bool)
+                for _ in range(steps):
+                    self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
+            metrics.WARMUP_SUCCESS.inc()
+        except Exception:
+            metrics.WARMUP_FAILURE.inc()
+            raise
         freeze_after_warmup(self.gc_tune)
 
     # -- loop --
@@ -341,6 +352,7 @@ class BatchedDuplexEngine:
                 if not self.tick():
                     time.sleep(self.tick_sleep)
             except Exception:  # the model loop must outlive one bad tick
+                metrics.record_connection_error("internal", "lm")
                 traceback.print_exc()
                 time.sleep(0.1)
 
@@ -401,10 +413,13 @@ class BatchedDuplexEngine:
         # (t2 - t0 at depth 1 and for the first fetch).
         dt = t2 - t0 if self._last_fetch_t is None else min(t2 - t0, t2 - self._last_fetch_t)
         self._last_fetch_t = t2
+        metrics.LM_STEP_DURATION.observe(dt)
+        metrics.LM_STEPS_TOTAL.inc()
         text_tokens = packed[:n]
         steps = packed[n:2 * n]
         dec_mask = packed[2 * n:3 * n].astype(bool)
         pcm = packed[3 * n:].view(np.float32).reshape(n, frame)
+        metrics.MIMI_FRAMES_DECODED.inc(int(dec_mask.sum()))
 
         cfg = self.cfg
         special = (cfg.text_pad_token, cfg.text_eop_token, cfg.text_start_token)

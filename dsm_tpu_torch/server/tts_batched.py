@@ -54,8 +54,13 @@ reads.  A capture that fails raises; the engine never falls back to the
 eager tick.  ``cuda_graph=False`` runs the eager forms (the reference the
 card's checks hold the graph to); the CPU has no graph.
 
-Left out (ROADMAP.md): the device mesh and prometheus metrics.  The builder
-refuses the options that select them.
+The JAX engine's prometheus calls (``server/metrics.py``) are made at its call
+sites, after the fetch, from the host arrays: steps (``fuse`` a dispatch),
+the decoded frames of the packed ``dec_mask``, the step duration (a
+dispatch's service interval over ``fuse`` on the fused path).
+
+Left out (ROADMAP.md): the device mesh.  The builder refuses the option that
+selects it.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from ..ops import transformer as T
 from ..sessions import tts as TTS
 from ..sessions import tts_script as SCRIPT
 from ..utils.gc_tune import freeze_after_warmup
+from . import metrics
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 from .tts_module import AudioEvent, WordEvent
 
@@ -265,6 +271,7 @@ class BatchedTtsEngine:
             log.warning("tts: pipeline_depth=%d has no effect with fuse_ticks=1; set "
                         "fuse_ticks>1 to enable dispatch-ahead", self.pipeline_depth)
         self._inflight_f: deque = deque()
+        self._last_fetch_t: Optional[float] = None
         if self.fuse > 1:
             self._cc = SCRIPT.ScriptConsts.from_cfg(cfg)
             self._mstate = SCRIPT.init(batch_size, self.script_cap, dev)
@@ -554,16 +561,21 @@ class BatchedTtsEngine:
         with ``gc_tune=False``, as the JAX engine does."""
         n = self.batch_size
         off = np.zeros(n, bool)
-        if self.cuda_graph:
-            if self._graph is None:
-                self._capture(steps)
-        elif self.fuse > 1:
-            for _ in range(steps):
-                fetch(self._dispatch_fused(off))
-        else:
-            modes = np.full(n, TTS.ALLOW_PAD, np.int32)
-            for _ in range(steps):
-                self._invoke_step(modes, np.zeros(n, np.int32), off, off)
+        try:
+            if self.cuda_graph:
+                if self._graph is None:
+                    self._capture(steps)
+            elif self.fuse > 1:
+                for _ in range(steps):
+                    fetch(self._dispatch_fused(off))
+            else:
+                modes = np.full(n, TTS.ALLOW_PAD, np.int32)
+                for _ in range(steps):
+                    self._invoke_step(modes, np.zeros(n, np.int32), off, off)
+            metrics.WARMUP_SUCCESS.inc()
+        except Exception:
+            metrics.WARMUP_FAILURE.inc()
+            raise
         freeze_after_warmup(self.gc_tune)
 
     # -- loop --
@@ -592,6 +604,7 @@ class BatchedTtsEngine:
                 if not self.tick():
                     time.sleep(self.tick_sleep)
             except Exception:  # the model loop must outlive one bad tick
+                metrics.record_connection_error("internal", "tts")
                 traceback.print_exc()
                 time.sleep(0.1)
 
@@ -628,7 +641,8 @@ class BatchedTtsEngine:
                 self._post_fused(self._inflight_f.popleft())
                 return True
             return False
-        self._inflight_f.append((self._dispatch_fused(reset), drivers))
+        t0 = time.perf_counter()
+        self._inflight_f.append((self._dispatch_fused(reset), drivers, t0))
         self.step_count += self.fuse
         if len(self._inflight_f) >= self.pipeline_depth:
             self._post_fused(self._inflight_f.popleft())
@@ -666,14 +680,23 @@ class BatchedTtsEngine:
         """One fetch for a dispatch's K frames, replayed frame by frame
         through the slots' mirrors: words, audio, and Done once a mirror has
         no constraint left.  The pad patch already ran on the device."""
-        handle, drivers = item
+        handle, drivers, t0 = item
         packed = fetch(handle)
+        t_fetch = time.perf_counter()
+        # Dispatched ahead, one dispatch's dispatch-to-fetch spans others'
+        # host work: the interval between completions is its cost.
+        dt = t_fetch - t0 if self._last_fetch_t is None else min(t_fetch - t0,
+                                                                  t_fetch - self._last_fetch_t)
+        self._last_fetch_t = t_fetch
+        metrics.LM_STEP_DURATION.observe(dt / self.fuse)
+        metrics.LM_STEPS_TOTAL.inc(self.fuse)
         n, frame = self.batch_size, self.mimi_cfg.frame_size
         for row in packed:
             text_tokens = row[:n]
             steps = row[n:2 * n]
             dec_mask = row[2 * n:3 * n].astype(bool)
             pcm = self._unpack_pcm(row[3 * n:], n, frame) if dec_mask.any() else None
+            metrics.MIMI_FRAMES_DECODED.inc(int(dec_mask.sum()))
             for slot, drv in enumerate(drivers):
                 if drv is None or drv.finished or drv.closed:
                     continue
@@ -715,6 +738,7 @@ class BatchedTtsEngine:
         if not mask.any() and not reset.any():
             return False
 
+        t0 = time.perf_counter()
         packed = self._invoke_step(modes, toks, mask, reset)
         self.step_count += 1
         text_tokens = packed[:n]
@@ -722,6 +746,9 @@ class BatchedTtsEngine:
         dec_mask = packed[2 * n:3 * n].astype(bool)
         frame = self.mimi_cfg.frame_size
         pcm = self._unpack_pcm(packed[3 * n:], n, frame) if dec_mask.any() else None
+        metrics.LM_STEP_DURATION.observe(time.perf_counter() - t0)
+        metrics.LM_STEPS_TOTAL.inc()
+        metrics.MIMI_FRAMES_DECODED.inc(int(dec_mask.sum()))
 
         overwrite = np.zeros(n, bool)
         for slot, drv in enumerate(drivers):

@@ -32,13 +32,15 @@ embedding's dtype, selects a graph of its own.  ``cuda_graph=False`` runs
 the same tick eagerly; the CPU has no graph.  The voice store is int8 (the
 ``ca_decode_attend`` kernel) with ``ca_quant``.
 
-Left out (ROADMAP.md): the prometheus metrics of the JAX session.
+A session ends with the JAX session's prometheus calls (``server/metrics.py``):
+its wall time, the request, the audio seconds and the real-time factor.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -49,6 +51,7 @@ from ..ops import sampling as S
 from ..ops import transformer as T
 from ..sessions import tts as TTS
 from ..utils.state import copy_into
+from . import metrics
 from .cuda_graph import PinnedOutputs, StagedInputs, capture, fetch
 
 
@@ -113,8 +116,10 @@ class TtsSession:
         cfg = self.cfg
         eng = self.engine
         max_steps = max_steps or cfg.max_steps - cfg.acoustic_delay - 1
+        t_start = time.perf_counter()
         eng.begin(self.seed, self.ca_kv, self.condition)
         frame = eng.mimi_cfg.frame_size
+        pcm_out = 0
         for step_idx in range(max_steps):
             if self.word_tokens is None:
                 self.step_past_last += 1
@@ -147,9 +152,16 @@ class TtsSession:
 
             # Audio once past the combined delay (the decode flag says so).
             if pcm is not None:
+                pcm_out += len(pcm)
                 on_event(AudioEvent(pcm=pcm))
             self.step_idx = step_idx + 1
         self.done = True
+        wall = time.perf_counter() - t_start
+        metrics.TTS_SYNTHESIS_DURATION.observe(wall)
+        metrics.TTS_REQUESTS_TOTAL.inc()
+        if pcm_out:
+            metrics.TTS_AUDIO_DURATION.inc(pcm_out / 24_000.0)
+            metrics.TTS_RTF.set((pcm_out / 24_000.0) / max(wall, 1e-9))
 
 
 class TtsEngine:

@@ -26,7 +26,9 @@ def test_every_module_imports_without_jax():
                 "server.tts_module", "server.tts_preprocess", "sessions.tts",
                 "models.conditioner", "utils.tokenizer", "utils.audio",
                 "sessions.lm_gen", "server.duplex", "server.duplex_batched",
-                "ops.qmm", "server.autoconfig", "ops.attn_tune", "tools.attn_kernel_tune"):
+                "ops.qmm", "server.autoconfig", "ops.attn_tune", "tools.attn_kernel_tune",
+                "server.metrics", "server.native", "server.mimi_rooms", "server.model_presets",
+                "server.auth_server", "utils.session_log"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -54,7 +56,8 @@ def test_engines_import_without_the_web_packages():
             sys.modules[name] = None
         for name in ("server.builder", "server.duplex", "server.duplex_batched",
                      "server.protocol", "sessions.lm_gen", "server.autoconfig", "ops.qmm",
-                     "ops.attn_tune", "tools.attn_kernel_tune"):
+                     "ops.attn_tune", "tools.attn_kernel_tune", "server.metrics",
+                     "server.native", "server.mimi_rooms", "server.model_presets"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex
         assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")
@@ -119,7 +122,7 @@ def test_load_and_start_path_imports_without_web_or_checkpoint_packages():
         for name in ("cli", "utils.checkpoint", "utils.gguf", "utils.gc_tune",
                      "utils.logging", "utils.banner", "models.speaker",
                      "models.conditioner", "server.voices", "server.tts_module",
-                     "server.builder"):
+                     "server.builder", "utils.session_log", "server.batched_asr"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch import cli
         assert callable(cli.build_engines) and callable(cli.start_engines)
