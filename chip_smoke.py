@@ -24,7 +24,9 @@ lines each:
    row amaxes where a reciprocal would miss the quotient; rope_commit, the
    rotary embedding folded into the bf16 commit, at the Mimi rings of the
    STT/TTS and duplex engines, and rope_qk, the rope alone, at the LM rows of
-   stt-1b, stt-2.6b and s2s-2b, q, k and v strided views of a QKV product),
+   stt-1b, stt-2.6b, s2s-2b and Moshi 7B, q, k and v strided views of a QKV
+   product; Moshi 7B's rings (24,32,3072,128) through quantize_commit and
+   decode_attend),
    run three times
    with identical results; the fused decode_attend_commit against its
    plain version in its own span order and within the bar of the
@@ -203,13 +205,37 @@ lines each:
    (``[duplex-full-path]``, ``[duplex-kv4-full-path]``, ``[stt26-kv4]``) a
    bit-identical pair fails; there decode_attend alone over int4 rings has a
    bar of its own (Q4_ALONE_FULL_RTOL); ``[tts202501]`` the TTS engine with
-   the 48-layer tts_202501 preset in place of the TOML's model (32 heads x
-   64, context 500, DepFormer 32 slices x 6 layers; head-major voice
-   cross-attention), 12 sessions, with
+   the tts_202501 preset in place of the TOML's model (32 heads x 64, context
+   500, DepFormer 32 slices x 6 layers; head-major voice cross-attention), cut
+   to TTS202501_LAYERS of its 48 layers to keep the run in its time, 12
+   sessions, with
    ``[tts202501-profile]`` and ``[tts202501-path]``; ``[tune]`` the
    decode-attention tuning tool (dsm_tpu_torch.tools.attn_kernel_tune) in
    process at --batch 64, each row held to a share of the reference's largest
    output.
+
+9. The Moshi 7B family and the offline entry points, after
+   ``[graph-duplex-kv4]``: ``[moshi-duplex]`` a TOML whose ``type = "Lm"``
+   module names no ``[model]`` through ``build_duplex``: its default model,
+   Moshi 7B in the dialogue layout (``moshi_v0_1_streaming(8)``: d=4096, 32
+   layers of 32 heads x 128, 16 codebooks in, 8 generated), B=24,
+   ``pipeline_depth = 2``, int8 rings (24,32,3072,128), W8A8, captured: the
+   launches of its warm-up and capture (3 x PER_TICK_MOSHI), its tick timed,
+   ``auto_batch_size``'s fit, the replay bit for bit the eager tick over
+   GRAPH_DUPLEX_TICKS["moshi-duplex"] ticks past every ring's wrap; then the
+   single-dialogue engine on the same weights for MOSHI_SINGLE_TICKS frames.
+   ``[gen]`` ``cli gen`` in process (its default preset, bf16 weights and
+   rings, ``--trace`` parsed, ``--out-tokens`` read back), then the same
+   seeded model through ``lm_gen_simple.generate`` over GEN_STEPS steps at
+   ``chunk`` 1 and GEN_CHUNK, the same tokens.  ``[tts-legacy]`` tts_v0_1 with
+   T5-shaped states and a 10 s speaker sample through Mimi v0_1
+   (``conditions``), LEGACY_STEPS steps with guidance, every written frame in
+   range.  ``[offline]`` (after ``[mimi-rooms]``): ``transcribe_files`` at
+   configs/config-stt.toml on audio/speech-synthetic.wav and a seeded wav,
+   each result equal to ``transcribe_file`` and to the frame-at-a-time path,
+   the realtime factor; ``synthesize_file`` at the end of ``[tts-single]`` on
+   its captured engine and ``synthesize_jsonl`` (audio/tts.jsonl) in
+   ``[graph-tts-serving]`` on its fused engine.
 
 After the paths each kernel case is timed: the kernel, its
 plain version and its library call as device time (CUDA events around calls
@@ -309,6 +335,10 @@ ROUTES = {
                                            "stt26_kv4"),
     "ca_decode_attend[(64,32,640,64)]": ("ca_decode_attend", "dsm_tpu/ops/decode_attn.py:898",
                                          "tts202501"),
+    "decode_attend[(24,32,3072,128) moshi]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:215",
+                                              "moshi_duplex"),
+    "quantize_commit[(24,32,3072,128) moshi]": ("quantize_commit",
+                                                "dsm_tpu/ops/ring_kernels.py:66", "moshi_duplex"),
 }
 # Launches per engine step of the STT path: each of the LM's 16 layers
 # rotates q and k (rope_qk), quantises its fresh rows and commits their
@@ -347,12 +377,14 @@ PER_TICK_DUPLEX = {"rope_qk": 24, "quantize_commit": 24, "decode_attend": 24, "r
 # with quantize_commit and attends with decode_attend over the packed ring.
 PER_STEP_STT1B_KV4 = {"rope_qk": 16, "quantize_commit": 16, "decode_attend": 16, "rope_commit": 8,
                       "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
-# tts_202501: 48 layers of 32 heads x 64 (not a shape of the fused rule): the
-# split pipeline over (64,32,512,64) int8 rings plus the voice cross-attention
-# in every layer; the Mimi decoder's 8 layers rotate and commit their 2 bf16
-# rows.
-PER_TICK_TTS202501 = {"rope_qk": 48, "quantize_commit": 48, "decode_attend": 48,
-                      "ca_decode_attend": 48, "rope_commit": 8, "quantize_scale_commit": 0,
+# tts_202501 (32 heads x 64, not a shape of the fused rule), cut to
+# TTS202501_LAYERS of its 48 layers to keep the run in its time: the split
+# pipeline over (64,32,512,64) int8 rings plus the voice cross-attention in
+# every layer; the Mimi decoder's 8 layers rotate and commit their 2 bf16 rows.
+TTS202501_LAYERS = 12
+PER_TICK_TTS202501 = {"rope_qk": TTS202501_LAYERS, "quantize_commit": TTS202501_LAYERS,
+                      "decode_attend": TTS202501_LAYERS, "ca_decode_attend": TTS202501_LAYERS,
+                      "rope_commit": 8, "quantize_scale_commit": 0,
                       "decode_attend_commit": 0, **_NONE}
 # Device launches and kernel ms a step or tick on each path before the step
 # folded the rotary embedding into its commits (the figures PERF.md section 5
@@ -362,7 +394,6 @@ PARENT_PROFILE = {"profile": ("stt-1b step", 2858, 10.26),
                   "stt26-profile": ("stt-2.6b step", 3608, 13.43),
                   "duplex-profile": ("duplex tick, short rings", 19971, 46.14),
                   "tts-profile": ("TTS tick", 18164, 54.77),
-                  "tts202501-profile": ("tts_202501 tick", 28208, 85.68),
                   "stt1b-kv4-profile": ("[stt1b-kv4] step", 2842, 9.93)}
 # The bf16 K/V ring of each Mimi transformer layer in the duplex engine
 # (B=24, 8 heads, context 250 + T=2 rows rounded up to 256, Dh=64).
@@ -403,6 +434,8 @@ HEADLINE = {"quantize_scale_commit": "stt1b int8 w=767", "quantize_commit": "stt
             "decode_attend[(64,16,768,64) int4]": "stt1b-kv4 pos=3000 valid=1.0 split=1",
             "decode_attend[(64,32,384,32) int4]": "stt26-kv4 pos=3000 valid=1.0 split=1",
             "ca_decode_attend[(64,32,640,64)]": "B=64 H=32 S=625/640 Dh=64",
+            "decode_attend[(24,32,3072,128) moshi]": "moshi pos=10000 valid=1.0 split=2",
+            "quantize_commit[(24,32,3072,128) moshi]": "moshi int8 w=3071",
             "attn_tune": "pos=3000 valid=0.9 bb=1"}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
@@ -1193,7 +1226,9 @@ def _qkv_rows(dev, g, b, h, t, dh, pos):
 
     qkv = (torch.randn(b, t, 3, h, dh, generator=g, device=dev) * 2).bfloat16()
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    check(not any(x.is_contiguous() for x in (q, k, v)), "the rows are not strided views")
+    # (One row of one batch, as cli gen's step gives it, is a contiguous view.)
+    check(b * t == 1 or not any(x.is_contiguous() for x in (q, k, v)),
+          "the rows are not strided views")
     cos, sin = A.rope_cos_sin(torch.arange(t, device=dev)[None] + pos, dh, 10_000.0)
     return q, k, v, cos, sin
 
@@ -1307,7 +1342,7 @@ def kernel_cases(dev):
     cases += _rope_commit_cases(dev, g, "duplex B=24", *DUPLEX_MIMI_RING[:3], 2,
                                 DUPLEX_MIMI_RING[3], (0, 254))
     for tag, (b, h, dh) in (("stt1b", (64, 16, 128)), ("stt26", (64, 32, 64)),
-                            ("duplex", (24, 20, 128))):
+                            ("duplex", (24, 20, 128)), ("moshi", MOSHI_RING[:2] + (128,))):
         cases.append(_rope_qk_case(dev, g, tag, b, h, dh, 100_000))
     cases += _attend_cases(dev, g, "stt", 64, 16, 768, 128, 750, False,
                            ((0, 1.0), (40, 0.9), (767, 0.6), (3000, 1.0)), timed=(3000,))
@@ -1332,6 +1367,17 @@ def kernel_cases(dev):
                           ((0, 1.0), (40, 0.7), (3071, 1.0), (5000, 0.7), (10000, 1.0)))
     cases += _split_cases(dev, g, "B=2 H=32 C=4096 Dh=64", 2, 32, 4096, 64, 4096,
                           ((4200, 0.9),))
+    # Moshi 7B in the dialogue layout (build_duplex's default model): 32 heads
+    # x 128 over a 3,072-row ring, the split pipeline, at a served ring, a full
+    # one and a wrapped one.
+    cases += _quantize_commit_cases(dev, g, "moshi", *MOSHI_RING, (0, 1536, 3071))
+    cases += _split_cases(dev, g, "moshi", *MOSHI_RING, 3000,
+                          ((40, 0.7), (3071, 1.0), (10000, 1.0)))
+    # The bf16 LM rings of cli gen (Moshi 7B, B=1) and of the legacy TTS
+    # (tts_v0_1, the two guidance rows): one bf16 row a step, at the first,
+    # a middle and the last row.
+    for tag, (b, h, c, dh) in (("gen moshi", GEN_RING), ("tts_v0_1", LEGACY_RING)):
+        cases += _rope_commit_cases(dev, g, tag, b, h, c, 1, dh, (0, c // 2, c - 1))
 
     # stt-2.6b: 32 heads x 64 over a 384-row ring, window 375: an empty, a
     # part-filled, a full and a wrapped ring, through decode_attend (one
@@ -2080,7 +2126,7 @@ def phase_stt26_path(engine, dev):
 # packed-int4 rings, past a wrap of the codec's ring only.
 # Steps of each replay check and whether its LM ring wraps: that check starts its
 # rings full, half its steps before the third wrap.
-GRAPH_STEPS = {"stt1b": (800, True), "stt26": (400, True), "stt1b-kv4": (160, False)}
+GRAPH_STEPS = {"stt1b": (200, True), "stt26": (160, True), "stt1b-kv4": (160, False)}
 GRAPH_CHECK_EVERY = 100  # steps between whole-state comparisons (and at the end)
 
 
@@ -2539,7 +2585,9 @@ TTS_TEXTS = ["hello there friend", "the quick brown fox", "one two three four",
              "voices on the card", "short one", "last of the batch"]
 
 
-# Shorter texts for the 48-layer model, whose tick takes three times as long.
+# The texts of [tts202501] (tts_202501 cut to TTS202501_LAYERS layers): its eager
+# ticks (0.3-0.4 s, host-bound) are most of its phases' time, so two words a
+# session; tts-1.6b's [tts] and [graph-tts] serve TTS_TEXTS.
 TTS_SHORT_TEXTS = ["hello there", "quick fox", "one two", "good morning", "fine day", "see you"]
 
 
@@ -2701,7 +2749,8 @@ def _tts_module(tag, preset=None):
 
     path = os.path.join(ROOT, "configs", "config-tts-tpu-serving.toml")
     mod = CFG.Config.load(path).modules["tts"]
-    model = f"its lm replaced by the preset LM.{preset}()" if preset else "its own model"
+    model = (f"its lm replaced by the preset LM.{preset}() cut to {TTS202501_LAYERS} of its "
+             f"48 layers" if preset else "its own model")
     print(f"[{tag}] {os.path.relpath(path, ROOT)} with {model}: fuse_ticks "
           f"{mod.raw['fuse_ticks']} -> 1, "
           f"pipeline_depth {mod.raw['pipeline_depth']} -> 1 (the single-tick path; "
@@ -2710,7 +2759,10 @@ def _tts_module(tag, preset=None):
     mod.raw["fuse_ticks"] = 1
     mod.raw["pipeline_depth"] = 1
     if preset:
-        mod = dataclasses.replace(mod, lm=getattr(LM, preset)())
+        lm = getattr(LM, preset)()
+        lm = dataclasses.replace(lm, transformer=dataclasses.replace(
+            lm.transformer, num_layers=TTS202501_LAYERS))
+        mod = dataclasses.replace(mod, lm=lm)
     return mod
 
 
@@ -2727,13 +2779,12 @@ def _tts_voices(engine):
         for i in range(8)})
 
 
-def _tts_serve(engine, preset):
-    """The TTS workload: 12 sessions (8 with voices), wordless sessions in the
-    other slots, then 4 more sessions with voices in slots freed by closed
-    ones; every session ends, every word comes back, every frame is whole
-    and finite -> ``(sessions, second, idle, frames)``."""
+def _tts_serve(engine, texts):
+    """The TTS workload: 12 sessions (8 with voices) on ``texts``, wordless
+    sessions in the other slots, then 4 more sessions with voices in slots
+    freed by closed ones; every session ends, every word comes back, every
+    frame is whole and finite -> ``(sessions, second, idle, frames)``."""
     sessions = {}
-    texts = TTS_SHORT_TEXTS if preset else TTS_TEXTS
     for sid in range(12):
         _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions, texts=texts)
     # Wordless sessions fill the other slots (pad or end-of-word each tick),
@@ -2796,14 +2847,14 @@ def phase_tts(dev, card, preset=None):
              lm.depformer.num_slices, dcfg.d_model, dcfg.num_layers, dcfg.num_heads,
              lm.depformer.low_rank_embeddings, engine.batch_size)
     if preset:
-        check(shape == (2048, 48, 32, 64, 500, 32, 1024, 6, 16, None, 64),
-              f"not the tts_202501 B=64 config: {shape}")
+        check(shape == (2048, TTS202501_LAYERS, 32, 64, 500, 32, 1024, 6, 16, None, 64),
+              f"not the tts_202501 B=64 config at {TTS202501_LAYERS} layers: {shape}")
         ring = engine.state["lm"]["t"]["layers"][0]["k"]
         check(ring.dtype == torch.int8 and tuple(ring.shape) == (64, 32, 512, 64),
               "not the int8 ring of tts_202501")
-        check(tuple(engine._ca["k"].shape) == (48, 64, 32, 640, 64)
+        check(tuple(engine._ca["k"].shape) == (TTS202501_LAYERS, 64, 32, 640, 64)
               and engine._ca["k"].dtype == torch.int8,
-              "the voice store is not (48, 64, 32, 640, 64) int8")
+              f"the voice store is not ({TTS202501_LAYERS}, 64, 32, 640, 64) int8")
         check("low_rank" not in engine.params["lm"]["depformer"],
               "tts_202501's DepFormer has no low-rank embeddings")
     else:
@@ -2838,7 +2889,8 @@ def phase_tts(dev, card, preset=None):
         fn.launches = 0
     ticks0 = engine.step_count
     t0 = time.perf_counter()
-    sessions, second, idle, n_frames = _tts_serve(engine, preset)
+    sessions, second, idle, n_frames = _tts_serve(
+        engine, TTS_SHORT_TEXTS if preset else TTS_TEXTS)
     serve_s = time.perf_counter() - t0
     ticks = engine.step_count - ticks0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -3041,7 +3093,7 @@ def phase_tts_times(engine, dev, card, tag="tts"):
 # Ticks the captured tick is held to the eager tick over, from a state whose
 # LM ring and Mimi decoder ring (256 rows, 2 a tick) sit 40 rows before a
 # wrap; the whole state is compared every GRAPH_TTS_CHECK_EVERY ticks.
-GRAPH_TICKS = {"graph-tts": 160, "graph-tts202501": 80}  # from 40 rows before the wraps
+GRAPH_TICKS = {"graph-tts": 48, "graph-tts202501": 48}  # from 40 rows before the wraps
 # Ticks timed after a warm-up by _tts_graph_times and _duplex_graph_times (the
 # eager ticks take 0.3-1 s each).
 TICKS_WARM, TICKS_TIMED = 5, 30
@@ -3171,7 +3223,8 @@ def phase_graph_tts(dev, card, eager_log, preset=None):
 
     ticks0 = engine.step_count
     t0 = time.perf_counter()
-    sessions, second, idle, n_frames = _tts_serve(engine, preset)
+    sessions, second, idle, n_frames = _tts_serve(
+        engine, TTS_SHORT_TEXTS if preset else TTS_TEXTS)
     serve_s = time.perf_counter() - t0
     log = _tts_log({**sessions, **second}, engine.step_count - ticks0)
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -3673,7 +3726,7 @@ def phase_duplex_times(engine, dev, card, tag="duplex", brief=False):
 # whose LM ring (3,072 rows, one a tick) sits half as many rows and the codec
 # rings (256 rows, two a tick) 40 rows before a wrap; the whole state every
 # GRAPH_DUPLEX_CHECK_EVERY ticks and at the end.
-GRAPH_DUPLEX_TICKS = {"graph-duplex": 80, "graph-duplex-kv4": 40}
+GRAPH_DUPLEX_TICKS = {"graph-duplex": 48, "graph-duplex-kv4": 24, "moshi-duplex": 24}
 GRAPH_DUPLEX_CHECK_EVERY = 40
 DUPLEX_TEXT_ONLY = (3, 7)  # slots of the traffic with an ASR delay of 6
 
@@ -4386,6 +4439,7 @@ def phase_tts_serving(dev, card):
     numbers["peak_gb"] = peak
     print(f"[{tag}] peak memory of the fused engine {peak:.2f} GB reserved ({peak_alloc:.2f} "
           f"GB allocated); card {card}", flush=True)
+    _offline_synthesize_jsonl(engine, card)
     ref = BatchedTtsEngine(
         engine.cfg, engine.params, engine.mimi_cfg, engine.mimi_params, engine.tokenizer,
         batch_size=64, ca_len=engine.ca_len, cfg_enabled=engine.cfg_enabled,
@@ -4575,7 +4629,7 @@ def _single_ticks(engine, n, seed, voice, start_rings):
     return out, times
 
 
-SINGLE_TICKS, SINGLE_LM_BEFORE, SINGLE_CODEC_BEFORE = 72, 24, 16
+SINGLE_TICKS, SINGLE_LM_BEFORE, SINGLE_CODEC_BEFORE = 32, 24, 16
 
 
 def phase_tts_single(dev, card, tmp, files):
@@ -4712,6 +4766,7 @@ def phase_tts_single(dev, card, tmp, files):
           f"{SINGLE_TICKS - 3} after 3; {device_launches:.0f} device launches and "
           f"{kernel_ms!r} kernel ms a captured tick; card {card}", flush=True)
     phase_tts_path(eng, dev, tag)
+    _offline_synthesize_file(eng, tmp, card)
     del eng
     torch.cuda.empty_cache()
     return {"launches": launches, "tick_ms": stats[True], "eager_ms": stats[False],
@@ -4854,6 +4909,495 @@ def phase_tune(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The Moshi 7B family and the offline entry points
+# ---------------------------------------------------------------------------
+
+# Launches per tick of Moshi 7B in the dialogue layout (moshi_v0_1_streaming(8),
+# build_duplex's default model): 32 heads x 128 over a 3,072-row int8 ring are
+# not a shape of the fused commit, so each of the LM's 32 layers takes the split
+# pipeline; the Mimi encoder's and decoder's 8 layers rotate and commit their
+# bf16 rows.
+PER_TICK_MOSHI = {"rope_qk": 32, "quantize_commit": 32, "decode_attend": 32, "rope_commit": 16,
+                  "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
+MOSHI_RING = (24, 32, 3072, 128)
+GEN_RING = (1, 32, 3008, 128)  # cli gen's bf16 LM rings (moshi_v0_1_streaming(), B=1)
+LEGACY_RING = (2, 32, 4096, 64)  # the legacy TTS's bf16 LM rings (tts_v0_1, guidance)
+MOSHI_SINGLE_TICKS = 6  # frames the single-dialogue engine runs
+GEN_STEPS, GEN_CHUNK = 64, 16  # cli gen's steps, and the chunk held to chunk 1
+LEGACY_STEPS = 40  # steps of the legacy TTS, guidance on
+OFFLINE_SEEDED_S = 6.0  # the seeded file beside audio/speech-synthetic.wav
+# VAD probabilities of one file at B=2 and at B=1, words and steps equal.  The
+# gap is the batch shape's: [offline] holds the captured B=2 run bit for bit to
+# the eager B=2 step and the two rows of one file twice at B=2 bit for bit to
+# each other, so neither the capture nor the other row moves a row; the eager
+# B=2 and B=1 steps differ as much (bf16 products of another M take other
+# cuBLAS kernels, then 16 layers of int8-quantised activations).  0.015351004898548126
+# in four runs, NVIDIA H100 80GB HBM3, 700 W; the bar keeps a third over it.
+OFFLINE_PRS_ATOL = 2e-2
+
+
+def phase_moshi_duplex(dev, card, tmp):
+    """``build_duplex`` on a TOML whose ``type = "Lm"`` module names no
+    ``[model]``: the default, Moshi 7B in the dialogue layout
+    (``moshi_v0_1_streaming(8)``: d=4096, 32 layers of 32 heads x 128, 16
+    codebooks in, 8 generated), at full width with seeded random weights;
+    ``batch_size = 24``, ``pipeline_depth = 2``, ``kv_quant = true``,
+    ``kv_bits = 8``.  The captured engine: its kernels counted over warm-up
+    and capture (3 x PER_TICK_MOSHI), its tick timed (host ms, completion to
+    completion, busy, launches, kernel ms, peak memory), the largest batch
+    ``auto_batch_size`` fits, and the replay held to the eager tick bit for bit
+    over GRAPH_DUPLEX_TICKS["moshi-duplex"] ticks past every ring's wrap.  Then
+    the single-dialogue ``DuplexEngine`` (no ``batch_size``) on the same
+    weights: MOSHI_SINGLE_TICKS frames, every launch counted, host ms a frame.
+    Returns the numbers and the launches."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.server import builder
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.server.autoconfig import auto_batch_size, device_memory_bytes
+    from dsm_tpu_torch.server.duplex import DuplexEngine, DuplexSession
+
+    tag = "moshi-duplex"
+    path = os.path.join(tmp, "moshi-duplex.toml")
+    with open(path, "w") as f:
+        f.write('[modules.duplex]\ntype = "Lm"\npath = "/api/chat"\nbatch_size = 24\n'
+                "pipeline_depth = 2\nkv_quant = true\nkv_bits = 8\n")
+    mod = CFG.Config.load(path).modules["duplex"]
+    check(mod.lm is None and builder.duplex_model(mod) == LM.moshi_v0_1_streaming(8),
+          f"{tag}: the default model is not moshi_v0_1_streaming(8)")
+    counters = _duplex_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = builder.build_duplex(mod, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lm = engine.cfg.lm
+    tcfg = lm.transformer
+    ring = engine.state["lm"]["t"]["layers"][0]
+    check(lm == LM.moshi_v0_1_streaming(8) and engine.batch_size == 24
+          and (engine.cfg.generated_audio_codebooks, engine.cfg.input_audio_codebooks) == (8, 8)
+          and engine.pipeline_depth == 2 and engine.cuda_graph and engine.kv_quant,
+          f"{tag}: not the default model at B=24, depth 2, captured, int8 rings")
+    check(ring["k"].dtype == torch.int8 and tuple(ring["k"].shape) == MOSHI_RING
+          and len(engine.state["lm"]["t"]["layers"]) == 32,
+          f"{tag}: rings {tuple(ring['k'].shape)} {ring['k'].dtype}, not {MOSHI_RING} int8")
+    check(isinstance(engine.params["lm"]["transformer"][0]["in_proj_w"], dict),
+          f"{tag}: LM weights not int8")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 3 * n for name, n in PER_TICK_MOSHI.items()}
+    check(launches == want, f"{tag}: warm-up + capture launched {launches}, want {want}")
+    print(f"[{tag}] {os.path.basename(path)}: type = \"Lm\" with no [model] -> "
+          f"moshi_v0_1_streaming(8) (d={tcfg.d_model}, {tcfg.num_layers} layers of "
+          f"{tcfg.num_heads} x {tcfg.hd}, ff {tcfg.dim_feedforward}, context {tcfg.context}, "
+          f"{lm.audio_codebooks} codebooks in, DepFormer {lm.depformer.num_slices} slices), "
+          f"B=24, pipeline_depth 2, int8 rings {MOSHI_RING} + W8A8, bf16 codec, seeded random "
+          f"weights: built in {build_s:.2f} s ({weights_gb:.2f} GB allocated after the build), "
+          f"warm-up and capture {capture_s:.2f} s; kernel launches counted over them "
+          f"{launches} = 3 x per tick; card {card}", flush=True)
+    rope = PER_TICK_MOSHI["rope_qk"] + PER_TICK_MOSHI["rope_commit"]
+    numbers = {"graph": _duplex_graph_times(engine, tag, "captured: ", card, rope)}
+    numbers["fit"] = auto_batch_size(10 ** 6, lm, device_memory_bytes(dev))
+    print(f"[{tag}] auto_batch_size: the largest batch of this model that fits this card is "
+          f"{numbers['fit']} (24 served); card {card}", flush=True)
+    _duplex_against_eager(engine, tag, dev, seed=49)
+    params, mimi_cfg, mimi_params, tokenizer = (engine.params, engine.mimi_cfg,
+                                                engine.mimi_params, engine.tokenizer)
+    cfg = engine.cfg
+    del engine, ring
+    torch.cuda.empty_cache()
+
+    single = DuplexEngine(cfg, params, mimi_cfg, mimi_params, tokenizer, kv_quant=True,
+                          device=dev)
+    for fn in counters.values():
+        fn.launches = 0
+    sess = DuplexSession(single, seed=3)
+    pcm = _pcm(21, 0.08 * MOSHI_SINGLE_TICKS, mimi_cfg.frame_size)
+    audio, times, text_acc = [], [], []
+    for i in range(MOSHI_SINGLE_TICKS):
+        t0 = time.perf_counter()
+        sess._frame(pcm[i * mimi_cfg.frame_size:(i + 1) * mimi_cfg.frame_size], audio.append,
+                    lambda text: None, text_acc)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    single_launches = {name: fn.launches for name, fn in counters.items()}
+    decoded = MOSHI_SINGLE_TICKS - cfg.acoustic_delay
+    want = {name: MOSHI_SINGLE_TICKS * n for name, n in PER_TICK_MOSHI.items()}
+    want["rope_commit"] = 8 * (MOSHI_SINGLE_TICKS + decoded)  # decode only once a frame is out
+    check(single_launches == want, f"{tag}: single dialogue launched {single_launches}, "
+          f"want {want}")
+    check(len(audio) == decoded and all(a.shape == (1920,) and np.isfinite(a).all()
+                                        for a in audio), f"{tag}: single dialogue's audio")
+    state_ring = sess.state["lm"]["t"]["layers"][0]["k"]
+    check(tuple(state_ring.shape) == (1, 32, 3072, 128) and state_ring.dtype == torch.int8,
+          f"{tag}: the single dialogue's ring {tuple(state_ring.shape)}")
+    numbers["single_ms"] = (statistics.median(times[1:]), max(times[1:]))
+    # Which route the W8A8 sites take at one row (torch._int_mm wants more than
+    # 16): a profile of one more frame.
+    rows, wall_us = _profile(lambda: sess._frame(pcm[:mimi_cfg.frame_size], audio.append,
+                                                 lambda text: None, text_acc), 1)
+    _print_profile(f"{tag}-single-profile", "B=1 frame, eager: ", rows, wall_us, 1, "frame",
+                   card, 6)
+    int8_gemms = sorted({key for key, _, _ in rows if "s8" in key or "int8" in key})
+    check(bool(int8_gemms), f"{tag}: no int8 GEMM in the single dialogue's frame")
+    print(f"[{tag}] W8A8 at B=1: the row padded to 17, torch._int_mm's int8 GEMM kernels "
+          f"{[k[:80] for k in int8_gemms]}", flush=True)
+    print(f"[{tag}] the single-dialogue DuplexEngine (no batch_size; the same weights, int8 "
+          f"rings (1, 32, 3072, 128), eager, W8A8 through torch._int_mm with the row padded to "
+          f"its 17-row minimum): {MOSHI_SINGLE_TICKS} frames, {len(audio)} decoded; host ms a "
+          f"frame median {numbers['single_ms'][0]!r}, max {numbers['single_ms'][1]!r} (the first "
+          f"excluded); launches {single_launches}; peak memory "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved over the phase; card {card}",
+          flush=True)
+    total = {name: launches[name] + single_launches[name] for name in launches}
+    del single, sess, params, mimi_params
+    torch.cuda.empty_cache()
+    return numbers, total
+
+
+def phase_gen(dev, card, tmp):
+    """``cli gen`` at its default preset (``moshi_v0_1_streaming()``: Moshi 7B,
+    16 codebooks in, 16 slices; bf16 weights from the seed and bf16 rings
+    (1, 32, 3008, 128), B=1): ``python -m dsm_tpu_torch.cli gen --steps 2
+    --trace DIR --out-tokens FILE`` in process (its JSON line, its tokens
+    file, its Chrome trace parsed, with the card's kernels in it); then the
+    same seeded model through ``lm_gen_simple.generate`` over GEN_STEPS steps
+    at ``chunk`` 1 and GEN_CHUNK: the same tokens (and the CLI's first two),
+    every frame in range, ms a step, every launch counted."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch import cli
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.sessions import lm_gen_simple as G
+    from dsm_tpu_torch.utils.checkpoint import load_safetensors
+
+    tag = "gen"
+    counters = _duplex_counters()
+    tokens_path = os.path.join(tmp, "gen.safetensors")
+    trace_dir = os.path.join(tmp, "gen-trace")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["gen", "--steps", "2", "--seed", "0", "--trace", trace_dir,
+                       "--out-tokens", tokens_path])
+    cli_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and set(line) == {"text_tokens", "audio_frames", "codebooks"}
+          and len(line["text_tokens"]) == 2, f"{tag}: the CLI's JSON line {line}")
+    saved = load_safetensors(tokens_path)
+    check(saved.get("text_tokens").tolist() == line["text_tokens"],
+          f"{tag}: the tokens file differs from the printed tokens")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(any("rope_commit" in e.get("name", "") for e in kernels),
+          f"{tag}: the trace holds no rope_commit kernel ({len(kernels)} kernel events)")
+    print(f"[{tag}] python -m dsm_tpu_torch.cli gen --steps 2 --trace DIR --out-tokens FILE "
+          f"(default preset moshi_v0_1_streaming, --device cuda): rc 0 in {cli_s:.1f} s, its "
+          f"JSON line {line}; the tokens file read back; the Chrome trace parses: "
+          f"{len(events)} events, {len(kernels)} kernel events on the card", flush=True)
+
+    lm_cfg = LM.moshi_v0_1_streaming()
+    n = lm_cfg.generated_codebooks
+    cfg = G.GenConfig(lm=lm_cfg, audio_delays=tuple([0] + [2] * (n - 1)),
+                      text_start_token=lm_cfg.text_start_token, max_steps=GEN_STEPS + 8)
+    t0 = time.perf_counter()
+    params = {"lm": LM.init(lm_cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    runs = {}
+    for chunk in (1, GEN_CHUNK):
+        t0 = time.perf_counter()
+        runs[chunk] = G.generate(cfg, params, GEN_STEPS, seed=0, chunk=chunk)
+        runs[chunk] += ((time.perf_counter() - t0) * 1e3 / GEN_STEPS,)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    (t1, f1, ms1), (t16, f16, ms16) = runs[1], runs[GEN_CHUNK]
+    # Where a step's time goes: the f32 copies of every bf16 ring that the
+    # attention makes (attention.attend_global_split, ROADMAP queue 2 item H).
+    state = G.init_state(cfg, device=dev)
+    free = torch.full((n,), G.FREE, dtype=torch.int32, device=dev)
+    text = torch.tensor(G.FREE, dtype=torch.int32, device=dev)
+    key = G.step_keys(1, 1)[0].to(dev)
+    with torch.inference_mode():
+        rows, wall_us = _profile(lambda: G.step(cfg, params, state, key, text, free), 1)
+    kernel_ms = _print_profile(f"{tag}-profile", "B=1 step, eager: ", rows, wall_us, 1, "step",
+                               card, 6)
+    copy_ms = sum(us for key_, us, _ in rows if "direct_copy" in key_) / 1e3
+    print(f"[{tag}] a step's device time {kernel_ms!r} ms, of which direct_copy_kernel "
+          f"{copy_ms!r} ms (the f32 copies of the bf16 rings among them), "
+          f"{sum(c for _, _, c in rows):.0f} device launches; card {card}", flush=True)
+    del state
+    check(t1 == t16 and np.array_equal(f1, f16), f"{tag}: chunk 1 and {GEN_CHUNK} differ")
+    check(t1[:2] == line["text_tokens"], f"{tag}: the first tokens differ from the CLI's")
+    check(f1.shape == (GEN_STEPS - 2, n) and int(f1.min()) >= 0
+          and int(f1.max()) < lm_cfg.audio_vocab_size - 1
+          and all(0 <= t < lm_cfg.text_out_vocab_size for t in t1),
+          f"{tag}: frames {f1.shape} or tokens out of range")
+    ring = tuple(LM.init_state(lm_cfg, 1, device="meta")["t"]["layers"][0]["k"].shape)
+    check(ring == GEN_RING, f"{tag}: rings {ring}, the kernel cases hold {GEN_RING}")
+    want = {name: 0 for name in counters}
+    want["rope_commit"] = 2 * GEN_STEPS * lm_cfg.transformer.num_layers
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    print(f"[{tag}] moshi_v0_1_streaming() (the CLI's seeded bf16 weights, built in "
+          f"{build_s:.2f} s), B=1, bf16 rings {ring}: {GEN_STEPS} steps at chunk 1 and "
+          f"{GEN_CHUNK}, the same {len(t1)} text tokens and {f1.shape[0]} frames of {n} "
+          f"codebooks (the CLI's first two tokens too), every token in range; ms a step "
+          f"{ms1!r} at chunk 1, {ms16!r} at chunk {GEN_CHUNK} (one fetch a chunk); launches "
+          f"{launches}: 32 rope_commit a step, the LM's bf16 rings; peak memory "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved; card {card}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"ms": (ms1, ms16)}, launches
+
+
+def phase_tts_legacy(dev, card):
+    """The legacy T5-conditioned TTS at ``tts_v0_1`` (48 layers of 32 heads x
+    64, LayerNorm, a GELU MLP, context 4096, cross-attention; DepFormer 16 x
+    6) with seeded bf16 weights: T5-shaped states (1, 24, 768) through a
+    random ``t5_proj`` and a seeded 10 s speaker sample through Mimi v0_1's
+    encoder (``conditions``, guidance rows), then LEGACY_STEPS steps with
+    guidance on (bf16 rings (2, 32, 4096, 64)): every written frame in range,
+    ms a step, every launch counted; then ``sample`` for a few steps."""
+    import torch
+
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.models import mimi as MIMI
+    from dsm_tpu_torch.ops import sampling as S
+    from dsm_tpu_torch.ops import transformer as T
+    from dsm_tpu_torch.sessions import tts_legacy as LT
+
+    tag = "tts-legacy"
+    counters = _duplex_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_cfg, mimi_cfg = LM.tts_v0_1(), MIMI.v0_1(16)
+    cfg = LT.LegacyTtsConfig(lm=lm_cfg, mimi=mimi_cfg)
+    g = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    params = {"lm": LM.init(lm_cfg, g, dtype=torch.bfloat16),
+              "mimi": MIMI.init(mimi_cfg, g, dtype=torch.bfloat16)}
+    text_states = torch.randn(1, 24, 768, generator=g, device=dev)
+    t5_proj = torch.randn(768, lm_cfg.d_model, generator=g, device=dev) * 768 ** -0.5
+    speaker_proj = torch.randn(mimi_cfg.seanet.dimension, lm_cfg.d_model, generator=g,
+                               device=dev) * mimi_cfg.seanet.dimension ** -0.5
+    speaker = torch.from_numpy(_pcm(13, 10.0, 1920)).to(dev, torch.bfloat16)[None, None]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        src = LT.conditions(cfg, params, text_states, t5_proj, speaker, speaker_proj)
+        torch.cuda.synchronize()
+        cond_s = time.perf_counter() - t0
+        check(tuple(src.shape) == (2, 24 + 2 * 125, lm_cfg.d_model)
+              and bool(torch.isfinite(src).all()), f"{tag}: source {tuple(src.shape)}")
+        ca_kv = T.precompute_ca_kv(lm_cfg.transformer, params["lm"]["transformer"], src)
+        state = LT.init_state(cfg, 2, device=dev)
+        ring = state["lm"]["t"]["layers"][0]["k"]
+        check(tuple(ring.shape) == LEGACY_RING and ring.dtype == torch.bfloat16,
+              f"{tag}: rings {tuple(ring.shape)} {ring.dtype}")
+        for fn in counters.values():
+            fn.launches = 0
+        rng = S.prng_key(11)
+        times, eog = [], None
+        for i in range(LEGACY_STEPS):
+            rng, sub = S.split(rng.cpu())
+            t0 = time.perf_counter()
+            out, state = LT.step(cfg, params, state, sub.to(dev), ca_kv, cfg_alpha=3.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if eog is None and bool(out["end_of_gen"]):
+                eog = i
+        launches = {name: fn.launches for name, fn in counters.items()}
+        buf = state["audio_tokens"][:LEGACY_STEPS - LT.ACOUSTIC_DELAY]
+        check(bool(((buf >= 0) & (buf < lm_cfg.audio_vocab_size - 1)).all())
+              and bool((state["audio_tokens"][LEGACY_STEPS:] == LT.UNSET).all()),
+              f"{tag}: a written frame out of range")
+        want = {name: 0 for name in counters}
+        want["rope_commit"] = LEGACY_STEPS * lm_cfg.transformer.num_layers
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        t0 = time.perf_counter()
+        frames = LT.sample(cfg, params, src, seed=5, cfg_alpha=3.0, max_steps=8)
+        sample_s = time.perf_counter() - t0
+        check(frames.shape[1] == 16 and (frames < cfg.quantizer_bins).all(),
+              f"{tag}: sample gave {frames.shape}")
+    ms = statistics.median(times[2:])
+    print(f"[{tag}] tts_v0_1 (d=2048, 48 layers of 32 x 64, LayerNorm, GELU MLP, context 4096, "
+          f"cross-attention; DepFormer 16 x 6), seeded bf16 weights built in {build_s:.2f} s; "
+          f"conditions: T5-shaped states (1, 24, 768) and a 10 s speaker sample through Mimi "
+          f"v0_1 -> source {tuple(src.shape)} in {cond_s:.2f} s; {LEGACY_STEPS} steps with "
+          f"guidance (cfg_alpha 3.0, 2 rows), bf16 rings (2, 32, 4096, 64): ms a step median "
+          f"{ms!r} (min {min(times[2:])!r}, max {max(times[2:])!r}, the first 2 excluded); "
+          f"every written frame in range (end of generation first at step {eog}); launches "
+          f"{launches}; sample(max_steps=8) kept {frames.shape[0]} frames in {sample_s:.2f} s; "
+          f"peak memory {torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved; card {card}",
+          flush=True)
+    del params, state, ca_kv
+    torch.cuda.empty_cache()
+    return {"ms": ms}, launches
+
+
+def _offline_synthesize_file(engine, tmp, card):
+    """``offline.synthesize_file`` through ``[tts-single]``'s captured engine:
+    the wav written, every word back, its duration that of the samples."""
+    from dsm_tpu_torch import offline
+    from dsm_tpu_torch.utils.audio import read_wav
+
+    text = "hello there good friend"
+    out = os.path.join(tmp, "offline-tts.wav")
+    t0 = time.perf_counter()
+    res = offline.synthesize_file(text, out, engine=engine)
+    took = time.perf_counter() - t0
+    pcm, sr = read_wav(out)
+    check(sr == 24_000 and len(pcm) > 0 and res["duration_s"] == round(len(pcm) / 24_000.0, 3)
+          and [w["text"] for w in res["transcript"]] == text.split(),
+          f"[offline] synthesize_file: {res}")
+    print(f"[offline] synthesize_file through [tts-single]'s captured engine (tts-1.6b, B=1): "
+          f"{len(res['transcript'])} words, {res['duration_s']} s of audio in {took:.2f} s "
+          f"(realtime factor {res['duration_s'] / took:.2f}x); card {card}", flush=True)
+
+
+def _offline_synthesize_jsonl(engine, card):
+    """``offline.synthesize_jsonl`` on the first 3 lines of audio/tts.jsonl
+    through ``[graph-tts-serving]``'s engine (fuse 4, depth 2, captured), its
+    model loop started and stopped by the call: one wav a line, in order."""
+    from dsm_tpu_torch import offline
+    from dsm_tpu_torch.utils.audio import read_wav
+
+    with open(os.path.join(ROOT, "audio", "tts.jsonl")) as f:
+        lines = [ln for ln in f if ln.strip()][:3]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-jsonl-") as tmp:
+        src = os.path.join(tmp, "in.jsonl")
+        with open(src, "w") as f:
+            f.writelines(lines)
+        t0 = time.perf_counter()
+        manifest = offline.synthesize_jsonl(src, os.path.join(tmp, "out"), engine=engine)
+        took = time.perf_counter() - t0
+        ids = [json.loads(ln)["id"] for ln in lines]
+        check([m["id"] for m in manifest] == ids and not engine.running,
+              f"[offline] synthesize_jsonl: {manifest}")
+        for m in manifest:
+            pcm, sr = read_wav(m["out"])
+            check(sr == 24_000 and len(pcm) > 0 and m["words"] > 0
+                  and m["duration_s"] == round(len(pcm) / 24_000.0, 3),
+                  f"[offline] synthesize_jsonl: {m}")
+    print(f"[offline] synthesize_jsonl on audio/tts.jsonl's first {len(lines)} lines through "
+          f"[graph-tts-serving]'s engine (B=64, fuse 4, depth 2, captured): "
+          f"{[(m['id'], m['words'], m['duration_s']) for m in manifest]} in {took:.2f} s; "
+          f"card {card}", flush=True)
+
+
+def phase_offline(dev, card, tmp):
+    """``offline.transcribe_files`` at configs/config-stt.toml (stt-1b, int8
+    rings, W8A8, seeded random weights; ``build_asr_engine`` as ``cli stt
+    --config`` builds it) on audio/speech-synthetic.wav and a seeded
+    OFFLINE_SEEDED_S s wav: both files on the batch dimension, K = 50 frames a
+    dispatch, one captured step replayed; bit for bit the eager B=2 step,
+    and one file twice at B=2 gives two equal rows; each result equal to
+    ``transcribe_file`` of that file (B=1, captured) and to the
+    frame-at-a-time path (eager), words and VAD steps, the probabilities
+    within OFFLINE_PRS_ATOL between batch shapes and bit for bit between the
+    captured and eager B=1 paths; the realtime factor; every launch counted
+    (3 x PER_STEP a capture, PER_STEP an eager step).  The mp3 sample is
+    decoded where libmpg123 loads."""
+    import numpy as np
+    import torch
+
+    from dsm_tpu_torch import offline
+    from dsm_tpu_torch.utils import codecs
+    from dsm_tpu_torch.utils.audio import decode_audio, write_wav
+
+    tag = "offline"
+    counters = {name: _duplex_counters()[name] for name in PER_STEP}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = offline.build_asr_engine(os.path.join(ROOT, "configs", "config-stt.toml"),
+                                      device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(engine.cfg.kv_quant and engine.cfg.lm.transformer.num_layers == 16
+          and engine.batch_size == 1, f"{tag}: not the stt-1b card profile")
+    seeded = os.path.join(tmp, "seeded.wav")
+    write_wav(seeded, _pcm(17, OFFLINE_SEEDED_S, 1920), 24_000)
+    paths = [os.path.join(ROOT, "audio", "speech-synthetic.wav"), seeded]
+    audio_s = sum(len(decode_audio(p)) / 24_000.0 for p in paths)
+    t0 = time.perf_counter()
+    first = offline.transcribe_files(paths, engine=engine, vad=True)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batched = offline.transcribe_files(paths, engine=engine, vad=True)
+    batched_s = time.perf_counter() - t0
+    check(batched == first, f"{tag}: a second batched run differs from the first")
+    # Witnesses of where a B=2 row's probabilities part from B=1's: not in the
+    # capture (the eager B=2 step gives the same bits), not from the other row
+    # (one file twice: two equal rows).
+    eager2 = offline.transcribe_files(paths, engine=engine, vad=True, cuda_graph=False)
+    check(eager2 == batched, f"{tag}: the captured B=2 run differs from the eager B=2 step")
+    twin = offline.transcribe_files(paths[:1] * 2, engine=engine, vad=True)
+    check(twin[0] == twin[1], f"{tag}: one file twice at B=2 gives two different rows")
+    frames = 0
+    worst = 0.0
+    for p, r in zip(paths, batched):
+        solo = offline.transcribe_file(p, engine=engine, vad=True)
+        eager = offline.transcribe_per_frame(p, engine, vad=True)
+        check(solo == eager, f"{tag}: {os.path.basename(p)}: the captured B=1 path differs "
+              f"from the frame-at-a-time path")
+        check(r["words"] == solo["words"] and r["text"] == solo["text"]
+              and [v["step_idx"] for v in r["vad"]] == [v["step_idx"] for v in solo["vad"]],
+              f"{tag}: {os.path.basename(p)}: the batched words or steps differ")
+        diff = np.abs(np.asarray([v["prs"] for v in r["vad"]])
+                      - np.asarray([v["prs"] for v in solo["vad"]]))
+        worst = max(worst, float(diff.max()))
+        check(worst <= OFFLINE_PRS_ATOL, f"{tag}: VAD probabilities {worst!r} apart")
+        frames += len(r["vad"])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # 5 captures (a call's step lives for the call): the two B=2 runs, the
+    # twin and the two files alone; the eager B=2 run's steps and the
+    # frame-at-a-time path's frames.
+    eager_steps = max(len(r["vad"]) for r in batched) + frames
+    want = {name: (3 * 5 + eager_steps) * n for name, n in PER_STEP.items()}
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    mp3 = os.path.join(ROOT, "audio", "speech-synthetic.mp3")
+    if codecs.mp3_available():
+        mp3_note = f"decoded: {len(decode_audio(mp3)) / 24_000.0:.3f} s"
+    else:
+        mp3_note = "not decoded: libmpg123 does not load on this machine"
+    print(f"[{tag}] configs/config-stt.toml through offline.build_asr_engine ({build_s:.2f} s): "
+          f"transcribe_files on {', '.join(os.path.basename(p) for p in paths)} "
+          f"({audio_s:.3f} s of audio, {frames} frames with the flush, B=2, 50 frames a "
+          f"dispatch): {first_s:.3f} s the first call, {batched_s:.3f} s the second, each capturing "
+          f"its step (realtime factor {audio_s / batched_s:.2f}x); words {[len(r['words']) for r in batched]}; each equal to "
+          f"transcribe_file (B=1, captured) and the frame-at-a-time path (eager, bit for bit "
+          f"the captured B=1 one); the captured B=2 run bit for bit the eager B=2 step, and "
+          f"one file twice at B=2 two equal rows; VAD probabilities within {worst!r} between "
+          f"B=2 and B=1 (bar {OFFLINE_PRS_ATOL}); launches {launches} (5 captures x 3 steps + "
+          f"{eager_steps} eager steps); "
+          f"speech-synthetic.mp3 {mp3_note}; card {card}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return {"rtf": audio_s / batched_s}, launches
+
+
 def main() -> int:
     import torch
 
@@ -4948,6 +5492,13 @@ def main() -> int:
     elapsed("duplex-kv4")
     phase_graph_duplex_kv4(dev)
     elapsed("graph-duplex-kv4")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moshi-") as tmp:
+        moshi, moshi_launches = phase_moshi_duplex(dev, card, tmp)
+        elapsed("moshi-duplex")
+        gen, gen_launches = phase_gen(dev, card, tmp)
+        elapsed("gen")
+    legacy, legacy_launches = phase_tts_legacy(dev, card)
+    elapsed("tts-legacy")
     stt_serving = phase_stt_serving(dev, card)
     elapsed("graph-stt-serving")
     tts_serving = phase_tts_serving(dev, card)
@@ -4959,6 +5510,8 @@ def main() -> int:
         elapsed("tts-single")
         rooms = phase_mimi_rooms(dev, card, tmp)
         elapsed("mimi-rooms")
+        offline, offline_launches = phase_offline(dev, card, tmp)
+        elapsed("offline")
     tune_launches = phase_tune(dev)
     elapsed("tune")
     ms = kernel_times(dev, card)
@@ -4976,7 +5529,9 @@ def main() -> int:
                 "tts202501_graph": graph["tts202501"]["launches"],
                 "duplex_graph": graph["duplex"]["launches"],
                 "stt_serving": stt_serving["launches"], "tts_serving": tts_serving["launches"],
-                "tts_single": tts_single["launches"], "mimi_rooms": rooms["launches"]}
+                "tts_single": tts_single["launches"], "mimi_rooms": rooms["launches"],
+                "moshi_duplex": moshi_launches, "gen": gen_launches,
+                "tts_legacy": legacy_launches, "offline": offline_launches}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -5050,6 +5605,18 @@ def main() -> int:
           f"{tt['first_audio'][1]} frames dispatched against {tt['first_audio'][0]} "
           f"single-tick; 52-op apply_ops {tt['ops_ms']!r} ms; peak {tt['peak_gb']:.2f} GB "
           f"reserved; card {card}", flush=True)
+    mg = moshi["graph"]
+    print(f"[moshi-duplex] Moshi 7B (moshi_v0_1_streaming(8), build_duplex's default), B=24, "
+          f"captured at depth 2: tick host ms median {mg['step_ms']!r} (max {mg['max_ms']!r}), "
+          f"completion-to-completion {mg['dt_ms']!r} ms; at depth 1 device busy {mg['busy']!r}, "
+          f"{mg['launches']:.0f} device launches, kernels {mg['kernel_ms']!r} ms a tick; peak "
+          f"memory {mg['peak_gb']:.2f} GB reserved; auto_batch_size fits B={moshi['fit']}; the "
+          f"single dialogue (B=1, eager) {moshi['single_ms'][0]!r} ms a frame; card {card}",
+          flush=True)
+    print(f"[gen] cli gen's path, moshi_v0_1_streaming() B=1 bf16: {gen['ms'][0]!r} ms a step at "
+          f"chunk 1, {gen['ms'][1]!r} at chunk {GEN_CHUNK}; [tts-legacy] tts_v0_1 with guidance: "
+          f"{legacy['ms']!r} ms a step; [offline] stt-1b transcribe_files realtime factor "
+          f"{offline['rtf']!r}x; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

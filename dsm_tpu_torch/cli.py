@@ -1,19 +1,25 @@
 """The port's command line (counterpart of ``dsm_tpu/cli.py``, the
 subcommands the port serves):
 
-  worker       run the server from a TOML config, on the card by default
+  worker       run the server from a TOML config
   validate     check a config
+  stt          transcribe audio files offline
+  tts          synthesize text (or a tts.jsonl file) to wav offline
+  gen          offline generation with a model preset (token level)
   token-gen    mint a JWT for the server's auth
   auth-server  run the JWT issuance service
 
-Usage: ``python -m dsm_tpu_torch.cli <subcommand> [...]``.  The JAX CLI's
-``stt``, ``tts``, ``bench``, client, ``gen`` and ``tui`` subcommands are not
-ported (ROADMAP.md): argparse refuses them.
+Usage: ``python -m dsm_tpu_torch.cli <subcommand> [...]``; the subcommands
+that run a model take ``--device`` (``cuda`` by default, ``cpu``).  The JAX
+CLI's ``bench``, ``stt-client``, ``tts-client`` and ``tui`` subcommands are
+not ported (ROADMAP.md): argparse refuses them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
 import os
 import sys
@@ -103,6 +109,85 @@ def cmd_worker(args) -> int:
     return 0
 
 
+def cmd_stt(args) -> int:
+    """Offline transcription; several files share one batched run."""
+    from .offline import transcribe_file, transcribe_files
+
+    if len(args.audio) > 1:
+        results = transcribe_files(args.audio, config_path=args.config, vad=args.vad,
+                                   device=args.device)
+        if args.json:
+            print(json.dumps([{"path": p, **r} for p, r in zip(args.audio, results)]))
+        else:
+            for p, r in zip(args.audio, results):
+                print(f"== {p}")
+                for w in r["words"]:
+                    print(f"[{w['start_s']:7.2f}s] {w['text']}")
+        return 0
+    result = transcribe_file(args.audio[0], config_path=args.config, vad=args.vad,
+                             device=args.device)
+    if args.json:
+        print(json.dumps(result))
+    else:
+        for w in result["words"]:
+            print(f"[{w['start_s']:7.2f}s] {w['text']}")
+        print(result["text"])
+    return 0
+
+
+def cmd_tts(args) -> int:
+    """Offline synthesis of one text, or of a tts.jsonl file with ``--jsonl``."""
+    if args.jsonl:
+        from .offline import synthesize_jsonl
+
+        print(json.dumps(synthesize_jsonl(args.text, args.out, config_path=args.config,
+                                          device=args.device)))
+        return 0
+    from .offline import synthesize_file
+
+    print(json.dumps(synthesize_file(args.text, args.out, config_path=args.config,
+                                     device=args.device)))
+    return 0
+
+
+def cmd_gen(args) -> int:
+    """Offline generation with a model preset and seeded random weights
+    (moshi-cli gen): prints the text tokens and the audio frames' count;
+    ``--out-tokens`` writes both as safetensors, ``--trace`` a profile."""
+    import numpy as np
+    import torch
+
+    from .models import lm as LM
+    from .sessions import lm_gen_simple as G
+    from .utils.checkpoint import save_safetensors
+
+    device = torch.device(args.device)
+    lm_cfg = getattr(LM, args.preset)()
+    delays = (tuple([0] + [2] * (lm_cfg.generated_codebooks - 1))
+              if lm_cfg.generated_codebooks else (0,))
+    cfg = G.GenConfig(lm=lm_cfg, audio_delays=delays, text_start_token=lm_cfg.text_start_token,
+                      max_steps=args.steps + 8)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = {"lm": LM.init(lm_cfg, gen, dtype=torch.bfloat16)}
+    if args.trace:
+        from .utils.tracing import device_trace
+
+        tracer = device_trace(args.trace)
+    else:
+        tracer = contextlib.nullcontext()
+    with tracer:
+        texts, frames = G.generate(cfg, params, args.steps, seed=args.seed)
+    print(json.dumps({
+        "text_tokens": texts,
+        "audio_frames": int(frames.shape[0]),
+        "codebooks": int(frames.shape[1]) if frames.size else 0,
+    }))
+    if args.out_tokens:
+        save_safetensors(args.out_tokens, {"text_tokens": np.asarray(texts, np.int32),
+                                           "audio_tokens": frames.astype(np.int32)})
+    return 0
+
+
 def cmd_auth_server(args) -> int:
     from .server.auth_server import AuthServer
 
@@ -140,11 +225,38 @@ def main(argv=None) -> int:
     v.add_argument("config")
     v.set_defaults(fn=cmd_validate)
 
+    s = sub.add_parser("stt", help="offline transcription")
+    s.add_argument("audio", nargs="+", help="audio file(s); several share one batched run")
+    s.add_argument("--config", default=None)
+    s.add_argument("--vad", action="store_true")
+    s.add_argument("--json", action="store_true")
+    s.add_argument("--device", default="cuda", help="where the model runs (cuda, cpu)")
+    s.set_defaults(fn=cmd_stt)
+
+    t = sub.add_parser("tts", help="offline synthesis")
+    t.add_argument("text", help="text, or a tts.jsonl path with --jsonl")
+    t.add_argument("out", help="output wav, or a directory with --jsonl")
+    t.add_argument("--config", default=None)
+    t.add_argument("--jsonl", action="store_true",
+                   help="batch mode: input is the reference tts.jsonl format")
+    t.add_argument("--device", default="cuda", help="where the model runs (cuda, cpu)")
+    t.set_defaults(fn=cmd_tts)
+
     g = sub.add_parser("token-gen", help="mint a JWT")
     g.add_argument("--user", default="cli-user")
     g.add_argument("--email", default="cli@localhost")
     g.add_argument("--ttl", type=int, default=7 * 24 * 3600)
     g.set_defaults(fn=cmd_token_gen)
+
+    gn = sub.add_parser("gen", help="offline generation (token level)")
+    gn.add_argument("--preset", default="moshi_v0_1_streaming")
+    gn.add_argument("--steps", type=int, default=50)
+    gn.add_argument("--seed", type=int, default=0)
+    gn.add_argument("--out-tokens", default=None)
+    gn.add_argument("--trace", default=None,
+                    help="write a profile (Chrome trace, for Perfetto) into this dir")
+    gn.add_argument("--device", default="cuda", help="where the model runs (cuda, cpu)")
+    gn.set_defaults(fn=cmd_gen)
 
     a = sub.add_parser("auth-server", help="run the JWT issuance service")
     a.add_argument("--host", default="0.0.0.0")

@@ -7,8 +7,9 @@ the voice cross-attention for TTS), normalised, and projected to text
 logits; the semantic-VAD extra heads read the same hidden vector.  The
 DepFormer then samples the frame's audio codebooks, one slice per codebook
 (:func:`depformer_sample`, the JAX package's lean path).  Presets: the STT
-models, s2s-2b and the 48-layer TTS model tts_202501; the serving
-configurations come from the TOML (``server/config.py``).
+models, s2s-2b, the 48-layer TTS model tts_202501, the legacy TTS model
+tts_v0_1 and Moshi 7B; the serving configurations, tts-1.6b's among them,
+come from the TOML (``server/config.py``).
 
 Layout: a transformer is a list of per-layer dicts; the DepFormer's
 per-slice transformers are a list (slices) of such lists, while its other
@@ -163,6 +164,52 @@ def tts_202501() -> LmConfig:
         audio_vocab_size=2049,
         audio_codebooks=32,
     )
+
+
+def tts_v0_1() -> LmConfig:
+    """The legacy T5-conditioned TTS model (``sessions/tts_legacy.py``):
+    LayerNorm blocks, a GELU MLP without gating, cross-attention over the
+    projected text states (source width = the model's), context 4096, 32
+    heads x 64, 48 layers; 16 codebooks, audio vocab 2050 (2048 bins, the
+    end-of-generation id and the pad); no text stream out."""
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=2048, num_heads=32, num_layers=48, dim_feedforward=8192,
+            context=4096, gating=False, norm="layer_norm", cross_attention=True,
+            ca_norm="layer_norm",
+        ),
+        depformer=_depformer(16),
+        text_in_vocab_size=32001,
+        text_out_vocab_size=32001,
+        audio_vocab_size=2050,
+        audio_codebooks=16,
+    )
+
+
+def moshi_v0_1() -> LmConfig:
+    """Moshi 7B: d=4096, 32 heads x 128, 32 layers, ff 16384 (a gated hidden
+    of 11264), context 3000, rope at the default period; 8 audio codebooks
+    in, a DepFormer of 8 slices."""
+    return LmConfig(
+        transformer=T.TransformerConfig(
+            d_model=4096, num_heads=32, num_layers=32, dim_feedforward=16384,
+            context=3000,
+        ),
+        depformer=_depformer(8),
+        text_in_vocab_size=32001,
+        text_out_vocab_size=32000,
+        audio_vocab_size=2049,
+        audio_codebooks=8,
+    )
+
+
+def moshi_v0_1_streaming(num_slices: int = 16) -> LmConfig:
+    """Moshi 7B with 16 audio codebooks in and ``num_slices`` DepFormer
+    slices.  The dialogue layout (``configs/models/moshi_7b.json``: ``n_q``
+    16, ``dep_q`` 8) is ``num_slices = 8``: 8 generated codebooks beside the
+    user's 8."""
+    return dataclasses.replace(moshi_v0_1(), audio_codebooks=16,
+                               depformer=_depformer(num_slices))
 
 
 def _emb_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:

@@ -48,7 +48,7 @@ from aiohttp import WSMsgType, web
 
 from .. import __version__
 from ..sessions.asr import EndWordEvent, WordEvent
-from ..utils.audio import decode_wav_bytes, wav_bytes
+from ..utils.audio import decode_audio_bytes, wav_bytes
 from . import auth as auth_mod
 from . import metrics
 from . import protocol as proto
@@ -366,7 +366,7 @@ class App:
             pcm = np.asarray(body.get("pcm", []), np.float32)
         else:
             try:
-                pcm = decode_wav_bytes(await request.read(), 24_000)
+                pcm = decode_audio_bytes(await request.read(), 24_000)
             except Exception as e:
                 return web.json_response({"error": f"bad audio payload: {e}"}, status=400)
         loop = asyncio.get_running_loop()

@@ -297,6 +297,15 @@ def _attach_tts_extras(engine, parts: dict):
     return engine
 
 
+def duplex_model(mod: CFG.ModuleConfig) -> LM.LmConfig:
+    """The model of an ``Lm`` module: its ``[model]``, else Moshi 7B in the
+    dialogue layout of ``configs/models/moshi_7b.json`` (16 codebooks in, 8
+    generated: ``moshi_v0_1_streaming(8)``).  The JAX builder's default,
+    ``moshi_v0_1_streaming(16)``, cannot take a step: 16 generated and 8
+    input codebooks make 24 columns against its 16 embedding tables."""
+    return mod.lm or LM.moshi_v0_1_streaming(8)
+
+
 def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = None):
     """The engine for an ``Lm`` (full-duplex dialogue) module on ``device``:
     :class:`BatchedDuplexEngine` for ``batch_size > 1``, else the
@@ -323,7 +332,7 @@ def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = Non
     kv_bits = int(raw.get("kv_bits", 8))
     if kv_bits not in (8, 4):
         raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
-    lm_cfg = mod.lm or LM.s2s_2b_16rvq_202501()
+    lm_cfg = duplex_model(mod)
     if lm_cfg.depformer is None:
         raise ValueError(f"module {mod.name}: a dialogue model needs a DepFormer")
     gen_cfg = mod.generation or {}

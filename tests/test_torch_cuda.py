@@ -2574,3 +2574,81 @@ def test_safetensors_reader_maps_a_file_over_2gb(tmp_path):
     np.testing.assert_array_equal(t["tail"], tail.reshape(8, 8))
     assert isinstance(t["big"], np.memmap) and t["big"].shape == (n_big,)
     assert not t["big"][n_big - 1000:].any()
+
+
+def _cut_moshi(num_slices=16):
+    """Moshi 7B's layout (16 codebooks in, its slices, norms and rope) at
+    narrow widths."""
+    import dataclasses
+
+    from dsm_tpu_torch.models import lm as LM
+
+    full = LM.moshi_v0_1_streaming(num_slices)
+    t = dataclasses.replace(full.transformer, d_model=256, num_heads=2, num_layers=2,
+                            dim_feedforward=512, context=64)
+    d = full.depformer
+    return dataclasses.replace(
+        full, transformer=t, text_in_vocab_size=301, text_out_vocab_size=300,
+        depformer=dataclasses.replace(d, transformer=dataclasses.replace(
+            d.transformer, d_model=64, num_heads=2, num_layers=2, dim_feedforward=128)))
+
+
+@pytest.mark.cuda
+def test_generate_on_the_card_does_not_depend_on_the_chunk(cuda_device):
+    """``lm_gen_simple.generate`` on the card, bf16 weights and rings (the
+    LM's rings through ``rope_commit``): the same tokens at chunk 1, 4 and 12,
+    one rope_commit a layer and step."""
+    from dsm_tpu_torch.models import lm as LM
+    from dsm_tpu_torch.sessions import lm_gen_simple as G
+
+    lm = _cut_moshi()
+    cfg = G.GenConfig(lm=lm, audio_delays=(0,) + (2,) * 15, text_start_token=lm.text_start_token,
+                      max_steps=20)
+    params = {"lm": LM.init(lm, torch.Generator(device=cuda_device).manual_seed(0),
+                            dtype=torch.bfloat16)}
+    before = RK.rope_commit.launches
+    runs = [G.generate(cfg, params, 12, seed=5, forced_text=[7, G.ZERO], chunk=c)
+            for c in (1, 4, 12)]
+    assert RK.rope_commit.launches - before == 3 * 12 * lm.transformer.num_layers
+    for texts, frames in runs[1:]:
+        assert texts == runs[0][0] and np.array_equal(frames, runs[0][1])
+    assert runs[0][0][0] == 7 and runs[0][1].shape == (10, 16)
+
+
+@pytest.mark.cuda
+def test_offline_transcription_on_the_card_equals_the_frame_at_a_time_path(cuda_device,
+                                                                            tmp_path):
+    """``offline.transcribe_file`` (the step captured and replayed 50 frames a
+    dispatch) bit for bit the eager frame-at-a-time path, VAD steps
+    included; two files on the batch dimension give the same words, and
+    bit for bit what the eager B=2 step gives; one file twice at B=2 gives
+    two equal rows."""
+    import tomllib
+
+    from dsm_tpu_torch import offline
+    from dsm_tpu_torch.server import builder as B
+    from dsm_tpu_torch.server import config as CFG
+    from dsm_tpu_torch.utils.audio import write_wav
+
+    with open("configs/config-smoke.toml", "rb") as f:
+        raw = tomllib.load(f)
+    mod = CFG.Config.from_dict(raw).modules["asr"]
+    mod.batch_size = 1
+    engine = B.build_batched_asr(mod, cuda_device, cuda_graph=False)
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, secs in enumerate((1.5, 0.7)):
+        paths.append(str(tmp_path / f"{i}.wav"))
+        write_wav(paths[-1], rng.standard_normal(int(24_000 * secs)) * 0.2, 24_000)
+        got = offline.transcribe_file(paths[-1], engine=engine, vad=True)
+        assert got == offline.transcribe_per_frame(paths[-1], engine, vad=True)
+        frames = int(24_000 * secs) // 1920 + engine.cfg.asr_delay_in_tokens + 8
+        assert len(got["vad"]) == frames
+    batched = offline.transcribe_files(paths, engine=engine, vad=True)
+    assert batched == offline.transcribe_files(paths, engine=engine, vad=True, cuda_graph=False)
+    twin = offline.transcribe_files(paths[:1] * 2, engine=engine, vad=True)
+    assert twin[0] == twin[1]
+    for p, r in zip(paths, batched):
+        solo = offline.transcribe_file(p, engine=engine, vad=True)
+        assert r["words"] == solo["words"]
+        assert [v["step_idx"] for v in r["vad"]] == [v["step_idx"] for v in solo["vad"]]

@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax():
                 "sessions.lm_gen", "server.duplex", "server.duplex_batched",
                 "ops.qmm", "server.autoconfig", "ops.attn_tune", "tools.attn_kernel_tune",
                 "server.metrics", "server.native", "server.mimi_rooms", "server.model_presets",
-                "server.auth_server", "utils.session_log"):
+                "server.auth_server", "utils.session_log", "offline", "sessions.lm_gen_simple",
+                "sessions.tts_legacy", "utils.bench", "utils.tracing", "utils.flac",
+                "utils.codecs"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -57,7 +59,9 @@ def test_engines_import_without_the_web_packages():
         for name in ("server.builder", "server.duplex", "server.duplex_batched",
                      "server.protocol", "sessions.lm_gen", "server.autoconfig", "ops.qmm",
                      "ops.attn_tune", "tools.attn_kernel_tune", "server.metrics",
-                     "server.native", "server.mimi_rooms", "server.model_presets"):
+                     "server.native", "server.mimi_rooms", "server.model_presets", "offline",
+                     "sessions.lm_gen_simple", "sessions.tts_legacy", "utils.bench",
+                     "utils.tracing", "utils.audio"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex
         assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")

@@ -98,8 +98,8 @@ def _calls(m):
     m.ASR_CONNECT.inc()
 
 
-def test_the_same_calls_move_both_registries_alike(monkeypatch):
-    monkeypatch.setenv("MOSHI_STREAM_METRICS", "1")
+def _same_calls_check():
+    """The next test's body, run where no engine has moved either registry."""
     assert P.stream_metrics_enabled() and J.stream_metrics_enabled()
     jb, pb = _jax_samples(), _port_samples()
     _calls(J)
@@ -109,8 +109,25 @@ def test_the_same_calls_move_both_registries_alike(monkeypatch):
     assert dp[("ws_close_total", (("code", "4999"), ("reason", "unknown")))] == 1.0
     assert dp[("asr_model_step_duration_bucket", (("le", "0.02"),))] == 2.0  # 0.0 and 0.02
     assert dp[("lm_batch_utilization_bucket", (("le", "+Inf"),))] == 6.0
-    monkeypatch.setenv("MOSHI_STREAM_METRICS", "0")
-    assert not P.stream_metrics_enabled() and not J.stream_metrics_enabled()
+
+
+def test_the_same_calls_move_both_registries_alike():
+    """In a fresh interpreter: engines that other test files drive in a shared
+    process move one registry's gauges and duration sums and not the other's,
+    and a float sum's delta rounds by what the sum held before."""
+    code = textwrap.dedent("""
+        import os
+        os.environ["MOSHI_STREAM_METRICS"] = "1"
+        from tests.test_torch_metrics import J, P, _same_calls_check
+        _same_calls_check()
+        os.environ["MOSHI_STREAM_METRICS"] = "0"
+        assert not P.stream_metrics_enabled() and not J.stream_metrics_enabled()
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
 
 
 def test_render_is_the_text_exposition():
@@ -188,6 +205,10 @@ def _audio_frames(events):
 def test_asr_engine_counters_match_the_jax_engine():
     from tests import test_torch_asr_pipeline as AP
 
+    # Both gauges from no open channel, as in a fresh server: ASR engines that
+    # other test files drive in a shared process leave channels open on one side.
+    J.ASR_OPEN_CHANNELS.set(0)
+    P.ASR_OPEN_CHANNELS.set(0)
     frame, ej, et = AP._engines(1, "f32")
     out = _engine_deltas(lambda side: AP._serve(ej if side == "jax" else et, frame))
     (dj, _), (dp, _) = out["jax"], out["port"]
