@@ -43,7 +43,7 @@ lines each:
    VAD probabilities are finite, and the kernels launched exactly
    16 rope_qk + 16 quantize_scale_commit + 16 decode_attend_commit + 8
    rope_commit per step (and no scale_commit, ring_commit_q or ring_commit:
-   OFF_PATH);
+   no serving path launches them);
 5. times: engine step with all 64 slots active, its kernel profile over
    the served rings and over full, wrapped rings; then ``[stt1b-split]``: the
    stt-1b LM step at 4 layers with the fused setting off (quantize_commit +
@@ -237,6 +237,24 @@ lines each:
    its captured engine and ``synthesize_jsonl`` (audio/tts.jsonl) in
    ``[graph-tts-serving]`` on its fused engine.
 
+10. Training, after ``[tune]``, the serving engines freed: ``[train]``
+   ``train.make_train_step`` on configs/config-tts.toml's tts-1.6b at full
+   width (temporal 16 layers of d=2048; DepFormer 32 slices x 4 layers of
+   d=1024, low-rank 128), f32 weights from ``LM.init`` on a seeded generator
+   on the card, B=2 x 128 frames of seeded tokens: one step to warm up, then
+   5 steps on the same batch, every loss finite and the last below the
+   first, exactly 128 ``ring_commit`` (the DepFormer's slices into its f32
+   ring (256, 16, 32, 64)) and 128 ``ring_commit_backward`` launches a step;
+   median step ms, peak memory reserved, the parameter count.
+   ``[train-path]``: the loss and its gradient at those widths cut to 2
+   temporal layers and 4 slices through the kernels and through their plain
+   versions (the same autograd Function, plain commit and plain backward):
+   the losses equal, every gradient leaf bit for bit but the embedding
+   tables' (index accumulation with atomics: relative L2 within
+   TRAIN_EMB_REL_L2).  In the kernel phase, ``ring_commit`` at the DepFormer's
+   ring and ``ring_commit_backward`` there (f32 and bf16, rows 0, C/2, C - 1)
+   and at T = 2 rows into the codec's ring shape, bit for bit.
+
 After the paths each kernel case is timed: the kernel, its
 plain version and its library call as device time (CUDA events around calls
 queued behind a spin kernel, so the wrapper's host time stays out); beside
@@ -266,8 +284,9 @@ with another entry's kernel at other shapes or through another load path
 Before them the ``[launches]`` lines: device launches and kernel ms a step
 or tick of each path's profile beside those before the rope-and-commit
 kernels (PERF.md section 5).  The
-last three lines: the kernels' JSON (ring_commit_q, scale_commit and
-ring_commit with 0 launches: OFF_PATH), the card's name and power limit, and
+last three lines: the kernels' JSON (ring_commit_q and scale_commit with 0
+launches: OFF_PATH; ring_commit and ring_commit_backward launched by the
+training step only), the card's name and power limit, and
 ``{"ok": true,
 "device": {...}}``.  Any failed check raises.
 """
@@ -276,6 +295,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -290,6 +310,7 @@ SOURCES = {
     "scale_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "decode_attend_commit": "dsm_tpu_torch/csrc/decode_attn.cu",
     "ring_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
+    "ring_commit_backward": "dsm_tpu_torch/csrc/ring_attn.cu",
     "rope_commit": "dsm_tpu_torch/csrc/ring_attn.cu",
     "rope_qk": "dsm_tpu_torch/csrc/ring_attn.cu",
     "ca_decode_attend": "dsm_tpu_torch/csrc/ca_attn.cu",
@@ -304,6 +325,9 @@ REPLACES = {
     "scale_commit": "dsm_tpu/ops/ring_kernels.py:160",
     "decode_attend_commit": "dsm_tpu/ops/decode_attn.py:545",
     "ring_commit": "dsm_tpu/ops/ring_kernels.py:120",
+    # No Pallas kernel: the transpose of the ring commit (_ring_commit), which
+    # JAX's autodiff derives when training differentiates the DepFormer step.
+    "ring_commit_backward": "dsm_tpu/ops/transformer.py:552",
     "rope_commit": "dsm_tpu/ops/ring_kernels.py:120",
     # No Pallas kernel: the rope that XLA fuses before _ring_commit_q and _scale_commit.
     "rope_qk": "dsm_tpu/ops/attention.py:49",
@@ -313,13 +337,14 @@ REPLACES = {
     "qmm": "dsm_tpu/ops/qmm.py:42",
     "attn_tune": "tools/attn_kernel_tune.py:42",
 }
-# The literal counterparts of TPU kernels 4, 1 and 3 on rows quantised or
-# rotated already: built and held to their plain versions, but the step
-# quantises its fresh rows in the commit (quantize_commit,
-# quantize_scale_commit) and rotates them in the bf16 commit (rope_commit),
-# and launches them no more.  Their JSON entries say so, with 0 launches.
-OFF_PATH = {"ring_commit_q": "quantize_commit", "scale_commit": "quantize_scale_commit",
-            "ring_commit": "rope_commit"}
+# The literal counterparts of TPU kernels 4 and 1 on rows quantised already:
+# built and held to their plain versions, but the step quantises its fresh
+# rows in the commit (quantize_commit, quantize_scale_commit) and launches
+# them no more.  Their JSON entries say so, with 0 launches.  ring_commit, the
+# counterpart of kernel 3 on rows rotated already, no serving path launches
+# (rope_commit takes its place there); the training step launches it in the
+# DepFormer, whose slices have no rotary embedding ([train]).
+OFF_PATH = {"ring_commit_q": "quantize_commit", "scale_commit": "quantize_scale_commit"}
 # TPU kernels that the port serves with one of the kernels above at other
 # shapes: JSON name -> (wrapper, TPU kernel, the path that launches it there).
 ROUTES = {
@@ -345,7 +370,7 @@ ROUTES = {
 # scales (quantize_scale_commit) and attends over its int8 ring with the
 # fused commit; the Mimi encoder transformer's 8 layers rotate q and k and
 # commit their bf16 rows in one launch (rope_commit).  The copy kernels of
-# rows quantised or rotated already (OFF_PATH) launch no more.
+# rows quantised or rotated already launch on no serving path.
 _NONE = {"scale_commit": 0, "ring_commit_q": 0, "ring_commit": 0}
 PER_STEP = {"rope_qk": 16, "quantize_scale_commit": 16, "decode_attend_commit": 16,
             "rope_commit": 8, "quantize_commit": 0, **_NONE}
@@ -420,10 +445,12 @@ SEAM_RTOL = 1e-3
 Q4_ALONE_FULL_RTOL = {"stt26-kv4": 0.02, "duplex-kv4": 0.04}
 ROW_RTOL = 5e-2  # a freshly quantised ring row of one route against the other's
 # The case whose times stand in the kernels' JSON line: the full STT
-# rings, and the TTS serving voice source.
+# rings, and the TTS serving voice source; for ring_commit and its backward
+# the DepFormer's ring of the training step, the one path that launches them.
 HEADLINE = {"quantize_scale_commit": "stt1b int8 w=767", "quantize_commit": "stt26 int8 w=383",
             "scale_commit": "stt w=767", "decode_attend_commit": "stt pos=3000 valid=1.0",
-            "ring_commit": "w=254", "rope_commit": "stt w=254",
+            "ring_commit": "depformer f32 w=16", "rope_commit": "stt w=254",
+            "ring_commit_backward": "depformer f32 w=16",
             "rope_qk": "stt1b (64,16,1,128)", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
             "ring_commit_q": "duplex w=3071",
             "decode_attend": "duplex pos=10000 valid=1.0 split=3",
@@ -437,6 +464,17 @@ HEADLINE = {"quantize_scale_commit": "stt1b int8 w=767", "quantize_commit": "stt
             "decode_attend[(24,32,3072,128) moshi]": "moshi pos=10000 valid=1.0 split=2",
             "quantize_commit[(24,32,3072,128) moshi]": "moshi int8 w=3071",
             "attn_tune": "pos=3000 valid=0.9 bb=1"}
+# The training step ([train]): configs/config-tts.toml's tts-1.6b at full
+# width, B=2 sequences of TRAIN_FRAMES frames, TRAIN_STEPS timed steps after
+# one to warm up; the DepFormer's ring holds B * TRAIN_FRAMES rows.
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 2, 128, 5
+DEPFORMER_RING = (TRAIN_BATCH * TRAIN_FRAMES, 16, 32, 64)
+# [train-path]: the step cut to 2 temporal layers and 4 DepFormer slices.
+TRAIN_PATH_LAYERS, TRAIN_PATH_SLICES = 2, 4
+# Embedding tables: their gradient is an index accumulation (atomics on the
+# card), so two runs may sum a row's contributions in another order; every
+# other leaf of [train-path] is held bit for bit.
+TRAIN_EMB_REL_L2 = 1e-6
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -610,6 +648,55 @@ def _commit_case(name, label, kern, plain, k0, v0, kn, vn, w):
         return pk, pv
 
     return name, label, run_k, run_p, _exact, _commit_info((rk, rv), (kn, vn), w)
+
+
+def _commit_backward_case(label, gk, gv, t, w):
+    """The ring commit's backward: the kernel reads the position from the
+    card (``w + 2C``), the plain version gets ``w``.  It reads both rings'
+    gradients once and writes them once, with the new rows' gradients."""
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    pos = _tick(w + 2 * gk.shape[2], gk.device)
+    ring_bytes = gk.numel() * gk.element_size()
+    row_bytes = ring_bytes // gk.shape[2] * t
+
+    def run_k():
+        return RK.ring_commit_backward(gk, gv, pos, t)
+
+    def run_p():
+        return RK.ring_commit_backward_plain(gk, gv, w, t)
+
+    return ("ring_commit_backward", label, run_k, run_p, _exact,
+            {"bytes": 2 * (2 * ring_bytes + row_bytes), "flops": 0, "library": None})
+
+
+def _ring_backward_cases(dev, g):
+    """The DepFormer's ring in training ((B*T, 16, 32, 64) at B*T = 256, f32,
+    one row a slice): the commit, and its backward at f32 and bf16, at the
+    first, the middle and the last row; the backward at T = 2 rows into the
+    codec's ring shape (64, 8, 256, 64), f32 and bf16, at rows 0, C/2 and
+    C - 2."""
+    import torch
+
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    cases = []
+    b, h, c, dh = DEPFORMER_RING
+    kc, vc = (torch.randn(b, h, c, dh, generator=g, device=dev) for _ in range(2))
+    kn, vn = (torch.randn(b, h, 1, dh, generator=g, device=dev) for _ in range(2))
+    for w in (0, c // 2, c - 1):
+        cases.append(_commit_case("ring_commit", f"depformer f32 w={w}", RK.ring_commit,
+                                  RK.ring_commit_plain, kc, vc, kn, vn, w))
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gk, gv = kc.to(dtype), vc.to(dtype)
+        for w in (0, c // 2, c - 1):
+            cases.append(_commit_backward_case(f"depformer {name} w={w}", gk, gv, 1, w))
+        gk, gv = (torch.randn(64, 8, 256, 64, generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+        for w in (0, 128, 254):
+            cases.append(_commit_backward_case(f"T=2 (64,8,256,64) {name} w={w}", gk, gv,
+                                               2, w))
+    return cases
 
 
 def _true_mask(valid, pos, c, window):
@@ -1326,6 +1413,7 @@ def kernel_cases(dev):
     for w in (0, 40, 254):
         cases.append(_commit_case("ring_commit", f"w={w}", RK.ring_commit,
                                   RK.ring_commit_plain, kc, vc, kn, vn, w))
+    cases += _ring_backward_cases(dev, g)
     # Duplex: the same codec rings at B=24, in the encoder and the decoder
     # (phase_duplex checks the engine's rings have this shape).
     kc, vc, kn, vn = (torch.randn(*DUPLEX_MIMI_RING[:2], rows, DUPLEX_MIMI_RING[3],
@@ -2648,7 +2736,10 @@ def _profile(fn, n: int, attempts: int = 4, rope_launches=None):
     the wrappers counted in the calls (``rope_launches`` where the calls
     replay a captured graph, whose launches no wrapper counts) lost events (a
     TTS tick's profile once held none of its LM step's launches) and is taken
-    again."""
+    again.  Where every attempt holds no device event at all (CUPTI lost them
+    all: seen once, from a point of a run on), the calls are timed with CUDA
+    events instead: one row, named so, of their elapsed device time, with no
+    launch counted."""
     import torch
 
     from dsm_tpu_torch.ops import ring_kernels as RK
@@ -2676,7 +2767,22 @@ def _profile(fn, n: int, attempts: int = 4, rope_launches=None):
               f"rope launches of the calls: events lost, "
               f"{'profiled again' if attempt + 1 < attempts else 'numbers below incomplete'}",
               flush=True)
-    check(bool(rows), "the profiler saw no device time")
+    if not rows:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        rows = [("(the profiler lost every event: CUDA-event elapsed time of the calls, "
+                 "not kernel time)", start.elapsed_time(end) * 1e3, 0)]
+        print(f"[profile] the profiler held no device event in {attempts} attempts: the calls "
+              f"timed with CUDA events instead, {rows[0][1] / n / 1e3!r} ms a call (elapsed, "
+              f"idle gaps included; no launch counted)", flush=True)
+    check(rows[0][1] > 0, "no device time measured")
     return rows, wall_us
 
 
@@ -5398,6 +5504,218 @@ def phase_offline(dev, card, tmp):
     return {"rtf": audio_s / batched_s}, launches
 
 
+# ---------------------------------------------------------------------------
+# Training: the step at tts-1.6b's full width, and its path through the plain
+# versions
+# ---------------------------------------------------------------------------
+
+
+def _tts16_lm():
+    """configs/config-tts.toml's model (tts-1.6b) as the TTS builder reads it."""
+    from dsm_tpu_torch.server import config as CFG
+
+    return CFG.Config.load(os.path.join(ROOT, "configs/config-tts.toml")).modules["tts"].lm
+
+
+def _train_batch(lm_cfg, dev, seed):
+    """TRAIN_BATCH sequences of TRAIN_FRAMES frames of random tokens from a
+    seeded generator on the card: text in the output vocabulary, audio below
+    the pad token, as many audio columns as codebooks and slices need."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = max(lm_cfg.audio_codebooks, lm_cfg.generated_codebooks)
+    shape = (TRAIN_BATCH, TRAIN_FRAMES)
+    return {"text": torch.randint(0, lm_cfg.text_out_vocab_size, shape, generator=g,
+                                  device=dev, dtype=torch.int32),
+            "audio": torch.randint(0, lm_cfg.audio_vocab_size - 1, (*shape, k), generator=g,
+                                   device=dev, dtype=torch.int32)}
+
+
+def _train_counters():
+    from dsm_tpu_torch.ops import decode_attn as DA
+    from dsm_tpu_torch.ops import qmm as QM
+    from dsm_tpu_torch.ops import ring_kernels as RK
+
+    return {**_duplex_counters(), "ring_commit_backward": RK.ring_commit_backward,
+            "ca_decode_attend": DA.ca_decode_attend, "qmm": QM.qmm}
+
+
+def phase_train(dev, card):
+    """``[train]``: ``train.make_train_step`` on configs/config-tts.toml's
+    tts-1.6b at full width (temporal 16 layers of d=2048 with the voice
+    cross-attention, which the loss leaves without gradient; DepFormer 32
+    slices x 4 layers of d=1024, low-rank 128), f32 weights from
+    ``LM.init`` on a seeded generator on the card, B=2 x 128 frames of
+    seeded tokens: one step to warm up, then TRAIN_STEPS steps on the same
+    batch, each loss finite and the last below the first; exactly 128
+    ``ring_commit`` and 128 ``ring_commit_backward`` launches a step (32
+    slices x 4 layers into the (256, 16, 32, 64) f32 ring) and no other
+    counted kernel; median step ms, peak memory reserved and the parameter
+    count."""
+    import torch
+
+    from dsm_tpu_torch import train as TR
+    from dsm_tpu_torch.models import lm as LM
+
+    tag = "train"
+    counters = _train_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_cfg = _tts16_lm()
+    dep = lm_cfg.depformer
+    per_step = dep.num_slices * dep.transformer.num_layers
+    cfg = TR.TrainConfig(lm=lm_cfg)
+    t0 = time.perf_counter()
+    params = LM.init(lm_cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
+    n_params = sum(p.numel() for p in TR.leaves(params))
+    n_ca = sum(x.numel() for layer in params["transformer"] for key, p in layer.items()
+               if key.startswith("ca_") or key == "norm_cross" for x in TR.leaves(p))
+    opt = TR.make_optimizer(cfg)
+    state = opt.init(params)
+    step = TR.make_train_step(cfg, opt)
+    batch = _train_batch(lm_cfg, dev, 5)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times, aux = [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, aux = step(params, state, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = {name: 0 for name in counters}
+        want["ring_commit"] = want["ring_commit_backward"] = (i + 1) * per_step
+        check(got == want, f"{tag}: launches after step {i} {got}, want {want}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ring = DEPFORMER_RING
+    check(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[1], f"{tag}: the loss did not fall: {losses}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    # Where a step's time goes: its halves on the host's clock, then one step
+    # under the profiler (device time by kernel, launches, busy share).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss, _ = TR.loss_fn(cfg, params, batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.step(params, state)
+    torch.cuda.synchronize()
+    halves = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+    rows, wall_us = _profile(lambda: step(params, state, batch), 1, rope_launches=0)
+    kernel_ms = _print_profile(f"{tag}-profile", "", rows, wall_us, 1, "step", card, 12)
+    print(f"[{tag}-profile] loss and backward {halves[0]!r} ms, optimizer {halves[1]!r} ms "
+          f"(host clock, one step); card {card}", flush=True)
+    tf = lm_cfg.transformer
+    print(f"[{tag}] tts-1.6b (configs/config-tts.toml: temporal {tf.num_layers} layers of "
+          f"d={tf.d_model}, DepFormer "
+          f"{dep.num_slices} slices x {dep.transformer.num_layers} layers of d="
+          f"{dep.transformer.d_model}, low-rank {dep.low_rank_embeddings}), f32, {n_params:,} "
+          f"parameters ({n_params - n_ca:,} without the cross-attention, which gets no "
+          f"gradient), built with the optimizer state in {build_s:.2f} s; B={TRAIN_BATCH} x "
+          f"{TRAIN_FRAMES} frames, the DepFormer ring {ring} f32; losses {losses} (the first "
+          f"the warm-up step; text {float(aux['text_loss'])!r}, audio "
+          f"{float(aux['audio_loss'])!r} at the last); step ms median {ms!r} (min "
+          f"{min(times)!r}, max {max(times)!r}) over {TRAIN_STEPS}; launches {launches} = "
+          f"{per_step} ring_commit + {per_step} ring_commit_backward a step; peak memory "
+          f"{peak:.2f} GB reserved; card {card}", flush=True)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gb": peak, "params": n_params, "losses": losses,
+            "halves": halves, "kernel_ms": kernel_ms}, launches
+
+
+def _grads(params):
+    from dsm_tpu_torch import train as TR
+
+    out = []
+    for p in TR.leaves(params):
+        out.append(None if p.grad is None else p.grad.clone())
+        p.grad = None
+    return out
+
+
+def phase_train_path(dev, card):
+    """``[train-path]``: the loss and its gradient at tts-1.6b's widths cut to
+    TRAIN_PATH_LAYERS temporal layers and TRAIN_PATH_SLICES DepFormer slices,
+    once through the kernels and once through their plain versions
+    (``plain_seams``: the same autograd Function with the plain commit and
+    the plain backward): the losses equal, every gradient leaf bit for bit
+    but the embedding tables' (index accumulation: relative L2 within
+    TRAIN_EMB_REL_L2), both sides' launches counted."""
+    import dataclasses
+
+    import torch
+
+    from dsm_tpu_torch import train as TR
+    from dsm_tpu_torch.models import lm as LM
+
+    tag = "train-path"
+    counters = _train_counters()
+    full = _tts16_lm()
+    lm_cfg = dataclasses.replace(
+        full, transformer=dataclasses.replace(full.transformer, num_layers=TRAIN_PATH_LAYERS),
+        depformer=dataclasses.replace(full.depformer, num_slices=TRAIN_PATH_SLICES))
+    cfg = TR.TrainConfig(lm=lm_cfg)
+    params = LM.init(lm_cfg, torch.Generator(device=dev).manual_seed(3), dtype=torch.float32)
+    for p in TR.leaves(params):
+        p.requires_grad_(True)
+    batch = _train_batch(lm_cfg, dev, 9)
+    runs = []
+    for plain in (False, True):
+        for fn in counters.values():
+            fn.launches = 0
+        with plain_seams() if plain else contextlib.nullcontext():
+            loss, aux = TR.loss_fn(cfg, params, batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), _grads(params),
+                     {name: fn.launches for name, fn in counters.items()}))
+    (lk, gk, nk), (lp, gp, npl) = runs
+    per = TRAIN_PATH_SLICES * lm_cfg.depformer.transformer.num_layers
+    want = {name: 0 for name in counters}
+    check(npl == want, f"{tag}: the plain side launched {npl}")
+    want["ring_commit"] = want["ring_commit_backward"] = per
+    check(nk == want, f"{tag}: the kernels' side launched {nk}, want {want}")
+    check(bool(torch.isfinite(lk)) and torch.equal(lk, lp),
+          f"{tag}: losses {float(lk)!r} / {float(lp)!r}")
+    emb = {id(p) for key in ("text_emb", "audio_embs") for p in
+           (params[key], params["depformer"][key])}
+    n_exact = n_emb = 0
+    worst_emb = 0.0
+    for p, a, b in zip(TR.leaves(params), gk, gp):
+        check((a is None) == (b is None), f"{tag}: a leaf has a gradient on one side only")
+        if a is None:
+            continue
+        check(bool(torch.isfinite(a).all()), f"{tag}: a gradient is not finite")
+        if id(p) in emb:
+            n_emb += 1
+            worst_emb = max(worst_emb, _rel(a, b))
+            n_exact += int(torch.equal(a, b))
+        else:
+            check(torch.equal(a, b), f"{tag}: a gradient leaf {tuple(p.shape)} differs")
+    check(worst_emb <= TRAIN_EMB_REL_L2, f"{tag}: embedding gradients differ by {worst_emb!r}")
+    n_leaves = sum(a is not None for a in gk)
+    print(f"[{tag}] tts-1.6b widths at {TRAIN_PATH_LAYERS} temporal layers and "
+          f"{TRAIN_PATH_SLICES} DepFormer slices, f32, B={TRAIN_BATCH} x {TRAIN_FRAMES}: the "
+          f"loss {float(lk)!r} through the kernels and through the plain versions, equal; "
+          f"{n_leaves - n_emb} gradient leaves bit for bit, the {n_emb} embedding tables' "
+          f"relative L2 at most {worst_emb!r} (bar {TRAIN_EMB_REL_L2}; {n_exact} of them bit "
+          f"for bit); launches {nk} through the kernels, none through the plain versions; "
+          f"card {card}", flush=True)
+    del params, runs
+    torch.cuda.empty_cache()
+    return nk
+
+
 def main() -> int:
     import torch
 
@@ -5514,6 +5832,10 @@ def main() -> int:
         elapsed("offline")
     tune_launches = phase_tune(dev)
     elapsed("tune")
+    train, train_launches = phase_train(dev, card)
+    elapsed("train")
+    train_path_launches = phase_train_path(dev, card)
+    elapsed("train-path")
     ms = kernel_times(dev, card)
     elapsed("times")
     # ``launches``: the main paths' runs (each counted from 0 to its end) and
@@ -5531,7 +5853,8 @@ def main() -> int:
                 "stt_serving": stt_serving["launches"], "tts_serving": tts_serving["launches"],
                 "tts_single": tts_single["launches"], "mimi_rooms": rooms["launches"],
                 "moshi_duplex": moshi_launches, "gen": gen_launches,
-                "tts_legacy": legacy_launches, "offline": offline_launches}
+                "tts_legacy": legacy_launches, "offline": offline_launches,
+                "train": train_launches, "train_path": train_path_launches}
 
     def max_err(name, tag=""):
         return max(e for (n, label), e in errs.items() if n == name and label.startswith(tag))
@@ -5617,6 +5940,11 @@ def main() -> int:
           f"chunk 1, {gen['ms'][1]!r} at chunk {GEN_CHUNK}; [tts-legacy] tts_v0_1 with guidance: "
           f"{legacy['ms']!r} ms a step; [offline] stt-1b transcribe_files realtime factor "
           f"{offline['rtf']!r}x; card {card}", flush=True)
+    print(f"[train] tts-1.6b at full width, f32, B={TRAIN_BATCH} x {TRAIN_FRAMES} frames: "
+          f"{train['ms']!r} ms a step (median of {TRAIN_STEPS}; loss and backward "
+          f"{train['halves'][0]!r}, optimizer {train['halves'][1]!r}; kernels "
+          f"{train['kernel_ms']!r} ms), {train['params']:,} parameters, peak "
+          f"{train['peak_gb']:.2f} GB reserved; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,16 @@ subcommands the port serves):
   gen          offline generation with a model preset (token level)
   token-gen    mint a JWT for the server's auth
   auth-server  run the JWT issuance service
+  stt-client   stream a wav (or the microphone) to a server
+  tts-client   synthesize through a server, write a wav (or play it)
+  tui          terminal duplex client
 
 Usage: ``python -m dsm_tpu_torch.cli <subcommand> [...]``; the subcommands
-that run a model take ``--device`` (``cuda`` by default, ``cpu``).  The JAX
-CLI's ``bench``, ``stt-client``, ``tts-client`` and ``tui`` subcommands are
-not ported (ROADMAP.md): argparse refuses them.
+that run a model take ``--device`` (``cuda`` by default, ``cpu``).  The
+clients need ``aiohttp`` and ``msgpack``, the microphone and the speaker
+``sounddevice``; without it ``--mic`` and ``--play`` exit 2 with the error,
+as ``tui`` does without a terminal.  The JAX CLI's ``bench`` subcommand (the
+serving benchmark) is not ported yet (ROADMAP.md): argparse refuses it.
 """
 
 from __future__ import annotations
@@ -188,6 +193,126 @@ def cmd_gen(args) -> int:
     return 0
 
 
+def cmd_stt_client(args) -> int:
+    """Stream an audio file (or the microphone) to a server and print the
+    transcript (``--json``: the words with their times)."""
+    import asyncio
+
+    from .client.stt import SttClient
+
+    client = SttClient(args.url, token=args.token)
+
+    def on_event(ev):
+        if ev.type == "word" and (args.mic or args.verbose):
+            print(ev.text, end=" ", flush=True, file=sys.stderr)
+        elif args.verbose and ev.type == "step":
+            print(f"\rstep {ev.step_idx}", end="", file=sys.stderr)
+
+    if args.mic:
+        # One 80 ms frame a read, bounded by --duration; a clear error where
+        # no audio backend exists.
+        from .client.audio_io import AudioUnavailable, MicSource, require_backend
+
+        try:
+            require_backend()
+        except AudioUnavailable as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+        def frames():
+            import time as _t
+
+            try:
+                with MicSource() as mic:
+                    t_end = _t.monotonic() + args.duration if args.duration else None
+                    while t_end is None or _t.monotonic() < t_end:
+                        f = mic.read_frame()
+                        if f is None:
+                            break
+                        yield f
+            except AudioUnavailable as e:
+                raise SystemExit(f"error: {e}")
+
+        transcript = asyncio.run(client.transcribe_frames(frames(), on_event=on_event))
+        print(file=sys.stderr)
+    else:
+        if not args.audio:
+            print("error: audio file required without --mic", file=sys.stderr)
+            return 2
+        from .utils.audio import decode_audio
+
+        pcm = decode_audio(args.audio, 24_000)
+        transcript = asyncio.run(client.transcribe_pcm(pcm, rtf=args.rtf, on_event=on_event))
+    if args.json:
+        print(json.dumps({
+            "text": transcript.text,
+            "words": [{"text": w.text, "start_s": w.start_s, "stop_s": w.stop_s}
+                      for w in transcript.words],
+        }))
+    else:
+        print(transcript.text)
+    return 0
+
+
+def cmd_tts_client(args) -> int:
+    """Synthesize through a server, write the wav, print the time to first
+    audio and the realtime factor as JSON; ``--play`` plays it live."""
+    import asyncio
+
+    from .client.tts import TtsClient
+    from .utils.audio import write_wav
+
+    on_audio = None
+    sink = None
+    if args.play:
+        from .client.audio_io import AudioUnavailable, SpeakerSink
+
+        try:
+            sink = SpeakerSink().__enter__()
+        except AudioUnavailable as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        on_audio = sink.push
+    try:
+        result = asyncio.run(TtsClient(args.url, token=args.token).synthesize(
+            args.text, on_audio=on_audio))
+    finally:
+        # Close the output stream on a failure too (connection refused, a
+        # server error).
+        if sink is not None:
+            sink.__exit__(None, None, None)
+    write_wav(args.out, result.pcm, 24_000)
+    print(json.dumps({
+        "out": args.out,
+        "duration_s": round(len(result.pcm) / 24_000.0, 3),
+        "ttfb_s": result.ttfb_s,
+        "rtf": result.rtf,
+        "words": result.words,
+    }))
+    return 0
+
+
+def cmd_tui(args) -> int:
+    """Terminal duplex client; exits 2 with the error where curses finds no
+    terminal to draw on."""
+    import curses
+
+    from .client.tui import run_tui
+
+    try:
+        st = run_tui(args.url, token=args.token, wav_path=args.audio, seconds=args.seconds)
+    except curses.error as e:
+        print(f"error: the terminal UI needs a terminal: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps({
+        "transcript": st.transcript,
+        "frames_sent": st.frames_sent,
+        "frames_recv": st.frames_recv,
+        "rx_seconds": round(st.rx_seconds, 2),
+    }))
+    return 0
+
+
 def cmd_auth_server(args) -> int:
     from .server.auth_server import AuthServer
 
@@ -257,6 +382,37 @@ def main(argv=None) -> int:
                     help="write a profile (Chrome trace, for Perfetto) into this dir")
     gn.add_argument("--device", default="cuda", help="where the model runs (cuda, cpu)")
     gn.set_defaults(fn=cmd_gen)
+
+    sc = sub.add_parser("stt-client", help="stream a wav (or live mic) to a server")
+    sc.add_argument("audio", nargs="?", default=None)
+    sc.add_argument("--url", default="ws://127.0.0.1:8080/api/asr-streaming")
+    sc.add_argument("--token", default=None)
+    sc.add_argument("--rtf", type=float, default=None, help="pace upload (1.0 = realtime)")
+    sc.add_argument("--mic", action="store_true",
+                    help="capture from the default input device "
+                         "(requires the optional sounddevice backend)")
+    sc.add_argument("--duration", type=float, default=None,
+                    help="stop mic capture after N seconds")
+    sc.add_argument("--json", action="store_true")
+    sc.add_argument("--verbose", action="store_true")
+    sc.set_defaults(fn=cmd_stt_client)
+
+    tc = sub.add_parser("tts-client", help="synthesize via a server")
+    tc.add_argument("text")
+    tc.add_argument("out")
+    tc.add_argument("--url", default="ws://127.0.0.1:8080/api/tts_streaming")
+    tc.add_argument("--token", default=None)
+    tc.add_argument("--play", action="store_true",
+                    help="play audio live through the default output device "
+                         "(requires the optional sounddevice backend)")
+    tc.set_defaults(fn=cmd_tts_client)
+
+    tu = sub.add_parser("tui", help="terminal duplex client")
+    tu.add_argument("--url", default="ws://127.0.0.1:8080/api/chat")
+    tu.add_argument("--token", default=None)
+    tu.add_argument("--audio", default=None, help="WAV to stream (else silence)")
+    tu.add_argument("--seconds", type=float, default=30.0)
+    tu.set_defaults(fn=cmd_tui)
 
     a = sub.add_parser("auth-server", help="run the JWT issuance service")
     a.add_argument("--host", default="0.0.0.0")

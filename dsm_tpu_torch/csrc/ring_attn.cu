@@ -4,6 +4,9 @@
 //   dsm_ring_commit    <- dsm_tpu/ops/ring_kernels.py:_ring_commit
 //   dsm_ring_commit_q  <- dsm_tpu/ops/ring_kernels.py:_ring_commit_q
 //   dsm_scale_commit   <- dsm_tpu/ops/ring_kernels.py:_scale_commit
+// the transpose of the first, for training (no Pallas kernel: JAX's autodiff
+// derives it from dsm_tpu/ops/transformer.py:552's commit):
+//   dsm_ring_commit_backward
 // and the two kernels that serve them on the step's path, the eager work in
 // front of each commit folded in:
 //   dsm_quantize_commit <- _ring_commit_q (the rows into the rings) and
@@ -387,7 +390,57 @@ void launch_rope_commit(const RopeCommitArgs& a, int r_bytes, dim3 grid, cudaStr
   }
 }
 
+// ---------------------------------------------------------------------------
+// Ring commit backward: the gradients g (B, H, C, Dh) of the rings after a
+// commit of T rows at w -> the rings' gradients before it (rows w .. w+T-1
+// zero: the commit overwrote them) and the new rows' (B, H, T, Dh) (those
+// rows).  The incoming gradients are only read: autograd may hand the same
+// tensor to another consumer.  One thread per 16-byte unit of a ring row (Unit
+// = uint4, or narrower where the row is not a multiple of 16 bytes);
+// blockIdx.y picks K (0) or V (1).  Bytes are copied, so the split is bit for
+// bit.  C % T == 0 and w % T == 0, so the rows never wrap.
+// ---------------------------------------------------------------------------
+template <typename Unit>
+__global__ void ring_commit_backward_kernel(const Unit* __restrict__ gk,
+                                            const Unit* __restrict__ gv,
+                                            Unit* __restrict__ gk_old,
+                                            Unit* __restrict__ gv_old,
+                                            Unit* __restrict__ gk_new,
+                                            Unit* __restrict__ gv_new,
+                                            int64_t n, int t, int c, int row_units,
+                                            const int* __restrict__ pos) {
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int w = *pos % c;
+  const int u = (int)(i % row_units);
+  const int64_t row = i / row_units;
+  const int r = (int)(row % c) - w;
+  const int64_t bh = row / c;
+  const bool is_k = blockIdx.y == 0;
+  const Unit g = is_k ? gk[i] : gv[i];
+  Unit* old = is_k ? gk_old : gv_old;
+  if (r >= 0 && r < t) {
+    (is_k ? gk_new : gv_new)[(bh * t + r) * row_units + u] = g;
+    old[i] = Unit{};  // all bits zero: +0.0
+  } else {
+    old[i] = g;
+  }
+}
+
 inline unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+template <typename Unit>
+void launch_ring_commit_backward(const void* gk, const void* gv, void* gk_old, void* gv_old,
+                                 void* gk_new, void* gv_new, int64_t rows,
+                                 int64_t row_bytes, int t, int c, const int* pos,
+                                 cudaStream_t s) {
+  const int row_units = (int)(row_bytes / (int64_t)sizeof(Unit));
+  const int64_t n = rows * row_units;
+  const dim3 grid(grid_for(n), 2);
+  ring_commit_backward_kernel<Unit><<<grid, kThreads, 0, s>>>(
+      (const Unit*)gk, (const Unit*)gv, (Unit*)gk_old, (Unit*)gv_old, (Unit*)gk_new,
+      (Unit*)gv_new, n, t, c, row_units, pos);
+}
 
 }  // namespace
 
@@ -414,6 +467,33 @@ int dsm_ring_commit(void* k_cache, void* v_cache, const void* k_new,
         (const uint32_t*)v_new, n, t, c, dh, pos);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward of dsm_ring_commit: gk, gv (b, h, c, dh) read; gk_old,
+// gv_old (b, h, c, dh) and gk_new, gv_new (b, h, t, dh) written, all
+// contiguous; elem_bytes 2 (bf16) or 4 (f32); rows pos % c on.  Returns a
+// cudaError_t.
+int dsm_ring_commit_backward(const void* gk, const void* gv, void* gk_old, void* gv_old,
+                             void* gk_new, void* gv_new, int elem_bytes, long long b,
+                             int h, int t, int c, int dh, const int* pos, void* stream) {
+  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  const int64_t row_bytes = (int64_t)dh * elem_bytes;
+  const int64_t rows = (int64_t)b * h * c;
+  if (rows == 0 || row_bytes == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t align = (uintptr_t)gk | (uintptr_t)gv | (uintptr_t)gk_old |
+                          (uintptr_t)gv_old | (uintptr_t)gk_new | (uintptr_t)gv_new;
+  if (row_bytes % 16 == 0 && align % 16 == 0) {
+    launch_ring_commit_backward<uint4>(gk, gv, gk_old, gv_old, gk_new, gv_new, rows,
+                                       row_bytes, t, c, pos, s);
+  } else if (row_bytes % 4 == 0 && align % 4 == 0) {
+    launch_ring_commit_backward<uint32_t>(gk, gv, gk_old, gv_old, gk_new, gv_new, rows,
+                                          row_bytes, t, c, pos, s);
+  } else {
+    launch_ring_commit_backward<uint16_t>(gk, gv, gk_old, gv_old, gk_new, gv_new, rows,
+                                          row_bytes, t, c, pos, s);
   }
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,8 @@ _SIGNATURES = {
     # step's int32 tick (they derive w = pos % C), never a host value.
     # k_cache, v_cache, k_new, v_new, elem_bytes, b, h, t, c, dh, pos, stream
     "dsm_ring_commit": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P], _I),
+    # gk, gv, gk_old, gv_old, gk_new, gv_new, elem_bytes, b, h, t, c, dh, pos, stream
+    "dsm_ring_commit_backward": ([_P] * 6 + [_I, _LL, _I, _I, _I, _I, _P, _P], _I),
     # k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new, vs_new,
     # b, h, t, c, dh, pos, stream
     "dsm_ring_commit_q": ([_P] * 8 + [_LL, _I, _I, _I, _I, _P, _P], _I),

@@ -137,6 +137,16 @@ def check_tick(name: str, pos, device: torch.device) -> None:
         raise ValueError(f"{name}: the position is on {pos.device}, the rings on {device}")
 
 
+def no_backward(name: str, *tensors) -> None:
+    """Raise where ``name``, a kernel with no backward, is reached under
+    autograd: grad mode on and an input that requires a gradient.  Its
+    result would carry no gradient, or a wrong one, without a word."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise RuntimeError(f"{name} has no backward: call it without autograd "
+                           f"(torch.no_grad or torch.inference_mode)")
+
+
 def ring_rows(pos, c: int, t: int, device) -> torch.Tensor:
     """The ring rows ``(T,)`` int64 on ``device`` that an append of ``t``
     rows at the shared tick ``pos`` writes: ``pos % c + 0 .. t-1``.  ``pos``
@@ -300,6 +310,16 @@ def attend_global_split_q4(q, k_cache_old, v_cache_old, k_scale, v_scale,
         k_scale, v_scale, k_new, v_new, plan, valid_old, window)
 
 
+def _ring_f32(ring: torch.Tensor, dtype) -> torch.Tensor:
+    """The ring rounded to ``dtype``, in f32, for a product.  Under autograd
+    a copy where that is the ring itself (an f32 ring): the product saves
+    its operands, and the next step's commit overwrites the ring in place."""
+    x = ring.to(dtype).float()
+    if x is ring and torch.is_grad_enabled() and ring.requires_grad:
+        x = ring.clone()
+    return x
+
+
 def attend_global_split(q, k_cache_old, v_cache_old, k_new, v_new, plan,
                         valid_old, window: int):
     """Attention of ``q (B, H, T, Dh)`` over the ring plus this step's fresh
@@ -308,14 +328,15 @@ def attend_global_split(q, k_cache_old, v_cache_old, k_new, v_new, plan,
     scale = 1.0 / math.sqrt(q.shape[-1])
     c = k_cache_old.shape[2]
     scores_c = torch.einsum(
-        "bhtd,bhcd->bhtc", q.float(), k_cache_old.to(q.dtype).float()) * scale
+        "bhtd,bhcd->bhtc", q.float(), _ring_f32(k_cache_old, q.dtype)) * scale
     ok = _ring_ok(plan, valid_old, window)
     scores_c = torch.where(ok[:, None], scores_c, NEG_INF)
     scores_s = _fresh_scores(q, k_new, scale)
     probs = torch.softmax(torch.cat([scores_c, scores_s], dim=-1), dim=-1)
     pc, ps = probs[..., :c], probs[..., c:]
     out = torch.einsum(
-        "bhtc,bhcd->bhtd", pc.to(v_cache_old.dtype).float(), v_cache_old.float())
+        "bhtc,bhcd->bhtd", pc.to(v_cache_old.dtype).float(),
+        _ring_f32(v_cache_old, v_cache_old.dtype))
     out = out + torch.einsum(
         "bhts,bhsd->bhtd", ps.to(v_new.dtype).float(), v_new.float())
     return out.to(q.dtype)

@@ -31,7 +31,7 @@ import math
 import torch
 
 from . import _build
-from .attention import mul_recip
+from .attention import mul_recip, no_backward
 
 _MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
 # How far the int8-dot variants may lie from the bf16 variant, as a share of
@@ -135,6 +135,7 @@ def attn_tune(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, pos: i
     v_new (B, H, Dh)`` -> ``(B, H, Dh)``.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted in
     ``attn_tune.launches``) or raise."""
+    no_backward("attn_tune", q, k_scale, v_scale, k_new, v_new)
     fn = attn_tune_plain if k_cache.device.type == "cpu" else _launch
     return fn(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, int(pos),
               int(window), int(bb), bool(i8s), bool(i8p))

@@ -47,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import NEG_INF, check_tick, unpack4
+from .attention import NEG_INF, check_tick, no_backward, unpack4
 
 _MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
 _MAX_SMEM_OPT_IN = 232448  # an H100 block's shared memory with the opt-in
@@ -164,6 +164,7 @@ def decode_attend_commit(q, k_cache, v_cache, ks_committed, vs_committed,
     ``(y (B, H, 1, Dh), k_cache, v_cache)``, the rings being the inputs,
     updated.  On the card the ring is reduced in :func:`pick_split`'s
     spans; on the CPU in the whole-ring order."""
+    no_backward("decode_attend_commit", q, ks_committed, vs_committed, k_new, v_new)
     if q.shape[2] != 1:
         raise ValueError("decode_attend_commit takes T=1 steps")
     pos = plan["pos"]
@@ -460,6 +461,7 @@ def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
     :func:`packed_split`) is the number of spans the ring is reduced in.
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``decode_attend.launches``) or raise."""
+    no_backward("decode_attend", q, k_cache, v_cache, k_scale, v_scale, k_new, v_new)
     if q.shape[2] != 1:
         raise ValueError("decode_attend takes T=1 steps")
     b, h, c, _ = k_cache.shape
@@ -566,6 +568,7 @@ def ca_decode_attend(q, k_src, v_src, k_scale, v_scale, s_len: int) -> torch.Ten
     ``(B, H, S_pad, Dh)`` with per-row scales ``(B, H, S_pad)`` ->
     ``(B, H, 1, Dh)``.  CPU tensors take the plain version; CUDA tensors
     launch the kernel (counted in ``ca_decode_attend.launches``) or raise."""
+    no_backward("ca_decode_attend", q, k_scale, v_scale)
     if q.shape[2] != 1:
         raise ValueError("ca_decode_attend takes T=1 steps")
     q3 = q[:, :, 0, :]

@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .attention import mul_recip
+from .attention import mul_recip, no_backward
 
 _MIN_ROWS = 17
 
@@ -191,6 +191,7 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor, *,
     version; CUDA tensors launch the kernel once (counted in
     ``qmm.launches``) or raise.  ``ksplit`` (the blocks of a cluster that
     split K) defaults to :func:`qmm_tiling`'s."""
+    no_backward("qmm", x, s)
     if not supported(x, wq):
         raise ValueError(f"qmm: x {tuple(x.shape)} {x.dtype} against weight "
                          f"{tuple(wq.shape)} {wq.dtype}")

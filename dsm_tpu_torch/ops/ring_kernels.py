@@ -1,6 +1,6 @@
 """In-place KV ring commits (counterpart of ``dsm_tpu/ops/ring_kernels.py``).
 
-Seven wrappers over five kernels, CUDA C++ in ``csrc/ring_attn.cu``:
+Eight wrappers over six kernels, CUDA C++ in ``csrc/ring_attn.cu``:
 
 ``ring_commit`` replaces ``dsm_tpu/ops/ring_kernels.py:_ring_commit``: it
 writes T new K/V rows ``(B, H, T, Dh)`` into the bf16 or f32 rings
@@ -67,6 +67,17 @@ outputs to its inputs.
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors, counting the launch in its ``launches`` attribute.
+
+Training (``train.depformer_loss``) differentiates through the DepFormer's
+f32 rings.  ``ring_commit`` is an ``autograd.Function`` there (only where
+grad mode is on and a ring or a row requires a gradient; the serving paths
+never are): the rings are written in place and marked dirty, and its
+backward is ``ring_commit_backward`` (``dsm_ring_commit_backward``): the
+rings' gradient copied with rows ``w .. w+T-1`` zeroed, those rows copied
+out as the new rows' gradient, one launch for K and V.  No Pallas kernel
+stands for it: it is the transpose of ``_ring_commit`` that JAX's autodiff
+derives (``dsm_tpu/ops/transformer.py:552``).  Every other wrapper here has
+no backward and raises under autograd (``attention.no_backward``).
 """
 
 from __future__ import annotations
@@ -112,16 +123,67 @@ def _check_cuda(name: str, tensors: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+class _RingCommit(torch.autograd.Function):
+    """The bf16/f32 ring commit under autograd: the rings are written in
+    place (``mark_dirty``), and the backward splits each ring's gradient in
+    two: rows ``w .. w+T-1`` are the new rows' gradient, and the same rows
+    are zero in the gradient of the ring before the commit (they were
+    overwritten).  ``plain``: the plain commit and :func:`ring_commit_backward_plain`
+    (any device), else the two kernels."""
+
+    @staticmethod
+    def forward(ctx, k_cache, v_cache, k_new, v_new, pos, plain):
+        if plain:
+            attn.ring_write_global(k_cache, v_cache, k_new, v_new, pos)
+        else:
+            _ring_commit_launch(k_cache, v_cache, k_new, v_new, pos)
+        ctx.mark_dirty(k_cache, v_cache)
+        ctx.pos, ctx.t, ctx.plain = pos, k_new.shape[2], plain
+        return k_cache, v_cache
+
+    @staticmethod
+    def backward(ctx, grad_k, grad_v):
+        fn = ring_commit_backward_plain if ctx.plain else ring_commit_backward
+        gk_old, gv_old, gk_new, gv_new = fn(grad_k, grad_v, ctx.pos, ctx.t)
+        return gk_old, gv_old, gk_new, gv_new, None, None
+
+
 def ring_commit_plain(k_cache, v_cache, k_new, v_new, pos, ks_cache=None,
                       vs_cache=None, ks_new=None, vs_new=None) -> None:
     """Plain PyTorch version of :func:`ring_commit` (any device), with or
-    without the scale rings; ``pos`` a 0-d tensor or an int."""
+    without the scale rings; ``pos`` a 0-d tensor or an int.  Under
+    autograd (grad mode on and a tensor that requires a gradient) the bf16/f32
+    commit goes through the autograd Function with the plain backward."""
     if ks_cache is not None:
         ring_commit_q_plain(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
                             ks_new, vs_new, pos)
         return
     _check_rows(pos, k_new.shape[2], k_cache.shape[2])
+    if _needs_grad(k_cache, v_cache, k_new, v_new):
+        _RingCommit.apply(k_cache, v_cache, k_new.to(k_cache.dtype),
+                          v_new.to(v_cache.dtype), pos, True)
+        return
     attn.ring_write_global(k_cache, v_cache, k_new, v_new, pos)
+
+
+def _ring_commit_launch(k_cache, v_cache, k_new, v_new, pos) -> None:
+    b, h, t, dh = k_new.shape
+    c = k_cache.shape[2]
+    k_new = k_new.to(k_cache.dtype).contiguous()
+    v_new = v_new.to(k_cache.dtype).contiguous()
+    _check_cuda("ring_commit", {"k_cache": k_cache, "v_cache": v_cache,
+                                "k_new": k_new, "v_new": v_new})
+    err = _build.lib().dsm_ring_commit(
+        k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), k_cache.element_size(), b, h, t, c, dh, pos.data_ptr(),
+        ctypes.c_void_p(_build.stream_ptr()),
+    )
+    _build.check(err, "ring_commit")
+    ring_commit.launches += 1
 
 
 def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -130,7 +192,12 @@ def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """Write ``k_new/v_new (B, H, T, Dh)`` into the rings ``(B, H, C, Dh)``
     at rows ``pos % C`` on, in place.  With the scale rings ``ks_cache/vs_cache (B, H,
     C)`` and the fresh scales ``ks_new/vs_new (B, H, T)`` all four rings are
-    written by one launch of :func:`ring_commit_q`."""
+    written by one launch of :func:`ring_commit_q`.
+
+    Under autograd (grad mode on and a ring or a row that requires a
+    gradient: the DepFormer's rings in ``train.depformer_loss``) the bf16/f32
+    commit is differentiable: the same launch, and :func:`ring_commit_backward`
+    in the backward pass.  Otherwise nothing of autograd is touched."""
     if ks_cache is not None:
         ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new,
                       ks_new, vs_new, pos)
@@ -150,20 +217,58 @@ def ring_commit(k_cache: torch.Tensor, v_cache: torch.Tensor,
             f"ring_commit: rows {tuple(k_new.shape)} do not fit ring "
             f"{tuple(k_cache.shape)}"
         )
-    k_new = k_new.to(k_cache.dtype).contiguous()
-    v_new = v_new.to(k_cache.dtype).contiguous()
-    _check_cuda("ring_commit", {"k_cache": k_cache, "v_cache": v_cache,
-                                "k_new": k_new, "v_new": v_new})
-    err = _build.lib().dsm_ring_commit(
-        k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), k_cache.element_size(), b, h, t, c, dh, pos.data_ptr(),
-        ctypes.c_void_p(_build.stream_ptr()),
-    )
-    _build.check(err, "ring_commit")
-    ring_commit.launches += 1
+    if _needs_grad(k_cache, v_cache, k_new, v_new):
+        _RingCommit.apply(k_cache, v_cache, k_new.to(k_cache.dtype),
+                          v_new.to(v_cache.dtype), pos, False)
+        return
+    _ring_commit_launch(k_cache, v_cache, k_new, v_new, pos)
 
 
 ring_commit.launches = 0
+
+
+def ring_commit_backward_plain(grad_k, grad_v, pos, t: int):
+    """Plain PyTorch version of :func:`ring_commit_backward` (any device;
+    ``pos`` a 0-d tensor or an int)."""
+    rows = attn.ring_rows(pos, grad_k.shape[2], t, grad_k.device)
+    return (grad_k.index_fill(2, rows, 0), grad_v.index_fill(2, rows, 0),
+            grad_k.index_select(2, rows), grad_v.index_select(2, rows))
+
+
+def ring_commit_backward(grad_k: torch.Tensor, grad_v: torch.Tensor, pos: torch.Tensor,
+                         t: int):
+    """The transpose of :func:`ring_commit`: the gradients ``(B, H, C, Dh)``
+    of the K and V rings after a commit of ``t`` rows at ``w = pos % C`` ->
+    ``(gk_old, gv_old, gk_new, gv_new)``: the rings' gradients before the
+    commit (rows ``w .. w+t-1`` zero) and the new rows' ``(B, H, t, Dh)``
+    (those rows), in one launch of ``dsm_ring_commit_backward``; the
+    incoming gradients are read, not written.  CPU tensors take the plain
+    version."""
+    b, h, c, dh = grad_k.shape
+    _check_rows(pos, t, c)
+    if grad_k.device.type == "cpu":
+        return ring_commit_backward_plain(grad_k, grad_v, pos, t)
+    attn.check_tick("ring_commit_backward", pos, grad_k.device)
+    if grad_k.dtype not in (torch.bfloat16, torch.float32) or grad_v.dtype != grad_k.dtype:
+        raise ValueError(f"ring_commit_backward takes bf16 or f32 gradients, got "
+                         f"{grad_k.dtype} / {grad_v.dtype}")
+    if grad_v.shape != grad_k.shape:
+        raise ValueError("ring_commit_backward: K and V gradients differ in shape")
+    grad_k, grad_v = grad_k.contiguous(), grad_v.contiguous()
+    outs = (torch.empty_like(grad_k), torch.empty_like(grad_v),
+            grad_k.new_empty((b, h, t, dh)), grad_v.new_empty((b, h, t, dh)))
+    _check_cuda("ring_commit_backward", {"grad_k": grad_k, "grad_v": grad_v})
+    err = _build.lib().dsm_ring_commit_backward(
+        grad_k.data_ptr(), grad_v.data_ptr(), *(x.data_ptr() for x in outs),
+        grad_k.element_size(), b, h, t, c, dh, pos.data_ptr(),
+        ctypes.c_void_p(_build.stream_ptr()),
+    )
+    _build.check(err, "ring_commit_backward")
+    ring_commit_backward.launches += 1
+    return outs
+
+
+ring_commit_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +297,7 @@ def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
     in place,
     in one launch.  Packed-int4 rows and rings are uint8 with ``Dh/2`` bytes
     a row in place of ``Dh``."""
+    attn.no_backward("ring_commit_q", k_new, v_new, ks_new, vs_new)
     b, h, t, row_bytes = k_new.shape
     c = k_cache.shape[2]
     _check_pos("ring_commit_q", pos, t, c, k_cache.device)
@@ -262,6 +368,7 @@ def scale_commit(ks_cache: torch.Tensor, vs_cache: torch.Tensor,
                  ks_new: torch.Tensor, vs_new: torch.Tensor, pos: torch.Tensor) -> None:
     """Write the fresh per-row scales ``(B, H, T)`` into the f32 scale
     rings ``(B, H, C)`` at rows ``pos % C`` on, in place."""
+    attn.no_backward("scale_commit", ks_cache, vs_cache, ks_new, vs_new)
     b, h, t = ks_new.shape
     c = ks_cache.shape[2]
     _check_pos("scale_commit", pos, t, c, ks_cache.device)
@@ -362,6 +469,7 @@ def quantize_commit(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
     rings ``(B, H, C, Dh/2)``) and their scales into the f32 scale rings
     ``(B, H, C)``, all at row ``pos % C``, in place, in one launch: the split
     pipeline's ``quantize_kv_rows(_packed4)`` + :func:`ring_commit_q`."""
+    attn.no_backward("quantize_commit", k, v)
     b, h, t, dh = k.shape
     c = k_cache.shape[2]
     _check_pos("quantize_commit", pos, t, c, k_cache.device)
@@ -392,6 +500,7 @@ def quantize_scale_commit(k: torch.Tensor, v: torch.Tensor, ks_cache: torch.Tens
     in place, and return ``kq, vq (B, H, 1, Dh)`` int8, contiguous, in one
     launch: the fused pipeline's ``quantize_kv_rows`` + :func:`scale_commit`
     (``decode_attend_commit`` commits the int8 rows)."""
+    attn.no_backward("quantize_scale_commit", k, v)
     b, h, t, dh = k.shape
     _check_pos("quantize_scale_commit", pos, t, ks_cache.shape[2], ks_cache.device)
     if ks_cache.device.type == "cpu":
@@ -507,6 +616,7 @@ def rope_commit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_cache: torc
     :func:`ring_commit`.  q, k and v are read through their strides."""
     tensors = {"q": q, "k": k, "v": v, "k_cache": k_cache, "v_cache": v_cache,
                "cos": cos, "sin": sin}
+    attn.no_backward("rope_commit", *tensors.values())
     if _all_on_cpu("rope_commit", tensors):
         _check_pos("rope_commit", pos, q.shape[2], k_cache.shape[2], k_cache.device)
         return rope_commit_plain(q, k, v, k_cache, v_cache, cos, sin, pos)
@@ -523,6 +633,7 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tens
     or 1, T, Dh/2)`` and return them contiguous in q's dtype, in one launch
     of :func:`rope_commit`'s kernel without rings: the step's ``apply_rope``
     x2 before the int8 and packed-int4 commits."""
+    attn.no_backward("rope_qk", q, k, cos, sin)
     if _all_on_cpu("rope_qk", {"q": q, "k": k, "cos": cos, "sin": sin}):
         return rope_qk_plain(q, k, cos, sin)
     out = _rope_launch("rope_qk", q, k, None, None, None, cos, sin, None)

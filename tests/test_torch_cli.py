@@ -173,7 +173,8 @@ def test_worker_builds_and_starts_every_shipped_toml(toml, tmp_path, monkeypatch
 def test_module_entry_point_and_refused_subcommands():
     for argv, rc in ((["validate", "configs/config-smoke.toml"], 0), (["stt", "--help"], 0),
                      (["tts", "--help"], 0), (["gen", "--help"], 0), (["bench"], 2),
-                     (["tui"], 2), (["stt-client", "x.wav"], 2), (["auth-server", "--help"], 0),
+                     (["tui", "--help"], 0), (["stt-client", "--help"], 0),
+                     (["tts-client", "--help"], 0), (["auth-server", "--help"], 0),
                      (["worker", "--help"], 0)):
         res = subprocess.run([sys.executable, "-m", "dsm_tpu_torch.cli", *argv], cwd=ROOT,
                              capture_output=True, text=True, timeout=120, check=False)
@@ -184,6 +185,10 @@ def test_module_entry_point_and_refused_subcommands():
             assert "--device" in res.stdout
         if argv[0] == "gen":
             assert "--preset" in res.stdout and "--trace" in res.stdout
+        if argv[0] in ("stt-client", "tts-client", "tui"):  # ported with the clients
+            assert "--url" in res.stdout
+            assert {"stt-client": "--mic", "tts-client": "--play",
+                    "tui": "--seconds"}[argv[0]] in res.stdout
     res = subprocess.run([sys.executable, "-m", "dsm_tpu_torch.cli", "token-gen"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=False,
                          env={**os.environ, "BETTER_AUTH_SECRET": "s3cret"})

@@ -194,6 +194,68 @@ def test_ring_commit_kernel_matches_plain(cuda_device, dtype, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,t,w", [
+    ((256, 16, 32, 64), 1, 0), ((256, 16, 32, 64), 1, 16),  # the DepFormer's ring
+    ((256, 16, 32, 64), 1, 31), ((64, 8, 256, 64), 2, 0), ((64, 8, 256, 64), 2, 128),
+    ((64, 8, 256, 64), 2, 254),
+    ((3, 2, 8, 6), 2, 4), ((3, 2, 8, 5), 1, 7),  # rows of 12 / 20 and 10 bytes
+])
+def test_ring_commit_backward_kernel_matches_plain(cuda_device, dtype, shape, t, w):
+    """The gradients split bit for bit as the plain version splits them (the
+    incoming gradients untouched), one launch; a wrapped position."""
+    g = torch.Generator(device=cuda_device).manual_seed(w + t)
+    gk, gv = (torch.randn(*shape, generator=g, device=cuda_device).to(dtype) for _ in range(2))
+    gk[0, 0, w] = float("nan")  # NaN bits and signed zeros are copied, not computed
+    gv[0, 0, w] = -0.0
+    keep = gk.clone(), gv.clone()
+    before = RK.ring_commit_backward.launches
+    got = RK.ring_commit_backward(gk, gv, tick(w + 2 * shape[2], cuda_device), t)
+    want = RK.ring_commit_backward_plain(gk, gv, w, t)
+    torch.cuda.synchronize()
+    assert RK.ring_commit_backward.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(gk.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       keep[0].view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(gv, keep[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_commit_under_autograd_launches_both_kernels(cuda_device, dtype):
+    """The commit under autograd on the card: the forward kernel once a
+    commit, the backward kernel once a commit in the backward pass, the
+    gradients bit for bit those of the plain Function."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    base = torch.randn(4, 2, 32, 8, generator=g, device=cuda_device).to(dtype)
+    rows = [torch.randn(4, 2, 1, 8, generator=g, device=cuda_device).to(dtype)
+            for _ in range(6)]
+    weight = torch.randn(4, 2, 32, 8, generator=g, device=cuda_device)
+
+    def run(commit):
+        leaf = base.clone().requires_grad_(True)
+        news = [x.clone().requires_grad_(True) for x in rows]
+        k, v = leaf * 1, leaf * 2
+        loss = 0
+        for i in range(3):
+            commit(k, v, news[2 * i], news[2 * i + 1], tick(i, cuda_device))
+            loss = loss + (k.float() * weight).sum() * (i + 1) + (v.float() * weight).sum()
+        loss.backward()
+        return [leaf.grad] + [x.grad for x in news]
+
+    before = RK.ring_commit.launches, RK.ring_commit_backward.launches
+    got = run(RK.ring_commit)
+    torch.cuda.synchronize()
+    assert (RK.ring_commit.launches - before[0], RK.ring_commit_backward.launches - before[1]) \
+        == (3, 3)
+    for a, b in zip(got, run(RK.ring_commit_plain)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C,w", [
     (768, 0), (768, 5), (768, 767),  # stt-1b scale rings
     (1024, 0), (1024, 1023),         # tts-1.6b scale rings

@@ -30,11 +30,13 @@ def test_every_module_imports_without_jax():
                 "server.metrics", "server.native", "server.mimi_rooms", "server.model_presets",
                 "server.auth_server", "utils.session_log", "offline", "sessions.lm_gen_simple",
                 "sessions.tts_legacy", "utils.bench", "utils.tracing", "utils.flac",
-                "utils.codecs"):
+                "utils.codecs", "train", "client", "client.audio_io", "client.stt",
+                "client.tts", "client.tui"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None  # any import of jax now raises
+        sys.modules["optax"] = None
         for name in {names!r}:
             importlib.import_module(name)
         leaked = sorted(m for m in sys.modules
@@ -61,7 +63,8 @@ def test_engines_import_without_the_web_packages():
                      "ops.attn_tune", "tools.attn_kernel_tune", "server.metrics",
                      "server.native", "server.mimi_rooms", "server.model_presets", "offline",
                      "sessions.lm_gen_simple", "sessions.tts_legacy", "utils.bench",
-                     "utils.tracing", "utils.audio"):
+                     "utils.tracing", "utils.audio", "train", "client", "client.audio_io",
+                     "client.stt", "client.tts", "client.tui"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex
         assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")
@@ -86,7 +89,7 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 
 def test_no_file_of_the_port_names_jax_or_reads_the_environment_for_routing():
-    """No ``import jax`` / ``from jax`` / ``dsm_tpu`` import in any file of
+    """No ``import jax`` / ``from jax`` / ``optax`` / ``dsm_tpu`` import in any file of
     the port, and no environment variable read in the modules that route
     (ops, models, sessions, tools, the engines and ``server/builder.py``)."""
     pkg = os.path.dirname(dsm_tpu_torch.__file__)
@@ -105,6 +108,7 @@ def test_no_file_of_the_port_names_jax_or_reads_the_environment_for_routing():
                     target = stripped.split()[1]
                     assert target != "jax" and not target.startswith("jax."), (path, line)
                     assert target != "dsm_tpu" and not target.startswith("dsm_tpu."), (path, line)
+                    assert target != "optax" and not target.startswith("optax."), (path, line)
             rel = os.path.relpath(path, pkg)
             if rel.split(os.sep)[0] in ("ops", "models", "sessions", "tools") or rel in (
                     "server/builder.py", "server/duplex_batched.py", "server/batched_asr.py",
