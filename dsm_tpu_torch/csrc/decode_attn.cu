@@ -141,6 +141,7 @@
 
 #include <map>
 #include <mutex>
+#include <set>
 #include <utility>
 
 #include "attn_common.cuh"
@@ -1089,11 +1090,22 @@ cudaError_t launch_fold(unsigned bh, cudaStream_t s, const void* q, const void* 
                             (const int8_t*)vq_new, h, c, kv_sb, kv_sh, pos);
 }
 
+// Shared memory beyond the 48 KB default for decode_attend_staged_kernel<DH>
+// on the current card: the attribute is the device's, so it is set once for
+// each device, and kept in a set under a lock (engines launch from threads of
+// their own), as q4_resident keeps its table.
 template <int DH>
 cudaError_t staged_opt_in() {
-  // Once per template instance: shared memory beyond the 48 KB default.
-  static const cudaError_t err = cudaFuncSetAttribute(
-      decode_attend_staged_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  static std::mutex lock;
+  static std::set<int> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  if (done.count(dev)) return cudaSuccess;
+  err = cudaFuncSetAttribute(decode_attend_staged_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (err == cudaSuccess) done.insert(dev);
   return err;
 }
 

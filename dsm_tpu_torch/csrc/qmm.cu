@@ -83,6 +83,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+
 #include "tma_common.cuh"
 
 namespace {
@@ -509,11 +512,21 @@ bool qmm_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, long 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Shared memory beyond the 48 KB default for qmm_kernel<NT> on the current
+// card: the attribute is the device's, so it is set once for each device,
+// and kept in a set under a lock (engines launch from threads of their own).
 template <int NT>
 cudaError_t qmm_opt_in() {
-  // Once per template instance: shared memory beyond the 48 KB default.
-  static const cudaError_t err = cudaFuncSetAttribute(
-      qmm_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, QmLayout<NT>::kBytes);
+  static std::mutex lock;
+  static std::set<int> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  if (done.count(dev)) return cudaSuccess;
+  err = cudaFuncSetAttribute(qmm_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             QmLayout<NT>::kBytes);
+  if (err == cudaSuccess) done.insert(dev);
   return err;
 }
 

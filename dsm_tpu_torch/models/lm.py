@@ -343,7 +343,7 @@ def depformer_sample(cfg: LmConfig, params: dict, hidden: torch.Tensor,
                      text_token: torch.Tensor, forced_next: torch.Tensor,
                      key: Optional[torch.Tensor], samp: S.SamplingConfig,
                      cfg_alpha=None, temperature: Optional[torch.Tensor] = None,
-                     slot_keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     slot_keys: Optional[torch.Tensor] = None, row0: int = 0) -> torch.Tensor:
     """Sample every audio codebook of the frame -> ``tokens (B, S)`` int32.
 
     ``hidden (B, D)``: the temporal transformer's output; ``text_token
@@ -356,7 +356,9 @@ def depformer_sample(cfg: LmConfig, params: dict, hidden: torch.Tensor,
     Gumbel noise for all slices is made in one pass before the chain, since
     it depends on the keys alone.  Without slot keys, slice ``i`` draws
     with ``split(key, S)[i]``, its noise too made for every slice at once
-    where the temperature is one for all rows."""
+    where the temperature is one for all rows; ``row0``: the drawing rows
+    are rows ``row0 ..`` of a larger batch's draw (a dp shard's,
+    ``ops/sampling.random_bits``)."""
     dp = params["depformer"]
     dep = cfg.depformer
     dcfg = dep.transformer
@@ -381,13 +383,13 @@ def depformer_sample(cfg: LmConfig, params: dict, hidden: torch.Tensor,
         keys = S.split(key, n_slices)
         if temperature is None and samp.temperature > 0.0:
             # Every slice's draws in one pass, as slice by slice (the same bits).
-            noise = S.gumbel(keys, (n_draw, v_out))  # (S, B', V)
+            noise = S.gumbel(keys, (n_draw, v_out), row0)  # (S, B', V)
 
     def draw(logits, i):
         if slot_keys is not None:
             return S.sample_per_slot(logits, None, t_rows, samp.top_k, noise=noise[i])
         if temperature is not None:
-            return S.sample_dynamic(logits, keys[i], temperature[:n_draw], samp.top_k)
+            return S.sample_dynamic(logits, keys[i], temperature[:n_draw], samp.top_k, row0)
         return S.sample_with_noise(samp, logits, None if noise is None else noise[i])
 
     def combine_and_sample(logits, i):

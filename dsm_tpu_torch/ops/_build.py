@@ -168,7 +168,25 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def stream_ptr() -> int:
+def stream_ptr(device) -> int:
+    """The current stream of ``device`` (a ``torch.device`` or index): the
+    stream a kernel on that device's tensors goes to, whichever device is
+    current."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(fn, device, *args) -> int:
+    """Call the library's launch function ``fn`` with ``args`` and the
+    current stream of ``device`` last, with ``device`` current (the card the
+    kernel runs on; switched to only when another is current) -> its CUDA
+    error code.  Every wrapper launches through here with its tensors'
+    device."""
+    import torch
+
+    stream = ctypes.c_void_p(stream_ptr(device))
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)

@@ -25,7 +25,6 @@ int8 rings ``(B, H, C, Dh)`` of up to 11,264 rows; anything else raises.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -116,11 +115,11 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, pos: int
     if lib.dsm_attn_tune_smem_bytes(c, dh) > _MAX_SMEM:
         raise ValueError(f"attn_tune: ring of {c} rows exceeds shared memory")
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
-    err = lib.dsm_attn_tune(
+    err = _build.launch(lib.dsm_attn_tune, q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
         out.data_ptr(), b, h, c, dh, bb, int(i8s), int(i8p), pos, window,
-        1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
+        1.0 / math.sqrt(dh),
     )
     _build.check(err, "attn_tune")
     attn_tune.launches += 1

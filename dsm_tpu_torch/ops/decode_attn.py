@@ -39,7 +39,6 @@ may opt in to (some 50,000 rows); anything else raises.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Optional, Tuple
@@ -142,12 +141,11 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, kq_new, vq_new, k_new, v_new,
         raise ValueError(f"decode_attend_commit: spans of {span} rows exceed shared memory")
     part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
-    err = lib.dsm_decode_attend_commit(
+    err = _build.launch(lib.dsm_decode_attend_commit, q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), kq_new.data_ptr(), vq_new.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(), part.data_ptr(),
         out.data_ptr(), b, h, c, dh, n_split, pos.data_ptr(), window, 1.0 / math.sqrt(dh),
-        ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "decode_attend_commit")
     decode_attend_commit.launches += 1
@@ -438,13 +436,13 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
     if not packed4 or n_split > 1:
         part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
-    err = lib.dsm_decode_attend(
+    err = _build.launch(lib.dsm_decode_attend, q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), valid.data_ptr(),
         None if part is None else part.data_ptr(), out.data_ptr(), b, h, c, dh, int(packed4),
         n_split, k_cache.stride(0),
         k_cache.stride(1), k_scale.stride(0), k_scale.stride(1), pos.data_ptr(), window,
-        1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
+        1.0 / math.sqrt(dh),
     )
     _build.check(err, "decode_attend")
     decode_attend.launches += 1
@@ -552,11 +550,11 @@ def _ca_launch(q, k_src, v_src, k_scale, v_scale, s_len: int) -> torch.Tensor:
     if lib.dsm_ca_decode_attend_smem_bytes(s_len, dh) > _MAX_SMEM:
         raise ValueError(f"ca_decode_attend: {s_len} rows exceed shared memory")
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
-    err = lib.dsm_ca_decode_attend(
+    err = _build.launch(lib.dsm_ca_decode_attend, q.device,
         q.data_ptr(), k_src.data_ptr(), v_src.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), b, h, s_len, dh, q.stride(0),
         q.stride(1), k_src.stride(0), k_src.stride(1), k_scale.stride(0),
-        k_scale.stride(1), 1.0 / math.sqrt(dh), ctypes.c_void_p(_build.stream_ptr()),
+        k_scale.stride(1), 1.0 / math.sqrt(dh),
     )
     _build.check(err, "ca_decode_attend")
     ca_decode_attend.launches += 1

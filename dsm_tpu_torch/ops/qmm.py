@@ -29,7 +29,6 @@ unchanged.  A K or N that is not a multiple of 8 raises.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -176,9 +175,9 @@ def _launch(x2: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
     out = torch.empty((m, o), dtype=torch.bfloat16, device=x2.device)
     if m == 0 or o == 0:
         return out
-    err = _build.lib().dsm_qmm(
+    err = _build.launch(_build.lib().dsm_qmm, x2.device,
         x2.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr(), m, o, i, wq.stride(0),
-        ksplit, ctypes.c_void_p(_build.stream_ptr()))
+        ksplit)
     _build.check(err, "qmm")
     qmm.launches += 1
     return out

@@ -82,7 +82,6 @@ no backward and raises under autograd (``attention.no_backward``).
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -177,10 +176,9 @@ def _ring_commit_launch(k_cache, v_cache, k_new, v_new, pos) -> None:
     v_new = v_new.to(k_cache.dtype).contiguous()
     _check_cuda("ring_commit", {"k_cache": k_cache, "v_cache": v_cache,
                                 "k_new": k_new, "v_new": v_new})
-    err = _build.lib().dsm_ring_commit(
+    err = _build.launch(_build.lib().dsm_ring_commit, k_cache.device,
         k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), k_cache.element_size(), b, h, t, c, dh, pos.data_ptr(),
-        ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "ring_commit")
     ring_commit.launches += 1
@@ -258,10 +256,9 @@ def ring_commit_backward(grad_k: torch.Tensor, grad_v: torch.Tensor, pos: torch.
     outs = (torch.empty_like(grad_k), torch.empty_like(grad_v),
             grad_k.new_empty((b, h, t, dh)), grad_v.new_empty((b, h, t, dh)))
     _check_cuda("ring_commit_backward", {"grad_k": grad_k, "grad_v": grad_v})
-    err = _build.lib().dsm_ring_commit_backward(
+    err = _build.launch(_build.lib().dsm_ring_commit_backward, grad_k.device,
         grad_k.data_ptr(), grad_v.data_ptr(), *(x.data_ptr() for x in outs),
         grad_k.element_size(), b, h, t, c, dh, pos.data_ptr(),
-        ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "ring_commit_backward")
     ring_commit_backward.launches += 1
@@ -336,11 +333,10 @@ def ring_commit_q(k_cache, v_cache, ks_cache, vs_cache, k_new, v_new, ks_new,
     for label, x in tensors.items():
         if x.data_ptr() % 4:
             raise ValueError(f"ring_commit_q: {label} is not 4-byte aligned")
-    err = _build.lib().dsm_ring_commit_q(
+    err = _build.launch(_build.lib().dsm_ring_commit_q, k_cache.device,
         k_cache.data_ptr(), v_cache.data_ptr(), ks_cache.data_ptr(),
         vs_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         ks_new.data_ptr(), vs_new.data_ptr(), b, h, t, c, row_bytes, pos.data_ptr(),
-        ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, "ring_commit_q")
     ring_commit_q.launches += 1
@@ -387,9 +383,9 @@ def scale_commit(ks_cache: torch.Tensor, vs_cache: torch.Tensor,
     vs_new = vs_new.float().contiguous()
     _check_cuda("scale_commit", {"ks_cache": ks_cache, "vs_cache": vs_cache,
                                  "ks_new": ks_new, "vs_new": vs_new})
-    err = _build.lib().dsm_scale_commit(
+    err = _build.launch(_build.lib().dsm_scale_commit, ks_cache.device,
         ks_cache.data_ptr(), vs_cache.data_ptr(), ks_new.data_ptr(),
-        vs_new.data_ptr(), b, h, t, c, pos.data_ptr(), ctypes.c_void_p(_build.stream_ptr()),
+        vs_new.data_ptr(), b, h, t, c, pos.data_ptr(),
     )
     _build.check(err, "scale_commit")
     scale_commit.launches += 1
@@ -453,10 +449,10 @@ def _quantize_launch(name, k, v, kq_ptr, vq_ptr, q_pane, q_row, ks_cache, vs_cac
         if x.stride(3) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
             raise ValueError(f"{name}: the rows of {label} are not contiguous on 16 bytes "
                              f"(strides {x.stride()})")
-    err = _build.lib().dsm_quantize_commit(
+    err = _build.launch(_build.lib().dsm_quantize_commit, k.device,
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         kq_ptr, vq_ptr, q_pane, q_row, ks_cache.data_ptr(), vs_cache.data_ptr(),
-        b, h, c, dh, int(packed4), pos.data_ptr(), ctypes.c_void_p(_build.stream_ptr()),
+        b, h, c, dh, int(packed4), pos.data_ptr(),
     )
     _build.check(err, name)
 
@@ -591,7 +587,7 @@ def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, pos):
     q_out = torch.empty((b, h, t, dh), dtype=q.dtype, device=q.device)
     k_out = torch.empty_like(q_out)
     strides = [s for x in (q, k, v if v is not None else k) for s in x.stride()[:3]]
-    err = _build.lib().dsm_rope_commit(
+    err = _build.launch(_build.lib().dsm_rope_commit, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr() if v is not None else None, *strides,
         cos.data_ptr(), sin.data_ptr(), 0 if cos.shape[0] == 1 else t * (dh // 2),
         q_out.data_ptr(), k_out.data_ptr(),
@@ -599,7 +595,6 @@ def _rope_launch(name, q, k, v, k_cache, v_cache, cos, sin, pos):
         v_cache.data_ptr() if v_cache is not None else None,
         b, h, t, dh, c, pos.data_ptr() if pos is not None else None, q.element_size(),
         k_cache.element_size() if k_cache is not None else 2,
-        ctypes.c_void_p(_build.stream_ptr()),
     )
     _build.check(err, name)
     return q_out, k_out

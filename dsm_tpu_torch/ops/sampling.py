@@ -93,15 +93,20 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, shape, row0: int = 0) -> torch.Tensor:
     """32 random bits per element of ``shape`` for each key of ``keys
     (..., 2)``: ``(..., *shape)`` int64 holding uint32, each key's draw
-    being ``jax.random.bits(key, shape)``."""
+    being ``jax.random.bits(key, shape)``.  ``row0``: the draw is rows
+    ``row0 ..`` of a draw with more rows (the leading dim of ``shape``): a
+    dp shard's rows of the batch's draw, the bits of the partitionable form
+    depending on the flat index alone."""
     shape = tuple(shape)
     n = 1
     for s in shape:
         n *= s
     i = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(shape)
+    if row0:
+        i = i + row0 * (n // shape[0])
     lead = keys.shape[:-1]
     k0 = keys[..., 0].reshape(*lead, *([1] * len(shape)))
     k1 = keys[..., 1].reshape(*lead, *([1] * len(shape)))
@@ -155,10 +160,11 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     return torch.where((x < 0) | torch.isnan(x), float("nan"), out)
 
 
-def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(keys: torch.Tensor, shape, row0: int = 0) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` (mode "low") for each key
-    of ``keys (..., 2)`` -> ``(..., *shape)`` f32."""
-    bits = random_bits(keys, shape)
+    of ``keys (..., 2)`` -> ``(..., *shape)`` f32; ``row0`` as
+    :func:`random_bits`'s."""
+    bits = random_bits(keys, shape, row0)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)  # < 2^31: no overflow
     u = mant.view(torch.float32) - 1.0
     u = torch.clamp(u + _TINY, min=_TINY)
@@ -178,13 +184,14 @@ def _top_k_mask(logits: torch.Tensor, top_k: Optional[int]) -> torch.Tensor:
 
 
 def sample(cfg: SamplingConfig, logits: torch.Tensor,
-           key: Optional[torch.Tensor] = None) -> torch.Tensor:
+           key: Optional[torch.Tensor] = None, row0: int = 0) -> torch.Tensor:
     """Token ids ``(...,) int32`` from ``logits (..., V)``: greedy at
     temperature <= 0, else Gumbel-argmax of ``logits / T`` over the top-k
-    with one key ``(2,)`` for the whole array."""
+    with one key ``(2,)`` for the whole array (``row0``: its rows ``row0 ..``
+    of a larger batch's draw, :func:`random_bits`)."""
     if cfg.temperature > 0.0 and key is None:
         raise ValueError("sampling at temperature > 0 needs a key")
-    noise = gumbel(key, logits.shape) if cfg.temperature > 0.0 else None
+    noise = gumbel(key, logits.shape, row0) if cfg.temperature > 0.0 else None
     return sample_with_noise(cfg, logits, noise)
 
 
@@ -229,10 +236,11 @@ def sample_per_slot(logits: torch.Tensor, keys: torch.Tensor,
 
 
 def sample_dynamic(logits: torch.Tensor, key: torch.Tensor,
-                   temperature, top_k: Optional[int] = None) -> torch.Tensor:
-    """Per-row temperature, one key ``(2,)`` for the whole array."""
+                   temperature, top_k: Optional[int] = None, row0: int = 0) -> torch.Tensor:
+    """Per-row temperature, one key ``(2,)`` for the whole array (``row0``
+    as :func:`sample`'s)."""
     logits = _top_k_mask(logits.float(), top_k)
     t = torch.broadcast_to(torch.as_tensor(temperature, dtype=torch.float32,
                                            device=logits.device),
                            logits.shape[:-1])
-    return _mix(logits, gumbel(key, logits.shape), t)
+    return _mix(logits, gumbel(key, logits.shape, row0), t)

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh as mesh_mod
 from . import attention as attn
 from . import decode_attn as dattn
 from . import mlp as mlp_mod
@@ -50,6 +51,12 @@ class TransformerConfig:
     # pipeline; True = fused at every ring one block can hold; False = split
     # everywhere (``decode_attn.fused_commit_supported``).
     fused_attn: Optional[bool] = None
+    # Tensor parallelism (``parallel/mesh.tp_local_transformer_cfg``): True
+    # when this config is one tp shard's (heads split, ``head_dim`` pinned,
+    # MLP hidden sliced by its params); the three row-parallel partial sums
+    # are then summed over the tp shards (``parallel.mesh.all_reduce``)
+    # before the bias, the gate or the layer scale.
+    tp_shard: bool = False
 
     @property
     def hd(self) -> int:
@@ -255,6 +262,8 @@ def _qkv(cfg, lp, x):
 def _proj_out(cfg, lp, y, b, t):
     y = y.transpose(1, 2).reshape(b, t, cfg.num_heads * cfg.hd)
     y = mm(y, lp["out_proj_w"], site="out_proj")
+    if cfg.tp_shard:  # the shards' partial sums over their heads, before the bias
+        y = mesh_mod.all_reduce(y)
     if "out_proj_b" in lp:
         y = y + lp["out_proj_b"].to(y.dtype)
     return y
@@ -263,6 +272,8 @@ def _proj_out(cfg, lp, y, b, t):
 def _mlp_block(cfg, lp, x):
     y = norm_mod.apply_norm(cfg.norm_kind, lp["norm2"], x)
     y = mlp_mod.apply(lp["mlp"], y)
+    if cfg.tp_shard:  # partial sums over the shards' hidden slices
+        y = mesh_mod.all_reduce(y)
     if "layer_scale_2" in lp:
         y = y * lp["layer_scale_2"].to(y.dtype)
     return x + y
@@ -306,6 +317,8 @@ def _cross_block(cfg, lp, x, ca_k=None, ca_v=None, ca_q=None):
         y = attn.cross_attend(q, ca_k, ca_v)
     y = y.transpose(1, 2).reshape(b, t, cfg.num_heads * cfg.hd)
     y = mm(y, lp["ca_out_w"], site="ca_out")
+    if cfg.tp_shard:  # the gate reads the replicated xn: sum first, then gate
+        y = mesh_mod.all_reduce(y)
     return x + _ca_gate(cfg, lp, xn, y)
 
 

@@ -47,7 +47,20 @@ durations at the drain after the fetch.  A ``session_logger``
 (``utils/session_log.SessionLogger``) logs each delivered step's text token
 and the step's audio codes, which then ride at the end of the packed array.
 
-Left out (ROADMAP.md): the device mesh.
+On a device mesh (``mesh=``, ``parallel/mesh.py``; TOML ``[modules.X.mesh]``)
+the engine keeps one engine of its own class a shard, and its tick stages,
+runs and fetches every shard, as the JAX engine's one ``shard_map``ped step
+does.  Under dp, slot ``s`` lives on shard ``s // (B/dp)``, which holds the
+whole params on its device and its slots' state; each shard's step is its own
+captured graph on its own card, with dispatch-ahead kept (the shards' packed
+arrays are fetched and merged into the unmeshed engine's layout).  Under dp x
+tp the tp shards of a replica run the eager step in lock-step, one host
+thread each, the main LM split over heads and MLP hidden with the three
+joins summed across them (``cuda_graph=True`` raises; None takes the eager
+step and says so in the log).  The text tokens are drawn from per-slot keys,
+so the meshed engine's events are the unmeshed engine's under dp.  Under a
+mesh the pcm goes up on the f32 wire, as in the JAX engine, which drops the
+int16 wire there; the engine logs that the wire was not taken.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as M
 from ..sessions import asr as ASR
 from ..utils.gc_tune import freeze_after_warmup
 from . import metrics
@@ -187,10 +201,10 @@ class Channel:
             return out
 
 
-class BatchedAsrEngine:
-    """Slot pool and model loop for one ASR module on one device: the card
+class BatchedAsrEngine(M.ShardedEngine):
+    """Slot pool and model loop for one ASR module on one device (the card
     unless ``device`` names another, as the JAX engine lands on the
-    accelerator."""
+    accelerator) or on the shards of ``mesh``."""
 
     tick_sleep = 0.002  # idle wait of the model loop, seconds
 
@@ -198,24 +212,25 @@ class BatchedAsrEngine:
                  device="cuda", fill_gate_frac: float = 0.2,
                  cuda_graph: Optional[bool] = None, pipeline_depth: int = 1,
                  pcm_wire_int16: bool = False, gc_tune: bool = True,
-                 use_native_packer: Optional[bool] = None, session_logger=None):
+                 use_native_packer: Optional[bool] = None, session_logger=None,
+                 mesh: Optional[M.Mesh] = None):
         """``use_native_packer``: None takes the native frame packer where it
         builds, True raises where it does not, False keeps the deque
         mailboxes.  ``session_logger``: a ``utils.session_log.SessionLogger``
-        for every channel's text tokens and audio codes."""
+        for every channel's text tokens and audio codes.  ``mesh``: serve on
+        its shards (``device`` is then the first shard's)."""
         self.cfg = cfg
         self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.params = params
         self.batch_size = batch_size
-        self.device = torch.device(device)
-        # The captured step (default on CUDA); none on the CPU.
-        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else cuda_graph
-        if self.cuda_graph and self.device.type != "cuda":
-            raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
+        # The captured step (default on CUDA); none on the CPU, none under tp.
+        self._place(mesh, device, cuda_graph, "asr")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         # bf16 rings on the card, f32 on the CPU (int8 when cfg.kv_quant).
         cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.state = ASR.init_state(cfg, batch_size, cache_dtype, self.device)
+        # Under a mesh the shards hold the state (_build_shards).
+        self.state = (ASR.init_state(cfg, batch_size, cache_dtype, self.device)
+                      if mesh is None else None)
         self.frame_size = cfg.mimi.frame_size
         self.tokenizer = None  # set by the builder (utils/tokenizer.py)
         self.word_state = ASR.WordState(cfg, batch_size)
@@ -259,6 +274,26 @@ class BatchedAsrEngine:
         # Per-slot sampling seeds (read at temperature > 0).
         self._seeds = np.zeros(batch_size, np.int64)
         self._seed_counter = int(time.time()) & 0x7FFFFFFF
+        if mesh is not None:
+            self._build_shards()
+
+    def _build_shards(self) -> None:
+        """:meth:`ShardedEngine._build_shards`, a shard's seeds a view of
+        the engine's rows."""
+        if self._pcm_wire_int16:
+            log.warning("asr engine: pcm_wire int16 is not taken under a mesh (the JAX "
+                        "engine drops it there too); the pcm goes up as f32")
+            self._pcm_wire_int16 = False
+
+        def shard(cfg, params, dev, b, d):
+            sh = BatchedAsrEngine(cfg, params, b, device=dev, cuda_graph=self.cuda_graph,
+                                  pipeline_depth=self.pipeline_depth, gc_tune=False,
+                                  use_native_packer=False,
+                                  session_logger=self.session_logger)
+            sh._seeds = self._seeds[self._shard_slots(d)]
+            return sh
+
+        super()._build_shards("asr", shard)
 
     # -- slot lifecycle --
 
@@ -310,7 +345,7 @@ class BatchedAsrEngine:
     # -- device loop --
 
     def start(self) -> None:
-        if self.cuda_graph and self._graph is None:
+        if self.cuda_graph and not self._captured():
             self.warmup()  # capture before the threads start
         self.running = True
         self._drain_thread = threading.Thread(
@@ -332,6 +367,7 @@ class BatchedAsrEngine:
         if self.thread is None or not self.thread.is_alive():
             while self._pending:  # tick()-driven: deliver what is in flight
                 self._drain_one()
+        self._close_shards()
 
     def _step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray) -> dict:
         """One step on host arrays -> its outputs on the device, ``packed``
@@ -362,14 +398,23 @@ class BatchedAsrEngine:
         ``cuda_graph.fetch``: on the graph, the replay's packed array copied
         into the next of ``pipeline_depth + 1`` pinned host buffers behind an
         event; on the eager step, the packed device tensor.  The host arrays
-        may be reused once this returns."""
+        may be reused once this returns.  Under a mesh: every shard's, as
+        one ``parallel.mesh.MeshHandle``."""
+        if self.mesh is not None:
+            codes = (self.cfg.mimi.n_q,) if self.session_logger is not None else ()
+            return M.MeshHandle(self._on_shards("_dispatch", pcm, mask, reset),
+                                self._shard_b, (1, 1, None) + codes)
         packed = self._step(pcm, mask, reset)["packed"]
         return self._outputs.copy(packed) if self.cuda_graph else (packed, None)
 
     def _invoke_step(self, pcm: np.ndarray, mask: np.ndarray, reset: np.ndarray) -> dict:
         """One step on host arrays -> the step's outputs (``ASR.step``'s keys),
         tensors of their own (the card's checks read them beside the eager
-        step's)."""
+        step's); under a mesh the shards' outputs joined on the first
+        shard's device."""
+        if self.mesh is not None:
+            outs = self._on_shards("_invoke_step", pcm, mask, reset)
+            return {k: torch.cat([out[k].to(self.device) for out in outs]) for k in outs[0]}
         with torch.inference_mode():
             return {k: v.clone() for k, v in self._step(pcm, mask, reset).items()
                     if k != "packed"}
@@ -402,17 +447,10 @@ class BatchedAsrEngine:
         """Run zero frames through the whole step (no slot active); with
         ``cuda_graph``, through the step to capture, then capture it.  Then
         the host GC is frozen unless the engine was built with ``gc_tune=False``,
-        as the JAX engine does.  Logs which mailboxes the engine serves with."""
+        as the JAX engine does.  Logs which mailboxes the engine serves with.
+        Under a mesh every shard warms up (and captures)."""
         try:
-            if self.cuda_graph:
-                if self._graph is None:
-                    self._capture(steps)
-            else:
-                zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
-                off = np.zeros(self.batch_size, bool)
-                for _ in range(steps):
-                    handle = self._dispatch(zeros, off, off)
-                fetch(handle)  # waits for the device
+            self._warm_all(steps)
             metrics.WARMUP_SUCCESS.inc()
         except Exception:
             metrics.WARMUP_FAILURE.inc()
@@ -420,6 +458,18 @@ class BatchedAsrEngine:
         log.info("asr engine B=%d: %s mailboxes", self.batch_size,
                  "native frame packer" if self.packer is not None else "Python deque")
         freeze_after_warmup(self.gc_tune)
+
+    def _warm(self, steps: int) -> None:
+        """:meth:`warmup`'s device part: the capture, or eager steps."""
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture(steps)
+            return
+        zeros = np.zeros((self.batch_size, 1, self.frame_size), np.float32)
+        off = np.zeros(self.batch_size, bool)
+        for _ in range(steps):
+            handle = self._dispatch(zeros, off, off)
+        fetch(handle)  # waits for the device
 
     def tick(self) -> bool:
         """One engine tick; True if any slot stepped or results were drained."""

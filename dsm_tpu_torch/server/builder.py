@@ -11,7 +11,10 @@ configured width with random weights from a seeded ``torch.Generator``,
 logged as a warning, as the JAX builder does without weights.  The serving
 profile then runs on the tree either way.  The text tokenizer is loaded from
 ``text_tokenizer_file`` when the file is there, else the byte-level
-fallback.  Options the port does not serve raise instead of being ignored.
+fallback.  ``[modules.X.mesh] dp = N [tp = M]`` serves the batched ASR, TTS
+and duplex engines on a device mesh (:func:`build_mesh_from_config`); the
+single-session engines and the Mimi rooms take none, as in the JAX builder.
+Options the port does not serve raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..sessions import asr as ASR
 from ..sessions import lm_gen
 from ..sessions import tts as TTS
 from ..models import speaker as SPK
+from ..parallel import mesh as M
 from ..utils import checkpoint as CK
 from ..utils.tokenizer import load_tokenizer
 from . import config as CFG
@@ -44,12 +48,6 @@ from .tts_module import TtsEngine
 from .voices import VoiceResolver
 
 log = logging.getLogger("dsm.torch.builder")
-
-# TOML keys of the JAX builder that select paths the port has not ported.
-_UNPORTED = {
-    "mesh": "multi-device serving",
-}
-
 
 def _load_or_init_lm(mod: CFG.ModuleConfig, gen: torch.Generator, dtype):
     """The LM's params from ``lm_model_file`` when it is a local file, else
@@ -96,9 +94,7 @@ def build_batched_asr(mod: CFG.ModuleConfig, device,
     device = torch.device(device)
     if mod.type not in ("BatchedAsr", "Asr") or mod.lm is None:
         raise ValueError(f"module {mod.name}: not a BatchedAsr module with a model")
-    for key, what in _UNPORTED.items():
-        if mod.raw.get(key):
-            raise NotImplementedError(f"{key}: {what} is not ported yet; see ROADMAP.md")
+    mesh = build_mesh_from_config(mod, device)
     wire = _pcm_wire(mod)
     on_accel = device.type == "cuda"
     mimi_cfg = MIMI.v0_1(mod.lm.audio_codebooks)
@@ -123,10 +119,34 @@ def build_batched_asr(mod: CFG.ModuleConfig, device,
         batch_size=batch, device=device,
         fill_gate_frac=float(mod.raw.get("fill_gate_frac", 0.2)),
         cuda_graph=cuda_graph, pipeline_depth=int(mod.raw.get("pipeline_depth", 1)),
-        pcm_wire_int16=wire == "int16",
+        pcm_wire_int16=wire == "int16", mesh=mesh,
     )
     engine.tokenizer = _tokenizer(mod)
     return engine
+
+
+def build_mesh_from_config(mod: CFG.ModuleConfig, device) -> Optional[M.Mesh]:
+    """TOML ``[modules.X.mesh] dp = N [tp = M]`` -> the module's serving
+    mesh, as the JAX builder's: None without the section or for one shard.
+    On CUDA the shards are the cards ``cuda:0 ..`` in order, and a mesh of
+    more shards than cards raises (a silent fallback would misreport
+    capacity); on ``--device cpu`` every shard is the CPU."""
+    spec = mod.raw.get("mesh")
+    if not spec:
+        return None
+    dp, tp = int(spec.get("dp", 1)), int(spec.get("tp", 1))
+    if dp * tp <= 1:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda":
+        n = torch.cuda.device_count()
+        if dp * tp > n:
+            raise ValueError(f"mesh dp={dp} x tp={tp} needs {dp * tp} devices, have {n}")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [device] * (dp * tp)
+    log.info("serving mesh: dp=%d tp=%d over %d devices", dp, tp, dp * tp)
+    return M.make_mesh(dp=dp, tp=tp, devices=devices)
 
 
 def _pcm_wire(mod: CFG.ModuleConfig) -> str:
@@ -167,7 +187,6 @@ def _quantize_lm(mod: CFG.ModuleConfig, lm_params: dict, sites=None) -> dict:
 
 # TOML keys of the JAX TTS builder that select paths the port has not ported.
 _TTS_UNPORTED = {
-    "mesh": "multi-device serving",
     "w8a8_sites": "the mixed W8A8 profile",
 }
 
@@ -212,13 +231,14 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
     ``fuse_ticks`` (frames a dispatch, through the device script machine,
     whose ring keeps the engine's default ``script_cap`` of 1024 tokens),
     ``pipeline_depth`` (the fused path's dispatch-ahead) and ``pcm_wire =
-    "int16"`` (the int16 audio download) are the JAX builder's.  The
-    batched step does not add the default condition (nor does the JAX
-    package's)."""
+    "int16"`` (the int16 audio download) and ``[mesh]`` (the device mesh) are
+    the JAX builder's.  The batched step does not add the default condition
+    (nor does the JAX package's)."""
     device = torch.device(device)
     raw = mod.raw
     if int(mod.batch_size) <= 1:
         raise ValueError("batch_size <= 1 selects the single-session engine: use build_tts")
+    mesh = build_mesh_from_config(mod, device)
     parts = _tts_parts(mod, device)
     engine = BatchedTtsEngine(
         parts["cfg"], {"lm": parts["lm"]}, parts["mimi_cfg"], parts["mimi"], _tokenizer(mod),
@@ -227,7 +247,7 @@ def build_batched_tts(mod: CFG.ModuleConfig, device,
         ca_quant=bool(raw.get("ca_int8", False)), device=device,
         pcm_wire_int16=_pcm_wire(mod) == "int16", cuda_graph=cuda_graph,
         fuse_ticks=int(raw.get("fuse_ticks", 1)),
-        pipeline_depth=int(raw.get("pipeline_depth", 1)),
+        pipeline_depth=int(raw.get("pipeline_depth", 1)), mesh=mesh,
     )
     return _attach_tts_extras(engine, parts)
 
@@ -321,7 +341,9 @@ def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = Non
     false``, weight-only ones); without the key it follows the device: on
     CUDA, off on the CPU, as in the JAX builder.  ``kv_bits = 4``
     packs the batched engine's rings as int4 (8 is the default; anything else
-    raises).  On CUDA the weights and the codec are bf16, on the CPU f32."""
+    raises).  ``[mesh]`` shards the batched engine (:func:`build_mesh_from_config`);
+    the single dialogue takes none, as in the JAX builder.
+    On CUDA the weights and the codec are bf16, on the CPU f32."""
     device = torch.device(device)
     raw = mod.raw
     if mod.type != "Lm":
@@ -365,7 +387,8 @@ def build_duplex(mod: CFG.ModuleConfig, device, cuda_graph: Optional[bool] = Non
         return BatchedDuplexEngine(
             cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
             batch_size=batch, kv_quant=kv_quant, kv_bits=kv_bits, device=device,
-            cuda_graph=cuda_graph, pipeline_depth=int(raw.get("pipeline_depth", 1)))
+            cuda_graph=cuda_graph, pipeline_depth=int(raw.get("pipeline_depth", 1)),
+            mesh=build_mesh_from_config(mod, device))
     return DuplexEngine(cfg, {"lm": lm_params}, mimi_cfg, mimi_params, _tokenizer(mod),
                         kv_quant=kv_quant, device=device)
 

@@ -70,7 +70,10 @@ class PinnedOutputs:
 def fetch(handle) -> np.ndarray:
     """A dispatch's packed array on the host, from ``(buffer, event)`` of
     :meth:`PinnedOutputs.copy` (the wait on that copy's event alone) or
-    ``(device tensor, None)`` of an eager dispatch (its device-to-host copy)."""
+    ``(device tensor, None)`` of an eager dispatch (its device-to-host copy),
+    or a mesh's ``parallel.mesh.MeshHandle``: every shard's, merged."""
+    if hasattr(handle, "merge"):
+        return handle.merge([fetch(h) for h in handle.handles])
     packed, done = handle
     if done is not None:
         done.synchronize()

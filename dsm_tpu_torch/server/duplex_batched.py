@@ -45,8 +45,18 @@ sites, after the fetch, from the host arrays: the step, its duration (the
 interval between completions) and the decoded frames of the packed
 ``dec_mask``.
 
-Left out (ROADMAP.md): the device mesh.  ``server/builder.py`` refuses the
-option that selects it.
+On a device mesh (``mesh=``, ``parallel/mesh.py``; TOML ``[modules.X.mesh]``)
+the engine keeps one engine of its own class a shard and its tick drives
+every shard, as ``server/batched_asr.py`` does (``batch % dp`` and ``heads %
+tp`` checked, as in the JAX engine): dialogue ``s`` lives on dp shard ``s //
+(B/dp)`` with its codec states; under dp each shard's tick is its own
+captured graph on its own card, under dp x tp the tp shards run the eager
+tick in lock-step with the main LM split over heads and MLP hidden (the JAX
+engine runs GSPMD with its kernels off there; the port keeps the ASR
+engine's rule, kernels live).  Every shard splits the same key each tick and
+draws its rows of the whole batch's draw (``lm_gen.step``'s ``row0``), so
+the meshed engine's events are the unmeshed engine's under dp, as the JAX
+engine's GSPMD step keeps them.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import torch
 
 from ..models import mimi as MIMI
 from ..ops import sampling as S
+from ..parallel import mesh as M
 from ..sessions import lm_gen
 from ..utils.gc_tune import freeze_after_warmup
 from . import metrics
@@ -131,14 +142,15 @@ class DuplexSlot:
             return out
 
 
-class BatchedDuplexEngine:
-    """Slot pool and model loop for one dialogue module on one device."""
+class BatchedDuplexEngine(M.ShardedEngine):
+    """Slot pool and model loop for one dialogue module on one device or on
+    the shards of ``mesh``."""
 
     def __init__(self, cfg: lm_gen.DuplexConfig, params: dict, mimi_cfg: MIMI.MimiConfig,
                  mimi_params: dict, tokenizer, batch_size: int = 8,
                  tick_sleep: float = 0.002, kv_quant: Optional[bool] = None, kv_bits: int = 8,
                  *, device, cuda_graph: Optional[bool] = None, pipeline_depth: int = 1,
-                 gc_tune: bool = True):
+                 gc_tune: bool = True, mesh: Optional[M.Mesh] = None):
         """``params``: ``{"lm": ...}``, dense or int8 (``quantize_weights``),
         used as given; ``mimi_params``: both halves of the codec;
         ``kv_quant``: int8 KV rings, packed int4 with ``kv_bits = 4``; None
@@ -148,16 +160,14 @@ class BatchedDuplexEngine:
         ``pipeline_depth``: 1 fetches each tick's outputs before the next
         tick, D > 1 keeps up to D - 1 ticks in flight while the host
         post-processes an older one (dispatch-ahead: the next mic frame never
-        depends on a fetched output, so the events are the same)."""
+        depends on a fetched output, so the events are the same); ``mesh``:
+        serve on its shards (``device`` is then the first shard's)."""
         self.cfg = cfg
         self.mimi_cfg = mimi_cfg
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.tick_sleep = tick_sleep
-        self.device = torch.device(device)
-        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else bool(cuda_graph)
-        if self.cuda_graph and self.device.type != "cuda":
-            raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
+        self._place(mesh, device, cuda_graph, "duplex")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.pipeline_depth = max(1, int(pipeline_depth))
@@ -168,13 +178,17 @@ class BatchedDuplexEngine:
         self.mimi_params = mimi_params
         dev = self.device
         self._mimi_dtype = mimi_params["quantizer"]["rvq_first"]["embed"].dtype
+        self._row0 = 0  # the first row of the batch's draw this engine's slots take
 
-        self.state = lm_gen.init_state(cfg, batch_size, self.cache_dtype,
-                                       kv_quant=self.kv_quant, device=dev,
-                                       kv_bits=self.kv_bits)
-        self.enc_state = MIMI.init_encode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
-        self.dec_state = MIMI.init_decode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
-        self.rng = S.prng_key(0, device=dev)  # split once a tick, inside the tick
+        if mesh is not None:
+            self._build_shards()
+        else:
+            self.state = lm_gen.init_state(cfg, batch_size, self.cache_dtype,
+                                           kv_quant=self.kv_quant, device=dev,
+                                           kv_bits=self.kv_bits)
+            self.enc_state = MIMI.init_encode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
+            self.dec_state = MIMI.init_decode_state(mimi_cfg, batch_size, self._mimi_dtype, dev)
+            self.rng = S.prng_key(0, device=dev)  # split once a tick, inside the tick
 
         self.slots: List[Optional[DuplexSlot]] = [None] * batch_size
         self.free: deque = deque(range(batch_size))
@@ -191,6 +205,22 @@ class BatchedDuplexEngine:
         # (handle, drivers, n_active, t_gather0, t_disp0, t_disp1) per tick in flight
         self._inflight: deque = deque()
         self._last_fetch_t: Optional[float] = None
+
+    def _build_shards(self) -> None:
+        """:meth:`ShardedEngine._build_shards` with the engine's options; dp
+        shard ``d`` draws rows ``d * B/dp ..`` of the batch's draw."""
+
+        def shard(cfg, params, dev, b, d):
+            sh = BatchedDuplexEngine(
+                cfg, params, self.mimi_cfg, M.params_to(self.mimi_params, dev),
+                self.tokenizer, batch_size=b, kv_quant=self.kv_quant, kv_bits=self.kv_bits,
+                device=dev, cuda_graph=self.cuda_graph, pipeline_depth=self.pipeline_depth,
+                gc_tune=False)
+            sh._row0 = d * b
+            return sh
+
+        super()._build_shards("duplex", shard)
+        self.state = self.enc_state = self.dec_state = None  # the shards hold them
 
     # -- session lifecycle --
 
@@ -242,11 +272,13 @@ class BatchedDuplexEngine:
         user_tokens = codes[:, :cfg.input_audio_codebooks, 0].to(torch.int32)
         kw = dict(asr_delay=delay, mask=mask, reset=reset)
         if in_place:
-            out = lm_gen.step_in_place(cfg, self.params, self.state, user_tokens, key, **kw)
+            out = lm_gen.step_in_place(cfg, self.params, self.state, user_tokens, key,
+                                       row0=self._row0, **kw)
             MIMI.reset_encode_state_in_place(self.enc_state, reset)
             MIMI.reset_decode_state_in_place(self.dec_state, reset)
         else:
-            out, self.state = lm_gen.step(cfg, self.params, self.state, user_tokens, key, **kw)
+            out, self.state = lm_gen.step(cfg, self.params, self.state, user_tokens, key,
+                                          row0=self._row0, **kw)
             self.enc_state = MIMI.reset_encode_state(self.enc_state, reset)
             self.dec_state = MIMI.reset_decode_state(self.dec_state, reset)
         # Text-only (ASR-delay) slots skip the decode.
@@ -271,7 +303,11 @@ class BatchedDuplexEngine:
         the next of ``pipeline_depth`` pinned host buffers behind an event
         (the oldest in flight has been fetched before its buffer comes round
         again); on the eager tick, the packed device tensor.  The host
-        arrays may be reused once this returns."""
+        arrays may be reused once this returns.  Under a mesh every shard's,
+        as one ``parallel.mesh.MeshHandle``."""
+        if self.mesh is not None:
+            return M.MeshHandle(self._on_shards("_dispatch", pcm, mask, reset, asr_delay),
+                                self._shard_b, (1, 1, 1, None))
         if self.cuda_graph:
             if self._graph is None:
                 raise RuntimeError("the CUDA graph tick is not captured: call warmup() "
@@ -316,23 +352,27 @@ class BatchedDuplexEngine:
         the host GC is frozen unless the engine was built with
         ``gc_tune=False``, as the JAX engine does."""
         try:
-            if self.cuda_graph:
-                if self._graph is None:
-                    self._capture(steps)
-            else:
-                off = np.zeros(self.batch_size, bool)
-                for _ in range(steps):
-                    self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
+            self._warm_all(steps)
             metrics.WARMUP_SUCCESS.inc()
         except Exception:
             metrics.WARMUP_FAILURE.inc()
             raise
         freeze_after_warmup(self.gc_tune)
 
+    def _warm(self, steps: int) -> None:
+        """:meth:`warmup`'s device part: the capture, or eager ticks."""
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture(steps)
+            return
+        off = np.zeros(self.batch_size, bool)
+        for _ in range(steps):
+            self._invoke_step(self._pcm_buf, off, off, self._asr_delay.copy())
+
     # -- loop --
 
     def start(self) -> None:
-        if self.cuda_graph and self._graph is None:
+        if self.cuda_graph and not self._captured():
             self.warmup()  # capture before the loop starts
         self.running = True
         self.thread = threading.Thread(target=self._loop, name="duplex-model-loop",
@@ -345,6 +385,7 @@ class BatchedDuplexEngine:
             self.thread.join(timeout=5)
         while self._inflight:  # deliver the trailing dispatched ticks
             self._post_process(self._inflight.popleft())
+        self._close_shards()
 
     def _loop(self) -> None:
         while self.running:

@@ -59,8 +59,20 @@ sites, after the fetch, from the host arrays: steps (``fuse`` a dispatch),
 the decoded frames of the packed ``dec_mask``, the step duration (a
 dispatch's service interval over ``fuse`` on the fused path).
 
-Left out (ROADMAP.md): the device mesh.  The builder refuses the option that
-selects it.
+On a device mesh (``mesh=``, ``parallel/mesh.py``; TOML ``[modules.X.mesh]``)
+the engine keeps one engine of its own class a shard and its tick drives
+every shard, as ``server/batched_asr.py`` does: slot ``s`` lives on dp shard
+``s // (B/dp)`` with its guidance twin (a shard's rows are ``[cond | uncond]``
+of its own slots: ``rows % dp`` is checked, as in the JAX engine), its voice
+(the store split over rows, and over heads under tp), its Mimi decoder state
+and, on the fused path, its script machine.  Under dp each shard's tick or
+frame is its own captured graph on its own card; under dp x tp the tp
+shards run the eager tick in lock-step, the main LM split over heads and MLP
+hidden, the DepFormer, the codec and the sampling replicated (the JAX engine
+runs GSPMD with its kernels off there; the port keeps the ASR engine's rule,
+kernels live).  Tokens are drawn from per-slot keys, so the meshed engine's
+events are the unmeshed engine's under dp.  The audio comes back on the
+TOML's wire, the int16 pairs included.
 """
 
 from __future__ import annotations
@@ -78,6 +90,7 @@ import torch
 
 from ..models import mimi as MIMI
 from ..ops import transformer as T
+from ..parallel import mesh as M
 from ..sessions import tts as TTS
 from ..sessions import tts_script as SCRIPT
 from ..utils.gc_tune import freeze_after_warmup
@@ -89,6 +102,8 @@ log = logging.getLogger("dsm.torch.tts")
 
 
 OP_TABLE_ROWS = 512  # script ops a staged copy carries; longer queues go in chunks
+# Words a slot of the packed array: text, steps, dec_mask, then the pcm's.
+PACKED_WIDTHS = (1, 1, 1, None)
 
 
 @dataclasses.dataclass
@@ -175,10 +190,10 @@ class TtsSlot:
         return patch
 
 
-class BatchedTtsEngine:
-    """Slot pool and model loop for one TTS module on one device: the card
+class BatchedTtsEngine(M.ShardedEngine):
+    """Slot pool and model loop for one TTS module on one device (the card
     unless ``device`` names another, as the JAX engine lands on the
-    accelerator."""
+    accelerator) or on the shards of ``mesh``."""
 
     voices = None  # optional server.voices.VoiceResolver
 
@@ -188,7 +203,9 @@ class BatchedTtsEngine:
                  cfg_enabled: bool = False, ca_quant: bool = False, device="cuda",
                  pcm_wire_int16: bool = False, cuda_graph: Optional[bool] = None,
                  fuse_ticks: int = 1, script_cap: int = 1024, pipeline_depth: int = 1,
-                 gc_tune: bool = True):
+                 gc_tune: bool = True, mesh: Optional[M.Mesh] = None):
+        """``mesh``: serve on its shards (``device`` is then the first
+        shard's)."""
         if cfg.cfg_alpha is not None:
             raise ValueError("set cfg_enabled=True for batched guidance (per-request "
                              "alpha); a static cfg_alpha is for unbatched sessions")
@@ -200,11 +217,8 @@ class BatchedTtsEngine:
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.tick_sleep = tick_sleep
-        self.device = torch.device(device)
-        # The captured tick (default on CUDA); none on the CPU.
-        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else cuda_graph
-        if self.cuda_graph and self.device.type != "cuda":
-            raise ValueError(f"cuda_graph: no CUDA graph on {self.device}")
+        # The captured tick (default on CUDA); none on the CPU, none under tp.
+        self._place(mesh, device, cuda_graph, "tts")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.condition_provider = None
         self.default_condition = None
@@ -218,8 +232,64 @@ class BatchedTtsEngine:
         self.ca_quant = bool(ca_quant)
         self._pcm_wire_i16 = bool(pcm_wire_int16)
 
-        tcfg = cfg.lm.transformer
         self.ca_len = ca_len or 125 * cfg.speaker_cond_n_speakers
+        self._text_temp = np.full(batch_size, cfg.text_temperature, np.float32)
+        self._audio_temp = np.full(batch_size, cfg.temperature, np.float32)
+        self._cfg_alpha = np.ones(batch_size, np.float32)
+        self._seeds = np.zeros(batch_size, np.uint32)
+        self._seed_counter = int(time.time()) & 0x7FFFFFFF
+        # Voice writes are queued by open_session and applied on the engine
+        # loop's thread, under the same lock as the slot gather, so a slot
+        # is never stepped before its voice has landed.
+        self._pending_voice: List[tuple] = []
+        self.fuse = max(1, int(fuse_ticks))
+        self.script_cap = int(script_cap)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        if mesh is not None:
+            self._build_shards()
+        else:
+            self._init_device_state(mimi_params, on_card)
+
+        self.slots: List[Optional[TtsSlot]] = [None] * batch_size
+        self.free: deque = deque(range(batch_size))
+        self.pending_resets = np.zeros(batch_size, bool)
+        self.slot_lock = threading.Lock()
+        self.running = False
+        self.thread: Optional[threading.Thread] = None
+        self.step_count = 0
+        if self.pipeline_depth > 1 and self.fuse == 1:
+            log.warning("tts: pipeline_depth=%d has no effect with fuse_ticks=1; set "
+                        "fuse_ticks>1 to enable dispatch-ahead", self.pipeline_depth)
+        self._inflight_f: deque = deque()
+        self._last_fetch_t: Optional[float] = None
+        self._pending_script: List[tuple] = []
+
+    def _build_shards(self) -> None:
+        """:meth:`ShardedEngine._build_shards` with the engine's options, a
+        shard's per-slot sampling arrays views of the engine's rows."""
+        if self.rows % self.mesh.dp:
+            raise ValueError(f"rows {self.rows} not divisible by dp={self.mesh.dp}")
+
+        def shard(cfg, params, dev, b, d):
+            sh = BatchedTtsEngine(
+                cfg, params, self.mimi_cfg, M.params_to(self.mimi_params, dev),
+                self.tokenizer, batch_size=b, ca_len=self.ca_len, cfg_enabled=self.cfg_enabled,
+                ca_quant=self.ca_quant, device=dev, pcm_wire_int16=self._pcm_wire_i16,
+                cuda_graph=self.cuda_graph, fuse_ticks=self.fuse, script_cap=self.script_cap,
+                pipeline_depth=self.pipeline_depth, gc_tune=False)
+            for name in ("_text_temp", "_audio_temp", "_cfg_alpha", "_seeds"):
+                setattr(sh, name, getattr(self, name)[self._shard_slots(d)])
+            return sh
+
+        super()._build_shards("tts", shard)
+        self.state = self.mimi_state = None  # the shards hold them
+
+    def _init_device_state(self, mimi_params: dict, on_card: bool) -> None:
+        """The device half of one engine: the voice store, the session and
+        Mimi states and, on the fused path, the script machine and the
+        frames' buffer."""
+        cfg, mimi_cfg, batch_size = self.cfg, self.mimi_cfg, self.batch_size
+        tcfg = cfg.lm.transformer
         dev = self.device
         zero = torch.zeros((tcfg.num_layers, 1, tcfg.num_heads, self.ca_len, tcfg.hd),
                            dtype=self.cache_dtype, device=dev)
@@ -240,42 +310,16 @@ class BatchedTtsEngine:
             self._ca = (torch.zeros(shape, dtype=self.cache_dtype, device=dev),
                         torch.zeros(shape, dtype=self.cache_dtype, device=dev))
             self._zero_voice = (zero, zero)
-        # Voice writes are queued by open_session and applied on the engine
-        # loop's thread, under the same lock as the slot gather, so a slot
-        # is never stepped before its voice has landed.
-        self._pending_voice: List[tuple] = []
 
         self.state = TTS.init_state(cfg, self.rows, self.cache_dtype, dev)
         mimi_dtype = mimi_params["quantizer"]["rvq_first"]["embed"].dtype
         self.mimi_state = MIMI.init_decode_state(mimi_cfg, batch_size, mimi_dtype, dev)
-        self._text_temp = np.full(batch_size, cfg.text_temperature, np.float32)
-        self._audio_temp = np.full(batch_size, cfg.temperature, np.float32)
-        self._cfg_alpha = np.ones(batch_size, np.float32)
-        self._seeds = np.zeros(batch_size, np.uint32)
-        self._seed_counter = int(time.time()) & 0x7FFFFFFF
-
-        self.slots: List[Optional[TtsSlot]] = [None] * batch_size
-        self.free: deque = deque(range(batch_size))
-        self.pending_resets = np.zeros(batch_size, bool)
-        self.slot_lock = threading.Lock()
-        self.running = False
-        self.thread: Optional[threading.Thread] = None
-        self.step_count = 0
 
         # The fused path: K frames a dispatch through the device script
         # machine, with up to pipeline_depth - 1 dispatches left in flight.
-        self.fuse = max(1, int(fuse_ticks))
-        self.script_cap = int(script_cap)
-        self.pipeline_depth = max(1, int(pipeline_depth))
-        if self.pipeline_depth > 1 and self.fuse == 1:
-            log.warning("tts: pipeline_depth=%d has no effect with fuse_ticks=1; set "
-                        "fuse_ticks>1 to enable dispatch-ahead", self.pipeline_depth)
-        self._inflight_f: deque = deque()
-        self._last_fetch_t: Optional[float] = None
         if self.fuse > 1:
             self._cc = SCRIPT.ScriptConsts.from_cfg(cfg)
             self._mstate = SCRIPT.init(batch_size, self.script_cap, dev)
-            self._pending_script: List[tuple] = []
             # The fused frame's outputs: row k of the dispatch, picked by a
             # counter on the device that the frame advances.
             pcm_words = batch_size * mimi_cfg.frame_size // (2 if self._pcm_wire_i16 else 1)
@@ -330,7 +374,26 @@ class BatchedTtsEngine:
 
     def _apply_voice_writes(self, pending) -> None:
         """Engine-loop thread only: write the queued voices into their slots
-        (the last write per slot wins), the quantised form with ``ca_quant``."""
+        (the last write per slot wins), the quantised form with ``ca_quant``.
+        Under a mesh each row goes to its dp shard (a guidance twin to its
+        slot's shard) and each tp shard takes its heads of the voice."""
+        if self.mesh is not None:
+            n, b = self.batch_size, self._shard_b
+            h = self.cfg.lm.transformer.num_heads // self.mesh.tp
+            routed = [[] for _ in range(self.mesh.dp)]
+            for row, voice in pending:
+                d, j = divmod(row % n, b)
+                routed[d].append((j + (b if row >= n else 0), voice))
+
+            def write(d, t, sh):
+                heads = slice(t * h, (t + 1) * h)
+                local = [(j, None if v is None else tuple(x[:, :, heads] for x in v))
+                         for j, v in routed[d]]
+                if local:
+                    sh._apply_voice_writes(local)
+
+            self._runner.each(write)
+            return
         last = {}
         for slot, voice in pending:
             last[slot] = voice
@@ -382,7 +445,11 @@ class BatchedTtsEngine:
         """One device tick for host arrays ``(batch_size,)`` -> the packed
         int32 host array ``[text (n), steps (n), dec_mask (n), pcm words]``:
         a replay of the captured tick, whose array is pinned memory that the
-        next replay overwrites, or the eager tick."""
+        next replay overwrites, or the eager tick.  Under a mesh the shards'
+        arrays, merged."""
+        if self.mesh is not None:
+            return M.merge_packed(self._on_shards("_invoke_step", modes, toks, mask, reset),
+                                  self._shard_b, PACKED_WIDTHS)
         if self.cuda_graph:
             if self._graph is None:
                 raise RuntimeError("the CUDA graph tick is not captured: call warmup() "
@@ -481,7 +548,10 @@ class BatchedTtsEngine:
         ``(K, ...)`` frames copied into the next of ``pipeline_depth`` pinned
         host buffers behind an event (the oldest dispatch in flight was
         posted before its buffer comes round again); eagerly, a copy of the
-        frames on the device."""
+        frames on the device.  Under a mesh every shard's, as one handle."""
+        if self.mesh is not None:
+            return M.MeshHandle(self._on_shards("_dispatch_fused", reset), self._shard_b,
+                                PACKED_WIDTHS)
         arrays = {"reset": reset, "text_temp": self._rows(self._text_temp),
                   "audio_temp": self._rows(self._audio_temp),
                   "seeds": self._rows(self._seeds).astype(np.int64)}
@@ -507,8 +577,17 @@ class BatchedTtsEngine:
         machine in program order, one table a flush: on the card one staged
         copy of ``OP_TABLE_ROWS`` rows (OP_NOP-padded) and
         ``tts_script.apply_ops`` over it, a replay of its captured graph with
-        ``cuda_graph``, ordered on the stream after the dispatch in flight."""
+        ``cuda_graph``, ordered on the stream after the dispatch in flight.
+        Under a mesh each op goes to its slot's dp shard, in order."""
         if not ops:
+            return
+        if self.mesh is not None:
+            b = self._shard_b
+            routed = [[] for _ in range(self.mesh.dp)]
+            for kind, slot, *rest in ops:
+                d, j = divmod(slot, b)
+                routed[d].append((kind, j, *rest))
+            self._runner.each(lambda d, t, sh: sh._apply_script_ops(routed[d]))
             return
         table = SCRIPT.op_table(ops)
         with torch.inference_mode():
@@ -559,29 +638,33 @@ class BatchedTtsEngine:
         whole step; with ``cuda_graph``, through the body to capture, then
         capture it.  Then the host GC is frozen unless the engine was built
         with ``gc_tune=False``, as the JAX engine does."""
-        n = self.batch_size
-        off = np.zeros(n, bool)
         try:
-            if self.cuda_graph:
-                if self._graph is None:
-                    self._capture(steps)
-            elif self.fuse > 1:
-                for _ in range(steps):
-                    fetch(self._dispatch_fused(off))
-            else:
-                modes = np.full(n, TTS.ALLOW_PAD, np.int32)
-                for _ in range(steps):
-                    self._invoke_step(modes, np.zeros(n, np.int32), off, off)
+            self._warm_all(steps)
             metrics.WARMUP_SUCCESS.inc()
         except Exception:
             metrics.WARMUP_FAILURE.inc()
             raise
         freeze_after_warmup(self.gc_tune)
 
+    def _warm(self, steps: int) -> None:
+        """:meth:`warmup`'s device part: the capture, or eager ticks."""
+        n = self.batch_size
+        off = np.zeros(n, bool)
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture(steps)
+        elif self.fuse > 1:
+            for _ in range(steps):
+                fetch(self._dispatch_fused(off))
+        else:
+            modes = np.full(n, TTS.ALLOW_PAD, np.int32)
+            for _ in range(steps):
+                self._invoke_step(modes, np.zeros(n, np.int32), off, off)
+
     # -- loop --
 
     def start(self) -> None:
-        if self.cuda_graph and self._graph is None:
+        if self.cuda_graph and not self._captured():
             self.warmup()  # capture before the loop starts
         self.running = True
         self.thread = threading.Thread(target=self._loop, name="tts-model-loop",
@@ -597,6 +680,7 @@ class BatchedTtsEngine:
         if self.thread is None or not self.thread.is_alive():
             while self._inflight_f:
                 self._post_fused(self._inflight_f.popleft())
+        self._close_shards()
 
     def _loop(self) -> None:
         while self.running:
@@ -761,12 +845,22 @@ class BatchedTtsEngine:
             if pcm is not None and dec_mask[slot]:
                 drv.pcm_samples += frame
                 drv.deliver(AudioEvent(pcm=pcm[slot].copy()))
-        if overwrite.any():  # in place: a replay reads the state's own buffers
-            with torch.inference_mode():
-                TTS.overwrite_last_text_token_in_place(
-                    self.state, self.cfg.text_pad_token,
-                    torch.as_tensor(self._rows(overwrite), device=self.device))
+        if overwrite.any():
+            self._overwrite_pad(overwrite)
         return True
+
+    def _overwrite_pad(self, overwrite: np.ndarray) -> None:
+        """Patch the last text token of the ``overwrite`` slots to a pad, in
+        place (a replay reads the state's own buffers); on every shard of a
+        mesh."""
+        if self.mesh is not None:
+            self._runner.each(
+                lambda d, t, sh: sh._overwrite_pad(overwrite[self._shard_slots(d)]))
+            return
+        with torch.inference_mode():
+            TTS.overwrite_last_text_token_in_place(
+                self.state, self.cfg.text_pad_token,
+                torch.as_tensor(self._rows(overwrite), device=self.device))
 
     # -- the surface the app calls --
 

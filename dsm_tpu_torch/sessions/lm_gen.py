@@ -132,7 +132,8 @@ def step(cfg: DuplexConfig, params: dict, state: dict,
          force_text_token: Optional[torch.Tensor] = None, ca_kv=None,
          condition: Optional[torch.Tensor] = None,
          cfg_alpha: Optional[float] = None, asr_delay=None,
-         mask: Optional[torch.Tensor] = None, reset: Optional[torch.Tensor] = None):
+         mask: Optional[torch.Tensor] = None, reset: Optional[torch.Tensor] = None,
+         row0: int = 0):
     """One duplex frame for every slot -> ``(out, state)``, the state being
     the input, updated in place.
 
@@ -145,7 +146,9 @@ def step(cfg: DuplexConfig, params: dict, state: dict,
     input for steps ``0 < s < delay`` (the -1 sentinel embeds to zeros)
     while sampling goes on.  ``mask`` freezes inactive slots (no buffer
     write, counter and ``prev_text`` kept); ``reset`` restarts slots before
-    the step.  ``cfg_alpha``: rows are [cond..., uncond...] halves."""
+    the step.  ``cfg_alpha``: rows are [cond..., uncond...] halves.
+    ``row0``: these slots are rows ``row0 ..`` of a larger batch, whose draws
+    they take (a dp shard of a meshed engine draws the unmeshed batch's)."""
     if reset is not None:
         state = reset_slots(cfg, state, reset)
     s = state["step_idx"]
@@ -195,7 +198,7 @@ def step(cfg: DuplexConfig, params: dict, state: dict,
 
     _, k_text, k_dep = S.split(rng, 3)
     text_token = S.sample(S.SamplingConfig(cfg.text_temperature, cfg.text_top_k),
-                          logits, k_text)
+                          logits, k_text, row0)
     if force_text_token is not None:
         text_token = torch.where(force_text_token >= 0, force_text_token,
                                  text_token).to(torch.int32)
@@ -205,7 +208,8 @@ def step(cfg: DuplexConfig, params: dict, state: dict,
                          pad, -1).to(torch.int32)
     audio_tokens = LM.depformer_sample(
         lm_cfg, params["lm"], hidden, text_token, forced, k_dep,
-        S.SamplingConfig(cfg.audio_temperature, cfg.audio_top_k), cfg_alpha=cfg_alpha)
+        S.SamplingConfig(cfg.audio_temperature, cfg.audio_top_k), cfg_alpha=cfg_alpha,
+        row0=row0)
 
     # Generated tokens at their delayed positions (the saturating first
     # frames overwrite position 0).

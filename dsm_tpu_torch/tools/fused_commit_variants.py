@@ -193,7 +193,7 @@ def run(names, device) -> list:
                          vs.data_ptr(), r3[1].data_ptr(), r3[2].data_ptr(), r3[3].data_ptr(),
                          r3[4].data_ptr(), valid.data_ptr(), part.data_ptr(), out.data_ptr(),
                          b, h, c, dh, n_split, pos_t.data_ptr(), window, 1.0 / math.sqrt(dh),
-                         ctypes.c_void_p(_build.stream_ptr()))
+                         ctypes.c_void_p(_build.stream_ptr(k.device)))
                 if err:
                     raise RuntimeError(f"CUDA error {err}")
 

@@ -280,7 +280,7 @@ def run(names, device, parent=None) -> list:
                              part.data_ptr(), out.data_ptr(), b, h, c, dh, 1, n_split,
                              k.stride(0), k.stride(1), ks.stride(0), ks.stride(1),
                              plan["pos"].data_ptr(), window, 1.0 / math.sqrt(dh),
-                             ctypes.c_void_p(_build.stream_ptr()))
+                             ctypes.c_void_p(_build.stream_ptr(q.device)))
                     if err:
                         raise RuntimeError(f"CUDA error {err}")
 

@@ -272,7 +272,7 @@ def run(names, device, parent=None) -> list:
             for n, ksplit in enumerate(tried if name == "shipped" else tried[:1]):
                 def call(a, w, s, ksplit=ksplit):
                     err = lib.dsm_qmm(a.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                                      m, o, i, i, ksplit, ctypes.c_void_p(_build.stream_ptr()))
+                                      m, o, i, i, ksplit, ctypes.c_void_p(_build.stream_ptr(out.device)))
                     if err:
                         raise RuntimeError(f"CUDA error {err}")
 
@@ -331,7 +331,7 @@ def _variant_launch(lib, resident):
         out = torch.empty((m, o), dtype=torch.bfloat16, device=x2.device)
         _build.check(lib.dsm_qmm(x2.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr(),
                                  m, o, i, wq.stride(0), ksplit,
-                                 ctypes.c_void_p(_build.stream_ptr())), "qmm")
+                                 ctypes.c_void_p(_build.stream_ptr(x2.device))), "qmm")
         return out
     return launch
 
@@ -400,7 +400,7 @@ def run_host(parent, device) -> list:
                 host_us(lambda q=qms[who]: q.qmm(x, wq, sc)))
         row["host_us"]["dsm_qmm alone"] = [host_us(lambda: lib.dsm_qmm(
             x.data_ptr(), wq.data_ptr(), sc.data_ptr(), out.data_ptr(), m, o, i, i, ksplit,
-            ctypes.c_void_p(_build.stream_ptr())))]
+            ctypes.c_void_p(_build.stream_ptr(x.device))))]
         rows.append(row)
     return rows
 

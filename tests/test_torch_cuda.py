@@ -171,6 +171,184 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 # ---------------------------------------------------------------------------
+# Each launch on its tensors' card and stream
+# ---------------------------------------------------------------------------
+
+
+def _kernel_calls(put):
+    """Every kernel wrapper once, on inputs made on the CPU from a seed and
+    moved by ``put`` -> each call's outputs and the rings it wrote, by name.
+    On CPU tensors the wrappers run their plain versions, on CUDA tensors
+    their kernels."""
+    g = torch.Generator().manual_seed(5)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return put(torch.randn(*shape, generator=g).to(dtype))
+
+    def int8(*shape):
+        return put(torch.randint(-127, 128, shape, generator=g, dtype=torch.int8))
+
+    def rand(*shape):
+        return put(torch.rand(*shape, generator=g) * 0.019 + 0.001)
+
+    def pos(p):
+        return put(tick(p))
+
+    out = {}
+    kc, vc = randn(2, 2, 32, 64), randn(2, 2, 32, 64)
+    RK.ring_commit(kc, vc, randn(2, 2, 2, 64), randn(2, 2, 2, 64), pos(30))
+    out["ring_commit"] = (kc, vc)
+    out["ring_commit_backward"] = RK.ring_commit_backward(
+        randn(2, 2, 32, 64, dtype=torch.float32), randn(2, 2, 32, 64, dtype=torch.float32),
+        pos(30), 2)
+    kq, vq, ks, vs = int8(2, 2, 256, 64), int8(2, 2, 256, 64), rand(2, 2, 256), rand(2, 2, 256)
+    RK.ring_commit(kq, vq, int8(2, 2, 1, 64), int8(2, 2, 1, 64), pos(7), ks, vs,
+                   rand(2, 2, 1), rand(2, 2, 1))
+    RK.scale_commit(ks, vs, rand(2, 2, 1), rand(2, 2, 1), pos(9))
+    RK.quantize_commit(randn(2, 2, 1, 64), randn(2, 2, 1, 64), kq, vq, ks, vs, pos(11))
+    out["ring_commit_q, scale_commit, quantize_commit"] = (kq, vq, ks, vs)
+    k4, v4 = put(torch.zeros(2, 2, 256, 32, dtype=torch.uint8)), put(
+        torch.zeros(2, 2, 256, 32, dtype=torch.uint8))
+    RK.quantize_commit(randn(2, 2, 1, 64), randn(2, 2, 1, 64), k4, v4, ks, vs, pos(12))
+    out["quantize_commit packed"] = (k4, v4, ks, vs)
+    out["quantize_scale_commit"] = RK.quantize_scale_commit(
+        randn(2, 2, 1, 64), randn(2, 2, 1, 64), ks, vs, pos(13)) + (ks, vs)
+    cos, sin = (put(x) for x in A.rope_cos_sin(torch.arange(30, 32)[None], 64, 10_000.0))
+    rc, rv = randn(2, 2, 32, 64), randn(2, 2, 32, 64)
+    out["rope_commit"] = RK.rope_commit(randn(2, 2, 2, 64), randn(2, 2, 2, 64),
+                                        randn(2, 2, 2, 64), rc, rv, cos, sin, pos(30)) + (rc, rv)
+    out["rope_qk"] = RK.rope_qk(randn(2, 2, 1, 64), randn(2, 2, 1, 64), cos[:, :1], sin[:, :1])
+    q, k_new, v_new, akc, avc, aks, avs, valid = (put(x) for x in _attn_inputs(
+        torch.device("cpu"), 2, 8, 256, 64, 0.9, 3))
+    plan = A.global_ring_plan(pos(100), 256, 1)
+    out["decode_attend_commit"] = (DA.decode_attend_commit(
+        q, akc, avc, aks, avs, akc[:, :, :1].clone(), avc[:, :, :1].clone(), k_new, v_new,
+        plan, valid, window=250),)
+    out["decode_attend"] = (DA.decode_attend(q, akc, avc, aks, avs, k_new, v_new, plan, valid,
+                                             window=250),)
+    out["decode_attend packed"] = (DA.decode_attend(
+        q, int8(2, 8, 256, 32).view(torch.uint8), int8(2, 8, 256, 32).view(torch.uint8), aks,
+        avs, k_new, v_new, plan, valid, window=250),)
+    out["attn_tune"] = (AT.attn_tune(q[:, :, 0], akc, avc, aks, avs, k_new[:, :, 0],
+                                     v_new[:, :, 0], valid, 300, 250, bb=1),)
+    out["ca_decode_attend"] = (DA.ca_decode_attend(*(put(x) for x in _ca_inputs(
+        torch.device("cpu"), 2, 8, 128, 100, 64, 4)), 100),)
+    out["qmm"] = (QM.qmm(*(put(x) for x in _qmm_inputs(torch.device("cpu"), 8, 64, 128, 6)),
+                         ksplit=1),)
+    return out
+
+
+KERNEL_LIBS = {  # the library function each wrapper of _kernel_calls launches
+    "dsm_ring_commit", "dsm_ring_commit_backward", "dsm_ring_commit_q", "dsm_scale_commit",
+    "dsm_quantize_commit", "dsm_rope_commit", "dsm_decode_attend_commit", "dsm_decode_attend",
+    "dsm_attn_tune", "dsm_ca_decode_attend", "dsm_qmm"}
+
+
+class _OnCard1(torch.Tensor):
+    """A CPU tensor that reports itself on ``cuda:1``: a wrapper given it
+    takes its kernel's route, whose launch the test records."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+
+def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
+    """Every kernel wrapper launches with its tensors' device current and on
+    that device's stream (``_build.launch``): tensors that say they lie on
+    ``cuda:1`` while ``cuda:0`` is current, the library, ``torch.cuda.device``,
+    ``torch.cuda.current_device`` and ``_build.stream_ptr`` stood in for (a
+    CPU has none), the wrappers' allocations made on the CPU."""
+    from dsm_tpu_torch.ops import _build
+
+    card1 = torch.device("cuda", 1)
+    made = {}
+    for name in ("empty", "zeros", "full", "arange"):
+        real = getattr(torch, name)
+
+        def factory(*a, device=None, _real=real, **kw):
+            t = _real(*a, **kw)
+            return t.as_subclass(_OnCard1) if device is not None and \
+                torch.device(device) == card1 else t
+
+        made[name] = factory
+    for name, fn in made.items():
+        monkeypatch.setattr(torch, name, fn)
+    current, streams, launched = [], [], []
+
+    class Device:
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def __enter__(self):
+            current.append(self.device)
+
+        def __exit__(self, *exc):
+            return False
+
+    class Lib:
+        def __getattr__(self, name):
+            if name.endswith("_smem_bytes"):
+                return lambda *a: 1024
+            if name == "dsm_decode_attend_q4_tile_rows":
+                return lambda *a: 128
+
+            def launch(*args):
+                launched.append((name, current[-1] if current else None, args[-1].value))
+                return 0
+
+            return launch
+
+    def stream_ptr(device):
+        streams.append(torch.device(device))
+        return 4096 + len(streams)
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(_build, "lib", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", stream_ptr)
+    monkeypatch.setattr(DA, "packed_card", lambda index, dh: (128, 132))
+    before = _launches()
+    _kernel_calls(lambda t: t.as_subclass(_OnCard1))
+    assert {name for name, _, _ in launched} == KERNEL_LIBS
+    assert all(dev == card1 for _, dev, _ in launched), launched
+    assert streams == [card1] * len(launched)
+    assert [ptr for _, _, ptr in launched] == [4097 + i for i in range(len(launched))]
+    # ring_commit_backward's counter is not among _launches()
+    assert sum(_launches()) - sum(before) == len(launched) - 1
+
+
+@pytest.mark.cuda
+def test_every_kernel_on_the_second_card_with_the_first_current(cuda_device):
+    """Every kernel launched on ``cuda:1`` tensors while ``cuda:0`` is the
+    current device, against its plain version on the same inputs (on the
+    CPU): rings and integer outputs bit for bit, the rest within 2e-2; the
+    shared-memory opt-ins are per device (the staged attention, qmm and the
+    packed attention raise their limit on ``cuda:1`` too).  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: launches on cuda:1 while cuda:0 is current")
+    card1 = torch.device("cuda", 1)
+    want = _kernel_calls(lambda t: t)
+    with torch.cuda.device(0):
+        got = _kernel_calls(lambda t: t.to(card1))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(card1)
+    assert got.keys() == want.keys()
+    for name in want:
+        for a, b in zip(got[name], want[name]):
+            assert a.device == card1, name
+            a = a.cpu()
+            if a.dtype.is_floating_point and name not in ("ring_commit", "rope_commit"):
+                assert _within(a, b), name
+            else:
+                assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
 # On a card: kernel against plain version at the serving path's shapes
 # ---------------------------------------------------------------------------
 

@@ -74,11 +74,25 @@ def _small_duplex_module(**over):
 
 @pytest.mark.parametrize("key,value,match", [
     ("pipeline_depth", 2, "pipeline_depth"), ("kv_bits", 4, None),
-    ("mesh", {"dp": 2}, "mesh"), ("w8a8_sites", ["mlp"], "w8a8_sites")])
+    ("mesh", {"dp": 2}, None), ("mesh", "cuda", "devices, have"),
+    ("w8a8_sites", ["mlp"], "w8a8_sites")])
 def test_build_duplex_refuses_unported_options(key, value, match):
     """``match``: what the refusal of an unported option says.  The options
     that were refused once and are served now (``kv_bits = 4``,
-    ``pipeline_depth = 2``) reach the engine."""
+    ``pipeline_depth = 2``, ``mesh``) reach the engine: ``mesh`` dp = 2 on
+    the CPU, and on CUDA a mesh of more shards than cards raises."""
+    if key == "mesh":
+        if value == "cuda":
+            n = torch.cuda.device_count()
+            mod = _small_duplex_module(batch_size=n + 2, mesh={"dp": n + 2})
+            with pytest.raises(ValueError, match=match):
+                tbuilder.build_mesh_from_config(mod, "cuda")
+            return
+        eng = tbuilder.build_duplex(_small_duplex_module(batch_size=4, mesh=value), "cpu")
+        assert eng.mesh.shape == {"dp": 2, "tp": 1} and eng.state is None
+        assert [sh.batch_size for sh, in eng.shards] == [2, 2]
+        assert [sh._row0 for sh, in eng.shards] == [0, 2]
+        return
     if key in ("kv_bits", "pipeline_depth"):
         eng = tbuilder.build_duplex(_small_duplex_module(kv_quant=True, **{key: value}), "cpu")
         if key == "kv_bits":

@@ -31,7 +31,7 @@ def test_every_module_imports_without_jax():
                 "server.auth_server", "utils.session_log", "offline", "sessions.lm_gen_simple",
                 "sessions.tts_legacy", "utils.bench", "utils.tracing", "utils.flac",
                 "utils.codecs", "train", "client", "client.audio_io", "client.stt",
-                "client.tts", "client.tui"):
+                "client.tts", "client.tui", "parallel", "parallel.mesh"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -483,9 +483,14 @@ def test_builder_accepts_the_weight_only_profile(over):
     assert eng.batch_size == 3 and eng.cfg.asr_delay_in_tokens == 3
     assert eng.cfg.lm.extra_heads is None and eng.cfg.lm.transformer.hd == 64
     assert not eng.cfg.kv_quant  # the CPU profile: f32, no quantisation
-    bad, _ = _small_stt26_module(mesh={"dp": 2})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tbuilder.build_batched_asr(bad, "cpu")
+    meshed, _ = _small_stt26_module(mesh={"dp": 2}, batch_size=4)  # served since the mesh
+    eng = tbuilder.build_batched_asr(meshed, "cpu")
+    assert eng.mesh.shape == {"dp": 2, "tp": 1} and eng.state is None
+    assert [sh.batch_size for sh, in eng.shards] == [2, 2]
+    n = torch.cuda.device_count()  # on CUDA more shards than cards raise
+    over, _ = _small_stt26_module(mesh={"dp": n + 2}, batch_size=n + 2)
+    with pytest.raises(ValueError, match="devices, have"):
+        tbuilder.build_mesh_from_config(over, "cuda")
     i16, _ = _small_stt26_module(pcm_wire="int16", pipeline_depth=2)
     eng = tbuilder.build_batched_asr(i16, "cpu")  # both ported: the JAX builder's keys
     assert eng._pcm_wire_int16 and eng.pipeline_depth == 2

@@ -269,15 +269,28 @@ def test_quantize_weights_of_the_tts_lm_match_jax():
 @pytest.mark.parametrize("key,value,match", [
     ("fuse_ticks", 4, None),
     ("pipeline_depth", 2, None),
-    ("mesh", {"dp": 2}, "multi-device"),
+    ("mesh", {"dp": 2}, None),
+    ("mesh", "cuda", "devices, have"),
     ("batch_size", 1, "single-session"),
 ])
 def test_builder_refuses_unported_options(key, value, match):
-    """``mesh`` still raises; ``fuse_ticks`` and ``pipeline_depth`` (ported)
-    build the engine they name, as the JAX builder does: the fused path with
-    the engine's default script ring, and the depth (which warns without
-    fusing); ``batch_size = 1`` gives ``build_tts``'s single-session engine,
-    which ``build_batched_tts`` refuses."""
+    """``fuse_ticks``, ``pipeline_depth`` and ``mesh`` (ported) build the
+    engine they name, as the JAX builder does: the fused path with the
+    engine's default script ring, the depth (which warns without fusing),
+    and the engine on a dp = 2 mesh of the CPU (on CUDA a mesh of more
+    shards than cards raises); ``batch_size = 1`` gives ``build_tts``'s
+    single-session engine, which ``build_batched_tts`` refuses."""
+    if key == "mesh":
+        if value == "cuda":
+            n = torch.cuda.device_count()
+            mod = _small_tts_module(batch_size=n + 2, mesh={"dp": n + 2})
+            with pytest.raises(ValueError, match=match):
+                tbuilder.build_mesh_from_config(mod, "cuda")
+            return
+        eng = tbuilder.build_batched_tts(_small_tts_module(mesh=value), "cpu")
+        assert eng.mesh.shape == {"dp": 2, "tp": 1} and eng.state is None
+        assert [sh.batch_size for sh, in eng.shards] == [1, 1]
+        return
     mod = _small_tts_module(**{key: value})
     if key == "batch_size":  # served since the single-session engine is ported
         eng = tbuilder.build_tts(mod, "cpu")
