@@ -278,7 +278,23 @@ lines each:
    paths at its per-shard shapes (labels "mesh ..."; the JSON entry's
    ``mesh_cases``).  One card cannot check another card's stream, cross-card
    copies or the per-device shared-memory opt-in
-   (``tests/test_torch_cuda.py``'s two-card case).
+   (``tests/test_torch_cuda.py``'s two-card case).  ``[mesh-stt]`` also logs
+   every channel's text tokens (``utils/session_log.SessionLogger``) on the
+   dp and the dp x tp engine and holds the tp engine's to the dp engine's,
+   step for step, pad tokens included (MESH_TP_TOKENS_SAME).
+12. The benchmarks (``dsm_tpu_torch/bench_perf.py``) on the serving engines
+   the phases before them built, each through its entry points at the 80 ms
+   cadence for a few seconds (BENCH_S) with its drain capped
+   (BENCH_DRAIN_S; the STT bench's own 15 s): ``[bench-duplex]`` ``bench_duplex_sustained`` on
+   ``[graph-duplex]``'s B=24 engine, ``[bench-tts]`` ``bench_tts_sustained``
+   on ``[graph-tts-serving]``'s fused engine (B=64, BENCH_TTS_WORDS words a
+   session), ``[bench-stt]`` ``bench_server_sustained`` on
+   ``[graph-stt-serving]``'s B=192 engine (depth 2, int16 wire, captured,
+   native packer) and ``[bench-memory]`` ``bench_memory`` beside it.  Each
+   prints its result dict; checked: every session's marker or Done, the
+   engine stepped, every delivered frame 1,920 finite samples, the STT run's
+   ``throughput_ok`` and its events rows in time order.  ``slo_ok`` and
+   ``realtime_ok`` are measurements: printed, not checked.
 
 After the paths each kernel case is timed: the kernel, its
 plain version and its library call as device time (CUDA events around calls
@@ -4081,6 +4097,7 @@ def phase_graph_duplex(dev, card, eager_log):
     numbers["graph"] = _duplex_graph_times(engine, tag, "captured: ", card, rope)
     engine.pipeline_depth = 2
     _duplex_against_eager(engine, tag, dev, seed=45)
+    numbers["bench"] = phase_bench_duplex(engine, card)
     del engine
     torch.cuda.empty_cache()
     return numbers
@@ -4372,6 +4389,7 @@ def phase_stt_serving(dev, card):
     print(f"[{tag}] auto_batch_size: the largest batch that fits this card is {fit} (the file "
           f"asks 192); card {card}", flush=True)
     numbers["fit"] = fit
+    numbers["bench"] = phase_bench_stt(engine, card)
     del engine, params
     torch.cuda.empty_cache()
     return numbers
@@ -4603,6 +4621,7 @@ def phase_tts_serving(dev, card):
     print(f"[{tag}] peak memory of the fused engine {peak:.2f} GB reserved ({peak_alloc:.2f} "
           f"GB allocated); card {card}", flush=True)
     _offline_synthesize_jsonl(engine, card)
+    numbers["bench"] = phase_bench_tts(engine, card)
     ref = BatchedTtsEngine(
         engine.cfg, engine.params, engine.mimi_cfg, engine.mimi_params, engine.tokenizer,
         batch_size=64, ca_len=engine.ca_len, cfg_enabled=engine.cfg_enabled,
@@ -4627,6 +4646,167 @@ def phase_tts_serving(dev, card):
     del ref
     torch.cuda.empty_cache()
     return numbers
+
+
+# ---------------------------------------------------------------------------
+# The benchmarks of bench_perf.py on the serving engines
+# ---------------------------------------------------------------------------
+
+
+def _frames_checked(engine, audio_cls):
+    """``engine.open_session`` wrapped so that every delivered audio frame is
+    counted a session and checked (1,920 finite samples) -> (the counts of
+    each session in opening order, the bad frames, the unwrap)."""
+    import numpy as np
+
+    per_session, bad = [], []
+    open_ = engine.open_session
+
+    def open_session(deliver, *args, **kwargs):
+        i = len(per_session)
+        per_session.append(0)
+
+        def checked(ev):
+            if isinstance(ev, audio_cls):
+                per_session[i] += 1
+                pcm = np.asarray(ev.pcm)
+                if pcm.shape != (1920,) or not bool(np.isfinite(pcm).all()):
+                    bad.append((i, pcm.shape))
+            deliver(ev)
+
+        return open_(checked, *args, **kwargs)
+
+    engine.open_session = open_session
+    return per_session, bad, lambda: delattr(engine, "open_session")
+
+
+def _free_slots(engine, tag, close):
+    """Close what an earlier run left open on ``engine``: the bench opens
+    all its slots afresh."""
+    for item in list(engine.slots):
+        if item is not None:
+            close(item)
+    check(engine.used_slots() == 0, f"{tag}: slots still taken")
+
+
+def _print_bench(tag, res, card, what, t_phase=None):
+    print(f"[{tag}] {json.dumps(res)}", flush=True)
+    took = "" if t_phase is None else f"; {time.perf_counter() - t_phase:.1f} s in all"
+    print(f"[{tag}] {what}{took}; card {card}", flush=True)
+
+
+def phase_bench_duplex(engine, card):
+    """``[bench-duplex]``: ``bench_perf.bench_duplex_sustained`` on
+    ``[graph-duplex]``'s engine (s2s-2b, B=24, depth 2, captured), BENCH_S
+    seconds of zero pcm at the 80 ms cadence: every dialogue hears audio,
+    every frame 1,920 finite samples, the engine ticked."""
+    from dsm_tpu_torch import bench_perf as BP
+    from dsm_tpu_torch.server.duplex_batched import DuplexAudioEvent
+
+    tag = "bench-duplex"
+    t_phase = time.perf_counter()
+    _free_slots(engine, tag, engine.close_session)
+    frames, bad, unwrap = _frames_checked(engine, DuplexAudioEvent)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bench-") as tmp:
+        path = os.path.join(tmp, "events.json")
+        res = BP.bench_duplex_sustained(engine.batch_size, BENCH_S, events_path=path,
+                                        drain_s=BENCH_DRAIN_S, engine=engine)
+        with open(path) as f:
+            ticks = json.load(f)["ticks"]
+    unwrap()
+    b = engine.batch_size
+    check(len(frames) == b and min(frames) > 0, f"{tag}: dialogues without audio: {frames}")
+    check(not bad, f"{tag}: bad frames {bad[:5]}")
+    check(len(ticks) > 0 and res["n_events"] > 0 and engine.used_slots() == 0,
+          f"{tag}: {len(ticks)} ticks, {res['n_events']} events")
+    _print_bench(tag, res, card, f"s2s-2b B={b} depth {engine.pipeline_depth}, captured: "
+                 f"{len(ticks)} ticks, {sum(frames)} audio frames (each 1,920 finite samples; "
+                 f"{min(frames)}-{max(frames)} a dialogue of {res['frames_sent_per_session']} "
+                 f"sent); tick max {max(t['step_ms'] for t in ticks)!r} ms; realtime_ok "
+                 f"{res['realtime_ok']} (measured, not checked)", t_phase)
+    return res
+
+
+def phase_bench_tts(engine, card):
+    """``[bench-tts]``: ``bench_perf.bench_tts_sustained`` on
+    ``[graph-tts-serving]``'s fused engine (tts-1.6b, B=64, fuse 4, depth 2,
+    int8 voices, int16 wire, captured): one cohort of B sessions of
+    BENCH_TTS_WORDS words: every session ends (Done), every frame 1,920
+    finite samples."""
+    from dsm_tpu_torch import bench_perf as BP
+    from dsm_tpu_torch.server.tts_batched import AudioEvent
+
+    tag = "bench-tts"
+    t_phase = time.perf_counter()
+    _free_slots(engine, tag, engine.close_session)
+    frames, bad, unwrap = _frames_checked(engine, AudioEvent)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bench-") as tmp:
+        path = os.path.join(tmp, "events.json")
+        res = BP.bench_tts_sustained(engine.batch_size, BENCH_TTS_S, engine=engine,
+                                     n_words=BENCH_TTS_WORDS, drain_s=BENCH_DRAIN_S,
+                                     events_out=path)
+        with open(path) as f:
+            rows = json.load(f)
+    unwrap()
+    b = engine.batch_size
+    check(res.get("sessions_completed") == res.get("sessions_launched") == b,
+          f"{tag}: {res.get('sessions_completed')} of {res.get('sessions_launched')} sessions "
+          f"ended, B={b}")
+    check(len(frames) == b and min(frames) > 0 and not bad,
+          f"{tag}: frames a session {frames}, bad {bad[:5]}")
+    check(len(rows) > 0 and all(len(r) == 11 for r in rows) and engine.used_slots() == 0,
+          f"{tag}: {len(rows)} tick rows, not each with the fused path's 10 fields and t")
+    _print_bench(tag, res, card, f"tts-1.6b B={b} fuse {engine.fuse} depth "
+                 f"{engine.pipeline_depth}, captured: {len(rows)} dispatches, {sum(frames)} "
+                 f"audio frames (each 1,920 finite samples), every session's Done; dispatch max "
+                 f"{max(sum(r[k] for k in ('gather_ms', 'dispatch_ms', 'fetch_ms', 'post_ms')) for r in rows)!r} "
+                 f"ms; realtime_sessions_frac {res['realtime_sessions_frac']} (measured)",
+                 t_phase)
+    return res
+
+
+def phase_bench_stt(engine, card):
+    """``[bench-stt]``: ``bench_perf.bench_server_sustained`` on
+    ``[graph-stt-serving]``'s engine (stt-1b, B=192, depth 2, int16 wire,
+    captured, native packer), BENCH_S seconds at the 80 ms cadence, then
+    each channel's marker: every marker delivered, ``throughput_ok``, the
+    engine stepped, its events rows one a step in time order with the JAX
+    keys; ``slo_ok`` and ``realtime_ok`` printed.  Then ``[bench-memory]``."""
+    from dsm_tpu_torch import bench_perf as BP
+
+    tag = "bench-stt"
+    t_phase = time.perf_counter()
+    _free_slots(engine, tag, engine.close_channel)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bench-") as tmp:
+        path = os.path.join(tmp, "events.json")
+        res = BP.bench_server_sustained(engine.batch_size, BENCH_S, events_out=path,
+                                        engine=engine)
+        with open(path) as f:
+            rows = json.load(f)
+    b = engine.batch_size
+    check(res["markers_completed"] == b, f"{tag}: {res['markers_completed']} of {b} markers")
+    check(res["throughput_ok"], f"{tag}: a slot stepped {res['slot_steps_min']} times, "
+          f"{res['expected_steps_realtime']} realtime")
+    check(res["engine_steps"] > 0 and len(rows) == res["engine_steps"]
+          and all(a["t"] <= c["t"] for a, c in zip(rows, rows[1:]))
+          and all({"t", "step_ms", "util", "queue_ms", "fetch_ms", "post_ms"} <= set(r)
+                  for r in rows), f"{tag}: events rows")
+    check(engine.used_slots() == 0, f"{tag}: channels left open")
+    d = res["delivery"]
+    _print_bench(tag, res, card, f"stt-1b B={b} depth {engine.pipeline_depth}, int16 wire, "
+                 f"captured: step p50 / p95 / p99 {res['step_ms_p50']!r} / "
+                 f"{res['step_ms_p95']!r} / {res['step_ms_p99']!r} ms, max "
+                 f"{max(r['step_ms'] for r in rows)!r}; delivery lag p99 {d['lag_ms_p99']!r} "
+                 f"ms; throughput_ok {res['throughput_ok']}, slo_ok {res['slo_ok']}, "
+                 f"realtime_ok {res['realtime_ok']} (the last two measured, not checked)",
+                 t_phase)
+    mem = BP.bench_memory(engine.device)
+    check(0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"],
+          f"[bench-memory] {mem}")
+    _print_bench("bench-memory", mem, card, f"with [bench-stt]'s engine alive: "
+                 f"{mem['bytes_in_use'] / 1e9:.2f} GB in use, peak "
+                 f"{mem['peak_bytes_in_use'] / 1e9:.2f} GB, of {mem['bytes_limit'] / 1e9:.2f}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5796,6 +5976,20 @@ MESH_TP_FRAME_RTOL = 5e-2
 # [mesh-stt]'s VAD traces at dp x tp against the dp engine's: each channel's
 # relative L2 against its own channel's.
 MESH_TP_VAD_RTOL = 0.1
+# [mesh-stt]'s text tokens at dp x tp against the dp engine's, pad tokens
+# included: the share of (channel, step) tokens that are equal.  Greedy
+# tokens of the same inputs; a close pair of logits may go the other way
+# once (row-parallel products quantised a slice at a time), and the token
+# fed back then moves that channel's later steps: at least MESH_TP_SAME of
+# channels equal throughout gives at least this share.
+MESH_TP_TOKENS_SAME = 0.75
+
+# The [bench-*] runs are kept short so that the script stays under 900 s (the
+# sweep and the longer runs go through ``cli bench``, PERF.md section 6).
+BENCH_S = 3.0  # seconds of [bench-stt]'s and [bench-duplex]'s paced runs
+BENCH_TTS_S = 2.0  # [bench-tts]: its sessions' launch window (the cohort runs past it)
+BENCH_TTS_WORDS = 8  # words a [bench-tts] session
+BENCH_DRAIN_S = 20.0  # the cap on [bench-tts]'s and [bench-duplex]'s drains ([bench-stt]: 15 s)
 
 
 def _mesh(dev, dp, tp):
@@ -5952,7 +6146,7 @@ def _mesh_stt_serve(engine, sids):
     pcm, its marker and the silence that flushes it, MESH_STEPS frames in
     all) and served through ``tick`` to their end, every frame answered and
     every marker delivered -> each channel's events (step, words, markers,
-    VAD bytes) and the host ms a step over the run."""
+    VAD bytes), the host ms a step over the run and each channel's id."""
     frame, delay = engine.frame_size, engine.cfg.asr_delay_in_tokens
     seconds = (MESH_STEPS - delay - 1) * frame / 24000.0
     sessions = {}
@@ -5967,9 +6161,19 @@ def _mesh_stt_serve(engine, sids):
                                 getattr(w, "start_time", None), getattr(w, "stop_time", None))
                                for w in e.words], list(e.markers), e.prs.tobytes())
                  for e in s["events"]] for sid, s in sessions.items()}
+    ids = {sid: s["ch"].channel_id for sid, s in sessions.items()}
     for s in sessions.values():
         engine.close_channel(s["ch"])
-    return log, ms
+    return log, ms, ids
+
+
+def _mesh_tokens(logs, ids):
+    """Each channel's logged text tokens (``SessionLogger`` files under
+    ``logs``, written as its channel closed) -> ``{sid: tokens}``."""
+    from dsm_tpu_torch.utils.session_log import load_session
+
+    return {sid: load_session(os.path.join(logs, f"dsm-tpu-asr-{cid}.safetensors"))[0]
+            for sid, cid in ids.items()}
 
 
 def _vad(log):
@@ -5992,7 +6196,9 @@ def phase_mesh_stt(dev, card):
     channels; dp = 2 x tp = 2 (eager, one host thread a tp shard), its
     launches a step, its tp shards' states equal but for their LM heads, its
     channels' words and VAD held to the dp engine's (MESH_TP_SAME,
-    MESH_TP_VAD_RTOL; each trace nearer its own channel's than any other's).
+    MESH_TP_VAD_RTOL; each trace nearer its own channel's than any other's)
+    and its logged text tokens, step for step, to the dp engine's
+    (MESH_TP_TOKENS_SAME).
     One LM step split over tp held to the unsplit step (``_tp_lm_check``).
     -> launches of the meshed runs."""
     import dataclasses
@@ -6001,6 +6207,7 @@ def phase_mesh_stt(dev, card):
 
     from dsm_tpu_torch.server import builder
     from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+    from dsm_tpu_torch.utils.session_log import SessionLogger
 
     tag = "mesh-stt"
     mod = _serving_module("stt", tag)
@@ -6013,18 +6220,22 @@ def phase_mesh_stt(dev, card):
     ref.warmup()
     cfg, params, b, depth = ref.cfg, ref.params, ref.batch_size, ref.pipeline_depth
     sids = range(b)
-    want, ms_ref = _mesh_stt_serve(ref, sids)
+    want, ms_ref, _ = _mesh_stt_serve(ref, sids)
     lm_state = _clone(ref.state["lm"])
     del ref
     torch.cuda.empty_cache()
     counters = _zeroed({name: _duplex_counters()[name] for name in PER_STEP})
+    logs = {what: tempfile.TemporaryDirectory(prefix=f"chip-smoke-mesh-{what}-")
+            for what in ("dp", "tp")}
     e_dp = BatchedAsrEngine(cfg, params, b, device=dev, mesh=_mesh(dev, 2, 1),
-                            pipeline_depth=depth, pcm_wire_int16=True)
+                            pipeline_depth=depth, pcm_wire_int16=True,
+                            session_logger=SessionLogger(logs["dp"].name,
+                                                         flush_every_steps=10 ** 6))
     check(e_dp.cuda_graph and not e_dp._pcm_wire_int16, f"{tag}: dp engine not captured on "
           f"the f32 wire")
     e_dp.warmup()
     check(all(sh._graph is not None for sh, in e_dp.shards), f"{tag}: a dp shard not captured")
-    got_dp, ms_dp = _mesh_stt_serve(e_dp, sids)
+    got_dp, ms_dp, ids_dp = _mesh_stt_serve(e_dp, sids)
     dp_launches = _launched(counters)
     per = {name: 3 * 2 * n for name, n in PER_STEP.items()}
     check(dp_launches == per, f"{tag}: dp launches {dp_launches}, want {per} (2 shards x "
@@ -6036,21 +6247,23 @@ def phase_mesh_stt(dev, card):
         one = BatchedAsrEngine(cfg, params, b // 2, device=dev, pipeline_depth=depth)
         one.warmup()
         part = range(d * b // 2, (d + 1) * b // 2)
-        alone, _ = _mesh_stt_serve(one, part)
+        alone, _, _ = _mesh_stt_serve(one, part)
         differ = [sid for sid in part if got_dp[sid] != alone[sid]]
         check(not differ, f"{tag}: dp shard {d}: channels {differ} differ from an unmeshed "
               f"engine of its {b // 2} slots")
         del one
         torch.cuda.empty_cache()
     e_tp = BatchedAsrEngine(cfg, params, b, device=dev, mesh=_mesh(dev, 2, 2),
-                            pipeline_depth=depth)
+                            pipeline_depth=depth,
+                            session_logger=SessionLogger(logs["tp"].name,
+                                                         flush_every_steps=10 ** 6))
     check(not e_tp.cuda_graph, f"{tag}: the tp engine is captured")
     e_tp.warmup()
     ring = tuple(e_tp.shards[1][1].state["lm"]["t"]["layers"][0]["k"].shape)
     check(ring == (32, 8, 768, 128), f"{tag}: a tp shard's ring is {ring}")
     _zeroed(counters)
     steps0 = e_tp.step_count
-    got_tp, ms_tp = _mesh_stt_serve(e_tp, sids)
+    got_tp, ms_tp, ids_tp = _mesh_stt_serve(e_tp, sids)
     steps = e_tp.step_count - steps0
     tp_launches = _launched(counters)
     per = {name: 4 * steps * n for name, n in PER_STEP.items()}
@@ -6059,6 +6272,16 @@ def phase_mesh_stt(dev, card):
     e_tp.stop()
     del e_tp
     torch.cuda.empty_cache()
+    tok_dp, tok_tp = _mesh_tokens(logs["dp"].name, ids_dp), _mesh_tokens(logs["tp"].name, ids_tp)
+    for d in logs.values():
+        d.cleanup()
+    check(all(tok_tp[s].shape == tok_dp[s].shape == (len(got_dp[s]),) for s in sids),
+          f"{tag}: the session logs do not hold one text token a step")
+    tok_same = sum(int((tok_tp[s] == tok_dp[s]).sum()) for s in sids)
+    tok_all = sum(tok_dp[s].size for s in sids)
+    pad = cfg.text_pad_token
+    not_pad = sum(int((tok_dp[s] != pad).sum()) for s in sids)
+    kinds = len(set(int(t) for s in sids for t in tok_dp[s]))
 
     def words(log):
         return [e[1] for e in log]
@@ -6083,7 +6306,13 @@ def phase_mesh_stt(dev, card):
     print(f"[{tag}] host ms a step over the serve (depth {depth}): unmeshed captured "
           f"{ms_ref!r}, dp = 2 captured {ms_dp!r}, dp = 2 x tp = 2 eager {ms_tp!r}; card {card}",
           flush=True)
+    print(f"[{tag}] text tokens logged a step (SessionLogger on both engines), pad tokens "
+          f"included: dp x tp equal to dp in {tok_same} of {tok_all} (channel, step) tokens "
+          f"({tok_same / tok_all!r}, bar {MESH_TP_TOKENS_SAME}); at dp {not_pad} of them not "
+          f"the pad token {pad}, {kinds} distinct tokens", flush=True)
     check(same_tp >= MESH_TP_SAME * b, f"{tag}: {same_tp} / {b} tp channels with the dp words")
+    check(tok_same >= MESH_TP_TOKENS_SAME * tok_all,
+          f"{tag}: {tok_same} / {tok_all} tp text tokens equal to the dp engine's")
     check(max(own) <= MESH_TP_VAD_RTOL, f"{tag}: tp VAD relative L2 {max(own)!r}")
     check(all(a < o for a, o in zip(own, other)), f"{tag}: a tp channel's VAD is nearer "
           f"another channel's than its own")

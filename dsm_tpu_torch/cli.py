@@ -11,13 +11,15 @@ subcommands the port serves):
   stt-client   stream a wav (or the microphone) to a server
   tts-client   synthesize through a server, write a wav (or play it)
   tui          terminal duplex client
+  bench        component and sustained benchmarks (``bench_perf.py``)
 
 Usage: ``python -m dsm_tpu_torch.cli <subcommand> [...]``; the subcommands
 that run a model take ``--device`` (``cuda`` by default, ``cpu``).  The
 clients need ``aiohttp`` and ``msgpack``, the microphone and the speaker
 ``sounddevice``; without it ``--mic`` and ``--play`` exit 2 with the error,
-as ``tui`` does without a terminal.  The JAX CLI's ``bench`` subcommand (the
-serving benchmark) is not ported yet (ROADMAP.md): argparse refuses it.
+as ``tui`` does without a terminal.  ``bench`` hands the rest of its
+arguments to ``bench_perf.main`` (``bench --help`` lists them); the JAX CLI's
+``bench`` runs the root ``bench.py``, which imports JAX (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -191,6 +193,13 @@ def cmd_gen(args) -> int:
         save_safetensors(args.out_tokens, {"text_tokens": np.asarray(texts, np.int32),
                                            "audio_tokens": frames.astype(np.int32)})
     return 0
+
+
+def cmd_bench(args) -> int:
+    """The benchmarks of ``bench_perf.py`` on the rest of the arguments."""
+    from . import bench_perf
+
+    return bench_perf.main(args.rest)
 
 
 def cmd_stt_client(args) -> int:
@@ -383,6 +392,10 @@ def main(argv=None) -> int:
     gn.add_argument("--device", default="cuda", help="where the model runs (cuda, cpu)")
     gn.set_defaults(fn=cmd_gen)
 
+    b = sub.add_parser("bench", add_help=False,
+                       help="component and sustained benchmarks (bench --help)")
+    b.set_defaults(fn=cmd_bench)
+
     sc = sub.add_parser("stt-client", help="stream a wav (or live mic) to a server")
     sc.add_argument("audio", nargs="?", default=None)
     sc.add_argument("--url", default="ws://127.0.0.1:8080/api/asr-streaming")
@@ -420,7 +433,10 @@ def main(argv=None) -> int:
     a.add_argument("--db", default="auth.sqlite3")
     a.set_defaults(fn=cmd_auth_server)
 
-    args = p.parse_args(argv)
+    args, rest = p.parse_known_args(argv)
+    if rest and args.cmd != "bench":
+        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    args.rest = rest
     return args.fn(args)
 
 

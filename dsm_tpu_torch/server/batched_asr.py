@@ -259,6 +259,17 @@ class BatchedAsrEngine(M.ShardedEngine):
         self._inflight = 0
         self._drain_thread: Optional[threading.Thread] = None
         self.session_logger = session_logger
+        # The JAX engine's observers of each drained step, None unless the
+        # caller sets them (``bench_perf.py``): ``step_observer(dt, util)``
+        # with the step's dispatch-to-host-visible seconds and the share of
+        # slots stepped; ``phase_observer(dict)`` with its dispatch time
+        # ``t0`` and host phases in ms, ``queue_ms`` (dispatch to dequeue),
+        # ``fetch_ms`` (dequeue to the post-process: the transfer and what
+        # remains of the device step, at depth 2 the wait behind the newer
+        # dispatch too) and ``post_ms`` (word decode and delivery), and
+        # ``util``.  Under a mesh they fire once a step of the whole engine.
+        self.step_observer: Optional[Callable[[float, float], None]] = None
+        self.phase_observer: Optional[Callable[[dict], None]] = None
         self.packer: Optional[FramePacker] = None
         if use_native_packer or use_native_packer is None:
             try:
@@ -596,6 +607,7 @@ class BatchedAsrEngine(M.ShardedEngine):
 
     def _process_item(self, item) -> None:
         handle, mask, chans, t0 = item
+        t_deq = time.perf_counter()
         packed = fetch(handle)  # one transfer
         b = self.batch_size
         text_tokens = packed[:b]
@@ -611,6 +623,8 @@ class BatchedAsrEngine(M.ShardedEngine):
         metrics.PIPELINE_BATCH_DURATION.observe(dt)
         if dt > 0:  # text tokens emitted across the active batch
             metrics.LM_TOKENS_PER_SECOND.set(float(mask.sum()) / dt)
+        if self.step_observer is not None:
+            self.step_observer(dt, float(mask.mean()))
         t_post0 = time.perf_counter()
         if self.session_logger is not None:
             for slot, ch in enumerate(chans):
@@ -638,6 +652,10 @@ class BatchedAsrEngine(M.ShardedEngine):
             if not ch.closed and self.slots[slot] is ch:
                 ch.deliver(ev)
         t_post = time.perf_counter() - t_post0
+        if self.phase_observer is not None:
+            self.phase_observer({"t0": t0, "queue_ms": (t_deq - t0) * 1e3,
+                                 "fetch_ms": (t_post0 - t_deq) * 1e3,
+                                 "post_ms": t_post * 1e3, "util": float(mask.mean())})
         metrics.PIPELINE_POSTPROCESS_DURATION.observe(t_post)
         # The share of the step window not spent in serial post-processing:
         # 1.0 when the drain thread hides it behind the next dispatch.

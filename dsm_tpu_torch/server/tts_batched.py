@@ -257,6 +257,13 @@ class BatchedTtsEngine(M.ShardedEngine):
         self.running = False
         self.thread: Optional[threading.Thread] = None
         self.step_count = 0
+        # The JAX engine's observer of each posted tick, None unless the
+        # caller sets it (``bench_perf.py``): seconds of the host gather,
+        # the dispatch, the device step and fetch (at depth 2 the wait
+        # behind the newer dispatch too) and the post-process; on the fused
+        # path then the gather's detail: the slot lock's wait and hold, the
+        # voice writes' and the script ops' seconds, and their counts.
+        self.tick_observer: Optional[Callable[..., None]] = None
         if self.pipeline_depth > 1 and self.fuse == 1:
             log.warning("tts: pipeline_depth=%d has no effect with fuse_ticks=1; set "
                         "fuse_ticks>1 to enable dispatch-ahead", self.pipeline_depth)
@@ -447,9 +454,17 @@ class BatchedTtsEngine(M.ShardedEngine):
         a replay of the captured tick, whose array is pinned memory that the
         next replay overwrites, or the eager tick.  Under a mesh the shards'
         arrays, merged."""
+        return fetch(self._dispatch_single(modes, toks, mask, reset))
+
+    def _dispatch_single(self, modes, toks, mask, reset):
+        """Queue one device tick for host arrays ``(batch_size,)`` -> its
+        handle for ``cuda_graph.fetch`` (:meth:`_invoke_step` fetches it): on
+        the graph, the replay's packed array copied into pinned memory
+        behind an event; eagerly, the packed device array.  Under a mesh
+        every shard's, as one handle."""
         if self.mesh is not None:
-            return M.merge_packed(self._on_shards("_invoke_step", modes, toks, mask, reset),
-                                  self._shard_b, PACKED_WIDTHS)
+            return M.MeshHandle(self._on_shards("_dispatch_single", modes, toks, mask, reset),
+                                self._shard_b, PACKED_WIDTHS)
         if self.cuda_graph:
             if self._graph is None:
                 raise RuntimeError("the CUDA graph tick is not captured: call warmup() "
@@ -463,7 +478,7 @@ class BatchedTtsEngine(M.ShardedEngine):
                 arrays["alpha"] = self._cfg_alpha
             self._inputs.stage(arrays)
             self._graph.replay()
-            return fetch(self._outputs.copy(self._static_out))  # the tick's one fetch
+            return self._outputs.copy(self._static_out)
         dev = self.device
 
         def rows(a, dtype=None):
@@ -476,7 +491,7 @@ class BatchedTtsEngine(M.ShardedEngine):
         if self.cfg_enabled:
             x["alpha"] = torch.as_tensor(self._cfg_alpha, device=dev)
         with torch.inference_mode():
-            return self._device_tick(x, in_place=False).cpu().numpy()
+            return self._device_tick(x, in_place=False), None
 
     def _device_tick(self, x: dict, in_place: bool) -> torch.Tensor:
         """The tick on device inputs ``x`` -> the packed int32 array: the TTS
@@ -705,7 +720,9 @@ class BatchedTtsEngine(M.ShardedEngine):
         n = self.batch_size
         reset = np.zeros(n, bool)
         drivers: List[Optional[TtsSlot]] = [None] * n
+        t_gather0 = time.perf_counter()
         with self.slot_lock:
+            t_lock = time.perf_counter()
             pending_voice, self._pending_voice = self._pending_voice, []
             ops, self._pending_script = self._pending_script, []
             reset[:] = self.pending_resets
@@ -716,17 +733,25 @@ class BatchedTtsEngine(M.ShardedEngine):
                 drivers[slot] = drv
                 with drv.lock:
                     self._promote(drv, ops)
+        t_hold = time.perf_counter()
         if pending_voice:
             with torch.inference_mode():
                 self._apply_voice_writes(pending_voice)
+        t_voice = time.perf_counter()
         self._apply_script_ops(ops)
+        t_script = time.perf_counter()
+        # The JAX engine's gather detail: lock wait, lock hold, voice writes,
+        # script ops, and how many of each.
+        detail = (t_lock - t_gather0, t_hold - t_lock, t_voice - t_hold, t_script - t_voice,
+                  len(pending_voice), len(ops))
         if not any(d is not None for d in drivers) and not reset.any():
             if self._inflight_f:  # input paused: deliver what is in flight
                 self._post_fused(self._inflight_f.popleft())
                 return True
             return False
         t0 = time.perf_counter()
-        self._inflight_f.append((self._dispatch_fused(reset), drivers, t0))
+        handle = self._dispatch_fused(reset)
+        self._inflight_f.append((handle, drivers, (t_gather0, t0, time.perf_counter()), detail))
         self.step_count += self.fuse
         if len(self._inflight_f) >= self.pipeline_depth:
             self._post_fused(self._inflight_f.popleft())
@@ -764,7 +789,7 @@ class BatchedTtsEngine(M.ShardedEngine):
         """One fetch for a dispatch's K frames, replayed frame by frame
         through the slots' mirrors: words, audio, and Done once a mirror has
         no constraint left.  The pad patch already ran on the device."""
-        handle, drivers, t0 = item
+        handle, drivers, (t_gather0, t0, t_fetch0), detail = item
         packed = fetch(handle)
         t_fetch = time.perf_counter()
         # Dispatched ahead, one dispatch's dispatch-to-fetch spans others'
@@ -793,6 +818,9 @@ class BatchedTtsEngine(M.ShardedEngine):
                 if pcm is not None and dec_mask[slot]:
                     drv.pcm_samples += frame
                     drv.deliver(AudioEvent(pcm=pcm[slot].copy()))
+        if self.tick_observer is not None:
+            self.tick_observer(t0 - t_gather0, t_fetch0 - t0, t_fetch - t_fetch0,
+                               time.perf_counter() - t_fetch, *detail)
 
     def _tick_single(self) -> bool:
         n = self.batch_size
@@ -801,6 +829,7 @@ class BatchedTtsEngine(M.ShardedEngine):
         mask = np.zeros(n, bool)
         reset = np.zeros(n, bool)
         drivers: List[Optional[TtsSlot]] = [None] * n
+        t_gather0 = time.perf_counter()
         with self.slot_lock:
             pending_voice, self._pending_voice = self._pending_voice, []
             reset[:] = self.pending_resets
@@ -823,7 +852,10 @@ class BatchedTtsEngine(M.ShardedEngine):
             return False
 
         t0 = time.perf_counter()
-        packed = self._invoke_step(modes, toks, mask, reset)
+        handle = self._dispatch_single(modes, toks, mask, reset)
+        t_fetch0 = time.perf_counter()
+        packed = fetch(handle)  # the tick's one fetch
+        t_fetch = time.perf_counter()
         self.step_count += 1
         text_tokens = packed[:n]
         steps = packed[n:2 * n]
@@ -847,6 +879,9 @@ class BatchedTtsEngine(M.ShardedEngine):
                 drv.deliver(AudioEvent(pcm=pcm[slot].copy()))
         if overwrite.any():
             self._overwrite_pad(overwrite)
+        if self.tick_observer is not None:
+            self.tick_observer(t0 - t_gather0, t_fetch0 - t0, t_fetch - t_fetch0,
+                               time.perf_counter() - t_fetch)
         return True
 
     def _overwrite_pad(self, overwrite: np.ndarray) -> None:

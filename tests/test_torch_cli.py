@@ -172,7 +172,7 @@ def test_worker_builds_and_starts_every_shipped_toml(toml, tmp_path, monkeypatch
 
 def test_module_entry_point_and_refused_subcommands():
     for argv, rc in ((["validate", "configs/config-smoke.toml"], 0), (["stt", "--help"], 0),
-                     (["tts", "--help"], 0), (["gen", "--help"], 0), (["bench"], 2),
+                     (["tts", "--help"], 0), (["gen", "--help"], 0), (["bench", "--help"], 0),
                      (["tui", "--help"], 0), (["stt-client", "--help"], 0),
                      (["tts-client", "--help"], 0), (["auth-server", "--help"], 0),
                      (["worker", "--help"], 0)):
@@ -185,6 +185,8 @@ def test_module_entry_point_and_refused_subcommands():
             assert "--device" in res.stdout
         if argv[0] == "gen":
             assert "--preset" in res.stdout and "--trace" in res.stdout
+        if argv[0] == "bench":  # ported with bench_perf.py
+            assert "--server-sustained" in res.stdout and "--device" in res.stdout
         if argv[0] in ("stt-client", "tts-client", "tui"):  # ported with the clients
             assert "--url" in res.stdout
             assert {"stt-client": "--mic", "tts-client": "--play",
@@ -193,3 +195,18 @@ def test_module_entry_point_and_refused_subcommands():
                          capture_output=True, text=True, timeout=120, check=False,
                          env={**os.environ, "BETTER_AUTH_SECRET": "s3cret"})
     assert res.returncode == 0 and res.stdout.count(".") == 2
+
+
+def test_bench_dispatches_the_rest_of_its_arguments_to_bench_perf(monkeypatch):
+    """``bench`` hands every argument after it to ``bench_perf.main`` (the
+    JAX CLI's runs the root bench.py, which imports JAX); the other
+    subcommands still refuse an argument they do not know."""
+    from dsm_tpu_torch import bench_perf
+
+    seen = []
+    monkeypatch.setattr(bench_perf, "main", lambda argv: seen.append(argv) or 0)
+    assert tcli.main(["bench", "--device", "cpu", "--memory", "--batch", "2"]) == 0
+    assert seen == [["--device", "cpu", "--memory", "--batch", "2"]]
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["validate", "configs/config-smoke.toml", "--device", "cpu"])
+    assert e.value.code == 2

@@ -2557,6 +2557,47 @@ def test_captured_asr_engine_at_depth_2_gives_the_depth_1_events(cuda_device):
     assert (fetch(second)[b:2 * b] == 3).all()
 
 
+@pytest.mark.cuda
+def test_captured_asr_engine_observers_fire_once_a_replayed_step(cuda_device):
+    """With the step captured at depth 2, ``step_observer`` and
+    ``phase_observer`` fire once a replayed step (none in the warm-up and
+    capture), with the JAX engine's keys and the share of slots stepped."""
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+
+    cfg, params = _small_asr(cuda_device, 1024, 8, True, 8)
+    eng = BatchedAsrEngine(cfg, params, batch_size=8, device=cuda_device, fill_gate_frac=0.0,
+                           cuda_graph=True, pipeline_depth=2)
+    steps, phases = [], []
+    eng.step_observer = lambda dt, u: steps.append((dt, u))
+    eng.phase_observer = phases.append
+    eng.warmup()
+    assert eng._graph is not None and not steps and not phases
+    steps0 = eng.step_count
+    _asr_serve(eng)
+    assert len(steps) == len(phases) == eng.step_count - steps0 > 40
+    assert all(set(p) == {"t0", "queue_ms", "fetch_ms", "post_ms", "util"} for p in phases)
+    assert [p["util"] for p in phases] == [u for _, u in steps]
+    assert all(0.0 <= u <= 1.0 and dt > 0 for dt, u in steps)
+    assert max(u for _, u in steps) == 3 / 8  # three streams at once on 8 slots
+
+
+@pytest.mark.cuda
+def test_bench_mimi_and_lm_on_the_card(cuda_device):
+    """``bench_perf.bench_mimi`` and ``bench_lm`` at a small batch on the card
+    (the LM step captured and replayed): the JAX functions' keys, positive
+    device times."""
+    from dsm_tpu_torch import bench_perf as BP
+
+    mimi = BP.bench_mimi(4, 3, device=cuda_device)
+    assert set(mimi) == {"mimi_encode_p50_ms", "mimi_decode_p50_ms", "batch"}
+    assert mimi["mimi_encode_p50_ms"] > 0 and mimi["mimi_decode_p50_ms"] > 0
+    lm = BP.bench_lm(4, 3, device=cuda_device)
+    assert set(lm) == {"lm_step_ms", "batch", "fused_steps", "model"}
+    assert lm["lm_step_ms"] > 0 and lm["fused_steps"] == 3 and lm["model"] == "stt-1b"
+    mem = BP.bench_memory(cuda_device)
+    assert 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"]
+
+
 def _tts_fused_serve(eng):
     """Slot 0: a long session; slot 1: a short one, closed at frame 48 and its
     slot reopened; slot 2: a session fed in two parts; the other slots hold

@@ -31,7 +31,7 @@ def test_every_module_imports_without_jax():
                 "server.auth_server", "utils.session_log", "offline", "sessions.lm_gen_simple",
                 "sessions.tts_legacy", "utils.bench", "utils.tracing", "utils.flac",
                 "utils.codecs", "train", "client", "client.audio_io", "client.stt",
-                "client.tts", "client.tui", "parallel", "parallel.mesh"):
+                "client.tts", "client.tui", "parallel", "parallel.mesh", "bench_perf"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -64,7 +64,7 @@ def test_engines_import_without_the_web_packages():
                      "server.native", "server.mimi_rooms", "server.model_presets", "offline",
                      "sessions.lm_gen_simple", "sessions.tts_legacy", "utils.bench",
                      "utils.tracing", "utils.audio", "train", "client", "client.audio_io",
-                     "client.stt", "client.tts", "client.tui"):
+                     "client.stt", "client.tts", "client.tui", "bench_perf"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex
         assert duplex.parse_frame(duplex.text_frame("a")) == (2, b"a")
