@@ -73,10 +73,10 @@ lines each:
    (tts-1.6b-en_fr, d=2048, 16 layers, DepFormer 32 slices x 4 layers,
    B=64, int8 voice store, int8 KV, int8 weights + W8A8, bf16 codec, the
    description LUT, the int16 pcm wire; fuse_ticks and pipeline_depth set
-   to 1: the single-tick path, eager) opens 64 sessions, 8 with seeded random
-   voices, and runs TTS_EAGER_TICKS ticks (the 16-session serve runs on the
-   captured engine only, to keep the script in its time), the kernels launched exactly
-   PER_TICK_TTS per tick; then a kernel profile of
+   to 1: the single-tick path, eager) serves 8 sessions with seeded random
+   voices and 4 without, then 4 more in reused slots (TTS_EAGER_SERVED; else
+   it opens 64 sessions and runs TTS_EAGER_TICKS ticks), the kernels launched
+   exactly PER_TICK_TTS per tick; then a kernel profile of
    the tick at 64 active slots, and the LM step with the voice store and
    the Mimi decode step from that state are held against the same steps
    through the kernels' plain versions (``[tts-path]``).  This engine runs
@@ -84,11 +84,11 @@ lines each:
    launch; ``[graph-tts]`` (and ``[graph-tts202501]`` after ``[tts202501]``)
    runs ``BatchedTtsEngine`` as ``build_batched_tts`` makes it on CUDA, its
    tick (the TTS step, the DepFormer, the gated Mimi decode, the packing)
-   captured once as a CUDA graph and replayed every tick: it serves 8
-   sessions with seeded random voices and 4 without, then 4 more in reused
-   slots (every session ends, every frame is 1,920 finite samples, every word
-   fed comes back), its launches counted over its warm-up and capture (a
-   replay counts none); the captured tick is timed at 64 active slots
+   captured once as a CUDA graph and replayed every tick: it serves the same
+   16 sessions (every session ends, every frame is 1,920 finite samples,
+   every word fed comes back), each session's events equal to the eager
+   engine's (words with their times, frames bit for bit), its launches
+   counted over its warm-up and capture (a replay counts none); the captured tick is timed at 64 active slots
    (host ms, device busy share, launches and kernel ms from a profile, peak
    memory with the graph's pool); then the replay is held to the eager
    ``TTS.step`` + ``MIMI.decode_step`` from one state over GRAPH_TICKS ticks
@@ -207,9 +207,9 @@ lines each:
    bit-identical pair fails; there decode_attend alone over int4 rings has a
    bar of its own (Q4_ALONE_FULL_RTOL); ``[tts202501]`` the TTS engine with
    the tts_202501 preset in place of the TOML's model (32 heads x 64, context
-   500, DepFormer 32 slices x 6 layers; head-major voice cross-attention), cut
-   to TTS202501_LAYERS of its 48 layers to keep the run in its time, 12
-   sessions, with
+   500, DepFormer 32 slices x 6 layers; head-major voice cross-attention) at
+   TTS202501_LAYERS of its 48 layers, the 16-session workload served eagerly
+   and held by ``[graph-tts202501]``, with
    ``[tts202501-profile]`` and ``[tts202501-path]``; ``[tune]`` the
    decode-attention tuning tool (dsm_tpu_torch.tools.attn_kernel_tune) in
    process at --batch 64, each row held to a share of the reference's largest
@@ -264,17 +264,23 @@ lines each:
    stt-1b at B=64 (the builder's ``[mesh]`` of more shards than cards raises),
    64 channels of MESH_STEPS frames on the unmeshed engine, on dp = 2 (each
    shard's step its own captured graph; each channel's events bit for bit an
-   unmeshed engine's of its shard's 32 slots) and on dp = 2 x tp = 2 (eager, 8
-   heads a shard, the joins summed on host threads; words and VAD held to the
-   dp engine's); ``[mesh-tts]`` (configs/config-tts-tpu-serving.toml as
-   shipped, B=64; MESH_TTS_AUDIO frames past the 27-frame audio delay,
-   MESH_TP_TTS_AUDIO at dp x tp) and ``[mesh-duplex]``
+   unmeshed engine's of its shard's 32 slots) and on dp = 2 x tp = 2 (8 heads
+   a shard, captured: each replica's two tp shards one graph, the joins
+   summed on the card; words and VAD held to the dp engine's);
+   ``[mesh-tts]`` (configs/config-tts-tpu-serving.toml as shipped, B=64;
+   MESH_TTS_AUDIO frames past the 27-frame audio delay) and ``[mesh-duplex]``
    (configs/config-duplex-tpu-serving.toml, B=24; MESH_TICKS ticks on each),
    16 sessions on each engine, the dp engine's all equal to the unmeshed
-   engine's (MESH_FRAME_RTOL), the dp x tp engine's held to them (MESH_TP_SAME,
-   MESH_TP_FRAME_RTOL); at dp x tp, launches a step and the tp shards' states
-   equal but for their LM heads; in each, one LM step split over tp = 2 held
-   to the unsplit step (``_tp_lm_check``).  The kernel phase holds every kernel of these
+   engine's (MESH_FRAME_RTOL), the captured dp x tp engine's held to the dp
+   engine's (MESH_TP_SAME, MESH_TP_FRAME_RTOL).  At dp x tp in each: the
+   launches over warm-up and capture (none on replay), the first
+   MESH_EAGER_TICKS steps, frames or ticks beside the eager dp x tp engine
+   (one host thread a tp shard, host joins) from the same state, every
+   shard's device state (and the events so far) bit for bit, the host ms of
+   both (the captured at most MESH_CAPTURED_SHARE of the eager), a profile of
+   the captured step (device launches a shard, the joins' included; busy),
+   the tp shards' states equal but for their LM heads; one LM step split
+   over tp = 2 held to the unsplit step (``_tp_lm_check``).  The kernel phase holds every kernel of these
    paths at its per-shard shapes (labels "mesh ..."; the JSON entry's
    ``mesh_cases``).  One card cannot check another card's stream, cross-card
    copies or the per-device shared-memory opt-in
@@ -443,11 +449,12 @@ PER_TICK_DUPLEX = {"rope_qk": 24, "quantize_commit": 24, "decode_attend": 24, "r
 # with quantize_commit and attends with decode_attend over the packed ring.
 PER_STEP_STT1B_KV4 = {"rope_qk": 16, "quantize_commit": 16, "decode_attend": 16, "rope_commit": 8,
                       "quantize_scale_commit": 0, "decode_attend_commit": 0, **_NONE}
-# tts_202501 (32 heads x 64, not a shape of the fused rule), cut to
-# TTS202501_LAYERS of its 48 layers to keep the run in its time: the split
-# pipeline over (64,32,512,64) int8 rings plus the voice cross-attention in
-# every layer; the Mimi decoder's 8 layers rotate and commit their 2 bf16 rows.
-TTS202501_LAYERS = 12
+# tts_202501 (32 heads x 64, not a shape of the fused rule) at TTS202501_LAYERS
+# of its 48 layers (all of them since the dp x tp step is captured and the
+# mesh phases take less time): the split pipeline over
+# (64,32,512,64) int8 rings plus the voice cross-attention in every layer; the
+# Mimi decoder's 8 layers rotate and commit their 2 bf16 rows.
+TTS202501_LAYERS = 48
 PER_TICK_TTS202501 = {"rope_qk": TTS202501_LAYERS, "quantize_commit": TTS202501_LAYERS,
                       "decode_attend": TTS202501_LAYERS, "ca_decode_attend": TTS202501_LAYERS,
                       "rope_commit": 8, "quantize_scale_commit": 0,
@@ -2748,10 +2755,16 @@ TTS_TEXTS = ["hello there friend", "the quick brown fox", "one two three four",
              "voices on the card", "short one", "last of the batch"]
 
 
-# The texts of [tts202501] (tts_202501 cut to TTS202501_LAYERS layers): its eager
-# ticks (0.3-0.4 s, host-bound) are most of its phases' time, so two words a
-# session; tts-1.6b's [tts] and [graph-tts] take TTS_TEXTS.
-TTS_EAGER_TICKS = 4  # [tts], [tts202501]: eager ticks counted (the serve is [graph-tts]'s)
+# [tts] and [tts202501] serve the 16-session workload eagerly, and their
+# [graph-*] phases hold the captured engine's served events to it, where the
+# tag is listed here; elsewhere the eager engine counts TTS_EAGER_TICKS ticks
+# with every slot open.  [tts202501]'s serve (92 eager ticks at 48 layers,
+# 45-67 s) does not fit in the script's 900 s (ROADMAP queue 3, item 5).
+TTS_EAGER_SERVED = ("tts",)
+TTS_EAGER_TICKS = 4
+# The texts of [tts202501] (tts_202501 at TTS202501_LAYERS layers): its eager
+# ticks (0.5-0.6 s at 48 layers, host-bound) are most of its phases' time, so
+# two words a session; tts-1.6b's [tts] and [graph-tts] take TTS_TEXTS.
 TTS_SHORT_TEXTS = ["hello there", "quick fox", "one two", "good morning", "fine day", "see you"]
 
 
@@ -2803,7 +2816,7 @@ def _tts_verify(sessions, sids, frame):
     return n_frames
 
 
-def _profile(fn, n: int, attempts: int = 4, rope_launches=None):
+def _profile(fn, n: int, attempts: int = 4, rope_launches=None, spans=None):
     """``n`` calls of ``fn`` under the profiler -> the kernels as ``(name,
     device us, launches)`` by falling device time, and the calls' wall time
     in us.  Device activity only: with the host's operator events as well
@@ -2815,7 +2828,9 @@ def _profile(fn, n: int, attempts: int = 4, rope_launches=None):
     again.  Where every attempt holds no device event at all (CUPTI lost them
     all: seen once, from a point of a run on), the calls are timed with CUDA
     events instead: one row, named so, of their elapsed device time, with no
-    launch counted."""
+    launch counted.  ``spans``: a list given the ``(start, end)`` us of every
+    device event of the profile kept (the device's busy time where kernels
+    overlap)."""
     import torch
 
     from dsm_tpu_torch.ops import ring_kernels as RK
@@ -2837,6 +2852,9 @@ def _profile(fn, n: int, attempts: int = 4, rope_launches=None):
                        if e.device_type == cuda and e.self_device_time_total > 0),
                       key=lambda r: -r[1])
         seen = sum(c for key, _, c in rows if "rope_commit_kernel" in key)
+        if spans is not None:
+            spans[:] = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                        if e.device_type == cuda]
         if seen == launched:
             break
         print(f"[profile] attempt {attempt + 1}: the profiler holds {seen} of the {launched} "
@@ -2931,7 +2949,7 @@ def _tts_module(tag, preset=None):
 
     path = os.path.join(ROOT, "configs", "config-tts-tpu-serving.toml")
     mod = CFG.Config.load(path).modules["tts"]
-    model = (f"its lm replaced by the preset LM.{preset}() cut to {TTS202501_LAYERS} of its "
+    model = (f"its lm replaced by the preset LM.{preset}() at {TTS202501_LAYERS} of its "
              f"48 layers" if preset else "its own model")
     print(f"[{tag}] {os.path.relpath(path, ROOT)} with {model}: fuse_ticks "
           f"{mod.raw['fuse_ticks']} -> 1, "
@@ -3011,7 +3029,9 @@ def phase_tts(dev, card, preset=None):
     ``preset = "tts_202501"`` puts that model in place of the TOML's (no TOML
     of it is in the repository) and tags the lines ``[tts202501]``.  The
     engine runs the eager tick (``cuda_graph=False``), so that the wrappers
-    count every launch -> ``(engine, launches, (events, ticks))``."""
+    count every launch, over the 16-session workload (``_tts_serve``) where
+    the tag is in TTS_EAGER_SERVED, else over TTS_EAGER_TICKS ticks with every
+    slot open -> ``(engine, launches, (events, ticks) or None)``."""
     import torch
 
     from dsm_tpu_torch.server import builder
@@ -3071,12 +3091,19 @@ def phase_tts(dev, card, preset=None):
         fn.launches = 0
     ticks0 = engine.step_count
     t0 = time.perf_counter()
-    sessions = {}
-    for sid in range(engine.batch_size):  # 8 with voices, every slot open
-        _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions,
-                  texts=TTS_SHORT_TEXTS if preset else TTS_TEXTS)
-    for _ in range(TTS_EAGER_TICKS):
-        engine.tick()
+    texts = TTS_SHORT_TEXTS if preset else TTS_TEXTS
+    log = None
+    if tag in TTS_EAGER_SERVED:
+        sessions, second, idle, n_frames = _tts_serve(engine, texts)
+        opened = [sessions[sid] for sid in range(4, 12)] + list(second.values()) \
+            + list(idle.values())
+    else:
+        opened = {}
+        for sid in range(engine.batch_size):  # 8 with voices, every slot open
+            _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, opened, texts=texts)
+        opened = list(opened.values())
+        for _ in range(TTS_EAGER_TICKS):
+            engine.tick()
     serve_s = time.perf_counter() - t0
     ticks = engine.step_count - ticks0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -3084,13 +3111,22 @@ def phase_tts(dev, card, preset=None):
         check(n > 0 or per_tick[name] == 0, f"{name} never launched on the TTS path")
         check(n == per_tick[name] * ticks,
               f"{name}: {n} launches over {ticks} ticks, want {per_tick[name]} per tick")
-    print(f"[{tag}] {engine.batch_size} sessions open (8 with voices), {ticks} eager ticks in "
-          f"{serve_s:.3f} s; launches {launches} = per tick {per_tick} (the served workload "
-          f"runs on the captured engine, [graph-{tag}])", flush=True)
-    for sess in sessions.values():
+    if tag in TTS_EAGER_SERVED:
+        log = _tts_log({**sessions, **second}, ticks)
+        words = sum(len(s["text"].split()) for s in list(sessions.values())
+                    + list(second.values()))
+        print(f"[{tag}] 16 sessions (8 + 4 reused slots with voices, 4 without), all done; "
+              f"{words} words returned, {n_frames} frames of {engine.mimi_cfg.frame_size} "
+              f"finite samples, {ticks} eager ticks in {serve_s:.3f} s with 64 slots open; "
+              f"launches {launches} = per tick {per_tick}", flush=True)
+    else:
+        print(f"[{tag}] {engine.batch_size} sessions open (8 with voices), {ticks} eager ticks "
+              f"in {serve_s:.3f} s; launches {launches} = per tick {per_tick} (the served "
+              f"workload runs on the captured engine alone, [graph-{tag}])", flush=True)
+    for sess in opened:
         engine.close_session(sess["drv"])
     check(engine.used_slots() == 0, "TTS slots still open")
-    return engine, launches
+    return engine, launches, log
 
 
 def _with_w(plain):
@@ -3362,13 +3398,16 @@ def _first_difference(got, want):
     return "none"
 
 
-def phase_graph_tts(dev, card, preset=None):
+def phase_graph_tts(dev, card, eager_log, preset=None):
     """The TTS tick as one captured CUDA graph: the engine as
     ``build_batched_tts`` makes it on CUDA (``cuda_graph`` left at its
     default), its tick captured by ``warmup()``.  (1) It serves the TTS
     workload (``_tts_serve``: every session ends, every word comes back,
-    every frame whole and finite); the kernels counted over its warm-up and
-    capture (3 x per tick), none over the replays.  (2) Its tick timed.  (3)
+    every frame whole and finite) and, given the eager engine's
+    ``eager_log`` of it, from the same weights and start, holds each
+    session's events (words with their times, every frame bit for bit) and
+    the ticks to it; the kernels counted over its warm-up and capture (3 x
+    per tick), none over the replays.  (2) Its tick timed.  (3)
     From a state whose LM and Mimi decoder rings sit 40 rows before a wrap,
     the eager tick (``TTS.step`` + ``MIMI.decode_step`` on a clone of the
     state, the engine's params and voice store shared) beside the replay over
@@ -3409,17 +3448,23 @@ def phase_graph_tts(dev, card, preset=None):
     serve_s = time.perf_counter() - t0
     log = _tts_log({**sessions, **second}, engine.step_count - ticks0)
     launches = {name: fn.launches for name, fn in counters.items()}
+    if eager_log is not None:
+        check(log == eager_log, f"{tag}: the captured engine's events differ from the eager "
+              f"engine's: first at {_first_difference(log, eager_log)}")
     want = {name: 3 * n for name, n in per_tick.items()}
     check(launches == want, f"{tag}: launches {launches}, want {want} (warm-up + capture)")
     for s in [sessions[sid] for sid in range(4, 12)] + list(second.values()) \
             + list(idle.values()):
         engine.close_session(s["drv"])
     n_words = sum(1 for evs in log[0].values() for e in evs if e[0] == "word")
+    held = (f"each session's events (words with their times, every frame bit for bit) and "
+            f"the ticks equal to the eager engine's serve of [{tag[6:]}]"
+            if eager_log is not None else "no eager serve to hold them to")
     print(f"[{tag}] built and captured in {capture_s:.2f} s; served 16 sessions (8 + 4 "
           f"reused slots with voices, 4 without) in {log[1]} ticks ({serve_s:.3f} s): "
-          f"{n_words} word events and {n_frames} frames, every session ended; kernel launches "
-          f"counted over its warm-up and capture {launches} = 3 x per tick, none on replay "
-          f"(the replay against the eager tick below)", flush=True)
+          f"{n_words} word events and {n_frames} frames, every session ended, {held}; kernel "
+          f"launches counted over its warm-up and capture {launches} = 3 x per tick, none on "
+          f"replay (the replay against the eager tick below)", flush=True)
 
     rope = per_tick["rope_qk"] + per_tick["rope_commit"]
     numbers = {"launches": launches,
@@ -5960,8 +6005,18 @@ def phase_train_path(dev, card):
 MESH_STT_B = 64  # [mesh-stt]: configs/config-stt-tpu-serving.toml's stt-1b at this batch
 MESH_STEPS = 50  # steps of every [mesh-stt] channel, on each engine
 MESH_TICKS = 24  # ticks of [mesh-duplex], on each engine
-MESH_TTS_AUDIO = 12  # frames of [mesh-tts]'s unmeshed and dp runs past the audio delay
-MESH_TP_TTS_AUDIO = 4  # frames of its dp x tp run (eager, 2.3 s a frame) past the delay
+MESH_TTS_AUDIO = 12  # frames of every [mesh-tts] run past the audio delay
+# Steps, ticks or frames of each phase's eager dp x tp engine (host threads and
+# host joins, 0.3-4.4 s a step): the reference that the captured dp x tp engine
+# is held to bit for bit from the same state.
+MESH_EAGER_TICKS = 4
+# The captured dp x tp step against the eager one, host ms: at most this share.
+MESH_CAPTURED_SHARE = 0.2
+MESH_TIMES = {}  # engine -> the captured dp x tp figures of its [mesh-*] phase
+# A TTS and a duplex shard's device state: what the eager dp x tp engine
+# starts from and is held to.
+TTS_SHARD_STATE = ("state", "mimi_state", "_mstate", "_ca", "_frames", "_frame_k")
+DUPLEX_SHARD_STATE = ("state", "enc_state", "dec_state", "rng")
 # A dp engine's frame against the unmeshed engine's: the shards' products
 # run at B/dp rows, so bf16 rounds otherwise (measured 7.5e-4 TTS, 6.8e-3
 # duplex, NVIDIA H100 80GB HBM3 700 W); a token drawn otherwise gives ~1.
@@ -6141,30 +6196,159 @@ def _tp_lockstep(tag, engine, names):
     return n
 
 
-def _mesh_stt_serve(engine, sids):
+def _shard_leaves(tree, path=()):
+    """``(path, tensor)`` of every tensor of a shard's state tree."""
+    import torch
+
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _shard_leaves(v, path + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _shard_leaves(v, path + (str(i),))]
+    return [(path, tree)] if isinstance(tree, torch.Tensor) else []
+
+
+def _tp_copy_state(src, dst, names):
+    """``dst``'s shards take ``src``'s device state (its attributes
+    ``names``), in place: the eager dp x tp engine starts where the captured
+    one's warm-up left it."""
+    import torch
+
+    with torch.inference_mode():
+        for d, row in enumerate(src.shards):
+            for t, sh in enumerate(row):
+                for name in names:
+                    for (_, a), (_, b) in zip(_shard_leaves(getattr(sh, name)),
+                                              _shard_leaves(getattr(dst.shards[d][t], name))):
+                        b.copy_(a)
+    torch.cuda.synchronize()
+
+
+def _tp_same_state(tag, got, want, names):
+    """Every shard of the captured dp x tp engine ``got`` holds the device
+    state (its attributes ``names``) of the same shard of the eager ``want``
+    bit for bit -> the leaves compared."""
+    import torch
+
+    torch.cuda.synchronize()
+    n = 0
+    for d, row in enumerate(got.shards):
+        for t, sh in enumerate(row):
+            for name in names:
+                pairs = zip(_shard_leaves(getattr(sh, name)),
+                            _shard_leaves(getattr(want.shards[d][t], name)))
+                for (path, a), (_, b) in pairs:
+                    check(_bits_equal(a, b), f"{tag}: captured tp shard ({d}, {t}) "
+                          f"{name}/{'/'.join(path)} differs from the eager engine's")
+                    n += 1
+    return n
+
+
+def _tp_capture(tag, engine, counters, per_step, warm_steps=2):
+    """``engine.warmup(warm_steps)``: every tp shard of every replica
+    captured into its replica's graph (tp shard 0's), the shard threads
+    ended, the wrappers' launches only the warm-up's and the capture's ->
+    seconds, the joins a step (each a slot copy and tp - 1 adds a shard),
+    the launches.  As many warm-up steps as the dp engine's: each advances
+    the rings' position, and with it the order the attention sums in, which
+    the comparison with the dp engine reads."""
+    from dsm_tpu_torch.parallel import mesh as PM
+
+    import torch
+
+    check(engine.cuda_graph, f"{tag}: the dp x tp engine is not captured on the card")
+    _zeroed(counters)
+    t0 = time.perf_counter()
+    engine.warmup(warm_steps)
+    seconds = time.perf_counter() - t0
+    check(all(isinstance(row[0]._graph, torch.cuda.CUDAGraph) and
+              all(isinstance(sh._graph, PM._PeerGraph) for sh in row[1:])
+              for row in engine.shards), f"{tag}: a replica is not one graph")
+    check(engine._runner._queues is None, f"{tag}: the shard threads outlived the capture")
+    n = engine.mesh.dp * engine.mesh.tp
+    per = {name: (warm_steps + 1) * n * k for name, k in per_step.items()}
+    got = _launched(counters)
+    check(got == per, f"{tag}: launches over the tp warm-up and capture {got}, want {per}")
+    joins = engine._runner._group._calls[0] / (engine.mesh.dp * (warm_steps + 1))
+    _zeroed(counters)
+    return seconds, joins, got
+
+
+def _tp_profile(tag, what, engine, fn, n, per_shard, unit, card):
+    """``n`` calls of ``fn`` (one step, tick or frame: a replay of every
+    replica's graph) under the profiler -> device launches a ``unit`` a
+    shard, kernel ms a ``unit`` (summed over the tp shards' streams, which
+    overlap) and the device's busy share (the union of its kernels' spans
+    over the wall time, which the profiler stretches; and that union in ms a
+    ``unit``).  ``per_shard``: a shard's rope kernels a call (the profile's
+    check that it lost no event)."""
+    shards = engine.mesh.dp * engine.mesh.tp
+    spans = []
+    rows, wall_us = _profile(fn, n, rope_launches=n * shards * per_shard, spans=spans)
+    kernel_ms = _print_profile(f"{tag}-profile", what, rows, wall_us, n, unit, card, 6)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"launches": sum(c for _, _, c in rows) / n / shards, "kernel_ms": kernel_ms,
+            "busy": busy_us / wall_us, "busy_ms": busy_us / n / 1e3}
+
+
+def _stt_log(sessions):
+    return {sid: [(e.step_idx, [(type(w).__name__, getattr(w, "tokens", None),
+                                 getattr(w, "start_time", None), getattr(w, "stop_time", None))
+                                for w in e.words], list(e.markers), e.prs.tobytes())
+                  for e in s["events"]] for sid, s in sessions.items()}
+
+
+def _mesh_stt_serve(engine, sids, eager=None):
     """Channels ``sids`` opened in order on ``engine`` (seeded; each its own
     pcm, its marker and the silence that flushes it, MESH_STEPS frames in
     all) and served through ``tick`` to their end, every frame answered and
     every marker delivered -> each channel's events (step, words, markers,
-    VAD bytes), the host ms a step over the run and each channel's id."""
+    VAD bytes), the host ms a step over the run and each channel's id.
+    ``eager``: the eager dp x tp engine, started from ``engine``'s shard
+    states, given the same channels and ticked beside ``engine`` for its
+    first MESH_EAGER_TICKS steps, its shards' states and the events so far
+    held to ``engine``'s bit for bit (then it stops) -> also its host ms a
+    step, the leaves compared and the events so far."""
     frame, delay = engine.frame_size, engine.cfg.asr_delay_in_tokens
     seconds = (MESH_STEPS - delay - 1) * frame / 24000.0
     sessions = {}
     for sid in sids:
         _open(engine, sid, seconds, sessions, seed=sid)
     steps0, t0 = engine.step_count, time.perf_counter()
+    held, eager_s = None, 0.0
+    if eager is not None:
+        t_e = time.perf_counter()
+        _tp_copy_state(engine, eager, ("state",))
+        twins = {}
+        for sid in sids:
+            _open(eager, sid, seconds, twins, seed=sid)
+        t_o = time.perf_counter()
+        for _ in range(MESH_EAGER_TICKS):
+            engine.tick()
+        t1 = time.perf_counter()
+        for _ in range(MESH_EAGER_TICKS):
+            eager.tick()
+        eager_ms = (time.perf_counter() - t1) * 1e3 / MESH_EAGER_TICKS
+        check(engine.step_count == eager.step_count == steps0 + MESH_EAGER_TICKS,
+              "mesh-stt: the captured and eager dp x tp engines stepped otherwise")
+        leaves = _tp_same_state("mesh-stt", engine, eager, ("state",))
+        check(_stt_log(sessions) == _stt_log(twins), "mesh-stt: the captured dp x tp "
+              "engine's events differ from the eager one's")
+        held = (eager_ms, leaves, sum(len(s["events"]) for s in sessions.values()))
+        eager.stop()
+        eager_s = (t_o - t_e) + (time.perf_counter() - t1)  # the eager engine's part
     _drive(engine, sessions)
-    ms = (time.perf_counter() - t0) * 1e3 / max(engine.step_count - steps0, 1)
+    ms = (time.perf_counter() - t0 - eager_s) * 1e3 / max(engine.step_count - steps0, 1)
     cfg = engine.cfg.lm
     _verify(sessions, sids, cfg.extra_heads[0] if cfg.extra_heads else 0)
-    log = {sid: [(e.step_idx, [(type(w).__name__, getattr(w, "tokens", None),
-                                getattr(w, "start_time", None), getattr(w, "stop_time", None))
-                               for w in e.words], list(e.markers), e.prs.tobytes())
-                 for e in s["events"]] for sid, s in sessions.items()}
+    log = _stt_log(sessions)
     ids = {sid: s["ch"].channel_id for sid, s in sessions.items()}
     for s in sessions.values():
         engine.close_channel(s["ch"])
-    return log, ms, ids
+    return (log, ms, ids) if held is None else (log, ms, ids, held)
 
 
 def _mesh_tokens(logs, ids):
@@ -6193,16 +6377,20 @@ def phase_mesh_stt(dev, card):
     graph; the file's int16 wire not taken), its launches counted over
     warm-up, capture and the serve, each channel's events bit for bit those
     of an unmeshed engine of its shard's 32 slots serving that shard's
-    channels; dp = 2 x tp = 2 (eager, one host thread a tp shard), its
-    launches a step, its tp shards' states equal but for their LM heads, its
-    channels' words and VAD held to the dp engine's (MESH_TP_SAME,
-    MESH_TP_VAD_RTOL; each trace nearer its own channel's than any other's)
-    and its logged text tokens, step for step, to the dp engine's
-    (MESH_TP_TOKENS_SAME).
-    One LM step split over tp held to the unsplit step (``_tp_lm_check``).
-    -> launches of the meshed runs."""
+    channels; dp = 2 x tp = 2 captured (each replica's two tp shards one
+    graph, the joins on the card), its launches over warm-up and capture,
+    its first MESH_EAGER_TICKS steps beside the eager dp x tp engine (one host
+    thread a tp shard, host joins): every shard's state and the events so
+    far bit for bit, host ms a step of both; its tp shards' states equal but
+    for their LM heads, its channels' words and VAD held to the dp engine's
+    (MESH_TP_SAME, MESH_TP_VAD_RTOL; each trace nearer its own channel's
+    than any other's) and its logged text tokens, step for step, to the dp
+    engine's (MESH_TP_TOKENS_SAME); a profile of its step (device launches a
+    shard, busy).  One LM step split over tp held to the unsplit step
+    (``_tp_lm_check``).  -> launches of the meshed runs."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from dsm_tpu_torch.server import builder
@@ -6257,21 +6445,28 @@ def phase_mesh_stt(dev, card):
                             pipeline_depth=depth,
                             session_logger=SessionLogger(logs["tp"].name,
                                                          flush_every_steps=10 ** 6))
-    check(not e_tp.cuda_graph, f"{tag}: the tp engine is captured")
-    e_tp.warmup()
+    capture_s, joins, tp_launches = _tp_capture(tag, e_tp, counters, PER_STEP)
     ring = tuple(e_tp.shards[1][1].state["lm"]["t"]["layers"][0]["k"].shape)
     check(ring == (32, 8, 768, 128), f"{tag}: a tp shard's ring is {ring}")
-    _zeroed(counters)
-    steps0 = e_tp.step_count
-    got_tp, ms_tp, ids_tp = _mesh_stt_serve(e_tp, sids)
-    steps = e_tp.step_count - steps0
-    tp_launches = _launched(counters)
-    per = {name: 4 * steps * n for name, n in PER_STEP.items()}
-    check(tp_launches == per, f"{tag}: tp launches {tp_launches}, want {per}")
+    e_eager = BatchedAsrEngine(cfg, params, b, device=dev, mesh=_mesh(dev, 2, 2),
+                               pipeline_depth=depth, cuda_graph=False)
+    got_tp, ms_tp, ids_tp, (ms_eager, held, held_events) = _mesh_stt_serve(e_tp, sids, e_eager)
+    eager_launches = _launched(counters)
+    per = {name: 4 * MESH_EAGER_TICKS * n for name, n in PER_STEP.items()}
+    check(eager_launches == per, f"{tag}: the eager tp engine's launches {eager_launches}, "
+          f"want {per} (the captured one launches none on replay)")
+    del e_eager
     leaves = _tp_lockstep(tag, e_tp, ("state",))
+    pcm = (np.random.default_rng(7).standard_normal((b, 1, e_tp.frame_size)) * 0.1
+           ).astype(np.float32)
+    on, off = np.ones(b, bool), np.zeros(b, bool)
+    prof = _tp_profile(tag, "dp = 2 x tp = 2 captured step, 64 slots: ", e_tp,
+                       lambda: e_tp._invoke_step(pcm, on, off), 2,
+                       PER_STEP["rope_qk"] + PER_STEP["rope_commit"], "step", card)
     e_tp.stop()
     del e_tp
     torch.cuda.empty_cache()
+    tp_launches = {k: tp_launches[k] + eager_launches.get(k, 0) for k in tp_launches}
     tok_dp, tok_tp = _mesh_tokens(logs["dp"].name, ids_dp), _mesh_tokens(logs["tp"].name, ids_tp)
     for d in logs.values():
         d.cleanup()
@@ -6296,16 +6491,28 @@ def phase_mesh_stt(dev, card):
           f"tick: dp = 2 (captured, depth {depth}) each channel's events bit for bit an "
           f"unmeshed engine's of its shard's {b // 2} slots; against the unmeshed B={b} engine "
           f"(products at B={b} rows) {same_ref} / {b} channels with its words ({n_words} words "
-          f"at dp), worst VAD relative L2 {vad_ref!r}; dp = 2 x tp = 2 (eager) against dp: "
+          f"at dp), worst VAD relative L2 {vad_ref!r}; dp = 2 x tp = 2 captured (each replica "
+          f"one graph, captured in {capture_s:.2f} s, {joins:.0f} joins a step) against dp: "
           f"{same_tp} / {b} channels with its words (bar {MESH_TP_SAME}), VAD relative L2 "
           f"worst {max(own)!r} (bar {MESH_TP_VAD_RTOL}), against the nearest other channel "
-          f"at least {min(other)!r}; the tp shards' states equal in {leaves} leaves but their "
-          f"LM heads; launches a step { {k: v // steps for k, v in tp_launches.items() if v} } "
-          f"at dp x tp (4 shards), the dp engine's over warm-up, capture and serve "
-          f"{ {k: v for k, v in dp_launches.items() if v} } (none on replay)", flush=True)
+          f"at least {min(other)!r}; against the eager dp x tp engine over its first "
+          f"{MESH_EAGER_TICKS} steps: {held} state leaves of the 4 shards and {held_events} "
+          f"events bit for bit; the tp shards' states equal in {leaves} leaves but their LM "
+          f"heads; launches over the tp warm-up and capture "
+          f"{ {k: v for k, v in tp_launches.items() if v} } with the eager engine's "
+          f"{MESH_EAGER_TICKS} steps (none on replay), the dp engine's over warm-up, capture "
+          f"and serve { {k: v for k, v in dp_launches.items() if v} }", flush=True)
     print(f"[{tag}] host ms a step over the serve (depth {depth}): unmeshed captured "
-          f"{ms_ref!r}, dp = 2 captured {ms_dp!r}, dp = 2 x tp = 2 eager {ms_tp!r}; card {card}",
+          f"{ms_ref!r}, dp = 2 captured {ms_dp!r}, dp = 2 x tp = 2 captured {ms_tp!r}, "
+          f"dp = 2 x tp = 2 eager {ms_eager!r} ({MESH_EAGER_TICKS} steps; captured / eager "
+          f"{ms_tp / ms_eager!r}, bar {MESH_CAPTURED_SHARE}); the captured dp x tp step: "
+          f"{prof['launches']:.0f} device launches a shard ({joins:.0f} joins x 2 of them), "
+          f"kernels {prof['kernel_ms']!r} ms summed over the overlapping tp streams, device "
+          f"busy {prof['busy']!r} of the profiled wall ({prof['busy_ms']!r} ms); card {card}",
           flush=True)
+    MESH_TIMES["stt"] = {"ms": ms_tp, "eager_ms": ms_eager, **prof}
+    check(ms_tp <= MESH_CAPTURED_SHARE * ms_eager, f"{tag}: the captured dp x tp step "
+          f"{ms_tp!r} ms is over {MESH_CAPTURED_SHARE} of the eager one's {ms_eager!r}")
     print(f"[{tag}] text tokens logged a step (SessionLogger on both engines), pad tokens "
           f"included: dp x tp equal to dp in {tok_same} of {tok_all} (channel, step) tokens "
           f"({tok_same / tok_all!r}, bar {MESH_TP_TOKENS_SAME}); at dp {not_pad} of them not "
@@ -6333,10 +6540,16 @@ def _mesh_tts_frames(cfg, fuse, audio):
     return -(-frames // fuse) * fuse
 
 
-def _mesh_tts_run(engine, tag, frames):
+def _mesh_tts_run(engine, tag, frames, eager=None):
     """16 sessions on ``engine`` (8 with voices), ``frames`` frames, then
     what is in flight -> each session's words and frames; every frame whole
-    and finite, some audio."""
+    and finite, some audio.  ``eager``: the eager dp x tp engine, started
+    from ``engine``'s shard states, given the same sessions and ticked
+    beside ``engine`` for its first
+    MESH_EAGER_TICKS frames, its shards' device states (the LM, codec and
+    script machine states, the voice store, the dispatch's packed frames)
+    held to ``engine``'s bit for bit (then it stops) -> also the eager host
+    ms a frame, the leaves compared and the seconds the eager engine took."""
     import numpy as np
 
     from dsm_tpu_torch.server.tts_module import AudioEvent, WordEvent
@@ -6344,7 +6557,27 @@ def _mesh_tts_run(engine, tag, frames):
     sessions = {}
     for sid in range(16):
         _tts_open(engine, sid, f"spk{sid}" if sid < 8 else None, sessions)
-    for _ in range(frames // engine.fuse):
+    ticks = frames // engine.fuse
+    held = None
+    if eager is not None:
+        t0 = time.perf_counter()
+        _tp_copy_state(engine, eager, TTS_SHARD_STATE)
+        twins = {}
+        for sid in range(16):
+            _tts_open(eager, sid, f"spk{sid}" if sid < 8 else None, twins)
+        t_o = time.perf_counter()
+        first = MESH_EAGER_TICKS // engine.fuse
+        for _ in range(first):
+            engine.tick()
+        t1 = time.perf_counter()
+        for _ in range(first):
+            eager.tick()
+        eager_ms = (time.perf_counter() - t1) * 1e3 / (first * engine.fuse)
+        leaves = _tp_same_state(tag, engine, eager, TTS_SHARD_STATE)
+        eager.stop()
+        ticks -= first
+        held = (eager_ms, leaves, (t_o - t0) + (time.perf_counter() - t1))
+    for _ in range(ticks):
         engine.tick()
     engine.stop()
     out = {}
@@ -6356,10 +6589,10 @@ def _mesh_tts_run(engine, tag, frames):
         out[sid] = ([e.text for e in sess["events"] if isinstance(e, WordEvent)], frames)
         engine.close_session(sess["drv"])
     check(sum(len(f) for _, f in out.values()) > 0, f"{tag}: no audio")
-    return out
+    return out if held is None else (out, held)
 
 
-def _tts_like(ref, dev, mesh):
+def _tts_like(ref, dev, mesh, cuda_graph=None):
     from dsm_tpu_torch.server.tts_batched import BatchedTtsEngine
 
     eng = BatchedTtsEngine(
@@ -6367,7 +6600,7 @@ def _tts_like(ref, dev, mesh):
         batch_size=ref.batch_size, ca_len=ref.ca_len, cfg_enabled=ref.cfg_enabled,
         ca_quant=ref.ca_quant, device=dev, pcm_wire_int16=ref._pcm_wire_i16,
         fuse_ticks=ref.fuse, script_cap=ref.script_cap, pipeline_depth=ref.pipeline_depth,
-        mesh=mesh)
+        mesh=mesh, cuda_graph=cuda_graph)
     eng.voices = ref.voices
     return eng
 
@@ -6400,11 +6633,14 @@ def phase_mesh_tts(dev, card):
     unmeshed engine (captured) and on dp = 2 (each shard's frame its own
     captured graph, launches counted over warm-up, capture and the run), all
     16 sessions with the unmeshed engine's words and frames (MESH_FRAME_RTOL);
-    then dp = 2 x tp = 2 (eager) for MESH_TP_TTS_AUDIO frames past the delay,
-    its launches a frame, its tp shards' states equal but for their LM heads,
-    its sessions' words and frames held to the unmeshed engine's first
-    (MESH_TP_SAME, MESH_TP_FRAME_RTOL); one LM step with the voice store split
-    over tp held to the unsplit step.  -> launches of the meshed runs."""
+    then dp = 2 x tp = 2 captured (a replica's tp shards one graph), its
+    launches over warm-up and capture, its tp shards' states equal but for
+    their LM heads,
+    its sessions' words and frames held to the dp engine's (MESH_TP_SAME,
+    MESH_TP_FRAME_RTOL), its first MESH_EAGER_TICKS frames beside the eager dp
+    x tp engine's (every shard's device state bit for bit), a profile of its
+    frame; one LM step with the voice store split over tp held to the
+    unsplit step.  -> launches of the meshed runs."""
     import torch
 
     from dsm_tpu_torch.server import builder
@@ -6437,33 +6673,48 @@ def phase_mesh_tts(dev, card):
           f"from the unmeshed engine's words or frame count")
     check(worst_dp <= MESH_FRAME_RTOL, f"{tag}: a dp frame's relative L2 {worst_dp!r}")
     e_tp = _tts_like(ref, dev, _mesh(dev, 2, 2))
-    check(not e_tp.cuda_graph, f"{tag}: the tp engine is captured")
-    e_tp.warmup(steps=1)
-    _zeroed(counters)
-    n_tp = _mesh_tts_frames(ref.cfg, ref.fuse, MESH_TP_TTS_AUDIO)
+    capture_s, joins, tp_launches = _tp_capture(tag, e_tp, counters, PER_TICK_TTS)
+    e_eager = _tts_like(ref, dev, _mesh(dev, 2, 2), cuda_graph=False)
     t0 = time.perf_counter()
-    got_tp = _mesh_tts_run(e_tp, tag, n_tp)
-    ms_tp = (time.perf_counter() - t0) * 1e3 / n_tp
-    tp_launches = _launched(counters)
-    per = {name: 4 * n_tp * n for name, n in PER_TICK_TTS.items()}
-    check(tp_launches == per, f"{tag}: tp launches {tp_launches}, want {per}")
+    got_tp, (ms_eager, held, eager_s) = _mesh_tts_run(e_tp, tag, n_frames, e_eager)
+    ms_tp = (time.perf_counter() - t0 - eager_s) * 1e3 / n_frames
+    eager_launches = _launched(counters)
+    per = {name: 4 * MESH_EAGER_TICKS * n for name, n in PER_TICK_TTS.items()}
+    check(eager_launches == per, f"{tag}: the eager tp engine's launches {eager_launches}, "
+          f"want {per} (the captured one launches none on replay)")
+    del e_eager
     leaves = _tp_lockstep(tag, e_tp, ("state", "mimi_state", "_mstate"))
+    # One frame of the fused dispatch: each replica's frame graph replayed once.
+    prof = _tp_profile(tag, "dp = 2 x tp = 2 captured frame: ", e_tp,
+                       lambda: [row[0]._graph.replay() for row in e_tp.shards], 1,
+                       PER_TICK_TTS["rope_qk"] + PER_TICK_TTS["rope_commit"], "frame", card)
     del e_tp
     torch.cuda.empty_cache()
-    same_tp, worst_tp = _agreement(got_tp, want, whole=False)
-    print(f"[{tag}] tts-1.6b B={ref.batch_size}, 16 sessions: dp = 2 (captured) {n_frames} "
-          f"frames, all 16 with the unmeshed engine's words and frame count, worst frame "
-          f"relative L2 {worst_dp!r} (bar {MESH_FRAME_RTOL}); dp = 2 x tp = 2 (eager) {n_tp} "
-          f"frames ({sum(len(f) for _, f in got_tp.values())} audio frames): {len(same_tp)} / "
-          f"16 sessions with the unmeshed engine's first words and frames (bar "
-          f"{MESH_TP_SAME}), worst frame relative L2 {worst_tp!r} (bar {MESH_TP_FRAME_RTOL}); "
-          f"the tp shards' states equal in {leaves} leaves but their LM heads; launches a frame "
-          f"{ {k: v // n_tp for k, v in tp_launches.items() if v} } (4 shards); host ms a frame "
+    tp_launches = {k: tp_launches[k] + eager_launches.get(k, 0) for k in tp_launches}
+    same_tp, worst_tp = _agreement(got_tp, got_dp)
+    print(f"[{tag}] tts-1.6b B={ref.batch_size}, 16 sessions, {n_frames} frames: dp = 2 "
+          f"(captured) all 16 with the unmeshed engine's words and frame count, worst frame "
+          f"relative L2 {worst_dp!r} (bar {MESH_FRAME_RTOL}); dp = 2 x tp = 2 captured (each "
+          f"replica one graph, captured in {capture_s:.2f} s, {joins:.0f} joins a frame; "
+          f"{sum(len(f) for _, f in got_tp.values())} audio frames): {len(same_tp)} / 16 "
+          f"sessions with the dp engine's words and frames (bar {MESH_TP_SAME}), worst frame "
+          f"relative L2 {worst_tp!r} (bar {MESH_TP_FRAME_RTOL}); against the eager dp x tp "
+          f"engine over its first {MESH_EAGER_TICKS} frames: {held} state leaves of the 4 "
+          f"shards bit for bit; the tp shards' states equal in {leaves} leaves but their LM "
+          f"heads; launches over the tp warm-up and capture with the eager engine's frames "
+          f"{ {k: v for k, v in tp_launches.items() if v} } (none on replay); host ms a frame "
           f"(the run over its frames, sessions' host work included): unmeshed captured "
-          f"{ms_ref!r}, dp = 2 captured {ms_dp!r}, dp = 2 x tp = 2 eager {ms_tp!r}; card {card}",
-          flush=True)
+          f"{ms_ref!r}, dp = 2 captured {ms_dp!r}, dp = 2 x tp = 2 captured {ms_tp!r}, eager "
+          f"{ms_eager!r} (captured / eager {ms_tp / ms_eager!r}, bar {MESH_CAPTURED_SHARE}); "
+          f"the captured dp x tp frame: {prof['launches']:.0f} device launches a shard "
+          f"({joins:.0f} joins x 2 of them), kernels {prof['kernel_ms']!r} ms summed over the "
+          f"overlapping tp streams, device busy {prof['busy']!r} of the profiled wall "
+          f"({prof['busy_ms']!r} ms); card {card}", flush=True)
+    MESH_TIMES["tts"] = {"ms": ms_tp, "eager_ms": ms_eager, **prof}
     check(len(same_tp) >= MESH_TP_SAME * 16, f"{tag}: {len(same_tp)} / 16 tp sessions agree")
     check(worst_tp <= MESH_TP_FRAME_RTOL, f"{tag}: a tp frame's relative L2 {worst_tp!r}")
+    check(ms_tp <= MESH_CAPTURED_SHARE * ms_eager, f"{tag}: the captured dp x tp frame "
+          f"{ms_tp!r} ms is over {MESH_CAPTURED_SHARE} of the eager one's {ms_eager!r}")
     b = ref.batch_size
     g = torch.Generator(device=dev).manual_seed(23)
     cfg = ref.cfg
@@ -6478,21 +6729,58 @@ def phase_mesh_tts(dev, card):
             for k in set(dp_launches) | set(lm_launches)}
 
 
-def _mesh_duplex_run(engine, tag, ticks):
+def _duplex_events(events):
+    import numpy as np
+
+    return {sid: [(type(e).__name__, getattr(e, "text", None),
+                   np.asarray(getattr(e, "pcm", np.zeros(0))).tobytes()) for e in evs]
+            for sid, evs in events.items()}
+
+
+def _mesh_duplex_run(engine, tag, ticks, eager=None):
     """16 dialogues on ``engine`` (3 text-only), ``ticks`` ticks of seeded
     pcm, then what is in flight -> each dialogue's text and frames; every
-    frame whole and finite, some audio."""
+    frame whole and finite, some audio.  ``eager``: the eager dp x tp
+    engine, started from ``engine``'s shard states, given the same
+    dialogues and ticked beside ``engine`` for its
+    first MESH_EAGER_TICKS ticks, its shards' device states (LM, codec
+    encoder and decoder, key) and the events so far held to ``engine``'s bit
+    for bit (then it stops) -> also the eager host ms a tick, the leaves
+    compared and the seconds the eager engine took."""
     import numpy as np
 
     from dsm_tpu_torch.server.duplex_batched import DuplexAudioEvent, DuplexTextEvent
 
     frame = engine.mimi_cfg.frame_size
-    events = {}
-    for sid in range(16):
-        events[sid] = []
-        drv = engine.open_session(events[sid].append,
-                                  asr_delay_in_tokens=6 if sid in DUPLEX_TEXT_ONLY else 0)
-        drv.push_pcm(_pcm(sid, ticks * frame / 24000.0, frame))
+
+    def open_all(eng):
+        events = {}
+        for sid in range(16):
+            events[sid] = []
+            drv = eng.open_session(events[sid].append,
+                                   asr_delay_in_tokens=6 if sid in DUPLEX_TEXT_ONLY else 0)
+            drv.push_pcm(_pcm(sid, ticks * frame / 24000.0, frame))
+        return events
+
+    events = open_all(engine)
+    held = None
+    if eager is not None:
+        t0 = time.perf_counter()
+        _tp_copy_state(engine, eager, DUPLEX_SHARD_STATE)
+        twins = open_all(eager)
+        t_o = time.perf_counter()
+        for _ in range(MESH_EAGER_TICKS):
+            engine.tick()
+        t1 = time.perf_counter()
+        for _ in range(MESH_EAGER_TICKS):
+            eager.tick()
+        eager_ms = (time.perf_counter() - t1) * 1e3 / MESH_EAGER_TICKS
+        leaves = _tp_same_state(tag, engine, eager, DUPLEX_SHARD_STATE)
+        check(_duplex_events(events) == _duplex_events(twins), f"{tag}: the captured dp x tp "
+              f"engine's events differ from the eager one's")
+        eager.stop()
+        held = (eager_ms, leaves, (t_o - t0) + (time.perf_counter() - t1))
+        ticks -= MESH_EAGER_TICKS
     for _ in range(ticks):
         engine.tick()
     engine.stop()
@@ -6504,7 +6792,7 @@ def _mesh_duplex_run(engine, tag, ticks):
                   f"{tag}: dialogue {sid}: bad frame")
         out[sid] = ([e.text for e in evs if isinstance(e, DuplexTextEvent)], frames)
     check(sum(len(f) for _, f in out.values()) > 0, f"{tag}: no audio")
-    return out
+    return out if held is None else (out, held)
 
 
 def phase_mesh_duplex(dev, card):
@@ -6513,10 +6801,14 @@ def phase_mesh_duplex(dev, card):
     ``open_session`` and ``tick`` for MESH_TICKS ticks on the unmeshed engine
     (captured), on dp = 2 (each shard's tick its own captured graph; all 16
     dialogues with the unmeshed engine's text and frames, MESH_FRAME_RTOL)
-    and on dp = 2 x tp = 2 (eager; launches a tick, its tp shards' states
-    equal but for their LM heads, its dialogues held to the unmeshed
-    engine's: MESH_TP_SAME, MESH_TP_FRAME_RTOL); one LM step split over tp
-    held to the unsplit step.  -> launches of the meshed runs."""
+    and on dp = 2 x tp = 2 captured (a replica's tp shards one graph;
+    launches over warm-up and capture, its first MESH_EAGER_TICKS ticks
+    beside the eager dp x tp engine's, every shard's state and the events so
+    far bit for bit; its tp shards' states equal but for their LM heads, its
+    dialogues held to the dp engine's: MESH_TP_SAME, MESH_TP_FRAME_RTOL; a
+    profile of its tick); one LM step split over tp held to the unsplit
+    step.  -> launches of the meshed runs."""
+    import numpy as np
     import torch
 
     from dsm_tpu_torch.server import builder
@@ -6530,11 +6822,12 @@ def phase_mesh_duplex(dev, card):
     ms_ref = (time.perf_counter() - t0) * 1e3 / MESH_TICKS
     lm_state = _clone(ref.state["lm"])
 
-    def like(mesh):
+    def like(mesh, cuda_graph=None):
         return BatchedDuplexEngine(ref.cfg, ref.params, ref.mimi_cfg, ref.mimi_params,
                                    ref.tokenizer, batch_size=ref.batch_size,
                                    kv_quant=ref.kv_quant, kv_bits=ref.kv_bits, device=dev,
-                                   pipeline_depth=ref.pipeline_depth, mesh=mesh)
+                                   pipeline_depth=ref.pipeline_depth, mesh=mesh,
+                                   cuda_graph=cuda_graph)
 
     counters = _zeroed({name: _duplex_counters()[name] for name in PER_TICK_DUPLEX})
     e_dp = like(_mesh(dev, 2, 1))
@@ -6554,30 +6847,51 @@ def phase_mesh_duplex(dev, card):
           f"from the unmeshed engine's text or frame count")
     check(worst_dp <= MESH_FRAME_RTOL, f"{tag}: a dp frame's relative L2 {worst_dp!r}")
     e_tp = like(_mesh(dev, 2, 2))
-    check(not e_tp.cuda_graph, f"{tag}: the tp engine is captured")
-    e_tp.warmup()
-    _zeroed(counters)
+    capture_s, joins, tp_launches = _tp_capture(tag, e_tp, counters, PER_TICK_DUPLEX)
+    e_eager = like(_mesh(dev, 2, 2), cuda_graph=False)
     t0 = time.perf_counter()
-    got_tp = _mesh_duplex_run(e_tp, tag, MESH_TICKS)
-    ms_tp = (time.perf_counter() - t0) * 1e3 / MESH_TICKS
-    tp_launches = _launched(counters)
-    per = {name: 4 * MESH_TICKS * n for name, n in PER_TICK_DUPLEX.items()}
-    check(tp_launches == per, f"{tag}: tp launches {tp_launches}, want {per}")
+    got_tp, (ms_eager, held, eager_s) = _mesh_duplex_run(e_tp, tag, MESH_TICKS, e_eager)
+    ms_tp = (time.perf_counter() - t0 - eager_s) * 1e3 / MESH_TICKS
+    eager_launches = _launched(counters)
+    per = {name: 4 * MESH_EAGER_TICKS * n for name, n in PER_TICK_DUPLEX.items()}
+    check(eager_launches == per, f"{tag}: the eager tp engine's launches {eager_launches}, "
+          f"want {per} (the captured one launches none on replay)")
+    del e_eager
     leaves = _tp_lockstep(tag, e_tp, ("state", "enc_state", "dec_state"))
+    b = ref.batch_size
+    pcm = np.stack([_pcm(s, 0.08, ref.mimi_cfg.frame_size) for s in range(b)])[:, None, :]
+    on, off = np.ones(b, bool), np.zeros(b, bool)
+    delay = np.zeros(b, np.int32)
+    prof = _tp_profile(tag, "dp = 2 x tp = 2 captured tick, 24 slots: ", e_tp,
+                       lambda: e_tp._invoke_step(pcm, on, off, delay), 1,
+                       PER_TICK_DUPLEX["rope_qk"] + PER_TICK_DUPLEX["rope_commit"], "tick",
+                       card)
     del e_tp
     torch.cuda.empty_cache()
-    same_tp, worst_tp = _agreement(got_tp, want)
+    tp_launches = {k: tp_launches[k] + eager_launches.get(k, 0) for k in tp_launches}
+    same_tp, worst_tp = _agreement(got_tp, got_dp)
     print(f"[{tag}] s2s-2b B={ref.batch_size}, 16 dialogues, {MESH_TICKS} ticks: dp = 2 "
           f"(captured) all 16 with the unmeshed engine's text and frame count, worst frame "
-          f"relative L2 {worst_dp!r} (bar {MESH_FRAME_RTOL}); dp = 2 x tp = 2 (eager) "
-          f"{len(same_tp)} / 16 (bar {MESH_TP_SAME}), worst frame relative L2 {worst_tp!r} "
-          f"(bar {MESH_TP_FRAME_RTOL}); the tp shards' states equal in {leaves} leaves but "
-          f"their LM heads; launches a tick at dp x tp "
-          f"{ {k: v // MESH_TICKS for k, v in tp_launches.items() if v} } (4 shards); host ms "
-          f"a tick (the run over its ticks): unmeshed captured {ms_ref!r}, dp = 2 captured "
-          f"{ms_dp!r}, dp = 2 x tp = 2 eager {ms_tp!r}; card {card}", flush=True)
+          f"relative L2 {worst_dp!r} (bar {MESH_FRAME_RTOL}); dp = 2 x tp = 2 captured (each "
+          f"replica one graph, captured in {capture_s:.2f} s, {joins:.0f} joins a tick) "
+          f"against dp: {len(same_tp)} / 16 (bar {MESH_TP_SAME}), worst frame relative L2 "
+          f"{worst_tp!r} (bar {MESH_TP_FRAME_RTOL}); against the eager dp x tp engine over its "
+          f"first {MESH_EAGER_TICKS} ticks: {held} state leaves of the 4 shards and the events "
+          f"so far bit for bit; the tp shards' states equal in {leaves} leaves but their LM "
+          f"heads; launches over the tp warm-up and capture with the eager engine's ticks "
+          f"{ {k: v for k, v in tp_launches.items() if v} } (none on replay); host ms a tick "
+          f"(the run over its ticks): unmeshed captured {ms_ref!r}, dp = 2 captured "
+          f"{ms_dp!r}, dp = 2 x tp = 2 captured {ms_tp!r}, eager {ms_eager!r} (captured / "
+          f"eager {ms_tp / ms_eager!r}, bar {MESH_CAPTURED_SHARE}); the captured dp x tp tick: "
+          f"{prof['launches']:.0f} device launches a shard ({joins:.0f} joins x 2 of them), "
+          f"kernels {prof['kernel_ms']!r} ms summed over the overlapping tp streams, device "
+          f"busy {prof['busy']!r} of the profiled wall ({prof['busy_ms']!r} ms); card {card}",
+          flush=True)
+    MESH_TIMES["duplex"] = {"ms": ms_tp, "eager_ms": ms_eager, **prof}
     check(len(same_tp) >= MESH_TP_SAME * 16, f"{tag}: {len(same_tp)} / 16 tp dialogues agree")
     check(worst_tp <= MESH_TP_FRAME_RTOL, f"{tag}: a tp frame's relative L2 {worst_tp!r}")
+    check(ms_tp <= MESH_CAPTURED_SHARE * ms_eager, f"{tag}: the captured dp x tp tick "
+          f"{ms_tp!r} ms is over {MESH_CAPTURED_SHARE} of the eager one's {ms_eager!r}")
     b, cfg = ref.batch_size, ref.cfg
     g = torch.Generator(device=dev).manual_seed(24)
     text = torch.randint(0, cfg.lm.text_in_vocab_size - 1, (b,), generator=g, device=dev,
@@ -6652,19 +6966,20 @@ def main() -> int:
     del params26
     elapsed("graph-stt26")
     torch.cuda.empty_cache()
-    tts_engine, tts_launches = phase_tts(dev, card)
+    tts_engine, tts_launches, tts_log = phase_tts(dev, card)
     phase_tts_times(tts_engine, dev, card)
     elapsed("tts")
     del tts_engine
     torch.cuda.empty_cache()  # the peak below: the captured engine's, not this one's cache
-    graph["tts"] = phase_graph_tts(dev, card)
+    graph["tts"] = phase_graph_tts(dev, card, tts_log)
     elapsed("graph-tts")
-    tts202501_engine, tts202501_launches = phase_tts(dev, card, preset="tts_202501")
+    tts202501_engine, tts202501_launches, tts202501_log = phase_tts(dev, card,
+                                                                    preset="tts_202501")
     phase_tts_times(tts202501_engine, dev, card, tag="tts202501")
     elapsed("tts202501")
     del tts202501_engine
     torch.cuda.empty_cache()
-    graph["tts202501"] = phase_graph_tts(dev, card, preset="tts_202501")
+    graph["tts202501"] = phase_graph_tts(dev, card, tts202501_log, preset="tts_202501")
     elapsed("graph-tts202501")
     duplex_engine, duplex_launches, duplex_log = phase_duplex(dev, card)
     torch.cuda.empty_cache()
@@ -6828,6 +7143,11 @@ def main() -> int:
           f"{train['halves'][0]!r}, optimizer {train['halves'][1]!r}; kernels "
           f"{train['kernel_ms']!r} ms), {train['params']:,} parameters, peak "
           f"{train['peak_gb']:.2f} GB reserved; card {card}", flush=True)
+    units = {"stt": "stt-1b B=64 step", "tts": "tts-1.6b frame", "duplex": "s2s-2b tick"}
+    print("[mesh] dp = 2 x tp = 2 on one card, captured against eager (this run): " + "; ".join(
+        f"{units[k]} {m['ms']!r} / {m['eager_ms']!r} host ms, {m['launches']:.0f} device "
+        f"launches a shard, busy {m['busy']!r}" for k, m in MESH_TIMES.items())
+        + f"; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

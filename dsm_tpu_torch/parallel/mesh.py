@@ -20,7 +20,10 @@ one engine of their own class a shard, at the shard's batch, config and
 params, run through :class:`ShardRunner`: dp shards one after another on the calling thread (a
 shard's step is asynchronous on its card; there are no collectives), the tp
 shards of a dp replica in lock-step, one host thread each, meeting at the
-joins in :class:`TpGroup`'s all-reduce.
+joins in :class:`TpGroup`'s all-reduce.  On the card a replica's tp shards
+are one captured CUDA graph (where they share the card): the threads run
+only to warm up and capture, the joins are :class:`DeviceJoin`'s sums on the
+device, and every later step is one graph launch a replica.
 
 The rules are the JAX package's: :func:`permute_tp_params` (``_TP_INTERLEAVE``),
 :func:`tp_shard_params` (``_tp_param_spec``), :func:`state_shard`
@@ -225,23 +228,32 @@ def state_shard(state, dp: int, tp: int, d: int, t: int, batch: int, heads: int)
     return _map_with_path(take, state)
 
 
+def _tp_across_devices(mesh: Optional[Mesh]) -> bool:
+    """True where a dp replica's tp shards sit on more than one device."""
+    return mesh is not None and mesh.tp > 1 and any(len(set(row)) > 1 for row in mesh.devices)
+
+
 def pick_cuda_graph(cuda_graph: Optional[bool], device: torch.device,
                     mesh: Optional[Mesh], what: str) -> bool:
-    """An engine's ``cuda_graph``: None takes the captured step on CUDA,
-    except under tp, whose joins are host all-reduces (the eager step, said
-    in the log); True on the CPU or under tp raises."""
-    tp = 1 if mesh is None else mesh.tp
+    """An engine's ``cuda_graph``: None takes the captured step on CUDA, under
+    tp too (a replica's tp shards in one graph, :class:`DeviceJoin`), except
+    where a replica's tp shards sit on different cards: one capture records
+    one card's work (its private memory pool is that card's), so that mesh
+    runs the eager step, said in the log.  True raises there and on the CPU."""
     on_card = device.type == "cuda"
+    across = _tp_across_devices(mesh)
     if cuda_graph is None:
-        if on_card and tp > 1:
-            log.info("%s engine: the tp=%d mesh runs the eager step (no graph under tp)",
-                     what, tp)
-        return on_card and tp == 1
+        if on_card and across:
+            log.info("%s engine: the tp=%d mesh spans cards within a replica and runs the "
+                     "eager step (one CUDA graph records one card)", what, mesh.tp)
+        return on_card and not across
     if cuda_graph and not on_card:
         raise ValueError(f"cuda_graph: no CUDA graph on {device}")
-    if cuda_graph and tp > 1:
-        raise ValueError(f"cuda_graph: no CUDA graph under tp={tp}: its joins are host "
-                         "all-reduces, so the tp step runs eagerly")
+    if cuda_graph and across:
+        row = next(r for r in mesh.devices if len(set(r)) > 1)
+        raise ValueError(f"cuda_graph: no CUDA graph for a tp={mesh.tp} replica across cards "
+                         f"{[str(d) for d in row]}: one capture records one card, so that "
+                         "mesh runs the eager step")
     return bool(cuda_graph)
 
 
@@ -290,6 +302,132 @@ class TpGroup:
         self._barrier.abort()
 
 
+class _PeerGraph:
+    """What a tp shard other than 0 holds of its replica's graph: tp shard
+    0's graph launches every tp shard's work, so this one launches nothing."""
+
+    def replay(self) -> None:
+        pass
+
+
+class DeviceJoin(TpGroup):
+    """The joins of a captured tp step: the sum of :class:`TpGroup`, in the
+    same shard order and dtype, kept on the device so that a CUDA graph
+    records it.  Each shard copies its partial into a static slot (held here
+    for the engine's life, outside any graph's memory pool) and records an
+    event on its stream; the host threads meet at the barrier only to know
+    that every event is recorded; each shard's stream then waits on its
+    peers' events and sums the slots ``s0 + s1 + ...``.  In a captured graph
+    the events are edges between the shards' streams and no host thread
+    takes part.  Two sets of slots and events in turn, as in
+    :class:`TpGroup`.  On CPU tensors there is no event: the slots and the
+    barrier alone.
+
+    :meth:`capture` records the body of every tp shard of a replica as one
+    graph: each shard on its own stream (the one it warmed up on), forked
+    from tp shard 0's capture stream and joined back into it before the
+    capture ends."""
+
+    def __init__(self, n: int):
+        self._slots, self._events, self._streams = {}, {}, {}
+        self._shared: dict = {}
+        super().__init__(n)
+
+    def all_reduce(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        parity = self._calls[rank] % 2
+        self._calls[rank] += 1
+        key = (_local.replica, parity, tuple(x.shape), x.dtype, x.device)
+        slots = self._slots.setdefault(key, [None] * self.n)
+        if slots[rank] is None:
+            slots[rank] = torch.empty_like(x)
+        slots[rank].copy_(x)
+        events = None
+        if x.is_cuda:
+            events = self._events.setdefault(key, [None] * self.n)
+            if events[rank] is None:
+                events[rank] = torch.cuda.Event()
+            events[rank].record()
+        self._barrier.wait()
+        if events is not None:
+            stream = torch.cuda.current_stream(x.device)
+            for t, ev in enumerate(events):
+                if t != rank:
+                    stream.wait_event(ev)
+        acc = slots[0].to(x.device)
+        for s in slots[1:]:
+            acc = acc + s.to(x.device)
+        return acc
+
+    def capture(self, rank: int, body: Callable[[], object], warm_steps: int, device,
+                inputs=None):
+        """Collective of a replica's tp shards, each on its own thread, in
+        the same order: ``body`` run ``warm_steps`` times (at least once) on
+        the shard's stream, then captured there into tp shard 0's graph ->
+        ``(graph, outputs)``: tp shard 0 gets the graph, the others a
+        :class:`_PeerGraph`.  ``inputs``: the shard's ``StagedInputs``; the
+        other shards' bodies first copy tp shard 0's buffers into theirs, on
+        the card, so that a dispatch stages tp shard 0's alone.  A capture
+        that fails raises on every shard."""
+        device = torch.device(device)
+        key = (_local.replica, rank)
+        if key not in self._streams:  # warm-up and capture on one stream a shard
+            self._streams[key] = torch.cuda.Stream(device)
+        stream = self._streams[key]
+        stream.wait_stream(torch.cuda.current_stream(device))
+        if rank == 0:  # the events made (recorded once) before the capture
+            self._shared = {"inputs": inputs, "fork": torch.cuda.Event(),
+                            "done": [torch.cuda.Event() for _ in range(self.n)]}
+            for ev in [self._shared["fork"]] + self._shared["done"]:
+                ev.record(stream)
+        self._barrier.wait()
+        shared = self._shared
+        src = shared["inputs"]
+
+        def run():
+            if rank and inputs is not None:
+                for name, buf in inputs.buffers.items():
+                    buf.copy_(src.buffers[name])
+            return body()
+
+        with torch.cuda.stream(stream), torch.inference_mode():
+            for _ in range(max(1, warm_steps)):
+                run()
+        self._barrier.wait()
+        graph = failed = None
+        if rank == 0:
+            torch.cuda.synchronize(device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                shared["fork"].record(stream)
+        try:
+            self._barrier.wait()
+            if rank:
+                stream.wait_event(shared["fork"])
+            with torch.cuda.stream(stream), torch.inference_mode():
+                out = run()
+                shared["done"][rank].record(stream)
+            self._barrier.wait()
+        except BaseException as e:
+            failed = e
+            raise
+        finally:
+            if rank == 0:  # the capture ends whatever happened
+                try:
+                    with torch.cuda.stream(stream):
+                        for ev in shared["done"][1:]:
+                            stream.wait_event(ev)
+                        graph.capture_end()
+                except Exception:
+                    if failed is None:
+                        raise
+        self._barrier.wait()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        if rank == 0:
+            torch.cuda.synchronize(device)
+        return (graph if rank == 0 else _PeerGraph()), out
+
+
 def all_reduce(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the tp shards of the dp replica that the
     calling thread steps (the port's ``jax.lax.psum`` over ``"tp"``).
@@ -298,6 +436,14 @@ def all_reduce(x: torch.Tensor) -> torch.Tensor:
     if group is None:
         raise RuntimeError("all_reduce outside a tp shard of a mesh step")
     return group.all_reduce(_local.rank, x)
+
+
+def capture_group():
+    """``(join, rank)`` where the calling thread is a tp shard of a captured
+    mesh (its joins a :class:`DeviceJoin`), else None: what
+    ``server/cuda_graph.capture`` asks to record a replica's graph."""
+    group = getattr(_local, "group", None)
+    return (group, _local.rank) if isinstance(group, DeviceJoin) else None
 
 
 def _device_ctx(device: torch.device):
@@ -309,13 +455,17 @@ class ShardRunner:
     the shard's device current.  :meth:`run` takes the dp replicas one after
     another, each on the calling thread when tp is 1, else its tp shards at
     once on ``tp`` host threads (thread ``t`` runs tp shard ``t`` of every
-    replica), joined by a :class:`TpGroup`.  :meth:`each` runs every shard
-    on the calling thread (work with no join: voice writes, script ops)."""
+    replica), joined by a :class:`TpGroup`, or with ``device_join`` by a
+    :class:`DeviceJoin` (the joins of a step to capture).  :meth:`each` runs
+    every shard on the calling thread (work with no join: voice writes,
+    script ops); :meth:`leads` runs tp shard 0 of every replica there (the
+    launch of a replica's captured graph)."""
 
-    def __init__(self, mesh: Mesh, shards: Sequence[Sequence[object]]):
+    def __init__(self, mesh: Mesh, shards: Sequence[Sequence[object]],
+                 device_join: bool = False):
         self.mesh = mesh
         self.shards = shards
-        self._group = TpGroup(mesh.tp)
+        self._group = (DeviceJoin if device_join else TpGroup)(mesh.tp)
         self._queues: Optional[list] = None
 
     def each(self, fn: Callable) -> list:
@@ -325,6 +475,13 @@ class ShardRunner:
             for t, shard in enumerate(row):
                 with _device_ctx(self.mesh.devices[d][t]):
                     out[-1].append(fn(d, t, shard))
+        return out
+
+    def leads(self, fn: Callable) -> list:
+        out = []
+        for d, row in enumerate(self.shards):
+            with _device_ctx(self.mesh.devices[d][0]):
+                out.append(fn(d, 0, row[0]))
         return out
 
     def run(self, fn: Callable) -> list:
@@ -363,6 +520,7 @@ class ShardRunner:
             if job is None:
                 return
             fn, d, t, shard, fut = job
+            _local.replica = d
             try:
                 with _device_ctx(self.mesh.devices[d][t]), torch.inference_mode():
                     fut.set_result(fn(d, t, shard))
@@ -424,7 +582,13 @@ class ShardedEngine:
     a mesh, and on a mesh one engine of the same class a shard at ``B/dp``
     slots (:meth:`_build_shards`), stepped through a :class:`ShardRunner`.
     An engine keeps only its own routing: which host arrays, rows and ops
-    go to which shard, and how its packed outputs merge."""
+    go to which shard, and how its packed outputs merge.
+
+    Captured under tp, each shard's ``_capture`` runs on its tp thread and
+    ``server/cuda_graph.capture`` records the replica's tp shards into one
+    graph (:meth:`DeviceJoin.capture`), held by tp shard 0; a dispatch then
+    stages tp shard 0's inputs and replays that graph from the calling
+    thread, one launch a replica, with no host thread or barrier."""
 
     mesh: Optional[Mesh] = None
     _graph = None
@@ -448,7 +612,8 @@ class ShardedEngine:
         b = self._shard_b = self.batch_size // mesh.dp
         self.shards = [[make(cfg, params_to(tp_params[t], dev), dev, b, d)
                         for t, dev in enumerate(row)] for d, row in enumerate(mesh.devices)]
-        self._runner = ShardRunner(mesh, self.shards)
+        self._runner = ShardRunner(mesh, self.shards,
+                                   device_join=self.cuda_graph and mesh.tp > 1)
         log.info("%s engine B=%d on a dp=%d x tp=%d mesh: %d slots a shard, %s step", what,
                  self.batch_size, mesh.dp, mesh.tp, b,
                  "captured" if self.cuda_graph else "eager")
@@ -458,12 +623,27 @@ class ShardedEngine:
         return slice(d * self._shard_b, (d + 1) * self._shard_b)
 
     def _on_shards(self, method: str, *arrays) -> list:
-        """``shard.<method>`` on every shard with its dp shard's rows of the
-        host ``arrays`` (the tp shards of a replica in lock-step) -> each dp
-        shard's result (its tp shard 0's)."""
-        out = self._runner.run(lambda d, t, sh: getattr(sh, method)(
-            *(a[self._shard_slots(d)] for a in arrays)))
-        return [row[0] for row in out]
+        """``shard.<method>`` with its dp shard's rows of the host ``arrays``
+        -> each dp shard's result (its tp shard 0's).  Captured: on tp shard 0
+        of each replica, on the calling thread (its graph launches every tp
+        shard's work); eager: on every shard (the tp shards of a replica in
+        lock-step on their threads)."""
+
+        def call(d, t, sh):
+            return getattr(sh, method)(*(a[self._shard_slots(d)] for a in arrays))
+
+        if self.cuda_graph:
+            return self._runner.leads(call)
+        return [row[0] for row in self._runner.run(call)]
+
+    def _on_graph_shards(self, fn: Callable) -> list:
+        """``fn(d, t, shard)`` on every shard on the calling thread, or, once
+        a tp step is captured, on tp shard 0 of each replica alone: work that
+        replays a shard's graph (the script ops), which under tp is the
+        replica's."""
+        if self.cuda_graph and self.mesh.tp > 1 and self._captured():
+            return self._runner.leads(fn)
+        return self._runner.each(fn)
 
     def _captured(self) -> bool:
         if self.mesh is None:
@@ -472,11 +652,20 @@ class ShardedEngine:
 
     def _warm_all(self, steps: int) -> None:
         """The engine's ``_warm`` (the capture, or eager steps), on every
-        shard under a mesh."""
+        shard under a mesh.  A captured tp mesh's shard threads end once its
+        replicas are captured: replays launch from the calling thread."""
         if self.mesh is None:
             self._warm(steps)
-        else:
-            self._runner.run(lambda d, t, sh: sh._warm(steps))
+            return
+        def warm(d, t, sh):
+            # Outside the shard thread's inference mode: the buffers a capture
+            # makes are refilled in place from the calling thread later.
+            with torch.inference_mode(False):
+                sh._warm(steps)
+
+        self._runner.run(warm)
+        if self.cuda_graph and self.mesh.tp > 1:
+            self._runner.close()
 
     def _close_shards(self) -> None:
         """End the shards' threads (nothing without a mesh)."""

@@ -54,10 +54,12 @@ does.  Under dp, slot ``s`` lives on shard ``s // (B/dp)``, which holds the
 whole params on its device and its slots' state; each shard's step is its own
 captured graph on its own card, with dispatch-ahead kept (the shards' packed
 arrays are fetched and merged into the unmeshed engine's layout).  Under dp x
-tp the tp shards of a replica run the eager step in lock-step, one host
-thread each, the main LM split over heads and MLP hidden with the three
-joins summed across them (``cuda_graph=True`` raises; None takes the eager
-step and says so in the log).  The text tokens are drawn from per-slot keys,
+tp the main LM is split over heads and MLP hidden with the three joins
+summed across the tp shards of a replica: on the card, where those shards
+share it, they are one captured graph launched from tp shard 0
+(``parallel.mesh.DeviceJoin``); elsewhere they run the eager step in
+lock-step, one host thread each (a replica across cards: said in the log,
+``cuda_graph=True`` raises).  The text tokens are drawn from per-slot keys,
 so the meshed engine's events are the unmeshed engine's under dp.  Under a
 mesh the pcm goes up on the f32 wire, as in the JAX engine, which drops the
 int16 wire there; the engine logs that the wire was not taken.
@@ -223,7 +225,7 @@ class BatchedAsrEngine(M.ShardedEngine):
         self.gc_tune = gc_tune  # freeze the host GC after warm-up (utils/gc_tune.py)
         self.params = params
         self.batch_size = batch_size
-        # The captured step (default on CUDA); none on the CPU, none under tp.
+        # The captured step (default on CUDA); none on the CPU.
         self._place(mesh, device, cuda_graph, "asr")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         # bf16 rings on the card, f32 on the CPU (int8 when cfg.kv_quant).
@@ -450,7 +452,7 @@ class BatchedAsrEngine(M.ShardedEngine):
             "reset": torch.zeros(b, dtype=torch.bool, device=dev),
             "seeds": torch.zeros(b, dtype=torch.int64, device=dev),
         })
-        self._graph, self._static_out = capture(self._body, steps, dev)
+        self._graph, self._static_out = capture(self._body, steps, dev, self._inputs)
         self._outputs = PinnedOutputs(self._static_out["packed"].shape,
                                       self.pipeline_depth + 1)
 

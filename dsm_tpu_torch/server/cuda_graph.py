@@ -7,15 +7,18 @@ warm-up runs on the stream it captures on, and a replay's packed output goes
 back to the host into one of a few pinned buffers behind an event
 (:class:`PinnedOutputs`, read with :func:`fetch`), so that the engines can
 dispatch ahead.  ``server/batched_asr.py``, ``server/tts_batched.py`` and
-``server/duplex_batched.py`` use them.
+``server/duplex_batched.py`` use them, on one device or on each dp replica
+of a mesh (``parallel/mesh.py``), whose tp shards make one graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as M
 
 
 class StagedInputs:
@@ -81,12 +84,21 @@ def fetch(handle) -> np.ndarray:
     return packed.cpu().numpy()
 
 
-def capture(body: Callable[[], object], warm_steps: int, device):
+def capture(body: Callable[[], object], warm_steps: int, device,
+            inputs: Optional[StagedInputs] = None):
     """Run ``body`` ``warm_steps`` times (at least once) on a side stream,
     then capture it there -> ``(graph, outputs)``, the outputs static
     tensors that every replay overwrites.  The warm-up builds what the step
     makes lazily (kernels, device constants, the cuBLAS workspace of that
-    stream) before the capture; a capture that fails raises."""
+    stream) before the capture; a capture that fails raises.  On a tp
+    shard's thread of a captured mesh every tp shard of the replica calls
+    this at once, and the body of each goes into one graph
+    (``parallel.mesh.DeviceJoin.capture``; ``inputs``: the buffers the body
+    reads, tp shard 0's staged for all)."""
+    join = M.capture_group()
+    if join is not None:
+        group, rank = join
+        return group.capture(rank, body, warm_steps, device, inputs)
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     graph = torch.cuda.CUDAGraph()

@@ -50,10 +50,10 @@ the engine keeps one engine of its own class a shard and its tick drives
 every shard, as ``server/batched_asr.py`` does (``batch % dp`` and ``heads %
 tp`` checked, as in the JAX engine): dialogue ``s`` lives on dp shard ``s //
 (B/dp)`` with its codec states; under dp each shard's tick is its own
-captured graph on its own card, under dp x tp the tp shards run the eager
-tick in lock-step with the main LM split over heads and MLP hidden (the JAX
-engine runs GSPMD with its kernels off there; the port keeps the ASR
-engine's rule, kernels live).  Every shard splits the same key each tick and
+captured graph on its own card, under dp x tp the main LM is split over
+heads and MLP hidden (the JAX engine runs GSPMD with its kernels off there;
+the port keeps the ASR engine's rule, kernels live) and a replica's tp
+shards are one captured graph, as in ``server/batched_asr.py``.  Every shard splits the same key each tick and
 draws its rows of the whole batch's draw (``lm_gen.step``'s ``row0``), so
 the meshed engine's events are the unmeshed engine's under dp, as the JAX
 engine's GSPMD step keeps them.
@@ -343,7 +343,8 @@ class BatchedDuplexEngine(M.ShardedEngine):
         self._inputs.stage({"pcm": self._pcm_buf, "mask": off, "reset": off,
                             "asr_delay": self._asr_delay.copy()})
         self._graph, self._static_out = capture(
-            lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev)
+            lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev,
+            self._inputs)
         self._outputs = PinnedOutputs(self._static_out.shape, self.pipeline_depth)
 
     def warmup(self, steps: int = 2) -> None:

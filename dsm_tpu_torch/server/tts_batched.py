@@ -66,11 +66,12 @@ every shard, as ``server/batched_asr.py`` does: slot ``s`` lives on dp shard
 of its own slots: ``rows % dp`` is checked, as in the JAX engine), its voice
 (the store split over rows, and over heads under tp), its Mimi decoder state
 and, on the fused path, its script machine.  Under dp each shard's tick or
-frame is its own captured graph on its own card; under dp x tp the tp
-shards run the eager tick in lock-step, the main LM split over heads and MLP
-hidden, the DepFormer, the codec and the sampling replicated (the JAX engine
-runs GSPMD with its kernels off there; the port keeps the ASR engine's rule,
-kernels live).  Tokens are drawn from per-slot keys, so the meshed engine's
+frame is its own captured graph on its own card; under dp x tp the main LM
+is split over heads and MLP hidden, the DepFormer, the codec and the
+sampling replicated (the JAX engine runs GSPMD with its kernels off there;
+the port keeps the ASR engine's rule, kernels live), and a replica's tp
+shards are one captured graph (the frame's and the script ops' both), as
+in ``server/batched_asr.py``.  Tokens are drawn from per-slot keys, so the meshed engine's
 events are the unmeshed engine's under dp.  The audio comes back on the
 TOML's wire, the int16 pairs included.
 """
@@ -217,7 +218,7 @@ class BatchedTtsEngine(M.ShardedEngine):
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.tick_sleep = tick_sleep
-        # The captured tick (default on CUDA); none on the CPU, none under tp.
+        # The captured tick (default on CUDA); none on the CPU.
         self._place(mesh, device, cuda_graph, "tts")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.condition_provider = None
@@ -602,7 +603,7 @@ class BatchedTtsEngine(M.ShardedEngine):
             for kind, slot, *rest in ops:
                 d, j = divmod(slot, b)
                 routed[d].append((kind, j, *rest))
-            self._runner.each(lambda d, t, sh: sh._apply_script_ops(routed[d]))
+            self._on_graph_shards(lambda d, t, sh: sh._apply_script_ops(routed[d]))
             return
         table = SCRIPT.op_table(ops)
         with torch.inference_mode():
@@ -636,16 +637,18 @@ class BatchedTtsEngine(M.ShardedEngine):
         self._inputs = StagedInputs(buffers)
         if self.fuse > 1:
             self._graph, _ = capture(lambda: self._fused_frame(self._inputs.buffers),
-                                     steps, dev)
+                                     steps, dev, self._inputs)
             self._frame_k.zero_()  # the warm-up advanced it; the capture ran nothing
             # The op table's application too: its staged buffer holds OP_NOP
             # rows until a flush stages ops, so the warm-up changes nothing.
             self._ops_graph, _ = capture(
-                lambda: SCRIPT.apply_ops(self._mstate, self._ops_in.buffers["ops"]), 1, dev)
+                lambda: SCRIPT.apply_ops(self._mstate, self._ops_in.buffers["ops"]), 1, dev,
+                self._ops_in)
             self._outputs = PinnedOutputs(self._frames.shape, self.pipeline_depth)
             return
         self._graph, self._static_out = capture(
-            lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev)
+            lambda: self._device_tick(self._inputs.buffers, in_place=True), steps, dev,
+            self._inputs)
         self._outputs = PinnedOutputs(self._static_out.shape, 1)
 
     def warmup(self, steps: int = 2) -> None:

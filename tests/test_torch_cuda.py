@@ -2186,6 +2186,46 @@ def test_asr_step_body_makes_no_host_sync(cuda_device):
     assert int(state["lm"]["t"]["pos"]) == 4
 
 
+@pytest.mark.cuda
+def test_captured_tp_asr_engine_equals_the_eager_tp_engine(cuda_device):
+    """A dp = 1 x tp = 2 ``BatchedAsrEngine`` on the card, its two tp shards
+    captured as one graph (the joins summed on the device), beside the eager
+    tp engine (host threads and ``TpGroup``) from the same seeded state: every
+    step's outputs bit for bit over 24 steps of traffic, each tp shard's whole
+    state at the end, the kernels launched only in the warm-up and capture,
+    the shard threads ended; then four streams through ``tick()`` event for
+    event (steps, words, markers, VAD bits)."""
+    from dsm_tpu_torch.parallel import mesh as M
+    from dsm_tpu_torch.server.batched_asr import BatchedAsrEngine
+
+    cfg, params = _small_asr(cuda_device, 1024, 8, True, 8)
+
+    def engine(graph):
+        eng = BatchedAsrEngine(cfg, params, batch_size=8, device=cuda_device,
+                               fill_gate_frac=0.0, cuda_graph=graph,
+                               mesh=M.make_mesh(1, 2, devices=[cuda_device] * 2))
+        eng._seeds[:] = np.arange(8) + 11
+        eng.warmup()
+        return eng
+
+    eager = engine(False)
+    eng = engine(True)
+    assert eng.cuda_graph and not eager.cuda_graph and eng._runner._queues is None
+    assert isinstance(eng.shards[0][1]._graph, M._PeerGraph)
+    launched = RK.rope_qk.launches
+    with torch.inference_mode():
+        for pcm, mask, reset in _traffic(8, eng.frame_size, 24, seed=22):
+            got = eng._invoke_step(pcm, mask, reset)
+            want = eager._invoke_step(pcm, mask, reset)
+            for key in ("text_token", "step_idx", "prs", "codes"):
+                assert _same_bits(got[key], want[key]), key
+    assert RK.rope_qk.launches - launched == 2 * 24 * cfg.lm.transformer.num_layers
+    for t in range(2):
+        assert _tree_same(eng.shards[0][t].state, eager.shards[0][t].state)
+    eager.stop()
+    assert _asr_serve(engine(True)) == _asr_serve(engine(False))
+
+
 # ---------------------------------------------------------------------------
 # The TTS tick as one captured CUDA graph
 # ---------------------------------------------------------------------------

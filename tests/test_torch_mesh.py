@@ -186,12 +186,17 @@ def test_tp_local_config_and_the_engines_checks():
         tM.check_divisible(mesh, 3, 4)
     with pytest.raises(ValueError, match="num_heads 6 not divisible by tp=4"):
         tM.check_divisible(tM.make_mesh(dp=1, tp=4, devices=CPU8), 4, 6)
-    # The captured step: on CUDA by default but under tp; asked for under tp, it raises.
+    # The captured step: on CUDA by default, under tp too where a replica's tp
+    # shards share a device; a replica across devices runs eagerly, and asked
+    # for there, the graph raises.
     cuda = torch.device("cuda", 0)
     assert tM.pick_cuda_graph(None, cuda, tM.make_mesh(dp=2, devices=CPU8), "asr")
-    assert not tM.pick_cuda_graph(None, cuda, mesh, "asr")
-    with pytest.raises(ValueError, match="under tp=2"):
-        tM.pick_cuda_graph(True, cuda, mesh, "asr")
+    assert tM.pick_cuda_graph(None, cuda, mesh, "asr")
+    assert tM.pick_cuda_graph(True, cuda, mesh, "asr")
+    across = tM.make_mesh(dp=1, tp=2, devices=["cuda:0", "cuda:1"])
+    assert not tM.pick_cuda_graph(None, cuda, across, "asr")
+    with pytest.raises(ValueError, match="tp=2 replica across cards"):
+        tM.pick_cuda_graph(True, cuda, across, "asr")
     with pytest.raises(ValueError, match="no CUDA graph on cpu"):
         tM.pick_cuda_graph(True, torch.device("cpu"), None, "asr")
 
