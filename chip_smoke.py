@@ -1664,14 +1664,16 @@ def _ca_inputs(g, dev, b, h, s_pad, s_len, dh):
 
 
 CA_SHAPES = ((64, 16, 256, 200, 128), (64, 32, 640, 625, 64), (64, 16, 128, 1, 128),
-             (64, 16, 640, 625, 128))
+             (64, 16, 640, 625, 128), (1, 16, 640, 625, 128))
+CA_TIMES = {}  # label -> the cluster size, device ms, bound ms and share of each CA case
 
 
 def _ca_cases(dev, g, shapes=CA_SHAPES, tag=""):
     """The TTS voice cross-attention: a partial source, the Dh=64 head
-    shape, one real row, then the serving shape (B=64, H=16, 5 speakers x
-    125 rows -> 640); ``shapes`` (B, H, rows padded, rows, Dh) and a label
-    prefix for others."""
+    shape, one real row, the serving shape (B=64, H=16, 5 speakers x 125
+    rows -> 640), then one session; ``shapes`` (B, H, rows padded, rows, Dh)
+    and a label prefix for others.  Each at the cluster size the wrapper
+    picks for this card (``info["cluster"]``)."""
     from dsm_tpu_torch.ops import decode_attn as DA
 
     cases = []
@@ -1695,7 +1697,8 @@ def _ca_cases(dev, g, shapes=CA_SHAPES, tag=""):
             return err
 
         info = {"bytes": b * h * s_len * (2 * dh + 8) + 2 * b * h * dh * 2,
-                "flops": b * h * s_len * 4 * dh, "library": None}
+                "flops": b * h * s_len * 4 * dh, "library": None,
+                "cluster": DA.pick_ca_cluster(b * h, s_len, dh, DA.card_sms(dev.index or 0))}
         cases.append(("ca_decode_attend", f"{tag}B={b} H={h} S={s_len}/{s_pad} Dh={dh}",
                       run_k, run_p, cmp, info))
     return cases
@@ -1956,11 +1959,15 @@ def kernel_times(dev, card):
             k_ms, p_ms = device_time_ms(run_k), device_time_ms(run_p)
             check(k_ms > 0, f"{name} {label}: no device time measured")
             lib_ms = device_time_ms(info["library"]) if info["library"] else None
-            print(f"[times] {name} {label}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
-                  f"{bound_ms!r} ms by {bound_by} ({info['bytes']} bytes, {info['flops']} "
-                  f"operations; {100 * bound_ms / k_ms:.1f} % of it reached), library call "
-                  f"{lib_ms!r} ms (device time, 20 calls queued behind a spin kernel); "
-                  f"card {card}", flush=True)
+            cluster = f", cluster of {info['cluster']}" if "cluster" in info else ""
+            print(f"[times] {name} {label}{cluster}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+                  f"bound {bound_ms!r} ms by {bound_by} ({info['bytes']} bytes, "
+                  f"{info['flops']} operations; {100 * bound_ms / k_ms:.1f} % of it reached), "
+                  f"library call {lib_ms!r} ms (device time, 20 calls queued behind a spin "
+                  f"kernel); card {card}", flush=True)
+            if "cluster" in info:
+                CA_TIMES[label] = {"cluster": info["cluster"], "ms": k_ms, "bound_ms": bound_ms,
+                                   "share": bound_ms / k_ms}
         for what, fn in info.get("also", {}).items():
             also_ms = device_time_ms(fn)
             print(f"[times] {name} {label}, {what}: kernel {also_ms!r} ms "
@@ -7072,6 +7079,8 @@ def main() -> int:
                  "max_abs_err": max_err(wrapper, route_tag(HEADLINE[name])), **ms[name]}
                 for name, (wrapper, tpu, path) in ROUTES.items()]
     for k in kernels:
+        if k["name"] == "ca_decode_attend":  # every shape's cluster size, time and share
+            k["shapes"] = CA_TIMES
         if k["name"] in OFF_PATH:
             check(k["launches"] == 0, f"{k['name']} still launched on a path")
             k["path"] = f"none: the step launches {OFF_PATH[k['name']]} in its place"

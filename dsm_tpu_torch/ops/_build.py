@@ -72,11 +72,12 @@ _SIGNATURES = {
     "dsm_decode_attend": (
         [_P] * 10 + [_LL, _I, _I, _I, _I, _I] + [_LL] * 4 + [_P, _I, ctypes.c_float, _P], _I
     ),
-    "dsm_ca_decode_attend_smem_bytes": ([_I, _I], _LL),
+    # span rows, dh, n_cluster
+    "dsm_ca_decode_attend_smem_bytes": ([_I, _I, _I], _LL),
     # q, k_src, v_src, k_scale, v_scale, out, b, h, s_len, dh, q strides
-    # (b, h), k/v strides (b, h), scale strides (b, h), scale, stream
+    # (b, h), k/v strides (b, h), scale strides (b, h), n_cluster, scale, stream
     "dsm_ca_decode_attend": (
-        [_P] * 6 + [_LL, _I, _I, _I] + [_LL] * 6 + [ctypes.c_float, _P], _I
+        [_P] * 6 + [_LL, _I, _I, _I] + [_LL] * 6 + [_I, ctypes.c_float, _P], _I
     ),
     "dsm_attn_tune_smem_bytes": ([_I, _I], _LL),
     # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, out, b, h,

@@ -308,13 +308,19 @@ def pick_split_packed(bh: int, c: int, tile_rows: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def card_sms(device_index: int) -> int:
+    """The SMs of card ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def packed_card(device_index: int, dh: int) -> Tuple[int, int]:
     """(rows of a tile of the packed kernel at head width ``dh``, SMs of card
     ``device_index``): what :func:`pick_split_packed` takes."""
     tile_rows = _build.lib().dsm_decode_attend_q4_tile_rows(dh)
     if tile_rows < 1:
         raise ValueError(f"decode_attend: no packed kernel at Dh {dh}")
-    return tile_rows, torch.cuda.get_device_properties(device_index).multi_processor_count
+    return tile_rows, card_sms(device_index)
 
 
 def packed_split(bh: int, c: int, dh: int, device: torch.device) -> int:
@@ -484,15 +490,56 @@ decode_attend.launches = 0
 # Voice cross-attention (counterpart of decode_attn.ca_decode_attend)
 # ---------------------------------------------------------------------------
 #
-# ``ca_decode_attend`` replaces the Pallas kernel
-# ``dsm_tpu/ops/decode_attn.py:_ca_decode_attend_q_4d``: T=1 cross-attention
-# of bf16 queries over the int8 voice source of the TTS LM, with per-row f32
-# scales and padding rows ``j >= s_len`` masked.  The kernel is CUDA C++ in
-# ``csrc/ca_attn.cu``; what bounds it and what its design does about that
-# is written there.  Shapes it launches for: any B and H, Dh in {64, 128},
-# bf16 queries, int8 sources whose rows are contiguous, f32 scales, and up
-# to 11,264 real rows (the scores fit 48 KB of shared memory); anything else
-# raises.
+# ``ca_decode_attend`` replaces the Pallas kernels
+# ``dsm_tpu/ops/decode_attn.py:_ca_decode_attend_q_4d`` and, head-major,
+# ``_ca_decode_attend_q``: T=1 cross-attention of bf16 queries over the int8
+# voice source of the TTS LM, with per-row f32 scales and padding rows
+# ``j >= s_len`` never read.  The kernel is CUDA C++ in ``csrc/ca_attn.cu``:
+# the real rows of a (b, h) are split over a thread-block cluster of
+# :func:`pick_ca_cluster` blocks, which share the global maximum and sum
+# their partials on rank 0 in rank order; what bounds it and what its design
+# does about that is written there.  Shapes it launches for: any B and H, Dh
+# in {64, 128}, bf16 queries, int8 sources whose rows are contiguous and
+# 16-byte aligned, f32 scales, and spans whose scales and scores fit the
+# shared memory a block may opt in to (some 17,000 rows a span, eight spans
+# a (b, h)); anything else raises.
+
+_CA_MAX_CLUSTER = 8     # blocks of a cluster (the portable size)
+_CA_BLOCKS_PER_SM = 2   # blocks the cluster split gives each SM, where the rows allow
+_CA_MIN_ROWS = 64       # source rows a span keeps at least (a tile at Dh=128)
+# csrc/ca_attn.cu's CaLayout<DH, TB>: the copy ring's stages of a 4 KB tile
+# for a block of one, 8 KB in a cluster; the barriers; the warps'
+# reductions; 12 bytes a row of the span; then, in a cluster of n > 1
+# blocks, the ranks' maxima and partials.
+_CA_STAGES = 2
+_CA_WARPS = 4
+
+
+def ca_smem_bytes(span: int, dh: int, n_cluster: int = 1) -> int:
+    """Dynamic shared memory of a ``ca_decode_attend`` block whose span
+    holds ``span`` rows, in a cluster of ``n_cluster``
+    (``dsm_ca_decode_attend_smem_bytes``)."""
+    tile = 4096 if n_cluster == 1 else 8192
+    fixed = _CA_STAGES * tile + 48 + 4 * _CA_WARPS * dh + 8 * _CA_WARPS
+    exchange = 4 * _CA_MAX_CLUSTER + 4 * (dh + 4) * n_cluster if n_cluster > 1 else 0
+    return fixed + 12 * span + exchange
+
+
+def pick_ca_cluster(bh: int, s_len: int, dh: int, sms: int) -> int:
+    """Blocks of the cluster that splits a (b, h)'s ``s_len`` source rows:
+    enough that the B*H clusters give the card's ``sms`` SMs
+    ``_CA_BLOCKS_PER_SM`` blocks each, while a span keeps ``_CA_MIN_ROWS``
+    rows and no span but the last is empty; more where a span's scales and
+    scores would not fit a block's shared memory; at most 8.  On the H100
+    (132 SMs) at 625 rows: 1 at the serving batches (B*H 1,024 and 2,048),
+    2 at a tp shard's 256, 8 at B=1."""
+    n = max(1, min(_CA_MAX_CLUSTER, -(-_CA_BLOCKS_PER_SM * sms // max(bh, 1)),
+                   s_len // _CA_MIN_ROWS))
+    while n > 1 and span_rows(s_len, n) * (n - 1) >= s_len:
+        n -= 1
+    while n < _CA_MAX_CLUSTER and ca_smem_bytes(span_rows(s_len, n), dh, n) > _MAX_SMEM_OPT_IN:
+        n += 1
+    return n
 
 
 def ca_supported(q, k_src) -> bool:
@@ -521,7 +568,10 @@ def ca_decode_attend_plain(q, k_src, v_src, k_scale, v_scale, s_len: int) -> tor
     return out.to(q.dtype)
 
 
-def _ca_launch(q, k_src, v_src, k_scale, v_scale, s_len: int) -> torch.Tensor:
+def _ca_launch(q, k_src, v_src, k_scale, v_scale, s_len: int,
+               n_cluster: Optional[int] = None) -> torch.Tensor:
+    """The kernel's launch; ``n_cluster`` (tests and tools) forces the
+    cluster size, else :func:`pick_ca_cluster` picks it for the card."""
     b, h, dh = q.shape
     s = k_src.shape[2]
     if dh not in (64, 128):
@@ -546,15 +596,24 @@ def _ca_launch(q, k_src, v_src, k_scale, v_scale, s_len: int) -> torch.Tensor:
         raise ValueError("ca_decode_attend: K and V (or their scales) differ in layout")
     if k_src.stride(2) != dh or k_scale.stride(2) != 1:
         raise ValueError("ca_decode_attend: source rows of one (b, h) must be contiguous")
+    if (k_src.data_ptr() | v_src.data_ptr()) % 16 or any(
+            k_src.stride(d) % 16 for d in (0, 1) if k_src.shape[d] > 1):
+        raise ValueError("ca_decode_attend: each (b, h)'s source must start on 16 bytes")
+    if n_cluster is None:
+        n_cluster = pick_ca_cluster(b * h, s_len, dh, card_sms(q.device.index or 0))
+    if not 1 <= n_cluster <= _CA_MAX_CLUSTER:
+        raise ValueError(f"ca_decode_attend: cluster of {n_cluster} blocks, not 1-8")
     lib = _build.lib()
-    if lib.dsm_ca_decode_attend_smem_bytes(s_len, dh) > _MAX_SMEM:
-        raise ValueError(f"ca_decode_attend: {s_len} rows exceed shared memory")
+    if lib.dsm_ca_decode_attend_smem_bytes(span_rows(s_len, n_cluster), dh,
+                                           n_cluster) > _MAX_SMEM_OPT_IN:
+        raise ValueError(f"ca_decode_attend: {s_len} rows over {n_cluster} blocks exceed "
+                         "shared memory")
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
     err = _build.launch(lib.dsm_ca_decode_attend, q.device,
         q.data_ptr(), k_src.data_ptr(), v_src.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), b, h, s_len, dh, q.stride(0),
         q.stride(1), k_src.stride(0), k_src.stride(1), k_scale.stride(0),
-        k_scale.stride(1), 1.0 / math.sqrt(dh),
+        k_scale.stride(1), n_cluster, 1.0 / math.sqrt(dh),
     )
     _build.check(err, "ca_decode_attend")
     ca_decode_attend.launches += 1

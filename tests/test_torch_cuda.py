@@ -312,6 +312,7 @@ def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
     monkeypatch.setattr(_build, "lib", lambda: Lib())
     monkeypatch.setattr(_build, "stream_ptr", stream_ptr)
     monkeypatch.setattr(DA, "packed_card", lambda index, dh: (128, 132))
+    monkeypatch.setattr(DA, "card_sms", lambda index: 132)
     before = _launches()
     _kernel_calls(lambda t: t.as_subclass(_OnCard1))
     assert {name for name, _, _ in launched} == KERNEL_LIBS
@@ -488,13 +489,20 @@ def test_decode_attend_commit_kernel_matches_plain(cuda_device, B, H, C, Dh, pos
         assert not _within(alt, yp)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,S,s_len,Dh", [
+CA_CASES = [
     (64, 16, 640, 625, 128),  # the TTS serving shape: 5 speakers x 125 rows
     (64, 16, 256, 200, 128),  # a partial source
     (64, 32, 640, 625, 64),   # Dh=64, H=32
     (3, 8, 128, 1, 64),       # one real row
-])
+    (32, 8, 640, 625, 128),   # a tp = 2 shard of the TTS mesh
+    (1, 16, 640, 625, 128),   # one session
+    (4, 8, 640, 619, 64),     # 619 rows: no cluster of 2-8 blocks divides them
+    (2, 16, 640, 619, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,s_len,Dh", CA_CASES)
 def test_ca_decode_attend_kernel_matches_plain(cuda_device, B, H, S, s_len, Dh):
     q, k, v, ks, vs = _ca_inputs(cuda_device, B, H, S, s_len, Dh, seed=S + H)
     assert DA.ca_supported(q, k)
@@ -506,6 +514,41 @@ def test_ca_decode_attend_kernel_matches_plain(cuda_device, B, H, S, s_len, Dh):
     assert y.shape == (B, H, 1, Dh) and y.dtype == torch.bfloat16
     np.testing.assert_allclose(y[:, :, 0].float().cpu().numpy(), yp.float().cpu().numpy(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cluster", range(1, 9))
+@pytest.mark.parametrize("B,H,S,s_len,Dh", CA_CASES)
+def test_ca_decode_attend_kernel_at_every_cluster_size(cuda_device, B, H, S, s_len, Dh,
+                                                       n_cluster):
+    """The kernel with the source split over clusters of 1-8 blocks (the
+    picker's whole range, forced): within 2e-2 of the plain version, three
+    runs bit for bit, one launch a call; the bar still sees a dropped last
+    row and a padding row read."""
+    q, k, v, ks, vs = _ca_inputs(cuda_device, B, H, S, s_len, Dh, seed=S + H + n_cluster)
+    before = DA.ca_decode_attend.launches
+    runs = [DA._ca_launch(q[:, :, 0], k, v, ks, vs, s_len, n_cluster) for _ in range(3)]
+    yp = DA.ca_decode_attend_plain(q[:, :, 0], k, v, ks, vs, s_len)
+    torch.cuda.synchronize()
+    assert DA.ca_decode_attend.launches == before + 3
+    assert all(torch.equal(runs[0], y) for y in runs[1:])
+    np.testing.assert_allclose(runs[0].float().cpu().numpy(), yp.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    for n in (s_len - 1, s_len + 1):
+        if 1 <= n <= S:
+            assert not _within(DA.ca_decode_attend_plain(q[:, :, 0], k, v, ks, vs, n), runs[0])
+
+
+@pytest.mark.cuda
+def test_ca_smem_bytes_is_the_kernels_layout(cuda_device):
+    from dsm_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for dh in (64, 128):
+        for span in (4, 80, 316, 628, 17000):
+            for n in range(1, 9):
+                assert DA.ca_smem_bytes(span, dh, n) == lib.dsm_ca_decode_attend_smem_bytes(
+                    span, dh, n)
 
 
 @pytest.mark.cuda
