@@ -15,7 +15,8 @@ lines each:
    rings, (24,20,3072,128), through the split pipeline: ring_commit_q, then
    decode_attend unsplit and at its chosen split; the duplex codec's bf16
    rings at B=24; the stt-2.6b rings, (64,32,384,64), through decode_attend
-   in one span and through the fused decode_attend_commit; the stt-1b rings,
+   in one span and through the fused decode_attend_commit; tts_202501's,
+   (64,32,512,64), through decode_attend; the stt-1b rings,
    (64,16,768,128), through decode_attend; the weight-only matmul qmm at the
    stt-2.6b matmul shapes, M = 64, and at M = 1 and 24; quantize_commit, the
    step's quantise-and-commit, at the int8 and packed-int4 rings of stt-1b,
@@ -399,6 +400,8 @@ ROUTES = {
                                     "stt1b_split"),
     "decode_attend[stt-2.6b rings]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:59",
                                       "stt26"),
+    "decode_attend[tts_202501 rings]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:59",
+                                        "tts202501"),
     "decode_attend_commit[stt-2.6b rings]": ("decode_attend_commit",
                                              "dsm_tpu/ops/decode_attn.py:661", "stt26_fused"),
     "decode_attend[(64,16,768,64) int4]": ("decode_attend", "dsm_tpu/ops/decode_attn.py:461",
@@ -501,15 +504,16 @@ HEADLINE = {"quantize_scale_commit": "stt1b int8 w=767", "quantize_commit": "stt
             "ring_commit_backward": "depformer f32 w=16",
             "rope_qk": "stt1b (64,16,1,128)", "ca_decode_attend": "B=64 H=16 S=625/640 Dh=128",
             "ring_commit_q": "duplex w=3071",
-            "decode_attend": "duplex pos=10000 valid=1.0 split=3",
+            "decode_attend": "duplex pos=10000 valid=1.0 split=1",
             "qmm": "M=64 O=11264 I=2048",
             "decode_attend[stt-1b rings]": "stt1b pos=3000 valid=1.0 split=1",
             "decode_attend[stt-2.6b rings]": "stt26 pos=3000 valid=1.0 split=1",
+            "decode_attend[tts_202501 rings]": "tts202501 pos=3000 valid=1.0 split=1",
             "decode_attend_commit[stt-2.6b rings]": "stt26 pos=3000 valid=1.0",
             "decode_attend[(64,16,768,64) int4]": "stt1b-kv4 pos=3000 valid=1.0 split=1",
             "decode_attend[(64,32,384,32) int4]": "stt26-kv4 pos=3000 valid=1.0 split=1",
             "ca_decode_attend[(64,32,640,64)]": "B=64 H=32 S=625/640 Dh=64",
-            "decode_attend[(24,32,3072,128) moshi]": "moshi pos=10000 valid=1.0 split=2",
+            "decode_attend[(24,32,3072,128) moshi]": "moshi pos=10000 valid=1.0 split=1",
             "quantize_commit[(24,32,3072,128) moshi]": "moshi int8 w=3071",
             "attn_tune": "pos=3000 valid=0.9 bb=1"}
 # The training step ([train]): configs/config-tts.toml's tts-1.6b at full
@@ -915,7 +919,7 @@ def _split_cases(dev, g, tag, b, h, c, dh, window, positions):
         plan = A.global_ring_plan(pos, c, 1, device=dev)
         rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
         n_rows = int(_true_mask(valid, pos, c, window).sum())
-        for n_split in sorted({1, DA.pick_split(b * h, c)}):
+        for n_split in sorted({1, DA.card_split(b * h, c, dh, False, dev)}):
 
             def run_k(args=args, plan=plan, valid=valid, n_split=n_split):
                 return (DA.decode_attend(*args[:7], plan, valid, window=window,
@@ -1011,7 +1015,7 @@ def _split_cases_q4(dev, g, tag, b, h, c, dh, window, positions):
         plan = A.global_ring_plan(pos, c, 1, device=dev)
         rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
         n_rows = int(_true_mask(valid, pos, c, window).sum())
-        for n_split in sorted({1, DA.packed_split(b * h, c, dh, dev), 3}):
+        for n_split in sorted({1, DA.card_split(b * h, c, dh, True, dev), 3}):
 
             def run_k(args=args, plan=plan, valid=valid, n_split=n_split):
                 return (DA.decode_attend(*args[:7], plan, valid, window=window,
@@ -1521,6 +1525,9 @@ def kernel_cases(dev):
     # rings, the split route of the shapes the fused kernel serves.
     stt26_pos = ((0, 1.0), (40, 0.7), (383, 1.0), (3000, 1.0))
     cases += _split_cases(dev, g, "stt26", 64, 32, 384, 64, 375, stt26_pos)
+    # tts_202501's rings (32 heads x 64 over 512 rows, window 500): the same
+    # head-major route, nearly empty and wrapped.
+    cases += _split_cases(dev, g, "tts202501", 64, 32, 512, 64, 500, ((40, 0.9), (3000, 1.0)))
     cases += _attend_cases(dev, g, "stt26", 64, 32, 384, 64, 375, True, stt26_pos,
                            timed=(3000,))
     cases += _split_cases(dev, g, "stt1b", 64, 16, 768, 128, 750, ((40, 0.9), (3000, 1.0)))
@@ -2652,7 +2659,7 @@ def phase_stt26_kv4(engine, dev, card):
     # The kernels of decode_attend (no ring commit: both legs run quantize_commit
     # + decode_attend, as want_launches holds), by name in the profile.
     attend_kernels = {4: ("decode_attend_q4_kernel", "decode_attend_combine_kernel"),
-                      8: ("decode_attend_partial_kernel", "decode_attend_combine_kernel")}
+                      8: ("decode_attend_q8_kernel", "decode_attend_combine_kernel")}
 
     def profile(state, bits):
         """(all kernels, decode_attend's kernels) ms a step from ``state``,

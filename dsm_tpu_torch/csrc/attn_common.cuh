@@ -1,7 +1,7 @@
-// Device helpers shared by the decode-attention kernels over a committed
-// K/V ring (decode_attn.cu: dsm_decode_attend; attn_tune.cu: dsm_attn_tune):
-// the ring mask, the unpack of a lane's 16-byte load of a ring row, and the
-// block reductions.  Both kernels run blocks of kAttnThreads threads.
+// Device helpers shared by the decode-attention kernels over a K/V ring
+// (decode_attn.cu; attn_tune.cu: dsm_attn_tune): the ring mask, the unpack
+// of a lane's 16-byte load of a ring row, the warp reductions, and the block
+// reductions of attn_tune.cu's blocks of kAttnThreads threads.
 
 #pragma once
 

@@ -63,9 +63,10 @@ _SIGNATURES = {
     "dsm_decode_attend_commit": (
         [_P] * 12 + [_LL, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P], _I
     ),
-    "dsm_decode_attend_split_smem_bytes": ([_I, _I], _LL),
-    "dsm_decode_attend_q4_smem_bytes": ([_I, _I], _LL),
-    "dsm_decode_attend_q4_tile_rows": ([_I], _I),
+    # span rows, dh, packed4
+    "dsm_decode_attend_smem_bytes": ([_I, _I, _I], _LL),
+    # dh, packed4
+    "dsm_decode_attend_tile_rows": ([_I, _I], _I),
     # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid, part, out,
     # b, h, c, dh, packed4, n_split, k/v strides (b, h) in bytes, scale
     # strides (b, h), pos, window, scale, stream

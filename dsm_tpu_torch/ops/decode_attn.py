@@ -48,7 +48,6 @@ import torch
 from . import _build
 from .attention import NEG_INF, check_tick, no_backward, unpack4
 
-_MAX_SMEM = 48 * 1024  # dynamic shared memory without an opt-in attribute
 _MAX_SMEM_OPT_IN = 232448  # an H100 block's shared memory with the opt-in
 
 
@@ -186,30 +185,26 @@ decode_attend_commit.launches = 0
 # The split pipeline's attention (counterpart of decode_attn.decode_attend)
 # ---------------------------------------------------------------------------
 #
-# ``decode_attend`` replaces the Pallas kernel
-# ``dsm_tpu/ops/decode_attn.py:_decode_attend_q_flash``: T=1 attention of
-# bf16 queries over the COMMITTED int8 ring (``ring_kernels.ring_commit``
-# with the scale rings has written this step's row, which is masked from the
-# ring read), the fresh bf16 row joining the softmax exactly.  The kernel is
-# CUDA C++ in ``csrc/decode_attn.cu``: the ring is split over ``n_split``
-# blocks per (b, h), each reducing its span to a partial (acc, m, l), and a
-# second small kernel folds the partials; what bounds it and what the design
-# does about that is written there.  Shapes it launches for: any B and H, Dh
-# in {64, 128}, bf16 queries and fresh rows, int8 rings whose rows are
-# contiguous and 16-byte aligned (addressed through (b, h) strides), f32
-# scales, spans of up to 11,264 rows; anything else raises.
-#
-# The same wrapper serves the packed-int4 rings (``kv_bits = 4``): uint8 rings
-# ``(B, H, C, Dh/2)``, byte d holding dims (d, d + Dh/2) excess-8
-# (``attention.pack4``).  There it replaces the Pallas kernels
-# ``_decode_attend_q4_4d`` (4-D blocks) and ``_decode_attend_q4`` (head-major)
-# with a kernel of its own, addressed through (b, h) strides, so both layouts
-# are the same launch: persistent blocks whose copy warp stages each (b, h,
-# span)'s K and V tiles by TMA bulk copies, the dots on ``mma.sync``, and at
-# one span (:func:`packed_split`) the fresh row folded in the same launch,
-# with no scratch.  Shapes it launches for: rings of a multiple of 4 rows whose
-# rows, scales and (b, h) strides lie on 16 bytes, K and V (and their scales)
-# in one layout, spans whose scores fit a block's shared memory.
+# ``decode_attend`` replaces the Pallas kernels
+# ``dsm_tpu/ops/decode_attn.py:_decode_attend_q_flash``, ``_decode_attend_q_4d``
+# and, head-major, ``_decode_attend_q``: T=1 attention of bf16 queries over
+# the COMMITTED int8 ring (``ring_kernels.quantize_commit`` has written this
+# step's row and its scales, and the row is masked from the ring read), the
+# fresh bf16 row joining the softmax exactly.  The same wrapper serves the
+# packed-int4 rings (``kv_bits = 4``): uint8 rings ``(B, H, C, Dh/2)``, byte d
+# holding dims (d, d + Dh/2) excess-8 (``attention.pack4``), for the Pallas
+# kernels ``_decode_attend_q4_4d`` and, head-major, ``_decode_attend_q4``.
+# The kernels are CUDA C++ in ``csrc/decode_attn.cu``, one for each ring type,
+# addressed through (b, h) strides, so both layouts are the same launch:
+# persistent blocks take (b, h, span) items in turn, a copy warp brings each
+# item's attended rows into shared memory by TMA bulk copies, and at one span
+# the block folds the fresh row itself (one launch, no scratch); where the
+# ring is split (:func:`card_split`) a fold kernel follows.  What bounds them
+# and what the design does about that is written there.  Shapes they launch
+# for: any B and H, Dh in {64, 128}, bf16 queries and fresh rows, rings of a
+# multiple of 4 rows whose rows, scales and (b, h) strides lie on 16 bytes, K
+# and V (and their scales) in one layout, validity rows on 4 bytes, spans
+# whose scores fit a block's shared memory; anything else raises.
 
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the 132 SMs
 _MIN_SPAN = 256        # ring rows a block should at least have to reduce
@@ -280,27 +275,34 @@ def span_rows(c: int, n_split: int) -> int:
 
 
 def pick_split(bh: int, c: int) -> int:
-    """Blocks per (b, h): enough that B*H*n_split fills the card's 132 SMs
-    with a few blocks each, while a block keeps at least ``_MIN_SPAN`` ring
-    rows to reduce.  s2s-2b at B=24 (480 pairs, C=3072): 3 spans of 1024."""
+    """Blocks per (b, h) of the fused pipeline's kernel: enough that
+    B*H*n_split fills the card's 132 SMs with a few blocks each, while a
+    block keeps at least ``_MIN_SPAN`` ring rows to reduce (stt-1b at B=64:
+    2 spans of 384).  The split pipeline takes it for int8 rings on the CPU,
+    the order every CPU comparison with the JAX package was made in."""
     return max(1, min(-(-_TARGET_BLOCKS // max(bh, 1)), c // _MIN_SPAN))
 
 
-_ITEMS_PER_SM = 2  # (b, h, span) items a split packed ring gives each SM
+# (b, h, span) items a split ring gives each SM: packed-int4 rings
+# (tools/q4_attend_variants.py), int8 rings (tools/int8_attend_variants.py).
+_ITEMS_PER_SM = {True: 2, False: 3}
 
 
-def pick_split_packed(bh: int, c: int, tile_rows: int, sms: int) -> int:
-    """Spans per (b, h) of a packed-int4 ring: its kernel's blocks are
-    persistent and take (b, h, span) items in turn, so a ring is split only
-    where its B*H items give the card's ``sms`` SMs fewer than
-    ``_ITEMS_PER_SM`` each, into the fewest spans that do, of whole tiles of
+def pick_split_card(bh: int, c: int, tile_rows: int, sms: int, items_per_sm: int = 2) -> int:
+    """Spans per (b, h) of the split pipeline's kernels on the card: their
+    blocks are persistent and take (b, h, span) items in turn, so a ring is
+    split only where its B*H items give the card's ``sms`` SMs fewer than
+    ``items_per_sm`` each, into the fewest spans that do, of whole tiles of
     ``tile_rows`` rows (a span that ends inside a tile pays a tile's fixed
     cost for a part of it); no span but the last is empty.  On the H100 (132
-    SMs; ``tools/q4_attend_variants.py`` at B = 1-8): 1 at the three serving
-    rings (stt-1b 1,024 items, stt-2.6b 2,048, s2s-2b 480), 6 at one stt-1b
-    stream, 3 at eight, 12 at one s2s-2b stream, 4 at four."""
+    SMs): 1 at every serving ring (stt-1b 1,024 items, stt-2.6b and
+    tts_202501 2,048, s2s-2b 480, Moshi 7B 768); packed-int4 rings (two
+    items an SM; ``tools/q4_attend_variants.py`` at B = 1-8) 6 at one stt-1b
+    stream, 3 at eight, 12 at one s2s-2b stream, 4 at four; int8 rings
+    (three) 4 at the s2s-2b dp x tp shard (12,10,3072,128), 3 at the tp = 4
+    stt-1b shard (32,4,768,128)."""
     tiles = -(-c // tile_rows)
-    n = max(1, min(-(-_ITEMS_PER_SM * sms // max(bh, 1)), c // tile_rows))
+    n = max(1, min(-(-items_per_sm * sms // max(bh, 1)), c // tile_rows))
     n = -(-tiles // -(-tiles // n))  # the fewest spans of as many whole tiles
     while n > 1 and span_rows(c, n) * (n - 1) >= c:
         n -= 1
@@ -314,23 +316,25 @@ def card_sms(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def packed_card(device_index: int, dh: int) -> Tuple[int, int]:
-    """(rows of a tile of the packed kernel at head width ``dh``, SMs of card
-    ``device_index``): what :func:`pick_split_packed` takes."""
-    tile_rows = _build.lib().dsm_decode_attend_q4_tile_rows(dh)
+def ring_card(device_index: int, dh: int, packed: bool) -> Tuple[int, int]:
+    """(rows of a tile of the split pipeline's kernel at head width ``dh``
+    over packed-int4 or int8 rings, SMs of card ``device_index``): what
+    :func:`pick_split_card` takes."""
+    tile_rows = _build.lib().dsm_decode_attend_tile_rows(dh, int(packed))
     if tile_rows < 1:
-        raise ValueError(f"decode_attend: no packed kernel at Dh {dh}")
+        raise ValueError(f"decode_attend kernel takes Dh 64 or 128, got {dh}")
     return tile_rows, card_sms(device_index)
 
 
-def packed_split(bh: int, c: int, dh: int, device: torch.device) -> int:
-    """The split :func:`decode_attend` takes for a packed-int4 ring of B*H =
-    ``bh`` on ``device``: :func:`pick_split_packed` for the card and its
-    kernel, and one span (the order of the kernel's every serving shape) on
-    the CPU."""
+def card_split(bh: int, c: int, dh: int, packed: bool, device: torch.device) -> int:
+    """The split :func:`decode_attend` takes for a ring of B*H = ``bh``
+    on ``device``: :func:`pick_split_card` for the card and its kernel; on
+    the CPU one span for a packed-int4 ring (the order of the kernel's every
+    serving shape) and :func:`pick_split` for an int8 one."""
     if device.type != "cuda":
-        return 1
-    return pick_split_packed(bh, c, *packed_card(device.index or 0, dh))
+        return 1 if packed else pick_split(bh, c)
+    return pick_split_card(bh, c, *ring_card(device.index or 0, dh, packed),
+                           _ITEMS_PER_SM[packed])
 
 
 def decode_attend_plain(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
@@ -424,22 +428,20 @@ def _attend_launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, valid,
     if (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
             or k_cache.stride(0) % 16 or k_cache.stride(1) % 16):
         raise ValueError("decode_attend: ring rows must be 16-byte aligned")
+    # The scales are bulk copies too: 4 rows (16 bytes) at a time.
+    if c % 4:
+        raise ValueError(f"decode_attend: a ring of {c} rows, not a multiple of 4")
+    if (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16
+            or k_scale.stride(0) % 4 or k_scale.stride(1) % 4):
+        raise ValueError("decode_attend: the rings' scales must be 16-byte aligned")
+    if valid.data_ptr() % 4:
+        raise ValueError("decode_attend: the validity rows must be 4-byte aligned")
     lib = _build.lib()
     span = span_rows(c, n_split)
-    if packed4:  # the scales are bulk copies too: 4 rows (16 bytes) at a time
-        if c % 4:
-            raise ValueError(f"decode_attend: a packed ring of {c} rows, not a multiple of 4")
-        if (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16
-                or k_scale.stride(0) % 4 or k_scale.stride(1) % 4):
-            raise ValueError("decode_attend: packed rings' scales must be 16-byte aligned")
-        if valid.data_ptr() % 4:
-            raise ValueError("decode_attend: the validity rows must be 4-byte aligned")
-        if lib.dsm_decode_attend_q4_smem_bytes(span, dh) > _MAX_SMEM_OPT_IN:
-            raise ValueError(f"decode_attend: spans of {span} rows exceed shared memory")
-    elif lib.dsm_decode_attend_split_smem_bytes(span, dh) > _MAX_SMEM:
+    if lib.dsm_decode_attend_smem_bytes(span, dh, int(packed4)) > _MAX_SMEM_OPT_IN:
         raise ValueError(f"decode_attend: spans of {span} rows exceed shared memory")
-    part = None  # a packed ring at one span folds the fresh row in its one launch
-    if not packed4 or n_split > 1:
+    part = None  # at one span the kernel folds the fresh row in its one launch
+    if n_split > 1:
         part = torch.empty((b * h, n_split, dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=torch.bfloat16, device=q.device)
     err = _build.launch(lib.dsm_decode_attend, q.device,
@@ -461,8 +463,8 @@ def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
     uint8) ring and this step's fresh bf16 row ``k_new/v_new (B, H, 1, Dh)``
     -> ``(B, H, 1, Dh)``: ``attention.attend_global_split_q`` (``_q4``) at
     T=1 in the kernel's order.
-    ``n_split`` (default :func:`pick_split`, over a packed ring
-    :func:`packed_split`) is the number of spans the ring is reduced in.
+    ``n_split`` (default :func:`card_split`) is the number of spans the
+    ring is reduced in.
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``decode_attend.launches``) or raise."""
     no_backward("decode_attend", q, k_cache, v_cache, k_scale, v_scale, k_new, v_new)
@@ -471,8 +473,8 @@ def decode_attend(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, plan,
     b, h, c, _ = k_cache.shape
     pos = plan["pos"]
     if n_split is None:
-        n_split = (packed_split(b * h, c, q.shape[-1], k_cache.device)
-                   if k_cache.dtype == torch.uint8 else pick_split(b * h, c))
+        n_split = card_split(b * h, c, q.shape[-1], k_cache.dtype == torch.uint8,
+                             k_cache.device)
     q3, kn3, vn3 = (x[:, :, 0, :].contiguous() for x in (q, k_new, v_new))
     if k_cache.device.type == "cpu":
         y = decode_attend_plain(q3, k_cache, v_cache, k_scale, v_scale, kn3, vn3, valid_old,

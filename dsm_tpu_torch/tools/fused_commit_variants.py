@@ -8,9 +8,7 @@ Each variant is ``csrc/decode_attn.cu`` with a few lines replaced
 ``build/``, and launched through its ``dsm_decode_attend_commit`` entry point
 on the same inputs, at the stt-1b, stt-2.6b and tts-1.6b rings past their
 wrap and at a nearly empty stt-1b ring (what a launch costs with next to no
-bytes).  ``register-loads`` is the span split without the staged copies:
-the split pipeline's partial kernel (loads in registers) before the same
-fold and commit.  Beside them, on the same inputs, the split pipeline's
+bytes).  Beside them, on the same inputs, the split pipeline's
 ``ring_commit_q`` + ``decode_attend``.
 
 One JSON row per shape and variant: device ms per call (CUDA events around
@@ -58,14 +56,6 @@ _OVERLAP = ("attr.val.programmaticStreamSerializationAllowed = 1;",
             "attr.val.programmaticStreamSerializationAllowed = 0;")
 
 
-_STAGED = ("  decode_attend_staged_kernel<DH><<<blocks, kStagedThreads, (size_t)smem, s>>>(",
-           "  decode_attend_partial_kernel<DH><<<blocks, kDaThreads, "
-           "(size_t)dsm_decode_attend_split_smem_bytes(span, DH), s>>>(")
-_STAGED_ARGS = ("      h, c, n_split, span, pos, window, scale);",
-                "      h, c, n_split, span, kv_sb, kv_sh, (long long)h * c, c, pos, window, "
-                "scale);")
-
-
 def _constant(name: str, value: int, new: int):
     return (f"constexpr int {name} = {value};", f"constexpr int {name} = {new};")
 
@@ -73,7 +63,6 @@ def _constant(name: str, value: int, new: int):
 # name -> (diagnostic, [(text of the source, its replacement), ...])
 VARIANTS = {
     "shipped": (False, []),
-    "register-loads": (False, [_STAGED, _STAGED_ARGS]),
     "int-to-float": (False, [(f"{lead}unpack_i8({_LOAD}, {x});",
                               f"{lead}unpack_load({_LOAD}, {x});")
                              for lead, x in (("        ", "kv"), ("      ", "vv"))]),

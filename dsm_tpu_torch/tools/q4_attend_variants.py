@@ -13,7 +13,7 @@ the bytes of a tile, the blocks an SM the persistent grid is sized for (so
 the items a block takes), the consumer warps, and the fold where the ring is
 split (after the grid instead of a programmatic dependent launch); the
 shipped build is also timed at the spans ``SPLITS`` (its pick first:
-``decode_attn.packed_split``, from the tile rows and the card's SMs, both
+``decode_attn.card_split``, from the tile rows and the card's SMs, both
 printed in every row).  The diagnostics drop work:
 ``no-unpack`` (the mma reads the raw words), ``no-mma`` (the unpacked values
 go nowhere; ``no-mma-k`` and ``no-mma-v`` in one pass), ``no-arithmetic``
@@ -168,15 +168,17 @@ def splits(pick: int, c: int) -> list:
     return [pick, *rest]
 
 
-def build(names) -> dict:
-    """Build each variant's library, one nvcc each, all started together ->
-    ``{name: dsm_decode_attend or the compiler's error}``."""
-    root = _build.BUILD_ROOT.parent / "q4_attend_variants"
+def build(names, source=variant_source, root_name: str = "q4_attend_variants") -> dict:
+    """Build each variant's library (``source(name)``: its text of
+    ``csrc/decode_attn.cu``) under ``build/<root_name>/``, one nvcc each,
+    all started together -> ``{name: dsm_decode_attend or the compiler's
+    error}``."""
+    root = _build.BUILD_ROOT.parent / root_name
     procs = {}
     for name in names:
-        d = root / name.replace("=", "_")
+        d = root / name.replace("=", "_").replace("+", "_").replace("/", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / "decode_attn.cu").write_text(variant_source(name))
+        (d / "decode_attn.cu").write_text(source(name))
         for header in ("attn_common.cuh", "tma_common.cuh"):
             shutil.copy(_build.CSRC / header, d)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
@@ -229,8 +231,8 @@ def run(names, device, parent=None) -> list:
     rows = []
     g = torch.Generator(device=device).manual_seed(0)
     for label, b, h, c, dh, pos, window, share in SHAPES:
-        pick = DA.packed_split(b * h, c, dh, device)
-        tile_rows, sms = DA.packed_card(device.index or 0, dh)
+        pick = DA.card_split(b * h, c, dh, True, device)
+        tile_rows, sms = DA.ring_card(device.index or 0, dh, True)
         args = _inputs(g, b, h, c, dh, share, device)
         q, k, v, ks, vs, k_new, v_new, valid = args
         w = pos % c
@@ -297,7 +299,7 @@ def run(names, device, parent=None) -> list:
         i8 = _inputs(g, b, h, c, dh, share, device, packed=False)
         i8_bound = ((attended * h * (2 * dh + 8) + b * c + 8 * b * h * dh)
                     / MEM_BYTES_PER_S * 1e3)
-        i8_split = DA.pick_split(b * h, c)
+        i8_split = DA.card_split(b * h, c, dh, False, device)
 
         def int8_call():
             return DA.decode_attend(i8[0][:, :, None], *i8[1:5], i8[5][:, :, None],

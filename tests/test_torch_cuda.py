@@ -262,9 +262,16 @@ def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
     that device's stream (``_build.launch``): tensors that say they lie on
     ``cuda:1`` while ``cuda:0`` is current, the library, ``torch.cuda.device``,
     ``torch.cuda.current_device`` and ``_build.stream_ptr`` stood in for (a
-    CPU has none), the wrappers' allocations made on the CPU."""
+    CPU has none), the wrappers' allocations made on the CPU.  The launch
+    counters are put back afterwards: other files that run in the same
+    process hold CPU calls to count nothing."""
     from dsm_tpu_torch.ops import _build
 
+    for fn in (RK.ring_commit, RK.ring_commit_backward, RK.scale_commit,
+               DA.decode_attend_commit, DA.ca_decode_attend, RK.ring_commit_q,
+               DA.decode_attend, QM.qmm, AT.attn_tune, RK.quantize_commit,
+               RK.quantize_scale_commit, RK.rope_commit, RK.rope_qk):
+        monkeypatch.setattr(fn, "launches", fn.launches)
     card1 = torch.device("cuda", 1)
     made = {}
     for name in ("empty", "zeros", "full", "arange"):
@@ -294,7 +301,7 @@ def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
         def __getattr__(self, name):
             if name.endswith("_smem_bytes"):
                 return lambda *a: 1024
-            if name == "dsm_decode_attend_q4_tile_rows":
+            if name == "dsm_decode_attend_tile_rows":
                 return lambda *a: 128
 
             def launch(*args):
@@ -311,7 +318,7 @@ def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(_build, "lib", lambda: Lib())
     monkeypatch.setattr(_build, "stream_ptr", stream_ptr)
-    monkeypatch.setattr(DA, "packed_card", lambda index, dh: (128, 132))
+    monkeypatch.setattr(DA, "ring_card", lambda index, dh, packed: (128, 132))
     monkeypatch.setattr(DA, "card_sms", lambda index: 132)
     before = _launches()
     _kernel_calls(lambda t: t.as_subclass(_OnCard1))
@@ -633,6 +640,15 @@ SPLIT_CASES = [
     (24, 20, 3072, 128, 10000, 3000, 1.0),
     (2, 32, 4096, 64, 4200, 4096, 0.9),     # tts_v0_1: h=32, Dh=64, window = C
     (2, 20, 256, 128, 1000, 250, 0.6),
+    (24, 20, 3072, 128, 1, 3000, 1.0),      # one ring row in the window
+    (24, 20, 3072, 128, 2999, 3000, 0.8),   # window - 1: every row but w, unwrapped
+    (64, 32, 384, 64, 40, 375, 0.7),        # stt-2.6b, nearly empty
+    (64, 32, 384, 64, 3000, 375, 1.0),      # stt-2.6b, wrapped
+    (64, 32, 512, 64, 3000, 500, 1.0),      # tts_202501, wrapped
+    (64, 16, 768, 128, 3000, 750, 1.0),     # stt-1b's split route, wrapped
+    (24, 32, 3072, 128, 40, 3000, 0.7),     # Moshi 7B, a served ring
+    (12, 10, 3072, 128, 5000, 3000, 0.7),   # an s2s-2b dp x tp shard: split on the card
+    (32, 4, 768, 128, 3000, 750, 1.0),      # the tp = 4 stt-1b shard: split on the card
 ]
 
 
@@ -694,7 +710,9 @@ def test_decode_attend_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, windo
     plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
     valid = args[7]
     assert DA.supported(args[0], args[1], plan)
-    assert not DA.fused_commit_supported(args[0], args[1], plan)
+    # Split-route shapes; stt-1b's rings take it under fused_attn = False only.
+    assert DA.fused_commit_supported(args[0], args[1], plan) == (
+        DA._mono_ok(H, C, Dh) and DA._legacy_4d(H, Dh)) == ((H, C, Dh) == (16, 768, 128))
     before = DA.decode_attend.launches
     runs = [DA.decode_attend(*args[:7], plan, valid, window=window, n_split=n_split)
             for _ in range(3)]
@@ -703,7 +721,7 @@ def test_decode_attend_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, windo
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
     y = runs[0]
     assert y.shape == (B, H, 1, Dh) and y.dtype == torch.bfloat16
-    split = DA.pick_split(B * H, C) if n_split is None else n_split
+    split = DA.card_split(B * H, C, Dh, False, cuda_device) if n_split is None else n_split
     rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
     for n in {split, 1}:  # the plain version in the kernel's split, and unsplit
         yp = DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid, pos,
@@ -716,18 +734,126 @@ def test_decode_attend_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, windo
 
 
 @pytest.mark.cuda
-def test_decode_attend_kernel_takes_head_major_strides(cuda_device):
-    """A (B*H, C, Dh) ring addressed as (1, B*H, C, Dh): the same kernel."""
-    args, _ = _split_inputs(cuda_device, 2, 32, 384, 64, 1000, 375, 0.9, seed=5)
+@pytest.mark.parametrize("n_split", [None, 3])
+@pytest.mark.parametrize("pos", [0, 1, 40, 374, 1000])
+def test_decode_attend_kernel_takes_head_major_strides(cuda_device, pos, n_split):
+    """A (B*H, C, Dh) ring addressed as (1, B*H, C, Dh): the same kernel,
+    bit for bit, at pos 0 and 1, nearly empty, at window - 1 and wrapped;
+    within the bar of the plain version."""
+    args, _ = _split_inputs(cuda_device, 2, 32, 384, 64, pos, 375, 0.9, seed=5 + pos)
     q, kc, vc, ks, vs, k_new, v_new, valid = args
-    plan = A.global_ring_plan(1000, 384, 1, device=cuda_device)
-    want = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, plan, valid, window=375)
+    plan = A.global_ring_plan(pos, 384, 1, device=cuda_device)
+    want = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, plan, valid, window=375,
+                            n_split=n_split)
     k_t, v_t = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (kc, vc))
     ks_t, vs_t = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (ks, vs))
     assert not k_t.is_contiguous()
-    got = DA.decode_attend(q, k_t, v_t, ks_t, vs_t, k_new, v_new, plan, valid, window=375)
+    got = DA.decode_attend(q, k_t, v_t, ks_t, vs_t, k_new, v_new, plan, valid, window=375,
+                           n_split=n_split)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    split = DA.card_split(2 * 32, 384, 64, False, cuda_device) if n_split is None else n_split
+    rows = [x[:, :, 0].contiguous() for x in (q, k_new, v_new)]
+    yp = DA.decode_attend_plain(rows[0], kc, vc, ks, vs, rows[1], rows[2], valid, pos,
+                                pos % 384, 375, split)
+    assert _within(got[:, :, 0], yp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh,pos,window", [
+    (64, 32, 384, 64, 3000, 375), (64, 32, 512, 64, 3000, 500), (64, 16, 768, 128, 40, 750),
+    (24, 20, 3072, 128, 10000, 3000)])
+def test_decode_attend_int8_is_one_launch_and_allocates_only_its_output(cuda_device, B, H, C,
+                                                                        Dh, pos, window):
+    """At one span (the card's pick at every serving ring): one kernel on
+    the device a call (the fresh row folded in it, no fold launch) and no
+    memory but the output, at the peak too (no partials' scratch)."""
+    args, _ = _split_inputs(cuda_device, B, H, C, Dh, pos, window, 1.0, seed=3)
+    plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
+    assert DA.card_split(B * H, C, Dh, False, cuda_device) == 1
+
+    def call():
+        return DA.decode_attend(*args[:7], plan, args[7], window=window)
+
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = call()
+    torch.cuda.synchronize()
+    out_bytes = -(-y.numel() * y.element_size() // 512) * 512  # the allocator's blocks
+    assert torch.cuda.memory_allocated() - base == out_bytes
+    assert torch.cuda.max_memory_allocated() - base == out_bytes
+    del y
+    before = DA.decode_attend.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    assert DA.decode_attend.launches == before + 3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and "decode_attend_q8_kernel" in next(iter(kernels)), kernels
+    assert sum(kernels.values()) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,Dh,pos,window,frac", [
+    (12, 10, 3072, 128, 5000, 3000, 0.7), (32, 4, 768, 128, 3000, 750, 1.0),
+    (64, 32, 384, 64, 3000, 375, 1.0)])
+def test_decode_attend_int8_repeats_bit_for_bit(cuda_device, B, H, C, Dh, pos, window, frac):
+    """Ten calls at the card's pick (split at the tp shards: the fold kernel
+    as a programmatic dependent launch; one span at stt-2.6b), interleaved
+    with calls at other splits on the same stream, all bit-identical."""
+    args, _ = _split_inputs(cuda_device, B, H, C, Dh, pos, window, frac, seed=11)
+    plan = A.global_ring_plan(pos, C, 1, device=cuda_device)
+    pick = DA.card_split(B * H, C, Dh, False, cuda_device)
+    assert (pick > 1) == (B * H < 2 * DA.card_sms(cuda_device.index or 0))
+    runs = []
+    for i in range(10):
+        runs.append(DA.decode_attend(*args[:7], plan, args[7], window=window))
+        DA.decode_attend(*args[:7], plan, args[7], window=window, n_split=1 + i % 4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], y) for y in runs[1:])
+    rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
+    yp = DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], args[7], pos, pos % C,
+                                window, pick)
+    assert _within(runs[0][:, :, 0], yp)
+
+
+@pytest.mark.cuda
+def test_decode_attend_int8_raises_where_the_kernel_does_not_serve(cuda_device):
+    """Head widths other than 64 and 128, a ring of a row count that is not
+    a multiple of 4, scales or validity rows off the bulk copies' alignment:
+    each raises before any launch."""
+    before = _launches()
+    for dh in (32, 96, 256):
+        q = torch.zeros(2, 8, 1, dh, dtype=torch.bfloat16, device=cuda_device)
+        k = torch.zeros(2, 8, 256, dh, dtype=torch.int8, device=cuda_device)
+        s = torch.ones(2, 8, 256, device=cuda_device)
+        valid = torch.ones(2, 256, dtype=torch.bool, device=cuda_device)
+        with pytest.raises(ValueError, match="Dh 64 or 128"):
+            DA.decode_attend(q, k, k, s, s, q, q, A.global_ring_plan(3, 256, 1,
+                                                                     device=cuda_device),
+                             valid, window=250)
+    args, _ = _split_inputs(cuda_device, 2, 8, 256, 64, 300, 250, 1.0, seed=1)
+    q, kc, vc, ks, vs, k_new, v_new, valid = args
+    plan = A.global_ring_plan(300, 256, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        DA.decode_attend(q, kc[:, :, :254], vc[:, :, :254], ks[:, :, :254].contiguous(),
+                         vs[:, :, :254].contiguous(), k_new, v_new,
+                         A.global_ring_plan(300, 254, 1, device=cuda_device),
+                         valid[:, :254].contiguous(), window=250)
+    sflat = torch.ones(ks.numel() + 4, device=cuda_device)
+    s_off = sflat[1:1 + ks.numel()].view(ks.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        DA.decode_attend(q, kc, vc, s_off, s_off, k_new, v_new, plan, valid, window=250)
+    vflat = torch.ones(valid.numel() + 4, dtype=torch.bool, device=cuda_device)
+    v_off = vflat[1:1 + valid.numel()].view(valid.shape)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, plan, v_off, window=250)
+    assert _launches() == before
 
 
 @pytest.mark.cuda
@@ -1377,7 +1503,7 @@ def test_decode_attend_int4_kernel_matches_plain(cuda_device, B, H, C, Dh, pos, 
     assert DA.decode_attend.launches == before + 3
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
     y = runs[0][:, :, 0]
-    split = DA.packed_split(B * H, C, Dh, cuda_device) if n_split is None else n_split
+    split = DA.card_split(B * H, C, Dh, True, cuda_device) if n_split is None else n_split
     rows = [x[:, :, 0].contiguous() for x in (args[0], args[5], args[6])]
     yp = DA.decode_attend_plain(rows[0], *args[1:5], rows[1], rows[2], valid, pos,
                                 plan["w"][0], window, split)
@@ -1403,7 +1529,7 @@ def test_decode_attend_int4_is_one_launch_and_allocates_only_its_output(cuda_dev
     partials' scratch)."""
     args, _, _ = _split_inputs_q4(cuda_device, B, H, C, Dh, 3000, C - 4, 1.0, seed=3)
     plan = A.global_ring_plan(3000, C, 1, device=cuda_device)
-    assert DA.packed_split(B * H, C, Dh, cuda_device) == 1
+    assert DA.card_split(B * H, C, Dh, True, cuda_device) == 1
 
     def call():
         return DA.decode_attend(*args[:7], plan, args[7], window=C - 4)

@@ -1,5 +1,5 @@
 """The packed-int4 ``decode_attend`` on the CPU: the split its wrapper picks
-for packed rings (``decode_attn.pick_split_packed``, from the kernel's tile
+for packed rings (``decode_attn.pick_split_card``, from the kernel's tile
 rows and the card's SMs), and the design-variants tool of its kernel
 (``dsm_tpu_torch.tools.q4_attend_variants``): every variant's edit still
 applies to ``csrc/decode_attn.cu`` exactly once, and the tool measures
@@ -33,7 +33,7 @@ PICK_CASES = [(64 * 16, 768, 128, 1), (64 * 32, 384, 64, 1), (24 * 20, 3072, 128
 @pytest.mark.parametrize("bh,c,dh,want", PICK_CASES)
 def test_packed_pick_covers_the_ring_in_spans_of_four_rows(bh, c, dh, want):
     tile_rows = TILE_ROWS[dh]
-    n = DA.pick_split_packed(bh, c, tile_rows, H100_SMS)
+    n = DA.pick_split_card(bh, c, tile_rows, H100_SMS)
     assert n == want
     span = DA.span_rows(c, n)
     rows = [min(c, s0 + span) - s0 for s0 in range(0, n * span, span)]
@@ -49,9 +49,9 @@ def test_packed_pick_covers_the_ring_in_spans_of_four_rows(bh, c, dh, want):
 def test_packed_pick_follows_the_cards_sms():
     """Fewer SMs, fewer spans (7 for two items an SM, 6 of four whole tiles
     each); items enough for two an SM: one span."""
-    assert DA.pick_split_packed(20, 3072, 128, 66) == 6
-    assert DA.pick_split_packed(20, 3072, 128, 10) == 1
-    assert DA.pick_split_packed(2 * H100_SMS, 3072, 128, H100_SMS) == 1
+    assert DA.pick_split_card(20, 3072, 128, 66) == 6
+    assert DA.pick_split_card(20, 3072, 128, 10) == 1
+    assert DA.pick_split_card(2 * H100_SMS, 3072, 128, H100_SMS) == 1
     assert DA.pick_split(64 * 16, 768) == 2  # the int8 pick as it was
 
 
@@ -67,7 +67,7 @@ def test_decode_attend_takes_one_span_for_packed_rings_on_the_cpu():
     ks, vs = (torch.rand(b, h, c, generator=g) * 0.05 + 0.01 for _ in range(2))
     valid = torch.rand(b, c, generator=g) < 0.8
     plan = A.global_ring_plan(pos, c, 1)
-    assert DA.packed_split(b * h, c, dh, kc.device) == 1 != DA.pick_split(b * h, c)
+    assert DA.card_split(b * h, c, dh, True, kc.device) == 1 != DA.pick_split(b * h, c)
     got = DA.decode_attend(q, kc, vc, ks, vs, k_new, v_new, plan, valid, window=window)
     rows = [x[:, :, 0].contiguous() for x in (q, k_new, v_new)]  # as the wrapper passes them
     want = DA.decode_attend_plain(rows[0], kc, vc, ks, vs, rows[1], rows[2], valid, pos,
@@ -95,7 +95,7 @@ def test_variant_tool_measures_nothing_without_a_card():
 @pytest.mark.parametrize("label,b,h,c,dh,pos,window,share", QV.SHAPES)
 def test_variant_tool_splits_start_with_the_pick_and_leave_no_span_empty(
         label, b, h, c, dh, pos, window, share):
-    pick = DA.pick_split_packed(b * h, c, TILE_ROWS[dh], H100_SMS)
+    pick = DA.pick_split_card(b * h, c, TILE_ROWS[dh], H100_SMS)
     got = QV.splits(pick, c)
     assert got[0] == pick
     assert len(set(got)) == len(got)
