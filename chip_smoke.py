@@ -8,7 +8,14 @@ device it exits with code 2 and prints no result.  Phases, one or more
 lines each:
 
 1. card: name, power limit, TF32 switches (both off; RVQ distances in f32);
-2. build: the CUDA kernels from dsm_tpu_torch/csrc, with nvcc;
+2. build: the CUDA kernels from dsm_tpu_torch/csrc, with nvcc; then
+   ``[opus]``: whether libopus and libogg load on this machine (the Opus wire,
+   ``dsm_tpu_torch/utils/opus.py``, is host code); where they do,
+   audio/speech-synthetic.wav through the port's encoder and decoder in 80 ms
+   frames, one sample out for each in and correlation above OPUS_MIN_CORR
+   after aligning for the codec's delay, with the host's median ms a frame for
+   each; where they do not, one line (a missing host library, not a device
+   path);
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    shapes both serving paths give it (the STT rings, C=768; the TTS rings,
    C = window = 1024, past their wrap; the TTS voice source; the duplex
@@ -1709,6 +1716,67 @@ def _ca_cases(dev, g, shapes=CA_SHAPES, tag=""):
         cases.append(("ca_decode_attend", f"{tag}B={b} H={h} S={s_len}/{s_pad} Dh={dh}",
                       run_k, run_p, cmp, info))
     return cases
+
+
+OPUS_MIN_CORR = 0.95  # tests/test_opus.py's bar for the decoded stream
+OPUS_PASSES = 5  # encoder and decoder runs over the sample, for the medians
+
+
+def phase_opus(card):
+    """The Opus wire's codec on this machine: whether libopus and libogg load,
+    and where they do the speech sample encoded and decoded in 80 ms frames
+    (the frame the routes encode), held to OPUS_MIN_CORR; host ms a frame."""
+    import ctypes
+    import ctypes.util
+
+    import numpy as np
+
+    from dsm_tpu_torch.utils import opus
+    from dsm_tpu_torch.utils.audio import decode_audio
+
+    libs = []
+    for name in ("opus", "ogg"):
+        path = ctypes.util.find_library(name)
+        try:
+            state = f"loads ({path})" if path and ctypes.CDLL(path) else "not found"
+        except OSError as e:
+            state = f"found ({path}) but does not load: {e}"
+        libs.append(f"lib{name} {state}")
+    if not opus.available():
+        print(f"[opus] {'; '.join(libs)}: the Opus wire is not available on this machine "
+              f"(its routes fall back to pcm or refuse, as the JAX package's do; a missing host "
+              f"library, not a device path); card {card}", flush=True)
+        return
+    pcm = decode_audio(os.path.join(ROOT, "audio", "speech-synthetic.wav"))
+    frame = 1920
+    n = -(-len(pcm) // frame) * frame
+    pcm = np.pad(pcm, (0, n - len(pcm)))
+    enc_ms, dec_ms = [], []
+    for _ in range(OPUS_PASSES):
+        enc, dec = opus.OggOpusEncoder(), opus.OggOpusDecoder()
+        outs = []
+        for i in range(0, n, frame):
+            t0 = time.perf_counter()
+            data = enc.encode(pcm[i:i + frame], eos=i + frame >= n)
+            t1 = time.perf_counter()
+            outs.append(dec.decode(data))
+            t2 = time.perf_counter()
+            enc_ms.append((t1 - t0) * 1e3)
+            dec_ms.append((t2 - t1) * 1e3)
+        out = np.concatenate(outs)
+        check(out.shape == pcm.shape and np.isfinite(out).all(),
+              f"[opus] {len(out)} samples decoded for {len(pcm)} encoded")
+    m = len(pcm) - 600
+    corr, shift = max((float(np.corrcoef(pcm[:m], out[s:s + m])[0, 1]), s)
+                      for s in range(0, 600, 4))
+    check(corr > OPUS_MIN_CORR, f"[opus] correlation {corr!r} at the best shift, bar "
+          f"{OPUS_MIN_CORR}")
+    print(f"[opus] {'; '.join(libs)}: audio/speech-synthetic.wav ({len(pcm) / 24_000.0:.3f} s, "
+          f"{n // frame} frames of 80 ms) through dsm_tpu_torch.utils.opus, "
+          f"{OPUS_PASSES} passes: one sample out for each in; correlation {corr!r} at a "
+          f"{shift}-sample shift (bar {OPUS_MIN_CORR}); host ms a frame median "
+          f"{float(np.median(enc_ms))!r} to encode, {float(np.median(dec_ms))!r} to decode "
+          f"(max {max(enc_ms)!r} / {max(dec_ms)!r}); card {card}", flush=True)
 
 
 def phase_kernels(dev):
@@ -6946,6 +7014,8 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
     elapsed("build")
+    phase_opus(card)
+    elapsed("opus")
 
     errs = phase_kernels(dev)
     elapsed("kernels")

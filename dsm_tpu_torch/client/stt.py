@@ -1,14 +1,12 @@
 """Streaming STT client (counterpart of ``dsm_tpu/client/stt.py``).
 
 Speaks the msgpack WebSocket protocol of ``/api/asr-streaming``: ``Audio``
-messages of raw pcm in; ``Ready``, ``Word``, ``EndWord``, ``Step`` and
-``Marker`` events out.  Bearer-token auth; the whole session retried on a
-retryable close code (4000/4004/4005/4006, 1012/1013); a graceful end: a
-marker, then silence until the marker comes back; words assembled with their
-timestamps.
-
-The Opus upload (``compress=True``, the ``OggOpus`` message) is not ported:
-asking for it raises :class:`~dsm_tpu_torch.client.OpusUnavailable`.
+messages of raw pcm in, or with ``compress=True`` ``OggOpus`` messages of
+Ogg pages (asr.rs InMsg::OggOpus; each chunk padded to whole 20 ms packets);
+``Ready``, ``Word``, ``EndWord``, ``Step`` and ``Marker`` events out.
+Bearer-token auth; the whole session retried on a retryable close code
+(4000/4004/4005/4006, 1012/1013); a graceful end: a marker, then silence
+until the marker comes back; words assembled with their timestamps.
 ``msgpack`` and ``aiohttp`` are imported where a session starts.
 """
 
@@ -20,8 +18,6 @@ import time
 from typing import List, Optional
 
 import numpy as np
-
-from . import OpusUnavailable
 
 RETRYABLE_CLOSE_CODES = {1012, 1013, 4000, 4004, 4005, 4006}
 FRAME = 1920
@@ -72,13 +68,11 @@ class SttClient:
         retry_delay_s: float = 1.0,
         compress: bool = False,
     ):
-        if compress:
-            raise OpusUnavailable("SttClient(compress=True) uploads OggOpus")
         self.url = url
         self.token = token
         self.max_retries = max_retries
         self.retry_delay_s = retry_delay_s
-        self.compress = False
+        self.compress = compress  # needs libopus and libogg here
 
     def _headers(self):
         return {"Authorization": f"Bearer {self.token}"} if self.token else {}
@@ -140,8 +134,16 @@ class SttClient:
             async with session.ws_connect(
                 self.url, headers=self._headers(), max_msg_size=64 * 2**20
             ) as ws:
+                opus_enc = None
+                if self.compress:
+                    from ..utils import opus
+
+                    opus_enc = opus.OggOpusEncoder()
 
                 def _audio_msg(chunk: np.ndarray) -> bytes:
+                    if opus_enc is not None:
+                        data = opus_enc.encode(opus.pad_to_packets(chunk))
+                        return msgpack.packb({"type": "OggOpus", "data": data})
                     return msgpack.packb(
                         {"type": "Audio", "pcm": chunk.tolist()},
                         use_single_float=True,

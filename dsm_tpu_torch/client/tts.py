@@ -1,10 +1,12 @@
 """Streaming TTS client (counterpart of ``dsm_tpu/client/tts.py``).
 
 Sends the text as a WebSocket text frame and ``b"\\0"`` as its end, collects
-the msgpack ``Audio`` (raw pcm) and ``Text`` events, and reports the time to
-the first audio byte and the realtime factor.  Opus audio (a raw ``OggS``
-page, an ``OggOpus`` message or an ``Audio`` message carrying ``data``) is
-not ported: it raises :class:`~dsm_tpu_torch.client.OpusUnavailable`.
+the audio and the msgpack ``Text`` events, and reports the time to the first
+audio byte and the realtime factor.  The audio comes as ``Audio`` messages of
+raw pcm, or as Ogg pages decoded with one decoder a session: raw ``OggS``
+frames (``?format=OggOpus``), ``OggOpus`` messages (``OggOpusMessagePack``,
+tts.rs OutMsg::OggOpus) or ``Audio`` messages carrying ``data`` (older
+emitters).
 """
 
 from __future__ import annotations
@@ -14,8 +16,6 @@ import time
 from typing import List, Optional
 
 import numpy as np
-
-from . import OpusUnavailable
 
 
 @dataclasses.dataclass
@@ -43,6 +43,21 @@ class TtsClient:
         words: List[dict] = []
         t0 = time.monotonic()
         ttfb = None
+        opus_dec = None
+
+        def emit(pcm):
+            chunks.append(pcm)
+            if on_audio is not None:
+                on_audio(pcm)
+
+        def decode(data):
+            nonlocal opus_dec
+            if opus_dec is None:
+                from ..utils import opus
+
+                opus_dec = opus.OggOpusDecoder()
+            return opus_dec.decode(data)
+
         async with aiohttp.ClientSession() as session:
             async with session.ws_connect(
                 self.url, headers=headers, max_msg_size=64 * 2**20
@@ -53,18 +68,23 @@ class TtsClient:
                     if msg.type != aiohttp.WSMsgType.BINARY:
                         continue
                     if msg.data[:4] == b"OggS":
-                        raise OpusUnavailable("an OggS page on the TTS socket")
+                        pcm = decode(msg.data)
+                        if pcm.size:
+                            if ttfb is None:
+                                ttfb = time.monotonic() - t0
+                            emit(pcm)
+                        continue
                     m = msgpack.unpackb(msg.data, raw=False)
                     t = m.get("type")
                     if t in ("Audio", "OggOpus"):
-                        if t == "OggOpus" or "data" in m:
-                            raise OpusUnavailable(f"a {t} message with Opus data")
                         if ttfb is None:
                             ttfb = time.monotonic() - t0
-                        pcm = np.asarray(m["pcm"], np.float32)
-                        chunks.append(pcm)
-                        if on_audio is not None:
-                            on_audio(pcm)
+                        if t == "OggOpus" or "data" in m:
+                            pcm = decode(bytes(m["data"]))
+                            if pcm.size:
+                                emit(pcm)
+                        else:
+                            emit(np.asarray(m["pcm"], np.float32))
                     elif t == "Text":
                         words.append(m)
                     elif t == "Error":

@@ -5,10 +5,10 @@ a WAV file (or silence) up at the real-time 80 ms cadence and renders the
 model's streaming text and the audio, level and frame counters.
 
 The UI state (``TuiState``) is pure and testable; ``run_tui`` wraps it in
-curses, and ``DuplexTuiClient`` drives the WebSocket.  The wire is raw pcm
-(``?format=pcm``): the Opus wire is not ported, and ``fmt="opus"`` raises
-:class:`~dsm_tpu_torch.client.OpusUnavailable` (the JAX client picks opus
-wherever its codec loads).
+curses, and ``DuplexTuiClient`` drives the WebSocket.  The wire is Opus both
+ways where libopus and libogg load (moshi-cli multistream.rs:5-113: a page
+an 80 ms frame up, the server's pages decoded), raw pcm (``?format=pcm``)
+otherwise or when asked.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ import numpy as np
 
 from ..server.duplex import audio_frame, parse_frame
 from ..server.protocol import MsgType
-from . import OpusUnavailable
 
 SAMPLE_RATE = 24_000
 FRAME_SIZE = 1920  # 80 ms
@@ -125,11 +124,11 @@ class DuplexTuiClient:
         self.seconds = seconds
         self.drain_s = drain_s  # keep receiving after the last sent frame
         self.state = TuiState()
-        if fmt == "opus":
-            raise OpusUnavailable("DuplexTuiClient(fmt='opus')")
-        if fmt not in (None, "pcm"):
-            raise ValueError(f"unknown duplex wire format {fmt!r}; the port speaks 'pcm'")
-        self.fmt = "pcm"
+        if fmt is None:
+            from ..utils import opus
+
+            fmt = "opus" if opus.available() else "pcm"
+        self.fmt = fmt
 
     async def run(self, on_update=None) -> TuiState:
         import aiohttp
@@ -142,8 +141,15 @@ class DuplexTuiClient:
         if self.token:
             headers["Authorization"] = f"Bearer {self.token}"
         st = self.state
-        sep = "&" if "?" in self.url else "?"
-        url = f"{self.url}{sep}format=pcm"
+        url = self.url
+        enc = dec = None
+        if self.fmt == "opus":
+            from ..utils import opus
+
+            enc, dec = opus.OggOpusEncoder(), opus.OggOpusDecoder()
+        else:
+            sep = "&" if "?" in url else "?"
+            url = f"{url}{sep}format=pcm"
         async with aiohttp.ClientSession() as session:
             async with session.ws_connect(url, headers=headers) as ws:
                 st.connected = True
@@ -152,7 +158,12 @@ class DuplexTuiClient:
                 async def sender():
                     t0 = time.monotonic()
                     for i, frame in enumerate(pcm_frames(pcm, n_frames)):
-                        await ws.send_bytes(audio_frame(frame))
+                        if enc is None:
+                            await ws.send_bytes(audio_frame(frame))
+                        else:
+                            data = enc.encode(frame)
+                            if data:
+                                await ws.send_bytes(bytes([MsgType.AUDIO]) + data)
                         st.on_sent(frame)
                         if on_update:
                             on_update(st)
@@ -185,7 +196,12 @@ class DuplexTuiClient:
                             if tag == MsgType.TEXT:
                                 st.on_text(payload.decode())
                             elif tag == MsgType.AUDIO:
-                                st.on_audio(np.frombuffer(payload, "<f4"))
+                                if dec is None:
+                                    st.on_audio(np.frombuffer(payload, "<f4"))
+                                else:
+                                    out = dec.decode(payload)
+                                    if len(out):
+                                        st.on_audio(out)
                             if on_update:
                                 on_update(st)
                     if send_task.done():

@@ -5,7 +5,7 @@
   POST /api/asr             one-shot transcription (WAV or JSON pcm)
   GET  /api/tts_streaming   words in (text frames), msgpack audio out
   POST /api/tts             offline synthesis -> WAV or JSON
-  GET  /api/chat            full-duplex dialogue, byte-tag WS (pcm wire)
+  GET  /api/chat            full-duplex dialogue, byte-tag WS (Opus or pcm)
   GET  /api/lm-streaming    the same dialogue route (moshi-server's path)
   GET  /api/mimi/send/{room}  codes in, decoded once for the room
   GET  /api/mimi/recv/{room}  the room's audio and text out
@@ -21,15 +21,23 @@ are checked against the port's own classes (``sessions.asr`` and
 ``server.tts_module``) and ASR words are decoded with the engine's
 tokenizer.  The TTS routes serve either engine, as the JAX routes do: a
 ``BatchedTtsEngine`` opens a slot, the single-session ``TtsEngine`` runs a
-``TtsSession`` on a worker thread under the engine's lock.  The duplex route
-serves ``?format=pcm`` (raw f32 AUDIO frames) and answers 501 to
-``?format=opus``: the Opus wire is not ported, nor the TTS route's Opus
-formats (pcm msgpack only); a room receiver asking ``format=OggOpus`` gets
-raw pcm, as the JAX route does without a codec.  The handlers make the JAX
-App's metric calls (auth errors, close codes, connections, the opt-in
-stream counters).  aiohttp and msgpack are needed here only: the rest of the
-port imports neither.  :meth:`App.run` serves over HTTP or TLS
-(:func:`make_self_signed_cert` makes a development certificate).
+``TtsSession`` on a worker thread under the engine's lock.
+
+The Opus wire (``utils/opus.py``) is the JAX App's, route by route, and so is
+what each route does where libopus or libogg does not load: the ASR socket
+decodes ``OggOpus`` messages (else an error message and it carries on); the
+single-session TTS socket sends ``?format=OggOpus`` pages or
+``OggOpusMessagePack`` messages (else an error message, then pcm msgpack),
+and the batched one sends pcm msgpack whatever ``format`` says; the duplex
+route speaks Opus both ways unless ``?format=pcm`` (raw f32 AUDIO frames),
+and answers 501 to ``?format=opus`` without the codec; a room receiver
+asking ``format=OggOpus`` gets pages of its own encoder (else raw pcm).
+Opus is encoded where the pcm is handed over and decoded inline on the event
+loop, as the JAX App does it.  The handlers make the JAX App's metric calls
+(auth errors, close codes, connections, the opt-in stream counters).  aiohttp
+and msgpack are needed here only: the rest of the port imports neither.
+:meth:`App.run` serves over HTTP or TLS (:func:`make_self_signed_cert` makes a
+development certificate).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from aiohttp import WSMsgType, web
 
 from .. import __version__
 from ..sessions.asr import EndWordEvent, WordEvent
+from ..utils import opus as opus_mod
 from ..utils.audio import decode_audio_bytes, wav_bytes
 from . import auth as auth_mod
 from . import metrics
@@ -284,6 +293,7 @@ class App:
         await ws.send_bytes(proto.asr_ready())
         session_deadline = time.time() + SESSION_TIMEOUT_S
         close_code = proto.CloseCode.NORMAL
+        opus_dec = None  # made on the first OggOpus message
 
         def frames_for(ev: Events):
             frames = []
@@ -344,8 +354,16 @@ class App:
                 elif m["type"] == "Marker":
                     self.asr_engine.add_marker(ch, int(m["id"]))
                 elif m["type"] == "OggOpus":
-                    await ws.send_bytes(proto.asr_error(
-                        "opus decode is not ported; send pcm"))
+                    # asr.rs InMsg::OggOpus: the pages' pcm into the mailbox.
+                    if not opus_mod.available():
+                        await ws.send_bytes(proto.asr_error(
+                            "opus decode not available; send pcm"))
+                        continue
+                    if opus_dec is None:
+                        opus_dec = opus_mod.OggOpusDecoder()
+                    pcm = opus_dec.decode(bytes(m["data"]))
+                    if pcm.size:
+                        ch.push_pcm(pcm)
         finally:
             self.asr_engine.close_channel(ch)
             send_task.cancel()
@@ -517,7 +535,10 @@ class App:
     async def _handle_tts_ws_single(self, request):
         """A session of the single-session engine, run on a worker thread
         under the engine's lock (one inference at a time): the JAX route's
-        behaviour, with the default condition of the engine."""
+        behaviour, with the default condition of the engine.  ``?format=``
+        ``OggOpus`` sends raw Ogg pages, ``OggOpusMessagePack`` the pages in
+        ``OggOpus`` messages (tts.rs Encoder), each chunk padded to whole
+        packets; pcm msgpack otherwise."""
         ws = web.WebSocketResponse(heartbeat=PING_INTERVAL_S)
         await ws.prepare(request)
         await ws.send_bytes(proto.tts_ready())
@@ -533,6 +554,20 @@ class App:
                              condition=self.tts_engine.default_condition)
         inserted_bos = False
         pump = self._pump(loop)
+        fmt = request.query.get("format", "PcmMessagePack")
+        opus_enc = None
+        if fmt in ("OggOpus", "OggOpusMessagePack"):
+            if opus_mod.available():
+                opus_enc = opus_mod.OggOpusEncoder()
+            else:
+                await ws.send_bytes(proto.tts_error("opus not available"))
+
+        async def send_audio(pcm):
+            if opus_enc is None:
+                await ws.send_bytes(proto.tts_audio([float(x) for x in pcm]))
+                return
+            data = opus_enc.encode(opus_mod.pad_to_packets(pcm))
+            await ws.send_bytes(data if fmt == "OggOpus" else proto.tts_audio_opus(data))
 
         def run_session():
             try:
@@ -549,7 +584,7 @@ class App:
                 if ev is None:
                     return
                 if isinstance(ev, AudioEvent):
-                    await ws.send_bytes(proto.tts_audio([float(x) for x in ev.pcm]))
+                    await send_audio(ev.pcm)
                 elif isinstance(ev, TtsWordEvent):
                     await ws.send_bytes(proto.tts_text(ev.text, ev.start_s, ev.stop_s))
 
@@ -586,15 +621,20 @@ class App:
     # -- duplex dialogue (byte-tag protocol) --
 
     async def handle_duplex_ws(self, request):
-        """One dialogue: AUDIO frames of f32 pcm in, AUDIO and TEXT frames
-        out, after a HANDSHAKE frame.  ``?asr_delay_in_tokens=N`` makes it a
-        text-only session."""
+        """One dialogue: AUDIO frames in, AUDIO and TEXT frames out, after a
+        HANDSHAKE frame.  The AUDIO frames carry Ogg pages where the codec
+        loads (the reference clients' wire, lm.rs:77-318): the header pages
+        in one frame right after the handshake, then a page an 80 ms frame;
+        ``?format=pcm`` makes them raw f32 pcm.  ``?asr_delay_in_tokens=N``
+        makes it a text-only session."""
         err = self._check_auth(request)
         if err is not None:
             return err
         fmt = request.query.get("format", "")
-        if fmt == "opus":
+        have_opus = opus_mod.available()
+        if fmt == "opus" and not have_opus:
             return web.json_response({"error": "opus codec unavailable"}, status=501)
+        use_opus = fmt != "pcm" and have_opus
         asr_delay = _parse_seed(request.query.get("asr_delay_in_tokens")) or 0
         batched = hasattr(self.duplex_engine, "open_session")
 
@@ -602,13 +642,22 @@ class App:
         await ws.prepare(request)
         # Handshake payload: protocol version u32 (0) + model version u32.
         await ws.send_bytes(bytes([proto.MsgType.HANDSHAKE]) + b"\x00" * 8)
+        enc = dec = None
+        if use_opus:
+            enc, dec = opus_mod.OggOpusEncoder(), opus_mod.OggOpusDecoder()
+            await ws.send_bytes(bytes([proto.MsgType.AUDIO]) + enc.header_pages())
 
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue = asyncio.Queue()
         pump = self._pump(loop)
 
         def on_audio(pcm):
-            pump.post(out_q, audio_frame(pcm))
+            if enc is None:
+                pump.post(out_q, audio_frame(pcm))
+                return
+            data = enc.encode(pcm)  # one page: four 20 ms packets a frame
+            if data:
+                pump.post(out_q, bytes([proto.MsgType.AUDIO]) + data)
 
         def on_text(text):
             pump.post(out_q, text_frame(text))
@@ -660,7 +709,12 @@ class App:
                     metrics.stream_in("lm", len(msg.data))
                 tag, payload = parse_frame(msg.data)
                 if tag == proto.MsgType.AUDIO:
-                    push_pcm(np.frombuffer(payload, "<f4"))
+                    if dec is None:
+                        push_pcm(np.frombuffer(payload, "<f4"))
+                    else:
+                        pcm = dec.decode(payload)
+                        if len(pcm):
+                            push_pcm(pcm)
                 elif tag == proto.MsgType.PING:
                     await ws.send_bytes(bytes([proto.MsgType.PING]))
         finally:
@@ -704,16 +758,21 @@ class App:
         return ws
 
     async def handle_mimi_recv(self, request):
-        """A receiver of the room's broadcast: raw pcm AUDIO frames (also for
-        ``format=OggOpus``: the port has no Opus codec) and TEXT frames."""
+        """A receiver of the room's broadcast: AUDIO and TEXT frames.  With
+        ``format=OggOpus`` the AUDIO frames carry the pages of an encoder of
+        the receiver's own, so that a late joiner gets its own header pages
+        (mimi.rs:12-215); raw pcm without the codec."""
         err = self._check_auth(request)
         if err is not None:
             return err
         room = self.mimi_rooms_engine.room(request.match_info["room"])
         ws = web.WebSocketResponse(heartbeat=5.0)
         await ws.prepare(request)
+        opus_enc = None
+        if request.query.get("format") == "OggOpus" and opus_mod.available():
+            opus_enc = opus_mod.OggOpusEncoder()
         q = room.subscribe()
-        sender = asyncio.create_task(self._room_sender(ws, q))
+        sender = asyncio.create_task(self._room_sender(ws, q, opus_enc))
         try:
             async for msg in ws:
                 if msg.type in (WSMsgType.CLOSE, WSMsgType.ERROR):
@@ -725,9 +784,15 @@ class App:
                 await ws.close()
         return ws
 
-    async def _room_sender(self, ws, q):
+    async def _room_sender(self, ws, q, opus_enc):
         while True:
-            await ws.send_bytes(await q.get())
+            payload = await q.get()
+            if opus_enc is None or not payload or payload[0] != proto.MsgType.AUDIO:
+                await ws.send_bytes(payload)
+                continue
+            data = opus_enc.encode(opus_mod.pad_to_packets(np.frombuffer(payload[1:], "<f4")))
+            if data:
+                await ws.send_bytes(bytes([proto.MsgType.AUDIO]) + data)
 
     # -- static files --
 

@@ -2,8 +2,9 @@
 duplex WebSocket (counterpart of ``dsm_tpu/server/duplex.py``).
 
 One WebSocket speaks the byte-tag protocol (``protocol.MsgType``): AUDIO
-frames carry raw little-endian f32 pcm (``?format=pcm``; the Opus wire is
-not ported), TEXT frames the model's words.  :class:`DuplexEngine` holds
+frames carry Ogg pages (``utils/opus.py``; the App encodes and decodes them)
+or raw little-endian f32 pcm (``?format=pcm``), TEXT frames the model's
+words.  :class:`DuplexEngine` holds
 the model for one dialogue at a time (``batch_size = 1``); a
 :class:`DuplexSession` runs the 80 ms loop
 

@@ -9,9 +9,9 @@ Wire format (byte-tag protocol, protocol.rs MsgType):
   sender  -> CODES (9) + little-endian u32 codes, one frame = n_q values
   server  -> AUDIO (1) + little-endian f32 pcm to all receivers
              TEXT  (2) passthrough
-The reference broadcasts ogg/opus pages; the port has no Opus codec, so the
-stream is raw pcm (the tag layout is unchanged), as the JAX route sends it
-without one.
+The broadcast is raw pcm; a receiver asking ``format=OggOpus`` gets Ogg
+pages of an encoder of its own (the reference broadcasts ogg/opus pages), or
+raw pcm where the codec does not load, as the JAX route does (``server/app.py``).
 
 Each room keeps its own B=1 decode state on the engine's device (the card
 unless the caller names another); :meth:`MimiRoomsEngine.decode_frame` runs

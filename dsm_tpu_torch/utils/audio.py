@@ -3,10 +3,10 @@ write, polyphase resampling, mono downmix, the level meter, and file and
 upload decoding.
 
 Compressed formats: flac through the numpy decoder (``utils/flac.py``), mp3
-through libmpg123 and ogg/vorbis through libvorbisfile (``utils/codecs.py``).
-A format whose library does not load is refused with its name.  Ogg/opus is
-not ported (ROADMAP.md, "Not to port": the card's machine has no opus
-library) and is refused too.
+through libmpg123 and ogg/vorbis through libvorbisfile (``utils/codecs.py``),
+ogg/opus through libopus and libogg (``utils/opus.py``).  An ogg stream is
+tried as vorbis first, then as opus.  A format whose library does not load
+is refused with its name.
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ from math import gcd
 from typing import Tuple
 
 import numpy as np
-
-_OPUS_REFUSED = "ogg/opus is not ported (ROADMAP.md, not to port)"
 
 
 def _pcm16(pcm: np.ndarray) -> bytes:
@@ -100,20 +98,46 @@ def _mp3(data_or_path, target_rate: int, what: str) -> np.ndarray:
     return resample(pcm.mean(axis=1) if pcm.ndim > 1 else pcm, sr, target_rate)
 
 
-def _ogg_file(path: str, target_rate: int, what: str) -> np.ndarray:
+def _vorbis(data_or_path):
+    """``decode_vorbis_file`` of a path, or of bytes through a temporary file."""
     from . import codecs
 
-    if not codecs.vorbis_available():
-        raise NotImplementedError(f"cannot decode {what}: libvorbisfile not available")
+    if isinstance(data_or_path, str):
+        return codecs.decode_vorbis_file(data_or_path)
+    fd, tmp = tempfile.mkstemp(suffix=".ogg")
     try:
-        pcm, sr = codecs.decode_vorbis_file(path)
-    except ValueError as e:  # not vorbis: an opus stream
-        raise NotImplementedError(f"cannot decode {what}: {_OPUS_REFUSED}") from e
-    return resample(pcm.mean(axis=1), sr, target_rate)
+        with os.fdopen(fd, "wb") as f:
+            f.write(data_or_path)
+        return codecs.decode_vorbis_file(tmp)
+    finally:
+        os.unlink(tmp)
+
+
+def _ogg(data_or_path, target_rate: int, what: str) -> np.ndarray:
+    """An ogg stream: vorbis where libvorbisfile loads and the stream is
+    vorbis (a ``ValueError`` says it is not), else opus where libopus loads;
+    a stream that gives no samples is refused."""
+    from . import codecs, opus
+
+    if codecs.vorbis_available():
+        try:
+            pcm, sr = _vorbis(data_or_path)
+            return resample(pcm.mean(axis=1), sr, target_rate)
+        except ValueError:
+            pass
+    if opus.available():
+        data = data_or_path
+        if isinstance(data, str):
+            with open(data, "rb") as f:
+                data = f.read()
+        pcm = opus.OggOpusDecoder().decode(data)
+        if len(pcm):
+            return resample(pcm, opus.SAMPLE_RATE, target_rate)
+    raise NotImplementedError(f"cannot decode {what}: no ogg codec available")
 
 
 def decode_audio(path: str, target_rate: int = 24_000) -> np.ndarray:
-    """An audio file (wav, flac, mp3, ogg/vorbis) -> mono f32 pcm at
+    """An audio file (wav, flac, mp3, ogg/vorbis, ogg/opus) -> mono f32 pcm at
     ``target_rate``; channels are averaged."""
     low = path.lower()
     what = repr(path)
@@ -123,14 +147,14 @@ def decode_audio(path: str, target_rate: int = 24_000) -> np.ndarray:
     if low.endswith((".mp3", ".mp2", ".mpga")):
         return _mp3(path, target_rate, what)
     if low.endswith((".ogg", ".oga")):
-        return _ogg_file(path, target_rate, what)
+        return _ogg(path, target_rate, what)
     if low.endswith(".flac"):
         from .flac import decode_flac_file
 
         pcm, sr = decode_flac_file(path)
         return resample(pcm.mean(axis=1), sr, target_rate)
     raise NotImplementedError(
-        f"no codec for {what}; supported: wav, mp3, ogg (vorbis), flac")
+        f"no codec for {what}; supported: wav, mp3, ogg (vorbis, opus), flac")
 
 
 def decode_audio_bytes(data: bytes, target_rate: int = 24_000) -> np.ndarray:
@@ -146,13 +170,7 @@ def decode_audio_bytes(data: bytes, target_rate: int = 24_000) -> np.ndarray:
         pcm, sr = decode_flac(data)
         return resample(pcm.mean(axis=1), sr, target_rate)
     if data[:4] == b"OggS":
-        fd, tmp = tempfile.mkstemp(suffix=".ogg")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                f.write(data)
-            return _ogg_file(tmp, target_rate, "the ogg payload")
-        finally:
-            os.unlink(tmp)
+        return _ogg(data, target_rate, "the ogg payload")
     if data[:3] == b"ID3" or (len(data) > 1 and data[0] == 0xFF and (data[1] & 0xE0) == 0xE0):
         return _mp3(data, target_rate, "the mp3 payload")
     raise NotImplementedError("unrecognised audio payload (supported: wav, flac, ogg, mp3)")

@@ -32,6 +32,7 @@ from dsm_tpu_torch.server import auth as tauth
 from dsm_tpu_torch.server import builder as tbuilder
 from dsm_tpu_torch.server import metrics as P
 from dsm_tpu_torch.server.protocol import CloseCode, MsgType
+from dsm_tpu_torch.utils import opus as topus
 from tests import test_torch_duplex_serving as DS
 from tests.test_torch_mimi_rooms import MIMI_TOML, _small_v0_1
 
@@ -105,7 +106,7 @@ def test_static_file_fallback(tmp_path, impl):
     assert asyncio.run(traversal()) == 403
 
 
-def test_both_duplex_paths_open_the_websocket():
+def test_both_duplex_paths_open_the_websocket(monkeypatch):
     _ej, et, frame = DS._engines(batch=2)
     et.warmup()
     et.start()
@@ -133,6 +134,8 @@ def test_both_duplex_paths_open_the_websocket():
         async with TestClient(TestServer(app.web_app)) as client:
             assert await asyncio.gather(chat(client, "/api/chat"),
                                         chat(client, "/api/lm-streaming")) == [2, 2]
+            # Without the codec (libopus or libogg not loaded) Opus is refused.
+            monkeypatch.setattr(topus, "available", lambda: False)
             r = await client.get("/api/lm-streaming?format=opus")
             assert r.status == 501
             for _ in range(100):

@@ -29,6 +29,7 @@ from dsm_tpu_torch.server import duplex as tDX
 from dsm_tpu_torch.server import duplex_batched as tDB
 from dsm_tpu_torch.server.app import App
 from dsm_tpu_torch.server.protocol import CloseCode, MsgType
+from dsm_tpu_torch.utils import opus as topus
 from dsm_tpu_torch.utils.tokenizer import FallbackTokenizer
 from tests.test_mimi import small_cfg as small_mimi_cfg
 from tests.test_torch_duplex import port_duplex_cfg, small_duplex_cfg
@@ -419,7 +420,11 @@ async def _chat(client, query, pcm, frame, want_audio):
     return audio, text, pings
 
 
-def test_app_serves_duplex_ws_batched():
+def test_app_serves_duplex_ws_batched(monkeypatch):
+    """Without the codec (``available`` patched false, as where libopus or
+    libogg does not load): the pcm wire by default and a 501 for
+    ``?format=opus``; the Opus wire is tests/test_torch_opus.py's."""
+    monkeypatch.setattr(topus, "available", lambda: False)
     _ej, et, frame = _engines(batch=2)
     et.warmup()
     et.start()

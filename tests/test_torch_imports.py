@@ -30,8 +30,9 @@ def test_every_module_imports_without_jax():
                 "server.metrics", "server.native", "server.mimi_rooms", "server.model_presets",
                 "server.auth_server", "utils.session_log", "offline", "sessions.lm_gen_simple",
                 "sessions.tts_legacy", "utils.bench", "utils.tracing", "utils.flac",
-                "utils.codecs", "train", "client", "client.audio_io", "client.stt",
-                "client.tts", "client.tui", "parallel", "parallel.mesh", "bench_perf"):
+                "utils.codecs", "utils.opus", "train", "client", "client.audio_io",
+                "client.stt", "client.tts", "client.tui", "parallel", "parallel.mesh",
+                "bench_perf"):
         assert f"dsm_tpu_torch.{mod}" in names
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -63,7 +64,8 @@ def test_engines_import_without_the_web_packages():
                      "ops.attn_tune", "tools.attn_kernel_tune", "server.metrics",
                      "server.native", "server.mimi_rooms", "server.model_presets", "offline",
                      "sessions.lm_gen_simple", "sessions.tts_legacy", "utils.bench",
-                     "utils.tracing", "utils.audio", "train", "client", "client.audio_io",
+                     "utils.tracing", "utils.audio", "utils.opus", "train", "client",
+                     "client.audio_io",
                      "client.stt", "client.tts", "client.tui", "bench_perf"):
             importlib.import_module("dsm_tpu_torch." + name)
         from dsm_tpu_torch.server import duplex

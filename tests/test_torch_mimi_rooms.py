@@ -8,7 +8,7 @@ frames, past the decoder ring's wrap, with the JAX weights carried across by
 the bridge; two interleaved rooms give each room's pcm alone, bit for bit;
 the broadcast routes behave as ``tests/test_duplex_server.py`` tests the JAX
 ones (both receivers get the audio and the text, another room nothing,
-``format=OggOpus`` raw pcm); ``cli.build_engines`` builds a ``type = "Mimi"``
+``format=OggOpus`` raw pcm without the codec); ``cli.build_engines`` builds a ``type = "Mimi"``
 module (``n_q`` from the module) and ``worker`` serves it.
 """
 
@@ -29,6 +29,7 @@ from dsm_tpu_torch.server import builder as tbuilder
 from dsm_tpu_torch.server import config as tCFG
 from dsm_tpu_torch.server.mimi_rooms import MimiRoomsEngine, audio_message, parse_codes
 from dsm_tpu_torch.server.protocol import MsgType
+from dsm_tpu_torch.utils import opus as topus
 from tests.test_mimi import small_cfg as small_mimi_cfg
 from tests.test_torch_ops import to_port
 from tests.test_torch_tts import port_mimi_cfg
@@ -90,7 +91,11 @@ def test_wire_helpers():
     assert msg[0] == MsgType.AUDIO and np.frombuffer(msg[1:], "<f4").tolist() == [1, 1, 1]
 
 
-def test_broadcast_routes():
+def test_broadcast_routes(monkeypatch):
+    """Without the codec (``available`` patched false, as where libopus or
+    libogg does not load) a ``format=OggOpus`` receiver gets raw pcm; its
+    Ogg pages are tests/test_torch_opus.py's."""
+    monkeypatch.setattr(topus, "available", lambda: False)
     _, engine = _engines()
     engine.warmup()
     app = tapp.App(mimi_rooms_engine=engine)

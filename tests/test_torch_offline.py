@@ -5,8 +5,8 @@ decoding (``utils/audio.py``, ``utils/flac.py``, ``utils/codecs.py``) and
 * ``decode_audio`` and ``decode_audio_bytes`` of wav (16-bit mono, 32-bit
   stereo, resampled) and flac (hand-built streams of tests/test_flac.py)
   bit for bit the JAX functions; mp3 too where libmpg123 loads; an ogg/opus
-  file refused, naming ROADMAP.md; ``write_wav``, ``read_wav``, ``resample``
-  and ``audio_level_db`` equal.
+  file too (vorbis tried first, then opus) where libopus loads;
+  ``write_wav``, ``read_wav``, ``resample`` and ``audio_level_db`` equal.
 * ``transcribe_files`` (two files of different lengths on the batch
   dimension), ``transcribe_file`` and the frame-at-a-time path against the
   JAX ``transcribe_files`` / ``transcribe_file`` on small engines, greedy
@@ -150,20 +150,23 @@ def test_mp3_decodes_as_in_jax_where_libmpg123_loads():
         assert enc == jcodecs.encode_mp3(sine, 24_000)
 
 
-def test_ogg_opus_is_refused_naming_the_roadmap(tmp_path):
+def test_ogg_opus_file_decodes_as_jax_decodes(tmp_path):
     from dsm_tpu.utils import opus as jopus
 
-    if not (jopus.available() and tcodecs.vorbis_available()):
-        pytest.skip("libopus or libvorbisfile unavailable")
+    if not jopus.available():
+        pytest.skip("libopus or libogg unavailable")
     sine = (0.5 * np.sin(np.arange(12_000) / 4.0)).astype(np.float32)
     data = jopus.OggOpusEncoder().encode(sine, eos=True)
     p = tmp_path / "tone.ogg"
     p.write_bytes(data)
-    assert len(jAU.decode_audio(str(p))) > 0  # the JAX package decodes it
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tAU.decode_audio(str(p))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tAU.decode_audio_bytes(data)
+    for rate in (24_000, 16_000):
+        want = jAU.decode_audio(str(p), rate)
+        got = tAU.decode_audio(str(p), rate)
+        assert got.dtype == np.float32 and len(got) == len(want) > 0
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        np.testing.assert_array_equal(tAU.decode_audio_bytes(data, rate).view(np.int32),
+                                      jAU.decode_audio_bytes(data, rate).view(np.int32))
+    assert len(tAU.decode_audio(str(p))) == len(sine) // 480 * 480
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's terminal duplex client (``dsm_tpu_torch/client/tui.py``)
 against the JAX package's: the pure render state bit for bit, and both
 clients over ``/api/chat`` of the port's App (a small greedy single-dialogue
-duplex engine on the CPU, raw pcm): the same frames and text.
+duplex engine on the CPU), on raw pcm and on the Opus wire: the same frames
+and text; and the wire each client picks, with and without the codec.
 
 The clients stop reading once their upload has ended and they have heard
 the model, so how many frames each receives depends on the timing; the
@@ -17,10 +18,11 @@ import torch
 from aiohttp.test_utils import TestServer
 
 from dsm_tpu.client import tui as jtui
-from dsm_tpu_torch.client import OpusUnavailable
+from dsm_tpu.utils import opus as jopus
 from dsm_tpu_torch.client import tui as ttui
 from dsm_tpu_torch.server import duplex as tDX
 from dsm_tpu_torch.server.app import App
+from dsm_tpu_torch.utils import opus as topus
 from dsm_tpu_torch.utils.tokenizer import FallbackTokenizer
 
 torch.set_num_threads(2)
@@ -48,10 +50,19 @@ def test_render_lines_match_jax():
     assert states[0].rx_seconds == ttui.FRAME_SIZE / 24_000
 
 
-def test_tui_client_refuses_the_opus_wire():
-    with pytest.raises(OpusUnavailable, match="Opus wire"):
-        ttui.DuplexTuiClient("ws://127.0.0.1:1/api/chat", fmt="opus")
-    assert ttui.DuplexTuiClient("ws://127.0.0.1:1/api/chat").fmt == "pcm"
+def test_tui_client_picks_the_wire_as_jax(monkeypatch):
+    """Opus where the codec loads, pcm where it does not; a named wire kept."""
+    url = "ws://127.0.0.1:1/api/chat"
+
+    def picks():
+        return [(ttui.DuplexTuiClient(url, fmt=f).fmt, jtui.DuplexTuiClient(url, fmt=f).fmt)
+                for f in (None, "pcm", "opus")]
+
+    lib = "opus" if topus.available() else "pcm"
+    assert picks() == [(lib, lib), ("pcm", "pcm"), ("opus", "opus")]
+    monkeypatch.setattr(topus, "available", lambda: False)
+    monkeypatch.setattr(jopus, "available", lambda: False)
+    assert picks() == [("pcm", "pcm"), ("pcm", "pcm"), ("opus", "opus")]
 
 
 def _duplex_engine():
@@ -79,9 +90,22 @@ def _duplex_engine():
 def test_tui_clients_give_the_same_frames_and_text(tmp_path, monkeypatch):
     """Both clients stream the same 8 frames of a wav (the small codec's
     frame in place of 1,920 samples) to one App, one after the other."""
+    _same_frames_and_text(tmp_path, monkeypatch, "pcm")
+
+
+@pytest.mark.skipif(not topus.available(), reason="libopus or libogg does not load")
+def test_tui_clients_give_the_same_frames_and_text_over_opus(tmp_path, monkeypatch):
+    """The same over the Opus wire (each client's default where the codec
+    loads): 8 frames of 480 samples up, a page each; the server's pages
+    decoded, a chunk a page of ten 48-sample frames."""
+    _same_frames_and_text(tmp_path, monkeypatch, None, frame_in=480)
+
+
+def _same_frames_and_text(tmp_path, monkeypatch, fmt, frame_in=None):
     from dsm_tpu_torch.utils.audio import write_wav
 
     engine, frame = _duplex_engine()
+    frame = frame_in or frame
     app = App(duplex_engine=engine)
     wav = tmp_path / "in.wav"
     write_wav(str(wav), (np.random.default_rng(3).standard_normal(frame * 8) * 0.1)
@@ -92,9 +116,10 @@ def test_tui_clients_give_the_same_frames_and_text(tmp_path, monkeypatch):
         for name, mod in (("jax", jtui), ("port", ttui)):
             monkeypatch.setattr(mod, "FRAME_SIZE", frame)
             frames, texts, updates = [], [], []
-            kw = {"fmt": "pcm"} if mod is jtui else {}
             client = mod.DuplexTuiClient(url("/api/chat").replace("http", "ws", 1),
-                                         wav_path=str(wav), seconds=8 * 0.080, drain_s=60, **kw)
+                                         wav_path=str(wav), seconds=8 * 0.080, drain_s=60,
+                                         fmt=fmt)
+            assert client.fmt == (fmt or "opus")
             on_audio, on_text = client.state.on_audio, client.state.on_text
             client.state.on_audio = lambda pcm, f=on_audio, frames=frames: (
                 frames.append(np.array(pcm)), f(pcm))
